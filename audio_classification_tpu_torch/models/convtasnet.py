@@ -1,0 +1,142 @@
+"""Conv-TasNet speech separator (port of
+audio_classification_tpu/models/convtasnet.py): stride-L/2 encoder, gLN +
+bottleneck, R x X dilated TCN blocks (kernel K2 or the dense loop), mask
+conv, and the decoder as an overlap-add of basis frames."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels.tcn import fused_tcn_masker, stack_tcn_params
+from .common import Conv1d, GlobalLayerNorm, PReLU
+
+
+@dataclass(frozen=True)
+class ConvTasNetConfig:
+    n_src: int = 3
+    enc_dim: int = 512        # N: encoder basis filters
+    enc_kernel: int = 32      # L: encoder window (2 ms @ 16 kHz)
+    bottleneck: int = 128     # B: bottleneck channels
+    hidden: int = 512         # H: conv block channels
+    conv_kernel: int = 3      # P
+    n_blocks: int = 8         # X: blocks per repeat (dilations 1..2^(X-1))
+    n_repeats: int = 3        # R
+    mask_act: str = "relu"
+    sample_rate: int = 16000
+    quant: str = "none"       # only "none" is ported
+    fused_tcn: str = "auto"   # "auto": masker through K2 (its twin on CPU)
+                              # when conv_kernel == 3 and quant == "none";
+                              # "off": the dense block loop
+
+    @property
+    def stride(self) -> int:
+        return self.enc_kernel // 2
+
+
+class TCNBlock(nn.Module):
+    """One dilated depthwise-separable conv block with residual + skip."""
+
+    def __init__(self, c: ConvTasNetConfig, dilation: int):
+        super().__init__()
+        self.in_conv = Conv1d(c.bottleneck, c.hidden, 1)
+        self.prelu1 = PReLU()
+        self.norm1 = GlobalLayerNorm(c.hidden)
+        self.dw_conv = Conv1d(c.hidden, c.hidden, c.conv_kernel, dilation=dilation,
+                              groups=c.hidden)
+        self.prelu2 = PReLU()
+        self.norm2 = GlobalLayerNorm(c.hidden)
+        self.res_conv = Conv1d(c.hidden, c.bottleneck, 1)
+        self.skip_conv = Conv1d(c.hidden, c.bottleneck, 1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]):
+        h = self.norm1(self.prelu1(self.in_conv(x)), mask)
+        if mask is not None:
+            h = h * mask[..., None]
+        h = self.norm2(self.prelu2(self.dw_conv(h)), mask)
+        return x + self.res_conv(h), self.skip_conv(h)
+
+
+class ConvTasNet(nn.Module):
+    """[B, T] mixture (+ sample mask) -> [B, n_src, T] estimates."""
+
+    def __init__(self, cfg: ConvTasNetConfig = ConvTasNetConfig()):
+        super().__init__()
+        if cfg.quant != "none":
+            raise NotImplementedError("ConvTasNet: int8 (quant='int8') is not ported yet "
+                                      "(ROADMAP slice 13)")
+        self.cfg = c = cfg
+        self.encoder = Conv1d(1, c.enc_dim, c.enc_kernel, stride=c.stride, use_bias=False,
+                              padding="VALID")
+        self.ln_in = GlobalLayerNorm(c.enc_dim)
+        self.bottleneck = Conv1d(c.enc_dim, c.bottleneck, 1)
+        for r in range(c.n_repeats):
+            for xb in range(c.n_blocks):
+                self.add_module(f"tcn_{r}_{xb}", TCNBlock(c, dilation=2 ** xb))
+        self.mask_prelu = PReLU()
+        self.mask_conv = Conv1d(c.bottleneck, c.n_src * c.enc_dim, 1)
+        self.decoder = nn.Parameter(torch.empty(c.enc_kernel, c.enc_dim))  # [L, N]
+
+    def tcn_blocks(self) -> list:
+        c = self.cfg
+        return [getattr(self, f"tcn_{r}_{xb}")
+                for r in range(c.n_repeats) for xb in range(c.n_blocks)]
+
+    def forward(self, mix: torch.Tensor, sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        c = self.cfg
+        b, t = mix.shape
+        stride = c.stride
+        # pad so the encoder frames tile the signal exactly
+        pad = (-(t - c.enc_kernel)) % stride if t >= c.enc_kernel else c.enc_kernel - t
+        x = F.pad(mix, (0, pad))[..., None]  # [B, T', 1]
+        if sample_mask is not None:
+            x = x * F.pad(sample_mask.to(x.dtype), (0, pad))[..., None]
+
+        w = torch.relu(self.encoder(x))  # [B, F, N]
+        n_frames = w.shape[1]
+        frame_mask = None
+        if sample_mask is not None:
+            lengths = sample_mask.sum(dim=-1).long()
+            f_len = torch.clamp_min((lengths - c.enc_kernel) // stride + 1, 1)
+            frame_mask = torch.arange(n_frames, device=w.device)[None, :] < f_len[:, None]
+
+        h = self.bottleneck(self.ln_in(w, frame_mask))
+        if c.fused_tcn == "auto" and c.conv_kernel == 3:
+            fl = f_len if frame_mask is not None else torch.full(
+                (b,), n_frames, dtype=torch.int32, device=w.device)
+            skips = fused_tcn_masker(h, fl, stack_tcn_params(self.tcn_blocks()),
+                                     n_per_repeat=c.n_blocks)
+        else:
+            skips = 0.0
+            for blk in self.tcn_blocks():
+                h, skip = blk(h, frame_mask)
+                skips = skips + skip
+        m = self.mask_conv(self.mask_prelu(skips)).reshape(b, n_frames, c.n_src, c.enc_dim)
+        if c.mask_act == "relu":
+            m = torch.relu(m)
+        elif c.mask_act == "sigmoid":
+            m = torch.sigmoid(m)
+        elif c.mask_act == "softmax":
+            m = torch.softmax(m, dim=2)
+        else:
+            raise ValueError(f"unknown mask_act {c.mask_act}")
+
+        masked = w[:, :, None, :] * m  # [B, F, S, N]
+        if frame_mask is not None:
+            # frames straddling the valid/pad boundary carry partial real
+            # content; zero them so decoding matches the unpadded signal
+            masked = masked * frame_mask[:, :, None, None].to(masked.dtype)
+
+        # decoder: sum_n masked[f, n] dec[k, n] overlap-added at f*stride + k
+        # is a transposed conv with weight dec^T [N, 1, L]
+        frames = masked.permute(0, 2, 3, 1).reshape(b * c.n_src, c.enc_dim, n_frames)
+        sig = F.conv_transpose1d(frames, self.decoder.t()[:, None, :], stride=stride)
+        sig = sig.reshape(b, c.n_src, -1)[..., :t]
+        if sig.shape[-1] < t:
+            sig = F.pad(sig, (0, t - sig.shape[-1]))
+        if sample_mask is not None:
+            sig = sig * sample_mask[:, None, :].to(sig.dtype)
+        return sig

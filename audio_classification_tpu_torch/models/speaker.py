@@ -1,0 +1,117 @@
+"""Speaker-embedding extractor, ERes2Net-style (port of
+audio_classification_tpu/models/speaker.py): a 2-D CNN of Res2Net blocks
+over log-mel, attentive statistics pooling, a projection.
+
+Layout: the body runs NCHW [B, C, T, F] (torch's convention); flax is NHWC
+[B, T, F, C], and its fold ``x.reshape(b, t, f * ch)`` flattens F-major then
+C, so the body permutes to [B, T, F, C] before flattening or ``proj`` would
+read the wrong features. BatchNorm runs in inference mode (running stats).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclass(frozen=True)
+class SpeakerEmbedderConfig:
+    num_mel: int = 80
+    channels: tuple = (32, 64, 128, 256)
+    scale: int = 4           # res2net split count
+    embed_dim: int = 192
+    asp_hidden: int = 128    # attentive-stats-pool attention width
+    sample_rate: int = 16000
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    # flax "SAME": pad 1 for 3x3 at stride 1; a 1x1 conv at stride 2 needs
+    # no padding (ceil(T/2) outputs either way)
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
+
+
+def _bn(ch: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(ch, eps=1e-5)  # flax BatchNorm default epsilon
+
+
+class Res2Block(nn.Module):
+    """Multi-scale residual block: split channels, cascade 3x3 convs."""
+
+    def __init__(self, cin: int, channels: int, scale: int, stride: int = 1):
+        super().__init__()
+        self.scale = scale
+        width = channels // scale
+        self.in_conv = _conv(cin, channels, 1, stride)
+        self.bn_in = _bn(channels)
+        for i in range(1, scale):
+            self.add_module(f"conv_{i}", _conv(width, width, 3))
+            self.add_module(f"bn_{i}", _bn(width))
+        self.out_conv = _conv(channels, channels, 1)
+        self.bn_out = _bn(channels)
+        self.short = _conv(cin, channels, 1, stride) if stride > 1 or cin != channels else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn_in(self.in_conv(x)))
+        parts = y.chunk(self.scale, dim=1)
+        outs = [parts[0]]
+        prev = None
+        for i in range(1, self.scale):
+            inp = parts[i] if prev is None else parts[i] + prev
+            prev = F.relu(getattr(self, f"bn_{i}")(getattr(self, f"conv_{i}")(inp)))
+            outs.append(prev)
+        y = self.bn_out(self.out_conv(torch.cat(outs, dim=1)))
+        if self.short is not None:
+            x = self.short(x)
+        return F.relu(x + y)
+
+
+class AttentiveStatsPool(nn.Module):
+    """Attention-weighted mean+std pooling over time ([B, T, C] -> [B, 2C])."""
+
+    def __init__(self, channels: int, hidden: int = 128):
+        super().__init__()
+        self.Dense_0 = nn.Linear(channels, hidden)
+        self.Dense_1 = nn.Linear(hidden, channels)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        a = self.Dense_1(torch.tanh(self.Dense_0(x)))
+        if mask is not None:
+            a = a.masked_fill(~mask[..., None], -1e9)
+        w = torch.softmax(a, dim=1)
+        mean = (w * x).sum(dim=1)
+        var = (w * (x - mean[:, None, :]) ** 2).sum(dim=1)
+        return torch.cat([mean, torch.sqrt(var + 1e-7)], dim=-1)
+
+
+class SpeakerEmbedder(nn.Module):
+    """[B, T, mel] fbank (+ frame mask) -> [B, embed_dim] (not normalized)."""
+
+    def __init__(self, cfg: SpeakerEmbedderConfig = SpeakerEmbedderConfig()):
+        super().__init__()
+        self.cfg = c = cfg
+        self.stem = _conv(1, c.channels[0], 3)
+        self.bn0 = _bn(c.channels[0])
+        cin = c.channels[0]
+        freq = c.num_mel
+        for i, ch in enumerate(c.channels):
+            stride = 1 if i == 0 else 2
+            self.add_module(f"block_{i}", Res2Block(cin, ch, c.scale, stride))
+            cin = ch
+            freq = -(-freq // stride)
+        self.asp = AttentiveStatsPool(freq * cin, c.asp_hidden)
+        self.proj = nn.Linear(2 * freq * cin, c.embed_dim)
+
+    def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        c = self.cfg
+        x = F.relu(self.bn0(self.stem(feats[:, None])))  # [B, C, T, F]
+        mask = frame_mask
+        for i in range(len(c.channels)):
+            x = getattr(self, f"block_{i}")(x)
+            if mask is not None and i > 0:
+                mask = mask[:, ::2][:, : x.shape[2]]
+        b, ch, t, f = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(b, t, f * ch)  # flax NHWC fold
+        return self.proj(self.asp(x, mask))
