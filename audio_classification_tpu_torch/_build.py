@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers it includes) is
-compiled by ``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a
+compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source and all
+started together, and the objects are linked into ONE shared library with a
 plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/libact_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu        (in parallel)
+    nvcc -shared -o build/kernels/libact_kernels_<hash>.so *.o
 
 The library name carries a hash of the sources, headers and flags, so an edit
 rebuilds at first use and an unchanged tree reuses the last build. Each C
@@ -26,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def _sources() -> list:
@@ -65,15 +67,30 @@ def build(verbose: bool = False) -> float:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [out.with_suffix(f".{os.getpid()}.{src.stem}.o") for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(_sources(), objs)]
+    try:
+        reports = [(src.name, proc.communicate()[1], proc.returncode)
+                   for src, proc in zip(_sources(), procs)]
+        for name, err, code in reports:
+            if code != 0:
+                raise RuntimeError(f"nvcc failed on {name} ({code}):\n{err}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     if verbose:
-        print(proc.stderr, flush=True)
+        for name, err, _code in reports:
+            print(f"[{name}]\n{err}", flush=True)
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return seconds
 

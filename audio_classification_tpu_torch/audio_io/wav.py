@@ -10,17 +10,14 @@ module implements the codec directly:
 - ``write_wav`` <- float32/float64/int16 samples
 
 Supported encodings: PCM 8/16/24/32-bit, IEEE float32/float64, any channel
-count. A native C++ fast path (audio_classification_tpu/native/wavcodec.cpp)
-is used when the shared library has been built; the numpy path is the
-always-available fallback and the correctness reference for tests.
+count. The codec is numpy only.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 import struct
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
@@ -34,56 +31,7 @@ _FORMAT_IEEE_FLOAT = 3
 _FORMAT_EXTENSIBLE = 0xFFFE
 
 # ---------------------------------------------------------------------------
-# Native fast path (optional)
-# ---------------------------------------------------------------------------
-
-_NATIVE_LIB: Optional[ctypes.CDLL] = None
-_NATIVE_TRIED = False
-
-
-def _native_lib() -> Optional[ctypes.CDLL]:
-    """Load the C++ wav codec shared library if it has been built."""
-    global _NATIVE_LIB, _NATIVE_TRIED
-    if _NATIVE_TRIED:
-        return _NATIVE_LIB
-    _NATIVE_TRIED = True
-    # the JAX package's prebuilt codec (make -C audio_classification_tpu/native)
-    here = Path(__file__).resolve().parents[2] / "audio_classification_tpu" / "native"
-    for name in ("libwavcodec.so",):
-        p = here / name
-        if p.is_file():
-            try:
-                lib = ctypes.CDLL(str(p))
-                lib.wav_read_info.restype = ctypes.c_int
-                lib.wav_read_info.argtypes = [
-                    ctypes.c_char_p,
-                    ctypes.POINTER(ctypes.c_int),  # sample_rate
-                    ctypes.POINTER(ctypes.c_int),  # channels
-                    ctypes.POINTER(ctypes.c_longlong),  # frames
-                ]
-                lib.wav_read_f32.restype = ctypes.c_longlong
-                lib.wav_read_f32.argtypes = [
-                    ctypes.c_char_p,
-                    ctypes.POINTER(ctypes.c_float),
-                    ctypes.c_longlong,
-                ]
-                lib.wav_write_pcm16.restype = ctypes.c_int
-                lib.wav_write_pcm16.argtypes = [
-                    ctypes.c_char_p,
-                    ctypes.POINTER(ctypes.c_float),
-                    ctypes.c_longlong,
-                    ctypes.c_int,
-                    ctypes.c_int,
-                ]
-                _NATIVE_LIB = lib
-            except OSError:
-                _NATIVE_LIB = None
-            break
-    return _NATIVE_LIB
-
-
-# ---------------------------------------------------------------------------
-# numpy reference implementation
+# numpy implementation
 # ---------------------------------------------------------------------------
 
 
@@ -165,30 +113,6 @@ def read_wav(path: str | os.PathLike, always_2d: bool = False) -> Tuple[np.ndarr
     With ``always_2d=True`` mono returns [1, T].
     """
     path = os.fspath(path)
-    lib = _native_lib()
-    if lib is not None:
-        sr = ctypes.c_int()
-        ch = ctypes.c_int()
-        nf = ctypes.c_longlong()
-        rc = lib.wav_read_info(path.encode(), ctypes.byref(sr), ctypes.byref(ch), ctypes.byref(nf))
-        if rc == 0:
-            n = nf.value * ch.value
-            # Belt over the native header clamp: never allocate more samples
-            # than the file could physically hold (>=1 byte per sample), so a
-            # corrupt frame count can't trigger a multi-GB np.empty.
-            n = min(n, os.path.getsize(path))
-            buf = np.empty(n, dtype=np.float32)
-            got = lib.wav_read_f32(path.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n)
-            if got >= 0:
-                channels = ch.value
-                # truncated files decode fewer samples than the header declares
-                x = buf[: (got // channels) * channels] if channels > 1 else buf[:got]
-                if channels > 1:
-                    x = x.reshape(-1, channels).T
-                elif always_2d:
-                    x = x[None, :]
-                return np.ascontiguousarray(x), sr.value
-        # fall through to numpy on any native failure
     with open(path, "rb") as f:
         data = f.read()
     x, sr_v, channels = _parse_wav_bytes(data)
@@ -230,17 +154,6 @@ def write_wav(
     if encoding == "pcm16":
         if interleaved.dtype != np.int16:
             f = np.clip(interleaved.astype(np.float32), -1.0, 1.0)
-            lib = _native_lib()
-            if lib is not None and f.flags["C_CONTIGUOUS"]:
-                rc = lib.wav_write_pcm16(
-                    path.encode(),
-                    f.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                    f.size,
-                    int(channels),
-                    int(sample_rate),
-                )
-                if rc == 0:
-                    return
             pcm = np.rint(f * 32767.0).astype("<i2")
         else:
             pcm = interleaved.astype("<i2")

@@ -5,10 +5,13 @@ The flag set and the artifact writers (segments.jsonl, segments.csv,
 optional overlap_sep_details.csv / metrics.json, summary.json under
 <out-dir>/<timestamp>/) are the JAX runner's. Flags whose feature is not
 ported yet raise NotImplementedError naming the ROADMAP slice
-(pipelines/offline_overlap3.check_ported).
+(pipelines/offline_overlap3.check_ported). Runs on the GPU unless
+``--provider cpu`` is given.
 
     python -m audio_classification_tpu_torch.cli.offline_overlap_3src \
         --input-wavs mix.wav --target-wav target.wav --preset full --seed 0
+    python -m audio_classification_tpu_torch.cli.offline_overlap_3src \
+        --librimix-root <parent of Libri3Mix> --sep-backend mossformer --eval-separation
 """
 from __future__ import annotations
 
@@ -71,7 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--feature-dim", type=int, default=80)
     p.add_argument("--language", default="auto")
     p.add_argument("--num-threads", type=int, default=1)
-    p.add_argument("--provider", default="tpu")
+    p.add_argument("--provider", default="cuda",
+                   help="Device: cuda (raises when no GPU is found) or cpu")
     # Target speaker
     p.add_argument("--spk-embed-model", default="", help="Speaker embedding checkpoint path")
     p.add_argument("--sv-threshold", type=float, default=0.6, help="Cosine similarity threshold (0~1)")
@@ -107,7 +111,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "outermost (DP collectives reduce in-slice over ICI "
                         "first); TP never crosses a slice")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="bfloat16 halves MXU cost; norm statistics stay f32")
+                   help="bfloat16 compute (not ported yet: raises)")
     p.add_argument("--wave-mixtures", type=int, default=0,
                    help="Mixtures per processing wave (0 = 4x max-batch)")
     p.add_argument("--onnx-exec", default="map", choices=["map", "direct", "auto"],
@@ -137,8 +141,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "~38 dB SNR, decoded on device) — worthwhile when "
                         "the host->device link is the bottleneck")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
-                   help="int8: separators run dynamic-int8 on the s8 MXU "
-                        "path (2x the bf16 MXU rate on v5e)")
+                   help="int8 inference (not ported yet: raises)")
     return p.parse_args(argv)
 
 

@@ -1,8 +1,9 @@
 """Model pack + batched stage engine (port of
-audio_classification_tpu/engine/runtime.py, file-mode surface).
+audio_classification_tpu/engine/runtime.py: the offline surface, with the
+Conv-TasNet 3- and 2-source and MossFormer separators).
 
-Each stage (OSD, separation, speaker embedding, ASR) and the two fused
-paths run over padded, length-bucketed batches. Audio goes to the device as
+Each stage (resampling, OSD, separation, speaker embedding, ASR) and the two
+fused paths run over padded, length-bucketed batches. Audio goes to the device as
 int16, once per wave (``upload_arena``); segment batches are gathered from
 that arena on the device; only probabilities, scores and token ids come
 back. PyTorch dispatches CUDA work asynchronously, so ``launch_*`` queues
@@ -15,6 +16,7 @@ uploads, and the AOT program registry.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -25,10 +27,12 @@ from ..models.asr.ctc import ctc_greedy_decode
 from ..models.asr.sensevoice import LANGUAGES, SenseVoiceConfig, SenseVoiceEncoder, sensevoice_frontend
 from ..models.asr.tokens import TokenTable
 from ..models.convtasnet import ConvTasNet, ConvTasNetConfig
+from ..models.mossformer import MossFormer, MossFormerConfig
 from ..models.osd import OSDConfig, OSDNet, probs_to_hop_flags
 from ..models.speaker import SpeakerEmbedder, SpeakerEmbedderConfig
 from ..ops.fbank import FbankConfig, log_mel_fbank
-from .bucketing import BucketSpec, flat_pack_i16, group_by_bucket, pad_batch_i16
+from ..ops.resample import resample_poly
+from .bucketing import BucketSpec, flat_pack_i16, group_by_bucket, pad_batch, pad_batch_i16
 from .segments import flags_to_segments
 
 G_SAMPLE_RATE = 16000
@@ -43,6 +47,8 @@ class EnginePreset:
     name: str = "full"
     osd: OSDConfig = field(default_factory=OSDConfig)
     sep3: ConvTasNetConfig = field(default_factory=lambda: ConvTasNetConfig(n_src=3))
+    sep2: ConvTasNetConfig = field(default_factory=lambda: ConvTasNetConfig(n_src=2))
+    mossformer: MossFormerConfig = field(default_factory=MossFormerConfig)
     spk: SpeakerEmbedderConfig = field(default_factory=SpeakerEmbedderConfig)
     asr: SenseVoiceConfig = field(default_factory=SenseVoiceConfig)
     #: separated-branch level restoration before branch ASR: "peak" scales
@@ -56,6 +62,9 @@ def tiny_preset() -> EnginePreset:
         osd=OSDConfig(dim=64, heads=2, layers=1),
         sep3=ConvTasNetConfig(n_src=3, enc_dim=64, enc_kernel=16, bottleneck=32, hidden=64,
                               n_blocks=2, n_repeats=1),
+        sep2=ConvTasNetConfig(n_src=2, enc_dim=64, enc_kernel=16, bottleneck=32, hidden=64,
+                              n_blocks=2, n_repeats=1),
+        mossformer=MossFormerConfig(n_src=2, enc_dim=64, dim=48, qk_dim=32, layers=2),
         spk=SpeakerEmbedderConfig(channels=(8, 16), embed_dim=32),
         asr=SenseVoiceConfig(vocab_size=64, dim=64, heads=2, layers=2, conv_kernel=3),
     )
@@ -64,13 +73,16 @@ def tiny_preset() -> EnginePreset:
 def seeded_init_(model: torch.nn.Module, gen: torch.Generator) -> torch.nn.Module:
     """Random weights from an explicit generator: weights ~ N(0, 1/fan_in)
     (lecun normal, as the JAX package's initializers), prompt embeddings
-    ~ N(0, 0.02), biases and gLN/LN/BN shifts 0, scales 1, PReLU slopes
-    0.25. The Conv-TasNet decoder [L, N] takes fan_in = L as in flax."""
+    ~ N(0, 0.02), biases and gLN/LN/BN shifts 0, scales 1 (the GAU's
+    [2, qk_dim] gamma too), PReLU slopes 0.25. The separators' decoder
+    [L, N] takes fan_in = L as in flax."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf in ("bias", "beta"):
                 p.zero_()
+            elif leaf == "gamma":
+                p.fill_(1.0)
             elif leaf == "alpha":
                 p.fill_(0.25)
             elif leaf in ("lang_embed", "itn_embed", "prompt_pad"):
@@ -79,21 +91,39 @@ def seeded_init_(model: torch.nn.Module, gen: torch.Generator) -> torch.nn.Modul
                 p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
             elif p.ndim >= 2:
                 p.normal_(0.0, float(np.prod(p.shape[1:])) ** -0.5, generator=gen)
-            else:  # gLN gamma, LayerNorm / BatchNorm weight
+            else:  # LayerNorm / BatchNorm weight
                 p.fill_(1.0)
     return model
 
 
-class ModelPack:
-    """The flagship path's models (SenseVoice family), seeded on the host
-    and moved to ``device`` in inference mode."""
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the first CUDA device. A CUDA device that is not there
+    raises RuntimeError: the port runs on the card unless the caller names
+    the CPU, and never moves to it on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found: audio_classification_tpu_torch runs on the GPU by "
+            "default; ask for the CPU explicitly (device=\"cpu\", --provider cpu)")
+    return dev
 
-    STAGES = ("osd", "sep3", "spk", "asr")
+
+class ModelPack:
+    """The ported models (SenseVoice family; Conv-TasNet 3- and 2-source and
+    MossFormer separators), seeded on the host and moved to ``device`` in
+    inference mode. ``device`` defaults to the first CUDA device and raises
+    without one: the CPU is used only when asked for (``device="cpu"``).
+
+    One generator seeds the stages in ``STAGES`` order; the separators added
+    after the flagship four come last, so a seed keeps giving ``osd``,
+    ``sep3``, ``spk`` and ``asr`` the weights it always gave."""
+
+    STAGES = ("osd", "sep3", "spk", "asr", "sep2", "mossformer")
 
     def __init__(self, preset: EnginePreset, seed: int = 0,
-                 tokens: Optional[TokenTable] = None, device="cpu"):
+                 tokens: Optional[TokenTable] = None, device=None):
         self.preset = preset
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tokens = tokens or TokenTable.char_table("abcdefghijklmnopqrstuvwxyz '")
         vocab = max(preset.asr.vocab_size, self.tokens.vocab_size)
         self.asr_cfg = dataclasses.replace(preset.asr, vocab_size=vocab)
@@ -103,6 +133,8 @@ class ModelPack:
             "sep3": ConvTasNet(preset.sep3),
             "spk": SpeakerEmbedder(preset.spk),
             "asr": SenseVoiceEncoder(self.asr_cfg),
+            "sep2": ConvTasNet(preset.sep2),
+            "mossformer": MossFormer(preset.mossformer),
         }
         for m in self.models.values():
             seeded_init_(m, gen).to(self.device).eval()
@@ -175,10 +207,10 @@ class StageEngine:
         feats, mask = self._fbank_mask(self._dq(wav_i16), lengths)
         return self.pack.models["osd"](feats, mask)
 
-    def _sep_core(self, wav, lengths):
+    def _sep_core(self, wav, lengths, stage: str = "sep3"):
         sm = (torch.arange(wav.shape[1], device=wav.device)[None, :]
               < lengths[:, None]).float()
-        return self.pack.models["sep3"](wav, sm)
+        return self.pack.models[stage](wav, sm)
 
     def _branch_norm(self, rows):
         """Level restoration for separated-branch rows [..., T] headed into
@@ -211,10 +243,13 @@ class StageEngine:
         return (score, *self._asr_core(wav, lengths, language_id, use_itn))
 
     def _overlap_path_fn(self, wav_i16, lengths, target_vec, language_id, use_itn,
-                         return_branches):
+                         return_branches, backend="convtasnet"):
         """wav -> separate -> per-branch SV -> best-branch ASR, on device
-        -> (branch scores [B, S], best [B], ids, n_tokens[, branches])."""
-        est = self._sep_core(self._dq(wav_i16), lengths)  # [B, S, T]
+        -> (branch scores [B, S], best [B], ids, n_tokens[, branches]).
+        S = 3 for Conv-TasNet (and its "asteroid" alias), the MossFormer
+        preset's n_src (2) for ``backend="mossformer"``."""
+        stage = "mossformer" if backend == "mossformer" else "sep3"
+        est = self._sep_core(self._dq(wav_i16), lengths, stage)  # [B, S, T]
         b, s, t = est.shape
         emb = self._embed_core(est.reshape(b * s, t), lengths.repeat_interleave(s))
         scores = (emb.reshape(b, s, -1) * target_vec[:, None, :]).sum(dim=-1)
@@ -332,6 +367,57 @@ class StageEngine:
         buf, offsets, lengths = flat_pack_i16(items, tail, grid=1)
         return WaveArena(self._tensor(buf), offsets, lengths)
 
+    @torch.inference_mode()
+    def resample(self, wav: np.ndarray, orig_sr: int, new_sr: int = G_SAMPLE_RATE) -> np.ndarray:
+        if orig_sr == new_sr or wav.size <= 1:
+            return np.asarray(wav, dtype=np.float32)
+        x = self._tensor(np.asarray(wav, np.float32))
+        return resample_poly(x, orig_sr, new_sr).cpu().numpy()
+
+    @torch.inference_mode()
+    def resample_batch(self, wavs: Sequence[np.ndarray], orig_sr: int,
+                       new_sr: int = G_SAMPLE_RATE) -> List[np.ndarray]:
+        """Resample many variable-length wavs in bucketed batches.
+
+        The polyphase filter is local, so zero-padding to a bucket only
+        perturbs samples within half a filter length of each item's end;
+        those are sliced off exactly because output lengths are computed
+        from the true input lengths."""
+        if orig_sr == new_sr:
+            return [np.asarray(w, np.float32) for w in wavs]
+        items = [np.asarray(w, np.float32) for w in wavs]
+        nonempty = [i for i, w in enumerate(items) if w.size > 1]
+        pending = []
+        for bucket_len, idxs in group_by_bucket([items[i] for i in nonempty], self.buckets):
+            orig_idx = [nonempty[j] for j in idxs]
+            for off in range(0, len(orig_idx), self.buckets.max_batch):
+                chunk_idx = orig_idx[off : off + self.buckets.max_batch]
+                bs = self.buckets.batch_size_for(len(chunk_idx))
+                wav, _lengths = pad_batch([items[i] for i in chunk_idx], bucket_len, bs)
+                pending.append((chunk_idx, resample_poly(self._tensor(wav), orig_sr, new_sr)))
+        g = math.gcd(orig_sr, new_sr)
+        up, down = new_sr // g, orig_sr // g
+        out = [np.asarray(w, np.float32) if w.size <= 1 else None for w in items]
+        for chunk_idx, res in pending:
+            host = res.cpu().numpy()
+            for j, i in enumerate(chunk_idx):
+                # same output-length convention as ops.resample.resample_poly
+                n_out = -(-items[i].shape[-1] * up // down)
+                out[i] = host[j, :n_out]
+        return out
+
+    def osd_segments(self, wav: np.ndarray, sr: int, threshold: float, win_sec: float,
+                     hop_sec: float) -> List[Tuple[float, float, bool]]:
+        """Full-coverage (start, end, is_overlap) list for one utterance."""
+        return self.osd_segments_batch([wav], sr, threshold, win_sec, hop_sec)[0]
+
+    def osd_segments_batch(self, wavs: Sequence[np.ndarray], sr: int, threshold: float,
+                           win_sec: float, hop_sec: float
+                           ) -> List[List[Tuple[float, float, bool]]]:
+        """OSD over many utterances in bucketed batches -> segment lists."""
+        return self.collect_osd_batch(self.launch_osd_batch(wavs, sr), threshold, win_sec,
+                                      hop_sec)
+
     def launch_osd_batch(self, wavs: Sequence[np.ndarray], sr: int):
         wavs = [np.asarray(w, np.float32) for w in wavs]
         nonempty = [i for i, w in enumerate(wavs) if len(w) > 0 and sr]
@@ -364,9 +450,10 @@ class StageEngine:
 
     def separate(self, chunks: Sequence[np.ndarray], n_src: int = 3,
                  backend: str = "convtasnet") -> List[np.ndarray]:
-        """Each chunk [T] -> [n_src, T]."""
-        _check_backend(backend, n_src)
-        fn = lambda w, l: self._sep_core(self._dq(w), l)
+        """Each chunk [T] -> [n_src, T]: MossFormer for
+        ``backend="mossformer"``, else Conv-TasNet with 3 or 2 sources."""
+        stage = "mossformer" if backend == "mossformer" else ("sep3" if n_src == 3 else "sep2")
+        fn = lambda w, l: self._sep_core(self._dq(w), l, stage)
         outs = self._run_bucketed(list(chunks), fn)
         return [o[:, : c.shape[-1]] for o, c in zip(outs, chunks)]
 
@@ -412,13 +499,13 @@ class StageEngine:
     def launch_overlap(self, chunks, target_vecs, language: str = "auto", use_itn: bool = True,
                        return_branches: bool = False, backend: str = "convtasnet",
                        arena: Optional[WaveArena] = None, spans=None):
-        """Fused overlap path: 3-src separation + per-branch SV + best-branch
-        ASR per chunk; branches stay on the device unless requested."""
-        _check_backend(backend, 3)
+        """Fused overlap path: separation (Conv-TasNet-3 or MossFormer) +
+        per-branch SV + best-branch ASR per chunk; branches stay on the
+        device unless requested."""
         lang_id = LANGUAGES.index(language) if language in LANGUAGES else 0
         extras = [np.asarray(v, np.float32) for v in target_vecs]
         fn = lambda w, l, tv: self._overlap_path_fn(w, l, tv, lang_id, use_itn,
-                                                     return_branches)
+                                                     return_branches, backend)
         if arena is not None and spans is not None:
             return self._launch_bucketed_arena(arena, spans, fn, extras=extras)
         return self._launch_bucketed(list(chunks), fn, extras=extras)
@@ -427,8 +514,8 @@ class StageEngine:
                         backend: str = "convtasnet", lazy_branches: bool = False) -> List[dict]:
         """-> [{"scores": [S], "best": int, "text": str[, "branches"]}];
         with ``lazy_branches`` the branches stay on the device
-        (_LazyBranchRows) until read."""
-        _check_backend(backend, 3)
+        (_LazyBranchRows) until read. The branch count is whatever the
+        launch's backend produced; ``backend`` is accepted for symmetry."""
         lazy = return_branches and lazy_branches
         results = []
         for chunk, out in zip(chunks, self._collect_bucketed(handle, (4,) if lazy else ())):
@@ -477,11 +564,3 @@ class StageEngine:
             for row, i in enumerate(part):
                 out[i] = self.pack.tokens.decode(ids[row, : n[row]])
         return out  # type: ignore[return-value]
-
-
-def _check_backend(backend: str, n_src: int) -> None:
-    if backend not in ("convtasnet", "asteroid") or n_src != 3:
-        raise NotImplementedError(
-            f"separation backend {backend!r} with n_src={n_src} is not ported yet: the "
-            "PyTorch engine runs 3-source Conv-TasNet (MossFormer and the 2-source "
-            "path are ROADMAP slice 11)")

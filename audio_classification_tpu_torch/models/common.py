@@ -60,6 +60,21 @@ class GlobalLayerNorm(nn.Module):
         return (x - mean) * torch.rsqrt(var + self.eps) * self.gamma + self.beta
 
 
+class ChannelLayerNorm(nn.Module):
+    """Per-frame LN over channels (cLN). Input [B, T, C]."""
+
+    def __init__(self, channels: int, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.gamma + self.beta
+
+
 class PReLU(nn.Module):
     """Parametric ReLU with a single learnable slope."""
 

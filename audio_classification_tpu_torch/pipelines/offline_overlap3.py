@@ -1,7 +1,9 @@
 """Flagship offline pipeline: OSD -> 3-src separation -> SV gate -> ASR
-(port of audio_classification_tpu/pipelines/offline_overlap3.py, file mode).
+(port of audio_classification_tpu/pipelines/offline_overlap3.py, file mode
+and LibriMix dataset mode).
 
-Mixtures are processed in waves; within a wave each stage runs once over
+Mixtures (given files, or a LibriMix split with a seeded random target
+source per mixture) are processed in waves; within a wave each stage runs once over
 everything that needs it: OSD over the wave's mixtures, then the fused
 overlap path (separation + per-branch SV + best-branch ASR) and the fused
 clean path (SV + ASR) over the segments, then target-span ASR. Record and
@@ -15,28 +17,26 @@ NotImplementedError naming the ROADMAP slice that brings them
 """
 from __future__ import annotations
 
+import random
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..audio_io import read_wav, to_mono
+from ..data.librimix import LibriMixDataset
 from ..engine import BucketSpec, ModelPack, StageEngine, exclusive_segments, tiny_preset
 from ..engine.bucketing import default_buckets
-from ..engine.runtime import G_SAMPLE_RATE, EnginePreset
-from ..metrics import maybe_round
+from ..engine.runtime import G_SAMPLE_RATE, EnginePreset, resolve_device
+from ..metrics import agg_stats, maybe_round, sdr_improvement_pit
 from ..models.asr.tokens import TokenTable
+from ..runtime.monitor import ResourceMonitor
 from ..utils.config import Overlap3Config
 
 # (config field, its default, what porting it needs)
 _NOT_PORTED = (
-    ("librimix_root", "", "dataset mode (data/librimix.py, ROADMAP slice 8)"),
-    ("enable_metrics", False, "the resource monitor (runtime/monitor.py, ROADMAP slice 8)"),
-    ("eval_separation", False, "separation metrics (metrics/sisdr.py, ROADMAP slice 8)"),
-    ("sep_backend", "convtasnet", "MossFormer separation (ROADMAP slice 11)"),
     ("sense_voice", "", "ONNX / orbax ASR weights (models/convert, ROADMAP slice 15)"),
     ("paraformer", "", "the Paraformer ASR family (ROADMAP slice 12)"),
     ("encoder", "", "the transducer ASR family (ROADMAP slice 12)"),
@@ -73,10 +73,6 @@ def check_ported(cfg) -> None:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {needs} is not ported to "
                 "audio_classification_tpu_torch yet")
-    if not cfg.input_wavs:
-        raise NotImplementedError("dataset mode (data/librimix.py, ROADMAP slice 8) is not "
-                                  "ported to audio_classification_tpu_torch yet: use "
-                                  "--input-wavs")
 
 
 @dataclass
@@ -91,10 +87,17 @@ class PipelineResult:
 
 
 def build_engine(cfg, device=None) -> StageEngine:
-    """ModelPack (seeded weights, ``preset``) + StageEngine on ``device``
-    (default: the first CUDA device when present, else the CPU)."""
+    """ModelPack (seeded weights, ``preset``) + StageEngine on ``device``.
+
+    ``device=None`` takes the config's ``provider`` ("cuda", the default, or
+    "cpu"). The card is the default and a RuntimeError says so when there is
+    none: the CPU is used only when asked for."""
+    check_ported(cfg)
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = getattr(cfg, "provider", "cuda") or "cuda"
+        if device != "cpu" and not str(device).startswith("cuda"):
+            raise ValueError(f"--provider must be cuda|cpu, got {device!r}")
+    device = resolve_device(device)
     preset = tiny_preset() if getattr(cfg, "preset", "full") == "tiny" else EnginePreset()
     tokens = None
     tok_path = getattr(cfg, "tokens", "")
@@ -109,13 +112,11 @@ def build_engine(cfg, device=None) -> StageEngine:
     return StageEngine(pack, buckets)
 
 
-def _load_16k(path: str) -> np.ndarray:
+def _load_resampled(engine: StageEngine, path: str) -> Tuple[np.ndarray, int]:
     wav, sr = read_wav(path)
-    if sr != G_SAMPLE_RATE:
-        raise NotImplementedError(
-            f"{path}: {sr} Hz input needs resampling (ops/resample.py), which is not "
-            f"ported to audio_classification_tpu_torch yet; give {G_SAMPLE_RATE} Hz wavs")
-    return np.asarray(to_mono(wav), np.float32)
+    wav = to_mono(wav)
+    wav = engine.resample(wav, sr, G_SAMPLE_RATE)
+    return wav, G_SAMPLE_RATE
 
 
 class Overlap3Pipeline:
@@ -124,16 +125,52 @@ class Overlap3Pipeline:
     def __init__(self, cfg: Overlap3Config, engine: Optional[StageEngine] = None):
         check_ported(cfg)
         self.cfg = cfg
+        if cfg.seed is not None and int(cfg.seed) >= 0:
+            random.seed(int(cfg.seed))
+            np.random.seed(int(cfg.seed))
         self.engine = engine or build_engine(cfg)
 
+    # ------------------------------------------------------------------
     def run(self) -> PipelineResult:
         cfg = self.cfg
         eng = self.engine
-        if not cfg.target_wav:
-            raise ValueError("In file mode (--input-wavs), --target-wav is required.")
-        file_items = [(str(Path(p)), _load_16k(p)) for p in cfg.input_wavs if Path(p).is_file()]
-        limit = len(file_items)
+        file_mode = bool(cfg.input_wavs)
+        dataset_name = "manual-files" if file_mode else "LibriMix"
 
+        ds: Optional[LibriMixDataset] = None
+        file_items: List[Tuple[str, np.ndarray]] = []
+        if file_mode:
+            if not cfg.target_wav:
+                raise ValueError("In file mode (--input-wavs), --target-wav is required.")
+            # load first, then resample all non-16k files in one bucketed
+            # batch per source rate
+            loaded: List[Tuple[str, np.ndarray, int]] = []
+            for p in cfg.input_wavs or []:
+                if not Path(p).is_file():
+                    continue
+                wav, src_sr = read_wav(p)
+                loaded.append((str(Path(p)), to_mono(wav), int(src_sr)))
+            by_sr: Dict[int, List[int]] = {}
+            for i, (_p, _w, s0) in enumerate(loaded):
+                if s0 != G_SAMPLE_RATE:
+                    by_sr.setdefault(s0, []).append(i)
+            for s0, idxs in by_sr.items():
+                for i, w in zip(idxs, eng.resample_batch(
+                        [loaded[i][1] for i in idxs], s0, G_SAMPLE_RATE)):
+                    loaded[i] = (loaded[i][0], w, G_SAMPLE_RATE)
+            file_items = [(p, np.asarray(w, np.float32)) for p, w, _ in loaded]
+            limit = len(file_items)
+        else:
+            ds = LibriMixDataset(
+                cfg.librimix_root, cfg.subset, num_speakers=3,
+                sample_rate=cfg.sample_rate, task=cfg.task, mode=cfg.mode,
+            )
+            total = len(ds)
+            limit = cfg.max_files if cfg.max_files and cfg.max_files > 0 else total
+
+        refs_map = self._load_refs_csv() if (file_mode and cfg.refs_csv) else {}
+
+        # ---- metric accumulators (names match overlap3_core.py:353-373)
         M = dict(
             n_segments=0, n_clean_segments=0, n_overlap_segments=0,
             n_separated_streams=0, n_matched_segments=0,
@@ -146,32 +183,73 @@ class Overlap3Pipeline:
             total_seen_overlap_audio_sec=0.0, total_missed_audio_sec=0.0,
         )
         self._time = dict(osd=0.0, sep=0.0, asr=0.0)
+        sep_sisdr: List[float] = []
+        sep_sisdri: List[float] = []
+        sep_details_rows: List[List[Any]] = []
         segments_out: List[Dict[str, Any]] = []
+
+        monitor = None
+        if cfg.enable_metrics:
+            monitor = ResourceMonitor(cfg.monitor_interval)
+            monitor.start()
         t0_all = time.time()
 
-        # ---- global target enrollment
-        t_np = _load_16k(cfg.target_wav)
-        vec = eng.embed([t_np])[0]
-        t_a = time.time()
-        text = eng.transcribe([t_np], cfg.language)[0]
-        self._time["asr"] += time.time() - t_a
-        g_target = dict(vec=vec, np=t_np, abs=str(Path(cfg.target_wav)), text=text)
-        if cfg.device_gather:
-            # target-span ASR windows gather from one upload of the target
-            g_target["arena"] = eng.upload_arena([t_np])
+        # ---- global target enrollment (file mode)
+        g_target = None
+        if file_mode:
+            t_np, _ = _load_resampled(eng, cfg.target_wav)
+            vec = eng.embed([t_np])[0]
+            t_a = time.time()
+            text = eng.transcribe([t_np], cfg.language)[0]
+            self._time["asr"] += time.time() - t_a
+            g_target = dict(vec=vec, np=t_np, abs=str(Path(cfg.target_wav)), text=text)
+            if getattr(cfg, "device_gather", True):
+                # target-span ASR windows gather from this single upload of
+                # the (shared) enrollment wav instead of re-uploading a
+                # window per segment row
+                g_target["arena"] = eng.upload_arena([t_np])
 
-        wave_size = int(cfg.wave_mixtures or 0)
+        wave_size = int(getattr(cfg, "wave_mixtures", 0) or 0)
         if wave_size <= 0:
-            wave_size = 4 * max(int(cfg.max_batch), 1)
+            wave_size = 4 * max(int(getattr(cfg, "max_batch", 8)), 1)
 
         def prepare_wave(wave_start: int):
-            """Upload a wave and queue its OSD batch (one wave ahead, so the
-            next wave's host work overlaps this wave's device work)."""
+            """Load + batch-resample a wave and queue its OSD batch (one wave
+            ahead, so the next wave's host work overlaps this wave's device
+            work)."""
+            wave_idx = list(range(wave_start, min(wave_start + wave_size, limit)))
             mixtures = [
-                dict(abs_path=p, mix=w, dur=len(w) / G_SAMPLE_RATE)
-                for p, w in file_items[wave_start:wave_start + wave_size]
+                self._load_mixture(i, file_mode, file_items, ds, refs_map)
+                for i in wave_idx
             ]
-            arena = eng.upload_arena([mx["mix"] for mx in mixtures]) if cfg.device_gather else None
+            # batch-resample the whole wave (dataset mode: one bucketed
+            # dispatch instead of one device call per mixture/source)
+            for src_sr in sorted({mx["sr_item"] for mx in mixtures if mx["sr_item"] != G_SAMPLE_RATE}):
+                need = [mx for mx in mixtures if mx["sr_item"] == src_sr]
+                flat: List[np.ndarray] = []
+                owners: List[Tuple[dict, int]] = []
+                for mx in need:
+                    flat.append(mx["mix"])
+                    owners.append((mx, -1))
+                    if mx["sources"]:
+                        for si, s in enumerate(mx["sources"]):
+                            flat.append(s)
+                            owners.append((mx, si))
+                res = eng.resample_batch(flat, src_sr, G_SAMPLE_RATE)
+                for (mx, si), w in zip(owners, res):
+                    if si < 0:
+                        mx["mix"] = w
+                    else:
+                        mx["sources"][si] = w
+                for mx in need:
+                    mx["dur"] = len(mx["mix"]) / G_SAMPLE_RATE
+                    mx["sr_item"] = G_SAMPLE_RATE
+            # one upload for the wave's audio; OSD batches and (below) the
+            # fused-path segment windows gather from it on the device (None
+            # -> per-batch upload: overlong items or --no-device-gather)
+            arena = None
+            if getattr(cfg, "device_gather", True):
+                arena = eng.upload_arena([mx["mix"] for mx in mixtures])
             if arena is not None:
                 for k, mx in enumerate(mixtures):
                     mx["arena_off"] = int(arena.offsets[k])
@@ -182,19 +260,18 @@ class Overlap3Pipeline:
 
         wave_starts = list(range(0, limit, wave_size))
         prefetched = prepare_wave(wave_starts[0]) if wave_starts else None
-        for wi, _wave_start in enumerate(wave_starts):
+        for wi, wave_start in enumerate(wave_starts):
             mixtures, h_osd, arena = prefetched
             if wi + 1 < len(wave_starts):
                 prefetched = prepare_wave(wave_starts[wi + 1])
             for mx in mixtures:
                 A["total_audio_sec"] += mx["dur"]
 
-            # ---- Stage: OSD over the whole wave
+            # ---- Stage: OSD over the whole wave (launched in prepare_wave)
             t_o = time.time()
             osd_lists = eng.collect_osd_batch(h_osd, cfg.osd_thr, cfg.osd_win, cfg.osd_hop)
             self._time["osd"] += time.time() - t_o
-
-            # ---- host: exclusivity + segment rows; the target
+            # ---- host: exclusivity + segment rows; target selection
             for mx, osd_segs in zip(mixtures, osd_lists):
                 if not osd_segs:
                     osd_segs = [(0.0, mx["dur"], False)]
@@ -212,59 +289,129 @@ class Overlap3Pipeline:
                     rows.append(dict(s=s, e=e, s_i=s_i, e_i=e_i,
                                      chunk=mx["mix"][s_i:e_i], kind=kind))
                 mx["rows"] = rows
-                mx["target_vec"] = g_target["vec"]
-                mx["target_np"] = g_target["np"]
-                mx["target_abs"] = g_target["abs"]
-                mx["target_text_fb"] = g_target["text"]
+                self._select_target(mx, file_mode, g_target, ds)
 
-            overlap_rows = [(mx, r) for mx in mixtures for r in mx["rows"]
-                            if r["kind"] == "overlap"]
-            clean_rows = [(mx, r) for mx in mixtures for r in mx["rows"] if r["kind"] == "clean"]
-            tspan_rows = [(mx, r) for mx in mixtures for r in mx["rows"]]
+            # ---- Stage: enroll wave targets (dataset mode) in one batch each
+            if not file_mode:
+                need = [mx for mx in mixtures if mx.get("target_np") is not None]
+                if need:
+                    embs = eng.embed([mx["target_np"] for mx in need])
+                    t_a = time.time()
+                    texts = eng.transcribe([mx["target_np"] for mx in need], cfg.language)
+                    self._time["asr"] += time.time() - t_a
+                    for mx, v, txt in zip(need, embs, texts):
+                        mx["target_vec"] = v
+                        mx["target_text_fb"] = txt
+
+            # ---- Stages: queue the three independent device paths back to
+            # back, then collect:
+            #   A. fused overlap path (sep + per-branch SV + best-branch ASR;
+            #      branches stay on the device unless the separation eval
+            #      needs them)
+            #   B. fused clean path (embed + SV + ASR)
+            #   C. target-span ASR for every row with an enrolled source
+            #      (speculative: launched before gating; discards are cheap
+            #      compared to a serialized post-gate round trip)
+            overlap_rows = [
+                (mx, r) for mx in mixtures for r in mx["rows"]
+                if r["kind"] == "overlap" and mx.get("target_vec") is not None
+            ]
+            clean_rows = [
+                (mx, r) for mx in mixtures for r in mx["rows"]
+                if r["kind"] == "clean" and mx.get("target_vec") is not None
+            ]
+            tspan_rows = [
+                (mx, r) for mx in mixtures for r in mx["rows"]
+                if mx.get("target_np") is not None
+            ]
             t_launch = time.time()
             h_ov = h_cl = h_tg = None
-            if not cfg.fused_paths:
+            if not getattr(cfg, "fused_paths", True):
+                # granular stage dispatch: time_sep/time_asr become
+                # reference-comparable per-stage walls (slower: branches
+                # cross to the host and each stage dispatches separately)
                 self._run_wave_granular(overlap_rows, clean_rows, tspan_rows)
-            else:
+            else:  # fused paths (default serving configuration)
                 def _mix_spans(rows):
-                    # segment windows into the wave arena (device gather)
-                    if arena is None:
+                    # segment windows into the wave arena (device gather);
+                    # None when any row's mixture missed the arena
+                    if arena is None or any("arena_off" not in mx for mx, _ in rows):
                         return None
-                    return [(mx["arena_off"] + r["s_i"], len(r["chunk"])) for mx, r in rows]
+                    return [(mx["arena_off"] + r["s_i"], len(r["chunk"]))
+                            for mx, r in rows]
 
                 if overlap_rows:
                     h_ov = eng.launch_overlap(
                         [r["chunk"] for _, r in overlap_rows],
                         [mx["target_vec"] for mx, _ in overlap_rows],
-                        cfg.language, arena=arena, spans=_mix_spans(overlap_rows))
+                        cfg.language, return_branches=cfg.eval_separation,
+                        backend=cfg.sep_backend,
+                        arena=arena, spans=_mix_spans(overlap_rows),
+                    )
                 if clean_rows:
                     h_cl = eng.launch_clean(
                         [r["chunk"] for _, r in clean_rows],
                         [mx["target_vec"] for mx, _ in clean_rows],
-                        cfg.language, arena=arena, spans=_mix_spans(clean_rows))
+                        cfg.language,
+                        arena=arena, spans=_mix_spans(clean_rows),
+                    )
                 if tspan_rows:
-                    tg_chunks = [mx["target_np"][r["s_i"]:r["e_i"]] for mx, r in tspan_rows]
-                    tg_arena = g_target.get("arena")
+                    tg_chunks = [mx["target_np"][r["s_i"]:r["e_i"]]
+                                 for mx, r in tspan_rows]
+                    tg_arena = (g_target or {}).get("arena")
                     tg_spans = None
-                    if tg_arena is not None:
-                        # every row slices the one enrollment wav
-                        n_t = len(g_target["np"])
-                        tg_spans = [(min(r["s_i"], n_t), max(min(r["e_i"], n_t) - r["s_i"], 0))
-                                    for _, r in tspan_rows]
-                    h_tg = eng.launch_transcribe(tg_chunks, cfg.language, arena=tg_arena,
-                                                 spans=tg_spans)
+                    if tg_arena is not None and all(
+                        mx["target_np"] is g_target["np"] for mx, _ in tspan_rows
+                    ):
+                        # file mode: every row slices the one enrollment wav
+                        T = len(g_target["np"])
+                        tg_spans = [
+                            (min(r["s_i"], T), max(min(r["e_i"], T) - r["s_i"], 0))
+                            for _, r in tspan_rows
+                        ]
+                    h_tg = eng.launch_transcribe(
+                        tg_chunks, cfg.language, arena=tg_arena, spans=tg_spans,
+                    )
 
+            # collect A (stage times are disjoint wall segments; with the
+            # overlapped launches the per-stage split is an attribution of
+            # the shared device timeline, rtf_total stays exact)
             if h_ov is not None:
-                ov_out = eng.collect_overlap(h_ov, [r["chunk"] for _, r in overlap_rows])
+                ov_out = eng.collect_overlap(h_ov, [r["chunk"] for _, r in overlap_rows],
+                                             cfg.eval_separation, cfg.sep_backend)
                 t_ov = time.time() - t_launch
                 self._time["sep"] += t_ov
                 total_ov_samples = sum(len(r["chunk"]) for _, r in overlap_rows) or 1
                 for (mx, r), rec in zip(overlap_rows, ov_out):
-                    r["branch_scores"] = {i: float(s) for i, s in enumerate(rec["scores"])}
+                    r["branch_scores"] = {i: float(s) for i, s in enumerate(np.asarray(rec["scores"]))}
                     r["fused_best"] = rec["best"]
                     r["fused_text"] = rec["text"]
                     r["fused_share"] = t_ov * len(r["chunk"]) / total_ov_samples
+                    if "branches" in rec:
+                        r["branches"] = [np.asarray(rec["branches"][i]) for i in range(rec["branches"].shape[0])]
+            # overlap rows with no enrollment still count as seen+missed in
+            # gating below (reference: overlap3_core.py:787-791)
 
+            # ---- optional separation quality eval (host PIT, parity oracle)
+            if cfg.eval_separation:
+                # the reference separates before SV gating, so overlap rows of
+                # mixtures with no enrollment still get evaluated — run their
+                # separation granularly (rare: enrollment failure)
+                orphan = [
+                    (mx, r) for mx in mixtures for r in mx["rows"]
+                    if r["kind"] == "overlap" and mx.get("target_vec") is None and mx["src_paths"]
+                ]
+                if orphan:
+                    t_s = time.time()
+                    outs = eng.separate([r["chunk"] for _, r in orphan], n_src=3,
+                                        backend=cfg.sep_backend)
+                    self._time["sep"] += time.time() - t_s
+                    for (_, r), est in zip(orphan, outs):
+                        r["branches"] = [np.asarray(est[i]) for i in range(est.shape[0])]
+                for mx in mixtures:
+                    self._eval_separation(mx, file_mode, ds, sep_sisdr, sep_sisdri, sep_details_rows)
+
+            # collect B + C
             if h_cl is not None or h_tg is not None:
                 t_bc = time.time()
                 if h_cl is not None:
@@ -280,10 +427,24 @@ class Overlap3Pipeline:
                         r["target_text"] = text
                 self._time["asr"] += time.time() - t_bc
 
-            # ---- gate (metrics bookkeeping)
+            # ---- gate (metrics bookkeeping) + granular ASR for pass-through
+            # clean rows of mixtures with no enrollment
+            asr_items: List[np.ndarray] = []
+            asr_owner: List[Tuple[dict, dict, str]] = []
             for mx in mixtures:
                 for r in mx["rows"]:
-                    self._gate_row(r, M, A)
+                    self._gate_row(mx, r, M, A, asr_items, asr_owner)
+
+            if asr_items:
+                t_a = time.time()
+                texts = eng.transcribe(asr_items, cfg.language)
+                asr_elapsed = time.time() - t_a
+                self._time["asr"] += asr_elapsed
+                total_asr_samples = sum(len(c) for c in asr_items) or 1
+                for (mx, r, role), text, chunk in zip(asr_owner, texts, asr_items):
+                    if role == "main":
+                        r["text"] = text
+                        r["asr_time"] = asr_elapsed * (len(chunk) / total_asr_samples)
 
             # ---- emit records (field names: overlap3_core.py:667-680,820-833)
             for mx in mixtures:
@@ -315,6 +476,11 @@ class Overlap3Pipeline:
                         M["n_separated_streams"] += 1
 
         elapsed_compute = time.time() - t0_all
+        resource_stats: Dict[str, Any] = {}
+        if monitor is not None:
+            monitor.stop()
+            resource_stats = monitor.aggregate()
+
         seen = M["n_seen_clean_segments"] + M["n_seen_overlap_segments"]
         rtf_total = elapsed_compute / A["total_audio_sec"] if A["total_audio_sec"] > 0 else None
         rtf_asr = self._time["asr"] / A["total_audio_sec"] if A["total_audio_sec"] > 0 else None
@@ -346,26 +512,129 @@ class Overlap3Pipeline:
             "rtf_total": maybe_round(rtf_total, 4),
             "rtf_asr": maybe_round(rtf_asr, 4),
         }
+        if cfg.eval_separation:
+            sisdr_stats = agg_stats(sep_sisdr)
+            sisdri_stats = agg_stats(sep_sisdri)
+            metrics.update({
+                "sep_eval_k_refs": None,
+                "sep_eval_segments": sisdr_stats["count"],
+                "sep_sisdr_mean": sisdr_stats["mean"],
+                "sep_sisdr_median": sisdr_stats["median"],
+                "sep_sisdr_std": sisdr_stats["std"],
+                "sep_sisdri_mean": sisdri_stats["mean"],
+                "sep_sisdri_median": sisdri_stats["median"],
+                "sep_sisdri_std": sisdri_stats["std"],
+            })
+        metrics.update(resource_stats)
+
         return PipelineResult(
             segments=segments_out,
-            sep_details_rows=[],
+            sep_details_rows=sep_details_rows,
             metrics=metrics,
-            dataset_name="manual-files",
+            dataset_name=dataset_name,
             subset=cfg.subset,
             processed_mixtures=limit,
             sample_rate=cfg.sample_rate,
         )
 
+    # ------------------------------------------------------------------
+    def _load_mixture(self, idx, file_mode, file_items, ds, refs_map) -> dict:
+        cfg = self.cfg
+        eng = self.engine
+        if file_mode:
+            abs_path, mix_np = file_items[idx]
+            src_paths: List[str] = []
+            sources = None
+            mix_norm = str(Path(abs_path))
+            if mix_norm in refs_map:
+                src_paths = refs_map[mix_norm]
+            elif cfg.ref_wavs and len(file_items) == 1:
+                src_paths = [str(Path(p)) for p in cfg.ref_wavs]
+        else:
+            sr_item, mix_wav, sources = ds[idx]
+            _sr_meta, mix_rel, src_rel = ds.get_metadata(idx)
+            src_paths = list(src_rel)
+            abs_path = str(Path(cfg.librimix_root) / mix_rel)
+            mix_np = mix_wav  # resampled wave-batched by the caller
+            return dict(
+                idx=idx, abs_path=abs_path, mix=mix_np, sources=sources,
+                src_paths=src_paths, sr_item=sr_item,
+                dur=len(mix_np) / sr_item,
+            )
+        return dict(
+            idx=idx, abs_path=abs_path, mix=mix_np, sources=sources,
+            src_paths=src_paths, sr_item=G_SAMPLE_RATE,
+            dur=len(mix_np) / G_SAMPLE_RATE,
+        )
+
+    def _select_target(self, mx: dict, file_mode: bool, g_target, ds) -> None:
+        """Per-mixture target (dataset mode: seeded random source pick,
+        reference: overlap3_core.py:555-595). Embedding/ASR of dataset-mode
+        targets happens later in a wave batch; here only the pick."""
+        cfg = self.cfg
+        if file_mode:
+            if g_target is not None:
+                mx["target_vec"] = g_target["vec"]
+                mx["target_np"] = g_target["np"]
+                mx["target_abs"] = g_target["abs"]
+                mx["target_text_fb"] = g_target["text"]
+            return
+        mx["target_vec"] = None
+        mx["target_np"] = None
+        mx["target_abs"] = None
+        mx["target_text_fb"] = ""
+        try:
+            t_idx = 0
+            sources = mx["sources"]
+            if sources:
+                t_idx = random.randrange(len(sources))
+            if mx["src_paths"] and len(mx["src_paths"]) > t_idx:
+                mx["target_abs"] = str(Path(cfg.librimix_root) / mx["src_paths"][t_idx])
+            if sources:
+                mx["target_np"] = sources[t_idx]
+        except Exception:
+            mx["target_np"] = None
+
+    def _eval_separation(self, mx: dict, file_mode: bool, ds, sep_sisdr, sep_sisdri, rows_out) -> None:
+        cfg = self.cfg
+        if not mx["src_paths"]:
+            return
+        overlap_rows = [r for r in mx["rows"] if r["kind"] == "overlap" and "branches" in r]
+        if not overlap_rows:
+            return
+        ref_wavs = self._load_ref_sources(file_mode, mx["src_paths"], mx["sources"])
+        if ref_wavs is None or len(ref_wavs) < 2:
+            return
+        k = 3 if len(ref_wavs) >= 3 else len(ref_wavs)
+        mix_rel_path = mx["abs_path"] if file_mode else ds.get_metadata(mx["idx"])[1]
+        for r in overlap_rows:
+            refs = [rw[r["s_i"]:r["e_i"]] for rw in ref_wavs[:k]]
+            best, sdri, idx_sel = sdr_improvement_pit(r["chunk"], refs, r["branches"])
+            if not (np.isnan(best) or np.isnan(sdri)):
+                sep_sisdr.append(float(best))
+                sep_sisdri.append(float(sdri))
+                rows_out.append([
+                    mix_rel_path, f"{r['s']:.3f}", f"{r['e']:.3f}", k,
+                    f"{best:.4f}", f"{sdri:.4f}",
+                    ";".join(str(i) for i in idx_sel),
+                ])
+
     def _run_wave_granular(self, overlap_rows, clean_rows, tspan_rows) -> None:
-        """Granular stage dispatch (``fused_paths=False``): separation books
-        to time_sep and every ASR call to time_asr, as the reference's
-        per-stage timers do (overlap3_core.py:644-649,689-691,795-799)."""
+        """Granular stage dispatch (``fused_paths=False``): stage walls book
+        exactly as the reference's per-stage timers do — separation to
+        time_sep (overlap3_core.py:689-691), every ASR call to time_asr
+        (:644-649,795-799), SV embedding UNBOOKED (the reference never adds
+        it to a stage bucket) — so time_sep/time_asr are directly
+        reference-comparable. Rows get the same fields the fused collectors
+        set, so gating/metrics code downstream is shared."""
         eng, cfg = self.engine, self.cfg
         if overlap_rows:
             t_s = time.time()
-            ests = eng.separate([r["chunk"] for _, r in overlap_rows], n_src=3)
+            ests = eng.separate([r["chunk"] for _, r in overlap_rows],
+                                n_src=3, backend=cfg.sep_backend)
             self._time["sep"] += time.time() - t_s
-            embs = eng.embed([np.asarray(est[i]) for est in ests for i in range(est.shape[0])])
+            flat = [np.asarray(est[i]) for est in ests for i in range(est.shape[0])]
+            embs = eng.embed(flat)
             best_wavs, owners = [], []
             pos = 0
             for (mx, r), est in zip(overlap_rows, ests):
@@ -374,6 +643,8 @@ class Overlap3Pipeline:
                 pos += k
                 r["branch_scores"] = {i: float(s) for i, s in enumerate(scores)}
                 r["fused_best"] = int(np.argmax(scores))
+                if cfg.eval_separation:
+                    r["branches"] = [np.asarray(est[i]) for i in range(k)]
                 best_wavs.append(np.asarray(est[r["fused_best"]]))
                 owners.append(r)
             t_a = time.time()
@@ -398,42 +669,86 @@ class Overlap3Pipeline:
                 r["fused_share"] = asr_el * len(r["chunk"]) / tot
         if tspan_rows:
             t_a = time.time()
-            texts = eng.transcribe([mx["target_np"][r["s_i"]:r["e_i"]] for mx, r in tspan_rows],
-                                   cfg.language)
+            texts = eng.transcribe(
+                [mx["target_np"][r["s_i"]:r["e_i"]] for mx, r in tspan_rows],
+                self.cfg.language)
             self._time["asr"] += time.time() - t_a
             for (mx, r), text in zip(tspan_rows, texts):
                 r["target_text"] = text
 
-    def _gate_row(self, r: dict, M: dict, A: dict) -> None:
-        """SV gating for one segment row (semantics: overlap3_core.py:611-791;
-        file mode always has an enrolled target)."""
+    def _gate_row(self, mx: dict, r: dict, M: dict, A: dict, asr_items, asr_owner) -> None:
+        """SV gating + ASR work collection for one segment row
+        (semantics: overlap3_core.py:611-791)."""
         cfg = self.cfg
         seg_dur = r["e"] - r["s"]
+        has_target = mx.get("target_vec") is not None
         if r["kind"] == "clean":
             M["n_seen_clean_segments"] += 1
             A["total_seen_clean_audio_sec"] += seg_dur
             sv = r.get("sv_score")
-            if sv is None or sv < cfg.sv_threshold:
+            matched = (sv is not None and sv >= cfg.sv_threshold) if has_target else True
+            if not matched:
                 M["n_missed_segments"] += 1
                 M["n_missed_clean_segments"] += 1
                 A["total_missed_audio_sec"] += seg_dur
                 r["drop"] = True
                 return
-            r["text"] = r["fused_text"]
-            r["asr_time"] = r.get("fused_share", 0.0)
+            if "fused_text" in r:
+                r["text"] = r["fused_text"]
+                r["asr_time"] = r.get("fused_share", 0.0)
+            else:  # no enrollment: pass-through clean row, granular ASR
+                asr_items.append(r["chunk"])
+                asr_owner.append((mx, r, "main"))
         else:
             M["n_seen_overlap_segments"] += 1
             A["total_seen_overlap_audio_sec"] += seg_dur
             A["total_overlap_audio_sec"] += seg_dur
             bscores = r.get("branch_scores", {})
-            best_b = max(bscores, key=bscores.get) if bscores else None
-            if best_b is None or bscores[best_b] < cfg.sv_threshold:
+            if not has_target or not bscores:
+                M["n_missed_segments"] += 1
+                M["n_missed_overlap_segments"] += 1
+                A["total_missed_audio_sec"] += seg_dur
+                r["drop"] = True
+                return
+            best_b = max(bscores, key=bscores.get)
+            best_score = bscores[best_b]
+            if best_score < cfg.sv_threshold:
                 M["n_missed_segments"] += 1
                 M["n_missed_overlap_segments"] += 1
                 A["total_missed_audio_sec"] += seg_dur
                 r["drop"] = True
                 return
             r["best_branch"] = best_b
-            r["sv_score"] = bscores[best_b]
+            r["sv_score"] = best_score
             r["text"] = r["fused_text"]
             r["asr_time"] = r.get("fused_share", 0.0)
+
+    # ------------------------------------------------------------------
+    def _load_refs_csv(self) -> Dict[str, List[str]]:
+        """mix,ref1,ref2[,ref3] rows (reference: overlap3_core.py:424-448)."""
+        import csv
+
+        refs_map: Dict[str, List[str]] = {}
+        with open(self.cfg.refs_csv, "r", encoding="utf-8") as f:
+            rdr = csv.reader(f)
+            header = next(rdr, None)
+            if header and not any("mix" in (c or "").lower() for c in header):
+                if len(header) >= 3:
+                    refs_map[str(Path(header[0]))] = [str(Path(x)) for x in header[1:] if (x or "").strip()]
+            for row in rdr:
+                if not row or len(row) < 3:
+                    continue
+                refs_map[str(Path(row[0]))] = [str(Path(x)) for x in row[1:] if (x or "").strip()]
+        return refs_map
+
+    def _load_ref_sources(self, file_mode: bool, src_paths: List[str], sources) -> Optional[List[np.ndarray]]:
+        if not file_mode and sources is not None:
+            return sources
+        out = []
+        for sp in src_paths:
+            p = Path(sp) if file_mode else Path(self.cfg.librimix_root) / sp
+            if not p.is_file():
+                return None
+            wav, _ = _load_resampled(self.engine, str(p))
+            out.append(wav)
+        return out

@@ -15,7 +15,7 @@ from typing import List, Optional
 
 @dataclass
 class Overlap3Config:
-    """Flags of offline_overlap_3src.py (reference: :25-154) + TPU knobs."""
+    """Flags of offline_overlap_3src.py (reference: :25-154) + framework knobs."""
 
     # Dataset (LibriMix)
     librimix_root: str = ""
@@ -67,7 +67,7 @@ class Overlap3Config:
     feature_dim: int = 80
     language: str = "auto"
     num_threads: int = 1
-    provider: str = "tpu"
+    provider: str = "cuda"            # "cuda" (default; raises without a card) or "cpu"
     # Target speaker
     spk_embed_model: str = ""
     sv_threshold: float = 0.6
@@ -83,7 +83,7 @@ class Overlap3Config:
     save_sep_details: bool = False
     sep_details_out: str = "overlap_sep_details.csv"
     debug: bool = False
-    # --- TPU-framework knobs (no reference equivalent) ---
+    # --- framework knobs of the JAX runner (no reference equivalent) ---
     preset: str = "full"              # model-size preset ("full" | "tiny")
     checkpoint_dir: str = ""          # orbax params for all models
     max_batch: int = 8
@@ -93,7 +93,7 @@ class Overlap3Config:
     model_parallel: int = 0           # TP: separators' TCN hidden dim over M chips
     slices: int = 1                   # multi-slice deployments: DP spans slices x chips
                                       # with the DCN factor outermost (TP stays in-slice)
-    compute_dtype: str = "float32"    # "bfloat16" halves MXU cost (norm stats stay f32)
+    compute_dtype: str = "float32"    # "bfloat16" is not ported (raises)
     wave_mixtures: int = 0            # mixtures per wave (0 = 4x max_batch); larger waves
                                       # amortize per-phase dispatch latency over more audio
     onnx_exec: str = "map"            # ONNX checkpoints: "map" weights onto our modules,
@@ -111,5 +111,4 @@ class Overlap3Config:
     arena_codec: str = "i16"          # arena uplink encoding: "i16" (bit-parity default)
                                       # or "mulaw" (8-bit companding, half the uplink
                                       # bytes, ~38 dB SNR; device LUT decode)
-    quant: str = "none"               # "int8": separators run dynamic-int8 on the s8
-                                      # MXU path (2x bf16 rate; ops/quant)
+    quant: str = "none"               # "int8" (ops/quant) is not ported (raises)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from audio_classification_tpu_torch.ops import fbank
-from audio_classification_tpu_torch.ops.kernels import attention, tcn
+from audio_classification_tpu_torch.ops.kernels import attention, gau, tcn
 from audio_classification_tpu_torch.ops.kernels import fbank as k_fbank
 
 torch.set_num_threads(2)
@@ -91,3 +91,35 @@ def test_tcn_kernel_matches_twin(dev, c, hd, f):
     valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
     err = ((out - ref).abs() * valid).max().item()
     assert err / (ref.abs() * valid).max().item() < 1e-4
+
+
+@pytest.mark.parametrize("b,t,dqk,de,lens", [
+    (1, 1, 128, 768, [1]),                 # a single frame
+    (3, 333, 32, 96, [333, 111, 0]),       # the tiny preset's widths, one fully masked item
+    (2, 70, 128, 768, [70, 33]),           # one ragged tile of queries and of keys
+    (2, 1000, 64, 1000, [1000, 517]),      # De over several column chunks, the last ragged
+    (1, 4099, 128, 768, [3000]),           # many key tiles, the tail ones skipped as masked
+])
+def test_gau_kernel_matches_twin(dev, b, t, dqk, de, lens):
+    """Ragged masks, T off every tile size, Dqk != De; 1e-4 x max|out| (f32,
+    key terms added one after another instead of in cuBLAS's blocked order);
+    a fully masked item gives exact zeros; the mask may be absent."""
+    g = torch.Generator().manual_seed(t)
+    q, k = (torch.randn((b, t, dqk), generator=g).to(dev) for _ in range(2))
+    v = torch.randn((b, t, de), generator=g).to(dev)
+    lens_t = torch.tensor(lens, device=dev)
+    mask = torch.arange(t, device=dev)[None, :] < lens_t[:, None]
+    before = gau.gau_attention.launches
+    for m in (mask, None):
+        out = gau.gau_attention(q, k, v, m, 4.0 / t)
+        torch.cuda.synchronize()
+        ref = gau.gau_attention_reference(q, k, v, m, 4.0 / t)
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max().item() <= 1e-4 * max(ref.abs().max().item(), 1e-30)
+        if m is not None:
+            assert not out[lens_t == 0].any()
+    assert gau.gau_attention.launches == before + 2
+    with pytest.raises(ValueError, match="Dqk"):
+        gau.gau_attention(q[..., :6], k[..., :6], v, mask, 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        gau.gau_attention(q.double(), k, v, mask, 1.0)

@@ -165,7 +165,7 @@ def test_from_jax_round_trip_every_stage():
                                           jnp.ones((1, 10), bool)),
     }
     trees = {k: perturbed(v, i) for i, (k, v) in enumerate(trees.items())}
-    pack = ModelPack(tiny_preset(), seed=0)
+    pack = ModelPack(tiny_preset(), seed=0, device="cpu")
     sds = params_to_state_dicts(trees)
     pack.load_state_dicts(sds)  # strict
     for stage, tree in trees.items():

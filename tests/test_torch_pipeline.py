@@ -52,7 +52,7 @@ def wavs(tmp_path_factory):
 def engines():
     """The JAX engine and the port's, on the same tiny weights and buckets."""
     jax_pack = JaxModelPack(jax_tiny_preset(), seed=0)
-    pack = ModelPack(tiny_preset(), seed=1)  # different seed: every weight is overwritten
+    pack = ModelPack(tiny_preset(), seed=1, device="cpu")  # another seed: every weight is overwritten
     pack.load_state_dicts(params_to_state_dicts(
         {k: jax_pack.params[k] for k in ModelPack.STAGES}))
     jax_eng = JaxStageEngine(jax_pack, JaxBucketSpec(jax_default_buckets(SR, 0.5, 4.0), 4))
@@ -102,7 +102,7 @@ def test_cli_main_file_mode_writes_artifacts(wavs, tmp_path):
     out_dir, result = main(["--input-wavs", str(wavs / "mix.wav"), "--target-wav",
                             str(wavs / "target.wav"), "--preset", "tiny", "--seed", "0",
                             "--sv-threshold", "-1", "--max-segment-sec", "4",
-                            "--out-dir", str(tmp_path)])
+                            "--provider", "cpu", "--out-dir", str(tmp_path)])
     recs = [json.loads(line) for line in (out_dir / "segments.jsonl").read_text().splitlines()]
     assert len(recs) == result.metrics["segments_total"] >= 1
     assert (out_dir / "segments.csv").is_file()
@@ -111,24 +111,49 @@ def test_cli_main_file_mode_writes_artifacts(wavs, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--enable-metrics"], ["--eval-separation"], ["--quant", "int8"],
-    ["--data-parallel", "2"], ["--sep-backend", "mossformer"],
+    ["--paraformer", "model.onnx"], ["--osd-checkpoint", "osd.ckpt"], ["--quant", "int8"],
+    ["--data-parallel", "2"], ["--arena-codec", "mulaw"],
     ["--sense-voice", "model.onnx"], ["--encoder", "enc.onnx"],
     ["--checkpoint-dir", "ckpt"], ["--compute-dtype", "bfloat16"],
 ])
 def test_unported_flags_raise(wavs, flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["--input-wavs", str(wavs / "mix.wav"), "--target-wav",
-              str(wavs / "target.wav"), "--preset", "tiny", *flags])
+              str(wavs / "target.wav"), "--preset", "tiny", "--provider", "cpu", *flags])
 
 
 def test_dataset_mode_and_resampling_raise(wavs, engines, tmp_path):
-    with pytest.raises(NotImplementedError, match="dataset mode"):
-        main(["--librimix-root", str(tmp_path), "--preset", "tiny"])
-    write_wav(tmp_path / "mix8k.wav", np.zeros(8000, np.float32), 8000)
+    """Dataset mode and non-16 kHz input are ported now: neither raises
+    NotImplementedError any more. Dataset mode on a directory without a
+    LibriMix tree says which directory it missed, and an 8 kHz mixture is
+    resampled and runs through the pipeline."""
+    with pytest.raises(FileNotFoundError, match="LibriMix mix dir not found"):
+        main(["--librimix-root", str(tmp_path), "--preset", "tiny", "--provider", "cpu"])
+    t = np.arange(8000) / 8000.0
+    write_wav(tmp_path / "mix8k.wav", (0.3 * np.sin(2 * np.pi * 300 * t)).astype(np.float32), 8000)
     cfg = Overlap3Config(**{**_cfg_kwargs(wavs, 0.5), "input_wavs": [str(tmp_path / "mix8k.wav")]})
-    with pytest.raises(NotImplementedError, match="resampling"):
-        Overlap3Pipeline(cfg, engine=engines[1]).run()
+    result = Overlap3Pipeline(cfg, engine=engines[1]).run()
+    assert result.metrics["total_audio_sec"] == 1.0  # 8000 samples at 8 kHz -> 16000 at 16 kHz
+
+
+def test_build_engine_without_a_card_raises():
+    """The card is the default device: with no device named and no CUDA
+    device present, build_engine, ModelPack and the CLI raise instead of
+    carrying on on the CPU."""
+    from audio_classification_tpu_torch.pipelines.offline_overlap3 import build_engine
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists here")
+    cfg = Overlap3Config(preset="tiny", seed=0)
+    assert cfg.provider == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelPack(tiny_preset(), seed=0)
+    assert build_engine(cfg, device="cpu").device.type == "cpu"
+    assert build_engine(Overlap3Config(preset="tiny", provider="cpu")).device.type == "cpu"
+    with pytest.raises(ValueError, match="--provider"):
+        build_engine(Overlap3Config(preset="tiny", provider="tpu"))
 
 
 def test_port_imports_without_jax():
