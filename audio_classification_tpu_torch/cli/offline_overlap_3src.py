@@ -141,7 +141,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "~38 dB SNR, decoded on device) — worthwhile when "
                         "the host->device link is the bottleneck")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
-                   help="int8 inference (not ported yet: raises)")
+                   help="int8: the Conv-TasNet separators and the ASR encoder run "
+                        "dynamic int8 (ops/quant); the masker streams int8 weights")
     return p.parse_args(argv)
 
 

@@ -71,7 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--librimix-root", required=True, help="Parent dir of Libri2Mix (wav8k)")
     p.add_argument("--preset", default="full", choices=["full", "tiny"])
     p.add_argument("--quant", default="none", choices=["none", "int8"],
-                   help="int8 inference (not ported yet: raises)")
+                   help="int8: the Conv-TasNet separators and the ASR encoder run "
+                        "dynamic int8 (ops/quant); the masker streams int8 weights")
     p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-batch", type=int, default=8)

@@ -11,6 +11,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace act {
 
@@ -69,6 +70,18 @@ struct RowMajor {
   const float* w;
   int n;
   __device__ float operator()(int k, int col) const { return w[(size_t)k * n + col]; }
+};
+
+// B operand stored row-major [K, n] as int8 with one float32 scale per
+// column: dequantised as it is loaded, (float)q * scale[col] with a single
+// rounding, the value a float copy of the weights would hold
+struct RowMajorS8 {
+  const int8_t* w;
+  const float* scale;  // [n]
+  int n;
+  __device__ float operator()(int k, int col) const {
+    return __fmul_rn((float)w[(size_t)k * n + col], scale[col]);
+  }
 };
 
 }  // namespace act

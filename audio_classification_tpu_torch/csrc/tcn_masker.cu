@@ -1,5 +1,6 @@
 // K2 tcn_masker: the whole Conv-TasNet masker (all n_blocks TCN blocks) from
-// one C entry point.
+// one C entry point per weight type: act_tcn_masker (float32 weights) and
+// act_tcn_masker_s8 (the int8 weight stream, "K2-s8").
 //
 // Replaces audio_classification_tpu/ops/pallas/tcn_kernel.py
 // (fused_tcn_masker -> _masker_core -> _masker_fwd_call, body _kernel). Each
@@ -29,6 +30,19 @@
 // atomics into a [n_blocks, B, 4] buffer. h1 is materialised rather than
 // recomputed per pass, so the dilated halo reads h1, never x; x still
 // ping-pongs between two buffers (x is read-only within a block).
+//
+// The int8 weight stream (tcn_kernel.py: stack_tcn_params(weight_quant=True),
+// the in-kernel dequant of _kernel under cfg.wq): w_in, w_dw and
+// [w_res | w_skip] arrive as int8 with one float32 scale per block and out
+// channel, in vecs rows 8 (w_in) and 9 (w_dw) and cvecs rows 2, 3 (w_res,
+// w_skip). Where the TPU kernel dequantises a block's weights into VMEM at
+// block entry, here every kernel is instantiated for the weight type and
+// forms (float)q * scale on the operand load: in the B loader of the two
+// GEMMs (act::RowMajorS8) and at the three depthwise taps. Everything after
+// the load is the float path, so on a dequantised float copy of the same
+// stack the float entry point gives bit-identical output. Both streams are
+// bound by the GEMMs' operations; the int8 stream only shrinks the weight
+// bytes (0.79 MB -> 0.20 MB per block), which never bounded the kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,6 +78,21 @@ __device__ __forceinline__ void gln_stats(const double* st, int which, int f_len
   *rstd = (float)(1.0 / sqrt(var + (double)EPS));
 }
 
+// B-operand loader and depthwise tap for a weight type: float weights as they
+// are, int8 weights times their per-out-channel scale
+__device__ __forceinline__ act::RowMajor b_loader(const float* w, const float*, int n) {
+  return act::RowMajor{w, n};
+}
+__device__ __forceinline__ act::RowMajorS8 b_loader(const int8_t* w, const float* scale, int n) {
+  return act::RowMajorS8{w, scale, n};
+}
+__device__ __forceinline__ float tap_weight(const float* w, const float*, int i, int) {
+  return w[i];
+}
+__device__ __forceinline__ float tap_weight(const int8_t* w, const float* scale, int i, int ch) {
+  return __fmul_rn((float)w[i], scale[ch]);
+}
+
 struct LoadX {
   const float* x;  // [F, C] of this batch item
   int f, c;
@@ -82,16 +111,17 @@ struct LoadGln {
 };
 
 // A: h1 = PReLU(x W_in + b_in); masked sum into st[b][0]
+template <class W>
 __global__ void __launch_bounds__(GT)
 in_conv_kernel(const float* __restrict__ x, const int* __restrict__ f_len,
-               const float* __restrict__ w_in, const float* __restrict__ vecs,
+               const W* __restrict__ w_in, const float* __restrict__ vecs,
                float* __restrict__ h1, double* __restrict__ st, int f, int c, int hd) {
   __shared__ float smem[act::gemm_smem_floats<TM, TN>()];
   __shared__ float red[GT / 32];
   const int b = blockIdx.z, m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   float acc[TM][TN];
-  act::gemm_tile(smem, LoadX{x + (size_t)b * f * c, f, c}, act::RowMajor{w_in, hd}, c, m0, n0,
-                 acc);
+  act::gemm_tile(smem, LoadX{x + (size_t)b * f * c, f, c}, b_loader(w_in, vecs + 8 * hd, hd), c,
+                 m0, n0, acc);
   const float* b_in = vecs;
   const float a1 = vecs[1 * hd];
   const int fl = f_len[b], tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -133,9 +163,10 @@ sq_kernel(const float* __restrict__ h, const int* __restrict__ f_len, double* __
 }
 
 // B: h2 = PReLU(dwconv_d(gLN-1(h1) * mask) + b_dw); masked sum into st[b][2]
+template <class W>
 __global__ void __launch_bounds__(RT)
 dwconv_kernel(const float* __restrict__ h1, const int* __restrict__ f_len,
-              const float* __restrict__ w_dw, const float* __restrict__ vecs,
+              const W* __restrict__ w_dw, const float* __restrict__ vecs,
               float* __restrict__ h2, double* __restrict__ st, int f, int hd, int dil) {
   __shared__ float red[RT / 32];
   const int b = blockIdx.y, fl = f_len[b];
@@ -157,7 +188,7 @@ dwconv_kernel(const float* __restrict__ h1, const int* __restrict__ f_len,
       int src = r + (tap - 1) * dil;
       if (src >= 0 && src < f && src < fl) {
         float z = (hb[(size_t)src * hd + ch] - mean) * rstd * g + be;
-        acc = fmaf(z, w_dw[tap * hd + ch], acc);
+        acc = fmaf(z, tap_weight(w_dw, vecs + 9 * hd, tap * hd + ch, ch), acc);
       }
     }
     float v = acc + b_dw[ch];
@@ -171,9 +202,10 @@ dwconv_kernel(const float* __restrict__ h1, const int* __restrict__ f_len,
 
 // C: [res | skip] = gLN-2(h2) [W_res | W_skip]; x_out = x_in + res + b_res,
 // skips += skip + b_skip
+template <class W>
 __global__ void __launch_bounds__(GT)
 out_conv_kernel(const float* __restrict__ h2, const int* __restrict__ f_len,
-                const float* __restrict__ w_rs, const float* __restrict__ vecs,
+                const W* __restrict__ w_rs, const float* __restrict__ vecs,
                 const float* __restrict__ cvecs, const float* __restrict__ x_in,
                 float* __restrict__ x_out, float* __restrict__ skips,
                 const double* __restrict__ st, int f, int c, int hd) {
@@ -183,7 +215,8 @@ out_conv_kernel(const float* __restrict__ h2, const int* __restrict__ f_len,
   __shared__ float smem[act::gemm_smem_floats<TM, TN>()];
   float acc[TM][TN];
   const LoadGln ld{h2 + (size_t)b * f * hd, vecs + 6 * hd, vecs + 7 * hd, mean, rstd, f, hd};
-  act::gemm_tile(smem, ld, act::RowMajor{w_rs, 2 * c}, hd, m0, n0, acc);
+  // cvecs rows 2, 3 are the scales of [W_res | W_skip]'s 2C columns
+  act::gemm_tile(smem, ld, b_loader(w_rs, cvecs + 2 * c, 2 * c), hd, m0, n0, acc);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -208,17 +241,14 @@ int grid_for(size_t n) {
   return (int)(g < 1024 ? (g > 0 ? g : 1) : 1024);
 }
 
-}  // namespace
-
-// x: [B, F, C] input (read only); f_len: [B] int32; per-block stacks
-// w_in [NB, C, H], w_dw [NB, 3, H], vecs [NB, 8, H], w_rs [NB, H, 2C]
-// (W_res | W_skip), cvecs [NB, 2, C]. Scratch: xa, xb [B, F, C],
-// h1, h2 [B, F, H], stats [NB, B, 4] double. Output: skips [B, F, C].
-extern "C" int act_tcn_masker(const float* x, const int* f_len, const float* w_in,
-                              const float* w_dw, const float* vecs, const float* w_rs,
-                              const float* cvecs, float* xa, float* xb, float* h1, float* h2,
-                              double* stats, float* skips, int batch, int f, int c, int hd,
-                              int n_blocks, int n_per_repeat, cudaStream_t stream) {
+// The five launches per TCN block for weights of type W; vecs has vrows rows
+// per block and cvecs crows (8 and 2, or 10 and 4 with the int8 scales).
+template <class W>
+int run_masker(const float* x, const int* f_len, const W* w_in, const W* w_dw,
+               const float* vecs, const W* w_rs, const float* cvecs, float* xa, float* xb,
+               float* h1, float* h2, double* stats, float* skips, int batch, int f, int c,
+               int hd, int n_blocks, int n_per_repeat, int vrows, int crows,
+               cudaStream_t stream) {
   if (c % BKK != 0 || hd % BN != 0 || (2 * c) % BN != 0 || hd % BKK != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
@@ -233,22 +263,50 @@ extern "C" int act_tcn_masker(const float* x, const int* f_len, const float* w_i
   const float* cur = x;
   float* bufs[2] = {xa, xb};
   for (int i = 0; i < n_blocks; ++i) {
-    const float* wi = w_in + (size_t)i * c * hd;
-    const float* wd = w_dw + (size_t)i * 3 * hd;
-    const float* vv = vecs + (size_t)i * 8 * hd;
-    const float* wr = w_rs + (size_t)i * hd * 2 * c;
-    const float* cv = cvecs + (size_t)i * 2 * c;
+    const W* wi = w_in + (size_t)i * c * hd;
+    const W* wd = w_dw + (size_t)i * 3 * hd;
+    const float* vv = vecs + (size_t)i * vrows * hd;
+    const W* wr = w_rs + (size_t)i * hd * 2 * c;
+    const float* cv = cvecs + (size_t)i * crows * c;
     double* st = stats + (size_t)i * batch * 4;
     float* nxt = bufs[i & 1];
     const int dil = 1 << (i % n_per_repeat);
-    in_conv_kernel<<<g_in, GT, 0, stream>>>(cur, f_len, wi, vv, h1, st, f, c, hd);
+    in_conv_kernel<W><<<g_in, GT, 0, stream>>>(cur, f_len, wi, vv, h1, st, f, c, hd);
     sq_kernel<<<g_red, RT, 0, stream>>>(h1, f_len, st, 0, f, hd);
-    dwconv_kernel<<<g_red, RT, 0, stream>>>(h1, f_len, wd, vv, h2, st, f, hd, dil);
+    dwconv_kernel<W><<<g_red, RT, 0, stream>>>(h1, f_len, wd, vv, h2, st, f, hd, dil);
     sq_kernel<<<g_red, RT, 0, stream>>>(h2, f_len, st, 2, f, hd);
-    out_conv_kernel<<<g_out, GT, 0, stream>>>(h2, f_len, wr, vv, cv, cur, nxt, skips, st, f, c,
-                                              hd);
+    out_conv_kernel<W><<<g_out, GT, 0, stream>>>(h2, f_len, wr, vv, cv, cur, nxt, skips, st, f,
+                                                 c, hd);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     cur = nxt;
   }
   return 0;
+}
+
+}  // namespace
+
+// x: [B, F, C] input (read only); f_len: [B] int32; per-block stacks
+// w_in [NB, C, H], w_dw [NB, 3, H], vecs [NB, 8, H], w_rs [NB, H, 2C]
+// (W_res | W_skip), cvecs [NB, 2, C]. Scratch: xa, xb [B, F, C],
+// h1, h2 [B, F, H], stats [NB, B, 4] double. Output: skips [B, F, C].
+extern "C" int act_tcn_masker(const float* x, const int* f_len, const float* w_in,
+                              const float* w_dw, const float* vecs, const float* w_rs,
+                              const float* cvecs, float* xa, float* xb, float* h1, float* h2,
+                              double* stats, float* skips, int batch, int f, int c, int hd,
+                              int n_blocks, int n_per_repeat, cudaStream_t stream) {
+  return run_masker<float>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, xa, xb, h1, h2, stats, skips,
+                           batch, f, c, hd, n_blocks, n_per_repeat, 8, 2, stream);
+}
+
+// The int8 weight stream: w_in, w_dw, w_rs as int8 in the same layouts;
+// vecs [NB, 10, H] with the scales of w_in and w_dw in rows 8, 9; cvecs
+// [NB, 4, C] with the scales of W_res and W_skip in rows 2, 3. Everything
+// else as act_tcn_masker.
+extern "C" int act_tcn_masker_s8(const float* x, const int* f_len, const int8_t* w_in,
+                                 const int8_t* w_dw, const float* vecs, const int8_t* w_rs,
+                                 const float* cvecs, float* xa, float* xb, float* h1, float* h2,
+                                 double* stats, float* skips, int batch, int f, int c, int hd,
+                                 int n_blocks, int n_per_repeat, cudaStream_t stream) {
+  return run_masker<int8_t>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, xa, xb, h1, h2, stats,
+                            skips, batch, f, c, hd, n_blocks, n_per_repeat, 10, 4, stream);
 }

@@ -33,7 +33,9 @@ class SenseVoiceConfig:
     lfr_n: int = 6
     num_mel: int = 80
     num_prompt: int = 4              # language, event, emotion, itn slots
-    quant: str = "none"              # only "none" is ported
+    quant: str = "none"              # "int8": every block's attention and FFN
+                                     # projections through ops/quant; in_proj,
+                                     # the embeddings and ctc_head stay float
     #: per-utterance CMVN over valid frames (masked mean/var of the LFR feats)
     utt_cmvn: bool = False
     fbank: FbankConfig = field(default_factory=FbankConfig)
@@ -48,9 +50,8 @@ class SenseVoiceEncoder(nn.Module):
 
     def __init__(self, cfg: SenseVoiceConfig = SenseVoiceConfig()):
         super().__init__()
-        if cfg.quant != "none":
-            raise NotImplementedError("SenseVoiceEncoder: int8 is not ported yet "
-                                      "(ROADMAP slice 13)")
+        if cfg.quant not in ("none", "int8"):
+            raise ValueError(f"SenseVoiceEncoder: quant must be none|int8, got {cfg.quant!r}")
         self.cfg = c = cfg
         self.in_proj = nn.Linear(c.lfr_m * c.num_mel, c.dim)
         self.lang_embed = nn.Parameter(torch.empty(len(LANGUAGES), c.dim))
@@ -58,7 +59,7 @@ class SenseVoiceEncoder(nn.Module):
         self.prompt_pad = nn.Parameter(torch.empty(c.num_prompt - 2, c.dim))
         for i in range(c.layers):
             self.add_module(f"block_{i}", TransformerBlock(c.dim, c.heads, c.ffn_mult,
-                                                           c.conv_kernel))
+                                                           c.conv_kernel, c.quant))
         self.final_ln = nn.LayerNorm(c.dim, eps=1e-6)
         self.ctc_head = nn.Linear(c.dim, c.vocab_size)
 

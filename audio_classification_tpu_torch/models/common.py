@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.attention import FLASH_MIN_T, attention_reference, flash_attention
+from ..ops.quant import constant_of, int8_conv1d, int8_matmul, quantize_weight
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -88,24 +89,57 @@ class PReLU(nn.Module):
 
 class Conv1d(nn.Module):
     """Feature-last 1-D convolution, [B, T, Cin] -> [B, T', Cout], with
-    XLA "SAME" / "VALID" padding. weight [Cout, Cin/groups, K]."""
+    XLA "SAME" / "VALID" padding. weight [Cout, Cin/groups, K].
+
+    ``quant="int8"`` (groups == 1 only; a depthwise conv stays float) runs the
+    conv through ops/quant.int8_conv1d: per-sample activation scales bounded
+    by the optional frame ``mask``, per-out-channel weight scales, exact
+    integer accumulation; the bias is added after, in float. Without
+    gradients the int8 weight is made once and kept until the weight changes
+    (ops/quant.constant_of)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int, stride: int = 1,
                  dilation: int = 1, groups: int = 1, use_bias: bool = True,
-                 padding: str = "SAME"):
+                 padding: str = "SAME", quant: str = "none"):
         super().__init__()
         self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
-        self.groups, self.padding = groups, padding
+        self.groups, self.padding, self.quant = groups, padding, quant
         self.weight = nn.Parameter(torch.empty(features, cin // groups, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        pad = (0, 0)
+        if self.padding == "SAME":
+            pad = same_padding(x.shape[1], self.kernel_size, self.stride, self.dilation)
+        if self.quant == "int8" and self.groups == 1:
+            kernel = self.weight.permute(2, 1, 0)
+            wq = constant_of(self, "wq", (self.weight,), lambda: quantize_weight(kernel))
+            y = int8_conv1d(x, kernel, self.stride, self.dilation, pad, mask=mask, wq=wq)
+            return y if self.bias is None else y + self.bias
         x = x.transpose(1, 2)
         if self.padding == "SAME":
-            x = F.pad(x, same_padding(x.shape[-1], self.kernel_size, self.stride,
-                                      self.dilation))
+            x = F.pad(x, pad)
         y = F.conv1d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
         return y.transpose(1, 2)
+
+
+class DenseQ(nn.Linear):
+    """``nn.Linear`` with an optional dynamic-int8 path: the same parameters
+    (``weight`` [out, in], ``bias``) and, under ``quant="none"``, the same
+    arithmetic, so a ``state_dict`` and a seeded init do not change.
+    ``quant="int8"`` routes the product through ops/quant.int8_matmul with
+    the frame ``mask`` [B, T] bounding the per-sample activation scale."""
+
+    def __init__(self, in_features: int, out_features: int, quant: str = "none"):
+        super().__init__(in_features, out_features)
+        self.quant = quant
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.quant != "int8":
+            return super().forward(x)
+        m = None if mask is None else mask[..., None]
+        wq = constant_of(self, "wq", (self.weight,), lambda: quantize_weight(self.weight.t()))
+        return int8_matmul(x, self.weight.t(), mask=m, wq=wq) + self.bias
 
 
 def sinusoidal_positions(n: int, d: int, offset: int = 0) -> np.ndarray:
@@ -127,40 +161,43 @@ def position_table(n: int, d: int, device: torch.device) -> torch.Tensor:
 class MultiHeadSelfAttention(nn.Module):
     """Masked MHSA, [B, T, D] with boolean frame mask [B, T]. From
     ``FLASH_MIN_T`` frames on the core is kernel K3 (its twin on CPU);
-    below it the dense masked softmax, as on the TPU."""
+    below it the dense masked softmax, as on the TPU. ``quant="int8"``
+    quantises the two projections; the attention core stays float32."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, quant: str = "none"):
         super().__init__()
         self.dim, self.heads = dim, heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.out = nn.Linear(dim, dim)
+        self.qkv = DenseQ(dim, 3 * dim, quant)
+        self.out = DenseQ(dim, dim, quant)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, _ = x.shape
         d_head = self.dim // self.heads
         q, k, v = (z.reshape(b, t, self.heads, d_head).transpose(1, 2)
-                   for z in self.qkv(x).split(self.dim, dim=-1))
+                   for z in self.qkv(x, mask).split(self.dim, dim=-1))
         attend = flash_attention if t >= FLASH_MIN_T else attention_reference
         out = attend(q, k, v, mask)
-        return self.out(out.transpose(1, 2).reshape(b, t, self.dim))
+        return self.out(out.transpose(1, 2).reshape(b, t, self.dim), mask)
 
 
 class TransformerBlock(nn.Module):
     """Pre-LN encoder block with a depthwise conv branch (a light conformer
     flavour: attn -> conv -> ffn). Every model of the ported slice uses the
-    conv branch, so it is not optional here."""
+    conv branch, so it is not optional here. ``quant="int8"`` quantises the
+    attention and FFN projections; the depthwise conv stays float."""
 
-    def __init__(self, dim: int, heads: int, ffn_mult: int = 4, conv_kernel: int = 3):
+    def __init__(self, dim: int, heads: int, ffn_mult: int = 4, conv_kernel: int = 3,
+                 quant: str = "none"):
         super().__init__()
         if conv_kernel <= 0:
             raise ValueError("TransformerBlock: the port needs conv_kernel > 0")
         self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-6)
-        self.MultiHeadSelfAttention_0 = MultiHeadSelfAttention(dim, heads)
+        self.MultiHeadSelfAttention_0 = MultiHeadSelfAttention(dim, heads, quant)
         self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-6)
         self.dwconv = Conv1d(dim, dim, conv_kernel, groups=dim)
         self.LayerNorm_2 = nn.LayerNorm(dim, eps=1e-6)
-        self.Dense_0 = nn.Linear(dim, dim * ffn_mult)
-        self.Dense_1 = nn.Linear(dim * ffn_mult, dim)
+        self.Dense_0 = DenseQ(dim, dim * ffn_mult, quant)
+        self.Dense_1 = DenseQ(dim * ffn_mult, dim, quant)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.MultiHeadSelfAttention_0(self.LayerNorm_0(x), mask)
@@ -168,7 +205,7 @@ class TransformerBlock(nn.Module):
         if mask is not None:
             h = h * mask[..., None]
         x = x + F.silu(self.dwconv(h))
-        x = x + self.Dense_1(gelu(self.Dense_0(self.LayerNorm_2(x))))
+        x = x + self.Dense_1(gelu(self.Dense_0(self.LayerNorm_2(x), mask)), mask)
         if mask is not None:
             x = x * mask[..., None]
         return x

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.tcn import fused_tcn_masker, stack_tcn_params
+from ..ops.quant import constant_of, int8_matmul, quantize_weight
 from .common import Conv1d, GlobalLayerNorm, PReLU
 
 
@@ -27,10 +28,16 @@ class ConvTasNetConfig:
     n_repeats: int = 3        # R
     mask_act: str = "relu"
     sample_rate: int = 16000
-    quant: str = "none"       # only "none" is ported
+    quant: str = "none"       # "int8": encoder, bottleneck, mask conv and
+                              # decoder through ops/quant (int8 activations
+                              # and weights); the masker as fused_tcn says
     fused_tcn: str = "auto"   # "auto": masker through K2 (its twin on CPU)
-                              # when conv_kernel == 3 and quant == "none";
-                              # "off": the dense block loop
+                              # when conv_kernel == 3; under int8 its weights
+                              # stream as int8 + scales and its activations
+                              # stay float (weight-only). "off": the dense
+                              # block loop, whose pointwise convs quantise
+                              # their activations too under int8: the two
+                              # forms give different numbers
 
     @property
     def stride(self) -> int:
@@ -42,22 +49,24 @@ class TCNBlock(nn.Module):
 
     def __init__(self, c: ConvTasNetConfig, dilation: int):
         super().__init__()
-        self.in_conv = Conv1d(c.bottleneck, c.hidden, 1)
+        self.in_conv = Conv1d(c.bottleneck, c.hidden, 1, quant=c.quant)
         self.prelu1 = PReLU()
         self.norm1 = GlobalLayerNorm(c.hidden)
         self.dw_conv = Conv1d(c.hidden, c.hidden, c.conv_kernel, dilation=dilation,
                               groups=c.hidden)
         self.prelu2 = PReLU()
         self.norm2 = GlobalLayerNorm(c.hidden)
-        self.res_conv = Conv1d(c.hidden, c.bottleneck, 1)
-        self.skip_conv = Conv1d(c.hidden, c.bottleneck, 1)
+        self.res_conv = Conv1d(c.hidden, c.bottleneck, 1, quant=c.quant)
+        self.skip_conv = Conv1d(c.hidden, c.bottleneck, 1, quant=c.quant)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]):
-        h = self.norm1(self.prelu1(self.in_conv(x)), mask)
+        # the frame mask bounds the int8 activation scale: padded frames hold
+        # normalised garbage after gLN and must not move a sample's grid
+        h = self.norm1(self.prelu1(self.in_conv(x, mask)), mask)
         if mask is not None:
             h = h * mask[..., None]
         h = self.norm2(self.prelu2(self.dw_conv(h)), mask)
-        return x + self.res_conv(h), self.skip_conv(h)
+        return x + self.res_conv(h, mask), self.skip_conv(h, mask)
 
 
 class ConvTasNet(nn.Module):
@@ -65,19 +74,18 @@ class ConvTasNet(nn.Module):
 
     def __init__(self, cfg: ConvTasNetConfig = ConvTasNetConfig()):
         super().__init__()
-        if cfg.quant != "none":
-            raise NotImplementedError("ConvTasNet: int8 (quant='int8') is not ported yet "
-                                      "(ROADMAP slice 13)")
+        if cfg.quant not in ("none", "int8"):
+            raise ValueError(f"ConvTasNet: quant must be none|int8, got {cfg.quant!r}")
         self.cfg = c = cfg
         self.encoder = Conv1d(1, c.enc_dim, c.enc_kernel, stride=c.stride, use_bias=False,
-                              padding="VALID")
+                              padding="VALID", quant=c.quant)
         self.ln_in = GlobalLayerNorm(c.enc_dim)
-        self.bottleneck = Conv1d(c.enc_dim, c.bottleneck, 1)
+        self.bottleneck = Conv1d(c.enc_dim, c.bottleneck, 1, quant=c.quant)
         for r in range(c.n_repeats):
             for xb in range(c.n_blocks):
                 self.add_module(f"tcn_{r}_{xb}", TCNBlock(c, dilation=2 ** xb))
         self.mask_prelu = PReLU()
-        self.mask_conv = Conv1d(c.bottleneck, c.n_src * c.enc_dim, 1)
+        self.mask_conv = Conv1d(c.bottleneck, c.n_src * c.enc_dim, 1, quant=c.quant)
         self.decoder = nn.Parameter(torch.empty(c.enc_kernel, c.enc_dim))  # [L, N]
 
     def tcn_blocks(self) -> list:
@@ -95,6 +103,7 @@ class ConvTasNet(nn.Module):
         if sample_mask is not None:
             x = x * F.pad(sample_mask.to(x.dtype), (0, pad))[..., None]
 
+        # the input is masked above, so the encoder's int8 scale needs no mask
         w = torch.relu(self.encoder(x))  # [B, F, N]
         n_frames = w.shape[1]
         frame_mask = None
@@ -103,18 +112,23 @@ class ConvTasNet(nn.Module):
             f_len = torch.clamp_min((lengths - c.enc_kernel) // stride + 1, 1)
             frame_mask = torch.arange(n_frames, device=w.device)[None, :] < f_len[:, None]
 
-        h = self.bottleneck(self.ln_in(w, frame_mask))
+        h = self.bottleneck(self.ln_in(w, frame_mask), frame_mask)
         if c.fused_tcn == "auto" and c.conv_kernel == 3:
             fl = f_len if frame_mask is not None else torch.full(
                 (b,), n_frames, dtype=torch.int32, device=w.device)
-            skips = fused_tcn_masker(h, fl, stack_tcn_params(self.tcn_blocks()),
-                                     n_per_repeat=c.n_blocks)
+            # stacked (and, under int8, quantised) once per set of weights
+            blocks = self.tcn_blocks()
+            st = constant_of(
+                self, "tcn_stack", [p for blk in blocks for p in blk.parameters()],
+                lambda: stack_tcn_params(blocks, weight_quant=(c.quant == "int8")))
+            skips = fused_tcn_masker(h, fl, st, n_per_repeat=c.n_blocks)
         else:
             skips = 0.0
             for blk in self.tcn_blocks():
                 h, skip = blk(h, frame_mask)
                 skips = skips + skip
-        m = self.mask_conv(self.mask_prelu(skips)).reshape(b, n_frames, c.n_src, c.enc_dim)
+        m = self.mask_conv(self.mask_prelu(skips), frame_mask)
+        m = m.reshape(b, n_frames, c.n_src, c.enc_dim)
         if c.mask_act == "relu":
             m = torch.relu(m)
         elif c.mask_act == "sigmoid":
@@ -131,9 +145,20 @@ class ConvTasNet(nn.Module):
             masked = masked * frame_mask[:, :, None, None].to(masked.dtype)
 
         # decoder: sum_n masked[f, n] dec[k, n] overlap-added at f*stride + k
-        # is a transposed conv with weight dec^T [N, 1, L]
-        frames = masked.permute(0, 2, 3, 1).reshape(b * c.n_src, c.enc_dim, n_frames)
-        sig = F.conv_transpose1d(frames, self.decoder.t()[:, None, :], stride=stride)
+        if c.quant == "int8":
+            # masked is zero at padded frames already; the product over the
+            # basis axis goes through the int8 path, then the frames [.., L]
+            # overlap-add (two terms per sample, so the order cannot matter)
+            wq = constant_of(self, "decoder_wq", (self.decoder,),
+                             lambda: quantize_weight(self.decoder.t()))
+            frames = int8_matmul(masked, self.decoder.t(), wq=wq)  # [B, F, S, L]
+            frames = frames.permute(0, 2, 3, 1).reshape(b * c.n_src, c.enc_kernel, n_frames)
+            t_out = (n_frames - 1) * stride + c.enc_kernel
+            sig = F.fold(frames, (1, t_out), (1, c.enc_kernel), stride=(1, stride))
+        else:
+            # a transposed conv with weight dec^T [N, 1, L]
+            frames = masked.permute(0, 2, 3, 1).reshape(b * c.n_src, c.enc_dim, n_frames)
+            sig = F.conv_transpose1d(frames, self.decoder.t()[:, None, :], stride=stride)
         sig = sig.reshape(b, c.n_src, -1)[..., :t]
         if sig.shape[-1] < t:
             sig = F.pad(sig, (0, t - sig.shape[-1]))

@@ -1,10 +1,14 @@
 """K2: the whole Conv-TasNet masker (every TCN block) in one wrapper call.
 
 Kernel: csrc/tcn_masker.cu (CUDA C++, sm_90a), replacing
-audio_classification_tpu/ops/pallas/tcn_kernel.py::fused_tcn_masker (float
-weight stream; the s8 stream is not ported yet). Bound and design are in
-the source's header; ``tcn_masker_reference`` is the plain twin, op for op
-the dense TCN loop on the stacked weights (tcn_kernel.py:370-419).
+audio_classification_tpu/ops/pallas/tcn_kernel.py::fused_tcn_masker, with
+both of its weight streams: float32 (C entry point ``act_tcn_masker``) and
+int8 with per-block, per-out-channel float32 scales (``act_tcn_masker_s8``,
+"K2-s8": the kernel reads the int8 weights and applies the scales as it
+loads them; activations stay float). Bound and design are in the source's
+header; ``tcn_masker_reference`` is the plain twin, op for op the dense TCN
+loop on the stacked weights (tcn_kernel.py:370-419), run on the dequantised
+stack for an int8 one.
 """
 from __future__ import annotations
 
@@ -14,15 +18,22 @@ import torch
 import torch.nn.functional as F
 
 from ... import _build
+from ..quant import quantize_weight
 
 _EPS = 1e-8  # GlobalLayerNorm eps
 
 
-def stack_tcn_params(blocks) -> dict:
+def stack_tcn_params(blocks, weight_quant: bool = False) -> dict:
     """Per-block TCNBlock modules (repeat-major order) -> the stacked dict
     of tcn_kernel.stack_tcn_params: w_in [NB, C, H], w_dw [NB, 3, H],
     w_res / w_skip [NB, H, C], vecs [NB, 8, H] (b_in, a1, g1, be1, b_dw, a2,
-    g2, be2) and cvecs [NB, 2, C] (b_res, b_skip), all float32."""
+    g2, be2) and cvecs [NB, 2, C] (b_res, b_skip), all float32.
+
+    ``weight_quant``: the int8 weight stream. The four weight tensors are
+    quantised symmetric per OUT channel and per BLOCK (one block's outliers
+    must not flatten another block's grid) to int8, and their float32 scales
+    ride in the vector bundles: vecs [NB, 10, H] rows 8, 9 (w_in, w_dw) and
+    cvecs [NB, 4, C] rows 2, 3 (w_res, w_skip). Inference only."""
     h = blocks[0].in_conv.weight.shape[0]
 
     def row(x):
@@ -39,12 +50,38 @@ def stack_tcn_params(blocks) -> dict:
     cvecs = torch.stack([torch.stack([b.res_conv.bias, b.skip_conv.bias]) for b in blocks])
     out = {"w_in": w_in, "w_dw": w_dw, "w_res": w_res, "w_skip": w_skip,
            "vecs": vecs, "cvecs": cvecs}
-    return {k: v.detach().float().contiguous() for k, v in out.items()}
+    out = {k: v.detach().float().contiguous() for k, v in out.items()}
+    if weight_quant:
+        # [NB, X, OUT] with the block axis kept apart: the absmax runs over X
+        # only, which is quantising block by block
+        scales = {}
+        for name in ("w_in", "w_dw", "w_res", "w_skip"):
+            out[name], scales[name] = quantize_weight(out[name], channel_axis=-1, keep_axes=(0,))
+        out["vecs"] = torch.cat([out["vecs"], scales["w_in"], scales["w_dw"]], dim=1)
+        out["cvecs"] = torch.cat([out["cvecs"], scales["w_res"], scales["w_skip"]], dim=1)
+    return out
+
+
+def dequant_stack(st: dict) -> dict:
+    """int8 weight-stream stack -> float stack: ``int8 * scale`` in float32,
+    one rounding, exactly what the kernel forms on its operand loads."""
+    vecs, cvecs = st["vecs"], st["cvecs"]
+    return {
+        "w_in": st["w_in"].float() * vecs[:, 8][:, None, :],
+        "w_dw": st["w_dw"].float() * vecs[:, 9][:, None, :],
+        "w_res": st["w_res"].float() * cvecs[:, 2][:, None, :],
+        "w_skip": st["w_skip"].float() * cvecs[:, 3][:, None, :],
+        "vecs": vecs[:, :8].contiguous(), "cvecs": cvecs[:, :2].contiguous(),
+    }
 
 
 def tcn_masker_reference(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
                          n_per_repeat: int) -> torch.Tensor:
-    """Plain twin: [B, F, C] + [B] valid-frame counts -> [B, F, C] skip sum."""
+    """Plain twin: [B, F, C] + [B] valid-frame counts -> [B, F, C] skip sum.
+    An int8 stack is dequantised up front (weight-only quantisation: the
+    rest is the float path)."""
+    if st["w_in"].dtype == torch.int8:
+        st = dequant_stack(st)
     nb, hd = st["w_in"].shape[0], st["w_in"].shape[-1]
     f = x.shape[1]
     mask = torch.arange(f, device=x.device)[None, :] < f_len.to(x.device)[:, None]
@@ -76,33 +113,35 @@ def tcn_masker_reference(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
 def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
                      n_per_repeat: int) -> torch.Tensor:
     """[B, F, C] f32 bottleneck stream + [B] valid-frame counts + stacked
-    block weights -> [B, F, C] f32 skip-connection sum.
+    block weights (float32, or the int8 stream of
+    ``stack_tcn_params(weight_quant=True)``) -> [B, F, C] f32 skip sum.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel."""
-    if st["w_in"].dtype == torch.int8:
-        raise NotImplementedError(
-            "fused_tcn_masker: the s8 weight stream (quant='int8') is not ported "
-            "yet (ROADMAP slice 13); use the float stack")
+    CPU tensors run the plain twin; CUDA tensors launch the kernel of the
+    stack's weight type (counted in ``launches`` / ``launches_s8``)."""
+    wq = st["w_in"].dtype == torch.int8
+    b, f, c = x.shape
+    nb, _, hd = st["w_in"].shape
+    wt = torch.int8 if wq else torch.float32
+    vrows, crows = (10, 4) if wq else (8, 2)
+    shapes = {"w_in": (wt, (nb, c, hd)), "w_dw": (wt, (nb, 3, hd)), "w_res": (wt, (nb, hd, c)),
+              "w_skip": (wt, (nb, hd, c)), "vecs": (torch.float32, (nb, vrows, hd)),
+              "cvecs": (torch.float32, (nb, crows, c))}
+    for name, (dtype, shape) in shapes.items():
+        t = st[name]
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != x.device:
+            raise ValueError(f"fused_tcn_masker: {name} must be {dtype} {shape} on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"fused_tcn_masker: x must be float32, got {x.dtype}")
+    if tuple(f_len.shape) != (b,):
+        raise ValueError(f"fused_tcn_masker: f_len must be [{b}], got {tuple(f_len.shape)}")
     if x.device.type == "cpu":
         return tcn_masker_reference(x, f_len, st, n_per_repeat=n_per_repeat)
     if not x.is_cuda:
         raise ValueError(f"fused_tcn_masker: unsupported device {x.device}")
-    b, f, c = x.shape
-    nb, _, hd = st["w_in"].shape
-    shapes = {"w_in": (nb, c, hd), "w_dw": (nb, 3, hd), "w_res": (nb, hd, c),
-              "w_skip": (nb, hd, c), "vecs": (nb, 8, hd), "cvecs": (nb, 2, c)}
-    for name, shape in shapes.items():
-        t = st[name]
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != x.device:
-            raise ValueError(f"fused_tcn_masker: {name} must be float32 {shape} on "
-                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"fused_tcn_masker: x must be float32, got {x.dtype}")
     if c % 32 or hd % 64:
         raise ValueError(f"fused_tcn_masker: needs C % 32 == 0 and H % 64 == 0, "
                          f"got C={c}, H={hd}")
-    if tuple(f_len.shape) != (b,):
-        raise ValueError(f"fused_tcn_masker: f_len must be [{b}], got {tuple(f_len.shape)}")
     x = x.contiguous()
     fl = f_len.to(device=x.device, dtype=torch.int32).clamp(0, f).contiguous()
     w_rs = torch.cat([st["w_res"], st["w_skip"]], dim=-1).contiguous()
@@ -111,10 +150,13 @@ def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     xa, xb, skips = (torch.empty_like(x) for _ in range(3))
     h1, h2 = (torch.empty((b, f, hd), dtype=torch.float32, device=x.device) for _ in range(2))
     stats = torch.empty((nb, b, 4), dtype=torch.float64, device=x.device)
-    fn = _build.kernel("act_tcn_masker", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-    fused_tcn_masker.launches += 1
-    _build.check("act_tcn_masker", fn(
+    name = "act_tcn_masker_s8" if wq else "act_tcn_masker"
+    fn = _build.kernel(name, [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    if wq:
+        fused_tcn_masker.launches_s8 += 1
+    else:
+        fused_tcn_masker.launches += 1
+    _build.check(name, fn(
         x.data_ptr(), fl.data_ptr(), weights[0].data_ptr(), weights[1].data_ptr(),
         weights[2].data_ptr(), w_rs.data_ptr(), cvecs.data_ptr(), xa.data_ptr(),
         xb.data_ptr(), h1.data_ptr(), h2.data_ptr(), stats.data_ptr(), skips.data_ptr(),
@@ -122,4 +164,7 @@ def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     return skips
 
 
-fused_tcn_masker.launches = 0  # kernel launches, counted where they happen
+# kernel launches, counted where they happen: the float entry point and the
+# int8 weight stream's
+fused_tcn_masker.launches = 0
+fused_tcn_masker.launches_s8 = 0

@@ -111,4 +111,5 @@ class Overlap3Config:
     arena_codec: str = "i16"          # arena uplink encoding: "i16" (bit-parity default)
                                       # or "mulaw" (8-bit companding, half the uplink
                                       # bytes, ~38 dB SNR; device LUT decode)
-    quant: str = "none"               # "int8" (ops/quant) is not ported (raises)
+    quant: str = "none"               # "int8": separators and the ASR encoder on the
+                                      # int8 path (ops/quant; K2's int8 weight stream)

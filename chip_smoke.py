@@ -12,7 +12,15 @@ points at the full preset, reading every kernel's launch count around each:
   resource monitor on, on a mixture in the 8 s bucket (K1, K4);
 - the 2-source MVP runner over a small synthetic Libri2Mix tree at 8 kHz,
   once per separation backend (resampler, K1, K2 / K4);
-- the MossFormer demo on one 8 kHz wav (K4).
+- the MossFormer demo on one 8 kHz wav (K4);
+- the flagship CLI with --quant int8 on the 20 s mixture (K1, K3 and the
+  masker's int8 weight stream K2-s8; the float K2 must stay unlaunched);
+- the streaming application replaying a 12 s wav through its worker thread
+  with --quant int8, and once more with --quant none (K1, K2-s8 / K2): every
+  window fed must come out analysed, so no failure was swallowed;
+- the multi-session server replaying 8 callers with --quant int8 (K1,
+  K2-s8 at batch 8): every window of every session answered, none dropped;
+  then two sessions at 8 and 16 kHz in one tick (the in-tick resampler).
 
     python3 chip_smoke.py
 
@@ -152,14 +160,71 @@ def check_tcn(torch, np) -> dict:
               x, f_len, st, n_per_repeat=8), 3),
           "library_ms": None}
     nb, c, hd = st["w_in"].shape
-    # per block and frame: in (C x H), res|skip (H x 2C) and the 3-tap depthwise conv
-    k2.update(bound(nb * f * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd),
-                    4.0 * (2 * x.numel() + sum(t.numel() for t in st.values()))))
+    # per block and VALID frame (rows past f_len are padding that the model
+    # zeroes afterwards, no needed output): in (C x H), res|skip (H x 2C) and
+    # the 3-tap depthwise conv; bytes: valid rows of x in and of the sum out
+    n_valid = int(f_len.sum())
+    k2.update(bound(nb * n_valid * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd),
+                    4.0 * (2 * n_valid * c + sum(t.numel() for t in st.values()))))
     log({"phase": "kernel", "name": "tcn_masker", **k2})
     # f32 through 24 residual blocks, another summation order in every
     # 128/512-wide contraction and in the F x H gLN reductions
     assert math.isfinite(err) and k2["rel_err"] <= 1e-3, k2
     return k2
+
+
+def check_tcn_s8(torch, np) -> dict:
+    """K2-s8 (the masker's int8 weight stream) against its twin on the
+    dequantised stack, and against the float kernel on that stack, at the
+    main-path shape (B=1, F=31999, f_len of a 20 s segment) and at the
+    serving shape (8 sessions' 2 s windows: B=8, F=1999, ragged f_len)."""
+    from audio_classification_tpu_torch.engine.runtime import EnginePreset, ModelPack
+    from audio_classification_tpu_torch.ops.kernels import tcn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    model = ModelPack(EnginePreset(), seed=0, device=dev).models["sep3"]
+    st = tcn.stack_tcn_params(model.tcn_blocks(), weight_quant=True)
+    assert st["w_in"].dtype == torch.int8 and tuple(st["vecs"].shape[1:]) == (10, 512)
+    deq = tcn.dequant_stack(st)
+    nb, c, hd = st["w_in"].shape
+    f32, f2 = (32 * SR - 32) // 16 + 1, (2 * SR - 32) // 16 + 1
+    cases = []
+    for b, f, lens, iters in ((1, f32, [(20 * SR - 32) // 16 + 1], 3),
+                              (8, f2, [f2, f2, 1500, f2, 1000, f2, 750, f2], 5)):
+        x = torch.randn((b, f, c), generator=gen).to(dev)
+        f_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=8)
+        flt = tcn.fused_tcn_masker(x, f_len, deq, n_per_repeat=8)
+        torch.cuda.synchronize()
+        ref = tcn.tcn_masker_reference(x, f_len, st, n_per_repeat=8)
+        valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
+        err = ((out - ref).abs() * valid).max().item()
+        scale = (ref.abs() * valid).max().item()
+        case = {"shape": [b, f, c], "f_len": lens, "max_abs_err": err, "rel_err": err / scale,
+                "tol_rel": 1e-3,
+                # the same products in the same order on bit-identical weights
+                "max_abs_diff_vs_float_kernel": (out - flt).abs().max().item(),
+                "ms": cuda_ms(torch, lambda: tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=8),
+                              iters),
+                "float_kernel_ms": cuda_ms(torch, lambda: tcn.fused_tcn_masker(
+                    x, f_len, deq, n_per_repeat=8), iters),
+                "plain_ms": cuda_ms(torch, lambda: tcn.tcn_masker_reference(
+                    x, f_len, st, n_per_repeat=8), iters),
+                "library_ms": None}
+        # K2's operation count, over the valid frames only (the padded rows
+        # of a bucket are no needed output); bytes with the weights at one
+        # byte each and the valid rows of x in and of the sum out
+        n_w = sum(st[k].numel() for k in ("w_in", "w_dw", "w_res", "w_skip"))
+        n_valid = sum(lens)
+        case.update(bound(nb * n_valid * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd),
+                          4.0 * (2 * n_valid * c + st["vecs"].numel() + st["cvecs"].numel())
+                          + 1.0 * n_w))
+        log({"phase": "kernel", "name": "tcn_masker_s8", **case})
+        assert math.isfinite(err) and case["rel_err"] <= 1e-3, case
+        assert case["max_abs_diff_vs_float_kernel"] == 0.0, case
+        cases.append(case)
+    return {**cases[0], "max_abs_err": max(c_["max_abs_err"] for c_ in cases), "cases": cases}
 
 
 def check_attention(torch, np) -> dict:
@@ -282,30 +347,67 @@ def check_small_input_against_cpu(torch, np) -> None:
             assert math.isfinite(rel) and rel <= 1e-3, (name, rel)
     log({"phase": "small_input_vs_cpu", "rel_err": report, "tol_rel": 1e-3})
 
+    # --quant int8: Conv-TasNet-3 and SenseVoice as build_engine configures
+    # them, same seed. The integer products are exact on both devices, but the
+    # float layers between them differ ~1e-6 (the masker's weight stream runs
+    # in K2-s8 here and in its twin there), which moves single activations
+    # across a rounding boundary: each flip is one int8 step, 1/127 of that
+    # tensor's peak, and the layers after it amplify it. So the tolerance is
+    # 3e-2 of max|ref|, 30x the float stages' 1e-3; a wrong scale, mask or
+    # weight grid shows as ~1e-1 and more.
+    from audio_classification_tpu_torch.pipelines.offline_overlap3 import build_engine
+    from audio_classification_tpu_torch.utils.config import Overlap3Config
 
-def _counted(torch, counters: dict, expect: tuple, name: str, fn):
+    q_engines = {d: build_engine(Overlap3Config(preset="full", seed=0, quant="int8", provider=d))
+                 for d in ("cuda", "cpu")}
+    assert q_engines["cuda"].pack.models["sep3"].cfg.quant == "int8"
+    report = {}
+    with torch.inference_mode():
+        for name in ("sep_branches", "asr_logits"):
+            outs = {}
+            for d, e in q_engines.items():
+                w = torch.from_numpy(wav_i16).to(d)
+                outs[d] = stages[name](e, w, torch.from_numpy(lens).to(d)).float().cpu()
+            err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+            rel = err / max(outs["cpu"].abs().max().item(), 1e-12)
+            report[name + "_int8"] = rel
+            assert math.isfinite(rel) and rel <= 3e-2, (name, rel)
+    log({"phase": "small_input_vs_cpu_int8", "rel_err": report, "tol_rel": 3e-2})
+
+
+def _counted(torch, counters: dict, expect: tuple, name: str, fn, unexpected: tuple = ()):
     """Run one entry point with every launch count set to 0 just before and
-    read just after; the kernels in ``expect`` must have been launched."""
-    for k in counters.values():
-        k.launches = 0
+    read just after (the entry points join their worker threads before they
+    return); the kernels in ``expect`` must have been launched, those in
+    ``unexpected`` must not."""
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn_k.launches for k, fn_k in counters.items()}
+    launches = {k: getattr(wrapper, attr) for k, (wrapper, attr) in counters.items()}
     log({"phase": "launches", "path": name, "wall_sec": wall, **launches})
     for k in expect:
         assert launches[k] > 0, f"kernel {k} was not launched by {name}"
+    for k in unexpected:
+        assert launches[k] == 0, f"kernel {k} was launched by {name}"
     return out, launches
 
 
 def run_paths(torch, np, counters: dict) -> dict:
     """The port's entry points at the full preset (seeded random weights),
     each with its launch counts -> total launches per kernel."""
-    from audio_classification_tpu_torch.audio_io import read_wav, write_wav
-    from audio_classification_tpu_torch.cli import mossformer_infer, offline_overlap_mvp
+    from audio_classification_tpu_torch.audio_io import read_wav, to_mono, write_wav
+    from audio_classification_tpu_torch.cli import (
+        mossformer_infer,
+        offline_overlap_mvp,
+        serve_streams,
+        streaming_overlap_3src,
+    )
     from audio_classification_tpu_torch.cli.offline_overlap_3src import main as overlap3_main
     from audio_classification_tpu_torch.models import facades
+    from audio_classification_tpu_torch.pipelines.serving import StreamingServer
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -324,10 +426,10 @@ def run_paths(torch, np, counters: dict) -> dict:
                    "time_osd_sec", "time_sep_sec", "time_asr_sec", "time_compute_total_sec",
                    "rtf_total", "total_audio_sec")
 
-    def flagship(name, argv, kind, expect):
+    def flagship(name, argv, kind, expect, unexpected=()):
         (out_dir, result), launches = _counted(torch, counters, expect, name, lambda: overlap3_main(
             [*argv, "--target-wav", str(work / "target.wav"), "--preset", "full", "--seed", "0",
-             "--sv-threshold", "-1", "--out-dir", str(work / "out")]))
+             "--sv-threshold", "-1", "--out-dir", str(work / "out")]), unexpected)
         add(launches)
         for fname in ("segments.jsonl", "segments.csv", "summary.json"):
             assert (out_dir / fname).is_file(), fname
@@ -404,6 +506,108 @@ def run_paths(torch, np, counters: dict) -> dict:
     for path in written:
         wav, sr = read_wav(path)
         assert sr == 8000 and wav.shape == (5 * 8000,) and np.isfinite(wav).all() and wav.any()
+
+    # flagship CLI under --quant int8: the same 20 s mixture, forced overlap.
+    # The separator's encoder, bottleneck, mask conv and decoder and the
+    # SenseVoice projections run dynamic int8; the masker streams int8 weights
+    # through K2-s8 (F = 31999) and the float entry point stays unlaunched
+    r = flagship("overlap3 --quant int8", ["--input-wavs", str(work / "mix.wav"),
+                                           "--osd-thr", "0.0", "--quant", "int8"],
+                 "overlap", ("fbank_power_mel", "tcn_masker_s8", "flash_attention"),
+                 unexpected=("tcn_masker",))
+    assert r.metrics["segments_overlap_streams"] > 0
+
+    # streaming application: a 12 s three-talker wav replayed as fast as it
+    # goes, captured in 1024-sample chunks and analysed in blocks of
+    # 31 x 1024 samples by the pipeline's worker thread. The worker prints a
+    # chunk's failure and goes on, so the proof that none was swallowed is
+    # that every block fed comes out analysed, with its three
+    # full_separation records (--sv-threshold -1 emits every branch)
+    mix12 = sum(talkers(12 * SR, 6)) / 3.0
+    write_wav(work / "stream.wav", 0.6 * mix12 / np.abs(mix12).max(), SR)
+    block = int(SR * 2.0 / 1024) * 1024
+    fed = -(-12 * SR // block)
+    for quant, kernel, other in (("int8", "tcn_masker_s8", "tcn_masker"),
+                                 ("none", "tcn_masker", "tcn_masker_s8")):
+        name = f"streaming_overlap_3src --quant {quant}"
+        app, launches = _counted(
+            torch, counters, ("fbank_power_mel", kernel), name,
+            lambda: streaming_overlap_3src.main(
+                ["--target-wav", str(work / "target.wav"), "--input-wav",
+                 str(work / "stream.wav"), "--no-realtime", "--process-seconds", "2.0",
+                 "--quant", quant, "--sv-threshold", "-1", "--preset", "full", "--seed", "0",
+                 "--output-dir", str(work / "out_stream")]), (other,))
+        add(launches)
+        stats = app.pipeline.latency_stats()
+        assert not app.pipeline._worker.is_alive()
+        assert stats["chunks"] == fed, (stats, fed)
+        recs = app.all_results
+        assert sum(x["kind"] == "full_separation" for x in recs) == 3 * fed, len(recs)
+        assert all(math.isfinite(x["sv_score"]) for x in recs)
+        assert launches[kernel] >= fed
+        log({"phase": "pipeline", "path": name, "windows_fed": fed, **stats,
+             "records": len(recs),
+             "kinds": {k: sum(x["kind"] == k for x in recs)
+                       for k in ("clean", "overlap", "full_separation")}})
+
+    # multi-session server: 8 callers of 12 s (one recorded at 8 kHz), 2 s
+    # windows, every tick batching one window of every session
+    calls = []
+    for i in range(8):
+        call = sum(talkers(12 * SR, 20 + i, f0s=(100.0 + 9 * i, 170.0 + 11 * i, 240.0 + 13 * i)))
+        call = 0.6 * call / np.abs(call).max()
+        calls.append(work / f"call{i}.wav")
+        write_wav(calls[-1], call[::2] if i == 3 else call, SR // 2 if i == 3 else SR)
+    records = work / "serving_records.jsonl"
+    name = "serve_streams --quant int8"
+    stats, launches = _counted(
+        torch, counters, ("fbank_power_mel", "tcn_masker_s8"), name, lambda: serve_streams.main(
+            ["--wavs", *map(str, calls), "--targets", str(work / "target.wav"),
+             "--process-seconds", "2.0", "--max-batch", "16", "--quant", "int8",
+             "--sv-threshold", "-1", "--preset", "full", "--seed", "0", "--out", str(records)]),
+        ("tcn_masker",))
+    add(launches)
+    log({"phase": "serving_stats", "path": name, "device": gpu_name_and_power_limit(), **stats})
+    windows = 12 * SR // (2 * SR)
+    assert stats["sessions"] == 8 and stats["chunks_dropped"] == 0, stats
+    assert stats["chunks_per_tick_max"] == 8 and stats["ticks"] >= windows, stats
+    # chunks_per_tick_mean is rounded to 2 decimals
+    assert abs(stats["chunks_per_tick_mean"] * stats["ticks"] - 8 * windows) \
+        <= 0.005 * stats["ticks"] + 1e-9, stats
+    recs = [json.loads(x) for x in records.read_text().splitlines()]
+    for sid in range(8):
+        full = [x for x in recs if x["session"] == sid and x["kind"] == "full_separation"]
+        assert len(full) == 3 * windows, (sid, len(full))
+    assert all(math.isfinite(x["sv_score"]) for x in recs)
+    assert launches["tcn_masker_s8"] >= windows
+
+    # the server's own resampler: the CLI above resamples a whole file on its
+    # way in, so two sessions of one recording, at 8 and at 16 kHz, go into
+    # one tick here; the 8 kHz window is resampled inside the tick
+    args = serve_streams.parse_args(
+        ["--wavs", "-", "--targets", str(work / "target.wav"), "--quant", "int8",
+         "--sv-threshold", "-1", "--preset", "full", "--seed", "0"])
+    call = to_mono(read_wav(calls[0])[0])
+
+    def mixed_rates():
+        server = StreamingServer(args, autostart=False)
+        try:
+            s8 = server.open_session(target_wav=str(work / "target.wav"))
+            s16 = server.open_session(target_wav=str(work / "target.wav"))
+            server.add_audio(s8, call[: 2 * SR: 2], sample_rate=SR // 2)
+            server.add_audio(s16, call[: 2 * SR])
+            assert server.step() == 2
+            return server.get_results(s8), server.get_results(s16)
+        finally:
+            server.close()
+
+    (got8, got16), launches = _counted(torch, counters, ("fbank_power_mel", "tcn_masker_s8"),
+                                       "StreamingServer, 8 and 16 kHz sessions", mixed_rates)
+    add(launches)
+    for got in (got8, got16):
+        assert sum(x["kind"] == "full_separation" for x in got) == 3, got
+        assert all(math.isfinite(x["sv_score"]) for x in got)
+
     for k, n in total.items():
         assert n > 0, f"kernel {k} was not launched on any path"
     log({"phase": "launches", "path": "all", **total})
@@ -447,11 +651,17 @@ def main() -> int:
 
     results = {"fbank_power_mel": check_fbank(torch, np),
                "tcn_masker": check_tcn(torch, np),
+               "tcn_masker_s8": check_tcn_s8(torch, np),
                "flash_attention": check_attention(torch, np),
                "gau_attention": check_gau(torch, np)}
     check_small_input_against_cpu(torch, np)
-    counters = {"fbank_power_mel": fbank_power_mel, "tcn_masker": fused_tcn_masker,
-                "flash_attention": flash_attention, "gau_attention": gau_attention}
+    # each wrapper's count of kernel launches; the masker's two C entry points
+    # count apart
+    counters = {"fbank_power_mel": (fbank_power_mel, "launches"),
+                "tcn_masker": (fused_tcn_masker, "launches"),
+                "tcn_masker_s8": (fused_tcn_masker, "launches_s8"),
+                "flash_attention": (flash_attention, "launches"),
+                "gau_attention": (gau_attention, "launches")}
     launches = run_paths(torch, np, counters)
 
     meta = {
@@ -459,6 +669,9 @@ def main() -> int:
                             "audio_classification_tpu/ops/pallas/fbank_kernel.py:95"),
         "tcn_masker": ("audio_classification_tpu_torch/csrc/tcn_masker.cu",
                        "audio_classification_tpu/ops/pallas/tcn_kernel.py:489"),
+        # the same call with an int8 stack (cfg.wq): act_tcn_masker_s8
+        "tcn_masker_s8": ("audio_classification_tpu_torch/csrc/tcn_masker.cu",
+                          "audio_classification_tpu/ops/pallas/tcn_kernel.py:489"),
         "flash_attention": ("audio_classification_tpu_torch/csrc/flash_attention.cu",
                             "audio_classification_tpu/ops/pallas/attention_kernel.py:268"),
         "gau_attention": ("audio_classification_tpu_torch/csrc/gau_attention.cu",

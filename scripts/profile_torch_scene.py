@@ -1,19 +1,31 @@
 #!/usr/bin/env python3
 """Where one pipeline scene of the PyTorch port spends its time on the GPU.
 
-Builds ONE full-preset engine (seeded random weights), runs the flagship
-file-mode pipeline warm a few times for the wall clock, then once more under
-torch.profiler, and prints one JSON object per scene: warm walls, rtf_total,
-device busy time (union of kernel intervals), idle share, device time by
-kernel name, peak device memory. Scenes:
+Builds ONE full-preset engine per --quant value (seeded random weights), runs
+a scene warm a few times for the wall clock, then once more under
+torch.profiler, and prints one JSON object per scene: warm walls, rtf_total
+or per-window / per-tick latencies, device busy time (union of kernel
+intervals), idle share, device time by kernel name, peak device memory and,
+for the int8 scenes, the device time inside ops/quant split into quantise
+(activations and weights), the integer product (torch._int_mm) and the
+rescale. Scenes:
 
-  overlap    20 s three-talker mixture, every segment forced to overlap,
-             Conv-TasNet-3 (32 s bucket)
-  clean      the same mixture, every segment forced clean
-  mossformer 6 s two-talker mixture, forced overlap, --sep-backend mossformer
-             (8 s bucket, K4 at T = 15999 in 8 layers)
+  overlap      20 s three-talker mixture, every segment forced to overlap,
+               Conv-TasNet-3 (32 s bucket)
+  clean        the same mixture, every segment forced clean
+  mossformer   6 s two-talker mixture, forced overlap, --sep-backend mossformer
+               (8 s bucket, K4 at T = 15999 in 8 layers)
+  overlap-int8 the overlap scene under --quant int8 (K2-s8 at F = 31999)
+  streaming    --quant int8: the six 1.984 s blocks of a 12 s three-talker
+               wav through StreamingOverlap3Pipeline._analyze_segment
+  serving      --quant int8: 8 sessions x 12 s, six ticks of 8 windows of 2 s
+               through StreamingServer.step()
 
-    python3 scripts/profile_torch_scene.py [--scenes overlap,clean,mossformer] [--warm 3]
+torch.profiler's context is thread-local, so the streaming and serving scenes
+drive the pipeline's per-chunk analysis and the server's tick on the calling
+thread (what the worker threads run, without the queue in between).
+
+    python3 scripts/profile_torch_scene.py [--scenes overlap,clean,...] [--warm 3]
         [--out build/profile_torch_scene.json]
 
 Needs a CUDA device; run it from the repository root. The whole report also
@@ -22,6 +34,7 @@ goes to the --out file.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import sys
@@ -49,7 +62,8 @@ def busy_ms(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scenes", default="overlap,clean,mossformer")
+    ap.add_argument("--scenes",
+                    default="overlap,clean,mossformer,overlap-int8,streaming,serving")
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_scene.json"))
     args = ap.parse_args()
@@ -63,9 +77,18 @@ def main() -> int:
     from chip_smoke import SR, talkers
 
     from audio_classification_tpu_torch.audio_io import write_wav
+    from audio_classification_tpu_torch.cli import serve_streams, streaming_overlap_3src
+    from audio_classification_tpu_torch.models import common, convtasnet
+    from audio_classification_tpu_torch.ops import quant
+    from audio_classification_tpu_torch.ops.kernels import tcn
     from audio_classification_tpu_torch.pipelines.offline_overlap3 import (
         Overlap3Pipeline,
         build_engine,
+    )
+    from audio_classification_tpu_torch.pipelines.serving import StreamingServer
+    from audio_classification_tpu_torch.pipelines.streaming import (
+        StreamingOverlap3Pipeline,
+        StreamingSegment,
     )
     from audio_classification_tpu_torch.utils.config import Overlap3Config
 
@@ -80,55 +103,168 @@ def main() -> int:
     write_wav(work / "mix2.wav", 0.6 * (two[0] + two[1]) / np.abs(two[0] + two[1]).max(), SR)
     target = talkers(6 * SR, 4)[0]
     write_wav(work / "target.wav", 0.6 * target / np.abs(target).max(), SR)
+    mix12 = sum(talkers(12 * SR, 6)) / 3.0
+    mix12 = (0.6 * mix12 / np.abs(mix12).max()).astype(np.float32)
+    calls = []
+    for i in range(8):
+        call = sum(talkers(12 * SR, 20 + i, f0s=(100.0 + 9 * i, 170.0 + 11 * i, 240.0 + 13 * i)))
+        calls.append((0.6 * call / np.abs(call).max()).astype(np.float32))
+
+    # device time inside ops/quant, by part: ranges around the module's
+    # functions while a profile is taken (looked up at call time, so patching
+    # the modules that hold them is enough)
+    def ranged(fn, label):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return wrapped
+
+    for mod, names in ((quant, ("quantize_dynamic", "quantize_weight", "int_matmul")),
+                       (common, ("int8_matmul", "int8_conv1d")), (convtasnet, ("int8_matmul",)),
+                       (tcn, ("quantize_weight",))):  # the masker's weight stack (first call only:
+                                                   # the models keep their int8 weights)
+        for fname in names:
+            label = "int8::" + ("whole" if fname.startswith("int8_") else
+                                "masker_stack" if mod is tcn else fname)
+            setattr(mod, fname, ranged(getattr(mod, fname), label))
 
     base = dict(target_wav=str(work / "target.wav"), preset="full", seed=0, sv_threshold=-1.0)
-    scenes = {
+    file_scenes = {
         "overlap": dict(input_wavs=[str(work / "mix.wav")], osd_thr=0.0),
         "clean": dict(input_wavs=[str(work / "mix.wav")], osd_thr=1.0),
         "mossformer": dict(input_wavs=[str(work / "mix2.wav")], osd_thr=0.0,
                            sep_backend="mossformer"),
+        "overlap-int8": dict(input_wavs=[str(work / "mix.wav")], osd_thr=0.0, quant="int8"),
     }
-    engine = build_engine(Overlap3Config(**base))
-    report = {"device": smi, "scenes": {}}
-    for name in args.scenes.split(","):
-        cfg = Overlap3Config(**base, **scenes[name])
+    engines = {}
+
+    def engine_for(q):
+        if q not in engines:
+            engines[q] = build_engine(Overlap3Config(**base, quant=q))
+        return engines[q]
+
+    def file_scene(name):
+        cfg = Overlap3Config(**base, **file_scenes[name])
+        engine = engine_for(cfg.quant)
 
         def run():
             res = Overlap3Pipeline(cfg, engine=engine).run()
             torch.cuda.synchronize()
-            return res
+            return {"rtf_total": res.metrics["rtf_total"]}
+        return run
 
+    def streaming_scene():
+        args = streaming_overlap_3src.parse_args(
+            ["--target-wav", str(work / "target.wav"), "--quant", "int8", "--sv-threshold", "-1",
+             "--seed", "0"])
+        pipe = StreamingOverlap3Pipeline(args, args.target_wav, engine=engine_for("int8"))
+        pipe.close()  # the worker is not used: the chunks run on this thread
+        block = int(SR * 2.0 / 1024) * 1024
+
+        def run():
+            lat = []
+            for k in range(len(mix12) // block):
+                seg = StreamingSegment(mix12[k * block: (k + 1) * block], 2.0 * k, 2.0 * (k + 1), SR)
+                t0 = time.perf_counter()
+                pipe._analyze_segment(seg)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            return {"chunk_ms": lat, "records": len(pipe.get_results())}
+        return run
+
+    def serving_scene():
+        args = serve_streams.parse_args(
+            ["--wavs", "-", "--targets", str(work / "target.wav"), "--quant", "int8",
+             "--sv-threshold", "-1", "--seed", "0", "--max-batch", "16"])
+        server = StreamingServer(args, engine=engine_for("int8"), autostart=False)
+        sids = [server.open_session(target_wav=str(work / "target.wav")) for _ in calls]
+
+        def run():
+            lat, records = [], 0
+            for k in range(6):
+                for sid, call in zip(sids, calls):
+                    server.add_audio(sid, call[k * 2 * SR: (k + 1) * 2 * SR])
+                t0 = time.perf_counter()
+                assert server.step() == len(sids)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                records += sum(len(server.get_results(sid)) for sid in sids)
+            return {"tick_ms": lat, "records": records}
+        return run
+
+    report = {"device": smi, "scenes": {}}
+    for name in args.scenes.split(","):
+        if name == "streaming":
+            run = streaming_scene()
+        elif name == "serving":
+            run = serving_scene()
+        else:
+            run = file_scene(name)
         run()  # first call: builds kernels, cuDNN plans, cached constants
-        walls, rtfs = [], []
+        walls, extras = [], []
         for _ in range(args.warm):
             t0 = time.perf_counter()
-            res = run()
+            extras.append(run())
             walls.append((time.perf_counter() - t0) * 1e3)
-            rtfs.append(res.metrics["rtf_total"])
         torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             traced_wall = (time.perf_counter() - t0) * 1e3
-        by_name, intervals = {}, []
+        # device events: kernels and copies, and the int8:: ranges mirrored
+        # onto the device's timeline (first to last kernel launched under one)
+        by_name, intervals, ranges = {}, [], {}
         for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                dur = ev.time_range.end - ev.time_range.start
-                by_name[ev.name] = by_name.get(ev.name, [0, 0.0])
-                by_name[ev.name][0] += 1
-                by_name[ev.name][1] += dur / 1e3
-                intervals.append((ev.time_range.start, ev.time_range.end))
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            span = (ev.time_range.start, ev.time_range.end)
+            if ev.name.startswith("int8::"):
+                ranges.setdefault(ev.name[6:], []).append(span)
+                continue
+            by_name[ev.name] = by_name.get(ev.name, [0, 0.0])
+            by_name[ev.name][0] += 1
+            by_name[ev.name][1] += (span[1] - span[0]) / 1e3
+            intervals.append(span)
         busy = busy_ms(intervals)
         span = (max(e for _, e in intervals) - min(s for s, _ in intervals)) / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]
-        report["scenes"][name] = {
-            "warm_wall_ms": walls, "rtf_total": rtfs, "traced_wall_ms": traced_wall,
+        # kernel time under each range: a kernel counts for the innermost range
+        # that holds it; what int8_matmul / int8_conv1d launch outside their
+        # three parts is the rescale (and the conv's window gather)
+        inner = sorted((s, e, k) for k, v in ranges.items() if k != "whole" for s, e in v)
+        whole = sorted(ranges.get("whole", []))
+        int8_ms = {k: {"ranges": len(v), "kernel_ms": 0.0} for k, v in ranges.items()}
+        if whole:
+            int8_ms["rescale_and_gather"] = {"kernel_ms": 0.0}
+        for s, e in intervals:
+            i = bisect.bisect_right(inner, (s, float("inf"), "")) - 1
+            if i >= 0 and e <= inner[i][1]:
+                int8_ms[inner[i][2]]["kernel_ms"] += (e - s) / 1e3
+                continue
+            i = bisect.bisect_right(whole, (s, float("inf"))) - 1
+            if i >= 0 and e <= whole[i][1]:
+                int8_ms["rescale_and_gather"]["kernel_ms"] += (e - s) / 1e3
+        int8_ms.pop("whole", None)
+        if int8_ms:
+            int8_ms["all"] = {"kernel_ms": sum(v["kernel_ms"] for v in int8_ms.values()),
+                              "share_of_busy": sum(v["kernel_ms"] for v in int8_ms.values()) / busy}
+        scene = {
+            "warm_wall_ms": walls, "traced_wall_ms": traced_wall,
             "device_busy_ms": busy, "device_span_ms": span,
             "idle_share_of_wall": 1.0 - busy / traced_wall, "device_ops": len(intervals),
             "peak_device_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "int8_device_ms": int8_ms,
             "top_kernels_ms": [{"name": k[:90], "calls": v[0], "ms": v[1]} for k, v in top],
         }
-        print(json.dumps({name: report["scenes"][name]}), flush=True)
+        for key in extras[0]:
+            vals = [e[key] for e in extras]
+            scene[key] = vals
+            if key.endswith("_ms"):  # per-window / per-tick latencies over the warm passes
+                flat = np.asarray([x for v in vals for x in v])
+                scene[key[:-3] + "_p50_ms"] = float(np.percentile(flat, 50))
+                scene[key[:-3] + "_p95_ms"] = float(np.percentile(flat, 95))
+        report["scenes"][name] = scene
+        print(json.dumps({name: scene}), flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))

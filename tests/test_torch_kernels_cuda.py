@@ -93,6 +93,64 @@ def test_tcn_kernel_matches_twin(dev, c, hd, f):
     assert err / (ref.abs() * valid).max().item() < 1e-4
 
 
+@pytest.mark.parametrize("c,hd,f", [(32, 64, 77), (128, 512, 1000)])
+def test_tcn_s8_kernel_matches_twin_and_float_kernel(dev, c, hd, f):
+    """The int8 weight stream (K2-s8), batch of 2 with a ragged f_len:
+    1e-4 x max|skips| against the twin on the dequantised stack, and EQUAL
+    to the float kernel on that stack (the same products in the same order
+    on bit-identical weights). Each entry point counts its own launches."""
+    from audio_classification_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator().manual_seed(c + 1)
+    nb = 8
+
+    def r(*s, scale=0.1):
+        return (torch.randn(s, generator=g) * scale).to(dev)
+
+    rows = [r(nb, hd), torch.full((nb, hd), 0.25, device=dev), 1 + r(nb, hd), r(nb, hd),
+            r(nb, hd), torch.full((nb, hd), 0.3, device=dev), 1 + r(nb, hd), r(nb, hd)]
+    crows = [r(nb, c), r(nb, c)]
+    st = {}
+    for name, w in (("w_in", r(nb, c, hd)), ("w_dw", r(nb, 3, hd, scale=0.3)),
+                    ("w_res", r(nb, hd, c)), ("w_skip", r(nb, hd, c))):
+        st[name], scale = quantize_weight(w, channel_axis=-1, keep_axes=(0,))
+        (rows if name in ("w_in", "w_dw") else crows).append(scale[:, 0])
+    st["vecs"] = torch.stack(rows, dim=1).contiguous()
+    st["cvecs"] = torch.stack(crows, dim=1).contiguous()
+    x = r(2, f, c, scale=1.0)
+    f_len = torch.tensor([f, f // 2 + 3], dtype=torch.int32, device=dev)
+    before = (tcn.fused_tcn_masker.launches, tcn.fused_tcn_masker.launches_s8)
+    out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=4)
+    flt = tcn.fused_tcn_masker(x, f_len, tcn.dequant_stack(st), n_per_repeat=4)
+    torch.cuda.synchronize()
+    assert (tcn.fused_tcn_masker.launches, tcn.fused_tcn_masker.launches_s8) == \
+        (before[0] + 1, before[1] + 1)
+    ref = tcn.tcn_masker_reference(x, f_len, st, n_per_repeat=4)
+    valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
+    err = ((out - ref).abs() * valid).max().item()
+    assert err / (ref.abs() * valid).max().item() < 1e-4
+    assert torch.equal(out, flt)
+    with pytest.raises(ValueError, match="vecs"):
+        tcn.fused_tcn_masker(x, f_len, {**st, "vecs": st["vecs"][:, :8].contiguous()},
+                             n_per_repeat=4)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (17, 33, 7), (504, 32, 512), (2000, 32, 512),
+                                   (1999, 512, 32), (537, 2048, 512)])
+def test_int_matmul_is_exact_on_the_card(dev, m, k, n):
+    """ops/quant.int_matmul pads to what torch._int_mm takes on this card
+    (rows to 32, K and N to 8): exact integer sums at row counts, depths and
+    widths off those grids, the 2 s window's [2000, 32] x [32, 512] among
+    them."""
+    from audio_classification_tpu_torch.ops.quant import int_matmul
+
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    got = int_matmul(a.to(dev), b.to(dev)).cpu()
+    assert got.shape == (m, n) and torch.equal(got, int_matmul(a, b))
+
+
 @pytest.mark.parametrize("b,t,dqk,de,lens", [
     (1, 1, 128, 768, [1]),                 # a single frame
     (3, 333, 32, 96, [333, 111, 0]),       # the tiny preset's widths, one fully masked item

@@ -222,7 +222,7 @@ def test_overlap_mvp_cli_builds_its_engine_on_the_cpu_when_asked(librimix_root, 
     assert metrics["segments_overlap_streams"] >= 2 and (out_dir / "summary.json").is_file()
     with pytest.raises(NotImplementedError, match="not ported"):
         offline_overlap_mvp.main(["--librimix-root", str(librimix_root), "--preset", "tiny",
-                                  "--provider", "cpu", "--quant", "int8",
+                                  "--provider", "cpu", "--cmvn", "am.mvn",
                                   "--out-dir", str(tmp_path)])
 
 

@@ -101,12 +101,21 @@ def test_tcn_wrapper_on_cpu_runs_twin_and_counts_no_launch(masker_case):
 
 
 def test_tcn_wrapper_rejects_int8_stack(masker_case):
-    _, st, x, f_len, _ = masker_case
-    st8 = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
-    st8["w_in"] = st8["w_in"].to(torch.int8)
-    with pytest.raises(NotImplementedError, match="s8 weight stream"):
-        fused_tcn_masker(torch.from_numpy(x), torch.from_numpy(f_len), st8,
-                         n_per_repeat=NB_PER)
+    """The int8 weight stream is taken only whole: int8 weights without their
+    scale rows (vecs [NB, 10, H], cvecs [NB, 4, C]), one weight left float, or
+    a scale row of another width are rejected, on the CPU too."""
+    blocks, _, x, f_len, _ = masker_case
+    st8 = jax_stack_tcn_params([jax.tree.map(jnp.asarray, b) for b in blocks], jnp.float32,
+                               weight_quant=True)
+    st8 = {k: torch.from_numpy(np.array(v)) for k, v in st8.items()}
+    args = (torch.from_numpy(x), torch.from_numpy(f_len))
+    assert fused_tcn_masker(*args, st8, n_per_repeat=NB_PER).shape == x.shape
+    for name, bad in (("vecs", st8["vecs"][:, :8].contiguous()),
+                      ("cvecs", st8["cvecs"][:, :2].contiguous()),
+                      ("w_dw", st8["w_dw"].float()),
+                      ("vecs", st8["vecs"][:, :, :-1].contiguous())):
+        with pytest.raises(ValueError, match=name):
+            fused_tcn_masker(*args, {**st8, name: bad}, n_per_repeat=NB_PER)
 
 
 @pytest.fixture(scope="module")
