@@ -1,13 +1,24 @@
-// K3 flash_attention: masked non-causal multi-head self-attention as a
-// streaming softmax, forward only.
+// K3 flash_attention and K5 flash_attention_stats: masked non-causal
+// multi-head attention as a streaming softmax, forward only. One templated
+// kernel with two epilogues, as the TPU source has one body with two.
 //
 // Replaces audio_classification_tpu/ops/pallas/attention_kernel.py
-// (flash_attention -> _flash_fwd_call(emit_stats=False), body _kernel):
+// (flash_attention -> _flash_fwd_call(emit_stats=False) and
+// flash_attention_stats -> _flash_fwd_call(emit_stats=True), body _kernel):
 // s = q k^T * scale + key_bias (0 / -1e9 from kv_mask), running max m and
-// sum l over key tiles, out = acc / l.
+// sum l over key tiles. K3 (EMIT_STATS = false) writes out = acc / l. K5
+// (EMIT_STATS = true) writes the unnormalised acc with the row's m and l:
+// o = sum_k exp(s - m) v, m = max_k s, l = sum_k exp(s - m); the ring
+// attention of parallel/ring_attention.py merges such triples of key blocks
+// and divides once at the end. The queries (tq rows) and the keys (tk rows)
+// have separate lengths: in the ring a shard's queries meet every other
+// shard's keys. A key block that is masked whole gives m = -1e9 and l = its
+// key count (every s rounds to -1e9 in float32), which the merge scales by
+// exp(-1e9 - m_valid) = 0.
 //
-// Bound on the H100: at the main path's T of 537-800 and D = 64 the [T, T]
-// logits are the only large intermediate; keeping them out of device memory
+// Bound on the H100: at the main path's T of 537-800 (4271 on the long-form
+// path, 1068 a shard of its ring of 4) and D = 64 the [T, T] logits are the
+// only large intermediate; keeping them out of device memory
 // is the point, after which the kernel is bound by f32 FMA throughput (SIMT,
 // no tensor cores in this version) and, at the pipeline's batch of 1, by how
 // many threads the grid offers. Design: four neighbouring threads own one
@@ -32,10 +43,12 @@ constexpr int NT = ROWS * LANES;   // threads per block
 constexpr int BK = 32;             // keys per shared-memory tile
 constexpr float NEG_INIT = -1e30f;
 
+template <bool EMIT_STATS>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                 float* __restrict__ out, int heads, int t, float scale) {
+                 float* __restrict__ out, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int heads, int tq, int tk, float scale) {
   __shared__ __align__(16) float k_s[BK][D];  // float4 stores
   __shared__ __align__(16) float v_s[BK][D];
   __shared__ float bias_s[BK];
@@ -44,8 +57,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / heads;
   const int lane = threadIdx.x % LANES;
   const int row = blockIdx.x * ROWS + threadIdx.x / LANES;
-  const size_t base = (size_t)bh * t * D;
-  const bool live = row < t;
+  const size_t base = (size_t)bh * tq * D;     // of this head's q and out rows
+  const size_t kv_base = (size_t)bh * tk * D;  // of its k and v rows
+  const bool live = row < tq;
 
   // lane owns the float4 chunks lane + LANES * c of the row (c < DL / 4):
   // one key's chunks for the 4 lanes of a row are 64 contiguous bytes
@@ -59,22 +73,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   float m = NEG_INIT, l = 0.f;
 
-  for (int k0 = 0; k0 < t; k0 += BK) {
-    const int nk = min(BK, t - k0);
+  for (int k0 = 0; k0 < tk; k0 += BK) {
+    const int nk = min(BK, tk - k0);
     __syncthreads();  // previous tile consumed
     for (int i = threadIdx.x; i < BK * D / 4; i += NT) {
       int j = (i * 4) / D, d = (i * 4) % D;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (j < nk) {
-        kv = *reinterpret_cast<const float4*>(k + base + (size_t)(k0 + j) * D + d);
-        vv = *reinterpret_cast<const float4*>(v + base + (size_t)(k0 + j) * D + d);
+        kv = *reinterpret_cast<const float4*>(k + kv_base + (size_t)(k0 + j) * D + d);
+        vv = *reinterpret_cast<const float4*>(v + kv_base + (size_t)(k0 + j) * D + d);
       }
       *reinterpret_cast<float4*>(&k_s[j][d]) = kv;
       *reinterpret_cast<float4*>(&v_s[j][d]) = vv;
     }
     if (threadIdx.x < BK) {
       int j = threadIdx.x;
-      bias_s[j] = (j < nk && kv_mask != nullptr && kv_mask[(size_t)b * t + k0 + j] == 0) ? -1e9f
+      bias_s[j] = (j < nk && kv_mask != nullptr && kv_mask[(size_t)b * tk + k0 + j] == 0) ? -1e9f
                                                                                         : 0.f;
     }
     __syncthreads();
@@ -126,7 +140,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     m = m_new;
   }
 
-  if (live) {
+  if (!live) return;
+  if (EMIT_STATS) {
+#pragma unroll
+    for (int c = 0; c < DL / 4; ++c) {
+      *reinterpret_cast<float4*>(out + base + (size_t)row * D + 4 * (lane + LANES * c)) = acc[c];
+    }
+    if (lane == 0) {  // all four lanes of a row hold the same m and l
+      m_out[(size_t)bh * tq + row] = m;
+      l_out[(size_t)bh * tq + row] = l;
+    }
+  } else {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int c = 0; c < DL / 4; ++c) {
@@ -138,13 +162,28 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
-// q, k, v, out: [B, H, T, 64] f32 contiguous; kv_mask: [B, T] uint8 or null.
+// K3. q, k, v, out: [B, H, T, 64] f32 contiguous; kv_mask: [B, T] uint8 or null.
 extern "C" int act_flash_attention(const float* q, const float* k, const float* v,
                                    const uint8_t* kv_mask, float* out, int batch, int heads,
                                    int t, int head_dim, float scale, cudaStream_t stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
   if (t <= 0 || batch <= 0) return 0;
   dim3 grid((t + ROWS - 1) / ROWS, batch * heads);
-  flash_fwd_kernel<<<grid, NT, 0, stream>>>(q, k, v, kv_mask, out, heads, t, scale);
+  flash_fwd_kernel<false><<<grid, NT, 0, stream>>>(q, k, v, kv_mask, out, nullptr, nullptr,
+                                                   heads, t, t, scale);
+  return (int)cudaGetLastError();
+}
+
+// K5. q, out: [B, H, Tq, 64]; k, v: [B, H, Tk, 64]; m_out, l_out: [B, H, Tq];
+// all f32 contiguous; kv_mask: [B, Tk] uint8 or null. Tk >= 1.
+extern "C" int act_flash_attention_stats(const float* q, const float* k, const float* v,
+                                         const uint8_t* kv_mask, float* out, float* m_out,
+                                         float* l_out, int batch, int heads, int tq, int tk,
+                                         int head_dim, float scale, cudaStream_t stream) {
+  if (head_dim != D || tk <= 0) return (int)cudaErrorInvalidValue;
+  if (tq <= 0 || batch <= 0) return 0;
+  dim3 grid((tq + ROWS - 1) / ROWS, batch * heads);
+  flash_fwd_kernel<true><<<grid, NT, 0, stream>>>(q, k, v, kv_mask, out, m_out, l_out, heads,
+                                                  tq, tk, scale);
   return (int)cudaGetLastError();
 }

@@ -178,10 +178,15 @@ def _to_host(res):
 
 
 class StageEngine:
-    """Batched, bucketed stage dispatch over a ModelPack, on the pack's device."""
+    """Batched, bucketed stage dispatch over a ModelPack, on the pack's device.
+
+    ``mesh`` (parallel/mesh.make_mesh) serves the long-form path only:
+    ``transcribe_long`` cuts one utterance's frame axis over its "data" axis.
+    The batched stages do not shard their batches over a mesh (ROADMAP
+    slice 16)."""
 
     def __init__(self, pack: ModelPack, buckets: Optional[BucketSpec] = None,
-                 fbank: Optional[FbankConfig] = None):
+                 fbank: Optional[FbankConfig] = None, mesh=None):
         # parity with the f32 reference: no TF32 in matmuls, nor in the
         # convolutions (cuDNN defaults to TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -190,6 +195,10 @@ class StageEngine:
         self.device = pack.device
         self.buckets = buckets or BucketSpec()
         self.fbank_cfg = fbank or FbankConfig()
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"StageEngine: the mesh lives on {mesh.device}, the pack on "
+                             f"{self.device}")
+        self.mesh = mesh
 
     # ------------------------------------------------------ stage programs
     @staticmethod
@@ -481,6 +490,39 @@ class StageEngine:
         if not len(chunks):
             return []
         return self.collect_transcribe(self.launch_transcribe(chunks, language, use_itn))
+
+    #: ASR families transcribe_long can run sequence-parallel (their whole
+    #: decode is frame-parallel) and those it can run on one shard with the
+    #: full attention context. The port has the SenseVoice family; the other
+    #: three come with ROADMAP slice 12.
+    LONG_FORM_FAMILIES = ("sensevoice",)
+    LONG_FORM_SINGLE_CHIP = ("sensevoice",)
+
+    @torch.inference_mode()
+    def transcribe_long(self, wav: np.ndarray, language: str = "auto",
+                        use_itn: bool = True) -> str:
+        """ONE long utterance with full self-attention context.
+
+        With a mesh, the SenseVoice encoder runs ring attention over the
+        mesh's data axis: the frame axis is cut into shards, each shard's
+        block attention goes through kernel K5 once a shard holds
+        ``FLASH_MIN_T`` frames, and the utterance's activations split across
+        the shards. Without a mesh the same program runs unsharded and the
+        encoder's attention goes through kernel K3 from ``FLASH_MIN_T``
+        frames on, so attention memory stays O(T) either way. Inputs snap to
+        the long bucket grid (``BucketSpec.long_bucket_for``: the x2 grid
+        extended past the segment cap, without the ad-hoc-bucket warning)."""
+        wav = np.asarray(wav, np.float32)
+        p = self.pack
+        lang_id = LANGUAGES.index(language) if language in LANGUAGES else 0
+        t = self.buckets.long_bucket_for(len(wav))
+        padded, lengths = pad_batch_i16([wav[:t]], t, 1)
+        w, lens = self._dq(self._tensor(padded)), self._tensor(lengths)
+        feats, mask = sensevoice_frontend(w, lens, p.asr_cfg)
+        logits = p.models["asr"](feats, mask, language_id=lang_id, use_itn=use_itn,
+                                 mesh=self.mesh, sp_axis="data")
+        ids, n = ctc_greedy_decode(logits[:, p.asr_cfg.num_prompt:], mask, p.tokens.blank_id)
+        return p.tokens.decode(ids[0, : int(n[0])].cpu().numpy())
 
     def launch_clean(self, chunks, target_vecs, language: str = "auto", use_itn: bool = True,
                      arena: Optional[WaveArena] = None, spans=None):

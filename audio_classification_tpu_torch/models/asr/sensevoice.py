@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ...ops.fbank import FbankConfig, apply_lfr, log_mel_fbank
+from ...parallel.sp_encoder import sp_seq_shard, sp_seq_unshard
 from ..common import TransformerBlock, lengths_to_mask, position_table
 
 LANGUAGES = ("auto", "zh", "en", "yue", "ja", "ko", "nospeech")
@@ -64,7 +65,11 @@ class SenseVoiceEncoder(nn.Module):
         self.ctc_head = nn.Linear(c.dim, c.vocab_size)
 
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
-                language_id: int = 0, use_itn: bool = True) -> torch.Tensor:
+                language_id: int = 0, use_itn: bool = True, mesh=None,
+                sp_axis: str = "data") -> torch.Tensor:
+        """``mesh`` turns on sequence parallelism: every block's attention
+        runs ring-parallel over ``sp_axis`` with the frame mask travelling
+        the ring, on the same parameters as the dense path."""
         c = self.cfg
         x = self.in_proj(feats)
         b, t = x.shape[0], x.shape[1]
@@ -76,8 +81,14 @@ class SenseVoiceEncoder(nn.Module):
             mask = torch.cat([torch.ones((b, c.num_prompt), dtype=torch.bool, device=x.device),
                               frame_mask.bool()], dim=1)
         x = x + position_table(t + c.num_prompt, c.dim, x.device)[None]
+        if mesh is not None:
+            # the prompt concat and the positions come first, on the whole
+            # sequence; then one pad to the shard count enters the sharded regime
+            x, mask, orig_total = sp_seq_shard(x, mask, mesh, sp_axis)
         for i in range(c.layers):
-            x = getattr(self, f"block_{i}")(x, mask)
+            x = getattr(self, f"block_{i}")(x, mask, mesh, sp_axis)
+        if mesh is not None:
+            x = sp_seq_unshard(x, mesh, orig_total)
         return self.ctc_head(self.final_ln(x))
 
 

@@ -25,6 +25,7 @@ from torch import nn
 
 from ..ops.kernels.attention import FLASH_MIN_T, attention_reference, flash_attention
 from ..ops.quant import constant_of, int8_conv1d, int8_matmul, quantize_weight
+from ..parallel.ring_attention import ring_attention
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -134,8 +135,11 @@ class DenseQ(nn.Linear):
         super().__init__(in_features, out_features)
         self.quant = quant
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.quant != "int8":
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                quant: Optional[str] = None) -> torch.Tensor:
+        """``quant`` overrides the module's setting for this call (the
+        sequence-parallel path runs float projections in an int8 model)."""
+        if (self.quant if quant is None else quant) != "int8":
             return super().forward(x)
         m = None if mask is None else mask[..., None]
         wq = constant_of(self, "wq", (self.weight,), lambda: quantize_weight(self.weight.t()))
@@ -162,7 +166,12 @@ class MultiHeadSelfAttention(nn.Module):
     """Masked MHSA, [B, T, D] with boolean frame mask [B, T]. From
     ``FLASH_MIN_T`` frames on the core is kernel K3 (its twin on CPU);
     below it the dense masked softmax, as on the TPU. ``quant="int8"``
-    quantises the two projections; the attention core stays float32."""
+    quantises the two projections; the attention core stays float32.
+
+    With ``mesh`` the core is sequence-parallel ring attention over
+    ``sp_axis`` (parallel/ring_attention) on the same parameters, and both
+    projections run in float even in an int8 model: a per-sample activation
+    scale would have to span the shards."""
 
     def __init__(self, dim: int, heads: int, quant: str = "none"):
         super().__init__()
@@ -170,9 +179,23 @@ class MultiHeadSelfAttention(nn.Module):
         self.qkv = DenseQ(dim, 3 * dim, quant)
         self.out = DenseQ(dim, dim, quant)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, mesh=None,
+                sp_axis: str = "data") -> torch.Tensor:
         b, t, _ = x.shape
         d_head = self.dim // self.heads
+        if mesh is not None:
+            q, k, v = (z.reshape(b, t, self.heads, d_head)
+                       for z in self.qkv(x, mask, quant="none").split(self.dim, dim=-1))
+            kv_mask = mask if mask is not None else torch.ones(
+                (b, t), dtype=torch.bool, device=x.device)
+            # an encoder that entered through sp_seq_shard arrives with T a
+            # multiple of the shard count, and this pad stays unused
+            pad = (-t) % mesh.shape[sp_axis]
+            if pad:
+                q, k, v = (F.pad(z, (0, 0, 0, 0, 0, pad)) for z in (q, k, v))
+                kv_mask = F.pad(kv_mask, (0, pad))
+            out = ring_attention(q, k, v, mesh, axis=sp_axis, kv_mask=kv_mask)
+            return self.out(out[:, :t].reshape(b, t, self.dim), quant="none")
         q, k, v = (z.reshape(b, t, self.heads, d_head).transpose(1, 2)
                    for z in self.qkv(x, mask).split(self.dim, dim=-1))
         attend = flash_attention if t >= FLASH_MIN_T else attention_reference
@@ -184,7 +207,9 @@ class TransformerBlock(nn.Module):
     """Pre-LN encoder block with a depthwise conv branch (a light conformer
     flavour: attn -> conv -> ffn). Every model of the ported slice uses the
     conv branch, so it is not optional here. ``quant="int8"`` quantises the
-    attention and FFN projections; the depthwise conv stays float."""
+    attention and FFN projections; the depthwise conv stays float. ``mesh``
+    routes the attention core through ring attention and runs every
+    projection of the block in float."""
 
     def __init__(self, dim: int, heads: int, ffn_mult: int = 4, conv_kernel: int = 3,
                  quant: str = "none"):
@@ -199,13 +224,15 @@ class TransformerBlock(nn.Module):
         self.Dense_0 = DenseQ(dim, dim * ffn_mult, quant)
         self.Dense_1 = DenseQ(dim * ffn_mult, dim, quant)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.MultiHeadSelfAttention_0(self.LayerNorm_0(x), mask)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, mesh=None,
+                sp_axis: str = "data") -> torch.Tensor:
+        quant = None if mesh is None else "none"
+        x = x + self.MultiHeadSelfAttention_0(self.LayerNorm_0(x), mask, mesh, sp_axis)
         h = self.LayerNorm_1(x)
         if mask is not None:
             h = h * mask[..., None]
         x = x + F.silu(self.dwconv(h))
-        x = x + self.Dense_1(gelu(self.Dense_0(self.LayerNorm_2(x), mask)), mask)
+        x = x + self.Dense_1(gelu(self.Dense_0(self.LayerNorm_2(x), mask, quant)), mask, quant)
         if mask is not None:
             x = x * mask[..., None]
         return x

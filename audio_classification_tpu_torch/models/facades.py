@@ -8,9 +8,11 @@ StageEngine:
 - ``Separator``: separate(samples, sr) -> n_src wavs at the model's rate
 
 What needs modules that are not ported yet raises NotImplementedError naming
-the ROADMAP slice: separator checkpoints (slices 14 and 15), the
-sequence-parallel ``separate_long`` (slice 16), long-form transcription and
-the ``SpeakerASRModels`` / ``SpeakerBank`` SID facade (slice 12).
+the ROADMAP slice: separator checkpoints (slices 14 and 15) and the
+``SpeakerASRModels`` / ``SpeakerBank`` SID facade (slice 12). The long-form
+calls (``transcribe(long_form=True)``, ``separate_long``) take a mesh whose
+shards live on one device (parallel/mesh.make_mesh); a mesh over several
+cards is slice 16.
 """
 from __future__ import annotations
 
@@ -48,11 +50,12 @@ class ASRRecognizer:
         self.use_itn = use_itn
 
     def transcribe(self, samples: np.ndarray, sr: int, long_form: bool = False) -> str:
-        if long_form:
-            raise NotImplementedError(
-                "long-form transcription (StageEngine.transcribe_long) is not ported to "
-                "audio_classification_tpu_torch yet (ROADMAP slice 12)")
+        """``long_form`` routes through StageEngine.transcribe_long: the
+        utterance runs as ONE program with full attention context, its frame
+        axis cut over the engine's mesh (ring attention) when it has one."""
         wav = self.engine.resample(np.asarray(samples, np.float32), sr, G_SAMPLE_RATE)
+        if long_form:
+            return self.engine.transcribe_long(wav, self.language, self.use_itn)
         return self.engine.transcribe([wav], self.language, self.use_itn)[0]
 
     def transcribe_batch(self, chunks, sr: int) -> List[str]:
@@ -147,11 +150,33 @@ class Separator:
         outs = self.engine.separate(wavs, n_src=self.n_src, backend=self.backend)
         return [[o[i] for i in range(self.n_src)] for o in outs]
 
-    def separate_long(self, samples: np.ndarray, sr: int, mesh, axis: str = "data"):
-        raise NotImplementedError(
-            "Separator.separate_long: sequence-parallel separation over several devices "
-            "(parallel/sp_convtasnet) is not ported to audio_classification_tpu_torch yet "
-            "(ROADMAP slice 16)")
+    def separate_long(self, samples: np.ndarray, sr: int, mesh,
+                      axis: str = "data") -> List[np.ndarray]:
+        """One arbitrarily long mixture with its TIME axis cut over the mesh
+        (parallel/sp_convtasnet: halo-exchanged convs; summed gLN statistics
+        for Conv-TasNet, plain-sum ring passes for MossFormer's relu^2
+        attention). Numerically the dense masked forward of the selected
+        backend, in float (the audio is not quantised to int16 on the way)."""
+        import torch
+
+        from ..parallel.sp_convtasnet import sp_separate, sp_separate_mossformer
+
+        wav = self._ensure_sr(np.asarray(samples, np.float32), sr)
+        pack = self.engine.pack
+        mix = torch.from_numpy(np.ascontiguousarray(wav))[None].to(pack.device)
+        with torch.inference_mode():
+            if self.backend == "mossformer":
+                out = sp_separate_mossformer(pack.models["mossformer"], mix, None, mesh,
+                                             axis=axis)
+            else:
+                stage = "sep3" if self.n_src == 3 else "sep2"
+                out = sp_separate(pack.models[stage], mix, None, mesh, axis=axis)
+        out = out[0].cpu().numpy()
+        if out.shape[0] < self.n_src:  # same contract as separate()
+            raise RuntimeError(
+                f"Separation output has {out.shape[0]} < {self.n_src} sources; the "
+                f"'{self.backend}' preset emits {out.shape[0]} streams: check model/config.")
+        return [out[i] for i in range(self.n_src)]
 
     def _ensure_sr(self, samples: np.ndarray, sr: int) -> np.ndarray:
         if sr == self.sample_rate or len(samples) <= 1:

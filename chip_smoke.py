@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (audio_classification_tpu_torch) on one
 NVIDIA GPU: builds the CUDA kernels, holds each against its plain PyTorch
-twin at the main path's shapes (with its time, the twin's, the card's bound
+twin at the main paths' shapes (with its time, the twin's, the card's bound
 for the same work and, for attention, one library call's time), checks the
 full-preset stages on the card against the CPU, and drives the port's entry
 points at the full preset, reading every kernel's launch count around each:
@@ -20,7 +20,15 @@ points at the full preset, reading every kernel's launch count around each:
   window fed must come out analysed, so no failure was swallowed;
 - the multi-session server replaying 8 callers with --quant int8 (K1,
   K2-s8 at batch 8): every window of every session answered, none dropped;
-  then two sessions at 8 and 16 kHz in one tick (the in-tick resampler).
+  then two sessions at 8 and 16 kHz in one tick (the in-tick resampler);
+- long-form transcription of a 200 s utterance (256 s bucket, 4271 encoder
+  frames) through ASRRecognizer.transcribe(long_form=True): on an engine
+  with a mesh of 4 shards on the one card (ring attention, K5 at 12 blocks x
+  16 block pairs = 192 launches, K3 none) and on one without a mesh (K3 at
+  T = 4271, 12 launches, K5 none), CTC logits and texts of the two compared;
+  a 100 s utterance over 8 shards (268 frames a shard: the dense block);
+- Separator.separate_long over 4 shards, Conv-TasNet-3 on a 20 s mixture and
+  MossFormer on a 16 s one, against Separator.separate on the same engine.
 
     python3 chip_smoke.py
 
@@ -45,6 +53,11 @@ SR = 16000
 # here is IEEE float32 FMA) and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the long-form path: a 200 s utterance snaps to the 256 s bucket, whose
+# (256 * SR - 400) // 160 + 1 = 25598 fbank frames make ceil(25598 / 6) = 4267
+# LFR frames + 4 prompt frames; 4 shards pad that to 4 x 1068. The utterance's
+# own 19998 fbank frames make 3333 + 4 valid encoder frames.
+LONG_SEC, LONG_T, LONG_VALID_T, LONG_SHARDS = 200, 4271, 3337, 4
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -229,16 +242,19 @@ def check_tcn_s8(torch, np) -> dict:
 
 def check_attention(torch, np) -> dict:
     """K3 against its twin: SenseVoice on a 32 s clean span (T=537, 8 heads)
-    at batch 8 and at the file-mode pipeline's batch 1, and OSDNet on a 32 s
-    bucket (T=800, 4 heads), ragged key masks."""
+    at batch 8 and at the file-mode pipeline's batch 1, OSDNet on a 32 s
+    bucket (T=800, 4 heads), ragged key masks; and the long-form path's
+    shape, SenseVoice on a 200 s utterance in the 256 s bucket (T=4271, the
+    first 3337 keys valid)."""
     from audio_classification_tpu_torch.ops.kernels import attention
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
     cases = []
-    for b, h, t in ((8, 8, 537), (1, 8, 537), (1, 4, 800)):
+    for b, h, t, valid in ((8, 8, 537, None), (1, 8, 537, None), (1, 4, 800, None),
+                           (1, 8, LONG_T, LONG_VALID_T)):
         q, k, v = (torch.randn((b, h, t, 64), generator=gen).to(dev) for _ in range(3))
-        lens = torch.tensor([t - 97 * i % t for i in range(b)], device=dev)
+        lens = torch.tensor([valid or t - 97 * i % t for i in range(b)], device=dev)
         mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
         out = attention.flash_attention(q, k, v, mask)
         torch.cuda.synchronize()
@@ -254,12 +270,100 @@ def check_attention(torch, np) -> dict:
                       "library_ms": cuda_ms(
                           torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                               q, k, v, attn_mask=sdpa_mask), 20),
-                      **bound(4.0 * b * h * t * t * 64, 4.0 * (4 * q.numel() + mask.numel() / 4))})
+                      # operations over the valid keys: a masked key adds exp(-1e9) = 0
+                      **bound(4.0 * h * t * int(lens.sum()) * 64,
+                              4.0 * (4 * q.numel() + mask.numel() / 4))})
         log({"phase": "kernel", "name": "flash_attention", **cases[-1], "tol": 2e-5})
-        # f32 softmax over <= 800 keys with O(1) outputs; padded query rows
+        # f32 softmax over <= 4271 keys with O(1) outputs; padded query rows
         # are discarded downstream and not compared
         assert err <= 2e-5, cases[-1]
     return {**cases[0], "max_abs_err": max(c["max_abs_err"] for c in cases), "cases": cases}
+
+
+def check_attention_stats(torch, np) -> dict:
+    """K5 against its twin at the long-form path's shapes (one shard's 1068
+    queries of the 256 s bucket against a whole valid key block, and against
+    the block that holds the utterance's end: 133 keys valid) and at a ragged
+    batch with Tq != Tk off both tiles; then the ring of 4 over
+    [1, 4272, 8, 64] merged, against K3 at the same T and the dense oracle."""
+    from audio_classification_tpu_torch.ops.kernels import attention
+    from audio_classification_tpu_torch.parallel.mesh import make_mesh
+    from audio_classification_tpu_torch.parallel.ring_attention import (
+        reference_attention,
+        ring_attention,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    ts = -(-LONG_T // LONG_SHARDS)
+    cases = []
+    for b, h, tq, tk, lens in ((1, 8, ts, ts, [ts]),
+                               (1, 8, ts, ts, [LONG_VALID_T - 3 * ts]),
+                               (3, 8, 537, 1068, [1068, 300, 33])):
+        q = torch.randn((b, h, tq, 64), generator=gen).to(dev)
+        k, v = (torch.randn((b, h, tk, 64), generator=gen).to(dev) for _ in range(2))
+        mask = torch.arange(tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        o, m, l = attention.flash_attention_stats(q, k, v, mask)
+        torch.cuda.synchronize()
+        ro, rm, rl = attention.attention_stats_reference(q, k, v, mask)
+        err_o = (o - ro).abs().max().item()
+        peak = ro.abs().max().item()
+        err_m = ((m - rm).abs() / rm.abs().clamp_min(1.0)).max().item()
+        err_l = ((l - rl).abs() / rl.abs()).max().item()
+        sdpa_mask = mask[:, None, None, :]
+        n_out = o.numel() + m.numel() + l.numel()
+        cases.append({
+            "shape": [b, h, tq, 64], "keys": tk, "valid_keys": lens, "max_abs_err": err_o,
+            "rel_err": err_o / peak, "tol_rel": 1e-4, "m_rel_err": err_m, "l_rel_err": err_l,
+            "tol_ml_rel": 1e-5,
+            "ms": cuda_ms(torch, lambda: attention.flash_attention_stats(q, k, v, mask), 20),
+            "plain_ms": cuda_ms(torch, lambda: attention.attention_stats_reference(
+                q, k, v, mask), 20),
+            # no single PyTorch call returns the unnormalised float32 triple
+            # (o, m, l): scaled_dot_product_attention returns the normalised
+            # output alone. Its time on the same q, k, v is written beside,
+            # as a yardstick of another function
+            "library_ms": None,
+            "sdpa_ms_same_inputs": None if tq != tk else cuda_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=sdpa_mask), 20),
+            **bound(4.0 * h * tq * sum(lens) * 64,
+                    4.0 * (q.numel() + k.numel() + v.numel() + n_out + mask.numel() / 4))})
+        log({"phase": "kernel", "name": "flash_attention_stats", **cases[-1]})
+        # f32 on both sides; the kernel adds a row's keys one after another,
+        # the twin in cuBLAS's blocked order. m is a maximum of products that
+        # differ by rounding alone
+        assert math.isfinite(err_o) and err_o <= 1e-4 * peak, cases[-1]
+        assert err_m <= 1e-5 and err_l <= 1e-5, cases[-1]
+
+    # the ring as the long-form encoder calls it: 4 shards of 1068 frames on
+    # this card, the keys past the utterance's end masked (the last shard
+    # holds 133 valid keys). 16 K5 launches and 12 merges against one K3 call
+    t = ts * LONG_SHARDS
+    q, k, v = (torch.randn((1, t, 8, 64), generator=gen).to(dev) for _ in range(3))
+    mask = (torch.arange(t, device=dev) < LONG_VALID_T)[None, :]
+    mesh = make_mesh(LONG_SHARDS, devices=[dev] * LONG_SHARDS)
+    qh, kh, vh = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+    before = attention.flash_attention_stats.launches
+    out = ring_attention(q, k, v, mesh, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_stats.launches - before == LONG_SHARDS ** 2
+    k3 = attention.flash_attention(qh, kh, vh, mask).transpose(1, 2)
+    ref = reference_attention(q, k, v, mask)
+    rows = mask[:, :, None, None]
+    ring = {"shape": [1, t, 8, 64], "shards": LONG_SHARDS, "valid_keys": LONG_VALID_T,
+            "max_abs_err_vs_oracle": ((out - ref).abs() * rows).max().item(),
+            "max_abs_diff_vs_flash_attention": ((out - k3).abs() * rows).max().item(),
+            "tol": 2e-5,
+            "ring_ms": cuda_ms(torch, lambda: ring_attention(q, k, v, mesh, kv_mask=mask), 10),
+            "flash_attention_ms": cuda_ms(
+                torch, lambda: attention.flash_attention(qh, kh, vh, mask), 10),
+            "oracle_ms": cuda_ms(torch, lambda: reference_attention(q, k, v, mask), 10)}
+    log({"phase": "ring_attention", **ring})
+    assert ring["max_abs_err_vs_oracle"] <= 2e-5, ring
+    assert ring["max_abs_diff_vs_flash_attention"] <= 2e-5, ring
+    return {**cases[0], "max_abs_err": max(c["max_abs_err"] for c in cases), "cases": cases,
+            "ring": ring}
 
 
 def check_gau(torch, np) -> dict:
@@ -375,11 +479,12 @@ def check_small_input_against_cpu(torch, np) -> None:
     log({"phase": "small_input_vs_cpu_int8", "rel_err": report, "tol_rel": 3e-2})
 
 
-def _counted(torch, counters: dict, expect: tuple, name: str, fn, unexpected: tuple = ()):
+def _counted(torch, counters: dict, expect: tuple, name: str, fn, unexpected: tuple = (),
+             exact: dict = None):
     """Run one entry point with every launch count set to 0 just before and
     read just after (the entry points join their worker threads before they
     return); the kernels in ``expect`` must have been launched, those in
-    ``unexpected`` must not."""
+    ``unexpected`` must not, those in ``exact`` that many times."""
     for wrapper, attr in counters.values():
         setattr(wrapper, attr, 0)
     t0 = time.perf_counter()
@@ -392,6 +497,8 @@ def _counted(torch, counters: dict, expect: tuple, name: str, fn, unexpected: tu
         assert launches[k] > 0, f"kernel {k} was not launched by {name}"
     for k in unexpected:
         assert launches[k] == 0, f"kernel {k} was launched by {name}"
+    for k, n in (exact or {}).items():
+        assert launches[k] == n, f"kernel {k}: {launches[k]} launches by {name}, expected {n}"
     return out, launches
 
 
@@ -608,9 +715,111 @@ def run_paths(torch, np, counters: dict) -> dict:
         assert sum(x["kind"] == "full_separation" for x in got) == 3, got
         assert all(math.isfinite(x["sv_score"]) for x in got)
 
-    for k, n in total.items():
-        assert n > 0, f"kernel {k} was not launched on any path"
-    log({"phase": "launches", "path": "all", **total})
+    return total
+
+
+def run_long_form(torch, np, counters: dict) -> dict:
+    """The long-form entry points at the full preset (seeded random weights)
+    on n shards of the one card, each with its launch counts -> total
+    launches per kernel."""
+    from audio_classification_tpu_torch.engine.runtime import EnginePreset, ModelPack, StageEngine
+    from audio_classification_tpu_torch.models import facades
+    from audio_classification_tpu_torch.models.asr.sensevoice import sensevoice_frontend
+    from audio_classification_tpu_torch.parallel.mesh import make_mesh
+
+    total = {k: 0 for k in counters}
+    pack = ModelPack(EnginePreset(), seed=0, device="cuda")
+    layers = pack.asr_cfg.layers
+    assert (pack.asr_cfg.dim, pack.asr_cfg.heads, layers) == (512, 8, 12)
+    single = StageEngine(pack)
+    ring4 = StageEngine(pack, mesh=make_mesh(LONG_SHARDS))
+    ring8 = StageEngine(pack, mesh=make_mesh(8))
+    speech = sum(talkers(LONG_SEC * SR, 30)) / 3.0
+    speech = (0.6 * speech / np.abs(speech).max()).astype(np.float32)
+
+    def transcribe(name, engine, wav, expect, exact):
+        text, launches = _counted(
+            torch, counters, expect, name,
+            lambda: facades.ASRRecognizer(engine).transcribe(wav, SR, long_form=True),
+            exact=exact)
+        for k, n in launches.items():
+            total[k] += n
+        return text
+
+    # a 200 s utterance: the 256 s bucket, 4271 encoder frames. Over 4 shards
+    # every block's attention is 4 x 4 K5 launches on 1068-frame blocks;
+    # without a mesh it is one K3 launch at T = 4271
+    text4 = transcribe(f"transcribe long_form, {LONG_SEC} s, mesh of {LONG_SHARDS}", ring4, speech,
+                       ("fbank_power_mel",),
+                       {"flash_attention_stats": layers * LONG_SHARDS ** 2, "flash_attention": 0})
+    text1 = transcribe(f"transcribe long_form, {LONG_SEC} s, no mesh", single, speech,
+                       ("fbank_power_mel",),
+                       {"flash_attention": layers, "flash_attention_stats": 0})
+    # a 100 s utterance over 8 shards: the 128 s bucket's 2138 frames make
+    # 268 a shard, below the kernel's threshold of 512: the dense block
+    half = speech[: LONG_SEC * SR // 2]
+    text8 = transcribe(f"transcribe long_form, {LONG_SEC // 2} s, mesh of 8", ring8, half,
+                       ("fbank_power_mel",), {"flash_attention_stats": 0, "flash_attention": 0})
+    text8_ref = single.transcribe_long(half)
+
+    # the CTC logits of the ring against those of the one-shard path, on the
+    # utterance's own frames: float32 through 12 blocks on two attention
+    # kernels that add in different orders. 1e-3 of max|logit|
+    with torch.inference_mode():
+        t = single.buckets.long_bucket_for(len(speech))
+        w = torch.zeros((1, t), device="cuda")
+        w[0, : len(speech)] = torch.from_numpy(np.round(speech * 32768) / 32768).to("cuda")
+        lens = torch.tensor([len(speech)], device="cuda")
+        feats, mask = sensevoice_frontend(w, lens, pack.asr_cfg)
+        dense = pack.models["asr"](feats, mask)
+        ring = pack.models["asr"](feats, mask, mesh=ring4.mesh, sp_axis="data")
+    assert dense.shape == ring.shape == (1, LONG_T, pack.asr_cfg.vocab_size), dense.shape
+    valid = torch.cat([torch.ones((1, pack.asr_cfg.num_prompt), dtype=torch.bool, device="cuda"),
+                       mask], dim=1)[..., None]
+    assert int(valid.sum()) == LONG_VALID_T
+    err = ((dense - ring).abs() * valid).max().item()
+    peak = (dense.abs() * valid).max().item()
+    same_ids = ((dense.argmax(-1) == ring.argmax(-1)) | ~valid[..., 0]).float().mean().item()
+    log({"phase": "long_form", "seconds": LONG_SEC, "bucket_samples": t, "frames": LONG_T,
+         "valid_frames": LONG_VALID_T, "logits_max_abs_diff": err, "logits_peak": peak,
+         "rel_err": err / peak, "tol_rel": 1e-3, "frames_with_equal_argmax": same_ids,
+         "text_len": len(text1), "texts_equal": text4 == text1,
+         "texts_equal_8_shards": text8 == text8_ref, "text_head": text1[:60]})
+    assert torch.isfinite(dense).all() and torch.isfinite(ring).all()
+    assert err <= 1e-3 * peak, (err, peak)
+    assert text4 == text1 and len(text1) > 0, (text4[:80], text1[:80])
+    assert text8 == text8_ref and len(text8) > 0, (text8[:80], text8_ref[:80])
+
+    # time-sharded separation over 4 shards against the batched stage of the
+    # same engine. Both get audio on the int16 grid (the batched stage
+    # quantises its input, the long path does not). The batched stage pads to
+    # a bucket, and MossFormer scales its attention by 1 / (frames of the
+    # padded batch), so its mixture fills a bucket exactly (128000 samples,
+    # 16 s at its 8 kHz); Conv-TasNet's masked forward does not depend on the
+    # padding and takes 20 s. The long path is dense PyTorch per shard, the
+    # batched stage runs K2 / K4: float32 through 24 TCN blocks or 8 GAU
+    # layers, 1e-3 of max|ref| as for the stages against the CPU
+    mesh = make_mesh(LONG_SHARDS)
+    for backend, n_src, kernel, n in (("convtasnet", 3, "tcn_masker", 20 * SR),
+                                      ("mossformer", 2, "gau_attention", 128000)):
+        sep = facades.Separator(backend=backend, n_src=n_src, engine=single)
+        assert backend != "mossformer" or n in single.buckets.lengths
+        mix = sum(talkers(n, 31)[:n_src]) / n_src
+        mix = (np.round(0.6 * mix / np.abs(mix).max() * 32768) / 32768).astype(np.float32)
+        name = f"separate_long --backend {backend}, {n / sep.sample_rate:g} s, " \
+               f"mesh of {LONG_SHARDS}"
+        got, launches = _counted(torch, counters, (), name,
+                                 lambda: sep.separate_long(mix, sep.sample_rate, mesh),
+                                 exact={k: 0 for k in counters})
+        ref, _ = _counted(torch, counters, (kernel,), f"separate --backend {backend}, same mixture",
+                          lambda: sep.separate(mix, sep.sample_rate))
+        got, ref = np.stack(got), np.stack(ref)
+        assert got.shape == ref.shape == (n_src, n) and np.isfinite(got).all() and got.any()
+        rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+        log({"phase": "separate_long", "backend": backend, "n_src": n_src, "samples": n,
+             "sample_rate": sep.sample_rate, "shards": LONG_SHARDS, "rel_err_vs_separate": rel,
+             "tol_rel": 1e-3})
+        assert rel <= 1e-3, (backend, rel)
     return total
 
 
@@ -631,7 +840,10 @@ def main() -> int:
     import numpy as np
 
     from audio_classification_tpu_torch import _build
-    from audio_classification_tpu_torch.ops.kernels.attention import flash_attention
+    from audio_classification_tpu_torch.ops.kernels.attention import (
+        flash_attention,
+        flash_attention_stats,
+    )
     from audio_classification_tpu_torch.ops.kernels.fbank import fbank_power_mel
     from audio_classification_tpu_torch.ops.kernels.gau import gau_attention
     from audio_classification_tpu_torch.ops.kernels.tcn import fused_tcn_masker
@@ -653,7 +865,8 @@ def main() -> int:
                "tcn_masker": check_tcn(torch, np),
                "tcn_masker_s8": check_tcn_s8(torch, np),
                "flash_attention": check_attention(torch, np),
-               "gau_attention": check_gau(torch, np)}
+               "gau_attention": check_gau(torch, np),
+               "flash_attention_stats": check_attention_stats(torch, np)}
     check_small_input_against_cpu(torch, np)
     # each wrapper's count of kernel launches; the masker's two C entry points
     # count apart
@@ -661,8 +874,14 @@ def main() -> int:
                 "tcn_masker": (fused_tcn_masker, "launches"),
                 "tcn_masker_s8": (fused_tcn_masker, "launches_s8"),
                 "flash_attention": (flash_attention, "launches"),
-                "gau_attention": (gau_attention, "launches")}
+                "gau_attention": (gau_attention, "launches"),
+                "flash_attention_stats": (flash_attention_stats, "launches")}
     launches = run_paths(torch, np, counters)
+    for k, n in run_long_form(torch, np, counters).items():
+        launches[k] += n
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was not launched on any path"
+    log({"phase": "launches", "path": "all", **launches})
 
     meta = {
         "fbank_power_mel": ("audio_classification_tpu_torch/csrc/fbank_power_mel.cu",
@@ -676,6 +895,9 @@ def main() -> int:
                             "audio_classification_tpu/ops/pallas/attention_kernel.py:268"),
         "gau_attention": ("audio_classification_tpu_torch/csrc/gau_attention.cu",
                           "audio_classification_tpu/ops/pallas/attention_kernel.py:410"),
+        # K3's body with the other epilogue: act_flash_attention_stats
+        "flash_attention_stats": ("audio_classification_tpu_torch/csrc/flash_attention.cu",
+                                  "audio_classification_tpu/ops/pallas/attention_kernel.py:293"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name],

@@ -20,6 +20,12 @@ rescale. Scenes:
                wav through StreamingOverlap3Pipeline._analyze_segment
   serving      --quant int8: 8 sessions x 12 s, six ticks of 8 windows of 2 s
                through StreamingServer.step()
+  long-form    a 200 s utterance through ASRRecognizer.transcribe(
+               long_form=True) on an engine without a mesh (256 s bucket,
+               K3 at T = 4271 in 12 blocks)
+  long-form-ring4  the same utterance on an engine with a mesh of 4 shards
+               on the one card (ring attention: K5 on 1068-frame blocks,
+               16 launches and 12 merges a block)
 
 torch.profiler's context is thread-local, so the streaming and serving scenes
 drive the pipeline's per-chunk analysis and the server's tick on the calling
@@ -63,7 +69,8 @@ def busy_ms(intervals) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scenes",
-                    default="overlap,clean,mossformer,overlap-int8,streaming,serving")
+                    default="overlap,clean,mossformer,overlap-int8,streaming,serving,"
+                            "long-form,long-form-ring4")
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_scene.json"))
     args = ap.parse_args()
@@ -74,13 +81,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_scene: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import SR, talkers
+    from chip_smoke import LONG_SEC, LONG_SHARDS, SR, talkers
 
     from audio_classification_tpu_torch.audio_io import write_wav
     from audio_classification_tpu_torch.cli import serve_streams, streaming_overlap_3src
-    from audio_classification_tpu_torch.models import common, convtasnet
+    from audio_classification_tpu_torch.engine.runtime import StageEngine
+    from audio_classification_tpu_torch.models import common, convtasnet, facades
     from audio_classification_tpu_torch.ops import quant
     from audio_classification_tpu_torch.ops.kernels import tcn
+    from audio_classification_tpu_torch.parallel.mesh import make_mesh
     from audio_classification_tpu_torch.pipelines.offline_overlap3 import (
         Overlap3Pipeline,
         build_engine,
@@ -192,12 +201,26 @@ def main() -> int:
             return {"tick_ms": lat, "records": records}
         return run
 
+    def long_form_scene(shards):
+        pack = engine_for("none").pack
+        engine = StageEngine(pack, mesh=make_mesh(shards) if shards else None)
+        speech = sum(talkers(LONG_SEC * SR, 30)) / 3.0
+        speech = (0.6 * speech / np.abs(speech).max()).astype(np.float32)
+        rec = facades.ASRRecognizer(engine)
+
+        def run():
+            text = rec.transcribe(speech, SR, long_form=True)  # ends in a copy to the host
+            return {"text_len": len(text), "audio_sec": LONG_SEC}
+        return run
+
     report = {"device": smi, "scenes": {}}
     for name in args.scenes.split(","):
         if name == "streaming":
             run = streaming_scene()
         elif name == "serving":
             run = serving_scene()
+        elif name.startswith("long-form"):
+            run = long_form_scene(LONG_SHARDS if name.endswith("ring4") else 0)
         else:
             run = file_scene(name)
         run()  # first call: builds kernels, cuDNN plans, cached constants

@@ -181,3 +181,74 @@ def test_gau_kernel_matches_twin(dev, b, t, dqk, de, lens):
         gau.gau_attention(q[..., :6], k[..., :6], v, mask, 1.0)
     with pytest.raises(ValueError, match="float32"):
         gau.gau_attention(q.double(), k, v, mask, 1.0)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,lens", [
+    (1, 1, 1, 1, [1]),                      # a single query and key
+    (2, 2, 70, 45, [45, 17]),               # Tq != Tk, both off the 32-row and 32-key tiles
+    (3, 8, 537, 1068, [1068, 300, 33]),     # B > 1, ragged masks, whole key tiles masked
+    (1, 8, 1068, 1068, [1068]),             # the long-form path's shape (256 s over 4 shards)
+    (2, 3, 100, 64, [64, 0]),               # one item with every key masked
+])
+def test_flash_stats_kernel_matches_twin(dev, b, h, tq, tk, lens):
+    """K5 against its twin: o to 1e-4 of max|o|, m and l to 1e-5 relative
+    (f32; the kernel adds keys one after another, the twin in cuBLAS's blocked
+    order). An item whose keys are all masked gives m = -1e9 and l = Tk on
+    both sides. The mask may be absent. o / l is K3's output."""
+    g = torch.Generator().manual_seed(tq + tk)
+    q = torch.randn((b, h, tq, 64), generator=g).to(dev)
+    k, v = (torch.randn((b, h, tk, 64), generator=g).to(dev) for _ in range(2))
+    lens_t = torch.tensor(lens, device=dev)
+    mask = torch.arange(tk, device=dev)[None, :] < lens_t[:, None]
+    before = attention.flash_attention_stats.launches
+    for msk in (mask, None):
+        o, m, l = attention.flash_attention_stats(q, k, v, msk)
+        torch.cuda.synchronize()
+        ro, rm, rl = attention.attention_stats_reference(q, k, v, msk)
+        assert o.shape == ro.shape and m.shape == rm.shape == l.shape == (b, h, tq)
+        assert (o - ro).abs().max().item() <= 1e-4 * ro.abs().max().item()
+        assert ((m - rm).abs() <= 1e-5 * rm.abs().clamp_min(1.0)).all()
+        assert ((l - rl).abs() <= 1e-5 * rl.abs()).all()
+    assert attention.flash_attention_stats.launches == before + 2
+    empty = lens_t == 0
+    if empty.any():
+        o, m, l = attention.flash_attention_stats(q, k, v, mask)
+        assert (m[empty] == -1e9).all() and (l[empty] == tk).all()
+    if tq == tk:
+        out = attention.flash_attention(q, k, v, mask)
+        o, m, l = attention.flash_attention_stats(q, k, v, mask)
+        assert (out - o / l[..., None]).abs().max().item() < 2e-6
+    with pytest.raises(ValueError, match="head dim"):
+        attention.flash_attention_stats(q[..., :32], k[..., :32], v[..., :32], mask)
+    with pytest.raises(ValueError, match="must be float32"):
+        attention.flash_attention_stats(q, k, v[:, :, :-1], mask)
+
+
+@pytest.mark.parametrize("n,t", [(2, 1100), (4, 2139), (4, 4272), (8, 2144)])
+def test_ring_attention_on_the_card(dev, n, t):
+    """The ring over n shards of one card against K3 and against the dense
+    oracle, [1, T, 8, 64] with a padded tail that masks the last shard's keys
+    whole: per-shard lengths on both sides of the K5 threshold (n = 8 runs
+    the dense block), T padded to a multiple of n. 2e-5 abs on valid rows."""
+    from audio_classification_tpu_torch.parallel.mesh import make_mesh
+    from audio_classification_tpu_torch.parallel.ring_attention import (
+        reference_attention,
+        ring_attention,
+    )
+
+    g = torch.Generator().manual_seed(t)
+    tp = -(-t // n) * n
+    q, k, v = (torch.randn((1, tp, 8, 64), generator=g).to(dev) for _ in range(3))
+    valid = t - (tp // n) - 5 if n > 2 else t   # n > 2: the last shard holds no valid key
+    mask = (torch.arange(tp, device=dev) < valid)[None, :]
+    mesh = make_mesh(n, devices=[dev] * n)
+    before = attention.flash_attention_stats.launches
+    out = ring_attention(q, k, v, mesh, kv_mask=mask)
+    torch.cuda.synchronize()
+    want = n * n if tp // n >= attention.FLASH_MIN_T else 0
+    assert attention.flash_attention_stats.launches == before + want
+    ref = reference_attention(q, k, v, mask)
+    k3 = attention.flash_attention(*(z.transpose(1, 2) for z in (q, k, v)), mask).transpose(1, 2)
+    rows = mask[:, :, None, None]
+    assert ((out - ref).abs() * rows).max().item() < 2e-5
+    assert ((out - k3).abs() * rows).max().item() < 2e-5

@@ -322,12 +322,8 @@ def test_facades_unported_parts_name_their_slice(engines):
     eng = engines[1]
     with pytest.raises(NotImplementedError, match="slice 1[45]"):
         facades.Separator(checkpoint="sep.ckpt", engine=eng)
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        facades.Separator(engine=eng).separate_long(np.zeros(10, np.float32), 16000, None)
     with pytest.raises(NotImplementedError, match="slice 12"):
         facades.SpeakerASRModels(None)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        facades.ASRRecognizer(eng).transcribe(np.zeros(10, np.float32), 16000, long_form=True)
 
 
 def test_default_engine_needs_a_card_unless_cpu_is_named():
