@@ -104,9 +104,14 @@ def _library() -> ctypes.CDLL:
 def kernel(name: str, argtypes: list):
     """The C entry point ``name`` with its argument types declared
     (``c_void_p`` for every pointer and the stream, so 64-bit addresses are
-    never cut to 32 bits)."""
+    never cut to 32 bits); declared once, then looked up."""
+    return _entry(name, tuple(argtypes))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, argtypes: tuple):
     fn = getattr(_library(), name)
-    fn.argtypes = argtypes
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 

@@ -73,7 +73,11 @@ def _check_qkv(name: str, q, k, v, kv_mask):
         if tuple(kv_mask.shape) != (b, tk) or kv_mask.device != q.device:
             raise ValueError(f"{name}: kv_mask must be {(b, tk)} on {q.device}, "
                              f"got {tuple(kv_mask.shape)} on {kv_mask.device}")
-        kv_mask = kv_mask.to(torch.uint8).contiguous()
+        # the kernel reads one byte a key and tests it against 0: a bool or
+        # uint8 mask goes as it is, without a cast of its own
+        if kv_mask.dtype not in (torch.bool, torch.uint8):
+            kv_mask = kv_mask != 0
+        kv_mask = kv_mask.contiguous()
     return _aligned(q), _aligned(k), _aligned(v), kv_mask
 
 

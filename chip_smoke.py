@@ -49,10 +49,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SR = 16000
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores (every kernel
-# here is IEEE float32 FMA) and HBM3 bandwidth
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores (K1, K2, K4
+# are IEEE float32 FMA) and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# K3 / K5 run both products on the tensor cores in 3xTF32: three TF32
+# products per float32 product at the data sheet's dense TF32 rate
+# (495 TFLOP/s, H100 SXM); their exponentials go through the special function
+# units, 16 results per SM per clock (CUDA C++ Programming Guide, throughput
+# of native arithmetic instructions, compute capability 9.0) on 132 SMs at
+# 1.83 GHz, the clock behind the data sheet's tensor rates
+PEAK_3XTF32_FLOPS = 495e12 / 3
+PEAK_SFU_PER_S = 16 * 132 * 1.83e9
 # the long-form path: a 200 s utterance snaps to the 256 s bucket, whose
 # (256 * SR - 400) // 160 + 1 = 25598 fbank frames make ceil(25598 / 6) = 4267
 # LFR frames + 4 prompt frames; 4 shards pad that to 4 x 1068. The utterance's
@@ -68,6 +76,20 @@ def bound(flops: float, nbytes: float) -> dict:
     return {"bound_ms": max(by_ops, by_bytes),
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
+
+
+def attention_bound(flops: float, exps: float, nbytes: float) -> dict:
+    """K3 / K5: the larger of the products at the 3xTF32 tensor-core rate,
+    the exponentials at the SFU rate and the bytes; beside it the float32
+    SIMT figure (``bound_simt_ms``) that the kernel's earlier SIMT design
+    was held to, so that its times compare with the new ones."""
+    terms = {"tensor_3xtf32": flops / PEAK_3XTF32_FLOPS * 1e3,
+             "sfu_exp": exps / PEAK_SFU_PER_S * 1e3,
+             "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term], "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "bound_simt_ms": bound(flops, nbytes)["bound_ms"],
+            "flops": flops, "exps": exps, "bytes": nbytes}
 
 
 def log(obj) -> None:
@@ -91,6 +113,33 @@ def cuda_ms(torch, fn, iters: int) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean device milliseconds of fn, its iters calls captured in one CUDA
+    graph and replayed: the kernels fn launches without the host time of
+    its Python (checks, allocations, dispatch). A batch-1 attention kernel
+    runs for less than that host time, so ``cuda_ms`` of a loop of calls
+    times the host; K3, K5, their twins and SDPA are timed both ways."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as capture asks
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -243,36 +292,54 @@ def check_tcn_s8(torch, np) -> dict:
 def check_attention(torch, np) -> dict:
     """K3 against its twin: SenseVoice on a 32 s clean span (T=537, 8 heads)
     at batch 8 and at the file-mode pipeline's batch 1, OSDNet on a 32 s
-    bucket (T=800, 4 heads), ragged key masks; and the long-form path's
-    shape, SenseVoice on a 200 s utterance in the 256 s bucket (T=4271, the
-    first 3337 keys valid)."""
+    bucket (T=800, 4 heads), ragged key masks; the batch-8 shape again with
+    holes in the masks (valid keys after key tiles masked whole, which the
+    kernel skips); and the long-form path's shape, SenseVoice on a 200 s
+    utterance in the 256 s bucket (T=4271, the first 3337 keys valid)."""
     from audio_classification_tpu_torch.ops.kernels import attention
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
     cases = []
-    for b, h, t, valid in ((8, 8, 537, None), (1, 8, 537, None), (1, 4, 800, None),
-                           (1, 8, LONG_T, LONG_VALID_T)):
+    for b, h, t, valid, holes in ((8, 8, 537, None, False), (1, 8, 537, None, False),
+                                  (1, 4, 800, None, False), (8, 8, 537, None, True),
+                                  (1, 8, LONG_T, LONG_VALID_T, False)):
         q, k, v = (torch.randn((b, h, t, 64), generator=gen).to(dev) for _ in range(3))
         lens = torch.tensor([valid or t - 97 * i % t for i in range(b)], device=dev)
-        mask = torch.arange(t, device=dev)[None, :] < lens[:, None]
+        keys = torch.arange(t, device=dev)[None, :]
+        mask = keys < lens[:, None]
+        if holes:  # the two first 64-key tiles of every other item and keys 256-319 of all
+            even = (torch.arange(b, device=dev) % 2 == 0)[:, None]
+            mask &= ~((keys < 128) & even) & ~((keys >= 256) & (keys < 320))
         out = attention.flash_attention(q, k, v, mask)
         torch.cuda.synchronize()
         ref = attention.attention_reference(q, k, v, mask)
         rows = mask[:, None, :, None]
         err = ((out - ref).abs() * rows).max().item()
         sdpa_mask = mask[:, None, None, :]
-        cases.append({"shape": [b, h, t, 64], "max_abs_err": err,
-                      "ms": cuda_ms(torch, lambda: attention.flash_attention(q, k, v, mask), 20),
-                      "plain_ms": cuda_ms(torch, lambda: attention.attention_reference(
-                          q, k, v, mask), 20),
-                      # yardstick only: the port never calls it
-                      "library_ms": cuda_ms(
-                          torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                              q, k, v, attn_mask=sdpa_mask), 20),
-                      # operations over the valid keys: a masked key adds exp(-1e9) = 0
-                      **bound(4.0 * h * t * int(lens.sum()) * 64,
-                              4.0 * (4 * q.numel() + mask.numel() / 4))})
+        n_valid = int(mask.sum())
+        k3 = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
+        twin = lambda: attention.attention_reference(q, k, v, mask)  # noqa: E731
+        # yardstick only: the port never calls it
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=sdpa_mask)
+        # device time (graph replay) in ms, plain_ms, library_ms; each call
+        # through Python (the host's time where it is the longer) beside
+        cases.append({"shape": [b, h, t, 64], "valid_keys": n_valid, "mask_holes": holes,
+                      "max_abs_err": err,
+                      "ms": graph_ms(torch, k3, 20), "plain_ms": graph_ms(torch, twin, 20),
+                      "library_ms": graph_ms(torch, sdpa, 20),
+                      "wrapper_ms": cuda_ms(torch, k3, 20),
+                      "plain_eager_ms": cuda_ms(torch, twin, 20),
+                      "library_eager_ms": cuda_ms(torch, sdpa, 20),
+                      # over the valid keys: a masked key adds exp(-1e9) = 0,
+                      # and k, v are read for the valid keys alone
+                      **attention_bound(4.0 * h * t * n_valid * 64, 1.0 * h * t * n_valid,
+                                        4.0 * (2 * q.numel() + 2 * h * 64 * n_valid)
+                                        + mask.numel())})
+        cases[-1]["ms_over_library_ms"] = cases[-1]["ms"] / cases[-1]["library_ms"]
+        cases[-1]["wrapper_ms_over_library_eager_ms"] = (cases[-1]["wrapper_ms"]
+                                                         / cases[-1]["library_eager_ms"])
         log({"phase": "kernel", "name": "flash_attention", **cases[-1], "tol": 2e-5})
         # f32 softmax over <= 4271 keys with O(1) outputs; padded query rows
         # are discarded downstream and not compared
@@ -312,27 +379,38 @@ def check_attention_stats(torch, np) -> dict:
         err_l = ((l - rl).abs() / rl.abs()).max().item()
         sdpa_mask = mask[:, None, None, :]
         n_out = o.numel() + m.numel() + l.numel()
+        k5 = lambda: attention.flash_attention_stats(q, k, v, mask)  # noqa: E731
+        twin = lambda: attention.attention_stats_reference(q, k, v, mask)  # noqa: E731
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=sdpa_mask)
         cases.append({
             "shape": [b, h, tq, 64], "keys": tk, "valid_keys": lens, "max_abs_err": err_o,
             "rel_err": err_o / peak, "tol_rel": 1e-4, "m_rel_err": err_m, "l_rel_err": err_l,
             "tol_ml_rel": 1e-5,
-            "ms": cuda_ms(torch, lambda: attention.flash_attention_stats(q, k, v, mask), 20),
-            "plain_ms": cuda_ms(torch, lambda: attention.attention_stats_reference(
-                q, k, v, mask), 20),
+            # device time (graph replay); through Python beside, as for K3
+            "ms": graph_ms(torch, k5, 20), "plain_ms": graph_ms(torch, twin, 20),
+            "wrapper_ms": cuda_ms(torch, k5, 20), "plain_eager_ms": cuda_ms(torch, twin, 20),
             # no single PyTorch call returns the unnormalised float32 triple
             # (o, m, l): scaled_dot_product_attention returns the normalised
             # output alone. Its time on the same q, k, v is written beside,
             # as a yardstick of another function
             "library_ms": None,
-            "sdpa_ms_same_inputs": None if tq != tk else cuda_ms(
-                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=sdpa_mask), 20),
-            **bound(4.0 * h * tq * sum(lens) * 64,
-                    4.0 * (q.numel() + k.numel() + v.numel() + n_out + mask.numel() / 4))})
+            "sdpa_ms_same_inputs": None if tq != tk else graph_ms(torch, sdpa, 20),
+            "sdpa_eager_ms_same_inputs": None if tq != tk else cuda_ms(torch, sdpa, 20),
+            # over the valid keys, as the operations: k and v are read for
+            # them alone (a tile with none is skipped)
+            **attention_bound(4.0 * h * tq * sum(lens) * 64, 1.0 * h * tq * sum(lens),
+                              4.0 * (q.numel() + 2 * h * 64 * sum(lens) + n_out)
+                              + mask.numel())})
+        if len(cases) == 2:
+            # the 133-valid block against the full one: 3 of its 17 key tiles
+            # hold a valid key, the other 14 are skipped. Recorded, not
+            # asserted: times are noisy
+            cases[-1]["ms_share_of_full_block"] = cases[-1]["ms"] / cases[0]["ms"]
         log({"phase": "kernel", "name": "flash_attention_stats", **cases[-1]})
-        # f32 on both sides; the kernel adds a row's keys one after another,
-        # the twin in cuBLAS's blocked order. m is a maximum of products that
-        # differ by rounding alone
+        # float32 accuracy on both sides (the kernel in 3xTF32 on the tensor
+        # cores, tile by tile; the twin in cuBLAS's blocked f32 order). m is a
+        # maximum of products that differ by rounding alone
         assert math.isfinite(err_o) and err_o <= 1e-4 * peak, cases[-1]
         assert err_m <= 1e-5 and err_l <= 1e-5, cases[-1]
 

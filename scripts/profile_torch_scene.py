@@ -278,6 +278,11 @@ def main() -> int:
             "peak_device_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
             "int8_device_ms": int8_ms,
             "top_kernels_ms": [{"name": k[:90], "calls": v[0], "ms": v[1]} for k, v in top],
+            # the port's own kernels (csrc/ puts each in an anonymous
+            # namespace), whatever their rank
+            "port_kernels_ms": [{"name": k[:90], "calls": v[0], "ms": v[1]}
+                                for k, v in sorted(by_name.items(), key=lambda kv: -kv[1][1])
+                                if "(anonymous namespace)::" in k],
         }
         for key in extras[0]:
             vals = [e[key] for e in extras]

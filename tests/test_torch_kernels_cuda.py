@@ -50,10 +50,17 @@ def test_fbank_kernel_matches_twin(dev, n):
     assert err.max().item() < 5e-3
 
 
-@pytest.mark.parametrize("b,h,t", [(2, 2, 1), (2, 3, 70), (3, 8, 537)])
+# sequence lengths on both sides of the 16-row fragment, the 64-key tile and
+# the 64-row block
+_TILE_EDGES = (1, 15, 16, 17, 63, 64, 65, 129, 1068)
+
+
+@pytest.mark.parametrize("b,h,t", [(2, 2, 1), (2, 3, 70), (3, 8, 537)]
+                         + [(2, 3, t) for t in _TILE_EDGES if t != 1])
 def test_flash_kernel_matches_twin(dev, b, h, t):
-    """Ragged key masks with one fully masked row; 2e-5 abs on valid rows
-    (f32 softmax, O(1) outputs); fully masked rows only need be finite."""
+    """Ragged key masks with one fully masked row, and no mask; 2e-5 abs on
+    valid rows (f32 softmax, O(1) outputs); fully masked rows only need be
+    finite. Staged rows past T are zero-filled and excluded, none stored."""
     g = torch.Generator().manual_seed(t)
     q, k, v = (torch.randn((b, h, t, 64), generator=g).to(dev) for _ in range(3))
     lens = torch.tensor([t] + [max(t // (i + 2), 1) for i in range(b - 2)] + [0])[:b].to(dev)
@@ -64,6 +71,8 @@ def test_flash_kernel_matches_twin(dev, b, h, t):
     assert torch.isfinite(out).all()
     valid = (lens > 0)[:, None, None, None]
     assert ((out - ref).abs() * valid).max().item() < 2e-5
+    out = attention.flash_attention(q, k, v, None)
+    assert (out - attention.attention_reference(q, k, v, None)).abs().max().item() < 2e-5
     with pytest.raises(ValueError, match="head dim"):
         attention.flash_attention(q[..., :32], k[..., :32], v[..., :32], mask)
 
@@ -185,16 +194,18 @@ def test_gau_kernel_matches_twin(dev, b, t, dqk, de, lens):
 
 @pytest.mark.parametrize("b,h,tq,tk,lens", [
     (1, 1, 1, 1, [1]),                      # a single query and key
-    (2, 2, 70, 45, [45, 17]),               # Tq != Tk, both off the 32-row and 32-key tiles
+    (2, 2, 70, 45, [45, 17]),               # Tq != Tk, both off the 16-row and 64-key tiles
     (3, 8, 537, 1068, [1068, 300, 33]),     # B > 1, ragged masks, whole key tiles masked
     (1, 8, 1068, 1068, [1068]),             # the long-form path's shape (256 s over 4 shards)
     (2, 3, 100, 64, [64, 0]),               # one item with every key masked
-])
+] + [(2, 3, tq, tk, [tk, max(tk // 2, 1)])  # Tq and Tk at the tile edges
+     for tq, tk in zip(_TILE_EDGES, reversed(_TILE_EDGES))])
 def test_flash_stats_kernel_matches_twin(dev, b, h, tq, tk, lens):
     """K5 against its twin: o to 1e-4 of max|o|, m and l to 1e-5 relative
-    (f32; the kernel adds keys one after another, the twin in cuBLAS's blocked
-    order). An item whose keys are all masked gives m = -1e9 and l = Tk on
-    both sides. The mask may be absent. o / l is K3's output."""
+    (float32 accuracy on both sides: the kernel in 3xTF32 tile by tile, the
+    twin in cuBLAS's blocked order). An item whose keys are all masked
+    gives m = -1e9 and l = Tk on both sides. The mask may be absent. o / l
+    is K3's output."""
     g = torch.Generator().manual_seed(tq + tk)
     q = torch.randn((b, h, tq, 64), generator=g).to(dev)
     k, v = (torch.randn((b, h, tk, 64), generator=g).to(dev) for _ in range(2))
@@ -222,6 +233,65 @@ def test_flash_stats_kernel_matches_twin(dev, b, h, tq, tk, lens):
         attention.flash_attention_stats(q[..., :32], k[..., :32], v[..., :32], mask)
     with pytest.raises(ValueError, match="must be float32"):
         attention.flash_attention_stats(q, k, v[:, :, :-1], mask)
+
+
+@pytest.mark.parametrize("b,tq,tk,spans,amp", [
+    # holes: a valid run after three tiles masked whole, a hole of three
+    # whole tiles, a short prefix, and an item with no valid key
+    (3, 537, 1068, [[(200, 512), (704, 1068)], [(0, 300)], []], 1.0),
+    # self-attention (K3 too): two masked-whole tiles first, then a partly
+    # masked one, a hole of two whole tiles, a ragged end
+    (2, 537, 537, [[(140, 320), (448, 500)], [(0, 263)]], 1.0),
+    # the same with q and k scaled by 4: scores of std 16, most p underflow
+    # to 0
+    (2, 537, 537, [[(140, 320), (448, 500)], [(0, 263)]], 4.0),
+    # 15 masked-whole tiles before the only valid keys; single valid keys at
+    # both ends of an item
+    (2, 129, 1068, [[(1000, 1068)], [(0, 1), (1067, 1068)]], 4.0),
+    # items with no valid key beside items with one key and with all keys
+    (4, 65, 200, [[], [(64, 65)], [(0, 200)], []], 1.0),
+])
+def test_flash_kernels_skip_masked_tiles(dev, b, tq, tk, spans, amp, record_property):
+    """Masked-whole key tiles are skipped only where the item has a valid
+    key, and the result is the twin's: K5 and K3 at their tolerances; an
+    item with no valid key computes every tile and gives m = -1e9, l = Tk."""
+    g = torch.Generator().manual_seed(b * tq + tk)
+    q = torch.randn((b, 8, tq, 64), generator=g).to(dev) * amp
+    k = torch.randn((b, 8, tk, 64), generator=g).to(dev) * amp
+    v = torch.randn((b, 8, tk, 64), generator=g).to(dev)
+    mask = torch.zeros((b, tk), dtype=torch.bool)
+    for i, item in enumerate(spans):
+        for lo, hi in item:
+            mask[i, lo:hi] = True
+    mask = mask.to(dev)
+    has_key = mask.any(dim=1)
+    empty = ~has_key
+    o, m, l = attention.flash_attention_stats(q, k, v, mask)
+    torch.cuda.synchronize()
+    # the twin in float64 on the items with a valid key: at scores of std 16
+    # the float32 twin is itself 1.3e-5 off in l and 3e-5 in K3's output. An
+    # item with no valid key is held to the float32 twin, whose -1e9 scores
+    # round as the kernel's do (m = -1e9, l = Tk)
+    exact = attention.attention_stats_reference(q.double(), k.double(), v.double(), mask)
+    rounded = attention.attention_stats_reference(q, k, v, mask)
+    ro, rm, rl = (torch.where(has_key.view(-1, *[1] * (x.dim() - 1)), x.float(), y)
+                  for x, y in zip(exact, rounded))
+    assert torch.isfinite(o).all() and torch.isfinite(m).all() and torch.isfinite(l).all()
+    assert (o - ro).abs().max().item() <= 1e-4 * ro.abs().max().item()
+    assert ((m - rm).abs() <= 1e-5 * rm.abs().clamp_min(1.0)).all()
+    assert ((l - rl).abs() <= 1e-5 * rl.abs()).all()
+    if tq == tk:  # K3: 2e-5 abs, and K5's o / l within 2e-6
+        out = attention.flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = attention.attention_reference(q.double(), k.double(), v.double(), mask).float()
+        assert torch.isfinite(out).all()
+        assert (out - ref)[has_key].abs().max().item() < 2e-5
+        assert (out - o / l[..., None]).abs().max().item() < 2e-6
+    # why the oracle is float64: the float32 twin's own error in l
+    record_property("twin_float32_l_rel_err_vs_float64",
+                    ((rounded[2] - exact[2]).abs() / exact[2])[has_key].max().item())
+    if amp == 1.0 and empty.any():  # |q k| / 8 < 32: every score rounds to -1e9
+        assert (m[empty] == -1e9).all() and (l[empty] == tk).all()
 
 
 @pytest.mark.parametrize("n,t", [(2, 1100), (4, 2139), (4, 4272), (8, 2144)])
