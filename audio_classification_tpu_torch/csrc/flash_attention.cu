@@ -63,6 +63,8 @@
 
 #include <atomic>
 
+#include "tf32_mma.cuh"
+
 // warps a block, 16 query rows each. 4 in the library; the block-size probe
 // (scripts/flash_block_warps.py) builds a copy with 2 to time beside it
 #ifndef ACT_FLASH_WARPS
@@ -83,39 +85,11 @@ constexpr float NEG_INIT = -1e30f;
 constexpr float MASKED = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// float32 -> TF32 rounded to nearest, ties away from zero: bit for bit what
-// cvt.rna.tf32.f32 gives (half of the 13 dropped bits added to the
-// magnitude, then cleared), in two integer operations on the full-rate pipe
-__device__ __forceinline__ uint32_t tf32_round(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both rounded to TF32: together 22 of float32's 24 bits
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_round(x);
-  small = tf32_round(x - __uint_as_float(big));
-}
-
-// c += a b, one m16n8k8 TF32 product with float32 accumulation. Not
-// volatile: independent products may be interleaved by the compiler
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = in ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using act::cp_async16;
+using act::cp_commit;
+using act::cp_wait;
+using act::mma_tf32;
+using act::split;
 
 // mma fragments (g = lane / 4, t = lane % 4). The contraction index of each
 // product is permuted so that every operand a thread needs sits in two
@@ -370,26 +344,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Raise the kernel's cap on dynamic shared memory to the card's opt-in
-// maximum, once per device: the cap only permits, each launch's own size sets
-// the occupancy. Not on every launch: a batch-1 call is host-bound
+// the kernel's shared-memory cap, raised once per device (tf32_mma.cuh)
 template <bool EMIT_STATS>
-cudaError_t allow_dynamic_smem() {
-  static std::atomic<uint64_t> raised{0};  // one bit a device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (raised.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<EMIT_STATS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  }
-  if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
+std::atomic<uint64_t> smem_cap_raised{0};
 
 template <bool EMIT_STATS>
 int launch(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
@@ -397,7 +354,8 @@ int launch(const float* q, const float* k, const float* v, const uint8_t* kv_mas
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * NS * BK * (KS + VS + 1) + sizeof(int) * NS +
                       (size_t)(tk + BK - 1) / BK;  // + one byte a key tile
-  const cudaError_t err = allow_dynamic_smem<EMIT_STATS>();
+  const cudaError_t err = act::allow_dynamic_smem(
+      reinterpret_cast<const void*>(flash_fwd_kernel<EMIT_STATS>), smem_cap_raised<EMIT_STATS>);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((tq + ROWS - 1) / ROWS, batch * heads);
   flash_fwd_kernel<EMIT_STATS><<<grid, NT, smem, stream>>>(q, k, v, kv_mask, out, m_out, l_out,

@@ -1,6 +1,7 @@
 """K4: gated-attention-unit scores, relu(q k^T * scale * key_mask)^2 v.
 
-Kernel: csrc/gau_attention.cu (CUDA C++, sm_90a), replacing
+Kernel: csrc/gau_attention.cu (CUDA C++, sm_90a: both products on the
+tensor cores in 3xTF32 by mma.sync), replacing
 audio_classification_tpu/ops/pallas/attention_kernel.py::gau_attention.
 Bound and design are in the source's header. The plain twin below walks
 blocks of query rows (as the JAX package's ``_gau_blockwise_ref``), so it
@@ -10,6 +11,7 @@ never holds a [T, T] matrix: at T = 63999 frames a dense float32 [T, T] is
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -38,6 +40,13 @@ def gau_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@functools.cache
+def _entry():
+    """The C entry point, built, loaded and declared at the first launch."""
+    return _build.kernel("act_gau_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                         + [ctypes.c_float, ctypes.c_void_p])
+
+
 def gau_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
     """[B, T, Dqk] f32 q, k, [B, T, De] f32 v + optional [B, T] bool key mask
@@ -64,13 +73,16 @@ def gau_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(kv_mask.shape) != (b, t) or kv_mask.device != q.device:
             raise ValueError(f"gau_attention: kv_mask must be {(b, t)} on {q.device}, "
                              f"got {tuple(kv_mask.shape)} on {kv_mask.device}")
-        kv_mask = (kv_mask != 0).to(torch.uint8).contiguous()
+        # the kernel reads one byte a key and tests it against 0: a bool or
+        # uint8 mask goes as it is, without a cast of its own
+        if kv_mask.dtype not in (torch.bool, torch.uint8):
+            kv_mask = kv_mask != 0
+        kv_mask = kv_mask.contiguous()
         mask_ptr = kv_mask.data_ptr()
     out = torch.empty((b, t, de), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    fn = _build.kernel("act_gau_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
+    fn = _entry()
     gau_attention.launches += 1
     _build.check("act_gau_attention", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), b, t, dqk, de,

@@ -49,11 +49,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SR = 16000
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores (K1, K2, K4
-# are IEEE float32 FMA) and HBM3 bandwidth
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores (K1, K2 are
+# IEEE float32 FMA) and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# K3 / K5 run both products on the tensor cores in 3xTF32: three TF32
+# K3 / K4 / K5 run both products on the tensor cores in 3xTF32: three TF32
 # products per float32 product at the data sheet's dense TF32 rate
 # (495 TFLOP/s, H100 SXM); their exponentials go through the special function
 # units, 16 results per SM per clock (CUDA C++ Programming Guide, throughput
@@ -79,10 +79,11 @@ def bound(flops: float, nbytes: float) -> dict:
 
 
 def attention_bound(flops: float, exps: float, nbytes: float) -> dict:
-    """K3 / K5: the larger of the products at the 3xTF32 tensor-core rate,
-    the exponentials at the SFU rate and the bytes; beside it the float32
-    SIMT figure (``bound_simt_ms``) that the kernel's earlier SIMT design
-    was held to, so that its times compare with the new ones."""
+    """K3 / K4 / K5: the larger of the products at the 3xTF32 tensor-core
+    rate, the exponentials at the SFU rate (K4 has none) and the bytes;
+    beside it the float32 SIMT figure (``bound_simt_ms``) that the kernel's
+    earlier SIMT design was held to, so that its times compare with the new
+    ones."""
     terms = {"tensor_3xtf32": flops / PEAK_3XTF32_FLOPS * 1e3,
              "sfu_exp": exps / PEAK_SFU_PER_S * 1e3,
              "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
@@ -447,14 +448,17 @@ def check_attention_stats(torch, np) -> dict:
 def check_gau(torch, np) -> dict:
     """K4 against its blockwise twin at the main path's shape (one 8 s bucket
     of the full-preset MossFormer: T = 15999 frames, Dqk 128, De 768, the
-    keys of a 6 s segment valid) and at a small ragged batch of 3 with one
-    fully masked item."""
+    keys of a 6 s segment valid), at the 16 s bucket (T = 31999, every key
+    valid: Separator.separate's MossFormer run) and at a small ragged batch
+    of 3 with one fully masked item. Timed as K3: device time by CUDA-graph
+    replay, each call through Python beside, for the kernel and its twin."""
     from audio_classification_tpu_torch.ops.kernels import gau
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(4)
     cases = []
-    for b, t, lens, iters in ((1, 15999, [11999], 3), (3, 1237, [1237, 700, 0], 10)):
+    for b, t, lens, iters in ((1, 15999, [11999], 10), (1, 31999, [31999], 4),
+                              (3, 1237, [1237, 700, 0], 20)):
         q, k = (torch.randn((b, t, 128), generator=gen).to(dev) for _ in range(2))
         v = torch.randn((b, t, 768), generator=gen).to(dev)
         mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
@@ -462,23 +466,38 @@ def check_gau(torch, np) -> dict:
         out = gau.gau_attention(q, k, v, mask, scale)
         torch.cuda.synchronize()
         ref = gau.gau_attention_reference(q, k, v, mask, scale)
+        # the twin in float64 as well: the float32 twin adds its own error
+        ref64 = gau.gau_attention_reference(q.double(), k.double(), v.double(), mask, scale)
         err = (out - ref).abs().max().item()
-        peak = ref.abs().max().item()
-        # operations for the valid keys only: a masked key contributes exactly 0
-        flops = 2.0 * t * sum(lens) * (128 + 768)
+        err64 = (out - ref64).abs().max().item()
+        peak = ref64.abs().max().item()
+        k4 = lambda: gau.gau_attention(q, k, v, mask, scale)  # noqa: E731
+        twin = lambda: gau.gau_attention_reference(q, k, v, mask, scale)  # noqa: E731
+        n_valid = sum(lens)
         cases.append({"shape": [b, t, 128, 768], "valid_keys": lens, "max_abs_err": err,
-                      "rel_err": err / peak, "tol_rel": 1e-4,
-                      "ms": cuda_ms(torch, lambda: gau.gau_attention(q, k, v, mask, scale), iters),
-                      "plain_ms": cuda_ms(torch, lambda: gau.gau_attention_reference(
-                          q, k, v, mask, scale), iters),
+                      "rel_err": err / peak, "max_abs_err_vs_float64_twin": err64,
+                      "rel_err_vs_float64_twin": err64 / peak,
+                      "twin_rel_err_vs_float64_twin": (ref - ref64).abs().max().item() / peak,
+                      "tol_rel": 1e-4,
+                      # device time (graph replay); each call through Python beside
+                      "ms": graph_ms(torch, k4, iters), "plain_ms": graph_ms(torch, twin, iters),
+                      "wrapper_ms": cuda_ms(torch, k4, iters),
+                      "plain_eager_ms": cuda_ms(torch, twin, iters),
                       "library_ms": None,  # no single PyTorch call computes relu^2 attention
-                      **bound(flops, 4.0 * (2 * q.numel() + 2 * v.numel() + mask.numel() / 4))})
+                      # over the valid keys (a masked key contributes exactly 0):
+                      # q read and out written for every row, k and v for the
+                      # valid keys alone
+                      **attention_bound(2.0 * t * n_valid * (128 + 768), 0.0,
+                                        4.0 * (q.numel() + n_valid * (128 + 768) + out.numel())
+                                        + mask.numel())})
+        cases[-1]["share"] = cases[-1]["bound_ms"] / cases[-1]["ms"]
+        cases[-1]["share_simt"] = cases[-1]["bound_simt_ms"] / cases[-1]["ms"]
         log({"phase": "kernel", "name": "gau_attention", **cases[-1]})
-        # predicted before the first run on the card: ~1e-5 of max|out|. Both
-        # sides are IEEE f32; the kernel adds up to 16k key terms of mixed sign
-        # one after another, the twin in cuBLAS's blocked order, so the error
-        # walks like sqrt(keys) * 2^-24 of the partial sums. Tolerance 1e-4.
+        # float32 accuracy on both sides (the kernel in 3xTF32 on the tensor
+        # cores tile by tile, ~3e-7 of max|out| in the CPU emulation; the
+        # twin in cuBLAS's blocked order): 1e-4 of max|out| against each twin
         assert math.isfinite(err) and err <= 1e-4 * peak, cases[-1]
+        assert err64 <= 1e-4 * peak, cases[-1]
         assert not out[torch.tensor(lens, device=dev) == 0].any()  # fully masked item: exact zeros
     return {**cases[0], "max_abs_err": max(c["max_abs_err"] for c in cases), "cases": cases}
 

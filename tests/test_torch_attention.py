@@ -18,6 +18,7 @@ from audio_classification_tpu_torch.ops.kernels.attention import (
     attention_stats_reference,
     flash_attention,
 )
+from torch_port_helpers import _mm_3xtf32, _mm_tf32, _tf32
 
 torch.set_num_threads(2)
 
@@ -83,27 +84,6 @@ def test_transformer_block_matches_jax(t):
 # rule and the rounding are held to K5's twin and to the JAX kernel here.
 
 _TILE = 64
-
-
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as cvt.rna.tf32.f32 does: add half of the 13 dropped bits to
-    the magnitude's bit pattern and clear them."""
-    u = x.contiguous().view(torch.int32)
-    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as the kernel forms it: both sides split into big + small TF32
-    halves, the small cross terms and then big * big summed in float32."""
-    a_big, b_big = _tf32(a), _tf32(b)
-    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
-    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
-
-
-def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One plain TF32 product (what the tensor cores give without the split)."""
-    return _tf32(a) @ _tf32(b)
 
 
 def _emulate_kernel(q, k, v, kv_mask, mm=_mm_3xtf32, skip=True):

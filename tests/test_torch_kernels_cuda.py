@@ -160,32 +160,55 @@ def test_int_matmul_is_exact_on_the_card(dev, m, k, n):
     assert got.shape == (m, n) and torch.equal(got, int_matmul(a, b))
 
 
-@pytest.mark.parametrize("b,t,dqk,de,lens", [
-    (1, 1, 128, 768, [1]),                 # a single frame
-    (3, 333, 32, 96, [333, 111, 0]),       # the tiny preset's widths, one fully masked item
-    (2, 70, 128, 768, [70, 33]),           # one ragged tile of queries and of keys
-    (2, 1000, 64, 1000, [1000, 517]),      # De over several column chunks, the last ragged
-    (1, 4099, 128, 768, [3000]),           # many key tiles, the tail ones skipped as masked
+@pytest.mark.parametrize("b,t,dqk,de,lens,amp", [
+    (1, 1, 128, 768, [1], 1.0),                # a single frame
+    (3, 333, 32, 96, [333, 111, 0], 1.0),      # the tiny preset's widths, one fully masked item
+    (2, 70, 128, 768, [70, 33], 1.0),          # one ragged tile of queries and of keys
+    (2, 1000, 64, 1000, [1000, 517], 1.0),     # De over several column chunks, the last ragged
+    (1, 4099, 128, 768, [3000], 1.0),          # many key tiles, the tail ones skipped as masked
+    # T at both sides of the 32-key tile and the 64-row block
+    (2, 31, 128, 768, [31, 30], 1.0),
+    (2, 33, 128, 768, [33, 1], 1.0),
+    (2, 63, 128, 768, [63, 32], 1.0),
+    (2, 65, 128, 768, [65, 64], 1.0),
+    (1, 129, 128, 768, [129], 1.0),
+    # De off the 384-column chunk, the 96-column warp and the 16-column pair;
+    # Dqk % 8 == 4 (the last k-step half zero)
+    (2, 200, 128, 392, [200, 150], 1.0),
+    (2, 200, 100, 4, [200, 9], 1.0),
+    (1, 300, 12, 1156, [300], 1.0),
+    # holes: a valid run after key tiles masked whole, a hole of whole
+    # tiles, single valid keys at both ends, an item with no valid key
+    (3, 537, 128, 768, [[(200, 300), (420, 537)], [(0, 1), (536, 537)], []], 1.0),
+    # q and k x3 (scores x9: relu^2 is homogeneous, so x4 would repeat x1
+    # bit for bit scaled by a power of two), with holes
+    (2, 1068, 128, 768, [[(0, 100), (640, 1068)], [(300, 301)]], 3.0),
 ])
-def test_gau_kernel_matches_twin(dev, b, t, dqk, de, lens):
-    """Ragged masks, T off every tile size, Dqk != De; 1e-4 x max|out| (f32,
-    key terms added one after another instead of in cuBLAS's blocked order);
-    a fully masked item gives exact zeros; the mask may be absent."""
-    g = torch.Generator().manual_seed(t)
-    q, k = (torch.randn((b, t, dqk), generator=g).to(dev) for _ in range(2))
+def test_gau_kernel_matches_twin(dev, b, t, dqk, de, lens, amp):
+    """Ragged and holed masks, T off every tile, De off every column split,
+    Dqk != De; 1e-4 x max|out| against the twin run in float64 (the kernel in
+    3xTF32 tile by tile, ~3e-7 in the CPU emulation; the float32 twin adds
+    its own cuBLAS error); a fully masked item gives exact zeros; the mask
+    may be absent, bool or uint8."""
+    g = torch.Generator().manual_seed(t + de)
+    q, k = (torch.randn((b, t, dqk), generator=g).to(dev) * amp for _ in range(2))
     v = torch.randn((b, t, de), generator=g).to(dev)
-    lens_t = torch.tensor(lens, device=dev)
-    mask = torch.arange(t, device=dev)[None, :] < lens_t[:, None]
+    mask = torch.zeros((b, t), dtype=torch.bool)
+    for i, item in enumerate(lens):
+        for lo, hi in (item if isinstance(item, list) else [(0, item)]):
+            mask[i, lo:hi] = True
+    mask = mask.to(dev)
+    empty = ~mask.any(dim=1)
     before = gau.gau_attention.launches
-    for m in (mask, None):
+    for m in (mask, None, mask.to(torch.uint8)):
         out = gau.gau_attention(q, k, v, m, 4.0 / t)
         torch.cuda.synchronize()
-        ref = gau.gau_attention_reference(q, k, v, m, 4.0 / t)
+        ref = gau.gau_attention_reference(q.double(), k.double(), v.double(), m, 4.0 / t)
         assert torch.isfinite(out).all()
         assert (out - ref).abs().max().item() <= 1e-4 * max(ref.abs().max().item(), 1e-30)
         if m is not None:
-            assert not out[lens_t == 0].any()
-    assert gau.gau_attention.launches == before + 2
+            assert not out[empty].any()
+    assert gau.gau_attention.launches == before + 3
     with pytest.raises(ValueError, match="Dqk"):
         gau.gau_attention(q[..., :6], k[..., :6], v, mask, 1.0)
     with pytest.raises(ValueError, match="float32"):

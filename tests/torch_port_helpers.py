@@ -1,6 +1,8 @@
-"""Shared set-up of the port's streaming, serving and int8 pipeline tests
-(not a test module): the JAX engine and the port's on the same tiny weights,
-the fixture windows, and the record comparison.
+"""Shared set-up of the port's tests (not a test module): the JAX engine and
+the port's on the same tiny weights, the fixture windows and the record
+comparison of the streaming, serving and int8 pipeline tests; and the TF32
+rounding with which the attention tests emulate the tensor-core kernels
+(K3 / K5 csrc/flash_attention.cu, K4 csrc/gau_attention.cu) on the CPU.
 
 Records are compared on kind, stream, text, ``end - start`` (the absolute
 times come from ``time.time()``) and sv_score within ``SV_TOL``.
@@ -10,6 +12,7 @@ import time
 import types
 
 import numpy as np
+import torch
 
 from audio_classification_tpu.engine import BucketSpec as JaxBucketSpec
 from audio_classification_tpu.engine import ModelPack as JaxModelPack
@@ -106,3 +109,42 @@ def run_stream(cls, args, target_wav, engine, chunks):
     finally:
         pipe.close()
     return per_window, pipe.latency_stats()
+
+
+# --- TF32 as the kernels' mma.sync products see it ---
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does: add half of the 13 dropped bits to
+    the magnitude's bit pattern and clear them."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """What a TF32 mma makes of a raw float32 operand: the 13 low bits
+    dropped (truncated toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor, small_round: bool = True) -> tuple:
+    """x = big + small, big rounded to TF32. K3 / K5 round the small half too
+    (tf32_mma.cuh ``split``); K4 leaves it raw for the mma to truncate
+    (``split_fast``)."""
+    big = _tf32(x)
+    small = x - big
+    return big, _tf32(small) if small_round else _tf32_trunc(small)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, small_round: bool = True) -> torch.Tensor:
+    """a @ b as the kernels form it: both sides split into big + small TF32
+    halves, the small cross terms and then big * big summed in float32."""
+    a_big, a_small = _split_tf32(a, small_round)
+    b_big, b_small = _split_tf32(b, small_round)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One plain TF32 product (what the tensor cores give without the split)."""
+    return _tf32(a) @ _tf32(b)
