@@ -1,5 +1,6 @@
-// One block's tile of a float32 SIMT matrix product, shared by the kernels
-// that end in their own epilogue (K1 fbank_power_mel, K2 tcn_masker).
+// One block's tile of a float32 SIMT matrix product with the caller's own
+// loaders and epilogue: the DFT of K1 fbank_power_mel.cu, which needs IEEE
+// float32 FMA (the log of small powers; PERF.md).
 //
 // 256 threads as 16 x 16; thread (ty, tx) accumulates the TM x TN outputs
 // at rows m0 + ty + 16 i and columns n0 + tx + 16 j, so neighbouring threads
@@ -11,7 +12,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace act {
 
@@ -64,24 +64,5 @@ __device__ __forceinline__ void gemm_tile(float* smem, const ALoad& aload, const
   }
   __syncthreads();
 }
-
-// B operand stored row-major [K, n]
-struct RowMajor {
-  const float* w;
-  int n;
-  __device__ float operator()(int k, int col) const { return w[(size_t)k * n + col]; }
-};
-
-// B operand stored row-major [K, n] as int8 with one float32 scale per
-// column: dequantised as it is loaded, (float)q * scale[col] with a single
-// rounding, the value a float copy of the weights would hold
-struct RowMajorS8 {
-  const int8_t* w;
-  const float* scale;  // [n]
-  int n;
-  __device__ float operator()(int k, int col) const {
-    return __fmul_rn((float)w[(size_t)k * n + col], scale[col]);
-  }
-};
 
 }  // namespace act

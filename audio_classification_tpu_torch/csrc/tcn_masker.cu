@@ -5,297 +5,663 @@
 // Replaces audio_classification_tpu/ops/pallas/tcn_kernel.py
 // (fused_tcn_masker -> _masker_core -> _masker_fwd_call, body _kernel). Each
 // block computes, for rows f < f_len (masked gLN statistics, f32 math):
-//   h1 = PReLU(x W_in + b_in)                 -> gLN-1 over (F, H)
+//   h1 = PReLU(x W_in + b_in)                 -> gLN-1 over (f_len, H)
 //   h2 = PReLU(dwconv3_d(gLN-1(h1) * mask) + b_dw), d = 2^(i mod R)
-//                                              -> gLN-2 over (F, H)
+//                                              -> gLN-2 over (f_len, H)
 //   x += gLN-2(h2) W_res + b_res ; skips += gLN-2(h2) W_skip + b_skip
+// Rows f >= f_len are never computed: no tile that lies past f_len runs, no
+// row past it is read (loaders give 0) or written, and those rows of the
+// output are exactly 0. No valid row depends on a padded one (h1 is masked
+// after gLN-1 and every statistic is over valid rows), so valid rows are
+// what the JAX kernel gives there; its padded rows are values no caller uses.
 //
-// Bound on the H100: the pointwise GEMMs (2 F C H per block for W_in and
-// 4 F H C for W_res|W_skip: ~12.6 GFLOP per block at F = 32k) on SIMT f32
-// units, plus the device-memory traffic of the [F, H] intermediates. The TPU
-// design (a sequential grid carrying the whole sequence in VMEM and a
-// deferred M-row update) does not carry over: thread blocks run in parallel
-// and gLN needs statistics over the whole sequence in every block. So each
-// TCN block is five launches on one stream:
-//   A  tiled GEMM x W_in + bias + PReLU -> h1 (MATERIALISED in device memory,
-//      f32 [B, F, H], ~65 MB at F = 32k) + masked sum (gLN-1 mean)
-//   S1 masked sum of (h1 - mean)^2 (two-pass variance: no E[x^2] - mean^2
-//      cancellation over ~16M elements)
-//   B  gLN-1 apply + mask + 3-tap dilated depthwise conv + PReLU -> h2
-//      + masked sum (gLN-2 mean)
-//   S2 masked sum of (h2 - mean)^2
-//   C  gLN-2 apply in the A-tile load, tiled GEMM against [W_res | W_skip],
-//      x_next = x + res, skips += skip
-// Statistics reduce per thread block in f32 and across blocks with double
-// atomics into a [n_blocks, B, 4] buffer. h1 is materialised rather than
-// recomputed per pass, so the dilated halo reads h1, never x; x still
-// ping-pongs between two buffers (x is read-only within a block).
+// Bound on the H100: the products. Per valid frame and block, 2 C H (W_in)
+// + 4 H C (W_res | W_skip) flops: 1.90e11 at the flagship shape (F 31999,
+// 19999 valid, C 128, H 512, 24 blocks). Float32 accuracy on the tensor
+// cores costs three TF32 products per product (3xTF32, tf32_mma.cuh), so the
+// bound is that over 495 / 3 TFLOP/s: 1.15 ms (the SIMT f32 figure 2.84);
+// mma.sync reaches 312.8 TFLOP/s on the card (scripts/mma_tf32_peak.py), a
+// ceiling of 1.82 ms. The [f_len, H] intermediates add 4 passes a block
+// (A writes h1; B reads h1 and writes h2; C reads h2): 3.9 GB, ~1.2 ms at
+// 3.35 TB/s, partly under the products.
 //
-// The int8 weight stream (tcn_kernel.py: stack_tcn_params(weight_quant=True),
-// the in-kernel dequant of _kernel under cfg.wq): w_in, w_dw and
-// [w_res | w_skip] arrive as int8 with one float32 scale per block and out
-// channel, in vecs rows 8 (w_in) and 9 (w_dw) and cvecs rows 2, 3 (w_res,
-// w_skip). Where the TPU kernel dequantises a block's weights into VMEM at
-// block entry, here every kernel is instantiated for the weight type and
-// forms (float)q * scale on the operand load: in the B loader of the two
-// GEMMs (act::RowMajorS8) and at the three depthwise taps. Everything after
-// the load is the float path, so on a dequantised float copy of the same
-// stack the float entry point gives bit-identical output. Both streams are
-// bound by the GEMMs' operations; the int8 stream only shrinks the weight
-// bytes (0.79 MB -> 0.20 MB per block), which never bounded the kernel.
+// Design: three launches a TCN block on one stream.
+//   A  gemm_kernel<IN>: h1 = PReLU(x W_in + b_in), gLN-1 partial statistics
+//   B  dwconv_kernel: gLN-1 apply + mask in the tap loads, 3-tap dilated
+//      depthwise conv, PReLU -> h2, gLN-2 partial statistics
+//   C  gemm_kernel<OUT>: gLN-2 apply in the operand load, [W_res | W_skip],
+//      x += res + b_res in place, skips += skip + b_skip
+// The two GEMMs run mma.sync m16n8k8 TF32 in 3xTF32 with float32
+// accumulation. A block of 8 warps owns BM = 128 rows x BN = 128 columns
+// (warps 4 x 2, 32 x 64 each), or 64 columns where N is not a multiple of
+// 128 or 128-column blocks would not fill the card (a batch-1 streaming
+// window). 32-deep k-tiles arrive raw by 16-byte cp.async in a three-stage
+// ring (rows past f_len zero-filled); each is then staged once a block into
+// mma fragment order: A transformed (row mask, gLN-2 apply) and kept float,
+// B (int8 dequantised first) split into big + small TF32 halves, so that
+// every fragment is one 16-byte shared-memory load. A warp splits its A
+// fragments in registers; its products over a k-tile (4 k8 steps x 3 a
+// tile) are formed from zero side by side (16 independent chains at 128
+// columns) and added to the accumulator in IEEE float32, so the tensor
+// cores' truncating sum never runs longer than 12 products (over all of
+// K = 512 it would run 192). The next k-tile is staged while the products
+// run, one barrier a k-tile. The contraction index is permuted
+// inside each k8 step (fragment slot t holds k = 2t, slot t + 4 holds
+// k = 2t + 1) so that a lane's A quad comes from two 8-byte row loads.
+// Statistics, deterministic and two-pass grade: every A or B block reduces
+// its own tile (count, mean, M2 about the tile's mean, two passes over the
+// values it holds in registers) and writes that partial; the last block of
+// the item to finish (a __threadfence and an atomic ticket per batch item,
+// reset by that block) merges the partials in a fixed order with Chan's
+// formula in double and writes (mean, rstd). No float32 E[x^2] - mean^2,
+// no atomics on the sums: two calls give identical bits.
+// K2-s8: w_in, w_dw and [w_res | w_skip] arrive as int8 with one float32
+// scale per block and out channel (vecs rows 8, 9; cvecs rows 2, 3). The
+// kernels form (float)q * scale with one rounding (__fmul_rn) where they
+// stage the operand, before the split, and at the depthwise taps (once a
+// thread): everything after is the float path, so on a dequantised float
+// copy of the stack the float entry point gives bit-identical output.
+// Measured (H100 80GB HBM3, 700 W; chip_smoke.py and scripts/tcn_masker_ab.py,
+// PERF.md): 7.2 ms at the flagship shape and, as K2-s8, 5.0 ms at the serving
+// shape [8, 1999, 128] ragged, 0.15-0.16 of the 3xTF32 bound: the products
+// run at ~40% of the mma.sync ceiling inside the k-tile loop, one block of 8
+// warps an SM (C: 238 registers, 213 KB of shared memory; A 164; B 64; no
+// spills), and whole tiles leave the last wave part-empty. The SIMT design
+// this replaces (IEEE f32 FMA in 64 x 64 tiles over the whole bucket, five
+// launches a block, double atomics) took 22.0 and 12.3 ms in the same call.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sgemm_tile.cuh"
+#include <atomic>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-using act::BKK;
 constexpr float EPS = 1e-8f;  // GlobalLayerNorm eps
-constexpr int TM = 4, TN = 4;  // GEMM outputs per thread: tiles of BM x BN
-constexpr int BM = 16 * TM, BN = 16 * TN, GT = act::GEMM_THREADS;
-constexpr int RT = 256;  // threads of the elementwise kernels
+constexpr int NT = 256;       // threads a block, all three kernels
+constexpr int NW = NT / 32;
+constexpr int BM = 128;       // GEMM rows a block
+constexpr int BK = 32;        // contraction depth of a k-tile
+constexpr int KS = BK / 8;    // k8 steps a k-tile
+constexpr int FRAG = 32 * 4;  // floats of one fragment: a 16-byte quad a lane
+constexpr int AF = (BM / 16) * KS * FRAG;  // A k-tile in fragment order
+constexpr int RAS = BK + 8;                // row stride (floats) of a raw A tile
+constexpr int MAX_K = 1024;                // H <= 1024: the gLN-2 coefficients
+constexpr int NSR = 3;                     // raw k-tiles in flight a block, + 1
 
+// A GEMM block's shapes for BN columns (128, or 64 where N % 128 != 0):
+// warps 4 x 2, each 32 rows x BN / 2 columns
+template <int BN>
+struct Tile {
+  static constexpr int NP = BN / 16;          // pairs of n8 tiles a block
+  static constexpr int BF = KS * NP * FRAG;   // B k-tile in fragment order, one TF32 half
+  static constexpr int STAGE = AF + 2 * BF;   // A (float) + B (big, small) of a k-tile
+  static constexpr int RBS = BN + 4;          // row stride (floats) of a raw float B tile
+  static constexpr int RBS8 = BN + 16;        // row stride (bytes) of a raw int8 B tile
+  static constexpr int RAW = BM * RAS + BK * RBS;  // floats of one raw stage
+  static constexpr size_t SMEM = sizeof(float) * (2 * STAGE + NSR * RAW + 2 * MAX_K);
+  static constexpr int NPW = NP / 2;          // n8 pairs a warp
+  static constexpr int BQ = KS * NP / 8;      // B quads a thread stages
+};
+constexpr int VPT = 4;        // depthwise: rows a thread
+constexpr int IN = 0, OUT = 1;
+
+using act::mma_tf32;
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// a weight as float: float weights as they are, int8 times its out channel's
+// scale with one rounding (the value dequant_stack gives)
+__device__ __forceinline__ float weight(float w, float) { return w; }
+__device__ __forceinline__ float weight(int8_t q, float scale) {
+  return __fmul_rn((float)q, scale);
+}
+
+// sum of v over the block, the same bits in every thread: a fixed shuffle
+// tree per warp, then the warps in order
 __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
-  return s;  // valid in thread 0
+#pragma unroll
+  for (int w = 0; w < NW; ++w) s += red[w];
+  __syncthreads();  // red may be written again
+  return s;
 }
 
-__device__ __forceinline__ void gln_stats(const double* st, int which, int f_len, int h,
-                                          float* mean, float* rstd) {
-  // st: [4] = {sum1, sq1, sum2, sq2}; which = 0 (gLN-1) or 2 (gLN-2)
-  double count = fmax((double)f_len * h, 1.0);
-  double mu = st[which] / count;
-  double var = st[which + 1] / count;
-  *mean = (float)mu;
-  *rstd = (float)(1.0 / sqrt(var + (double)EPS));
+// (n, mean, m2) += (nb, mb, qb): Chan's parallel merge
+__device__ __forceinline__ void chan(double& n, double& m, double& q, double nb, double mb,
+                                     double qb) {
+  if (nb == 0.0) return;
+  const double nn = n + nb, d = mb - m;
+  m += d * (nb / nn);
+  q += qb + d * d * (n * nb / nn);
+  n = nn;
 }
 
-// B-operand loader and depthwise tap for a weight type: float weights as they
-// are, int8 weights times their per-out-channel scale
-__device__ __forceinline__ act::RowMajor b_loader(const float* w, const float*, int n) {
-  return act::RowMajor{w, n};
-}
-__device__ __forceinline__ act::RowMajorS8 b_loader(const int8_t* w, const float* scale, int n) {
-  return act::RowMajorS8{w, scale, n};
-}
-__device__ __forceinline__ float tap_weight(const float* w, const float*, int i, int) {
-  return w[i];
-}
-__device__ __forceinline__ float tap_weight(const int8_t* w, const float* scale, int i, int ch) {
-  return __fmul_rn((float)w[i], scale[ch]);
-}
-
-struct LoadX {
-  const float* x;  // [F, C] of this batch item
-  int f, c;
-  __device__ float operator()(int r, int k) const { return r < f ? x[(size_t)r * c + k] : 0.f; }
+struct Stats {
+  float* part;        // [B, n_part, 3] partials (count, mean, m2)
+  unsigned* tickets;  // [B], 0 between launches
+  float* out;         // [B, 4]: (mean, rstd) written at out + 4 b
+  int n_part;
 };
 
-struct LoadGln {
-  const float* h;  // [F, H] of this batch item
-  const float* gamma;
-  const float* beta;
-  float mean, rstd;
-  int f, hd;
-  __device__ float operator()(int r, int k) const {
-    return r < f ? (h[(size_t)r * hd + k] - mean) * rstd * gamma[k] + beta[k] : 0.f;
+// Publish a block's partial of item b (cnt values, their mean mu and m2 about
+// it) into slot ``slot`` of n_live; the last block of the item to publish
+// merges slots 0 .. n_live - 1 in a fixed order and writes (mean, rstd) at
+// st.out + 4 b. Called by every thread of a block that did not return early.
+__device__ __forceinline__ void publish_stats(float cnt, float mu, float m2, const Stats& st,
+                                              int b, int slot, int n_live) {
+  __shared__ double mred[NW][3];
+  __shared__ bool last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* part = st.part + (size_t)b * st.n_part * 3;
+  if (tid == 0) {
+    part[3 * slot] = cnt;
+    part[3 * slot + 1] = mu;
+    part[3 * slot + 2] = m2;
+    __threadfence();
+    last = atomicAdd(st.tickets + b, 1u) == (unsigned)(n_live - 1);
   }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // thread t merges slots t, t + NT, ...; then a fixed tree per warp, then
+  // the warps in order
+  double n = 0.0, m = 0.0, q = 0.0;
+  for (int i = tid; i < n_live; i += NT) {
+    chan(n, m, q, __ldcg(part + 3 * i), __ldcg(part + 3 * i + 1), __ldcg(part + 3 * i + 2));
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const double nb = __shfl_down_sync(0xffffffffu, n, o);
+    const double mb = __shfl_down_sync(0xffffffffu, m, o);
+    const double qb = __shfl_down_sync(0xffffffffu, q, o);
+    chan(n, m, q, nb, mb, qb);
+  }
+  if (lane == 0) {
+    mred[warp][0] = n;
+    mred[warp][1] = m;
+    mred[warp][2] = q;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double tn = 0.0, tm = 0.0, tq = 0.0;
+    for (int w = 0; w < NW; ++w) chan(tn, tm, tq, mred[w][0], mred[w][1], mred[w][2]);
+    const double var = tq / fmax(tn, 1.0);
+    st.out[4 * b] = (float)tm;
+    st.out[4 * b + 1] = (float)(1.0 / sqrt(var + (double)EPS));
+    st.tickets[b] = 0u;  // ready for the next launch
+  }
+}
+
+struct GemmArgs {
+  const float* a;       // [B, F, K]: x (IN) or h2 (OUT)
+  const int* f_len;     // [B]
+  const void* w;        // [K, N] weights, float or int8
+  const float* wscale;  // [N] int8 scales (unused for float)
+  const float* vecs;    // this block's [vrows, H]
+  const float* cvecs;   // this block's [crows, C]
+  Stats st;             // IN: gLN-1 partials and out = stats + 0; OUT: reads stats + 2
+  const float* x_in;    // OUT: [B, F, C] residual in
+  float* x_out;         // OUT: [B, F, C] residual out (may be x_in: each element is read
+                        // and then written by one thread)
+  float* skips;         // OUT: [B, F, C]
+  float* h1;            // IN: [B, F, H]
+  int f, k, n, c;
 };
 
-// A: h1 = PReLU(x W_in + b_in); masked sum into st[b][0]
-template <class W>
-__global__ void __launch_bounds__(GT)
-in_conv_kernel(const float* __restrict__ x, const int* __restrict__ f_len,
-               const W* __restrict__ w_in, const float* __restrict__ vecs,
-               float* __restrict__ h1, double* __restrict__ st, int f, int c, int hd) {
-  __shared__ float smem[act::gemm_smem_floats<TM, TN>()];
-  __shared__ float red[GT / 32];
-  const int b = blockIdx.z, m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float acc[TM][TN];
-  act::gemm_tile(smem, LoadX{x + (size_t)b * f * c, f, c}, b_loader(w_in, vecs + 8 * hd, hd), c,
-                 m0, n0, acc);
-  const float* b_in = vecs;
-  const float a1 = vecs[1 * hd];
-  const int fl = f_len[b], tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float local = 0.f;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int r = m0 + ty + 16 * i;
-    if (r >= f) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int col = n0 + tx + 16 * j;
-      float v = acc[i][j] + b_in[col];
-      v = v >= 0.f ? v : a1 * v;
-      h1[((size_t)b * f + r) * hd + col] = v;
-      if (r < fl) local += v;
+// A: h1 = PReLU(x W_in + b_in) + gLN-1 partials (MODE IN); C: gLN-2(h2)
+// [W_res | W_skip] into x and skips (MODE OUT). Grid (N / BN, row tiles, B):
+// the column blocks of a row tile run side by side, so each row of the
+// operand comes from device memory once and from L2 after that.
+template <class W, int MODE, int BN>
+__global__ void __launch_bounds__(NT) gemm_kernel(GemmArgs p) {
+  using T = Tile<BN>;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[NW];
+  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int fl = p.f_len[b];
+  if (m0 >= fl) return;  // a tile wholly past f_len: nothing to compute
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int kdim = p.k, ndim = p.n;
+  const float* a = p.a + (size_t)b * p.f * kdim;
+  const W* w = static_cast<const W*>(p.w);
+
+  // staging roles. A: fragments (m16 tile sw4 + 2 i, k8 step sks), i < 4;
+  // B: quads (k8 step (warp + 8 i) / NP, n8 pair snp), i < BQ
+  const int sks = warp % KS, sw4 = warp / KS, snp = warp % T::NP;
+  const int bcol = n0 + 16 * snp + g;  // this lane's B columns: bcol, bcol + 8
+  float wsc[2] = {1.f, 1.f};
+  if (sizeof(W) == 1) {
+    wsc[0] = p.wscale[bcol];
+    wsc[1] = p.wscale[bcol + 8];
+  }
+  // OUT: gLN-2 as (x - mean) * (gamma rstd) + beta, its coefficients over
+  // the H contraction in shared memory (gsc: gamma rstd, then beta)
+  float mean = 0.f;
+  float* raw = smem + 2 * T::STAGE;
+  float* gsc = raw + NSR * T::RAW;
+  if (MODE == OUT) {
+    mean = p.st.out[4 * b + 2];
+    const float rstd = p.st.out[4 * b + 3];
+    for (int k = tid; k < kdim; k += NT) {
+      gsc[k] = p.vecs[6 * kdim + k] * rstd;
+      gsc[kdim + k] = p.vecs[7 * kdim + k];
     }
   }
-  float s = block_sum(local, red);
-  if (threadIdx.x == 0) atomicAdd(&st[b * 4 + 0], (double)s);
-}
 
-// S: masked sum of (h - mean)^2 into st[b][which + 1]
-__global__ void __launch_bounds__(RT)
-sq_kernel(const float* __restrict__ h, const int* __restrict__ f_len, double* __restrict__ st,
-          int which, int f, int hd) {
-  __shared__ float red[RT / 32];
-  const int b = blockIdx.y, fl = f_len[b];
-  float mean, rstd;
-  gln_stats(st + b * 4, which, fl, hd, &mean, &rstd);
-  const size_t n = (size_t)min(fl, f) * hd;
-  const float* hb = h + (size_t)b * f * hd;
-  float local = 0.f;
-  for (size_t i = (size_t)blockIdx.x * RT + threadIdx.x; i < n; i += (size_t)gridDim.x * RT) {
-    float d = hb[i] - mean;
-    local = fmaf(d, d, local);
+  // raw k-tiles: 16-byte cp.async copies into an NSR-stage ring, rows past
+  // f_len zero-filled. A tile: BM rows of BK floats; B tile: BK rows of BN
+  // weights (float or int8)
+  const int n_kt = kdim / BK;
+  auto fetch = [&](int kt) {
+    if (kt < n_kt) {
+      float* ra_s = raw + (kt % NSR) * T::RAW;
+      const int k0 = kt * BK;
+#pragma unroll
+      for (int i = 0; i < BM * BK / 4 / NT; ++i) {
+        const int q = tid + NT * i, row = q / (BK / 4), c4 = 4 * (q % (BK / 4));
+        const bool in = m0 + row < fl;
+        act::cp_async16(ra_s + row * RAS + c4, a + (size_t)(in ? m0 + row : 0) * kdim + k0 + c4,
+                        in);
+      }
+      float* rb_s = ra_s + BM * RAS;
+      if (sizeof(W) == 4) {
+#pragma unroll
+        for (int i = 0; i < BK * BN / 4 / NT; ++i) {
+          const int q = tid + NT * i, row = q / (BN / 4), c4 = 4 * (q % (BN / 4));
+          act::cp_async16(rb_s + row * T::RBS + c4,
+                          reinterpret_cast<const float*>(w + (size_t)(k0 + row) * ndim + n0 + c4),
+                          true);
+        }
+      } else {
+        for (int q = tid; q < BK * BN / 16; q += NT) {
+          const int row = q / (BN / 16), c16 = 16 * (q % (BN / 16));
+          act::cp_async16(
+              reinterpret_cast<float*>(reinterpret_cast<char*>(rb_s) + row * T::RBS8 + c16),
+              reinterpret_cast<const float*>(w + (size_t)(k0 + row) * ndim + n0 + c16), true);
+        }
+      }
+    }
+    act::cp_commit();
+  };
+  // a raw B weight (row k, column n of the tile)
+  auto raw_w = [&](const float* rb_s, int k, int n) -> W {
+    if constexpr (sizeof(W) == 4) {
+      return rb_s[k * T::RBS + n];
+    } else {
+      return reinterpret_cast<const W*>(rb_s)[k * T::RBS8 + n];
+    }
+  };
+  // k-tile kt from its raw stage into fragment stage `stage`: A fragments
+  // transformed (row mask, gLN-2) and kept float, B quads (int8 dequant)
+  // split into big and small TF32 halves (the small left for the mma to
+  // truncate), all in fragment order
+  auto stage_tile = [&](int kt, float* stage) {
+    const float* ra_s = raw + (kt % NSR) * T::RAW;
+    const float* rb_s = ra_s + BM * RAS;
+    const int kc = 8 * sks + 2 * tg;
+    float2 gm = make_float2(0.f, 0.f), be = gm;
+    if (MODE == OUT) {
+      gm = ld2(gsc + kt * BK + kc);
+      be = ld2(gsc + kdim + kt * BK + kc);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int mt = sw4 + 2 * i, row = 16 * mt + g;
+      float2 lo = ld2(ra_s + row * RAS + kc), hi = ld2(ra_s + (row + 8) * RAS + kc);
+      if (MODE == OUT) {  // gLN-2 on valid rows; padded rows stay 0
+        if (m0 + row < fl) {
+          lo = make_float2(fmaf(lo.x - mean, gm.x, be.x), fmaf(lo.y - mean, gm.y, be.y));
+        }
+        if (m0 + row + 8 < fl) {
+          hi = make_float2(fmaf(hi.x - mean, gm.x, be.x), fmaf(hi.y - mean, gm.y, be.y));
+        }
+      }
+      // quad (a0, a1, a2, a3) = rows (g, g + 8) x k slots (t, t + 4)
+      *reinterpret_cast<float4*>(stage + (mt * KS + sks) * FRAG + 4 * lane) =
+          make_float4(lo.x, hi.x, lo.y, hi.y);
+    }
+#pragma unroll
+    for (int i = 0; i < T::BQ; ++i) {
+      const int ks = (warp + NW * i) / T::NP, k = 8 * ks + 2 * tg, n = 16 * snp + g;
+      const float v[4] = {
+          weight(raw_w(rb_s, k, n), wsc[0]), weight(raw_w(rb_s, k + 1, n), wsc[0]),
+          weight(raw_w(rb_s, k, n + 8), wsc[1]), weight(raw_w(rb_s, k + 1, n + 8), wsc[1])};
+      uint32_t big[4], small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) act::split_fast(v[e], big[e], small[e]);
+      float* q = stage + AF + (ks * T::NP + snp) * FRAG + 4 * lane;
+      *reinterpret_cast<uint4*>(q) = make_uint4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<uint4*>(q + T::BF) = make_uint4(small[0], small[1], small[2], small[3]);
+    }
+  };
+
+  // products: warp (wm, wn) owns rows 32 wm .. + 31 (m16 tiles 2 wm, + 1) and
+  // columns BN / 2 wn .. + BN / 2 - 1 (n8 pairs NPW wn ..); its products over
+  // a k-tile are formed from zero side by side (4 NPW independent chains) and
+  // then added to acc in IEEE float32
+  const int wm = warp % 4, wn = warp / 4;
+  float acc[2][2 * T::NPW][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 2 * T::NPW; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+
+  for (int kt = 0; kt < NSR - 1; ++kt) fetch(kt);
+  act::cp_wait<NSR - 2>();
+  __syncthreads();
+  stage_tile(0, smem);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // the raw slot refilled here held k-tile kt - 1, read before the last
+    // barrier; after this barrier k-tile kt + 1 has landed, fragment stage
+    // kt % 2 is complete and nobody reads fragment stage (kt + 1) % 2 any more
+    fetch(kt + NSR - 1);
+    act::cp_wait<NSR - 2>();
+    __syncthreads();
+    const float* stage = smem + (kt % 2) * T::STAGE;
+    float tmp[2][2 * T::NPW][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 2 * T::NPW; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[mi][nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      // this warp's A fragments, split in registers; its B quads, split
+      uint32_t ab[2][4], as[2][4], bb[T::NPW][4], bs[T::NPW][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const float4 x = ld4(stage + ((2 * wm + mi) * KS + ks) * FRAG + 4 * lane);
+        act::split_fast(x.x, ab[mi][0], as[mi][0]);
+        act::split_fast(x.y, ab[mi][1], as[mi][1]);
+        act::split_fast(x.z, ab[mi][2], as[mi][2]);
+        act::split_fast(x.w, ab[mi][3], as[mi][3]);
+      }
+#pragma unroll
+      for (int pp = 0; pp < T::NPW; ++pp) {
+        const float* q = stage + AF + (ks * T::NP + T::NPW * wn + pp) * FRAG + 4 * lane;
+        const uint4 qb = *reinterpret_cast<const uint4*>(q);
+        const uint4 qs = *reinterpret_cast<const uint4*>(q + T::BF);
+        bb[pp][0] = qb.x, bb[pp][1] = qb.y, bb[pp][2] = qb.z, bb[pp][3] = qb.w;
+        bs[pp][0] = qs.x, bs[pp][1] = qs.y, bs[pp][2] = qs.z, bs[pp][3] = qs.w;
+      }
+      // the small cross terms first, then big x big; n8 tile nt is half
+      // nt % 2 of pair nt / 2
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 2 * T::NPW; ++nt)
+          mma_tf32(tmp[mi][nt], as[mi], bb[nt / 2][2 * (nt % 2)], bb[nt / 2][2 * (nt % 2) + 1]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 2 * T::NPW; ++nt)
+          mma_tf32(tmp[mi][nt], ab[mi], bs[nt / 2][2 * (nt % 2)], bs[nt / 2][2 * (nt % 2) + 1]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nt = 0; nt < 2 * T::NPW; ++nt)
+          mma_tf32(tmp[mi][nt], ab[mi], bb[nt / 2][2 * (nt % 2)], bb[nt / 2][2 * (nt % 2) + 1]);
+    }
+    // the next k-tile's staging while the products run
+    if (kt + 1 < n_kt) stage_tile(kt + 1, smem + ((kt + 1) % 2) * T::STAGE);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 2 * T::NPW; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nt][e] += tmp[mi][nt][e];
   }
-  float s = block_sum(local, red);
-  if (threadIdx.x == 0) atomicAdd(&st[b * 4 + which + 1], (double)s);
+
+  // thread holds rows g (c0, c1) and g + 8 (c2, c3) of each m16 tile,
+  // columns 2 tg, 2 tg + 1 of each n8 tile
+  if (MODE == IN) {
+    const float* b_in = p.vecs;
+    const float a1 = p.vecs[ndim];  // vecs row 1: PReLU alpha (N = H)
+    float* h1 = p.h1 + (size_t)b * p.f * ndim;
+    float s = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int nt = 0; nt < 2 * T::NPW; ++nt) {
+        const int col = n0 + (BN / 2) * wn + 8 * nt + 2 * tg;
+        const float2 bias = ld2(b_in + col);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = m0 + 32 * wm + 16 * mi + g + 8 * hh;
+          float v0 = acc[mi][nt][2 * hh] + bias.x, v1 = acc[mi][nt][2 * hh + 1] + bias.y;
+          v0 = v0 >= 0.f ? v0 : a1 * v0;
+          v1 = v1 >= 0.f ? v1 : a1 * v1;
+          acc[mi][nt][2 * hh] = v0;
+          acc[mi][nt][2 * hh + 1] = v1;
+          if (r < fl) {
+            *reinterpret_cast<float2*>(h1 + (size_t)r * ndim + col) = make_float2(v0, v1);
+            s += v0 + v1;
+          }
+        }
+      }
+    }
+    // two passes over the tile's valid values, held in acc
+    const float cnt = (float)(min(BM, fl - m0) * BN);
+    const float mu = block_sum(s, red) / cnt;
+    float q = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 2 * T::NPW; ++nt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if (m0 + 32 * wm + 16 * mi + g + 8 * hh < fl) {
+            const float d0 = acc[mi][nt][2 * hh] - mu, d1 = acc[mi][nt][2 * hh + 1] - mu;
+            q = fmaf(d0, d0, fmaf(d1, d1, q));
+          }
+        }
+    publish_stats(cnt, mu, block_sum(q, red), p.st, b, blockIdx.y * gridDim.x + blockIdx.x,
+                  ((fl + BM - 1) / BM) * gridDim.x);
+  } else {
+    const int c = p.c;
+    const size_t base = (size_t)b * p.f * c;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int nt = 0; nt < 2 * T::NPW; ++nt) {
+        const int col = n0 + (BN / 2) * wn + 8 * nt + 2 * tg;
+        const bool res = col < c;
+        const int cc = res ? col : col - c;
+        const float2 bias = ld2(p.cvecs + (res ? 0 : c) + cc);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = m0 + 32 * wm + 16 * mi + g + 8 * hh;
+          if (r >= fl) continue;
+          const size_t o = base + (size_t)r * c + cc;
+          const float2 prev = res ? ld2(p.x_in + o) : ld2(p.skips + o);
+          const float2 v = make_float2((prev.x + acc[mi][nt][2 * hh]) + bias.x,
+                                       (prev.y + acc[mi][nt][2 * hh + 1]) + bias.y);
+          *reinterpret_cast<float2*>((res ? p.x_out : p.skips) + o) = v;
+        }
+      }
+    }
+  }
 }
 
-// B: h2 = PReLU(dwconv_d(gLN-1(h1) * mask) + b_dw); masked sum into st[b][2]
+// B: h2 = PReLU(dwconv_d(gLN-1(h1) * mask) + b_dw) + gLN-2 partials. A block
+// of NT threads covers rb = (NT / (H / 4)) * VPT rows of one item: thread
+// (row lane rl, column group cg) owns channels 4 cg .. + 3 of rows
+// r0 + rl + RL v, v < VPT, its taps, bias and gLN-1 scale in registers.
 template <class W>
-__global__ void __launch_bounds__(RT)
+__global__ void __launch_bounds__(NT)
 dwconv_kernel(const float* __restrict__ h1, const int* __restrict__ f_len,
               const W* __restrict__ w_dw, const float* __restrict__ vecs,
-              float* __restrict__ h2, double* __restrict__ st, int f, int hd, int dil) {
-  __shared__ float red[RT / 32];
+              const float* __restrict__ gln1, float* __restrict__ h2, Stats st, int f, int hd,
+              int dil) {
+  __shared__ float red[NW];
   const int b = blockIdx.y, fl = f_len[b];
-  float mean, rstd;
-  gln_stats(st + b * 4, 0, fl, hd, &mean, &rstd);
-  const float* gamma1 = vecs + 2 * hd;
-  const float* beta1 = vecs + 3 * hd;
-  const float* b_dw = vecs + 4 * hd;
+  const int tpr = hd / 4, rl_n = NT / tpr, rb = rl_n * VPT;
+  const int r0 = blockIdx.x * rb;
+  if (r0 >= fl) return;
+  const int tid = threadIdx.x, cg = tid % tpr, rl = tid / tpr, ch = 4 * cg;
+  const float mean = gln1[4 * b], rstd = gln1[4 * b + 1];
+  const float4 g1 = ld4(vecs + 2 * hd + ch), be1 = ld4(vecs + 3 * hd + ch);
+  const float4 bdw = ld4(vecs + 4 * hd + ch);
   const float a2 = vecs[5 * hd];
-  const float* hb = h1 + (size_t)b * f * hd;
-  const size_t n = (size_t)f * hd;
-  float local = 0.f;
-  for (size_t i = (size_t)blockIdx.x * RT + threadIdx.x; i < n; i += (size_t)gridDim.x * RT) {
-    const int r = (int)(i / hd), ch = (int)(i % hd);
-    const float g = gamma1[ch], be = beta1[ch];
-    float acc = 0.f;
+  const float* sc = vecs + 9 * hd + ch;  // int8 scales of w_dw (unused for float)
+  float4 tap[3];
 #pragma unroll
-    for (int tap = 0; tap < 3; ++tap) {
-      int src = r + (tap - 1) * dil;
-      if (src >= 0 && src < f && src < fl) {
-        float z = (hb[(size_t)src * hd + ch] - mean) * rstd * g + be;
-        acc = fmaf(z, tap_weight(w_dw, vecs + 9 * hd, tap * hd + ch, ch), acc);
-      }
-    }
-    float v = acc + b_dw[ch];
-    v = v >= 0.f ? v : a2 * v;
-    h2[(size_t)b * n + i] = v;
-    if (r < fl) local += v;
+  for (int t = 0; t < 3; ++t) {
+    const W* wt = w_dw + t * hd + ch;
+    tap[t] = make_float4(weight(wt[0], sizeof(W) == 1 ? sc[0] : 0.f),
+                         weight(wt[1], sizeof(W) == 1 ? sc[1] : 0.f),
+                         weight(wt[2], sizeof(W) == 1 ? sc[2] : 0.f),
+                         weight(wt[3], sizeof(W) == 1 ? sc[3] : 0.f));
   }
-  float s = block_sum(local, red);
-  if (threadIdx.x == 0) atomicAdd(&st[b * 4 + 2], (double)s);
-}
-
-// C: [res | skip] = gLN-2(h2) [W_res | W_skip]; x_out = x_in + res + b_res,
-// skips += skip + b_skip
-template <class W>
-__global__ void __launch_bounds__(GT)
-out_conv_kernel(const float* __restrict__ h2, const int* __restrict__ f_len,
-                const W* __restrict__ w_rs, const float* __restrict__ vecs,
-                const float* __restrict__ cvecs, const float* __restrict__ x_in,
-                float* __restrict__ x_out, float* __restrict__ skips,
-                const double* __restrict__ st, int f, int c, int hd) {
-  const int b = blockIdx.z, m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float mean, rstd;
-  gln_stats(st + b * 4, 2, f_len[b], hd, &mean, &rstd);
-  __shared__ float smem[act::gemm_smem_floats<TM, TN>()];
-  float acc[TM][TN];
-  const LoadGln ld{h2 + (size_t)b * f * hd, vecs + 6 * hd, vecs + 7 * hd, mean, rstd, f, hd};
-  // cvecs rows 2, 3 are the scales of [W_res | W_skip]'s 2C columns
-  act::gemm_tile(smem, ld, b_loader(w_rs, cvecs + 2 * c, 2 * c), hd, m0, n0, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* hb = h1 + (size_t)b * f * hd + ch;
+  float* ob = h2 + (size_t)b * f * hd + ch;
+  float4 val[VPT];
+  float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int r = m0 + ty + 16 * i;
-    if (r >= f) continue;
-    const size_t row = ((size_t)b * f + r) * c;
+  for (int v = 0; v < VPT; ++v) {
+    const int r = r0 + rl + rl_n * v;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < fl) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int col = n0 + tx + 16 * j;
-      if (col < c) {
-        x_out[row + col] = (x_in[row + col] + acc[i][j]) + cvecs[col];
-      } else {
-        int cc = col - c;
-        skips[row + cc] = (skips[row + cc] + acc[i][j]) + cvecs[c + cc];
+      for (int t = 0; t < 3; ++t) {
+        const int src = r + (t - 1) * dil;
+        if (src >= 0 && src < fl) {  // gLN-1 then the mask: rows past f_len are 0
+          const float4 y = ld4(hb + (size_t)src * hd);
+          acc.x = fmaf(fmaf((y.x - mean) * rstd, g1.x, be1.x), tap[t].x, acc.x);
+          acc.y = fmaf(fmaf((y.y - mean) * rstd, g1.y, be1.y), tap[t].y, acc.y);
+          acc.z = fmaf(fmaf((y.z - mean) * rstd, g1.z, be1.z), tap[t].z, acc.z);
+          acc.w = fmaf(fmaf((y.w - mean) * rstd, g1.w, be1.w), tap[t].w, acc.w);
+        }
       }
+      acc.x += bdw.x;
+      acc.y += bdw.y;
+      acc.z += bdw.z;
+      acc.w += bdw.w;
+      acc.x = acc.x >= 0.f ? acc.x : a2 * acc.x;
+      acc.y = acc.y >= 0.f ? acc.y : a2 * acc.y;
+      acc.z = acc.z >= 0.f ? acc.z : a2 * acc.z;
+      acc.w = acc.w >= 0.f ? acc.w : a2 * acc.w;
+      *reinterpret_cast<float4*>(ob + (size_t)r * hd) = acc;
+      s += (acc.x + acc.y) + (acc.z + acc.w);
+    }
+    val[v] = acc;
+  }
+  const float cnt = (float)(min(rb, fl - r0) * hd);
+  const float mu = block_sum(s, red) / cnt;
+  float q = 0.f;
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) {
+    if (r0 + rl + rl_n * v < fl) {
+      const float dx = val[v].x - mu, dy = val[v].y - mu, dz = val[v].z - mu, dw = val[v].w - mu;
+      q = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, fmaf(dw, dw, q))));
     }
   }
+  publish_stats(cnt, mu, block_sum(q, red), st, b, blockIdx.x, (fl + rb - 1) / rb);
 }
 
-int grid_for(size_t n) {
-  size_t g = (n + RT - 1) / RT;
-  return (int)(g < 1024 ? (g > 0 ? g : 1) : 1024);
+// the raise of a GEMM instance's shared-memory cap, once per device
+template <class W, int MODE, int BN>
+std::atomic<uint64_t>& smem_cap_raised() {
+  static std::atomic<uint64_t> raised{0};
+  return raised;
 }
 
-// The five launches per TCN block for weights of type W; vecs has vrows rows
+template <class W, int MODE, int BN>
+cudaError_t launch_gemm_bn(const GemmArgs& p, int batch, cudaStream_t stream) {
+  const cudaError_t e = act::allow_dynamic_smem(
+      reinterpret_cast<const void*>(gemm_kernel<W, MODE, BN>), smem_cap_raised<W, MODE, BN>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.n / BN, (p.f + BM - 1) / BM, batch);
+  gemm_kernel<W, MODE, BN><<<grid, NT, Tile<BN>::SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// 128-column blocks (half the operand staging per column) where N allows
+// them and they still fill the card (sms: its multiprocessors); 64-column
+// blocks otherwise (a batch-1 streaming window has 16 row tiles)
+template <class W, int MODE>
+cudaError_t launch_gemm(const GemmArgs& p, int batch, int sms, cudaStream_t stream) {
+  const long blocks128 = (long)((p.f + BM - 1) / BM) * batch * (p.n / 128);
+  return p.n % 128 == 0 && blocks128 >= sms ? launch_gemm_bn<W, MODE, 128>(p, batch, stream)
+                                            : launch_gemm_bn<W, MODE, 64>(p, batch, stream);
+}
+
+// The three launches per TCN block for weights of type W; vecs has vrows rows
 // per block and cvecs crows (8 and 2, or 10 and 4 with the int8 scales).
 template <class W>
 int run_masker(const float* x, const int* f_len, const W* w_in, const W* w_dw,
-               const float* vecs, const W* w_rs, const float* cvecs, float* xa, float* xb,
-               float* h1, float* h2, double* stats, float* skips, int batch, int f, int c,
-               int hd, int n_blocks, int n_per_repeat, int vrows, int crows,
-               cudaStream_t stream) {
-  if (c % BKK != 0 || hd % BN != 0 || (2 * c) % BN != 0 || hd % BKK != 0)
+               const float* vecs, const W* w_rs, const float* cvecs, float* xs, float* h1,
+               float* h2, float* stats, float* part, unsigned* tickets, float* skips, int batch,
+               int f, int c, int hd, int n_blocks, int n_per_repeat, int n_part, int vrows,
+               int crows, cudaStream_t stream) {
+  if (c <= 0 || hd <= 0 || c % BK != 0 || hd % 64 != 0 || 1024 % hd != 0 || n_per_repeat <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int rb = (NT / (hd / 4)) * VPT;  // depthwise rows a block
+  // one partial a GEMM block or depthwise block of an item
+  if (n_part < ((f + BM - 1) / BM) * (hd / 64) || n_part < (f + rb - 1) / rb)
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if ((e = cudaMemsetAsync(skips, 0, sizeof(float) * (size_t)batch * f * c, stream)) != cudaSuccess)
     return (int)e;
-  if ((e = cudaMemsetAsync(stats, 0, sizeof(double) * (size_t)n_blocks * batch * 4, stream)) !=
-      cudaSuccess)
+  if (batch <= 0 || f <= 0 || n_blocks <= 0) return 0;
+  if ((e = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * batch, stream)) != cudaSuccess)
     return (int)e;
-  const dim3 g_in((f + BM - 1) / BM, hd / BN, batch);
-  const dim3 g_out((f + BM - 1) / BM, 2 * c / BN, batch);
-  const dim3 g_red(grid_for((size_t)f * hd), batch);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const dim3 g_dw((f + rb - 1) / rb, batch);
   const float* cur = x;
-  float* bufs[2] = {xa, xb};
   for (int i = 0; i < n_blocks; ++i) {
-    const W* wi = w_in + (size_t)i * c * hd;
-    const W* wd = w_dw + (size_t)i * 3 * hd;
     const float* vv = vecs + (size_t)i * vrows * hd;
-    const W* wr = w_rs + (size_t)i * hd * 2 * c;
     const float* cv = cvecs + (size_t)i * crows * c;
-    double* st = stats + (size_t)i * batch * 4;
-    float* nxt = bufs[i & 1];
-    const int dil = 1 << (i % n_per_repeat);
-    in_conv_kernel<W><<<g_in, GT, 0, stream>>>(cur, f_len, wi, vv, h1, st, f, c, hd);
-    sq_kernel<<<g_red, RT, 0, stream>>>(h1, f_len, st, 0, f, hd);
-    dwconv_kernel<W><<<g_red, RT, 0, stream>>>(h1, f_len, wd, vv, h2, st, f, hd, dil);
-    sq_kernel<<<g_red, RT, 0, stream>>>(h2, f_len, st, 2, f, hd);
-    out_conv_kernel<W><<<g_out, GT, 0, stream>>>(h2, f_len, wr, vv, cv, cur, nxt, skips, st, f,
-                                                 c, hd);
+    float* sti = stats + (size_t)i * batch * 4;
+    GemmArgs pa{cur, f_len, w_in + (size_t)i * c * hd, vv + 8 * hd, vv, cv,
+                Stats{part, tickets, sti, n_part}, nullptr, nullptr, nullptr, h1, f, c, hd, c};
+    if ((e = launch_gemm<W, IN>(pa, batch, sms, stream)) != cudaSuccess) return (int)e;
+    dwconv_kernel<W><<<g_dw, NT, 0, stream>>>(h1, f_len, w_dw + (size_t)i * 3 * hd, vv, sti, h2,
+                                               Stats{part, tickets, sti + 2, n_part}, f, hd,
+                                               1 << (i % n_per_repeat));
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    cur = nxt;
+    // cvecs rows 2, 3 are the scales of [W_res | W_skip]'s 2C columns
+    GemmArgs pc{h2, f_len, w_rs + (size_t)i * hd * 2 * c, cv + 2 * c, vv, cv,
+                Stats{part, tickets, sti, n_part}, cur, xs, skips, nullptr, f, hd, 2 * c, c};
+    if ((e = launch_gemm<W, OUT>(pc, batch, sms, stream)) != cudaSuccess) return (int)e;
+    cur = xs;  // x is read only; the residual stream lives in xs from block 0 on
   }
   return 0;
 }
 
 }  // namespace
 
-// x: [B, F, C] input (read only); f_len: [B] int32; per-block stacks
-// w_in [NB, C, H], w_dw [NB, 3, H], vecs [NB, 8, H], w_rs [NB, H, 2C]
-// (W_res | W_skip), cvecs [NB, 2, C]. Scratch: xa, xb [B, F, C],
-// h1, h2 [B, F, H], stats [NB, B, 4] double. Output: skips [B, F, C].
+// x: [B, F, C] input (read only); f_len: [B] int32 in [0, F]; per-block
+// stacks w_in [NB, C, H], w_dw [NB, 3, H], vecs [NB, 8, H], w_rs [NB, H, 2C]
+// (W_res | W_skip), cvecs [NB, 2, C]. Scratch: xs [B, F, C], h1, h2
+// [B, F, H], stats [NB, B, 4], part [B, n_part, 3] with n_part >= 2 ceil(F /
+// 128) H / 64, tickets [B] (uint32). Output: skips [B, F, C], rows past
+// f_len exactly 0. C % 32 == 0, H % 64 == 0 and H divides 1024.
 extern "C" int act_tcn_masker(const float* x, const int* f_len, const float* w_in,
                               const float* w_dw, const float* vecs, const float* w_rs,
-                              const float* cvecs, float* xa, float* xb, float* h1, float* h2,
-                              double* stats, float* skips, int batch, int f, int c, int hd,
-                              int n_blocks, int n_per_repeat, cudaStream_t stream) {
-  return run_masker<float>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, xa, xb, h1, h2, stats, skips,
-                           batch, f, c, hd, n_blocks, n_per_repeat, 8, 2, stream);
+                              const float* cvecs, float* xs, float* h1, float* h2, float* stats,
+                              float* part, unsigned* tickets, float* skips, int batch, int f,
+                              int c, int hd, int n_blocks, int n_per_repeat, int n_part,
+                              cudaStream_t stream) {
+  return run_masker<float>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, xs, h1, h2, stats, part,
+                           tickets, skips, batch, f, c, hd, n_blocks, n_per_repeat, n_part, 8, 2,
+                           stream);
 }
 
 // The int8 weight stream: w_in, w_dw, w_rs as int8 in the same layouts;
@@ -304,9 +670,11 @@ extern "C" int act_tcn_masker(const float* x, const int* f_len, const float* w_i
 // else as act_tcn_masker.
 extern "C" int act_tcn_masker_s8(const float* x, const int* f_len, const int8_t* w_in,
                                  const int8_t* w_dw, const float* vecs, const int8_t* w_rs,
-                                 const float* cvecs, float* xa, float* xb, float* h1, float* h2,
-                                 double* stats, float* skips, int batch, int f, int c, int hd,
-                                 int n_blocks, int n_per_repeat, cudaStream_t stream) {
-  return run_masker<int8_t>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, xa, xb, h1, h2, stats,
-                            skips, batch, f, c, hd, n_blocks, n_per_repeat, 10, 4, stream);
+                                 const float* cvecs, float* xs, float* h1, float* h2,
+                                 float* stats, float* part, unsigned* tickets, float* skips,
+                                 int batch, int f, int c, int hd, int n_blocks, int n_per_repeat,
+                                 int n_part, cudaStream_t stream) {
+  return run_masker<int8_t>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, xs, h1, h2, stats, part,
+                            tickets, skips, batch, f, c, hd, n_blocks, n_per_repeat, n_part, 10, 4,
+                            stream);
 }

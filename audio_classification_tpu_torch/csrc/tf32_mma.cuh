@@ -1,7 +1,8 @@
 // Device helpers shared by the kernels that run float32 products on the
-// tensor cores in 3xTF32 (K3 / K5 flash_attention.cu, K4 gau_attention.cu):
-// the TF32 split, one mma.sync m16n8k8 TF32 product, 16-byte cp.async
-// staging, and the once-per-device raise of a kernel's shared-memory cap.
+// tensor cores in 3xTF32 (K2 tcn_masker.cu, K3 / K5 flash_attention.cu, K4
+// gau_attention.cu): the TF32 split, one mma.sync m16n8k8 TF32 product,
+// 16-byte cp.async staging, and the once-per-device raise of a kernel's
+// shared-memory cap.
 //
 // 3xTF32: x = big + small with big rounded to TF32; a b ~ a_big b_big +
 // a_big b_small + a_small b_big, the dropped small x small term below
@@ -87,9 +88,10 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // Raise a kernel's cap on dynamic shared memory to the card's opt-in
-// maximum, once per device (``raised`` holds one bit a device, one variable
-// a kernel): the cap only permits, each launch's own size sets the
-// occupancy. Not on every launch: a batch-1 call is host-bound
+// maximum less the kernel's static shared memory, once per device
+// (``raised`` holds one bit a device, one variable a kernel): the cap only
+// permits, each launch's own size sets the occupancy. Not on every launch: a
+// batch-1 call is host-bound
 inline cudaError_t allow_dynamic_smem(const void* kernel, std::atomic<uint64_t>& raised) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -97,9 +99,12 @@ inline cudaError_t allow_dynamic_smem(const void* kernel, std::atomic<uint64_t>&
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (raised.load(std::memory_order_relaxed) & bit) return cudaSuccess;
   int optin = 0;
+  cudaFuncAttributes attr;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)attr.sharedSizeBytes);
   }
   if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
   return err;

@@ -5,10 +5,12 @@ audio_classification_tpu/ops/pallas/tcn_kernel.py::fused_tcn_masker, with
 both of its weight streams: float32 (C entry point ``act_tcn_masker``) and
 int8 with per-block, per-out-channel float32 scales (``act_tcn_masker_s8``,
 "K2-s8": the kernel reads the int8 weights and applies the scales as it
-loads them; activations stay float). Bound and design are in the source's
-header; ``tcn_masker_reference`` is the plain twin, op for op the dense TCN
-loop on the stacked weights (tcn_kernel.py:370-419), run on the dequantised
-stack for an int8 one.
+loads them; activations stay float). Three launches a TCN block: the two
+pointwise GEMMs on the tensor cores in 3xTF32 and the depthwise pass, over
+the valid rows only, with deterministic gLN statistics; bound and design
+are in the source's header. ``tcn_masker_reference`` is the plain twin, op
+for op the dense TCN loop on the stacked weights (tcn_kernel.py:370-419),
+run on the dequantised stack for an int8 one.
 """
 from __future__ import annotations
 
@@ -116,8 +118,13 @@ def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     block weights (float32, or the int8 stream of
     ``stack_tcn_params(weight_quant=True)``) -> [B, F, C] f32 skip sum.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel of the
-    stack's weight type (counted in ``launches`` / ``launches_s8``)."""
+    Contract, the same on both devices: rows f < f_len[b] are the dense TCN
+    loop's skip sum; rows f >= f_len[b] are exactly 0. (The JAX kernel fills
+    them with values no caller reads: Conv-TasNet zeroes padded frames after
+    the mask conv. No valid row depends on a padded one.) CPU tensors run
+    the plain twin and zero its padded rows; CUDA tensors launch the kernel
+    of the stack's weight type (counted in ``launches`` / ``launches_s8``),
+    which computes no row past f_len."""
     wq = st["w_in"].dtype == torch.int8
     b, f, c = x.shape
     nb, _, hd = st["w_in"].shape
@@ -136,31 +143,38 @@ def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     if tuple(f_len.shape) != (b,):
         raise ValueError(f"fused_tcn_masker: f_len must be [{b}], got {tuple(f_len.shape)}")
     if x.device.type == "cpu":
-        return tcn_masker_reference(x, f_len, st, n_per_repeat=n_per_repeat)
+        out = tcn_masker_reference(x, f_len, st, n_per_repeat=n_per_repeat)
+        valid = torch.arange(f)[None, :] < f_len.to(torch.int64)[:, None]
+        return torch.where(valid[..., None], out, torch.zeros((), dtype=out.dtype))
     if not x.is_cuda:
         raise ValueError(f"fused_tcn_masker: unsupported device {x.device}")
-    if c % 32 or hd % 64:
-        raise ValueError(f"fused_tcn_masker: needs C % 32 == 0 and H % 64 == 0, "
-                         f"got C={c}, H={hd}")
+    if c % 32 or hd % 64 or 1024 % hd:
+        raise ValueError(f"fused_tcn_masker: needs C % 32 == 0, H % 64 == 0 and H dividing "
+                         f"1024, got C={c}, H={hd}")
     x = x.contiguous()
     fl = f_len.to(device=x.device, dtype=torch.int32).clamp(0, f).contiguous()
     w_rs = torch.cat([st["w_res"], st["w_skip"]], dim=-1).contiguous()
     weights = [st[k].contiguous() for k in ("w_in", "w_dw", "vecs")]
     cvecs = st["cvecs"].contiguous()
-    xa, xb, skips = (torch.empty_like(x) for _ in range(3))
+    xs, skips = torch.empty_like(x), torch.empty_like(x)
     h1, h2 = (torch.empty((b, f, hd), dtype=torch.float32, device=x.device) for _ in range(2))
-    stats = torch.empty((nb, b, 4), dtype=torch.float64, device=x.device)
+    stats = torch.empty((nb, b, 4), dtype=torch.float32, device=x.device)
+    # room for one gLN partial per block of an item: GEMM blocks of 128 rows
+    # x 64 or 128 columns, depthwise blocks of 4096 / H rows
+    n_part = 2 * -(-f // 128) * (hd // 64)
+    part = torch.empty((b, n_part, 3), dtype=torch.float32, device=x.device)
+    tickets = torch.empty((b,), dtype=torch.int32, device=x.device)
     name = "act_tcn_masker_s8" if wq else "act_tcn_masker"
-    fn = _build.kernel(name, [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn = _build.kernel(name, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     if wq:
         fused_tcn_masker.launches_s8 += 1
     else:
         fused_tcn_masker.launches += 1
     _build.check(name, fn(
         x.data_ptr(), fl.data_ptr(), weights[0].data_ptr(), weights[1].data_ptr(),
-        weights[2].data_ptr(), w_rs.data_ptr(), cvecs.data_ptr(), xa.data_ptr(),
-        xb.data_ptr(), h1.data_ptr(), h2.data_ptr(), stats.data_ptr(), skips.data_ptr(),
-        b, f, c, hd, nb, n_per_repeat, torch.cuda.current_stream(x.device).cuda_stream))
+        weights[2].data_ptr(), w_rs.data_ptr(), cvecs.data_ptr(), xs.data_ptr(), h1.data_ptr(),
+        h2.data_ptr(), stats.data_ptr(), part.data_ptr(), tickets.data_ptr(), skips.data_ptr(),
+        b, f, c, hd, nb, n_per_repeat, n_part, torch.cuda.current_stream(x.device).cuda_stream))
     return skips
 
 

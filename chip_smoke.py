@@ -49,12 +49,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SR = 16000
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores (K1, K2 are
-# IEEE float32 FMA) and HBM3 bandwidth
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores (K1 is IEEE
+# float32 FMA) and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# K3 / K4 / K5 run both products on the tensor cores in 3xTF32: three TF32
-# products per float32 product at the data sheet's dense TF32 rate
+# K2 / K2-s8 and K3 / K4 / K5 run their products on the tensor cores in
+# 3xTF32: three TF32 products per float32 product at the data sheet's dense
+# TF32 rate
 # (495 TFLOP/s, H100 SXM); their exponentials go through the special function
 # units, 16 results per SM per clock (CUDA C++ Programming Guide, throughput
 # of native arithmetic instructions, compute capability 9.0) on 132 SMs at
@@ -78,12 +79,12 @@ def bound(flops: float, nbytes: float) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
-def attention_bound(flops: float, exps: float, nbytes: float) -> dict:
-    """K3 / K4 / K5: the larger of the products at the 3xTF32 tensor-core
-    rate, the exponentials at the SFU rate (K4 has none) and the bytes;
-    beside it the float32 SIMT figure (``bound_simt_ms``) that the kernel's
-    earlier SIMT design was held to, so that its times compare with the new
-    ones."""
+def tensor_bound(flops: float, exps: float, nbytes: float) -> dict:
+    """K2 / K2-s8 / K3 / K4 / K5: the larger of the products at the 3xTF32
+    tensor-core rate, the exponentials at the SFU rate (K2 and K4 have none)
+    and the bytes; beside it the float32 SIMT figure (``bound_simt_ms``)
+    that the kernel's earlier SIMT design was held to, so that its times
+    compare with the new ones."""
     terms = {"tensor_3xtf32": flops / PEAK_3XTF32_FLOPS * 1e3,
              "sfu_exp": exps / PEAK_SFU_PER_S * 1e3,
              "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
@@ -197,9 +198,52 @@ def check_fbank(torch, np) -> dict:
     return k1
 
 
+def _tcn_case(torch, tcn, st, x, f_len, n_per_repeat, iters) -> tuple:
+    """One K2 / K2-s8 call at a main-path shape against its twin: error on
+    valid rows relative to max|skips| there, padded rows exact zeros, a
+    repeat call bit-identical; times of the kernel and its twin; the bound
+    over the valid frames."""
+    out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=n_per_repeat)
+    again = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=n_per_repeat)
+    torch.cuda.synchronize()
+    ref = tcn.tcn_masker_reference(x, f_len, st, n_per_repeat=n_per_repeat)
+    b, f, c = x.shape
+    valid = (torch.arange(f, device=x.device)[None, :] < f_len[:, None])[..., None]
+    err = ((out - ref).abs() * valid).max().item()
+    lens = f_len.tolist()
+    case = {"shape": [b, f, c], "f_len": lens, "max_abs_err": err,
+            "rel_err": err / (ref.abs() * valid).max().item(), "tol_rel": 1e-3,
+            "padded_rows_zero": not (out * ~valid).any().item(),
+            "repeat_identical": torch.equal(out, again),
+            "ms": cuda_ms(torch, lambda: tcn.fused_tcn_masker(x, f_len, st,
+                                                              n_per_repeat=n_per_repeat), iters),
+            "plain_ms": cuda_ms(torch, lambda: tcn.tcn_masker_reference(
+                x, f_len, st, n_per_repeat=n_per_repeat), iters),
+            "library_ms": None}  # no single PyTorch call computes the masker
+    nb, _, hd = st["w_in"].shape
+    # per block and VALID frame (rows past f_len are padding that the
+    # kernel never computes): in (C x H), res|skip (H x 2C) and the 3-tap
+    # depthwise conv; bytes: the valid rows of x in and of the sum out, the
+    # weights at their own width (one byte each in the int8 stream)
+    n_valid = sum(lens)
+    case.update(tensor_bound(nb * n_valid * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd), 0.0,
+                             4.0 * 2 * n_valid * c
+                             + sum(t.numel() * t.element_size() for t in st.values())))
+    case["share"] = case["bound_ms"] / case["ms"]
+    case["share_simt"] = case["bound_simt_ms"] / case["ms"]
+    # 3xTF32 through 24 residual blocks (~1e-6 expected), another summation
+    # order in every 128/512-wide contraction and in the F x H gLN reductions
+    assert math.isfinite(err) and case["rel_err"] <= 1e-3, case
+    assert case["padded_rows_zero"] and case["repeat_identical"], case
+    return case, out
+
+
 def check_tcn(torch, np) -> dict:
-    """K2 against its twin: the full-preset masker (seeded weights), B=1,
-    F=31999 (a 32 s bucket), f_len of a 20 s segment."""
+    """K2 against its twin on the full-preset masker (seeded weights) at the
+    main paths' shapes: the flagship B=1, F=31999 (a 32 s bucket) with the
+    f_len of a 20 s segment; the streaming window B=1, F=1999, all valid;
+    and 8 sessions' 2 s windows B=8, F=1999 with a ragged f_len (the
+    server's shape, run here on the float stack)."""
     from audio_classification_tpu_torch.engine.runtime import EnginePreset, ModelPack
     from audio_classification_tpu_torch.ops.kernels import tcn
 
@@ -207,33 +251,16 @@ def check_tcn(torch, np) -> dict:
     gen = torch.Generator(device="cpu").manual_seed(0)
     model = ModelPack(EnginePreset(), seed=0, device=dev).models["sep3"]
     st = tcn.stack_tcn_params(model.tcn_blocks())
-    f = (32 * SR - 32) // 16 + 1
-    x = torch.randn((1, f, 128), generator=gen).to(dev)
-    f_len = torch.tensor([(20 * SR - 32) // 16 + 1], dtype=torch.int32, device=dev)
-    out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=8)
-    torch.cuda.synchronize()
-    ref = tcn.tcn_masker_reference(x, f_len, st, n_per_repeat=8)
-    valid = slice(0, int(f_len[0]))
-    err = (out[:, valid] - ref[:, valid]).abs().max().item()
-    scale = ref[:, valid].abs().max().item()
-    k2 = {"shape": [1, f, 128], "f_len": int(f_len[0]), "max_abs_err": err,
-          "rel_err": err / scale, "tol_rel": 1e-3,
-          "ms": cuda_ms(torch, lambda: tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=8), 3),
-          "plain_ms": cuda_ms(torch, lambda: tcn.tcn_masker_reference(
-              x, f_len, st, n_per_repeat=8), 3),
-          "library_ms": None}
-    nb, c, hd = st["w_in"].shape
-    # per block and VALID frame (rows past f_len are padding that the model
-    # zeroes afterwards, no needed output): in (C x H), res|skip (H x 2C) and
-    # the 3-tap depthwise conv; bytes: valid rows of x in and of the sum out
-    n_valid = int(f_len.sum())
-    k2.update(bound(nb * n_valid * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd),
-                    4.0 * (2 * n_valid * c + sum(t.numel() for t in st.values()))))
-    log({"phase": "kernel", "name": "tcn_masker", **k2})
-    # f32 through 24 residual blocks, another summation order in every
-    # 128/512-wide contraction and in the F x H gLN reductions
-    assert math.isfinite(err) and k2["rel_err"] <= 1e-3, k2
-    return k2
+    f32, f2 = (32 * SR - 32) // 16 + 1, (2 * SR - 32) // 16 + 1
+    cases = []
+    for b, f, lens, iters in ((1, f32, [(20 * SR - 32) // 16 + 1], 10), (1, f2, [f2], 20),
+                              (8, f2, [f2, f2, 1500, f2, 1000, f2, 750, f2], 20)):
+        x = torch.randn((b, f, 128), generator=gen).to(dev)
+        f_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        case, _ = _tcn_case(torch, tcn, st, x, f_len, 8, iters)
+        log({"phase": "kernel", "name": "tcn_masker", **case})
+        cases.append(case)
+    return {**cases[0], "max_abs_err": max(c_["max_abs_err"] for c_ in cases), "cases": cases}
 
 
 def check_tcn_s8(torch, np) -> dict:
@@ -253,38 +280,17 @@ def check_tcn_s8(torch, np) -> dict:
     nb, c, hd = st["w_in"].shape
     f32, f2 = (32 * SR - 32) // 16 + 1, (2 * SR - 32) // 16 + 1
     cases = []
-    for b, f, lens, iters in ((1, f32, [(20 * SR - 32) // 16 + 1], 3),
-                              (8, f2, [f2, f2, 1500, f2, 1000, f2, 750, f2], 5)):
+    for b, f, lens, iters in ((1, f32, [(20 * SR - 32) // 16 + 1], 10),
+                              (8, f2, [f2, f2, 1500, f2, 1000, f2, 750, f2], 20)):
         x = torch.randn((b, f, c), generator=gen).to(dev)
         f_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-        out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=8)
+        case, out = _tcn_case(torch, tcn, st, x, f_len, 8, iters)
         flt = tcn.fused_tcn_masker(x, f_len, deq, n_per_repeat=8)
-        torch.cuda.synchronize()
-        ref = tcn.tcn_masker_reference(x, f_len, st, n_per_repeat=8)
-        valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
-        err = ((out - ref).abs() * valid).max().item()
-        scale = (ref.abs() * valid).max().item()
-        case = {"shape": [b, f, c], "f_len": lens, "max_abs_err": err, "rel_err": err / scale,
-                "tol_rel": 1e-3,
-                # the same products in the same order on bit-identical weights
-                "max_abs_diff_vs_float_kernel": (out - flt).abs().max().item(),
-                "ms": cuda_ms(torch, lambda: tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=8),
-                              iters),
-                "float_kernel_ms": cuda_ms(torch, lambda: tcn.fused_tcn_masker(
-                    x, f_len, deq, n_per_repeat=8), iters),
-                "plain_ms": cuda_ms(torch, lambda: tcn.tcn_masker_reference(
-                    x, f_len, st, n_per_repeat=8), iters),
-                "library_ms": None}
-        # K2's operation count, over the valid frames only (the padded rows
-        # of a bucket are no needed output); bytes with the weights at one
-        # byte each and the valid rows of x in and of the sum out
-        n_w = sum(st[k].numel() for k in ("w_in", "w_dw", "w_res", "w_skip"))
-        n_valid = sum(lens)
-        case.update(bound(nb * n_valid * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd),
-                          4.0 * (2 * n_valid * c + st["vecs"].numel() + st["cvecs"].numel())
-                          + 1.0 * n_w))
+        # the same products in the same order on bit-identical weights
+        case["max_abs_diff_vs_float_kernel"] = (out - flt).abs().max().item()
+        case["float_kernel_ms"] = cuda_ms(torch, lambda: tcn.fused_tcn_masker(
+            x, f_len, deq, n_per_repeat=8), iters)
         log({"phase": "kernel", "name": "tcn_masker_s8", **case})
-        assert math.isfinite(err) and case["rel_err"] <= 1e-3, case
         assert case["max_abs_diff_vs_float_kernel"] == 0.0, case
         cases.append(case)
     return {**cases[0], "max_abs_err": max(c_["max_abs_err"] for c_ in cases), "cases": cases}
@@ -335,7 +341,7 @@ def check_attention(torch, np) -> dict:
                       "library_eager_ms": cuda_ms(torch, sdpa, 20),
                       # over the valid keys: a masked key adds exp(-1e9) = 0,
                       # and k, v are read for the valid keys alone
-                      **attention_bound(4.0 * h * t * n_valid * 64, 1.0 * h * t * n_valid,
+                      **tensor_bound(4.0 * h * t * n_valid * 64, 1.0 * h * t * n_valid,
                                         4.0 * (2 * q.numel() + 2 * h * 64 * n_valid)
                                         + mask.numel())})
         cases[-1]["ms_over_library_ms"] = cases[-1]["ms"] / cases[-1]["library_ms"]
@@ -400,7 +406,7 @@ def check_attention_stats(torch, np) -> dict:
             "sdpa_eager_ms_same_inputs": None if tq != tk else cuda_ms(torch, sdpa, 20),
             # over the valid keys, as the operations: k and v are read for
             # them alone (a tile with none is skipped)
-            **attention_bound(4.0 * h * tq * sum(lens) * 64, 1.0 * h * tq * sum(lens),
+            **tensor_bound(4.0 * h * tq * sum(lens) * 64, 1.0 * h * tq * sum(lens),
                               4.0 * (q.numel() + 2 * h * 64 * sum(lens) + n_out)
                               + mask.numel())})
         if len(cases) == 2:
@@ -487,7 +493,7 @@ def check_gau(torch, np) -> dict:
                       # over the valid keys (a masked key contributes exactly 0):
                       # q read and out written for every row, k and v for the
                       # valid keys alone
-                      **attention_bound(2.0 * t * n_valid * (128 + 768), 0.0,
+                      **tensor_bound(2.0 * t * n_valid * (128 + 768), 0.0,
                                         4.0 * (q.numel() + n_valid * (128 + 768) + out.numel())
                                         + mask.numel())})
         cases[-1]["share"] = cases[-1]["bound_ms"] / cases[-1]["ms"]

@@ -32,10 +32,15 @@ drive the pipeline's per-chunk analysis and the server's tick on the calling
 thread (what the worker threads run, without the queue in between).
 
     python3 scripts/profile_torch_scene.py [--scenes overlap,clean,...] [--warm 3]
-        [--out build/profile_torch_scene.json]
+        [--out build/profile_torch_scene.json] [--root <checkout>]
 
 Needs a CUDA device; run it from the repository root. The whole report also
-goes to the --out file.
+goes to the --out file, with the file scenes' records of their first run
+(kind, span, stream, text, sv_score). --root takes the port's package from
+another checkout (a parent commit unpacked with ``git archive`` into a
+directory that .gitignore lists), so that two versions are profiled by the
+same script; scripts/compare_scene_records.py sets two reports' records side
+by side.
 """
 from __future__ import annotations
 
@@ -73,7 +78,9 @@ def main() -> int:
                             "long-form,long-form-ring4")
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile_torch_scene.json"))
+    ap.add_argument("--root", default=str(ROOT), help="checkout whose package is profiled")
     args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))  # before the package is imported
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -159,7 +166,9 @@ def main() -> int:
         def run():
             res = Overlap3Pipeline(cfg, engine=engine).run()
             torch.cuda.synchronize()
-            return {"rtf_total": res.metrics["rtf_total"]}
+            keys = ("kind", "start", "end", "stream", "text", "sv_score")
+            return {"rtf_total": res.metrics["rtf_total"],
+                    "records": [{k: r[k] for k in keys} for r in res.segments]}
         return run
 
     def streaming_scene():
@@ -223,7 +232,7 @@ def main() -> int:
             run = long_form_scene(LONG_SHARDS if name.endswith("ring4") else 0)
         else:
             run = file_scene(name)
-        run()  # first call: builds kernels, cuDNN plans, cached constants
+        first = run()  # first call: builds kernels, cuDNN plans, cached constants
         walls, extras = [], []
         for _ in range(args.warm):
             t0 = time.perf_counter()
@@ -284,6 +293,10 @@ def main() -> int:
                                 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1][1])
                                 if "(anonymous namespace)::" in k],
         }
+        if isinstance(first.get("records"), list):  # a file scene's records
+            scene["records"] = first["records"]
+            for e in extras:
+                del e["records"]
         for key in extras[0]:
             vals = [e[key] for e in extras]
             scene[key] = vals

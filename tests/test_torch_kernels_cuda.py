@@ -77,41 +77,18 @@ def test_flash_kernel_matches_twin(dev, b, h, t):
         attention.flash_attention(q[..., :32], k[..., :32], v[..., :32], mask)
 
 
-@pytest.mark.parametrize("c,hd,f", [(32, 64, 77), (128, 512, 1000)])
-def test_tcn_kernel_matches_twin(dev, c, hd, f):
-    """Batch of 2 with a ragged f_len; 1e-4 x max|skips| on valid rows
-    (f32, another summation order over 2 x 4 blocks)."""
-    g = torch.Generator().manual_seed(c)
-    nb = 8
-
-    def r(*s, scale=0.1):
-        return (torch.randn(s, generator=g) * scale).to(dev)
-
-    vecs = torch.stack([r(nb, hd), torch.full((nb, hd), 0.25, device=dev), 1 + r(nb, hd),
-                        r(nb, hd), r(nb, hd), torch.full((nb, hd), 0.3, device=dev),
-                        1 + r(nb, hd), r(nb, hd)], dim=1)
-    st = {"w_in": r(nb, c, hd), "w_dw": r(nb, 3, hd, scale=0.3), "w_res": r(nb, hd, c),
-          "w_skip": r(nb, hd, c), "vecs": vecs.contiguous(), "cvecs": r(nb, 2, c)}
-    x = r(2, f, c, scale=1.0)
-    f_len = torch.tensor([f, f // 2 + 3], dtype=torch.int32, device=dev)
-    out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=4)
-    torch.cuda.synchronize()
-    ref = tcn.tcn_masker_reference(x, f_len, st, n_per_repeat=4)
-    valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
-    err = ((out - ref).abs() * valid).max().item()
-    assert err / (ref.abs() * valid).max().item() < 1e-4
+# (C, H, F, f_len per item, n_per_repeat): f_len of 1, one GEMM row tile
+# (128) - 1, the tile, + 1 and F; F smaller than one tile; an empty item;
+# n_per_repeat 8 over 8 blocks, so dilations up to 128 exceed short f_len
+_TCN_CASES = [(32, 64, 77, [77, 1, 0], 4), (32, 64, 300, [300, 129, 128], 8),
+              (128, 512, 300, [127, 128, 129], 8), (128, 512, 1000, [1000, 503], 4),
+              (128, 512, 1999, [1999, 1500, 1, 0], 8)]
 
 
-@pytest.mark.parametrize("c,hd,f", [(32, 64, 77), (128, 512, 1000)])
-def test_tcn_s8_kernel_matches_twin_and_float_kernel(dev, c, hd, f):
-    """The int8 weight stream (K2-s8), batch of 2 with a ragged f_len:
-    1e-4 x max|skips| against the twin on the dequantised stack, and EQUAL
-    to the float kernel on that stack (the same products in the same order
-    on bit-identical weights). Each entry point counts its own launches."""
+def _tcn_stack(g, dev, c, hd, nb, quant):
+    """Random block weights; under ``quant`` the int8 stream with its scale
+    rows (vecs [NB, 10, H], cvecs [NB, 4, C])."""
     from audio_classification_tpu_torch.ops.quant import quantize_weight
-
-    g = torch.Generator().manual_seed(c + 1)
-    nb = 8
 
     def r(*s, scale=0.1):
         return (torch.randn(s, generator=g) * scale).to(dev)
@@ -119,29 +96,69 @@ def test_tcn_s8_kernel_matches_twin_and_float_kernel(dev, c, hd, f):
     rows = [r(nb, hd), torch.full((nb, hd), 0.25, device=dev), 1 + r(nb, hd), r(nb, hd),
             r(nb, hd), torch.full((nb, hd), 0.3, device=dev), 1 + r(nb, hd), r(nb, hd)]
     crows = [r(nb, c), r(nb, c)]
-    st = {}
-    for name, w in (("w_in", r(nb, c, hd)), ("w_dw", r(nb, 3, hd, scale=0.3)),
-                    ("w_res", r(nb, hd, c)), ("w_skip", r(nb, hd, c))):
-        st[name], scale = quantize_weight(w, channel_axis=-1, keep_axes=(0,))
-        (rows if name in ("w_in", "w_dw") else crows).append(scale[:, 0])
+    st = {"w_in": r(nb, c, hd), "w_dw": r(nb, 3, hd, scale=0.3), "w_res": r(nb, hd, c),
+          "w_skip": r(nb, hd, c)}
+    if quant:
+        for name in ("w_in", "w_dw", "w_res", "w_skip"):
+            st[name], scale = quantize_weight(st[name], channel_axis=-1, keep_axes=(0,))
+            (rows if name in ("w_in", "w_dw") else crows).append(scale[:, 0])
     st["vecs"] = torch.stack(rows, dim=1).contiguous()
     st["cvecs"] = torch.stack(crows, dim=1).contiguous()
-    x = r(2, f, c, scale=1.0)
-    f_len = torch.tensor([f, f // 2 + 3], dtype=torch.int32, device=dev)
-    before = (tcn.fused_tcn_masker.launches, tcn.fused_tcn_masker.launches_s8)
-    out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=4)
-    flt = tcn.fused_tcn_masker(x, f_len, tcn.dequant_stack(st), n_per_repeat=4)
+    return st
+
+
+def _check_tcn_call(dev, st, c, f, lens, npr):
+    """One kernel call against the twin: 1e-4 x max|skips| on valid rows
+    (3xTF32 on the tensor cores, ~1e-6 expected; another summation order
+    over 8 blocks), rows past f_len exactly 0, a second call bit-identical
+    (statistics merged in a fixed order, no atomics on sums), and padded
+    rows of x at +-1e4 change no bit (no padded row is read) -> output."""
+    g = torch.Generator().manual_seed(f + len(lens))
+    x = torch.randn((len(lens), f, c), generator=g).to(dev)
+    f_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=npr)
     torch.cuda.synchronize()
-    assert (tcn.fused_tcn_masker.launches, tcn.fused_tcn_masker.launches_s8) == \
-        (before[0] + 1, before[1] + 1)
-    ref = tcn.tcn_masker_reference(x, f_len, st, n_per_repeat=4)
+    ref = tcn.tcn_masker_reference(x, f_len, st, n_per_repeat=npr)
     valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
-    err = ((out - ref).abs() * valid).max().item()
-    assert err / (ref.abs() * valid).max().item() < 1e-4
+    if valid.any():
+        err = ((out - ref).abs() * valid).max().item()
+        assert err / (ref.abs() * valid).max().item() < 1e-4
+    assert not (out * ~valid).any()
+    assert torch.equal(out, tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=npr))
+    poisoned = torch.where(valid, x, 1e4 * torch.sign(torch.randn_like(x)))
+    assert torch.equal(out, tcn.fused_tcn_masker(poisoned, f_len, st, n_per_repeat=npr))
+    return x, f_len, out
+
+
+@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_CASES)
+def test_tcn_kernel_matches_twin(dev, c, hd, f, lens, npr):
+    """K2 (float stack) at the row-tile edges, with empty and one-frame
+    items; each call counts one float launch and no int8 one."""
+    st = _tcn_stack(torch.Generator().manual_seed(c), dev, c, hd, 8, quant=False)
+    before = (tcn.fused_tcn_masker.launches, tcn.fused_tcn_masker.launches_s8)
+    _check_tcn_call(dev, st, c, f, lens, npr)
+    assert (tcn.fused_tcn_masker.launches, tcn.fused_tcn_masker.launches_s8) == \
+        (before[0] + 3, before[1])
+
+
+@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_CASES)
+def test_tcn_s8_kernel_matches_twin_and_float_kernel(dev, c, hd, f, lens, npr):
+    """The int8 weight stream (K2-s8) at the same cases: as K2 against the
+    twin on the dequantised stack, and EQUAL to the float kernel on that
+    stack (the same products in the same order on bit-identical weights).
+    Each entry point counts its own launches."""
+    st = _tcn_stack(torch.Generator().manual_seed(c + 1), dev, c, hd, 8, quant=True)
+    before = (tcn.fused_tcn_masker.launches, tcn.fused_tcn_masker.launches_s8)
+    x, f_len, out = _check_tcn_call(dev, st, c, f, lens, npr)
+    assert (tcn.fused_tcn_masker.launches, tcn.fused_tcn_masker.launches_s8) == \
+        (before[0], before[1] + 3)
+    flt = tcn.fused_tcn_masker(x, f_len, tcn.dequant_stack(st), n_per_repeat=npr)
+    assert (tcn.fused_tcn_masker.launches, tcn.fused_tcn_masker.launches_s8) == \
+        (before[0] + 1, before[1] + 3)
     assert torch.equal(out, flt)
     with pytest.raises(ValueError, match="vecs"):
         tcn.fused_tcn_masker(x, f_len, {**st, "vecs": st["vecs"][:, :8].contiguous()},
-                             n_per_repeat=4)
+                             n_per_repeat=npr)
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 8, 8), (17, 33, 7), (504, 32, 512), (2000, 32, 512),

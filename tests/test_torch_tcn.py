@@ -24,10 +24,12 @@ from audio_classification_tpu_torch.convert.from_jax import params_to_state_dict
 from audio_classification_tpu_torch.engine.runtime import tiny_preset
 from audio_classification_tpu_torch.models.convtasnet import ConvTasNet
 from audio_classification_tpu_torch.ops.kernels.tcn import (
+    dequant_stack,
     fused_tcn_masker,
     stack_tcn_params,
     tcn_masker_reference,
 )
+from torch_port_helpers import _mm_3xtf32, _mm_tf32
 
 torch.set_num_threads(2)
 NB_PER, NREP, C, H = 4, 2, 128, 128
@@ -91,13 +93,24 @@ def test_tcn_twin_matches_jax_reference_loop(masker_case):
 
 
 def test_tcn_wrapper_on_cpu_runs_twin_and_counts_no_launch(masker_case):
-    _, st, x, f_len, out = masker_case
-    before = fused_tcn_masker.launches
-    got = fused_tcn_masker(torch.from_numpy(x), torch.from_numpy(f_len),
-                           {k: torch.from_numpy(np.array(v)) for k, v in st.items()},
-                           n_per_repeat=NB_PER).numpy()
-    np.testing.assert_array_equal(got, out)
-    assert fused_tcn_masker.launches == before
+    """The wrapper's contract on the CPU, for a float and an int8 stack:
+    valid rows are the twin's bit for bit, rows past f_len exactly 0 (the
+    kernel computes none of them), and no launch is counted."""
+    blocks, st, x, f_len, _ = masker_case
+    st8 = jax_stack_tcn_params([jax.tree.map(jnp.asarray, b) for b in blocks], jnp.float32,
+                               weight_quant=True)
+    valid = np.arange(x.shape[1])[None, :] < f_len[:, None]
+    assert not valid.all()
+    for stack in (st, st8):
+        tst = {k: torch.from_numpy(np.array(v)) for k, v in stack.items()}
+        twin = tcn_masker_reference(torch.from_numpy(x), torch.from_numpy(f_len), tst,
+                                    n_per_repeat=NB_PER).numpy()
+        before = (fused_tcn_masker.launches, fused_tcn_masker.launches_s8)
+        got = fused_tcn_masker(torch.from_numpy(x), torch.from_numpy(f_len), tst,
+                               n_per_repeat=NB_PER).numpy()
+        np.testing.assert_array_equal(got[valid], twin[valid])
+        assert not got[~valid].any()
+        assert (fused_tcn_masker.launches, fused_tcn_masker.launches_s8) == before
 
 
 def test_tcn_wrapper_rejects_int8_stack(masker_case):
@@ -116,6 +129,161 @@ def test_tcn_wrapper_rejects_int8_stack(masker_case):
                       ("vecs", st8["vecs"][:, :, :-1].contiguous())):
         with pytest.raises(ValueError, match=name):
             fused_tcn_masker(*args, {**st8, name: bad}, n_per_repeat=NB_PER)
+
+
+# --- the kernel's algorithm (csrc/tcn_masker.cu), emulated on the CPU ---
+# GEMM block tile (128-column blocks only where the grid fills the card,
+# never at these sizes), k-tile depth; depthwise block: 4096 / H rows;
+# threads a block
+_GEMM_ROWS, _GEMM_COLS, _K_TILE = 128, 64, 32
+_DW_VALUES, _NT = 4096, 256
+
+
+def _chan(a, b):
+    """Chan's parallel merge of (count, mean, m2) partials, in float64."""
+    (na, ma, qa), (nb, mb, qb) = a, b
+    if nb == 0.0:
+        return a
+    n = na + nb
+    d = mb - ma
+    return n, ma + d * (nb / n), qa + qb + d * d * (na * nb / n)
+
+
+def _merge(parts):
+    """The last block's merge, in its order: thread t takes slots t, t + 256,
+    ...; a shuffle-down tree per warp (offsets 16 .. 1, lane 0 keeps the
+    result); then warps 0 .. 7 in order."""
+    lanes = [(0.0, 0.0, 0.0)] * _NT
+    for i, p in enumerate(parts):
+        lanes[i % _NT] = _chan(lanes[i % _NT], p)
+    total = (0.0, 0.0, 0.0)
+    for w in range(_NT // 32):
+        warp = lanes[32 * w: 32 * w + 32]
+        for o in (16, 8, 4, 2, 1):
+            warp = [_chan(warp[i], warp[i + o] if i + o < 32 else warp[i]) for i in range(32)]
+        total = _chan(total, warp[0])
+    n, mean, m2 = total
+    return np.float32(mean), np.float32(1.0 / np.sqrt(m2 / max(n, 1.0) + 1e-8))
+
+
+def _tile_partial(v):
+    """One block's partial: count, mean and m2 about it, two passes in float32."""
+    mu = v.sum() / np.float32(v.numel())
+    return float(v.numel()), float(mu), float(((v - mu) ** 2).sum())
+
+
+def _mm_k_tiles(a, b, mm):
+    """a @ b as a GEMM block sums it: each 32-deep k-tile's products formed
+    from zero, then added to the accumulator in float32."""
+    acc = torch.zeros((a.shape[0], b.shape[1]))
+    for k0 in range(0, a.shape[1], _K_TILE):
+        acc = acc + mm(a[:, k0:k0 + _K_TILE], b[k0:k0 + _K_TILE])
+    return acc
+
+
+def _mm_kernel(a, b):
+    """One k-tile's product as the kernel's mma.sync form it: 3xTF32, the
+    small halves left for the mma to truncate (tf32_mma.cuh ``split_fast``)."""
+    return _mm_3xtf32(a, b, small_round=False)
+
+
+def _emulate_k2(x, f_len, st, n_per_repeat, mm=_mm_kernel):
+    """The masker as the kernel computes it: valid rows only (no tile past
+    f_len), 3xTF32 products over k-tiles, gLN statistics as per-block
+    partials (GEMM blocks of 128 rows x 64 columns, depthwise blocks of
+    4096 / H rows) merged in the kernel's order; rows past f_len are 0."""
+    if st["w_in"].dtype == torch.int8:
+        st = dequant_stack(st)
+    nb, c, hd = st["w_in"].shape
+    out = torch.zeros_like(x)
+    for i_b, fl in enumerate(int(n) for n in f_len):
+        h = x[i_b, :fl]
+        skips = torch.zeros((fl, c))
+        for i in range(nb if fl else 0):
+            v, dil = st["vecs"][i], 2 ** (i % n_per_repeat)
+            h1 = _mm_k_tiles(h, st["w_in"][i], mm) + v[0]
+            h1 = torch.where(h1 >= 0, h1, v[1, 0] * h1)
+            mean1, rstd1 = _merge([_tile_partial(h1[r:r + _GEMM_ROWS, c0:c0 + _GEMM_COLS])
+                                   for r in range(0, fl, _GEMM_ROWS)
+                                   for c0 in range(0, hd, _GEMM_COLS)])
+            z = torch.nn.functional.pad(((h1 - mean1) * rstd1) * v[2] + v[3], (0, 0, dil, dil))
+            w = st["w_dw"][i]
+            h2 = (z[:fl] * w[0] + z[dil:dil + fl] * w[1]) + z[2 * dil:] * w[2] + v[4]
+            h2 = torch.where(h2 >= 0, h2, v[5, 0] * h2)
+            rows = _DW_VALUES // hd
+            mean2, rstd2 = _merge([_tile_partial(h2[r:r + rows]) for r in range(0, fl, rows)])
+            y = (h2 - mean2) * (v[6] * rstd2) + v[7]
+            rs = _mm_k_tiles(y, torch.cat([st["w_res"][i], st["w_skip"][i]], dim=1), mm)
+            h = (h + rs[:, :c]) + st["cvecs"][i, 0]
+            skips = (skips + rs[:, c:]) + st["cvecs"][i, 1]
+        out[i_b, :fl] = skips
+    return out
+
+
+_K2_EMULATION_CASES = {
+    # F off the 128-row tile, f_len of a tile + 1 (two row tiles, the
+    # second of one row), dilations up to 8
+    "b2_f150_ragged": (150, [150, 129], 4, 0),
+    # dilations up to 128 > f_len; item 1 a single frame, item 2 empty
+    "b3_f260_dil128": (260, [260, 1, 0], 8, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K2_EMULATION_CASES))
+def test_kernel_numerics_emulation_matches_twin_and_pallas(masker_case, case, record_property):
+    """The kernel's algorithm (valid rows only, 3xTF32 over 32-deep k-tiles,
+    gLN statistics merged from per-block partials with Chan's formula in the
+    kernel's order) within 1e-4 of max|skips| of the twin and of the Pallas
+    kernel (interpret mode) on valid rows; rows past f_len exactly 0. The
+    error of one plain TF32 product a product is recorded beside it, not
+    asserted: it is what the split into three products buys back."""
+    blocks, st, _, _, _ = masker_case
+    f, lens, npr, seed = _K2_EMULATION_CASES[case]
+    rng = np.random.default_rng(seed + 10)
+    x = rng.normal(size=(len(lens), f, C)).astype(np.float32)
+    f_len = np.array(lens, np.int32)
+    tst = {k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+    got = _emulate_k2(torch.from_numpy(x), f_len, tst, npr)
+    twin = tcn_masker_reference(torch.from_numpy(x), torch.from_numpy(f_len), tst,
+                                n_per_repeat=npr).numpy()
+    ref = np.asarray(jax_fused_tcn_masker(jnp.asarray(x), jnp.asarray(f_len), st,
+                                          n_per_repeat=npr, tile=64, interpret=True))
+    valid = np.arange(f)[None, :] < f_len[:, None]
+    assert not got.numpy()[~valid].any()
+
+    def err(a, b):  # on valid rows alone: the JAX kernel leaves NaN in an empty item
+        return np.abs(a[valid] - b[valid]).max() / np.abs(b[valid]).max()
+
+    err_twin = err(got.numpy(), twin)
+    assert err_twin < TOL
+    assert err(got.numpy(), ref) < TOL
+    record_property("three_tf32_products_rel_err", float(err_twin))
+    one = _emulate_k2(torch.from_numpy(x), f_len, tst, npr, mm=_mm_tf32).numpy()
+    record_property("one_tf32_product_rel_err", float(err(one, twin)))
+
+
+def test_gln_statistics_merged_from_partials_are_two_pass_grade(record_property):
+    """The kernel's statistics of 2000 x 512 values of mean 100 and std
+    1e-2 (a tile partial per 128 x 64 block, merged in order) against
+    float64 two-pass: mean within 1e-6, rstd within 1e-5 (each tile's
+    float32 mean is off by ~1e-7 of 100, 1e-3 of the std, and those offsets
+    add their squares to the variance); float32 E[x^2] - mean^2 over the
+    same values is off by more than half the variance itself."""
+    rng = np.random.default_rng(3)
+    v = torch.from_numpy((100.0 + 1e-2 * rng.standard_normal((2000, 512))).astype(np.float32))
+    mean, rstd = _merge([_tile_partial(v[r:r + _GEMM_ROWS, c0:c0 + _GEMM_COLS])
+                         for r in range(0, v.shape[0], _GEMM_ROWS)
+                         for c0 in range(0, v.shape[1], _GEMM_COLS)])
+    exact = v.double()
+    mu = exact.mean().item()
+    var64 = ((exact - mu) ** 2).mean().item()
+    rstd64 = 1.0 / np.sqrt(var64 + 1e-8)
+    record_property("mean_rel_err", float(abs(mean - mu) / abs(mu)))
+    record_property("rstd_rel_err", float(abs(rstd - rstd64) / rstd64))
+    assert abs(mean - mu) <= 1e-6 * abs(mu)
+    assert abs(rstd - rstd64) <= 1e-5 * rstd64
+    naive = ((v * v).mean() - v.mean() ** 2).item()
+    assert abs(naive - var64) > 0.5 * var64
 
 
 @pytest.fixture(scope="module")
