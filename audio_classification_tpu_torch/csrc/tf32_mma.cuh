@@ -2,7 +2,8 @@
 // tensor cores in 3xTF32 (K2 tcn_masker.cu, K3 / K5 flash_attention.cu, K4
 // gau_attention.cu): the TF32 split, one mma.sync m16n8k8 TF32 product,
 // 16-byte cp.async staging, and the once-per-device raise of a kernel's
-// shared-memory cap.
+// shared-memory cap (which K1 fbank_power_mel.cu, on no tensor core, also
+// uses).
 //
 // 3xTF32: x = big + small with big rounded to TF32; a b ~ a_big b_big +
 // a_big b_small + a_small b_big, the dropped small x small term below

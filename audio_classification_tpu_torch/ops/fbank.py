@@ -3,7 +3,9 @@ audio_classification_tpu/ops/fbank.py).
 
 DC removal, pre-emphasis, the povey window and the 400 -> 512 zero pad are
 plain tensor ops here; the DFT-power-mel-log chain is kernel K1
-(ops/kernels/fbank.py), which runs its plain twin for CPU tensors.
+(ops/kernels/fbank.py), which runs its plain twin for CPU tensors. The
+constants of both are built here, once per config and device
+(``fbank_bases``).
 
 Defaults mirror kaldi: frame 25 ms / shift 10 ms, preemph 0.97, povey window,
 snip_edges, 80 bins over [20 Hz, nyquist], no dither (deterministic).
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .frames import frame_signal, num_frames, window
-from .kernels.fbank import fbank_power_mel
+from .kernels.fbank import FbankBases, fbank_power_mel
 from .stft import _dft_basis_np
 
 
@@ -93,13 +95,40 @@ class FbankConfig:
         return num_frames(n_samples, self.frame_length, self.frame_shift)
 
 
+def fbank_kernel_tables_np(n_fft: int, mel: np.ndarray):
+    """K1's constants from the DFT basis and the mel bank ``mel`` [F, nb]:
+    (twiddle [F, 2] f32, bands [nb, 2] int32, band_w [max count, nb] f32).
+
+    twiddle[e] = (cos, -sin)(2 pi e / n_fft), row 1 of ``_dft_basis_np``
+    (float64, rounded to float32). Each filter is the run of bins from its
+    first to its last non-zero weight: bands[b] = (first, count), and
+    band_w[q, b] = mel[first + q, b] (zeros past count; an all-zero filter
+    has count 0)."""
+    cos_b, msin_b = _dft_basis_np(n_fft)
+    twiddle = np.ascontiguousarray(np.stack([cos_b[1], msin_b[1]], axis=1))
+    nz = mel != 0
+    has = nz.any(axis=0)
+    first = np.where(has, nz.argmax(axis=0), 0)
+    count = np.where(has, nz.shape[0] - nz[::-1].argmax(axis=0) - first, 0)
+    band_w = np.zeros((max(1, int(count.max(initial=0))), mel.shape[1]), np.float32)
+    for b in range(mel.shape[1]):
+        band_w[:count[b], b] = mel[first[b]:first[b] + count[b], b]
+    return twiddle, np.stack([first, count], axis=1).astype(np.int32), band_w
+
+
+def make_fbank_bases(n_fft: int, mel: np.ndarray, device: torch.device) -> FbankBases:
+    """The twin's and the kernel's constants for frames of ``n_fft`` and the
+    mel bank ``mel`` [n_fft // 2 + 1, nb], as float32 / int32 on ``device``."""
+    arrays = _dft_basis_np(n_fft) + (mel,) + fbank_kernel_tables_np(n_fft, mel)
+    return FbankBases(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays))
+
+
 @functools.lru_cache(maxsize=8)
-def fbank_bases(cfg: FbankConfig, device: torch.device):
-    """(cos [n_fft, F], -sin [n_fft, F], mel [F, nb]) f32 on ``device``."""
-    cos_b, msin_b = _dft_basis_np(cfg.n_fft)
+def fbank_bases(cfg: FbankConfig, device: torch.device) -> FbankBases:
+    """``make_fbank_bases`` for ``cfg``, once per config and device."""
     mel = mel_filterbank_np(cfg.num_bins, cfg.n_fft, cfg.sample_rate, cfg.low_freq,
                             cfg.high_freq)
-    return tuple(torch.from_numpy(a).to(device) for a in (cos_b, msin_b, mel))
+    return make_fbank_bases(cfg.n_fft, mel, device)
 
 
 def windowed_frames(x: torch.Tensor, cfg: FbankConfig = FbankConfig()) -> torch.Tensor:
@@ -125,7 +154,7 @@ def log_mel_fbank(x: torch.Tensor, cfg: FbankConfig = FbankConfig()) -> torch.Te
     frames = windowed_frames(x, cfg)
     lead = frames.shape[:-1]
     out = fbank_power_mel(frames.reshape(-1, cfg.n_fft).contiguous(),
-                          *fbank_bases(cfg, frames.device), cfg.log_floor)
+                          fbank_bases(cfg, frames.device), cfg.log_floor)
     return out.reshape(lead + (cfg.num_bins,))
 
 

@@ -2,7 +2,7 @@
 """Set the file scenes' records of two scripts/profile_torch_scene.py reports
 side by side (say a parent commit's and a change's): per scene, whether kind,
 span, stream and text are equal record for record, and the largest sv_score
-difference relative to the larger magnitude of the pair.
+difference, absolute and relative to the larger magnitude of the pair.
 
     python3 scripts/compare_scene_records.py parent.json change.json
 
@@ -28,8 +28,11 @@ def main() -> int:
         rel = max((abs(x["sv_score"] - y["sv_score"])
                    / max(abs(x["sv_score"]), abs(y["sv_score"]), 1e-12)
                    for x, y in zip(ra, rb) if x["sv_score"] is not None), default=0.0)
+        diff = max((abs(x["sv_score"] - y["sv_score"]) for x, y in zip(ra, rb)
+                    if x["sv_score"] is not None), default=0.0)
         print(json.dumps({"scene": name, "records": [len(ra), len(rb)],
-                          "kind_span_stream_text_equal": same, "sv_score_max_rel_diff": rel}))
+                          "kind_span_stream_text_equal": same, "sv_score_max_abs_diff": diff,
+                          "sv_score_max_rel_diff": rel}))
     return 0
 
 

@@ -8,7 +8,9 @@ or per-window / per-tick latencies, device busy time (union of kernel
 intervals), idle share, device time by kernel name, peak device memory and,
 for the int8 scenes, the device time inside ops/quant split into quantise
 (activations and weights), the integer product (torch._int_mm) and the
-rescale. Scenes:
+rescale, and the fbank frontend's device time and device ops: the prologue
+that forms K1's frames (ops/fbank.windowed_frames) and K1 itself, with the
+frame shapes K1 was called at. Scenes:
 
   overlap      20 s three-talker mixture, every segment forced to overlap,
                Conv-TasNet-3 (32 s bucket)
@@ -94,7 +96,7 @@ def main() -> int:
     from audio_classification_tpu_torch.cli import serve_streams, streaming_overlap_3src
     from audio_classification_tpu_torch.engine.runtime import StageEngine
     from audio_classification_tpu_torch.models import common, convtasnet, facades
-    from audio_classification_tpu_torch.ops import quant
+    from audio_classification_tpu_torch.ops import fbank, quant
     from audio_classification_tpu_torch.ops.kernels import tcn
     from audio_classification_tpu_torch.parallel.mesh import make_mesh
     from audio_classification_tpu_torch.pipelines.offline_overlap3 import (
@@ -143,6 +145,19 @@ def main() -> int:
             label = "int8::" + ("whole" if fname.startswith("int8_") else
                                 "masker_stack" if mod is tcn else fname)
             setattr(mod, fname, ranged(getattr(mod, fname), label))
+
+    # the fbank frontend: log_mel_fbank looks both names up in ops/fbank at
+    # call time; K1's frame shapes are kept for the profiled run
+    k1_shapes = []
+
+    def k1_ranged(fn):
+        def wrapped(frames, *a, **kw):
+            k1_shapes.append(tuple(frames.shape))
+            return fn(frames, *a, **kw)
+        return ranged(wrapped, "fbank::k1")
+
+    fbank.windowed_frames = ranged(fbank.windowed_frames, "fbank::prologue")
+    fbank.fbank_power_mel = k1_ranged(fbank.fbank_power_mel)
 
     base = dict(target_wav=str(work / "target.wav"), preset="full", seed=0, sv_threshold=-1.0)
     file_scenes = {
@@ -239,6 +254,7 @@ def main() -> int:
             extras.append(run())
             walls.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.reset_peak_memory_stats()
+        k1_shapes.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
@@ -250,8 +266,8 @@ def main() -> int:
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             span = (ev.time_range.start, ev.time_range.end)
-            if ev.name.startswith("int8::"):
-                ranges.setdefault(ev.name[6:], []).append(span)
+            if ev.name.startswith(("int8::", "fbank::")):
+                ranges.setdefault(ev.name, []).append(span)
                 continue
             by_name[ev.name] = by_name.get(ev.name, [0, 0.0])
             by_name[ev.name][0] += 1
@@ -263,6 +279,8 @@ def main() -> int:
         # kernel time under each range: a kernel counts for the innermost range
         # that holds it; what int8_matmul / int8_conv1d launch outside their
         # three parts is the rescale (and the conv's window gather)
+        fbank_ranges = {k[7:]: v for k, v in ranges.items() if k.startswith("fbank::")}
+        ranges = {k[6:]: v for k, v in ranges.items() if k.startswith("int8::")}
         inner = sorted((s, e, k) for k, v in ranges.items() if k != "whole" for s, e in v)
         whole = sorted(ranges.get("whole", []))
         int8_ms = {k: {"ranges": len(v), "kernel_ms": 0.0} for k, v in ranges.items()}
@@ -280,12 +298,21 @@ def main() -> int:
         if int8_ms:
             int8_ms["all"] = {"kernel_ms": sum(v["kernel_ms"] for v in int8_ms.values()),
                               "share_of_busy": sum(v["kernel_ms"] for v in int8_ms.values()) / busy}
+        # kernels and copies inside each fbank range (the ranges do not nest)
+        fbank_device = {}
+        for k, spans in fbank_ranges.items():
+            ops = [(s, e) for s, e in intervals for rs, re_ in spans if rs <= s and e <= re_]
+            fbank_device[k] = {"ranges": len(spans), "device_ops": len(ops),
+                               "kernel_ms": sum(e - s for s, e in ops) / 1e3}
+        if k1_shapes:
+            fbank_device["k1_shapes"] = {"x".join(map(str, sh)): k1_shapes.count(sh)
+                                         for sh in sorted(set(k1_shapes))}
         scene = {
             "warm_wall_ms": walls, "traced_wall_ms": traced_wall,
             "device_busy_ms": busy, "device_span_ms": span,
             "idle_share_of_wall": 1.0 - busy / traced_wall, "device_ops": len(intervals),
             "peak_device_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
-            "int8_device_ms": int8_ms,
+            "int8_device_ms": int8_ms, "fbank_device": fbank_device,
             "top_kernels_ms": [{"name": k[:90], "calls": v[0], "ms": v[1]} for k, v in top],
             # the port's own kernels (csrc/ puts each in an anonymous
             # namespace), whatever their rank

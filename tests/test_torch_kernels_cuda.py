@@ -16,6 +16,8 @@ from audio_classification_tpu_torch.ops import fbank
 from audio_classification_tpu_torch.ops.kernels import attention, gau, tcn
 from audio_classification_tpu_torch.ops.kernels import fbank as k_fbank
 
+import torch_fbank_inputs
+
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 
@@ -29,25 +31,68 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 33, 1000])
-def test_fbank_kernel_matches_twin(dev, n):
-    """Frame counts off the 128-frame tile; 1e-4 abs on bins within 15 nats
-    of the peak, 5e-3 on all (f32, another summation order over 512 taps)."""
-    cfg = fbank.FbankConfig()
-    rng = np.random.default_rng(n)
-    wav = torch.from_numpy((0.1 * rng.standard_normal((1, 400 + 160 * (n - 1))))
-                           .astype(np.float32)).to(dev)
-    frames = fbank.windowed_frames(wav, cfg).reshape(-1, cfg.n_fft).contiguous()
-    assert frames.shape[0] == n
+@pytest.mark.parametrize("n_fft", [512, 1024])
+@pytest.mark.parametrize("kind", torch_fbank_inputs.KINDS)
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 33, 1000, 3198])
+def test_fbank_kernel_matches_twin(dev, n, kind, n_fft):
+    """Frame counts on both sides of the 8-frame block and past one wave,
+    at n_fft 512 (80 bins) and 1024 (the 64 ms config, 128 bins). Held to
+    the float64 twin under tests/torch_fbank_inputs.py's criterion; on the
+    noise input at n_fft 512 also to the float32 twin within 1e-4 on bins
+    within 15 nats of the peak and 5e-3 on all. Silence gives exactly
+    log(log_floor); a second call gives the same bits; each call is one
+    launch."""
+    cfg = torch_fbank_inputs.config(n_fft)
+    frames = torch_fbank_inputs.frames(kind, n, cfg, dev, seed=n)
     bases = fbank.fbank_bases(cfg, dev)
     before = k_fbank.fbank_power_mel.launches
-    out = k_fbank.fbank_power_mel(frames, *bases, cfg.log_floor)
+    out = k_fbank.fbank_power_mel(frames, bases, cfg.log_floor)
+    again = k_fbank.fbank_power_mel(frames, bases, cfg.log_floor)
     torch.cuda.synchronize()
-    assert k_fbank.fbank_power_mel.launches == before + 1
-    ref = k_fbank.fbank_power_mel_reference(frames, *bases, cfg.log_floor)
-    err = (out - ref).abs()
-    assert err[ref > ref.max() - 15.0].max().item() < 1e-4
-    assert err.max().item() < 5e-3
+    assert k_fbank.fbank_power_mel.launches == before + 2
+    assert out.shape == (n, cfg.num_bins) and torch.isfinite(out).all()
+    assert torch.equal(out, again)
+    acc = torch_fbank_inputs.accuracy(out, frames, bases, cfg.log_floor)
+    assert torch_fbank_inputs.meets(acc), acc
+    if kind == "zeros":
+        assert (out == torch.log(torch.tensor(cfg.log_floor, device=dev))).all()
+    if kind == "noise" and n_fft == 512:
+        ref = k_fbank.fbank_power_mel_reference(frames, bases.cos_b, bases.msin_b, bases.mel_w,
+                                                cfg.log_floor)
+        err = (out - ref).abs()
+        assert err[ref > ref.max() - 15.0].max().item() < 1e-4
+        assert err.max().item() < 5e-3
+
+
+@pytest.mark.parametrize("n_fft", [400, 768, 128, 2048])
+def test_fbank_kernel_refuses_other_n_fft(dev, n_fft):
+    """Powers of two 256-1024 only on the card, named in the ValueError."""
+    bases = fbank.make_fbank_bases(n_fft, fbank.mel_filterbank_np(40, n_fft, 16000), dev)
+    frames = torch.zeros((3, n_fft), device=dev)
+    before = k_fbank.fbank_power_mel.launches
+    with pytest.raises(ValueError, match=f"n_fft {n_fft}"):
+        k_fbank.fbank_power_mel(frames, bases, 1e-7)
+    assert k_fbank.fbank_power_mel.launches == before
+
+
+def test_fbank_kernel_never_hands_a_cuda_tensor_to_the_twin(dev, monkeypatch):
+    """The wrapper launches or raises: with the twin made to fail, a CUDA
+    call still returns; unaligned frames raise before any launch."""
+    cfg = fbank.FbankConfig()
+    bases = fbank.fbank_bases(cfg, dev)
+    frames = torch_fbank_inputs.frames("noise", 50, cfg, dev)
+
+    def refuse(*args):
+        raise AssertionError("the twin got a CUDA tensor")
+
+    monkeypatch.setattr(k_fbank, "fbank_power_mel_reference", refuse)
+    assert k_fbank.fbank_power_mel(frames, bases, cfg.log_floor).shape == (50, 80)
+    flat = torch.zeros(50 * 512 + 1, device=dev)
+    flat[1:] = frames.reshape(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        k_fbank.fbank_power_mel(flat[1:].view(50, 512), bases, cfg.log_floor)
+    with pytest.raises(ValueError, match="float32"):
+        k_fbank.fbank_power_mel(frames.double(), bases, cfg.log_floor)
 
 
 # sequence lengths on both sides of the 16-row fragment, the 64-key tile and

@@ -53,7 +53,7 @@ def test_fbank_twin_matches_pallas_kernel():
     ref = np.asarray(fbank_power_mel_pallas(
         jnp.asarray(frames), cfg.n_fft, cfg.num_bins, cfg.sample_rate, cfg.low_freq,
         cfg.high_freq, cfg.log_floor, interpret=True))
-    out = fbank_power_mel(torch.from_numpy(frames), *fbank.fbank_bases(cfg, torch.device("cpu")),
+    out = fbank_power_mel(torch.from_numpy(frames), fbank.fbank_bases(cfg, torch.device("cpu")),
                           cfg.log_floor).numpy()
     active = ref > ref.max() - 15.0
     assert np.abs(out - ref)[active].max() < 1e-4
