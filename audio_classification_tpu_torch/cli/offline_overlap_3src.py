@@ -66,6 +66,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--encoder", default="")
     p.add_argument("--decoder", default="")
     p.add_argument("--joiner", default="")
+    p.add_argument("--whisper-encoder", default="",
+                   help="Whisper-style ASR family (seeded weights unless an .onnx file, "
+                        "which is not ported yet: raises)")
+    p.add_argument("--whisper-decoder", default="")
     p.add_argument("--tokens", default="")
     p.add_argument("--cmvn", default="", help="kaldi am.mvn CMVN stats for the ASR frontend")
     p.add_argument("--decoding-method", default="greedy_search")
@@ -141,7 +145,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "~38 dB SNR, decoded on device) — worthwhile when "
                         "the host->device link is the bottleneck")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
-                   help="int8: the Conv-TasNet separators and the ASR encoder run "
+                   help="int8: the Conv-TasNet separators and the ASR encoders run "
                         "dynamic int8 (ops/quant); the masker streams int8 weights")
     return p.parse_args(argv)
 

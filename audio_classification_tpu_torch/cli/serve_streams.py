@@ -49,6 +49,14 @@ def parse_args(argv=None):
     p.add_argument("--encoder", default="")
     p.add_argument("--decoder", default="")
     p.add_argument("--joiner", default="")
+    p.add_argument("--whisper-encoder", default="",
+                   help="Whisper-style ASR family (seeded weights unless an .onnx file, "
+                        "which is not ported yet: raises)")
+    p.add_argument("--whisper-decoder", default="")
+    p.add_argument("--decoding-method", default="greedy_search",
+                   choices=["greedy_search", "modified_beam_search"])
+    p.add_argument("--num-active-paths", type=int, default=4,
+                   help="beam width for modified_beam_search (transducer)")
     p.add_argument("--tokens", default="")
     p.add_argument("--cmvn", default="")
     p.add_argument("--spk-embed-model", default="")
@@ -59,7 +67,7 @@ def parse_args(argv=None):
     p.add_argument("--min-overlap-dur", type=float, default=0.4)
     p.add_argument("--preset", default="full", choices=["full", "tiny"])
     p.add_argument("--quant", default="none", choices=["none", "int8"],
-                   help="int8: the Conv-TasNet separators and the ASR encoder run "
+                   help="int8: the Conv-TasNet separators and the ASR encoders run "
                         "dynamic int8 (ops/quant); the masker streams int8 weights")
     p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--seed", type=int, default=0)

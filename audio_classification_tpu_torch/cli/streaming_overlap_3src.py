@@ -51,6 +51,10 @@ def parse_args(argv=None):
     p.add_argument("--encoder", default="")
     p.add_argument("--decoder", default="")
     p.add_argument("--joiner", default="")
+    p.add_argument("--whisper-encoder", default="",
+                   help="Whisper-style ASR family (seeded weights unless an .onnx file, "
+                        "which is not ported yet: raises)")
+    p.add_argument("--whisper-decoder", default="")
     p.add_argument("--tokens", default="")
     p.add_argument("--cmvn", default="", help="kaldi am.mvn CMVN stats for the ASR frontend")
     p.add_argument("--decoding-method", default="greedy_search")
@@ -75,7 +79,7 @@ def parse_args(argv=None):
                    help="Stop after this many captured seconds (0 = until EOF/Ctrl-C)")
     p.add_argument("--preset", default="full", choices=["full", "tiny"])
     p.add_argument("--quant", default="none", choices=["none", "int8"],
-                   help="int8: the Conv-TasNet separators and the ASR encoder run "
+                   help="int8: the Conv-TasNet separators and the ASR encoders run "
                         "dynamic int8 (ops/quant); the masker streams int8 weights")
     p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--seed", type=int, default=0)

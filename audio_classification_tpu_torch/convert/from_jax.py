@@ -9,9 +9,17 @@ the flax param paths, so keys map by path; only the leaves change layout:
   Conv1d kernel [K, Cin/g, Cout]    -> weight [Cout, Cin/g, K]
   nn.Conv kernel [kh, kw, in, out]  -> Conv2d weight [out, in, kh, kw]
   LayerNorm / BatchNorm scale       -> weight
+  nn.Embed embedding [V, D]         -> Embedding weight [V, D] (no transpose;
+                                       the transducer predictor's ``embed``,
+                                       whisper's ``tok_embed``)
   BatchNorm batch_stats mean / var  -> running_mean / running_var
   everything else (bias, gLN gamma/beta, PReLU alpha [1], the Conv-TasNet
   decoder [L, N], the SenseVoice prompt embeddings) keeps name and layout.
+
+The families' trees map by the same rule: Paraformer (``enc_i`` / ``dec_i``
+TransformerBlocks, ``cif_hidden``, ``cif_out``), the transducer
+(``encoder`` / ``predictor`` / ``joiner``), whisper-style (``enc_i``,
+``dec_i`` with ``self_attn`` / ``cross_attn``, ``tok_embed``) and VADNet.
 
 Leaves may be numpy or jax arrays; the converter reads them with
 ``np.asarray`` and needs no jax import of its own.
@@ -43,7 +51,7 @@ def _param(path: tuple, a: np.ndarray):
             a = a.transpose(2, 1, 0)
         elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
-    elif leaf == "scale":
+    elif leaf in ("scale", "embedding"):
         leaf = "weight"
     return ".".join(mods + [leaf]), a
 

@@ -26,11 +26,24 @@
 // reaches 313 of the 495 TF32 TFLOP/s on an H100 SXM (63%,
 // scripts/mma_tf32_peak.py), which puts the ceiling of this design at
 // 1.6x the bound.
+// Head dim: D is a template parameter of the one body, instantiated at 64
+// (OSDNet, SenseVoice, the transducer and whisper-style encoders), 80
+// (Paraformer: 320 / 4 heads) and 128; both C entry points dispatch on
+// head_dim at run time and refuse any other D (the wrapper zero-pads D up
+// to the next instance). At D = 64 and 80 q * scale lives in registers as
+// big and small A fragments (233-240 registers a thread, no spills). At
+// D = 128 the q fragments (128 registers) with the accumulators would spill
+// (255 registers and 1152 bytes of spill stores and loads), so there q *
+// scale is staged once into shared memory (16 rows a warp, stride D + 8)
+// and split as it is loaded for each key tile (223 / 239 registers, no
+// spills). At D = 80, q in shared memory measured 4-6% slower (PERF.md),
+// so Dims<D>::Q_SMEM holds for D = 128 only.
 // Design: mma.sync m16n8k8 TF32 with float32 accumulation. A block of 4
 // warps owns 64 query rows, 16 a warp (2-warp blocks are 5-13% slower at
-// every main-path shape, batch 1 included: scripts/flash_block_warps.py),
-// and holds q * scale split into big and small A fragments in
-// registers (the scale 1/8 is a power of two, so folding it changes no bit).
+// every main-path shape, batch 1 included:
+// scripts/flash_attention_ab.py --define ACT_FLASH_WARPS=2),
+// and holds q * scale split into big and small A fragments (the scale 1/8
+// of D = 64 is a power of two, so folding it changes no bit there).
 // It walks the keys in tiles of 64 staged by 16-byte cp.async copies into a
 // two-stage ring in shared memory, so the next tile's copy overlaps this
 // tile's products; keys past tk are zero-filled. K and V fragments are split
@@ -65,18 +78,16 @@
 
 #include "tf32_mma.cuh"
 
-// warps a block, 16 query rows each. 4 in the library; the block-size probe
-// (scripts/flash_block_warps.py) builds a copy with 2 to time beside it
+// warps a block, 16 query rows each. 4 in the library; the block-size
+// probe (scripts/flash_attention_ab.py --define ACT_FLASH_WARPS=2) builds a
+// copy with 2 to time beside it
 #ifndef ACT_FLASH_WARPS
 #define ACT_FLASH_WARPS 4
 #endif
 
 namespace {
 
-constexpr int D = 64;        // head dimension
 constexpr int BK = 64;       // keys per shared-memory tile
-constexpr int KS = 72;       // row stride (floats) of a staged K tile
-constexpr int VS = 68;       // row stride (floats) of a staged V tile
 constexpr int NS = 2;        // stages of the cp.async ring
 constexpr int NW = ACT_FLASH_WARPS;
 constexpr int NT = NW * 32;  // threads a block
@@ -91,6 +102,23 @@ using act::cp_wait;
 using act::mma_tf32;
 using act::split;
 
+// per head dim D: row strides (floats) of a staged K tile, V tile and q
+// block, and whether q * scale is staged in shared memory (at D = 128 only,
+// the one instance whose q in registers spills: see the header)
+template <int D>
+struct Dims {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static constexpr int KS = D + 8;
+  static constexpr int VS = D + 4;
+  static constexpr int QS = D + 8;
+  static constexpr bool Q_SMEM = D >= 128;
+  // dynamic shared memory of a launch over tk keys
+  static size_t smem_bytes(int tk) {
+    return sizeof(float) * (NS * BK * (KS + VS + 1) + (Q_SMEM ? ROWS * QS : 0)) +
+           sizeof(int) * NS + (size_t)(tk + BK - 1) / BK;  // + one byte a key tile
+  }
+};
+
 // mma fragments (g = lane / 4, t = lane % 4). The contraction index of each
 // product is permuted so that every operand a thread needs sits in two
 // neighbouring floats:
@@ -100,16 +128,19 @@ using act::split;
 //     exactly the two score columns thread t holds in its C fragment; the
 //     n-tiles 2p and 2p + 1 hold dims 16p + 2n and 16p + 2n + 1, so thread t
 //     ends with dims 16p + 4t .. 16p + 4t + 3 of its rows.
-template <bool EMIT_STATS>
+template <int D, bool EMIT_STATS>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
                  float* __restrict__ out, float* __restrict__ m_out,
                  float* __restrict__ l_out, int heads, int tq, int tk, float scale) {
+  constexpr int KS = Dims<D>::KS, VS = Dims<D>::VS, QS = Dims<D>::QS;
+  constexpr bool Q_SMEM = Dims<D>::Q_SMEM;
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                    // [NS][BK][KS]
   float* v_s = k_s + NS * BK * KS;      // [NS][BK][VS]
-  float* bias_s = v_s + NS * BK * VS;   // [NS][BK]: 0, -1e9 (masked) or -inf (past tk)
+  float* q_s = v_s + NS * BK * VS;      // [ROWS][QS] q * scale (Q_SMEM only)
+  float* bias_s = q_s + (Q_SMEM ? ROWS * QS : 0);  // [NS][BK]: 0, -1e9 (masked) or -inf (past tk)
   int* tile_s = reinterpret_cast<int*>(bias_s + NS * BK);  // [NS]: first key, -1 if empty
   uint8_t* live_s = reinterpret_cast<uint8_t*>(tile_s + NS);  // [n_tiles]: holds a valid key
 
@@ -175,20 +206,56 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     fetch = fetch < n_tiles ? next_tile(fetch + 1) : n_tiles;
   }
 
-  // q * scale as A fragments, split once: [k-step][a0..a3]
-  uint32_t qb[D / 8][4], qs[D / 8][4];
+  // q * scale as A fragments [k-step][a0..a3]: split once into registers,
+  // or (Q_SMEM) staged raw into this warp's 16 rows of q_s and split from
+  // there at each key tile (q_frag)
+  uint32_t qb[Q_SMEM ? 1 : D / 8][4], qs[Q_SMEM ? 1 : D / 8][4];
+  const float* q_w = q_s + 16 * warp * QS + g * QS + 2 * t;  // rows g, g + 8 at word 2t
+  if constexpr (Q_SMEM) {
+    const int row0 = blockIdx.x * ROWS + 16 * warp;
+    for (int c = lane; c < 16 * D / 4; c += 32) {
+      const int r = c / (D / 4), d = 4 * (c % (D / 4));
+      float4 x = row0 + r < tq
+                     ? *reinterpret_cast<const float4*>(qh + (size_t)(row0 + r) * D + d)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+      *reinterpret_cast<float4*>(q_s + (16 * warp + r) * QS + d) = x;
+    }
+    __syncwarp();  // a warp reads its own rows alone
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    const int d = 8 * kk + 2 * t;
-    const float2 x0 = r0 < tq ? *reinterpret_cast<const float2*>(qh + (size_t)r0 * D + d)
-                              : make_float2(0.f, 0.f);
-    const float2 x1 = r1 < tq ? *reinterpret_cast<const float2*>(qh + (size_t)r1 * D + d)
-                              : make_float2(0.f, 0.f);
-    split(x0.x * scale, qb[kk][0], qs[kk][0]);
-    split(x1.x * scale, qb[kk][1], qs[kk][1]);
-    split(x0.y * scale, qb[kk][2], qs[kk][2]);
-    split(x1.y * scale, qb[kk][3], qs[kk][3]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int d = 8 * kk + 2 * t;
+      const float2 x0 = r0 < tq ? *reinterpret_cast<const float2*>(qh + (size_t)r0 * D + d)
+                                : make_float2(0.f, 0.f);
+      const float2 x1 = r1 < tq ? *reinterpret_cast<const float2*>(qh + (size_t)r1 * D + d)
+                                : make_float2(0.f, 0.f);
+      split(x0.x * scale, qb[kk][0], qs[kk][0]);
+      split(x1.x * scale, qb[kk][1], qs[kk][1]);
+      split(x0.y * scale, qb[kk][2], qs[kk][2]);
+      split(x1.y * scale, qb[kk][3], qs[kk][3]);
+    }
   }
+  // k-step kk's big and small q fragments
+  auto q_frag = [&](int kk, uint32_t (&big)[4], uint32_t (&small)[4]) {
+    if constexpr (Q_SMEM) {
+      const float2 x0 = *reinterpret_cast<const float2*>(q_w + 8 * kk);
+      const float2 x1 = *reinterpret_cast<const float2*>(q_w + 8 * QS + 8 * kk);
+      split(x0.x, big[0], small[0]);
+      split(x1.x, big[1], small[1]);
+      split(x0.y, big[2], small[2]);
+      split(x1.y, big[3], small[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        big[i] = qb[kk][i];
+        small[i] = qs[kk][i];
+      }
+    }
+  };
 
   float acc[D / 8][4];
 #pragma unroll
@@ -216,6 +283,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t qbk[4], qsk[4];
+      q_frag(kk, qbk, qsk);
       uint32_t kb[BK / 8][2], ks[BK / 8][2];
 #pragma unroll
       for (int nt = 0; nt < BK / 8; ++nt) {
@@ -224,11 +293,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         split(b.y, kb[nt][1], ks[nt][1]);
       }
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qs[kk], kb[nt][0], kb[nt][1]);
+      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qsk, kb[nt][0], kb[nt][1]);
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s[nt], qb[kk], kb[nt][0], kb[nt][1]);
+      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s[nt], qbk, kb[nt][0], kb[nt][1]);
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qb[kk], ks[nt][0], ks[nt][1]);
+      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qbk, ks[nt][0], ks[nt][1]);
     }
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
@@ -345,43 +414,65 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // the kernel's shared-memory cap, raised once per device (tf32_mma.cuh)
-template <bool EMIT_STATS>
+template <int D, bool EMIT_STATS>
 std::atomic<uint64_t> smem_cap_raised{0};
 
-template <bool EMIT_STATS>
+template <int D, bool EMIT_STATS>
 int launch(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
            float* m_out, float* l_out, int batch, int heads, int tq, int tk, float scale,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * NS * BK * (KS + VS + 1) + sizeof(int) * NS +
-                      (size_t)(tk + BK - 1) / BK;  // + one byte a key tile
-  const cudaError_t err = act::allow_dynamic_smem(
-      reinterpret_cast<const void*>(flash_fwd_kernel<EMIT_STATS>), smem_cap_raised<EMIT_STATS>);
+  if (tq <= 0 || batch <= 0) return 0;
+  const cudaError_t err =
+      act::allow_dynamic_smem(reinterpret_cast<const void*>(flash_fwd_kernel<D, EMIT_STATS>),
+                              smem_cap_raised<D, EMIT_STATS>);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((tq + ROWS - 1) / ROWS, batch * heads);
-  flash_fwd_kernel<EMIT_STATS><<<grid, NT, smem, stream>>>(q, k, v, kv_mask, out, m_out, l_out,
-                                                           heads, tq, tk, scale);
+  flash_fwd_kernel<D, EMIT_STATS><<<grid, NT, Dims<D>::smem_bytes(tk), stream>>>(
+      q, k, v, kv_mask, out, m_out, l_out, heads, tq, tk, scale);
   return (int)cudaGetLastError();
+}
+
+// the instance for head_dim. This switch owns the set of head dims the body
+// is instantiated at (ops/kernels/attention.py's HEAD_DIMS mirrors it, and a
+// card test holds the two equal); any other D is refused, empty calls too
+template <bool EMIT_STATS>
+int dispatch(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
+             float* m_out, float* l_out, int batch, int heads, int tq, int tk, int head_dim,
+             float scale, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch<64, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
+                                    scale, stream);
+    case 80:
+      return launch<80, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
+                                    scale, stream);
+    case 128:
+      return launch<128, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
+                                     scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// K3. q, k, v, out: [B, H, T, 64] f32 contiguous; kv_mask: [B, T] uint8 or null.
+// K3. q, k, v, out: [B, H, T, D] f32 contiguous, D = head_dim in {64, 80,
+// 128}; kv_mask: [B, T] uint8 or null.
 extern "C" int act_flash_attention(const float* q, const float* k, const float* v,
                                    const uint8_t* kv_mask, float* out, int batch, int heads,
                                    int t, int head_dim, float scale, cudaStream_t stream) {
-  if (head_dim != D) return (int)cudaErrorInvalidValue;
-  if (t <= 0 || batch <= 0) return 0;
-  return launch<false>(q, k, v, kv_mask, out, nullptr, nullptr, batch, heads, t, t, scale,
-                       stream);
+  return dispatch<false>(q, k, v, kv_mask, out, nullptr, nullptr, batch, heads, t, t, head_dim,
+                         scale, stream);
 }
 
-// K5. q, out: [B, H, Tq, 64]; k, v: [B, H, Tk, 64]; m_out, l_out: [B, H, Tq];
-// all f32 contiguous; kv_mask: [B, Tk] uint8 or null. Tk >= 1.
+// K5. q, out: [B, H, Tq, D]; k, v: [B, H, Tk, D]; m_out, l_out: [B, H, Tq];
+// all f32 contiguous, D = head_dim in {64, 80, 128}; kv_mask: [B, Tk] uint8
+// or null. Tk >= 1.
 extern "C" int act_flash_attention_stats(const float* q, const float* k, const float* v,
                                          const uint8_t* kv_mask, float* out, float* m_out,
                                          float* l_out, int batch, int heads, int tq, int tk,
                                          int head_dim, float scale, cudaStream_t stream) {
-  if (head_dim != D || tk <= 0) return (int)cudaErrorInvalidValue;
-  if (tq <= 0 || batch <= 0) return 0;
-  return launch<true>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk, scale, stream);
+  if (tk <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk, head_dim,
+                        scale, stream);
 }

@@ -1,6 +1,8 @@
 """Model pack + batched stage engine (port of
 audio_classification_tpu/engine/runtime.py: the offline surface, with the
-Conv-TasNet 3- and 2-source and MossFormer separators).
+Conv-TasNet 3- and 2-source and MossFormer separators, the four ASR families
+(SenseVoice CTC, Paraformer, transducer with greedy and modified beam
+search, whisper-style) and the VAD).
 
 Each stage (resampling, OSD, separation, speaker embedding, ASR) and the two
 fused paths run over padded, length-bucketed batches. Audio goes to the device as
@@ -24,12 +26,17 @@ import numpy as np
 import torch
 
 from ..models.asr.ctc import ctc_greedy_decode
+from ..models.asr.paraformer import (Paraformer, ParaformerConfig, paraformer_frontend,
+                                     paraformer_greedy)
 from ..models.asr.sensevoice import LANGUAGES, SenseVoiceConfig, SenseVoiceEncoder, sensevoice_frontend
 from ..models.asr.tokens import TokenTable
+from ..models.asr.transducer import Transducer, TransducerConfig, transducer_frontend
+from ..models.asr.whisper_style import WhisperStyle, WhisperStyleConfig, whisper_frontend
 from ..models.convtasnet import ConvTasNet, ConvTasNetConfig
 from ..models.mossformer import MossFormer, MossFormerConfig
 from ..models.osd import OSDConfig, OSDNet, probs_to_hop_flags
 from ..models.speaker import SpeakerEmbedder, SpeakerEmbedderConfig
+from ..models.vad import VADConfig, VADNet
 from ..ops.fbank import FbankConfig, log_mel_fbank
 from ..ops.resample import resample_poly
 from .bucketing import BucketSpec, flat_pack_i16, group_by_bucket, pad_batch, pad_batch_i16
@@ -51,6 +58,10 @@ class EnginePreset:
     mossformer: MossFormerConfig = field(default_factory=MossFormerConfig)
     spk: SpeakerEmbedderConfig = field(default_factory=SpeakerEmbedderConfig)
     asr: SenseVoiceConfig = field(default_factory=SenseVoiceConfig)
+    transducer: TransducerConfig = field(default_factory=TransducerConfig)
+    paraformer: ParaformerConfig = field(default_factory=ParaformerConfig)
+    whisper: WhisperStyleConfig = field(default_factory=WhisperStyleConfig)
+    vad: VADConfig = field(default_factory=VADConfig)
     #: separated-branch level restoration before branch ASR: "peak" scales
     #: each branch row to a 0.25 peak, "none" feeds it raw
     asr_branch_norm: str = "none"
@@ -67,6 +78,13 @@ def tiny_preset() -> EnginePreset:
         mossformer=MossFormerConfig(n_src=2, enc_dim=64, dim=48, qk_dim=32, layers=2),
         spk=SpeakerEmbedderConfig(channels=(8, 16), embed_dim=32),
         asr=SenseVoiceConfig(vocab_size=64, dim=64, heads=2, layers=2, conv_kernel=3),
+        transducer=TransducerConfig(vocab_size=64, dim=32, heads=2, layers=1, pred_dim=32,
+                                    joiner_dim=32, conv_kernel=3),
+        paraformer=ParaformerConfig(vocab_size=64, dim=32, heads=2, enc_layers=1, dec_layers=1,
+                                    conv_kernel=3, max_tokens=32),
+        whisper=WhisperStyleConfig(vocab_size=64, dim=32, heads=2, enc_layers=1, dec_layers=1,
+                                   max_decode_len=16),
+        vad=VADConfig(dim=16, layers=2),
     )
 
 
@@ -109,35 +127,69 @@ def resolve_device(device=None) -> torch.device:
 
 
 class ModelPack:
-    """The ported models (SenseVoice family; Conv-TasNet 3- and 2-source and
-    MossFormer separators), seeded on the host and moved to ``device`` in
-    inference mode. ``device`` defaults to the first CUDA device and raises
-    without one: the CPU is used only when asked for (``device="cpu"``).
+    """The ported models, seeded on the host and moved to ``device`` in
+    inference mode: OSDNet, the Conv-TasNet 3- and 2-source and MossFormer
+    separators, the speaker embedder, the VAD and the recognizer of
+    ``asr_family`` ("sensevoice", "paraformer", "transducer" or "whisper").
+    ``device`` defaults to the first CUDA device and raises without one: the
+    CPU is used only when asked for (``device="cpu"``).
 
-    One generator seeds the stages in ``STAGES`` order; the separators added
-    after the flagship four come last, so a seed keeps giving ``osd``,
-    ``sep3``, ``spk`` and ``asr`` the weights it always gave."""
+    ``decoding_method`` "modified_beam_search" (``num_active_paths``
+    hypotheses) exists for the transducer family only, as in sherpa-onnx.
 
-    STAGES = ("osd", "sep3", "spk", "asr", "sep2", "mossformer")
+    One generator seeds ``osd``, ``sep3``, ``spk`` and ``asr`` in that order,
+    so a seed keeps giving them the weights it always gave. Each stage after
+    ``asr`` draws from a generator of its own, seeded from (seed, its index
+    in ``STAGES``): its weights do not depend on the ASR family, as the JAX
+    pack's per-stage keys do not."""
+
+    STAGES = ("osd", "sep3", "spk", "asr", "sep2", "mossformer", "vad")
+    ASR_FAMILIES = ("sensevoice", "paraformer", "transducer", "whisper")
 
     def __init__(self, preset: EnginePreset, seed: int = 0,
-                 tokens: Optional[TokenTable] = None, device=None):
+                 tokens: Optional[TokenTable] = None, device=None,
+                 asr_family: str = "sensevoice", decoding_method: str = "greedy_search",
+                 num_active_paths: int = 4):
+        if asr_family not in self.ASR_FAMILIES:
+            raise ValueError(f"asr_family must be one of {self.ASR_FAMILIES}, got {asr_family!r}")
+        if decoding_method not in ("greedy_search", "modified_beam_search"):
+            raise ValueError(f"decoding_method must be greedy_search|"
+                             f"modified_beam_search, got {decoding_method!r}")
+        if decoding_method == "modified_beam_search" and asr_family != "transducer":
+            raise ValueError("modified_beam_search is only supported for the "
+                             "transducer family (as in sherpa-onnx); "
+                             f"asr_family={asr_family!r}")
         self.preset = preset
         self.device = resolve_device(device)
+        self.asr_family = asr_family
+        self.decoding_method = decoding_method
+        self.num_active_paths = int(num_active_paths)
         self.tokens = tokens or TokenTable.char_table("abcdefghijklmnopqrstuvwxyz '")
         vocab = max(preset.asr.vocab_size, self.tokens.vocab_size)
         self.asr_cfg = dataclasses.replace(preset.asr, vocab_size=vocab)
-        gen = torch.Generator().manual_seed(int(seed))
+        self.transducer_cfg = dataclasses.replace(preset.transducer, vocab_size=vocab)
+        self.paraformer_cfg = dataclasses.replace(preset.paraformer, vocab_size=vocab)
+        self.whisper_cfg = dataclasses.replace(preset.whisper, vocab_size=vocab)
+        asr = {"sensevoice": lambda: SenseVoiceEncoder(self.asr_cfg),
+               "paraformer": lambda: Paraformer(self.paraformer_cfg),
+               "transducer": lambda: Transducer(self.transducer_cfg),
+               "whisper": lambda: WhisperStyle(self.whisper_cfg)}[asr_family]()
         self.models: Dict[str, torch.nn.Module] = {
             "osd": OSDNet(preset.osd),
             "sep3": ConvTasNet(preset.sep3),
             "spk": SpeakerEmbedder(preset.spk),
-            "asr": SenseVoiceEncoder(self.asr_cfg),
+            "asr": asr,
             "sep2": ConvTasNet(preset.sep2),
             "mossformer": MossFormer(preset.mossformer),
+            "vad": VADNet(preset.vad),
         }
-        for m in self.models.values():
-            seeded_init_(m, gen).to(self.device).eval()
+        gen = torch.Generator().manual_seed(int(seed))
+        last_shared = self.STAGES.index("asr")
+        for i, stage in enumerate(self.STAGES):
+            if i > last_shared:
+                own = np.random.SeedSequence([int(seed) % 2**63, i]).generate_state(1)[0]
+                gen = torch.Generator().manual_seed(int(own))
+            seeded_init_(self.models[stage], gen).to(self.device).eval()
 
     def load_state_dicts(self, state_dicts: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """Load per-stage weights (e.g. convert.from_jax.params_to_state_dicts)."""
@@ -234,11 +286,35 @@ class StageEngine:
         emb = self.pack.models["spk"](feats, mask)
         return emb / torch.clamp_min(emb.norm(dim=-1, keepdim=True), 1e-12)
 
-    def _asr_core(self, wav, lengths, language_id=0, use_itn=True):
-        cfg = self.pack.asr_cfg
+    def _asr_decode(self, wav, lengths, language_id=0, use_itn=True, mesh=None,
+                    max_len: Optional[int] = None):
+        """wav [B, T] -> (ids, n_tokens) by the pack's family: SenseVoice CTC,
+        Paraformer (CIF + parallel argmax), transducer (greedy or modified
+        beam search), whisper-style (greedy with a KV cache; ``max_len``
+        overrides its decode budget). ``mesh`` runs the SenseVoice and
+        Paraformer encoders sequence-parallel (long form)."""
+        p = self.pack
+        model = p.models["asr"]
+        if p.asr_family == "paraformer":
+            feats, mask = paraformer_frontend(wav, lengths, p.paraformer_cfg)
+            logits, counts = model(feats, mask, mesh=mesh, sp_axis="data")
+            return paraformer_greedy(logits, counts)
+        if p.asr_family == "transducer":
+            feats, mask = transducer_frontend(wav, lengths, p.transducer_cfg)
+            if p.decoding_method == "modified_beam_search":
+                return model.beam_decode(feats, mask, p.num_active_paths)
+            return model.greedy_decode(feats, mask)
+        if p.asr_family == "whisper":
+            feats, mask = whisper_frontend(wav, lengths, p.whisper_cfg)
+            return model.greedy_decode(feats, mask, max_len)
+        cfg = p.asr_cfg
         feats, mask = sensevoice_frontend(wav, lengths, cfg)
-        logits = self.pack.models["asr"](feats, mask, language_id=language_id, use_itn=use_itn)
-        ids, n = ctc_greedy_decode(logits[:, cfg.num_prompt:], mask, self.pack.tokens.blank_id)
+        logits = model(feats, mask, language_id=language_id, use_itn=use_itn, mesh=mesh,
+                       sp_axis="data")
+        return ctc_greedy_decode(logits[:, cfg.num_prompt:], mask, p.tokens.blank_id)
+
+    def _asr_core(self, wav, lengths, language_id=0, use_itn=True):
+        ids, n = self._asr_decode(wav, lengths, language_id, use_itn)
         cap = min(ids.shape[1], TOKEN_CAP)
         return ids[:, :cap], torch.clamp_max(n, cap)
 
@@ -492,36 +568,47 @@ class StageEngine:
         return self.collect_transcribe(self.launch_transcribe(chunks, language, use_itn))
 
     #: ASR families transcribe_long can run sequence-parallel (their whole
-    #: decode is frame-parallel) and those it can run on one shard with the
-    #: full attention context. The port has the SenseVoice family; the other
-    #: three come with ROADMAP slice 12.
-    LONG_FORM_FAMILIES = ("sensevoice",)
-    LONG_FORM_SINGLE_CHIP = ("sensevoice",)
+    #: decode is frame-parallel: CTC argmax, CIF + the NAR decoder) and those
+    #: it can run unsharded with the full attention context (the transducer
+    #: and whisper decode frame by frame, so only their encoders scale)
+    LONG_FORM_FAMILIES = ("sensevoice", "paraformer")
+    LONG_FORM_SINGLE_CHIP = ("sensevoice", "paraformer", "transducer", "whisper")
 
     @torch.inference_mode()
     def transcribe_long(self, wav: np.ndarray, language: str = "auto",
                         use_itn: bool = True) -> str:
         """ONE long utterance with full self-attention context.
 
-        With a mesh, the SenseVoice encoder runs ring attention over the
-        mesh's data axis: the frame axis is cut into shards, each shard's
-        block attention goes through kernel K5 once a shard holds
-        ``FLASH_MIN_T`` frames, and the utterance's activations split across
-        the shards. Without a mesh the same program runs unsharded and the
-        encoder's attention goes through kernel K3 from ``FLASH_MIN_T``
-        frames on, so attention memory stays O(T) either way. Inputs snap to
-        the long bucket grid (``BucketSpec.long_bucket_for``: the x2 grid
-        extended past the segment cap, without the ad-hoc-bucket warning)."""
+        With a mesh, the SenseVoice and Paraformer encoders run ring
+        attention over the mesh's data axis (``LONG_FORM_FAMILIES``): the
+        frame axis is cut into shards, each shard's block attention goes
+        through kernel K5 once a shard holds ``FLASH_MIN_T`` frames, and the
+        utterance's activations split across the shards. Without a mesh the
+        same program runs unsharded and the encoder's attention goes through
+        kernel K3 from ``FLASH_MIN_T`` frames on, so attention memory stays
+        O(T) either way; that serves all four families
+        (``LONG_FORM_SINGLE_CHIP``: the transducer and whisper decode frame
+        by frame over the full-context encoding, whisper with a decode
+        budget scaled to the audio). A family that cannot take the mesh
+        falls back to ``transcribe``. Inputs snap to the long bucket grid
+        (``BucketSpec.long_bucket_for``: the x2 grid extended past the
+        segment cap, without the ad-hoc-bucket warning)."""
         wav = np.asarray(wav, np.float32)
         p = self.pack
+        capable = self.LONG_FORM_FAMILIES if self.mesh is not None else self.LONG_FORM_SINGLE_CHIP
+        if p.asr_family not in capable:
+            return self.transcribe([wav], language, use_itn)[0]
         lang_id = LANGUAGES.index(language) if language in LANGUAGES else 0
         t = self.buckets.long_bucket_for(len(wav))
         padded, lengths = pad_batch_i16([wav[:t]], t, 1)
         w, lens = self._dq(self._tensor(padded)), self._tensor(lengths)
-        feats, mask = sensevoice_frontend(w, lens, p.asr_cfg)
-        logits = p.models["asr"](feats, mask, language_id=lang_id, use_itn=use_itn,
-                                 mesh=self.mesh, sp_axis="data")
-        ids, n = ctc_greedy_decode(logits[:, p.asr_cfg.num_prompt:], mask, p.tokens.blank_id)
+        max_len = None
+        if p.asr_family == "whisper":
+            # the checkpoint's budget is per 30 s (sherpa's whisper convention)
+            wc = p.whisper_cfg
+            max_len = max(wc.max_decode_len,
+                          int(np.ceil(wc.max_decode_len * t / (30.0 * wc.fbank.sample_rate))))
+        ids, n = self._asr_decode(w, lens, lang_id, use_itn, mesh=self.mesh, max_len=max_len)
         return p.tokens.decode(ids[0, : int(n[0])].cpu().numpy())
 
     def launch_clean(self, chunks, target_vecs, language: str = "auto", use_itn: bool = True,
@@ -572,6 +659,20 @@ class StageEngine:
                     rec["branches"] = out[4][:, : chunk.shape[-1]]
             results.append(rec)
         return results
+
+    def vad_probs(self, wav: np.ndarray) -> np.ndarray:
+        return self.vad_probs_batch([wav])[0]
+
+    def vad_probs_batch(self, wavs: Sequence[np.ndarray]) -> List[np.ndarray]:
+        """[n][T] -> each wav's frame speech probabilities (bucketed batches)."""
+        items = [np.asarray(w, np.float32) for w in wavs]
+
+        def vad_fn(w, lengths):
+            feats, mask = self._fbank_mask(self._dq(w), lengths)
+            return self.pack.models["vad"](feats, mask)
+
+        outs = self._run_bucketed(items, vad_fn)
+        return [out[: self.fbank_cfg.frames_for(len(w))] for out, w in zip(outs, items)]
 
     @torch.inference_mode()
     def transcribe_branches(self, refs: Sequence[tuple], language: str = "auto",

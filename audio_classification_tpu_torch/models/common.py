@@ -90,7 +90,9 @@ class PReLU(nn.Module):
 
 class Conv1d(nn.Module):
     """Feature-last 1-D convolution, [B, T, Cin] -> [B, T', Cout], with
-    XLA "SAME" / "VALID" padding. weight [Cout, Cin/groups, K].
+    XLA "SAME" / "VALID" padding or explicit ``((lo, hi),)`` pads (as
+    lax.conv takes them: the transducer's kernel-centred ``((2, 2),)`` at
+    stride 2, which is not "SAME"). weight [Cout, Cin/groups, K].
 
     ``quant="int8"`` (groups == 1 only; a depthwise conv stays float) runs the
     conv through ops/quant.int8_conv1d: per-sample activation scales bounded
@@ -101,7 +103,7 @@ class Conv1d(nn.Module):
 
     def __init__(self, cin: int, features: int, kernel_size: int, stride: int = 1,
                  dilation: int = 1, groups: int = 1, use_bias: bool = True,
-                 padding: str = "SAME", quant: str = "none"):
+                 padding="SAME", quant: str = "none"):
         super().__init__()
         self.kernel_size, self.stride, self.dilation = kernel_size, stride, dilation
         self.groups, self.padding, self.quant = groups, padding, quant
@@ -109,16 +111,19 @@ class Conv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        pad = (0, 0)
         if self.padding == "SAME":
             pad = same_padding(x.shape[1], self.kernel_size, self.stride, self.dilation)
+        elif self.padding == "VALID":
+            pad = (0, 0)
+        else:
+            pad = tuple(self.padding[0])
         if self.quant == "int8" and self.groups == 1:
             kernel = self.weight.permute(2, 1, 0)
             wq = constant_of(self, "wq", (self.weight,), lambda: quantize_weight(kernel))
             y = int8_conv1d(x, kernel, self.stride, self.dilation, pad, mask=mask, wq=wq)
             return y if self.bias is None else y + self.bias
         x = x.transpose(1, 2)
-        if self.padding == "SAME":
+        if pad != (0, 0):
             x = F.pad(x, pad)
         y = F.conv1d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
         return y.transpose(1, 2)
@@ -204,23 +209,26 @@ class MultiHeadSelfAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN encoder block with a depthwise conv branch (a light conformer
-    flavour: attn -> conv -> ffn). Every model of the ported slice uses the
-    conv branch, so it is not optional here. ``quant="int8"`` quantises the
+    """Pre-LN encoder block with an optional depthwise conv branch (a light
+    conformer flavour: attn -> conv -> ffn); ``conv_kernel=0`` leaves the
+    branch out (the Paraformer decoder). ``quant="int8"`` quantises the
     attention and FFN projections; the depthwise conv stays float. ``mesh``
     routes the attention core through ring attention and runs every
-    projection of the block in float."""
+    projection of the block in float.
+
+    flax numbers the LayerNorms in call order, so the FFN's is
+    ``LayerNorm_2`` behind the conv branch and ``LayerNorm_1`` without it."""
 
     def __init__(self, dim: int, heads: int, ffn_mult: int = 4, conv_kernel: int = 3,
                  quant: str = "none"):
         super().__init__()
-        if conv_kernel <= 0:
-            raise ValueError("TransformerBlock: the port needs conv_kernel > 0")
         self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-6)
         self.MultiHeadSelfAttention_0 = MultiHeadSelfAttention(dim, heads, quant)
         self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-6)
-        self.dwconv = Conv1d(dim, dim, conv_kernel, groups=dim)
-        self.LayerNorm_2 = nn.LayerNorm(dim, eps=1e-6)
+        self.dwconv = None
+        if conv_kernel > 0:
+            self.dwconv = Conv1d(dim, dim, conv_kernel, groups=dim)
+            self.LayerNorm_2 = nn.LayerNorm(dim, eps=1e-6)
         self.Dense_0 = DenseQ(dim, dim * ffn_mult, quant)
         self.Dense_1 = DenseQ(dim * ffn_mult, dim, quant)
 
@@ -228,11 +236,14 @@ class TransformerBlock(nn.Module):
                 sp_axis: str = "data") -> torch.Tensor:
         quant = None if mesh is None else "none"
         x = x + self.MultiHeadSelfAttention_0(self.LayerNorm_0(x), mask, mesh, sp_axis)
-        h = self.LayerNorm_1(x)
-        if mask is not None:
-            h = h * mask[..., None]
-        x = x + F.silu(self.dwconv(h))
-        x = x + self.Dense_1(gelu(self.Dense_0(self.LayerNorm_2(x), mask, quant)), mask, quant)
+        ffn_ln = self.LayerNorm_1
+        if self.dwconv is not None:
+            h = self.LayerNorm_1(x)
+            if mask is not None:
+                h = h * mask[..., None]
+            x = x + F.silu(self.dwconv(h))
+            ffn_ln = self.LayerNorm_2
+        x = x + self.Dense_1(gelu(self.Dense_0(ffn_ln(x), mask, quant)), mask, quant)
         if mask is not None:
             x = x * mask[..., None]
         return x

@@ -3,25 +3,28 @@ audio_classification_tpu/models/facades.py), backed by the batched torch
 StageEngine:
 
 - ``default_engine`` / ``set_default_engine``: one shared engine per process
-- ``ASRRecognizer``, ``SpeakerExtractor``: recognizer and embedder handles
+- ``ASRRecognizer``, ``SpeakerExtractor``: recognizer and embedder handles;
+  ``create_asr_model``, the recognizer's one-of factory
+- ``SpeakerASRModels``: the SID + ASR facade (enrollment, bank search, ASR)
 - ``OverlapAnalyzer``: analyze(samples, sr) -> [(start, end, is_overlap)]
 - ``Separator``: separate(samples, sr) -> n_src wavs at the model's rate
 
-What needs modules that are not ported yet raises NotImplementedError naming
-the ROADMAP slice: separator checkpoints (slices 14 and 15) and the
-``SpeakerASRModels`` / ``SpeakerBank`` SID facade (slice 12). The long-form
-calls (``transcribe(long_form=True)``, ``separate_long``) take a mesh whose
-shards live on one device (parallel/mesh.make_mesh); a mesh over several
-cards is slice 16.
+Separator checkpoints (slices 14 and 15) raise NotImplementedError naming
+the ROADMAP slice. The long-form calls (``transcribe(long_form=True)``,
+``separate_long``) take a mesh whose shards live on one device
+(parallel/mesh.make_mesh); a mesh over several cards is slice 16.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..engine.runtime import G_SAMPLE_RATE, EnginePreset, ModelPack, StageEngine, tiny_preset
+from ..ops.signal import l2norm
+from .speaker import SpeakerBank
 
 _DEFAULT_ENGINE: Optional[StageEngine] = None
 
@@ -62,6 +65,22 @@ class ASRRecognizer:
         chunks = [self.engine.resample(np.asarray(c, np.float32), sr, G_SAMPLE_RATE)
                   for c in chunks]
         return self.engine.transcribe(chunks, self.language, self.use_itn)
+
+
+def create_asr_model(
+    *, paraformer: str = "", sense_voice: str = "", encoder: str = "", decoder: str = "",
+    joiner: str = "", tokens: str = "", num_threads: int = 1, feature_dim: int = 80,
+    decoding_method: str = "greedy_search", debug: bool = False, language: str = "auto",
+    provider: str = "cuda", engine: Optional[StageEngine] = None,
+) -> ASRRecognizer:
+    """The reference's one-of factory (src/model.py:37-100): one of
+    paraformer / sense_voice / transducer (encoder) must be given, else
+    ValueError. The engine's pack holds the family and its weights (built
+    by ``build_engine`` from the same flags); the names here only select."""
+    if not (paraformer or sense_voice or encoder):
+        raise ValueError("Provide one ASR model (paraformer | sense_voice | transducer)")
+    eng = engine or default_engine(device=provider)
+    return ASRRecognizer(eng, language=language, use_itn=bool(sense_voice))
 
 
 class SpeakerExtractor:
@@ -190,9 +209,109 @@ class Separator:
 
 
 class SpeakerASRModels:
-    """Unified SID+ASR facade of the JAX package: not ported yet."""
+    """The SID + ASR facade (reference: src/model.py:127-374). Reads the
+    same fields off ``args``: enrollment with per-wav ``.npy`` caches
+    (``emb_cache_dir``), npz save / load of the speakers' mean embeddings,
+    ``identify`` (bank search + top-1 cosine) and ``asr_infer``. The bank
+    lives on the engine's device."""
 
-    def __init__(self, *_args, **_kwargs):
-        raise NotImplementedError(
-            "SpeakerASRModels needs the SpeakerBank cosine search and the SID runners, "
-            "which are not ported to audio_classification_tpu_torch yet (ROADMAP slice 12)")
+    def __init__(self, args, engine: Optional[StageEngine] = None):
+        self.args = args
+        self.provider = getattr(args, "provider", "cuda")
+        self.engine = engine or default_engine(getattr(args, "preset", "full"),
+                                               device=self.provider)
+        self.using_cuda = self.engine.device.type == "cuda"
+        self.asr = ASRRecognizer(self.engine, language=getattr(args, "language", "auto"),
+                                 use_itn=True)
+        self.extractor = SpeakerExtractor(self.engine)
+        self.manager = SpeakerBank(self.extractor.dim, device=self.engine.device)
+        self.enrolled: Dict[str, np.ndarray] = {}
+        self.enrolled_norm: Dict[str, np.ndarray] = {}
+
+    @staticmethod
+    def _to_numpy_waveform(samples) -> np.ndarray:
+        if isinstance(samples, np.ndarray):
+            return samples.astype(np.float32, copy=False)
+        return np.asarray(samples, dtype=np.float32).reshape(-1)
+
+    def enroll_from_map(self, spk_map: Dict[str, List[str]], load_audio_func) -> None:
+        args = self.args
+        load_npz = getattr(args, "load_speaker_embeds", "")
+        if load_npz:
+            data = np.load(load_npz, allow_pickle=True)
+            for spk in data.files:
+                vec = data[spk].astype(np.float32)
+                self.enrolled[spk] = vec
+                self.enrolled_norm[spk] = np.asarray(l2norm(vec))
+                if not self.manager.add(spk, vec):
+                    raise RuntimeError(f"Failed to add speaker {spk} from preloaded embeds")
+            return
+
+        cache_dir = getattr(args, "emb_cache_dir", "")
+        if cache_dir:
+            os.makedirs(cache_dir, exist_ok=True)
+        speaker_means: Dict[str, np.ndarray] = {}
+        for spk, wavs in spk_map.items():
+            if not wavs:
+                continue
+            # the wavs without a cached embedding go to the device as one batch
+            cached: Dict[str, np.ndarray] = {}
+            to_compute: List[Tuple[str, np.ndarray]] = []
+            for w in wavs:
+                cache_path = None
+                if cache_dir:
+                    cache_path = os.path.join(cache_dir,
+                                              os.path.splitext(os.path.basename(w))[0] + ".npy")
+                    if os.path.isfile(cache_path):
+                        try:
+                            cached[w] = np.asarray(l2norm(np.load(cache_path).astype(np.float32)))
+                            continue
+                        except (OSError, ValueError):
+                            pass
+                loaded = load_audio_func(w)
+                if isinstance(loaded, tuple):
+                    samples, sr = loaded[0], (loaded[1] if len(loaded) >= 2 else G_SAMPLE_RATE)
+                else:
+                    samples, sr = loaded, G_SAMPLE_RATE
+                wav16 = self.engine.resample(self._to_numpy_waveform(samples), sr, G_SAMPLE_RATE)
+                to_compute.append((w, wav16))
+            if to_compute:
+                embs = self.engine.embed([x for _, x in to_compute])
+                for (w, _), emb in zip(to_compute, embs):
+                    emb = np.asarray(l2norm(emb.astype(np.float32)))
+                    cached[w] = emb
+                    if cache_dir:
+                        try:
+                            np.save(os.path.join(cache_dir, os.path.splitext(
+                                os.path.basename(w))[0] + ".npy"), emb)
+                        except OSError:
+                            pass
+            mean_emb = (sum(cached[w] for w in wavs) / float(len(wavs))).astype(np.float32)
+            speaker_means[spk] = mean_emb
+            self.enrolled[spk] = mean_emb
+            self.enrolled_norm[spk] = np.asarray(l2norm(mean_emb))
+            if not self.manager.add(spk, mean_emb):
+                raise RuntimeError(f"Failed to add speaker {spk}")
+
+        save_npz = getattr(args, "save_speaker_embeds", "")
+        if save_npz:
+            try:
+                np.savez_compressed(save_npz, **speaker_means)
+            except OSError:
+                pass
+
+    def top1(self, emb: np.ndarray) -> float:
+        """The best cosine score of ``emb`` over the enrolled speakers (nan
+        with none)."""
+        if not self.enrolled_norm:
+            return float("nan")
+        mat = np.stack(list(self.enrolled_norm.values()))
+        return float((mat @ np.asarray(l2norm(emb))).max())
+
+    def identify(self, samples, sr: int, threshold: float) -> Tuple[str, float]:
+        emb = self.extractor.compute(self._to_numpy_waveform(samples), sr)
+        pred = self.manager.search(emb, threshold=threshold) or "unknown"
+        return pred, self.top1(emb)
+
+    def asr_infer(self, samples, sr: int) -> str:
+        return self.asr.transcribe(self._to_numpy_waveform(samples), sr)

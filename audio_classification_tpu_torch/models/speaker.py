@@ -1,6 +1,8 @@
-"""Speaker-embedding extractor, ERes2Net-style (port of
-audio_classification_tpu/models/speaker.py): a 2-D CNN of Res2Net blocks
-over log-mel, attentive statistics pooling, a projection.
+"""Speaker-embedding extractor, ERes2Net-style, and the enrolled speaker
+bank (port of audio_classification_tpu/models/speaker.py): a 2-D CNN of
+Res2Net blocks over log-mel, attentive statistics pooling, a projection;
+``SpeakerBank`` keeps the enrolled [S, D] matrix on the device and scores a
+batch of embeddings against it in one matmul.
 
 Layout: the body runs NCHW [B, C, T, F] (torch's convention); flax is NHWC
 [B, T, F, C], and its fold ``x.reshape(b, t, f * ch)`` flattens F-major then
@@ -10,11 +12,14 @@ read the wrong features. BatchNorm runs in inference mode (running stats).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.signal import l2norm
 
 
 @dataclass(frozen=True)
@@ -115,3 +120,67 @@ class SpeakerEmbedder(nn.Module):
         b, ch, t, f = x.shape
         x = x.permute(0, 2, 3, 1).reshape(b, t, f * ch)  # flax NHWC fold
         return self.proj(self.asp(x, mask))
+
+
+class SpeakerBank:
+    """Enrolled speakers with cosine search, on the device (the equivalent
+    of sherpa_onnx.SpeakerEmbeddingManager): ``add`` stores an embedding
+    under a name; ``search`` returns the best name when its cosine score
+    reaches the threshold, else "" (which callers map to "unknown").
+
+    ``device`` defaults to the first CUDA device (raising without one) or to
+    the device of ``mesh``. A mesh whose shards all live on one device keeps
+    the bank there; a mesh over several distinct devices, which would shard
+    the bank's rows across cards, raises NotImplementedError (ROADMAP slice
+    16)."""
+
+    def __init__(self, dim: int, mesh=None, device=None):
+        if mesh is not None:
+            flat = [d for row in mesh.devices for d in row]
+            distinct = {(d.type, d.index if d.index is not None else 0) for d in flat}
+            if len(distinct) > 1:
+                raise NotImplementedError(
+                    f"SpeakerBank: a mesh over {len(distinct)} distinct devices would "
+                    "shard the bank across cards, which is not ported to "
+                    "audio_classification_tpu_torch yet (ROADMAP slice 16)")
+            device = mesh.device if device is None else device
+        from ..engine.runtime import resolve_device
+
+        self.device = resolve_device(device)
+        self.dim = dim
+        self.names: List[str] = []
+        self._vecs: List[np.ndarray] = []
+        self._mat: Optional[torch.Tensor] = None
+
+    def add(self, name: str, vec) -> bool:
+        v = np.asarray(vec, dtype=np.float32).reshape(-1)
+        if v.size != self.dim or name in self.names:
+            return False
+        self.names.append(name)
+        self._vecs.append(np.asarray(l2norm(v), np.float32))
+        self._mat = None
+        return True
+
+    @property
+    def matrix(self) -> torch.Tensor:
+        """[S, D] l2-normalised bank, uploaded once after each change."""
+        if self._mat is None:
+            mat = np.stack(self._vecs) if self._vecs else np.zeros((0, self.dim), np.float32)
+            self._mat = torch.from_numpy(mat).to(self.device)
+        return self._mat
+
+    @torch.inference_mode()
+    def scores(self, embs) -> torch.Tensor:
+        """[B, D] (any scale) -> [B, S] cosine scores in one matmul."""
+        if not isinstance(embs, torch.Tensor):
+            embs = torch.from_numpy(np.ascontiguousarray(embs, np.float32))
+        e = embs.to(self.device, torch.float32)
+        e = e / torch.clamp_min(e.norm(dim=-1, keepdim=True), 1e-12)
+        return e @ self.matrix.t()
+
+    def search(self, emb, threshold: float) -> str:
+        if not self.names:
+            return ""
+        s = self.scores(np.asarray(emb, np.float32)[None]).cpu().numpy()[0]
+        i = int(np.argmax(s))
+        return self.names[i] if s[i] >= threshold else ""

@@ -12,24 +12,36 @@ the same softmax stopped before its division, with K5's 0 / -1e9 key bias.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ... import _build
 
 #: flash path from this sequence length on, as on the TPU
 #: (attention_kernel.flash_enabled: ACT_FLASH_ATTN_MIN_T default 512)
 FLASH_MIN_T = 512
-HEAD_DIM = 64  # the kernel's only head dimension (OSDNet and SenseVoice both use 64)
+#: the head dims the kernel body is instantiated at, as the dispatch switch
+#: in csrc/flash_attention.cu (their owner) takes them; a card test holds the
+#: two equal. OSDNet, SenseVoice and the transducer and whisper-style
+#: encoders use 64, Paraformer 80 (320 / 4 heads). The wrapper zero-pads D up to the next instance, as the TPU
+#: kernel pads D to its lane width (attention_kernel._pad_softmax_operands):
+#: zero columns add nothing to q k^T, and the padded output columns are
+#: sliced off
+HEAD_DIMS = (64, 80, 128)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain twin: softmax(q k^T / sqrt(D) + bias) v, bias 0 / -1e9 per key."""
-    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+                        kv_mask: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Plain twin: softmax(q k^T * scale + bias) v, bias 0 / -1e9 per key,
+    scale 1 / sqrt(D) unless given."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     if kv_mask is not None:
         bias = torch.zeros(kv_mask.shape, dtype=logits.dtype, device=logits.device)
         bias = bias.masked_fill(~kv_mask.bool(), -1e9)
@@ -38,11 +50,14 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_stats_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              kv_mask: Optional[torch.Tensor] = None) -> tuple:
-    """K5's plain twin: with s = q k^T / sqrt(D) + bias (0 / -1e9 per key),
-    (o, m, l) = (sum_k exp(s - m) v, max_k s, sum_k exp(s - m)). A key block
-    that is masked whole gives m = -1e9 and l = its key count."""
-    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+                              kv_mask: Optional[torch.Tensor] = None,
+                              scale: Optional[float] = None) -> tuple:
+    """K5's plain twin: with s = q k^T * scale + bias (0 / -1e9 per key;
+    scale 1 / sqrt(D) unless given), (o, m, l) = (sum_k exp(s - m) v,
+    max_k s, sum_k exp(s - m)). A key block that is masked whole gives
+    m = -1e9 and l = its key count."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     if kv_mask is not None:
         bias = torch.zeros(kv_mask.shape, dtype=logits.dtype, device=logits.device)
         bias = bias.masked_fill(~kv_mask.bool(), -1e9)
@@ -57,13 +72,32 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def padded_head_dim(name: str, d: int) -> int:
+    """The instance a head dim d runs at: the least of ``HEAD_DIMS`` >= d.
+    Raises NotImplementedError above the largest."""
+    for inst in HEAD_DIMS:
+        if d <= inst:
+            return inst
+    raise NotImplementedError(
+        f"{name}: head dim {d} is above the largest the kernel is built for "
+        f"({HEAD_DIMS[-1]}); the CUDA body is instantiated at {HEAD_DIMS}")
+
+
+def pad_head_dim(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """(q, k, v) with D zero-padded to its instance (``padded_head_dim``).
+    The caller passes 1 / sqrt(D) of the true D as the scale."""
+    pad = padded_head_dim(name, q.shape[-1]) - q.shape[-1]
+    if not pad:
+        return q, k, v
+    return tuple(F.pad(x, (0, pad)) for x in (q, k, v))
+
+
 def _check_qkv(name: str, q, k, v, kv_mask):
-    """Shapes, types and devices the kernels take -> (q, k, v, mask pointer
-    holder) ready for the launch; raises ValueError on anything else."""
+    """Shapes, types and devices the kernels take -> (q, k, v, mask) ready
+    for the launch, D zero-padded to its instance; raises ValueError on
+    anything else (NotImplementedError for D above the largest instance)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if d != HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} not supported (only {HEAD_DIM})")
     for label, x, shape in (("q", q, (b, h, tq, d)), ("k", k, (b, h, tk, d)),
                             ("v", v, (b, h, tk, d))):
         if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != q.device:
@@ -78,6 +112,7 @@ def _check_qkv(name: str, q, k, v, kv_mask):
         if kv_mask.dtype not in (torch.bool, torch.uint8):
             kv_mask = kv_mask != 0
         kv_mask = kv_mask.contiguous()
+    q, k, v = pad_head_dim(name, q, k, v)
     return _aligned(q), _aligned(k), _aligned(v), kv_mask
 
 
@@ -85,8 +120,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, H, T, D] f32 q, k, v + optional [B, T] bool key mask -> [B, H, T, D].
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel
-    (D = 64 only)."""
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (D up
+    to 128, zero-padded to the next of ``HEAD_DIMS``, scale 1 / sqrt(D) of
+    the true D)."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_mask)
     if not q.is_cuda:
@@ -99,17 +135,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask_ptr = None if kv_mask is None else kv_mask.data_ptr()
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     fn = _build.kernel("act_flash_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
     flash_attention.launches += 1
+    flash_attention.launches_by_head_dim[d] += 1
     _build.check("act_flash_attention", fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), b, h, t, d,
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream))
-    return out
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), b, h, t,
+        q.shape[-1], 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream))
+    return out[..., :d]  # the padded columns sliced off (a view)
 
 
 flash_attention.launches = 0  # kernel launches, counted where they happen
+flash_attention.launches_by_head_dim = collections.Counter()  # the same, by the true D
 
 
 def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,8 +158,8 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o / l is the attention over these keys; triples of several key blocks
     merge by rescaling to a common m (parallel/ring_attention.py).
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel
-    (D = 64 only, Tk >= 1)."""
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (Tk >= 1;
+    D up to 128, zero-padded as in ``flash_attention``)."""
     if q.device.type == "cpu":
         return attention_stats_reference(q, k, v, kv_mask)
     if not q.is_cuda:
@@ -135,16 +173,19 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     m = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    out_d = out[..., :d]  # the padded columns sliced off (a view)
     if out.numel() == 0:
-        return out, m, l
+        return out_d, m, l
     fn = _build.kernel("act_flash_attention_stats", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
     flash_attention_stats.launches += 1
+    flash_attention_stats.launches_by_head_dim[d] += 1
     _build.check("act_flash_attention_stats", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), m.data_ptr(),
-        l.data_ptr(), b, h, tq, tk, d, 1.0 / math.sqrt(d),
+        l.data_ptr(), b, h, tq, tk, q.shape[-1], 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream))
-    return out, m, l
+    return out_d, m, l
 
 
 flash_attention_stats.launches = 0  # K5's launches, counted apart from K3's
+flash_attention_stats.launches_by_head_dim = collections.Counter()

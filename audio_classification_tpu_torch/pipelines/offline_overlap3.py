@@ -36,16 +36,15 @@ from ..models.asr.tokens import TokenTable
 from ..runtime.monitor import ResourceMonitor
 from ..utils.config import Overlap3Config
 
+# the flags that name model files: the ASR families' (reference:
+# src/model.py:37-100), the speaker model's and the VAD's. A value that is not
+# an .onnx file or an orbax directory selects the model with seeded weights,
+# as the JAX pipeline does; weight files raise in check_ported
+_MODEL_FILE_FLAGS = ("paraformer", "encoder", "decoder", "joiner", "whisper_encoder",
+                     "whisper_decoder", "sense_voice", "wenet_ctc", "model", "silero_vad_model")
+
 # (config field, its default, what porting it needs)
 _NOT_PORTED = (
-    ("sense_voice", "", "ONNX / orbax ASR weights (models/convert, ROADMAP slice 15)"),
-    ("paraformer", "", "the Paraformer ASR family (ROADMAP slice 12)"),
-    ("encoder", "", "the transducer ASR family (ROADMAP slice 12)"),
-    ("decoder", "", "the transducer ASR family (ROADMAP slice 12)"),
-    ("joiner", "", "the transducer ASR family (ROADMAP slice 12)"),
-    ("whisper_encoder", "", "the whisper ASR family (ROADMAP slice 12)"),
-    ("whisper_decoder", "", "the whisper ASR family (ROADMAP slice 12)"),
-    ("decoding_method", "greedy_search", "beam search (transducer family, ROADMAP slice 12)"),
     ("cmvn", "", "kaldi am.mvn loading (models/convert/assets.py, ROADMAP slice 15)"),
     ("spk_embed_model", "", "ONNX / orbax speaker weights (models/convert, ROADMAP slice 15)"),
     ("sep_checkpoint", "", "separator checkpoints (models/convert, ROADMAP slice 15)"),
@@ -67,12 +66,36 @@ _NOT_PORTED = (
 
 
 def check_ported(cfg) -> None:
-    """Raise NotImplementedError for any option this package does not run yet."""
+    """Raise NotImplementedError for any option this package does not run
+    yet, and for model weight files: an .onnx value of a family flag, of
+    --model / --spk-embed-model or --silero-vad-model (ONNX import, ROADMAP
+    slice 15), or an orbax directory (slices 14 and 15)."""
     for name, default, needs in _NOT_PORTED:
         if getattr(cfg, name, default) != default:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {needs} is not ported to "
                 "audio_classification_tpu_torch yet")
+    for name in _MODEL_FILE_FLAGS:
+        value = getattr(cfg, name, "") or ""
+        if value.endswith(".onnx") or (value and Path(value).is_dir()):
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} {value}: loading ONNX / orbax model weights "
+                "(models/convert, ROADMAP slice 15) is not ported to "
+                "audio_classification_tpu_torch yet; any other value selects the "
+                "model with seeded weights")
+
+
+def asr_family(cfg) -> str:
+    """The ASR family the config's flags select, in the reference's one-of
+    order: --paraformer, then --encoder (transducer), then
+    --whisper-encoder; SenseVoice otherwise."""
+    if getattr(cfg, "paraformer", ""):
+        return "paraformer"
+    if getattr(cfg, "encoder", ""):
+        return "transducer"
+    if getattr(cfg, "whisper_encoder", ""):
+        return "whisper"
+    return "sensevoice"
 
 
 @dataclass
@@ -93,12 +116,16 @@ def build_engine(cfg, device=None) -> StageEngine:
     "cpu"). The card is the default and a RuntimeError says so when there is
     none: the CPU is used only when asked for.
 
-    ``quant="int8"`` switches both Conv-TasNet separators and the SenseVoice
-    encoder to the int8 path (ops/quant; the masker's weights stream as int8
-    through K2). Quantisation happens at run time from the float parameters
-    (the first forward keeps the int8 weights: ops/quant.constant_of), so a
-    seed draws the same weights with and without it. MossFormer, OSDNet
-    and the speaker embedder have no int8 path and stay float."""
+    The ASR family comes from the family flags (``asr_family``) and
+    ``decoding_method`` / ``num_active_paths`` pick the transducer's search.
+
+    ``quant="int8"`` switches both Conv-TasNet separators and the four ASR
+    encoders to the int8 path (ops/quant; the masker's weights stream as
+    int8 through K2). Quantisation happens at run time from the float
+    parameters (the first forward keeps the int8 weights:
+    ops/quant.constant_of), so a seed draws the same weights with and
+    without it. MossFormer, OSDNet, the speaker embedder, the VAD and the
+    decoders have no int8 path and stay float."""
     check_ported(cfg)
     quant = getattr(cfg, "quant", "none")
     if quant not in ("none", "int8"):
@@ -114,13 +141,20 @@ def build_engine(cfg, device=None) -> StageEngine:
             preset,
             sep3=dataclasses.replace(preset.sep3, quant="int8"),
             sep2=dataclasses.replace(preset.sep2, quant="int8"),
-            asr=dataclasses.replace(preset.asr, quant="int8"))
+            asr=dataclasses.replace(preset.asr, quant="int8"),
+            transducer=dataclasses.replace(preset.transducer, quant="int8"),
+            paraformer=dataclasses.replace(preset.paraformer, quant="int8"),
+            whisper=dataclasses.replace(preset.whisper, quant="int8"))
+    family = asr_family(cfg)
     tokens = None
     tok_path = getattr(cfg, "tokens", "")
-    if tok_path:
-        tokens = TokenTable.load(tok_path)
+    if tok_path and Path(tok_path).is_file():
+        # sherpa-onnx whisper exports carry base64 byte-BPE tokens
+        tokens = TokenTable.load(tok_path, base64_tokens=True if family == "whisper" else None)
     pack = ModelPack(preset, seed=max(int(getattr(cfg, "seed", -1)), 0), tokens=tokens,
-                     device=device)
+                     device=device, asr_family=family,
+                     decoding_method=getattr(cfg, "decoding_method", "greedy_search"),
+                     num_active_paths=getattr(cfg, "num_active_paths", 4))
     buckets = BucketSpec(
         lengths=default_buckets(G_SAMPLE_RATE, 0.5, getattr(cfg, "max_segment_sec", 64.0)),
         max_batch=getattr(cfg, "max_batch", 8),

@@ -28,7 +28,18 @@ points at the full preset, reading every kernel's launch count around each:
   T = 4271, 12 launches, K5 none), CTC logits and texts of the two compared;
   a 100 s utterance over 8 shards (268 frames a shard: the dense block);
 - Separator.separate_long over 4 shards, Conv-TasNet-3 on a 20 s mixture and
-  MossFormer on a 16 s one, against Separator.separate on the same engine.
+  MossFormer on a 16 s one, against Separator.separate on the same engine;
+- the flagship CLI with each other ASR family (--paraformer, the transducer
+  greedy and with modified_beam_search, --whisper-encoder; seeded weights)
+  on the 20 s mixture forced to overlap and forced clean (K1, K3; K3 at head
+  dim 80 on the Paraformer path), the 200 s utterance through each family's
+  long form (Paraformer also over 4 shards: K5 at D = 80), each family's
+  device ops a call, and the SID product: benchmark_pipeline and
+  speaker_id_vad_asr on 4 talkers x 2 enrollment wavs and 8 test wavs.
+
+K3 and K5 are also held to their float64 twin at the head dims beside 64
+(Paraformer's 80 at its main shapes, 128, and 40, which the wrapper pads),
+and each family's recognizer on the card to the same weights on the CPU.
 
     python3 chip_smoke.py
 
@@ -522,6 +533,96 @@ def check_attention_stats(torch, np) -> dict:
             "ring": ring}
 
 
+# Paraformer (dim 320, 4 heads: D = 80) on the same 200 s utterance: the 256 s
+# bucket's 25598 fbank frames make ceil(25598 / 6) = 4267 LFR frames, 3333 of
+# them valid; 4 shards pad that to 4 x 1067, and the last block holds 132
+PF_LONG_T, PF_LONG_VALID_T = 4267, 3333
+
+
+def check_attention_head_dims(torch, np) -> dict:
+    """K3 and K5 at the head dims beside 64: Paraformer's D = 80 on its 32 s
+    bucket ([1, 4, 533, 80]), on the 200 s utterance's 256 s bucket
+    ([1, 4, 4267, 80], 3333 keys valid) and, for K5, on one shard's
+    1067-frame block of it (all keys valid, and the last block's 132); one
+    small ragged case at D = 128 and one at D = 40, which the wrapper
+    zero-pads to the instance at 64. Each against the twin in float64 (K3
+    2e-5 abs, K5's o 1e-4 of max|o|, m and l 1e-5 relative, as at D = 64),
+    with the kernel's device time, the float32 twin's and SDPA's by graph
+    replay, and the bound for the true D."""
+    from audio_classification_tpu_torch.ops.kernels import attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(80)
+    ts = -(-PF_LONG_T // LONG_SHARDS)
+    k3, k5 = [], []
+    for kind, b, h, tq, tk, d, lens in (
+            ("K3", 1, 4, 533, 533, 80, [533]),
+            ("K3", 1, 4, PF_LONG_T, PF_LONG_T, 80, [PF_LONG_VALID_T]),
+            ("K3", 2, 4, 200, 200, 128, [200, 77]),
+            ("K3", 2, 4, 300, 300, 40, [300, 129]),
+            ("K5", 1, 4, ts, ts, 80, [ts]),
+            ("K5", 1, 4, ts, ts, 80, [PF_LONG_VALID_T - 3 * ts]),
+            ("K5", 2, 4, 200, 333, 128, [333, 64]),
+            ("K5", 2, 4, 300, 300, 40, [300, 129])):
+        q = torch.randn((b, h, tq, d), generator=gen).to(dev)
+        k, v = (torch.randn((b, h, tk, d), generator=gen).to(dev) for _ in range(2))
+        mask = torch.arange(tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        n_valid = int(mask.sum())
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask[:, None, None, :])
+        case = {"kernel": kind, "shape": [b, h, tq, d], "keys": tk, "valid_keys": lens,
+                "head_dim": d, "instance": attention.padded_head_dim(kind, d)}
+        if kind == "K3":
+            out = attention.flash_attention(q, k, v, mask)
+            torch.cuda.synchronize()
+            ref = attention.attention_reference(q.double(), k.double(), v.double(), mask)
+            case["max_abs_err"] = ((out - ref.float()).abs() * mask[:, None, :, None]).max().item()
+            fn = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
+            twin = lambda: attention.attention_reference(q, k, v, mask)  # noqa: E731
+            n_out = q.numel()
+        else:
+            o, m, l = attention.flash_attention_stats(q, k, v, mask)
+            torch.cuda.synchronize()
+            ro, rm, rl = (x.float() for x in attention.attention_stats_reference(
+                q.double(), k.double(), v.double(), mask))
+            peak = ro.abs().max().item()
+            case.update({"max_abs_err": (o - ro).abs().max().item(),
+                         "rel_err": (o - ro).abs().max().item() / peak,
+                         "m_rel_err": ((m - rm).abs() / rm.abs().clamp_min(1.0)).max().item(),
+                         "l_rel_err": ((l - rl).abs() / rl.abs()).max().item()})
+            fn = lambda: attention.flash_attention_stats(q, k, v, mask)  # noqa: E731
+            twin = lambda: attention.attention_stats_reference(q, k, v, mask)  # noqa: E731
+            n_out = q.numel() + 2 * b * h * tq
+        case.update({
+            "ms": graph_ms(torch, fn, 20), "plain_ms": graph_ms(torch, twin, 20),
+            # SDPA (the normalised output alone) on the same q, k, v: K3's
+            # library call; beside K5 a yardstick of another function
+            "library_ms" if kind == "K3" else "sdpa_ms_same_inputs":
+                graph_ms(torch, sdpa, 20) if tq == tk or kind == "K3" else None,
+            "wrapper_ms": cuda_ms(torch, fn, 20),
+            **tensor_bound(4.0 * h * tq * n_valid * d, 1.0 * h * tq * n_valid,
+                           4.0 * (q.numel() + 2 * h * d * n_valid + n_out) + mask.numel())})
+        if kind == "K3":
+            case["ms_over_library_ms"] = case["ms"] / case["library_ms"]
+        log({"phase": "kernel", "name": "flash_attention" if kind == "K3"
+             else "flash_attention_stats", **case})
+        if kind == "K3":
+            assert case["max_abs_err"] <= 2e-5, case
+            k3.append(case)
+        else:
+            assert math.isfinite(case["max_abs_err"]) and case["rel_err"] <= 1e-4, case
+            assert case["m_rel_err"] <= 1e-5 and case["l_rel_err"] <= 1e-5, case
+            k5.append(case)
+    # above the largest instance the wrapper refuses
+    try:
+        attention.flash_attention(*(torch.zeros((1, 1, 8, 136), device=dev) for _ in range(3)))
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("flash_attention took a head dim of 136")
+    return {"flash_attention": k3, "flash_attention_stats": k5}
+
+
 def check_gau(torch, np) -> dict:
     """K4 against its blockwise twin at the main path's shape (one 8 s bucket
     of the full-preset MossFormer: T = 15999 frames, Dqk 128, De 768, the
@@ -653,26 +754,125 @@ def check_small_input_against_cpu(torch, np) -> None:
     log({"phase": "small_input_vs_cpu_int8", "rel_err": report, "tol_rel": 3e-2})
 
 
+def check_families_against_cpu(torch, np) -> None:
+    """The Paraformer, transducer and whisper-style recognizers at the full
+    preset (seeded weights) on the card against the same weights on the CPU,
+    two 4 s items: encoder outputs (Paraformer: its logits on the fired
+    tokens) within 1e-3 of max|ref| as the other stages, and the token ids
+    of every decoder equal (CIF counts and ids, greedy and modified beam
+    search, whisper's KV-cache greedy)."""
+    from audio_classification_tpu_torch.engine.runtime import EnginePreset, seeded_init_
+    from audio_classification_tpu_torch.models.asr.paraformer import (
+        Paraformer,
+        paraformer_frontend,
+        paraformer_greedy,
+    )
+    from audio_classification_tpu_torch.models.asr.transducer import (
+        Transducer,
+        transducer_frontend,
+    )
+    from audio_classification_tpu_torch.models.asr.whisper_style import (
+        WhisperStyle,
+        whisper_frontend,
+    )
+
+    preset = EnginePreset()
+    n = 4 * SR
+    src = talkers(n, 3)
+    wav = np.stack([sum(src) * 0.25, src[1] * 0.5]).astype(np.float32)
+    lens = np.array([n, 3 * SR], np.int64)
+
+    def paraformer(m, w, l):
+        logits, counts = m(*paraformer_frontend(w, l, m.cfg))
+        ids, _ = paraformer_greedy(logits, counts)
+        rows = torch.arange(logits.shape[1], device=w.device)[None, :] < counts[:, None]
+        return logits * rows[..., None], {"counts": counts, "ids": ids}
+
+    def transducer(m, w, l):
+        feats, mask = transducer_frontend(w, l, m.cfg)
+        enc, emask = m.encoder(feats, mask)
+        return enc * emask[..., None], {"greedy": m.greedy_decode(feats, mask)[0],
+                                        "beam4": m.beam_decode(feats, mask, 4)[0]}
+
+    def whisper(m, w, l):
+        feats, mask = whisper_frontend(w, l, m.cfg)
+        mem, mmask = m.encode(feats, mask)
+        return mem * mmask[..., None], {"greedy": m.greedy_decode(feats, mask)[0]}
+
+    report = {}
+    for name, cls, cfg, run in (("paraformer", Paraformer, preset.paraformer, paraformer),
+                                ("transducer", Transducer, preset.transducer, transducer),
+                                ("whisper", WhisperStyle, preset.whisper, whisper)):
+        outs = {}
+        for d in ("cuda", "cpu"):
+            model = seeded_init_(cls(cfg), torch.Generator().manual_seed(0)).to(d).eval()
+            with torch.inference_mode():
+                x, ids = run(model, torch.from_numpy(wav).to(d), torch.from_numpy(lens).to(d))
+            outs[d] = (x.float().cpu(), {k: v.cpu() for k, v in ids.items()})
+        err = (outs["cuda"][0] - outs["cpu"][0]).abs().max().item()
+        rel = err / max(outs["cpu"][0].abs().max().item(), 1e-12)
+        equal = {k: bool(torch.equal(outs["cuda"][1][k], outs["cpu"][1][k]))
+                 for k in outs["cpu"][1]}
+        report[name] = {"rel_err": rel, "ids_equal": equal,
+                        "tokens": {k: int((v != 0).sum()) for k, v in outs["cpu"][1].items()}}
+        assert math.isfinite(rel) and rel <= 1e-3, (name, rel)
+        assert all(equal.values()), (name, equal)
+    log({"phase": "families_vs_cpu", "tol_rel": 1e-3, **report})
+
+
+def device_ops(torch, fn) -> dict:
+    """One call of fn after a warm one: its wall, then the device ops it
+    queued and their device time under torch.profiler (a second call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0) for e in evs)
+    return {"wall_ms": wall * 1e3, "device_ops": len(evs), "device_ms": us / 1e3}
+
+
+def _by_head_dim(counters: dict) -> dict:
+    """K3's and K5's launches by head dim (the wrappers' second count)."""
+    return {k: dict(sorted(wrapper.launches_by_head_dim.items()))
+            for k, (wrapper, attr) in counters.items()
+            if attr == "launches" and hasattr(wrapper, "launches_by_head_dim")}
+
+
 def _counted(torch, counters: dict, expect: tuple, name: str, fn, unexpected: tuple = (),
-             exact: dict = None):
+             exact: dict = None, head_dims: dict = None):
     """Run one entry point with every launch count set to 0 just before and
     read just after (the entry points join their worker threads before they
     return); the kernels in ``expect`` must have been launched, those in
-    ``unexpected`` must not, those in ``exact`` that many times."""
+    ``unexpected`` must not, those in ``exact`` that many times, and for each
+    (kernel, head dim) in ``head_dims`` at least that many launches at it."""
     for wrapper, attr in counters.values():
         setattr(wrapper, attr, 0)
+        if hasattr(wrapper, "launches_by_head_dim"):
+            wrapper.launches_by_head_dim.clear()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: getattr(wrapper, attr) for k, (wrapper, attr) in counters.items()}
-    log({"phase": "launches", "path": name, "wall_sec": wall, **launches})
+    by_dim = _by_head_dim(counters)
+    log({"phase": "launches", "path": name, "wall_sec": wall, **launches,
+         "by_head_dim": by_dim})
     for k in expect:
         assert launches[k] > 0, f"kernel {k} was not launched by {name}"
     for k in unexpected:
         assert launches[k] == 0, f"kernel {k} was launched by {name}"
     for k, n in (exact or {}).items():
         assert launches[k] == n, f"kernel {k}: {launches[k]} launches by {name}, expected {n}"
+    for (k, d), n in (head_dims or {}).items():
+        assert by_dim[k].get(d, 0) >= n, f"{k} at D = {d}: {by_dim[k]} by {name}, expected {n}"
     return out, launches
 
 
@@ -681,9 +881,11 @@ def run_paths(torch, np, counters: dict) -> dict:
     each with its launch counts -> total launches per kernel."""
     from audio_classification_tpu_torch.audio_io import read_wav, to_mono, write_wav
     from audio_classification_tpu_torch.cli import (
+        benchmark_pipeline,
         mossformer_infer,
         offline_overlap_mvp,
         serve_streams,
+        speaker_id_vad_asr,
         streaming_overlap_3src,
     )
     from audio_classification_tpu_torch.cli.offline_overlap_3src import main as overlap3_main
@@ -707,10 +909,11 @@ def run_paths(torch, np, counters: dict) -> dict:
                    "time_osd_sec", "time_sep_sec", "time_asr_sec", "time_compute_total_sec",
                    "rtf_total", "total_audio_sec")
 
-    def flagship(name, argv, kind, expect, unexpected=()):
+    def flagship(name, argv, kind, expect, unexpected=(), head_dims=None):
         (out_dir, result), launches = _counted(torch, counters, expect, name, lambda: overlap3_main(
             [*argv, "--target-wav", str(work / "target.wav"), "--preset", "full", "--seed", "0",
-             "--sv-threshold", "-1", "--out-dir", str(work / "out")]), unexpected)
+             "--sv-threshold", "-1", "--out-dir", str(work / "out")]), unexpected,
+            head_dims=head_dims)
         add(launches)
         for fname in ("segments.jsonl", "segments.csv", "summary.json"):
             assert (out_dir / fname).is_file(), fname
@@ -889,6 +1092,69 @@ def run_paths(torch, np, counters: dict) -> dict:
         assert sum(x["kind"] == "full_separation" for x in got) == 3, got
         assert all(math.isfinite(x["sv_score"]) for x in got)
 
+    # the other three ASR families through the flagship CLI (seeded weights:
+    # a value that is not an .onnx file selects the family), on the 20 s
+    # mixture forced to overlap and forced clean. In the 32 s bucket the
+    # Paraformer encoder (dim 320, 4 heads) runs K3 at T = 533, D = 80; the
+    # transducer's at T = 800 and the whisper-style at T = 1600, both D = 64;
+    # OSDNet runs K3 at T = 800, D = 64 on every path
+    families = (
+        ("paraformer", ["--paraformer", "seeded"], 80),
+        ("transducer", ["--encoder", "seeded", "--decoder", "seeded", "--joiner", "seeded"], 64),
+        ("transducer, modified_beam_search",
+         ["--encoder", "seeded", "--decoder", "seeded", "--joiner", "seeded",
+          "--decoding-method", "modified_beam_search", "--num-active-paths", "4"], 64),
+        ("whisper", ["--whisper-encoder", "seeded", "--whisper-decoder", "seeded"], 64))
+    for family, flags, head_dim in families:
+        for thr, kind in (("0.0", "overlap"), ("1.0", "clean")):
+            r = flagship(f"overlap3 {family} --osd-thr {thr}",
+                         ["--input-wavs", str(work / "mix.wav"), "--osd-thr", thr, *flags], kind,
+                         ("fbank_power_mel", "flash_attention"),
+                         head_dims={("flash_attention", head_dim): 1})
+            assert r.metrics["segments_total"] > 0
+
+    # the speaker-ID product: a synthetic set of 4 talkers x 2 enrollment
+    # wavs and 8 test wavs (one at 8 kHz), through both CLIs at the full
+    # preset; their output files are read back
+    sid = work / "sid"
+    sid.mkdir(parents=True, exist_ok=True)
+    enroll, tests = [], []
+    for i, f0 in enumerate((110.0, 150.0, 205.0, 260.0)):
+        for j in range(2):
+            x = talkers((3 + j) * SR, 40 + 2 * i + j, f0s=(f0,))[0]
+            write_wav(sid / f"spk{i}_enroll_{j}.wav", 0.5 * x / np.abs(x).max(), SR)
+            enroll.append(f"spk{i} {sid / f'spk{i}_enroll_{j}.wav'}")
+        for j in range(2):
+            x = talkers((2 + j) * SR, 60 + 2 * i + j, f0s=(f0 * (1.03 if j else 0.97),))[0]
+            x = 0.5 * x / np.abs(x).max()
+            low = (i, j) == (1, 1)
+            write_wav(sid / f"spk{i}_test_{j}.wav", x[::2] if low else x, SR // 2 if low else SR)
+            tests.append(f"spk{i} {sid / f'spk{i}_test_{j}.wav'}")
+    (sid / "speakers.txt").write_text("\n".join(enroll) + "\n")
+    (sid / "test.txt").write_text("\n".join(tests) + "\n")
+    base = ["--speaker-file", str(sid / "speakers.txt"), "--test-list", str(sid / "test.txt"),
+            "--preset", "full", "--threshold", "0.3"]
+    (out_dir, summary), launches = _counted(
+        torch, counters, ("fbank_power_mel",), "benchmark_pipeline --batch-mode",
+        lambda: benchmark_pipeline.main([*base, "--sense-voice", "seeded", "--batch-mode",
+                                         "--out-dir", str(sid / "out_bench")]))
+    add(launches)
+    for fname in ("predictions.csv", "detail.jsonl", "summary.json", "summary.txt"):
+        assert (out_dir / fname).is_file(), fname
+    assert summary["total_utts"] == 8 and summary["train_speakers"] == 4, summary
+    assert len((out_dir / "predictions.csv").read_text().splitlines()) == 9
+    log({"phase": "pipeline", "path": "benchmark_pipeline", **{
+        k: summary[k] for k in ("total_utts", "train_speakers", "correct", "unknown",
+                                "accuracy", "avg_sid_time", "avg_asr_time", "avg_rtf")}})
+    run_dir, launches = _counted(
+        torch, counters, ("fbank_power_mel",), "speaker_id_vad_asr --paraformer --apply-vad",
+        lambda: speaker_id_vad_asr.main([*base, "--paraformer", "seeded", "--apply-vad",
+                                         "--out-dir", str(sid / "out_spid")]))
+    add(launches)
+    rows = (run_dir / "predictions.csv").read_text().splitlines()
+    report = (run_dir / "report.txt").read_text()
+    assert len(rows) == 9 and "Test utterances: 8" in report and "Train speakers: 4" in report
+    log({"phase": "pipeline", "path": "speaker_id_vad_asr", "report": report.splitlines()})
     return total
 
 
@@ -898,6 +1164,7 @@ def run_long_form(torch, np, counters: dict) -> dict:
     launches per kernel."""
     from audio_classification_tpu_torch.engine.runtime import EnginePreset, ModelPack, StageEngine
     from audio_classification_tpu_torch.models import facades
+    from audio_classification_tpu_torch.models.asr.paraformer import cif_integrate
     from audio_classification_tpu_torch.models.asr.sensevoice import sensevoice_frontend
     from audio_classification_tpu_torch.parallel.mesh import make_mesh
 
@@ -911,11 +1178,11 @@ def run_long_form(torch, np, counters: dict) -> dict:
     speech = sum(talkers(LONG_SEC * SR, 30)) / 3.0
     speech = (0.6 * speech / np.abs(speech).max()).astype(np.float32)
 
-    def transcribe(name, engine, wav, expect, exact):
+    def transcribe(name, engine, wav, expect, exact, head_dims=None):
         text, launches = _counted(
             torch, counters, expect, name,
             lambda: facades.ASRRecognizer(engine).transcribe(wav, SR, long_form=True),
-            exact=exact)
+            exact=exact, head_dims=head_dims)
         for k, n in launches.items():
             total[k] += n
         return text
@@ -994,6 +1261,48 @@ def run_long_form(torch, np, counters: dict) -> dict:
              "sample_rate": sep.sample_rate, "shards": LONG_SHARDS, "rel_err_vs_separate": rel,
              "tol_rel": 1e-3})
         assert rel <= 1e-3, (backend, rel)
+
+    # the other three families on the same 200 s utterance, without a mesh
+    # (K3 from T = 512 on: Paraformer's encoder at T = 4267, D = 80, 8 layers;
+    # the transducer's at T = 6400 and the whisper-style one's at T = 12800,
+    # D = 64, whose decoders then run frame by frame, whisper with a budget of
+    # ceil(96 x 256 / 30) = 820 tokens), and Paraformer over 4 shards (K5 at
+    # D = 80: 8 layers x 16 block pairs of 1067 frames)
+    texts = {}
+    for family, layers, head_dim in (("paraformer", 8, 80), ("transducer", 6, 64),
+                                     ("whisper", 4, 64)):
+        fpack = ModelPack(EnginePreset(), seed=0, device="cuda", asr_family=family)
+        texts[family] = transcribe(
+            f"transcribe long_form, {LONG_SEC} s, {family}, no mesh", StageEngine(fpack), speech,
+            ("fbank_power_mel",), {"flash_attention": layers, "flash_attention_stats": 0},
+            {("flash_attention", head_dim): layers})
+        # one ASR call of the family on a 20 s stretch (the 32 s bucket): its
+        # device ops, device time and wall; the decoders loop on the host
+        eng = StageEngine(fpack)
+        log({"phase": "family_device_ops", "family": family, "input_sec": 20,
+             **device_ops(torch, lambda: eng.transcribe([speech[: 20 * SR]]))})
+        if family == "transducer":
+            bpack = ModelPack(EnginePreset(), seed=0, device="cuda", asr_family=family,
+                              decoding_method="modified_beam_search", num_active_paths=4)
+            beng = StageEngine(bpack)
+            ops = device_ops(torch, lambda: beng.transcribe([speech[: 20 * SR]]))
+            log({"phase": "family_device_ops", "family": "transducer, modified_beam_search",
+                 "input_sec": 20, **ops})
+        if family == "paraformer":
+            # CIF alone at the 32 s bucket's 533 frames and dim 320
+            h = torch.randn((1, 533, 320), generator=torch.Generator().manual_seed(3)).cuda()
+            alpha = torch.rand((1, 533), generator=torch.Generator().manual_seed(4)).cuda() * 0.6
+            log({"phase": "family_device_ops", "family": "paraformer, cif_integrate alone",
+                 "frames": 533, **device_ops(torch, lambda: cif_integrate(h, alpha, 128))})
+            texts["paraformer, mesh of 4"] = transcribe(
+                f"transcribe long_form, {LONG_SEC} s, paraformer, mesh of {LONG_SHARDS}",
+                StageEngine(fpack, mesh=make_mesh(LONG_SHARDS)), speech, ("fbank_power_mel",),
+                {"flash_attention_stats": layers * LONG_SHARDS ** 2, "flash_attention": 0},
+                {("flash_attention_stats", 80): layers * LONG_SHARDS ** 2})
+    log({"phase": "long_form_families", "seconds": LONG_SEC,
+         "text_len": {k: len(v) for k, v in texts.items()},
+         "paraformer_texts_equal": texts["paraformer"] == texts["paraformer, mesh of 4"]})
+    assert texts["paraformer"] == texts["paraformer, mesh of 4"]
     return total
 
 
@@ -1041,7 +1350,14 @@ def main() -> int:
                "flash_attention": check_attention(torch, np),
                "gau_attention": check_gau(torch, np),
                "flash_attention_stats": check_attention_stats(torch, np)}
+    # K3 and K5 at D = 80 (Paraformer), 128 and a padded 40: their cases join
+    # the kernels' records, errors against the float64 twin
+    for name, cases in check_attention_head_dims(torch, np).items():
+        results[name]["cases"] += cases
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           *(c["max_abs_err"] for c in cases))
     check_small_input_against_cpu(torch, np)
+    check_families_against_cpu(torch, np)
     # each wrapper's count of kernel launches; the masker's two C entry points
     # count apart
     counters = {"fbank_power_mel": (fbank_power_mel, "launches"),
@@ -1078,6 +1394,7 @@ def main() -> int:
                 **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms")}}
                for name, (src, rep) in meta.items()]
+    log({"phase": "elapsed", "sec": time.perf_counter() - t0})
     print(smi, flush=True)
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""K3 / K5 (flash_attention, flash_attention_stats) of one checkout, timed
+at the shapes chip_smoke.py checks, so that two versions of the kernel can
+be set side by side in one call on one card.
+
+Imports ``audio_classification_tpu_torch`` from --root (default: this
+repository), builds that checkout's kernels into its own build/ directory,
+and prints one JSON line per shape: device milliseconds by the replay of a
+CUDA graph of --iters launches (``graph_ms``, without the host time of the
+Python calls) for the kernel and for SDPA on the same inputs, and the error
+against the float64 twin. The D = 64 shapes are chip_smoke.py's (OSDNet and
+SenseVoice); the D = 80 shapes are Paraformer's (its 32 s bucket, the 200 s
+utterance's 256 s bucket and one shard's block of it), run only where the
+checkout's wrapper takes D = 80. With --registers it also compiles the
+checkout's csrc/flash_attention.cu alone with ``-Xptxas -v`` and prints the
+registers and spill bytes of each kernel instance. ``--define NAME=VALUE``
+(repeatable) builds the checkout's kernels with ``-DNAME=VALUE``, e.g.
+``ACT_FLASH_WARPS=2`` for blocks of 2 warps (32 query rows) in place of 4.
+First line: the card's
+nvidia-smi name and power limit. To compare a parent commit with the
+working tree, unpack the parent into a directory that .gitignore lists and
+run the two in turns (parent, change, change, parent):
+
+    git archive <commit> | tar -x -C build/parent
+    for r in build/parent . . build/parent; do
+        python3 scripts/flash_attention_ab.py --root $r --label $r; done
+
+Needs nvcc (CUDA_HOME or PATH) and a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+# (kernel, B, H, Tq, Tk, D, valid keys of each item)
+SHAPES = (("K3", 8, 8, 537, 537, 64, None), ("K3", 1, 8, 537, 537, 64, None),
+          ("K3", 1, 4, 800, 800, 64, None), ("K3", 1, 8, 4271, 4271, 64, [3337]),
+          ("K5", 1, 8, 1068, 1068, 64, [1068]), ("K5", 1, 8, 1068, 1068, 64, [133]),
+          ("K3", 1, 4, 533, 533, 80, None), ("K3", 1, 4, 4267, 4267, 80, [3333]),
+          ("K5", 1, 4, 1067, 1067, 80, [1067]), ("K5", 1, 4, 1067, 1067, 80, [132]))
+
+
+def registers(root: Path) -> list:
+    """Registers and spill bytes of every kernel instance in the checkout's
+    flash_attention.cu (ptxas report of a compile of that file alone, with
+    the build's flags)."""
+    from audio_classification_tpu_torch import _build
+
+    src = root / "audio_classification_tpu_torch" / "csrc" / "flash_attention.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        report = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             str(Path(tmp) / "k.o"), str(src)], capture_output=True, text=True, check=True).stderr
+    out, name, spill = [], None, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            inst = re.search(r"ILi(\d+)ELb([01])", name) or re.search(r"ILb([01])", name)
+            d = int(inst.group(1)) if inst and inst.lastindex == 2 else 64
+            stats = inst.group(inst.lastindex) == "1" if inst else None
+            out.append({"instance": name, "head_dim": d, "emit_stats": stats,
+                        "registers": int(m.group(1)), "spill_bytes": spill})
+            name = None
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--registers", action="store_true")
+    ap.add_argument("--define", action="append", default=[])
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    from audio_classification_tpu_torch import _build
+    from audio_classification_tpu_torch.ops.kernels import attention
+    from chip_smoke import graph_ms
+
+    if not torch.cuda.is_available():
+        print("flash_attention_ab: needs a CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, *(f"-D{d}" for d in args.define))
+    if args.registers:
+        for rec in registers(root):
+            print(json.dumps({"label": args.label, **rec}), flush=True)
+    dev = torch.device("cuda")
+    takes_80 = hasattr(attention, "padded_head_dim")
+    for kind, b, h, tq, tk, d, valid in SHAPES:
+        if d != 64 and not takes_80:
+            print(json.dumps({"label": args.label, "kernel": kind, "shape": [b, h, tq, d],
+                              "skipped": "this checkout's kernel takes D = 64 only"}), flush=True)
+            continue
+        gen = torch.Generator(device="cpu").manual_seed(tq + d)
+        q = torch.randn((b, h, tq, d), generator=gen).to(dev)
+        k, v = (torch.randn((b, h, tk, d), generator=gen).to(dev) for _ in range(2))
+        lens = torch.tensor(valid or [tk - 97 * i % tk for i in range(b)], device=dev)
+        mask = torch.arange(tk, device=dev)[None, :] < lens[:, None]
+        if kind == "K3":
+            fn = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
+            out = fn()
+            ref = attention.attention_reference(q.double(), k.double(), v.double(), mask)
+            err = ((out - ref.float()).abs() * mask[:, None, :, None]).max().item()
+        else:
+            fn = lambda: attention.flash_attention_stats(q, k, v, mask)  # noqa: E731
+            o = fn()[0]
+            ro = attention.attention_stats_reference(q.double(), k.double(), v.double(), mask)[0]
+            err = ((o - ro.float()).abs().max() / ro.abs().max()).item()
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask[:, None, None, :])
+        print(json.dumps({"label": args.label, "defines": args.define, "kernel": kind,
+                          "shape": [b, h, tq, d], "keys": tk, "valid_keys": int(mask.sum()),
+                          "graph_ms": graph_ms(torch, fn, args.iters),
+                          "sdpa_graph_ms": graph_ms(torch, sdpa, args.iters),
+                          "err_vs_float64": err, "device": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

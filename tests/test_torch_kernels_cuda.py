@@ -8,6 +8,8 @@ On the GPU machine run them with
 Edge cases the main path does not reach: ragged tails of every tile size,
 batch > 1 with ragged lengths, fully masked rows, the tiny preset's widths.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -118,8 +120,15 @@ def test_flash_kernel_matches_twin(dev, b, h, t):
     assert ((out - ref).abs() * valid).max().item() < 2e-5
     out = attention.flash_attention(q, k, v, None)
     assert (out - attention.attention_reference(q, k, v, None)).abs().max().item() < 2e-5
-    with pytest.raises(ValueError, match="head dim"):
-        attention.flash_attention(q[..., :32], k[..., :32], v[..., :32], mask)
+    # a head dim without an instance runs zero-padded to the next one (32 -> 64)
+    q32, k32, v32 = q[..., :32], k[..., :32], v[..., :32]
+    out = attention.flash_attention(q32, k32, v32, mask)
+    assert out.shape == q32.shape
+    ref = attention.attention_reference(q32, k32, v32, mask)
+    assert ((out - ref).abs() * valid).max().item() < 2e-5
+    with pytest.raises(NotImplementedError, match="head dim 136"):
+        attention.flash_attention(*(torch.cat([x, x, x[..., :8]], dim=-1) for x in (q, k, v)),
+                                  mask)
 
 
 # (C, H, F, f_len per item, n_per_repeat): f_len of 1, one GEMM row tile
@@ -314,10 +323,73 @@ def test_flash_stats_kernel_matches_twin(dev, b, h, tq, tk, lens):
         out = attention.flash_attention(q, k, v, mask)
         o, m, l = attention.flash_attention_stats(q, k, v, mask)
         assert (out - o / l[..., None]).abs().max().item() < 2e-6
-    with pytest.raises(ValueError, match="head dim"):
-        attention.flash_attention_stats(q[..., :32], k[..., :32], v[..., :32], mask)
+    # 32 runs zero-padded to 64; above the largest instance raises
+    o, m, l = attention.flash_attention_stats(q[..., :32], k[..., :32], v[..., :32], mask)
+    ro, rm, rl = attention.attention_stats_reference(q[..., :32], k[..., :32], v[..., :32], mask)
+    assert o.shape == ro.shape and (o - ro).abs().max().item() <= 1e-4 * ro.abs().max().item()
+    assert ((m - rm).abs() <= 1e-5 * rm.abs().clamp_min(1.0)).all()
+    with pytest.raises(NotImplementedError, match="head dim 136"):
+        attention.flash_attention_stats(*(torch.cat([x, x, x[..., :8]], dim=-1) for x in (q, k, v)),
+                                        mask)
     with pytest.raises(ValueError, match="must be float32"):
         attention.flash_attention_stats(q, k, v[:, :, :-1], mask)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 128])
+@pytest.mark.parametrize("b,tq,tk,lens", [
+    (3, 70, 70, [70, 33, 0]),        # ragged, an item with no valid key, off the tiles
+    (2, 65, 129, [129, 64]),         # Tq one past a 64-row block, Tk one past two key tiles
+    (1, 533, 533, [533]),            # Paraformer's 32 s bucket (LFR frames)
+    (2, 17, 1068, [1068, 300]),      # K5's long-form block, Tq across the 16-row fragment
+])
+def test_flash_kernels_at_every_head_dim(dev, d, b, tq, tk, lens):
+    """K3 and K5 at the instances (64, 80, 128) and at a D that runs
+    zero-padded (40 -> 64, scaled by 1 / sqrt(40)), against the twin in
+    float64 on the items with a valid key: K3 2e-5 abs, K5's o 1e-4 of
+    max|o|, m and l 1e-5 relative; an item with no valid key gives
+    m = -1e9 and l = Tk, as the float32 twin does."""
+    g = torch.Generator().manual_seed(d * 1000 + tq + tk)
+    q = torch.randn((b, 4, tq, d), generator=g).to(dev)
+    k, v = (torch.randn((b, 4, tk, d), generator=g).to(dev) for _ in range(2))
+    lens_t = torch.tensor(lens, device=dev)
+    mask = torch.arange(tk, device=dev)[None, :] < lens_t[:, None]
+    has_key = (lens_t > 0)
+    o, m, l = attention.flash_attention_stats(q, k, v, mask)
+    torch.cuda.synchronize()
+    ro, rm, rl = attention.attention_stats_reference(q.double(), k.double(), v.double(), mask)
+    sel = has_key.view(-1, 1, 1, 1)
+    assert o.shape == (b, 4, tq, d) and torch.isfinite(o).all()
+    assert ((o - ro.float()).abs() * sel).max().item() <= 1e-4 * ro.abs().max().item()
+    assert ((m - rm.float()).abs() <= 1e-5 * rm.float().abs().clamp_min(1.0))[has_key].all()
+    assert ((l - rl.float()).abs() <= 1e-5 * rl.float().abs())[has_key].all()
+    if not has_key.all():
+        assert (m[~has_key] == -1e9).all() and (l[~has_key] == tk).all()
+    if tq == tk:
+        before = attention.flash_attention.launches
+        out = attention.flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        assert attention.flash_attention.launches == before + 1
+        ref = attention.attention_reference(q.double(), k.double(), v.double(), mask).float()
+        assert out.shape == q.shape and torch.isfinite(out).all()
+        assert ((out - ref).abs() * sel).max().item() < 2e-5
+
+
+def test_flash_head_dims_are_the_c_instances(dev):
+    """The wrapper's HEAD_DIMS is the set of D the C dispatch switch takes:
+    both entry points accept exactly those D (empty calls, which launch
+    nothing and read no pointer) and refuse every other D up to 256."""
+    from audio_classification_tpu_torch import _build
+
+    k3 = _build.kernel("act_flash_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+    k5 = _build.kernel("act_flash_attention_stats", [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    taken = [d for d in range(1, 257)
+             if k3(None, None, None, None, None, 1, 1, 0, d, 1.0, stream) == 0]
+    taken5 = [d for d in range(1, 257)
+              if k5(None, None, None, None, None, None, None, 1, 1, 0, 1, d, 1.0, stream) == 0]
+    assert tuple(taken) == tuple(taken5) == attention.HEAD_DIMS
 
 
 @pytest.mark.parametrize("b,tq,tk,spans,amp", [

@@ -204,7 +204,9 @@ def test_long_form_facade_and_engine_mesh(float_engines):
         assert facades.ASRRecognizer(sharded).transcribe(w, sr, long_form=True) == ref
         assert facades.ASRRecognizer(single).transcribe(w, sr, long_form=True) == ref
     assert single.mesh is None and sharded.mesh.shape["data"] == 8
-    assert StageEngine.LONG_FORM_FAMILIES == StageEngine.LONG_FORM_SINGLE_CHIP == ("sensevoice",)
+    assert StageEngine.LONG_FORM_FAMILIES == ("sensevoice", "paraformer")
+    assert StageEngine.LONG_FORM_SINGLE_CHIP == (
+        "sensevoice", "paraformer", "transducer", "whisper")
     # a mesh of another device type than the pack's is refused
     with pytest.raises(ValueError, match="the mesh lives on"):
         StageEngine(single.pack, mesh=make_mesh(2, devices=["cuda", "cuda"]))

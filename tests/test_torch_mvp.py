@@ -6,6 +6,7 @@ backend, separation evaluation, the resource monitor and dataset mode; the
 demo; the facades."""
 import csv
 import json
+import types
 
 import numpy as np
 import pytest
@@ -318,12 +319,18 @@ def test_facades_match_jax(engines, librimix_root):
     assert ext.compute_batch([wav8, wav8[:6000]], SR8).shape == (2, ext.dim)
 
 
-def test_facades_unported_parts_name_their_slice(engines):
+def test_facades_unported_parts_name_their_slice(engines, librimix_root):
+    """Separator checkpoints still raise naming their slices; the SID facade
+    (ported) builds on the engine and identifies an enrolled talker."""
     eng = engines[1]
     with pytest.raises(NotImplementedError, match="slice 1[45]"):
         facades.Separator(checkpoint="sep.ckpt", engine=eng)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        facades.SpeakerASRModels(None)
+    models = facades.SpeakerASRModels(types.SimpleNamespace(provider="cpu"), engine=eng)
+    wav = read_wav(next(iter(sorted((librimix_root / "Libri2Mix").rglob("s1/*.wav")))))[0]
+    models.enroll_from_map({"spk": ["w"]}, lambda _w: (wav, SR8))
+    pred, score = models.identify(wav, SR8, threshold=0.5)
+    assert pred == "spk" and abs(score - 1.0) < 1e-5
+    assert isinstance(models.asr_infer(wav, SR8), str)
 
 
 def test_default_engine_needs_a_card_unless_cpu_is_named():

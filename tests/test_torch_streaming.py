@@ -223,12 +223,22 @@ def test_streaming_app_max_seconds_and_8k_input(target_wav, tmp_path):
     ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
     ["--compute-dtype", "bfloat16"], ["--checkpoint-dir", "ckpt"],
     ["--sense-voice", "model.onnx"], ["--paraformer", "model.onnx"],
-    ["--decoding-method", "modified_beam_search"], ["--osd-checkpoint", "osd.ckpt"],
+    ["--cmvn", "am.mvn"], ["--osd-checkpoint", "osd.ckpt"],
 ])
 def test_streaming_app_unported_flags_raise(target_wav, tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         streaming_overlap_3src.main(["--target-wav", target_wav, "--preset", "tiny",
                                      "--provider", "cpu", "--output-dir", str(tmp_path), *flags])
+
+
+def test_streaming_app_beam_search_needs_the_transducer(target_wav, tmp_path):
+    """--decoding-method modified_beam_search is ported: without --encoder it
+    raises the JAX package's ValueError (beam search is a transducer
+    decoder), not NotImplementedError."""
+    with pytest.raises(ValueError, match="only supported for the transducer"):
+        streaming_overlap_3src.main(["--target-wav", target_wav, "--preset", "tiny",
+                                     "--provider", "cpu", "--output-dir", str(tmp_path),
+                                     "--decoding-method", "modified_beam_search"])
 
 
 def test_streaming_app_without_a_card_raises(target_wav, tmp_path):
