@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
@@ -39,13 +40,22 @@ def _headers() -> list:
     return sorted(CSRC.glob("*.cuh"))
 
 
-def _nvcc() -> str:
+def find_nvcc() -> Optional[str]:
+    """nvcc on PATH, else under CUDA_HOME (default /usr/local/cuda); None
+    without a CUDA toolkit."""
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
-                       "CUDA toolkit is installed (CUDA_HOME or PATH)")
+    return None
+
+
+def _nvcc() -> str:
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                           "CUDA toolkit is installed (CUDA_HOME or PATH)")
+    return nvcc
 
 
 def library_path() -> Path:

@@ -23,6 +23,7 @@ from pathlib import Path
 
 from ..pipelines.offline_overlap3 import Overlap3Pipeline, PipelineResult
 from ..utils.config import Overlap3Config
+from ..utils.profiling import trace
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -50,7 +51,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--osd-hop", type=float, default=0.1)
     # Separation
     p.add_argument("--sep-backend", default="convtasnet")
-    p.add_argument("--sep-checkpoint", default="", help="Conv-TasNet torch checkpoint path, or an orbax dir from cli/train_separator --export")
+    p.add_argument("--sep-checkpoint", default="", help="asteroid Conv-TasNet torch checkpoint path (an orbax dir from cli/train_separator --export raises: not ported yet)")
     p.add_argument("--osd-checkpoint", default="", help="OSD weights: orbax dir (cli/distill_osd) or pyannote segmentation torch checkpoint (.bin/.ckpt/.pt)")
     p.add_argument("--osd-onset", type=float, default=-1.0,
                    help="PyanNet OSD: pyannote Binarize onset (enables hysteresis)")
@@ -103,7 +104,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--checkpoint-dir", default="", help="orbax checkpoint dir for all model params")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-segment-sec", type=float, default=64.0)
-    p.add_argument("--profile-dir", default="", help="Device trace output dir (not ported yet: raises)")
+    p.add_argument("--profile-dir", default="", help="torch.profiler trace output dir (a Chrome trace of the run, stage ranges engine.osd / overlap / clean / asr)")
     p.add_argument("--data-parallel", type=int, default=0,
                    help="Shard stage batches over N chips (0 = single device)")
     p.add_argument("--model-parallel", type=int, default=0,
@@ -220,7 +221,8 @@ def main(argv=None):
     base_out.mkdir(parents=True, exist_ok=True)
     out_dir = base_out / datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     out_dir.mkdir(parents=True, exist_ok=True)
-    result = pipeline.run()
+    with trace(cfg.profile_dir):
+        result = pipeline.run()
     write_artifacts(out_dir, result, cfg)
     print(
         f"Done. segments={result.metrics.get('segments_total')}, "

@@ -45,7 +45,7 @@ def parse_args(argv=None):
     p.add_argument("--osd-hop", type=float, default=0.1)
     p.add_argument("--sep-backend", default="convtasnet")
     p.add_argument("--sep-checkpoint", default="")
-    p.add_argument("--osd-checkpoint", default="", help="OSD weights (not ported yet: raises)")
+    p.add_argument("--osd-checkpoint", default="", help="OSD weights: a pyannote segmentation torch checkpoint (.bin/.ckpt/.pt/.pth); an orbax dir raises (not ported yet)")
     p.add_argument("--paraformer", default="")
     p.add_argument("--sense-voice", default="")
     p.add_argument("--encoder", default="")

@@ -21,6 +21,11 @@ TransformerBlocks, ``cif_hidden``, ``cif_out``), the transducer
 (``encoder`` / ``predictor`` / ``joiner``), whisper-style (``enc_i``,
 ``dec_i`` with ``self_attn`` / ``cross_attn``, ``tok_embed``) and VADNet.
 
+PyanNet's params are a plain dict tree, not a flax one, already in torch
+layouts (``pyannet_params_to_state_dict``): lists become indices and each
+LSTM direction's w_ih / w_hh / b_ih / b_hh become nn.LSTM's ``weight_ih_l0``
+/ ``weight_hh_l0`` / ``bias_ih_l0`` / ``bias_hh_l0``.
+
 Leaves may be numpy or jax arrays; the converter reads them with
 ``np.asarray`` and needs no jax import of its own.
 """
@@ -74,3 +79,31 @@ def variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
 def params_to_state_dicts(params: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
     """JAX ``ModelPack.params`` ({stage: variables}) -> {stage: state_dict}."""
     return {stage: variables_to_state_dict(v) for stage, v in params.items()}
+
+
+_LSTM_NAMES = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0", "b_ih": "bias_ih_l0",
+               "b_hh": "bias_hh_l0"}
+
+
+def pyannet_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX PyanNet params (models/pyannet.init_pyannet_params or
+    models/convert/torch_import.load_pyannet_torch) -> the port's PyanNet
+    state_dict. Every leaf keeps its layout."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    sd: Dict[str, torch.Tensor] = {}
+    for key, sub in params.items():
+        if key == "lstm":
+            for i, layer in enumerate(sub):
+                for direction, p in layer.items():
+                    for name, a in p.items():
+                        sd[f"lstm.{i}.{direction}.{_LSTM_NAMES[name]}"] = t(a)
+        elif key == "linear":
+            for i, p in enumerate(sub):
+                for name, a in p.items():
+                    sd[f"linear.{i}.{name}"] = t(a)
+        else:
+            for name, a in sub.items():
+                sd[f"{key}.{name}"] = t(a)
+    return sd

@@ -26,11 +26,15 @@
 // reaches 313 of the 495 TF32 TFLOP/s on an H100 SXM (63%,
 // scripts/mma_tf32_peak.py), which puts the ceiling of this design at
 // 1.6x the bound.
-// Head dim: D is a template parameter of the one body, instantiated at 64
+// Head dim: D is a template parameter of the body, instantiated at 64
 // (OSDNet, SenseVoice, the transducer and whisper-style encoders), 80
-// (Paraformer: 320 / 4 heads) and 128; both C entry points dispatch on
-// head_dim at run time and refuse any other D (the wrapper zero-pads D up
-// to the next instance). At D = 64 and 80 q * scale lives in registers as
+// (Paraformer: 320 / 4 heads) and 128; any multiple of 64 above 128 runs
+// the wide body (flash_wide_kernel, below), which splits the output columns
+// over the grid in slices of 128 and forms the scores over 64-wide slabs of
+// D, so neither its registers nor its shared memory grow with D. Both C
+// entry points dispatch on head_dim at run time and refuse any other D (the
+// wrapper zero-pads D up to the next head dim they take, as the TPU kernel
+// pads D to its lane width). At D = 64 and 80 q * scale lives in registers as
 // big and small A fragments (233-240 registers a thread, no spills). At
 // D = 128 the q fragments (128 registers) with the accumulators would spill
 // (255 registers and 1152 bytes of spill stores and loads), so there q *
@@ -119,6 +123,168 @@ struct Dims {
   }
 };
 
+// Which key tiles hold a valid key, into live_s (one byte a tile): one
+// thread per tile reads its mask bytes, so the block learns it in one round
+// trip and the tile loop never waits on a scan. Returns whether masked tiles
+// may be skipped, which they are only when the item has a valid key at all
+// (the barrier also publishes live_s)
+__device__ __forceinline__ bool mark_live_tiles(const uint8_t* mrow, int tk, int n_tiles,
+                                                uint8_t* live_s, int tid) {
+  int any = 0;
+  if (mrow) {
+    for (int tile = tid; tile < n_tiles; tile += NT) {
+      const int j0 = tile * BK, n = min(BK, tk - j0);
+      int hit = 0;
+#pragma unroll 16
+      for (int j = 0; j < n; ++j) hit |= mrow[j0 + j];
+      live_s[tile] = hit != 0;
+      any |= hit;
+    }
+  }
+  return __syncthreads_or(any) != 0;
+}
+
+// the first tile at or after `tile` that is computed (the same for every
+// thread, so control flow stays uniform across the block)
+__device__ __forceinline__ int next_live(int tile, bool skip, int n_tiles,
+                                         const uint8_t* live_s) {
+  if (skip) {
+    while (tile < n_tiles && !live_s[tile]) ++tile;
+  }
+  return tile;
+}
+
+// key j's score bias: 0, -1e9 where the mask holds 0, -inf past tk
+__device__ __forceinline__ float key_bias(int j, int tk, const uint8_t* mrow) {
+  return j >= tk ? -INFINITY : (mrow && !mrow[j] ? MASKED : 0.f);
+}
+
+// One computed key tile of a block's 16-row fragments, shared by both
+// bodies: s holds the tile's scores of rows r0 (s[.][0..1]) and r1
+// (s[.][2..3]) over its 64 keys; adds the key bias, updates the rows'
+// running max m and sum l (this thread's part of l), and adds the tile's
+// p v to acc over DN output columns read from the staged V tile (vt: the
+// thread's first word in it, row stride VS). The tile's p v contracts over
+// keys in the score fragment's own order and is gathered from zero, then
+// added to the rescaled acc in IEEE float32: the tensor cores' truncating
+// sum never runs longer than a tile
+template <int DN, int VS>
+__device__ __forceinline__ void tile_update(float (&s)[BK / 8][4], const float* bias,
+                                            const float* vt, float (&acc)[DN / 8][4], float& m0,
+                                            float& m1, float& l0, float& l1, int t) {
+  // + key bias; the rows' tile max across the quad
+  float mt0 = -INFINITY, mt1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * nt + 2 * t);
+    s[nt][0] += bb.x;
+    s[nt][1] += bb.y;
+    s[nt][2] += bb.x;
+    s[nt][3] += bb.y;
+    mt0 = fmaxf(mt0, fmaxf(s[nt][0], s[nt][1]));
+    mt1 = fmaxf(mt1, fmaxf(s[nt][2], s[nt][3]));
+  }
+  mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 1));
+  mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 2));
+  mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 1));
+  mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 2));
+  const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+  const float alpha0 = __expf(m0 - mn0), alpha1 = __expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  l0 *= alpha0;
+  l1 *= alpha1;
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+    s[nt][0] = __expf(s[nt][0] - mn0);
+    s[nt][1] = __expf(s[nt][1] - mn0);
+    s[nt][2] = __expf(s[nt][2] - mn1);
+    s[nt][3] = __expf(s[nt][3] - mn1);
+    l0 += s[nt][0] + s[nt][1];
+    l1 += s[nt][2] + s[nt][3];
+  }
+
+  float pv[DN / 8][4];
+#pragma unroll
+  for (int n = 0; n < DN / 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    uint32_t pb[4], ps[4];
+    split(s[kk][0], pb[0], ps[0]);  // row r0, key 8kk + 2t
+    split(s[kk][2], pb[1], ps[1]);  // row r1, key 8kk + 2t
+    split(s[kk][1], pb[2], ps[2]);  // row r0, key 8kk + 2t + 1
+    split(s[kk][3], pb[3], ps[3]);  // row r1, key 8kk + 2t + 1
+    uint32_t vb[DN / 8][2], vs[DN / 8][2];
+#pragma unroll
+    for (int p = 0; p < DN / 16; ++p) {
+      const float2 x0 = *reinterpret_cast<const float2*>(vt + 8 * kk * VS + 16 * p);
+      const float2 x1 = *reinterpret_cast<const float2*>(vt + (8 * kk + 1) * VS + 16 * p);
+      split(x0.x, vb[2 * p][0], vs[2 * p][0]);
+      split(x1.x, vb[2 * p][1], vs[2 * p][1]);
+      split(x0.y, vb[2 * p + 1][0], vs[2 * p + 1][0]);
+      split(x1.y, vb[2 * p + 1][1], vs[2 * p + 1][1]);
+    }
+#pragma unroll
+    for (int n = 0; n < DN / 8; ++n) mma_tf32(pv[n], ps, vb[n][0], vb[n][1]);
+#pragma unroll
+    for (int n = 0; n < DN / 8; ++n) mma_tf32(pv[n], pb, vs[n][0], vs[n][1]);
+#pragma unroll
+    for (int n = 0; n < DN / 8; ++n) mma_tf32(pv[n], pb, vb[n][0], vb[n][1]);
+  }
+#pragma unroll
+  for (int n = 0; n < DN / 8; ++n) {
+    acc[n][0] = fmaf(acc[n][0], alpha0, pv[n][0]);
+    acc[n][1] = fmaf(acc[n][1], alpha0, pv[n][1]);
+    acc[n][2] = fmaf(acc[n][2], alpha1, pv[n][2]);
+    acc[n][3] = fmaf(acc[n][3], alpha1, pv[n][3]);
+  }
+}
+
+// The epilogue of both bodies: l summed across the quad, then rows r0 and r1
+// of out (row stride `stride` floats, from row `row_base`) written at
+// columns c0 + [0, dv) from acc's first dv columns (K3 divided by l), and,
+// for K5 where `stats`, the rows' m and l
+template <bool EMIT_STATS, int DN>
+__device__ __forceinline__ void store_rows(const float (&acc)[DN / 8][4], float m0, float m1,
+                                           float l0, float l1, float* out, float* m_out,
+                                           float* l_out, size_t row_base, int tq, int r0, int r1,
+                                           int t, int stride, int c0, int dv, bool stats) {
+  l0 += __shfl_xor_sync(FULL, l0, 1);
+  l0 += __shfl_xor_sync(FULL, l0, 2);
+  l1 += __shfl_xor_sync(FULL, l1, 1);
+  l1 += __shfl_xor_sync(FULL, l1, 2);
+  const float inv0 = EMIT_STATS ? 1.f : 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = EMIT_STATS ? 1.f : 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int p = 0; p < DN / 16; ++p) {
+    const int d = 16 * p + 4 * t;
+    if (d >= dv) continue;
+    if (r0 < tq) {
+      *reinterpret_cast<float4*>(out + (row_base + r0) * stride + c0 + d) =
+          make_float4(acc[2 * p][0] * inv0, acc[2 * p + 1][0] * inv0, acc[2 * p][1] * inv0,
+                      acc[2 * p + 1][1] * inv0);
+    }
+    if (r1 < tq) {
+      *reinterpret_cast<float4*>(out + (row_base + r1) * stride + c0 + d) =
+          make_float4(acc[2 * p][2] * inv1, acc[2 * p + 1][2] * inv1, acc[2 * p][3] * inv1,
+                      acc[2 * p + 1][3] * inv1);
+    }
+  }
+  if (EMIT_STATS && stats && t == 0) {  // the four threads of a quad hold the same m and l
+    if (r0 < tq) {
+      m_out[row_base + r0] = m0;
+      l_out[row_base + r0] = l0;
+    }
+    if (r1 < tq) {
+      m_out[row_base + r1] = m1;
+      l_out[row_base + r1] = l1;
+    }
+  }
+}
+
 // mma fragments (g = lane / 4, t = lane % 4). The contraction index of each
 // product is permuted so that every operand a thread needs sits in two
 // neighbouring floats:
@@ -154,31 +320,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const uint8_t* mrow = kv_mask ? kv_mask + (size_t)(bh / heads) * tk : nullptr;
   const int n_tiles = (tk + BK - 1) / BK;
 
-  // which key tiles hold a valid key: one thread per tile reads its mask
-  // bytes, so the block learns it in one round trip and the tile loop never
-  // waits on a scan. Masked tiles are skipped only when the item has a valid
-  // key at all
-  int any = 0;
-  if (mrow) {
-    for (int tile = tid; tile < n_tiles; tile += NT) {
-      const int j0 = tile * BK, n = min(BK, tk - j0);
-      int hit = 0;
-#pragma unroll 16
-      for (int j = 0; j < n; ++j) hit |= mrow[j0 + j];
-      live_s[tile] = hit != 0;
-      any |= hit;
-    }
-  }
-  const bool skip = __syncthreads_or(any) != 0;  // also publishes live_s
-
-  // the first tile at or after `tile` that is computed (the same for every
-  // thread, so control flow stays uniform across the block)
-  auto next_tile = [&](int tile) -> int {
-    if (skip) {
-      while (tile < n_tiles && !live_s[tile]) ++tile;
-    }
-    return tile;
-  };
+  const bool skip = mark_live_tiles(mrow, tk, n_tiles, live_s, tid);
+  auto next_tile = [&](int tile) -> int { return next_live(tile, skip, n_tiles, live_s); };
   // stage `tile` (n_tiles: nothing) into ring slot st; one commit group
   auto stage = [&](int tile, int st) {
     if (tile < n_tiles) {
@@ -192,7 +335,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       if (tid < BK) {
         const int j = k0 + tid;
-        bias_s[st * BK + tid] = j >= tk ? -INFINITY : (mrow && !mrow[j] ? MASKED : 0.f);
+        bias_s[st * BK + tid] = key_bias(j, tk, mrow);
       }
     }
     if (tid == 0) tile_s[st] = tile < n_tiles ? tile * BK : -1;
@@ -305,112 +448,183 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) s[nt][i] += s_lo[nt][i];
     }
 
-    // + key bias; the rows' tile max across the quad
-    const float* bias = bias_s + st * BK;
-    float mt0 = -INFINITY, mt1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * nt + 2 * t);
-      s[nt][0] += bb.x;
-      s[nt][1] += bb.y;
-      s[nt][2] += bb.x;
-      s[nt][3] += bb.y;
-      mt0 = fmaxf(mt0, fmaxf(s[nt][0], s[nt][1]));
-      mt1 = fmaxf(mt1, fmaxf(s[nt][2], s[nt][3]));
+    const float* vt = v_s + st * BK * VS + 2 * t * VS + 2 * g;
+    tile_update<D, VS>(s, bias_s + st * BK, vt, acc, m0, m1, l0, l1, t);
+  }
+
+  store_rows<EMIT_STATS, D>(acc, m0, m1, l0, l1, out, m_out, l_out, (size_t)bh * tq, tq, r0, r1,
+                            t, D, 0, D, true);
+}
+
+// The wide body, for any head dim above 128 (the wrapper zero-pads D to dp,
+// a multiple of SLAB). Block (x, y, z) owns 64 query rows of head y and the
+// output columns [128 z, 128 z + 128) of dp. It forms the full-D scores of
+// each computed key tile from dp / SLAB units, each unit a SLAB-wide slab of
+// the tile's k and of the block's q staged by cp.async through the same
+// two-stage ring (q is read again for every key tile: its bytes match k's,
+// and neither q nor k of any D need fit in shared memory at once). The
+// slab's scores are gathered from zero and added to the tile's s in IEEE
+// float32, so no truncating tensor-core chain runs past one slab. With the
+// second unit of a tile its V column slice [64 keys][128] and its key bias
+// come in, into one slot: the previous tile's p v ran in the unit before
+// the first (dp / SLAB >= 3 above 128, so the slice lands a unit before its
+// use). After the last slab the tile's softmax update and p v run on
+// tile_update as in the body above. One V slot keeps a block at 108 KB of
+// shared memory, so two blocks fit on an SM. The scores are formed once for each
+// column slice, ceil(dp / 128) times a key tile, in the same order in every
+// slice, so every slice holds the same m and l: slice 0 writes them (K5).
+// A slice narrower than 128 (dp % 128 == 64) computes p v over 128 columns,
+// the 64 past dp zero-filled, and stores its own.
+constexpr int SLAB = 64;   // dims of q and k in a staged unit
+constexpr int DV = 128;    // output columns a block owns
+
+struct Wide {
+  static constexpr int QS = SLAB + 8;  // row strides (floats) of the staged q and k slabs
+  static constexpr int KS = SLAB + 8;
+  static constexpr int VS = DV + 4;    // of the staged V column slice
+  static size_t smem_bytes(int tk) {
+    return sizeof(float) * (NS * (ROWS * QS + BK * KS) + BK * VS + BK) + sizeof(int) * NS +
+           (size_t)(tk + BK - 1) / BK;  // + one byte a key tile
+  }
+};
+
+template <bool EMIT_STATS>
+__global__ void __launch_bounds__(NT)
+flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                  float* __restrict__ out, float* __restrict__ m_out,
+                  float* __restrict__ l_out, int heads, int tq, int tk, int dp, float scale) {
+  constexpr int QS = Wide::QS, KS = Wide::KS, VS = Wide::VS;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                    // [NS][ROWS][QS]: a unit's q slab
+  float* k_s = q_s + NS * ROWS * QS;    // [NS][BK][KS]: a unit's k slab
+  float* v_s = k_s + NS * BK * KS;      // [BK][VS]: the current key tile's V column slice
+  float* bias_s = v_s + BK * VS;        // [BK]: its key bias
+  int* tile_s = reinterpret_cast<int*>(bias_s + BK);  // [NS] a unit's tile, -1: the end
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(tile_s + NS);  // [n_tiles]: holds a valid key
+
+  const int bh = blockIdx.y;
+  const int c0 = blockIdx.z * DV, dv = min(DV, dp - c0);  // this block's output columns
+  const int n_slabs = dp / SLAB;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = blockIdx.x * ROWS;
+  const int r0 = row0 + 16 * warp + g, r1 = r0 + 8;
+  const float* qh = q + (size_t)bh * tq * dp;
+  const float* kh = k + (size_t)bh * tk * dp;
+  const float* vh = v + (size_t)bh * tk * dp;
+  const uint8_t* mrow = kv_mask ? kv_mask + (size_t)(bh / heads) * tk : nullptr;
+  const int n_tiles = (tk + BK - 1) / BK;
+
+  const bool skip = mark_live_tiles(mrow, tk, n_tiles, live_s, tid);
+  // the next unit to stage: slab f_slab of key tile f_tile
+  int f_tile = next_live(0, skip, n_tiles, live_s), f_slab = 0;
+  // stage the next unit into ring slot st and advance; one commit group
+  auto stage = [&](int st) {
+    if (f_tile < n_tiles) {
+      const int k0 = f_tile * BK, d0 = f_slab * SLAB;
+      for (int c = tid; c < BK * SLAB / 4; c += NT) {
+        const int j = c / (SLAB / 4), d = 4 * (c % (SLAB / 4));
+        const bool in = k0 + j < tk;
+        cp_async16(k_s + (st * BK + j) * KS + d, kh + (size_t)(in ? k0 + j : 0) * dp + d0 + d,
+                   in);
+      }
+      for (int c = tid; c < ROWS * SLAB / 4; c += NT) {
+        const int r = c / (SLAB / 4), d = 4 * (c % (SLAB / 4));
+        const bool in = row0 + r < tq;
+        cp_async16(q_s + (st * ROWS + r) * QS + d,
+                   qh + (size_t)(in ? row0 + r : 0) * dp + d0 + d, in);
+      }
+      if (f_slab == 1) {
+        for (int c = tid; c < BK * DV / 4; c += NT) {
+          const int j = c / (DV / 4), d = 4 * (c % (DV / 4));
+          const bool in = k0 + j < tk && d < dv;
+          cp_async16(v_s + j * VS + d, vh + (in ? (size_t)(k0 + j) * dp + c0 + d : 0), in);
+        }
+        if (tid < BK) bias_s[tid] = key_bias(k0 + tid, tk, mrow);
+      }
     }
-    mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 1));
-    mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 2));
-    mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 1));
-    mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 2));
-    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-    const float alpha0 = __expf(m0 - mn0), alpha1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= alpha0;
-    l1 *= alpha1;
+    if (tid == 0) tile_s[st] = f_tile < n_tiles ? f_tile * BK : -1;
+    cp_commit();
+    if (f_tile < n_tiles && ++f_slab == n_slabs) {
+      f_slab = 0;
+      f_tile = next_live(f_tile + 1, skip, n_tiles, live_s);
+    }
+  };
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = __expf(s[nt][0] - mn0);
-      s[nt][1] = __expf(s[nt][1] - mn0);
-      s[nt][2] = __expf(s[nt][2] - mn1);
-      s[nt][3] = __expf(s[nt][3] - mn1);
-      l0 += s[nt][0] + s[nt][1];
-      l1 += s[nt][2] + s[nt][3];
+  for (int st = 0; st < NS - 1; ++st) stage(st);
+
+  float acc[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = NEG_INIT, m1 = NEG_INIT, l0 = 0.f, l1 = 0.f;  // rows r0, r1 (l: this thread's part)
+  float s[BK / 8][4], s_lo[BK / 8][4];  // the current key tile's scores
+
+  for (int u = 0;; ++u) {
+    cp_wait<NS - 2>();
+    __syncthreads();  // unit `u` landed; the slot refilled below is consumed
+    const int st = u % NS;
+    if (tile_s[st] < 0) break;
+    stage((u + NS - 1) % NS);
+    const int slab = u % n_slabs;
+    if (slab == 0) {
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = s_lo[nt][i] = 0.f;
+      }
     }
 
-    // the tile's p v, contracting over keys in the score fragment's own
-    // order, gathered from zero and added to the rescaled acc in IEEE
-    // float32: the tensor cores' truncating sum never runs longer than a tile
-    const float* vt = v_s + st * BK * VS + 2 * t * VS + 2 * g;
-    float pv[D / 8][4];
+    // this slab's part of (q * scale) k^T, q split as it is read; the small
+    // cross terms gather in s_lo over the whole tile, as in the body above
+    const float* kt = k_s + st * BK * KS + g * KS + 2 * t;
+    const float* qw = q_s + (st * ROWS + 16 * warp + g) * QS + 2 * t;  // rows g, g + 8
+    float sb[BK / 8][4];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
+      for (int i = 0; i < 4; ++i) sb[nt][i] = 0.f;
     }
 #pragma unroll
-    for (int kk = 0; kk < BK / 8; ++kk) {
-      uint32_t pb[4], ps[4];
-      split(s[kk][0], pb[0], ps[0]);  // row r0, key 8kk + 2t
-      split(s[kk][2], pb[1], ps[1]);  // row r1, key 8kk + 2t
-      split(s[kk][1], pb[2], ps[2]);  // row r0, key 8kk + 2t + 1
-      split(s[kk][3], pb[3], ps[3]);  // row r1, key 8kk + 2t + 1
-      uint32_t vb[D / 8][2], vs[D / 8][2];
+    for (int kk = 0; kk < SLAB / 8; ++kk) {
+      uint32_t qbk[4], qsk[4];
+      const float2 x0 = *reinterpret_cast<const float2*>(qw + 8 * kk);
+      const float2 x1 = *reinterpret_cast<const float2*>(qw + 8 * QS + 8 * kk);
+      split(x0.x * scale, qbk[0], qsk[0]);
+      split(x1.x * scale, qbk[1], qsk[1]);
+      split(x0.y * scale, qbk[2], qsk[2]);
+      split(x1.y * scale, qbk[3], qsk[3]);
+      uint32_t kb[BK / 8][2], ks[BK / 8][2];
 #pragma unroll
-      for (int p = 0; p < D / 16; ++p) {
-        const float2 x0 = *reinterpret_cast<const float2*>(vt + 8 * kk * VS + 16 * p);
-        const float2 x1 = *reinterpret_cast<const float2*>(vt + (8 * kk + 1) * VS + 16 * p);
-        split(x0.x, vb[2 * p][0], vs[2 * p][0]);
-        split(x1.x, vb[2 * p][1], vs[2 * p][1]);
-        split(x0.y, vb[2 * p + 1][0], vs[2 * p + 1][0]);
-        split(x1.y, vb[2 * p + 1][1], vs[2 * p + 1][1]);
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        const float2 b = *reinterpret_cast<const float2*>(kt + 8 * nt * KS + 8 * kk);
+        split(b.x, kb[nt][0], ks[nt][0]);
+        split(b.y, kb[nt][1], ks[nt][1]);
       }
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) mma_tf32(pv[n], ps, vb[n][0], vb[n][1]);
+      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qsk, kb[nt][0], kb[nt][1]);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) mma_tf32(pv[n], pb, vs[n][0], vs[n][1]);
+      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(sb[nt], qbk, kb[nt][0], kb[nt][1]);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) mma_tf32(pv[n], pb, vb[n][0], vb[n][1]);
+      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qbk, ks[nt][0], ks[nt][1]);
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] = fmaf(acc[n][0], alpha0, pv[n][0]);
-      acc[n][1] = fmaf(acc[n][1], alpha0, pv[n][1]);
-      acc[n][2] = fmaf(acc[n][2], alpha1, pv[n][2]);
-      acc[n][3] = fmaf(acc[n][3], alpha1, pv[n][3]);
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] += sb[nt][i];
     }
+    if (slab + 1 < n_slabs) continue;
+
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] += s_lo[nt][i];
+    }
+    tile_update<DV, VS>(s, bias_s, v_s + 2 * t * VS + 2 * g, acc, m0, m1, l0, l1, t);
   }
 
-  l0 += __shfl_xor_sync(FULL, l0, 1);
-  l0 += __shfl_xor_sync(FULL, l0, 2);
-  l1 += __shfl_xor_sync(FULL, l1, 1);
-  l1 += __shfl_xor_sync(FULL, l1, 2);
-  const float inv0 = EMIT_STATS ? 1.f : 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = EMIT_STATS ? 1.f : 1.f / fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int p = 0; p < D / 16; ++p) {
-    const int d = 16 * p + 4 * t;
-    if (r0 < tq) {
-      *reinterpret_cast<float4*>(out + ((size_t)bh * tq + r0) * D + d) =
-          make_float4(acc[2 * p][0] * inv0, acc[2 * p + 1][0] * inv0, acc[2 * p][1] * inv0,
-                      acc[2 * p + 1][1] * inv0);
-    }
-    if (r1 < tq) {
-      *reinterpret_cast<float4*>(out + ((size_t)bh * tq + r1) * D + d) =
-          make_float4(acc[2 * p][2] * inv1, acc[2 * p + 1][2] * inv1, acc[2 * p][3] * inv1,
-                      acc[2 * p + 1][3] * inv1);
-    }
-  }
-  if (EMIT_STATS && t == 0) {  // the four threads of a quad hold the same m and l
-    if (r0 < tq) {
-      m_out[(size_t)bh * tq + r0] = m0;
-      l_out[(size_t)bh * tq + r0] = l0;
-    }
-    if (r1 < tq) {
-      m_out[(size_t)bh * tq + r1] = m1;
-      l_out[(size_t)bh * tq + r1] = l1;
-    }
-  }
+  store_rows<EMIT_STATS, DV>(acc, m0, m1, l0, l1, out, m_out, l_out, (size_t)bh * tq, tq, r0, r1,
+                             t, dp, c0, dv, blockIdx.z == 0);
 }
 
 // the kernel's shared-memory cap, raised once per device (tf32_mma.cuh)
@@ -432,9 +646,28 @@ int launch(const float* q, const float* k, const float* v, const uint8_t* kv_mas
   return (int)cudaGetLastError();
 }
 
-// the instance for head_dim. This switch owns the set of head dims the body
-// is instantiated at (ops/kernels/attention.py's HEAD_DIMS mirrors it, and a
-// card test holds the two equal); any other D is refused, empty calls too
+template <bool EMIT_STATS>
+std::atomic<uint64_t> wide_cap_raised{0};
+
+template <bool EMIT_STATS>
+int launch_wide(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
+                float* m_out, float* l_out, int batch, int heads, int tq, int tk, int dp,
+                float scale, cudaStream_t stream) {
+  if (tq <= 0 || batch <= 0) return 0;
+  const cudaError_t err = act::allow_dynamic_smem(
+      reinterpret_cast<const void*>(flash_wide_kernel<EMIT_STATS>), wide_cap_raised<EMIT_STATS>);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((tq + ROWS - 1) / ROWS, batch * heads, (dp + DV - 1) / DV);
+  flash_wide_kernel<EMIT_STATS><<<grid, NT, Wide::smem_bytes(tk), stream>>>(
+      q, k, v, kv_mask, out, m_out, l_out, heads, tq, tk, dp, scale);
+  return (int)cudaGetLastError();
+}
+
+// the instance for head_dim. This switch owns the set of head dims the
+// kernels take: the body's instances and, above 128, every multiple of SLAB
+// for the wide body (ops/kernels/attention.py's HEAD_DIMS and WIDE_SLAB
+// mirror it, and a card test holds them equal); any other D is refused,
+// empty calls too
 template <bool EMIT_STATS>
 int dispatch(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
              float* m_out, float* l_out, int batch, int heads, int tq, int tk, int head_dim,
@@ -450,6 +683,10 @@ int dispatch(const float* q, const float* k, const float* v, const uint8_t* kv_m
       return launch<128, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
                                      scale, stream);
     default:
+      if (head_dim > 128 && head_dim % SLAB == 0) {
+        return launch_wide<EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
+                                       head_dim, scale, stream);
+      }
       return (int)cudaErrorInvalidValue;
   }
 }
@@ -457,7 +694,7 @@ int dispatch(const float* q, const float* k, const float* v, const uint8_t* kv_m
 }  // namespace
 
 // K3. q, k, v, out: [B, H, T, D] f32 contiguous, D = head_dim in {64, 80,
-// 128}; kv_mask: [B, T] uint8 or null.
+// 128} or a multiple of 64 above 128; kv_mask: [B, T] uint8 or null.
 extern "C" int act_flash_attention(const float* q, const float* k, const float* v,
                                    const uint8_t* kv_mask, float* out, int batch, int heads,
                                    int t, int head_dim, float scale, cudaStream_t stream) {
@@ -466,8 +703,8 @@ extern "C" int act_flash_attention(const float* q, const float* k, const float* 
 }
 
 // K5. q, out: [B, H, Tq, D]; k, v: [B, H, Tk, D]; m_out, l_out: [B, H, Tq];
-// all f32 contiguous, D = head_dim in {64, 80, 128}; kv_mask: [B, Tk] uint8
-// or null. Tk >= 1.
+// all f32 contiguous, D = head_dim as for K3; kv_mask: [B, Tk] uint8 or
+// null. Tk >= 1.
 extern "C" int act_flash_attention_stats(const float* q, const float* k, const float* v,
                                          const uint8_t* kv_mask, float* out, float* m_out,
                                          float* l_out, int batch, int heads, int tq, int tk,

@@ -2,7 +2,8 @@
 audio_classification_tpu/engine/runtime.py: the offline surface, with the
 Conv-TasNet 3- and 2-source and MossFormer separators, the four ASR families
 (SenseVoice CTC, Paraformer, transducer with greedy and modified beam
-search, whisper-style) and the VAD).
+search, whisper-style), the VAD, the am.mvn CMVN of the LFR frontends and
+PyanNet as the OSD stage with pyannote's hysteresis).
 
 Each stage (resampling, OSD, separation, speaker embedding, ASR) and the two
 fused paths run over padded, length-bucketed batches. Audio goes to the device as
@@ -35,12 +36,15 @@ from ..models.asr.whisper_style import WhisperStyle, WhisperStyleConfig, whisper
 from ..models.convtasnet import ConvTasNet, ConvTasNetConfig
 from ..models.mossformer import MossFormer, MossFormerConfig
 from ..models.osd import OSDConfig, OSDNet, probs_to_hop_flags
+from ..models.pyannet import (BinarizeConfig, PyanNet, PyanNetConfig, hysteresis_intervals,
+                              reduce_overlap_channels)
 from ..models.speaker import SpeakerEmbedder, SpeakerEmbedderConfig
 from ..models.vad import VADConfig, VADNet
 from ..ops.fbank import FbankConfig, log_mel_fbank
 from ..ops.resample import resample_poly
+from ..utils.profiling import stage_range
 from .bucketing import BucketSpec, flat_pack_i16, group_by_bucket, pad_batch, pad_batch_i16
-from .segments import flags_to_segments
+from .segments import flags_to_segments, rasterize_intervals
 
 G_SAMPLE_RATE = 16000
 TOKEN_CAP = 512  # max token ids returned per item
@@ -141,7 +145,13 @@ class ModelPack:
     so a seed keeps giving them the weights it always gave. Each stage after
     ``asr`` draws from a generator of its own, seeded from (seed, its index
     in ``STAGES``): its weights do not depend on the ASR family, as the JAX
-    pack's per-stage keys do not."""
+    pack's per-stage keys do not.
+
+    ``cmvn`` = (add_shift, rescale) from a model directory's ``am.mvn``
+    (convert/assets.load_kaldi_cmvn) normalises the SenseVoice and Paraformer
+    LFR features inside their frontends: y = (x + shift) * scale. PyanNet
+    serves the OSD stage only through ``set_osd_pyannet``, never through the
+    seeding."""
 
     STAGES = ("osd", "sep3", "spk", "asr", "sep2", "mossformer", "vad")
     ASR_FAMILIES = ("sensevoice", "paraformer", "transducer", "whisper")
@@ -149,7 +159,7 @@ class ModelPack:
     def __init__(self, preset: EnginePreset, seed: int = 0,
                  tokens: Optional[TokenTable] = None, device=None,
                  asr_family: str = "sensevoice", decoding_method: str = "greedy_search",
-                 num_active_paths: int = 4):
+                 num_active_paths: int = 4, cmvn: Optional[Tuple] = None):
         if asr_family not in self.ASR_FAMILIES:
             raise ValueError(f"asr_family must be one of {self.ASR_FAMILIES}, got {asr_family!r}")
         if decoding_method not in ("greedy_search", "modified_beam_search"):
@@ -164,6 +174,12 @@ class ModelPack:
         self.asr_family = asr_family
         self.decoding_method = decoding_method
         self.num_active_paths = int(num_active_paths)
+        self.cmvn_shift = self.cmvn_scale = None
+        if cmvn is not None:
+            self.cmvn_shift, self.cmvn_scale = (
+                torch.as_tensor(np.asarray(c, np.float32)).to(self.device) for c in cmvn)
+        self.osd_pyannet: Optional[PyanNet] = None
+        self.osd_binarize: Optional[BinarizeConfig] = None
         self.tokens = tokens or TokenTable.char_table("abcdefghijklmnopqrstuvwxyz '")
         vocab = max(preset.asr.vocab_size, self.tokens.vocab_size)
         self.asr_cfg = dataclasses.replace(preset.asr, vocab_size=vocab)
@@ -196,6 +212,20 @@ class ModelPack:
         for stage in self.STAGES:
             if stage in state_dicts:
                 self.models[stage].load_state_dict(state_dicts[stage])
+
+    def set_osd_pyannet(self, cfg: PyanNetConfig, state_dict: Dict[str, torch.Tensor],
+                        binarize: Optional[BinarizeConfig] = None) -> None:
+        """Serve the OSD stage with pyannote's PyanNet and imported weights
+        (convert/torch_import.load_pyannet_torch; reference: src/osd/osd.py:
+        60-71). The stage then feeds PyanNet the raw wave (it owns its sinc
+        frontend) and keeps the [B, T', (speech, overlap)] contract at
+        PyanNet's frame rate. ``binarize`` switches segment extraction from
+        the plain threshold to pyannote's onset / offset hysteresis with
+        duration pruning."""
+        model = PyanNet(cfg)
+        model.load_state_dict(state_dict)
+        self.osd_pyannet = model.to(self.device).eval()
+        self.osd_binarize = binarize
 
 
 class WaveArena:
@@ -265,8 +295,12 @@ class StageEngine:
         return feats, mask
 
     def _osd_fn(self, wav_i16, lengths):
-        feats, mask = self._fbank_mask(self._dq(wav_i16), lengths)
-        return self.pack.models["osd"](feats, mask)
+        with stage_range("osd"):
+            if self.pack.osd_pyannet is not None:
+                acts = self.pack.osd_pyannet(self._dq(wav_i16), lengths)
+                return reduce_overlap_channels(acts)
+            feats, mask = self._fbank_mask(self._dq(wav_i16), lengths)
+            return self.pack.models["osd"](feats, mask)
 
     def _sep_core(self, wav, lengths, stage: str = "sep3"):
         sm = (torch.arange(wav.shape[1], device=wav.device)[None, :]
@@ -296,7 +330,8 @@ class StageEngine:
         p = self.pack
         model = p.models["asr"]
         if p.asr_family == "paraformer":
-            feats, mask = paraformer_frontend(wav, lengths, p.paraformer_cfg)
+            feats, mask = paraformer_frontend(wav, lengths, p.paraformer_cfg, p.cmvn_shift,
+                                              p.cmvn_scale)
             logits, counts = model(feats, mask, mesh=mesh, sp_axis="data")
             return paraformer_greedy(logits, counts)
         if p.asr_family == "transducer":
@@ -308,7 +343,7 @@ class StageEngine:
             feats, mask = whisper_frontend(wav, lengths, p.whisper_cfg)
             return model.greedy_decode(feats, mask, max_len)
         cfg = p.asr_cfg
-        feats, mask = sensevoice_frontend(wav, lengths, cfg)
+        feats, mask = sensevoice_frontend(wav, lengths, cfg, p.cmvn_shift, p.cmvn_scale)
         logits = model(feats, mask, language_id=language_id, use_itn=use_itn, mesh=mesh,
                        sp_axis="data")
         return ctc_greedy_decode(logits[:, cfg.num_prompt:], mask, p.tokens.blank_id)
@@ -319,13 +354,15 @@ class StageEngine:
         return ids[:, :cap], torch.clamp_max(n, cap)
 
     def _asr_fn(self, wav_i16, lengths, language_id, use_itn):
-        return self._asr_core(self._dq(wav_i16), lengths, language_id, use_itn)
+        with stage_range("asr"):
+            return self._asr_core(self._dq(wav_i16), lengths, language_id, use_itn)
 
     def _clean_path_fn(self, wav_i16, lengths, target_vec, language_id, use_itn):
         """wav + per-item target -> (sv_score [B], ids, n_tokens)."""
-        wav = self._dq(wav_i16)
-        score = (self._embed_core(wav, lengths) * target_vec).sum(dim=-1)
-        return (score, *self._asr_core(wav, lengths, language_id, use_itn))
+        with stage_range("clean"):
+            wav = self._dq(wav_i16)
+            score = (self._embed_core(wav, lengths) * target_vec).sum(dim=-1)
+            return (score, *self._asr_core(wav, lengths, language_id, use_itn))
 
     def _overlap_path_fn(self, wav_i16, lengths, target_vec, language_id, use_itn,
                          return_branches, backend="convtasnet"):
@@ -334,14 +371,15 @@ class StageEngine:
         S = 3 for Conv-TasNet (and its "asteroid" alias), the MossFormer
         preset's n_src (2) for ``backend="mossformer"``."""
         stage = "mossformer" if backend == "mossformer" else "sep3"
-        est = self._sep_core(self._dq(wav_i16), lengths, stage)  # [B, S, T]
-        b, s, t = est.shape
-        emb = self._embed_core(est.reshape(b * s, t), lengths.repeat_interleave(s))
-        scores = (emb.reshape(b, s, -1) * target_vec[:, None, :]).sum(dim=-1)
-        best = scores.argmax(dim=-1)
-        best_wav = self._branch_norm(est[torch.arange(b, device=est.device), best])
-        out = (scores, best, *self._asr_core(best_wav, lengths, language_id, use_itn))
-        return out + (est,) if return_branches else out
+        with stage_range("overlap"):
+            est = self._sep_core(self._dq(wav_i16), lengths, stage)  # [B, S, T]
+            b, s, t = est.shape
+            emb = self._embed_core(est.reshape(b * s, t), lengths.repeat_interleave(s))
+            scores = (emb.reshape(b, s, -1) * target_vec[:, None, :]).sum(dim=-1)
+            best = scores.argmax(dim=-1)
+            best_wav = self._branch_norm(est[torch.arange(b, device=est.device), best])
+            out = (scores, best, *self._asr_core(best_wav, lengths, language_id, use_itn))
+            return out + (est,) if return_branches else out
 
     @staticmethod
     def _gather(arena: torch.Tensor, starts, lens, seg_len: int) -> torch.Tensor:
@@ -523,13 +561,24 @@ class StageEngine:
         handle, nonempty, n_samps, sr = osd_handle
         probs_all = self._collect_bucketed(handle)
         cfg = self.pack.preset.osd
+        pyannet, binarize = self.pack.osd_pyannet, self.pack.osd_binarize
         out: List[List[Tuple[float, float, bool]]] = [[] for _ in n_samps]
         for i, probs in zip(nonempty, probs_all):
             n_samp = n_samps[i]
             dur = n_samp / sr
-            n_out = max(int(np.ceil(self.fbank_cfg.frames_for(n_samp) / cfg.subsample)), 1)
-            flags = probs_to_hop_flags(probs[:, 1], n_out, dur, cfg.out_frame_sec, threshold,
-                                       win_sec, hop_sec)
+            if pyannet is not None:
+                n_out = max(int(pyannet.cfg.out_frames(n_samp)), 1)
+                frame_sec = pyannet.cfg.out_frame_sec
+            else:
+                n_out = max(int(np.ceil(self.fbank_cfg.frames_for(n_samp) / cfg.subsample)), 1)
+                frame_sec = cfg.out_frame_sec
+            if pyannet is not None and binarize is not None:
+                ivals = [(s, min(e, dur)) for s, e in hysteresis_intervals(
+                    probs[:n_out, 1], frame_sec, binarize) if s < dur]
+                flags = rasterize_intervals(ivals, dur, win_sec, hop_sec)
+            else:
+                flags = probs_to_hop_flags(probs[:, 1], n_out, dur, frame_sec, threshold,
+                                           win_sec, hop_sec)
             out[i] = flags_to_segments(flags, dur, win_sec, hop_sec)
         return out
 

@@ -9,8 +9,9 @@ StageEngine:
 - ``OverlapAnalyzer``: analyze(samples, sr) -> [(start, end, is_overlap)]
 - ``Separator``: separate(samples, sr) -> n_src wavs at the model's rate
 
-Separator checkpoints (slices 14 and 15) raise NotImplementedError naming
-the ROADMAP slice. The long-form calls (``transcribe(long_form=True)``,
+``Separator(checkpoint=...)`` loads a torch file (asteroid Conv-TasNet,
+ModelScope / ClearVoice MossFormer: convert/torch_import.py); an orbax
+directory raises NotImplementedError naming ROADMAP slice 14. The long-form calls (``transcribe(long_form=True)``,
 ``separate_long``) take a mesh whose shards live on one device
 (parallel/mesh.make_mesh); a mesh over several cards is slice 16.
 """
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..convert.torch_import import load_convtasnet_torch, load_mossformer_torch
 from ..engine.runtime import G_SAMPLE_RATE, EnginePreset, ModelPack, StageEngine, tiny_preset
 from ..ops.signal import l2norm
 from .speaker import SpeakerBank
@@ -146,16 +148,32 @@ class Separator:
 
     def __post_init__(self):
         self.backend = self.backend or "convtasnet"
-        if self.checkpoint:
-            raise NotImplementedError(
-                "Separator(checkpoint=...): separator checkpoints (orbax dirs of "
-                "train/checkpoint.py, ROADMAP slice 14; torch checkpoints of "
-                "models/convert, ROADMAP slice 15) are not ported to "
-                "audio_classification_tpu_torch yet")
         if self.engine is None:
             self.engine = default_engine()
+        if self.checkpoint:
+            self._load_checkpoint(self.checkpoint)
         if self.backend == "mossformer":
             self.sample_rate = self.engine.pack.preset.mossformer.sample_rate
+
+    def _load_checkpoint(self, path: str) -> None:
+        """A torch file into the backend's separator: MossFormer (ModelScope
+        / ClearVoice naming; MossFormerImportError on drift), else Conv-TasNet
+        with ``n_src`` sources (asteroid naming)."""
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f"Separator(checkpoint={path!r}): orbax checkpoint directories "
+                "(train/checkpoint.py, ROADMAP slice 14) are not ported to "
+                "audio_classification_tpu_torch yet; a torch file loads")
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"Separator checkpoint not found: {path}")
+        pack = self.engine.pack
+        if self.backend == "mossformer":
+            pack.models["mossformer"].load_state_dict(
+                load_mossformer_torch(path, pack.preset.mossformer))
+        else:
+            stage = "sep3" if self.n_src == 3 else "sep2"
+            pack.models[stage].load_state_dict(
+                load_convtasnet_torch(path, getattr(pack.preset, stage)))
 
     def separate(self, samples: np.ndarray, sr: int) -> List[np.ndarray]:
         wav = self._ensure_sr(np.asarray(samples, np.float32), sr)

@@ -25,14 +25,16 @@ from ... import _build
 #: flash path from this sequence length on, as on the TPU
 #: (attention_kernel.flash_enabled: ACT_FLASH_ATTN_MIN_T default 512)
 FLASH_MIN_T = 512
-#: the head dims the kernel body is instantiated at, as the dispatch switch
-#: in csrc/flash_attention.cu (their owner) takes them; a card test holds the
-#: two equal. OSDNet, SenseVoice and the transducer and whisper-style
-#: encoders use 64, Paraformer 80 (320 / 4 heads). The wrapper zero-pads D up to the next instance, as the TPU
-#: kernel pads D to its lane width (attention_kernel._pad_softmax_operands):
-#: zero columns add nothing to q k^T, and the padded output columns are
-#: sliced off
+#: the head dims the kernel body is instantiated at, and the slab width of
+#: the wide body that takes every multiple of it above the largest, as the
+#: dispatch switch in csrc/flash_attention.cu (their owner) takes them; a
+#: card test holds the two equal. OSDNet, SenseVoice and the transducer and
+#: whisper-style encoders use 64, Paraformer 80 (320 / 4 heads). The wrapper
+#: zero-pads D up to the next head dim the kernels take, as the TPU kernel
+#: pads D to its lane width (attention_kernel._pad_softmax_operands): zero
+#: columns add nothing to q k^T, and the padded output columns are sliced off
 HEAD_DIMS = (64, 80, 128)
+WIDE_SLAB = 64
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,21 +74,21 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def padded_head_dim(name: str, d: int) -> int:
-    """The instance a head dim d runs at: the least of ``HEAD_DIMS`` >= d.
-    Raises NotImplementedError above the largest."""
+def padded_head_dim(d: int) -> int:
+    """The head dim a true head dim d runs at: the least of ``HEAD_DIMS``
+    >= d, and above the largest, d rounded up to a multiple of
+    ``WIDE_SLAB`` (the wide body)."""
     for inst in HEAD_DIMS:
         if d <= inst:
             return inst
-    raise NotImplementedError(
-        f"{name}: head dim {d} is above the largest the kernel is built for "
-        f"({HEAD_DIMS[-1]}); the CUDA body is instantiated at {HEAD_DIMS}")
+    return -(-d // WIDE_SLAB) * WIDE_SLAB
 
 
-def pad_head_dim(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
-    """(q, k, v) with D zero-padded to its instance (``padded_head_dim``).
-    The caller passes 1 / sqrt(D) of the true D as the scale."""
-    pad = padded_head_dim(name, q.shape[-1]) - q.shape[-1]
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """(q, k, v) with D zero-padded to the head dim it runs at
+    (``padded_head_dim``). The caller passes 1 / sqrt(D) of the true D as
+    the scale."""
+    pad = padded_head_dim(q.shape[-1]) - q.shape[-1]
     if not pad:
         return q, k, v
     return tuple(F.pad(x, (0, pad)) for x in (q, k, v))
@@ -94,8 +96,8 @@ def pad_head_dim(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
 
 def _check_qkv(name: str, q, k, v, kv_mask):
     """Shapes, types and devices the kernels take -> (q, k, v, mask) ready
-    for the launch, D zero-padded to its instance; raises ValueError on
-    anything else (NotImplementedError for D above the largest instance)."""
+    for the launch, D zero-padded to the head dim it runs at; raises
+    ValueError on anything else."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     for label, x, shape in (("q", q, (b, h, tq, d)), ("k", k, (b, h, tk, d)),
@@ -112,7 +114,7 @@ def _check_qkv(name: str, q, k, v, kv_mask):
         if kv_mask.dtype not in (torch.bool, torch.uint8):
             kv_mask = kv_mask != 0
         kv_mask = kv_mask.contiguous()
-    q, k, v = pad_head_dim(name, q, k, v)
+    q, k, v = pad_head_dim(q, k, v)
     return _aligned(q), _aligned(k), _aligned(v), kv_mask
 
 
@@ -120,9 +122,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, H, T, D] f32 q, k, v + optional [B, T] bool key mask -> [B, H, T, D].
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (D up
-    to 128, zero-padded to the next of ``HEAD_DIMS``, scale 1 / sqrt(D) of
-    the true D)."""
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (any D,
+    zero-padded to the head dim it runs at, ``padded_head_dim``; scale
+    1 / sqrt(D) of the true D)."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_mask)
     if not q.is_cuda:
@@ -159,7 +161,7 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     merge by rescaling to a common m (parallel/ring_attention.py).
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (Tk >= 1;
-    D up to 128, zero-padded as in ``flash_attention``)."""
+    any D, zero-padded as in ``flash_attention``)."""
     if q.device.type == "cpu":
         return attention_stats_reference(q, k, v, kv_mask)
     if not q.is_cuda:

@@ -88,7 +88,7 @@ class Overlap3Config:
     checkpoint_dir: str = ""          # orbax params for all models
     max_batch: int = 8
     max_segment_sec: float = 64.0
-    profile_dir: str = ""             # jax.profiler trace output dir
+    profile_dir: str = ""             # torch.profiler trace output dir (utils/profiling.trace)
     data_parallel: int = 0            # shard stage batches over N chips (0 = single device)
     model_parallel: int = 0           # TP: separators' TCN hidden dim over M chips
     slices: int = 1                   # multi-slice deployments: DP spans slices x chips

@@ -35,11 +35,20 @@ points at the full preset, reading every kernel's launch count around each:
   dim 80 on the Paraformer path), the 200 s utterance through each family's
   long form (Paraformer also over 4 shards: K5 at D = 80), each family's
   device ops a call, and the SID product: benchmark_pipeline and
-  speaker_id_vad_asr on 4 talkers x 2 enrollment wavs and 8 test wavs.
+  speaker_id_vad_asr on 4 talkers x 2 enrollment wavs and 8 test wavs;
+- pyannet-flagship: the flagship CLI on the 20 s mixture with
+  --osd-checkpoint (a pyannote segmentation checkpoint at the published
+  widths: PyanNet serves OSD), --sep-checkpoint (an asteroid Conv-TasNet at
+  the preset's widths), --cmvn (an am.mvn of the LFR dim 560) and
+  --profile-dir, forced through the hysteresis flags to every frame
+  overlapped (K1, K2, K3) and to every frame clean (K1, K3); the
+  torch.profiler trace must name the engine's stage ranges.
 
 K3 and K5 are also held to their float64 twin at the head dims beside 64
-(Paraformer's 80 at its main shapes, 128, and 40, which the wrapper pads),
-and each family's recognizer on the card to the same weights on the CPU.
+(Paraformer's 80 at its main shapes, 128, and 40, which the wrapper pads;
+192 and 256 on the wide body, and 200, which it pads to 256), each family's
+recognizer on the card to the same weights on the CPU, and PyanNet at its
+published widths on the card to the CPU.
 
     python3 chip_smoke.py
 
@@ -53,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -545,10 +555,15 @@ def check_attention_head_dims(torch, np) -> dict:
     ([1, 4, 4267, 80], 3333 keys valid) and, for K5, on one shard's
     1067-frame block of it (all keys valid, and the last block's 132); one
     small ragged case at D = 128 and one at D = 40, which the wrapper
-    zero-pads to the instance at 64. Each against the twin in float64 (K3
-    2e-5 abs, K5's o 1e-4 of max|o|, m and l 1e-5 relative, as at D = 64),
-    with the kernel's device time, the float32 twin's and SDPA's by graph
-    replay, and the bound for the true D."""
+    zero-pads to the instance at 64; and the wide body above 128 (no model
+    of the repository has such a head; the JAX kernels take any D): D = 192
+    and 256 at OSDNet's T = 800 and on a shard's 1067-key block, and D = 200
+    zero-padded to 256, ragged. Each against the twin in float64 (K3 2e-5
+    abs, K5's o 1e-4 of max|o|, m and l 1e-5 relative, as at D = 64), with
+    the kernel's device time, the float32 twin's and SDPA's by graph replay,
+    and the bound for the true D (the wide body forms the scores once for
+    each 128-column slice of the output: ``bound_with_recompute_ms`` counts
+    the products it does)."""
     from audio_classification_tpu_torch.ops.kernels import attention
 
     dev = torch.device("cuda")
@@ -560,18 +575,25 @@ def check_attention_head_dims(torch, np) -> dict:
             ("K3", 1, 4, PF_LONG_T, PF_LONG_T, 80, [PF_LONG_VALID_T]),
             ("K3", 2, 4, 200, 200, 128, [200, 77]),
             ("K3", 2, 4, 300, 300, 40, [300, 129]),
+            ("K3", 1, 4, 800, 800, 192, [800]),
+            ("K3", 1, 4, 800, 800, 256, [800]),
+            ("K3", 2, 4, 300, 300, 200, [300, 129]),
             ("K5", 1, 4, ts, ts, 80, [ts]),
             ("K5", 1, 4, ts, ts, 80, [PF_LONG_VALID_T - 3 * ts]),
             ("K5", 2, 4, 200, 333, 128, [333, 64]),
-            ("K5", 2, 4, 300, 300, 40, [300, 129])):
+            ("K5", 2, 4, 300, 300, 40, [300, 129]),
+            ("K5", 1, 4, ts, ts, 192, [ts]),
+            ("K5", 1, 4, ts, ts, 256, [ts]),
+            ("K5", 2, 4, 300, 300, 200, [300, 129])):
         q = torch.randn((b, h, tq, d), generator=gen).to(dev)
         k, v = (torch.randn((b, h, tk, d), generator=gen).to(dev) for _ in range(2))
         mask = torch.arange(tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
         n_valid = int(mask.sum())
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask[:, None, None, :])
+        dp = attention.padded_head_dim(d)
         case = {"kernel": kind, "shape": [b, h, tq, d], "keys": tk, "valid_keys": lens,
-                "head_dim": d, "instance": attention.padded_head_dim(kind, d)}
+                "head_dim": d, "instance": dp}
         if kind == "K3":
             out = attention.flash_attention(q, k, v, mask)
             torch.cuda.synchronize()
@@ -602,6 +624,13 @@ def check_attention_head_dims(torch, np) -> dict:
             "wrapper_ms": cuda_ms(torch, fn, 20),
             **tensor_bound(4.0 * h * tq * n_valid * d, 1.0 * h * tq * n_valid,
                            4.0 * (q.numel() + 2 * h * d * n_valid + n_out) + mask.numel())})
+        if dp > 128:
+            # the wide body: the scores over dp once per 128-column slice,
+            # and p v over 128 columns a slice
+            slices = -(-dp // 128)
+            case.update({"scores_formed": slices, "bound_with_recompute_ms": tensor_bound(
+                2.0 * h * tq * n_valid * slices * (dp + 128), 1.0 * h * tq * n_valid,
+                0.0)["bound_ms"]})
         if kind == "K3":
             case["ms_over_library_ms"] = case["ms"] / case["library_ms"]
         log({"phase": "kernel", "name": "flash_attention" if kind == "K3"
@@ -613,13 +642,6 @@ def check_attention_head_dims(torch, np) -> dict:
             assert math.isfinite(case["max_abs_err"]) and case["rel_err"] <= 1e-4, case
             assert case["m_rel_err"] <= 1e-5 and case["l_rel_err"] <= 1e-5, case
             k5.append(case)
-    # above the largest instance the wrapper refuses
-    try:
-        attention.flash_attention(*(torch.zeros((1, 1, 8, 136), device=dev) for _ in range(3)))
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("flash_attention took a head dim of 136")
     return {"flash_attention": k3, "flash_attention_stats": k5}
 
 
@@ -820,6 +842,146 @@ def check_families_against_cpu(torch, np) -> None:
     log({"phase": "families_vs_cpu", "tol_rel": 1e-3, **report})
 
 
+# pyannote/segmentation's published architecture: SincNet of 80 filters (40
+# analytic cos / sin pairs of asteroid's ParamSincFB) of 251 taps at stride
+# 10, two conv stages of 60 channels (kernel 5, max pool 3), a 4-layer
+# bidirectional LSTM of 128, linear 128 / 128 and 3 speaker classes
+PYANNET_WIDTHS = dict(rows=40, n_filters=80, conv=(60, 60), kernel=5, hidden=128, layers=4,
+                      linear=(128, 128), classes=3)
+
+
+def write_pyannote_checkpoint(torch, np, path, seed: int) -> None:
+    """A pytorch-lightning checkpoint at PYANNET_WIDTHS: seeded tensors under
+    pyannote's PyanNet names, mel-spaced band edges, torch's default init
+    scales."""
+    w = PYANNET_WIDTHS
+    rng = np.random.default_rng(seed)
+    mel = np.linspace(2595 * np.log10(1 + 30 / 700), 2595 * np.log10(1 + 7900 / 700),
+                      w["rows"] + 1)
+    hz = 700 * (10 ** (mel / 2595) - 1)
+    uni = lambda bound, *shape: rng.uniform(-bound, bound, shape)  # noqa: E731
+    sd = {"sincnet.wav_norm1d.weight": np.ones(1), "sincnet.wav_norm1d.bias": np.zeros(1),
+          "sincnet.conv1d.0.filterbank.low_hz_": hz[:-1, None] - 50.0,
+          "sincnet.conv1d.0.filterbank.band_hz_": np.diff(hz)[:, None] - 50.0,
+          "sincnet.norm1d.0.weight": 1 + 0.1 * rng.standard_normal(w["n_filters"]),
+          "sincnet.norm1d.0.bias": 0.1 * rng.standard_normal(w["n_filters"])}
+    cin = w["n_filters"]
+    for i, ch in enumerate(w["conv"], start=1):
+        bound = (cin * w["kernel"]) ** -0.5
+        sd.update({f"sincnet.conv1d.{i}.weight": uni(bound, ch, cin, w["kernel"]),
+                   f"sincnet.conv1d.{i}.bias": uni(bound, ch),
+                   f"sincnet.norm1d.{i}.weight": 1 + 0.1 * rng.standard_normal(ch),
+                   f"sincnet.norm1d.{i}.bias": 0.1 * rng.standard_normal(ch)})
+        cin = ch
+    h = w["hidden"]
+    for layer in range(w["layers"]):
+        for sfx in ("", "_reverse"):
+            sd.update({f"lstm.weight_ih_l{layer}{sfx}": uni(h ** -0.5, 4 * h, cin),
+                       f"lstm.weight_hh_l{layer}{sfx}": uni(h ** -0.5, 4 * h, h),
+                       f"lstm.bias_ih_l{layer}{sfx}": uni(h ** -0.5, 4 * h),
+                       f"lstm.bias_hh_l{layer}{sfx}": uni(h ** -0.5, 4 * h)})
+        cin = 2 * h
+    for j, dim in enumerate(w["linear"]):
+        sd.update({f"linear.{j}.weight": uni(cin ** -0.5, dim, cin),
+                   f"linear.{j}.bias": uni(cin ** -0.5, dim)})
+        cin = dim
+    sd.update({"classifier.weight": uni(cin ** -0.5, w["classes"], cin),
+               "classifier.bias": uni(cin ** -0.5, w["classes"])})
+    torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()},
+                "epoch": 0}, str(path))
+
+
+def write_asteroid_convtasnet(torch, np, path, cfg, seed: int) -> None:
+    """An asteroid ConvTasNet state_dict at ``cfg``'s widths, seeded, under
+    asteroid's names (gLN gamma / beta as [1, C, 1])."""
+    rng = np.random.default_rng(seed)
+    n, l, b, h, p = cfg.enc_dim, cfg.enc_kernel, cfg.bottleneck, cfg.hidden, cfg.conv_kernel
+    r = lambda scale, *shape: scale * rng.standard_normal(shape)  # noqa: E731
+    sd = {"encoder.filterbank._filters": r(l ** -0.5, n, 1, l),
+          "decoder.filterbank._filters": r(n ** -0.5, n, 1, l),
+          "masker.bottleneck.0.gamma": 1 + r(0.05, 1, n, 1),
+          "masker.bottleneck.0.beta": r(0.05, 1, n, 1),
+          "masker.bottleneck.1.weight": r(n ** -0.5, b, n, 1),
+          "masker.bottleneck.1.bias": r(0.05, b),
+          "masker.mask_net.0.weight": np.full(1, 0.25),
+          "masker.mask_net.1.weight": r(b ** -0.5, cfg.n_src * n, b, 1),
+          "masker.mask_net.1.bias": r(0.05, cfg.n_src * n)}
+    for i in range(cfg.n_repeats * cfg.n_blocks):
+        pre = f"masker.TCN.{i}"
+        sd.update({f"{pre}.shared_block.0.weight": r(b ** -0.5, h, b, 1),
+                   f"{pre}.shared_block.0.bias": r(0.05, h),
+                   f"{pre}.shared_block.1.weight": np.full(1, 0.25),
+                   f"{pre}.shared_block.2.gamma": 1 + r(0.05, 1, h, 1),
+                   f"{pre}.shared_block.2.beta": r(0.05, 1, h, 1),
+                   f"{pre}.shared_block.3.weight": r(p ** -0.5, h, 1, p),
+                   f"{pre}.shared_block.3.bias": r(0.05, h),
+                   f"{pre}.shared_block.4.weight": np.full(1, 0.25),
+                   f"{pre}.shared_block.5.gamma": 1 + r(0.05, 1, h, 1),
+                   f"{pre}.shared_block.5.beta": r(0.05, 1, h, 1),
+                   f"{pre}.res_conv.weight": r(h ** -0.5, b, h, 1),
+                   f"{pre}.res_conv.bias": r(0.05, b),
+                   f"{pre}.skip_conv.weight": r(h ** -0.5, b, h, 1),
+                   f"{pre}.skip_conv.bias": r(0.05, b)})
+    torch.save({k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()}, str(path))
+
+
+def write_am_mvn(np, path, dim: int, seed: int) -> None:
+    """A FunASR am.mvn (<AddShift> / <Rescale>) of ``dim`` with log-mel-like
+    statistics (shift about -8, scale about 0.25)."""
+    rng = np.random.default_rng(seed)
+    vec = lambda v: "[ " + " ".join(f"{x:.6f}" for x in v) + " ]"  # noqa: E731
+    shift, scale = -8.0 + rng.standard_normal(dim), 0.25 + 0.05 * rng.random(dim)
+    Path(path).write_text(f"<Nnet>\n<Splice> {dim} {dim}\n[ 0 ]\n<AddShift> {dim} {dim}\n"
+                          f"<LearnRateCoef> 0 {vec(shift)}\n<Rescale> {dim} {dim}\n"
+                          f"<LearnRateCoef> 0 {vec(scale)}\n</Nnet>\n")
+
+
+def check_pyannet_against_cpu(torch, np) -> None:
+    """PyanNet at pyannote/segmentation's published widths, imported from a
+    checkpoint written here, on the card (cuDNN LSTM, one call a layer and
+    direction) against the same weights on the CPU: a 10 s ragged batch
+    (10 s and 7.3 s), 1e-3 x max|ref| of the probabilities as the other
+    stages; then one call of the engine's shape on the card (the 20 s
+    mixture in the 32 s bucket): its wall, device ops and device time."""
+    from audio_classification_tpu_torch.convert.torch_import import load_pyannet_torch
+    from audio_classification_tpu_torch.models.pyannet import PyanNet, reduce_overlap_channels
+
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    write_pyannote_checkpoint(torch, np, work / "segmentation.ckpt", seed=21)
+    cfg, sd = load_pyannet_torch(str(work / "segmentation.ckpt"))
+    assert (cfg.n_filters, cfg.analytic, cfg.conv_channels, cfg.lstm_hidden, cfg.lstm_layers,
+            cfg.linear_dims, cfg.num_classes, cfg.frame_period) == (
+        80, True, (60, 60), 128, 4, (128, 128), 3, 270), cfg
+    models = {}
+    for d in ("cuda", "cpu"):
+        models[d] = PyanNet(cfg)
+        models[d].load_state_dict(sd)
+        models[d].to(d).eval()
+    src = talkers(10 * SR, 31)
+    wav = np.stack([sum(src) / 3.0, np.where(np.arange(10 * SR) < 7.3 * SR, src[1], 0.0)])
+    wav = (0.6 * wav / np.abs(wav).max()).astype(np.float32)
+    lens = np.array([10 * SR, int(7.3 * SR)], np.int64)
+    outs = {}
+    with torch.inference_mode():
+        for d, m in models.items():
+            outs[d] = m(torch.from_numpy(wav).to(d), torch.from_numpy(lens).to(d)).cpu()
+    ref = outs["cpu"]
+    rel = (outs["cuda"] - ref).abs().max().item() / ref.abs().max().item()
+    frames = [int(cfg.out_frames(int(n))) for n in lens]
+    assert outs["cuda"].shape == (2, frames[0], 3) and not outs["cuda"][1, frames[1]:].any()
+    assert math.isfinite(rel) and rel <= 1e-3, rel
+
+    mix = sum(talkers(20 * SR, 3)) / 3.0
+    batch = np.zeros((1, 32 * SR), np.float32)
+    batch[0, : 20 * SR] = 0.6 * mix / np.abs(mix).max()
+    w, n = torch.from_numpy(batch).cuda(), torch.tensor([20 * SR], device="cuda")
+    with torch.inference_mode():
+        call = device_ops(torch, lambda: reduce_overlap_channels(models["cuda"](w, n)))
+    log({"phase": "pyannet_vs_cpu", "rel_err": rel, "tol_rel": 1e-3, "frames": frames,
+         "frame_period": cfg.frame_period, "lstm_calls": cfg.lstm_layers * 2,
+         "osd_call_20s_in_32s_bucket": call, "device": gpu_name_and_power_limit()})
+
 def device_ops(torch, fn) -> dict:
     """One call of fn after a warm one: its wall, then the device ops it
     queued and their device time under torch.profiler (a second call)."""
@@ -934,6 +1096,44 @@ def run_paths(torch, np, counters: dict) -> dict:
                                             "--osd-thr", "1.0"],
                  "clean", ("fbank_power_mel", "flash_attention"))
     assert r.metrics["segments_clean"] > 0
+
+    # pyannet-flagship: the same CLI with pyannote's OSD model from a
+    # segmentation checkpoint, an asteroid Conv-TasNet for the 3-source
+    # separator and an am.mvn for SenseVoice's LFR features (all written
+    # here at the published widths; PyanNet replaces OSDNet, so no K3 at
+    # T = 800), forced through the hysteresis flags (onset = offset = 0:
+    # every frame overlapped, with min_on / min_off 0.1; 1: every frame
+    # clean) and traced with --profile-dir: the trace must name the stage
+    # ranges the scene runs
+    from audio_classification_tpu_torch.engine.runtime import EnginePreset
+
+    preset = EnginePreset()
+    write_asteroid_convtasnet(torch, np, work / "convtasnet.pth", preset.sep3, seed=22)
+    write_am_mvn(np, work / "am.mvn", preset.asr.lfr_m * preset.asr.num_mel, seed=23)
+    write_pyannote_checkpoint(torch, np, work / "segmentation.ckpt", seed=21)
+    files = ["--osd-checkpoint", str(work / "segmentation.ckpt"), "--sep-checkpoint",
+             str(work / "convtasnet.pth"), "--cmvn", str(work / "am.mvn")]
+    for scene, hyst, expect in (
+            ("overlap", ["--osd-onset", "0.0", "--osd-offset", "0.0", "--osd-min-on", "0.1",
+                         "--osd-min-off", "0.1"],
+             ("fbank_power_mel", "tcn_masker", "flash_attention")),
+            ("clean", ["--osd-onset", "1.0", "--osd-offset", "1.0"],
+             ("fbank_power_mel", "flash_attention"))):
+        prof = work / f"profile_{scene}"
+        shutil.rmtree(prof, ignore_errors=True)
+        r = flagship(f"pyannet-flagship {scene}",
+                     ["--input-wavs", str(work / "mix.wav"), *files, *hyst,
+                      "--profile-dir", str(prof)], scene, expect)
+        assert r.metrics["segments_total"] > 0
+        traces = list(prof.glob("torch_trace_*.json"))
+        assert len(traces) == 1, traces
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        ranges = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("engine.")})
+        assert {"engine.osd", "engine.asr", f"engine.{scene}"} <= set(ranges), ranges
+        log({"phase": "profile_trace", "path": f"pyannet-flagship {scene}",
+             "file": traces[0].name, "bytes": traces[0].stat().st_size, "events": len(events),
+             "cuda_events": sum(e.get("cat") == "kernel" for e in events),
+             "stage_ranges": ranges})
 
     # flagship CLI, MossFormer: a 6 s two-talker mixture (8 s bucket: K4 at
     # T = 15999 in each of the 8 GAU layers), with the separation evaluated
@@ -1358,6 +1558,7 @@ def main() -> int:
                                            *(c["max_abs_err"] for c in cases))
     check_small_input_against_cpu(torch, np)
     check_families_against_cpu(torch, np)
+    check_pyannet_against_cpu(torch, np)
     # each wrapper's count of kernel launches; the masker's two C entry points
     # count apart
     counters = {"fbank_power_mel": (fbank_power_mel, "launches"),

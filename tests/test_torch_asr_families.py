@@ -373,13 +373,13 @@ def test_flash_head_dim_rule_matches_jax_kernels(d):
     padded columns sliced off; against the JAX kernels in interpret mode
     (which pad D to their lane width). K3 1e-5 abs on valid rows; K5's o
     1e-5 of max|o|, m and l 1e-5 relative."""
-    assert attention.padded_head_dim("k", d) == (80 if d == 80 else 64)
+    assert attention.padded_head_dim(d) == (80 if d == 80 else 64)
     rng = np.random.default_rng(d)
     b, h, t = 2, 2, 150
     q, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3))
     mask = np.arange(t)[None, :] < np.array([t, 97])[:, None]
-    qp, kp, vp = attention.pad_head_dim("k", _t(q), _t(k), _t(v))
-    assert qp.shape[-1] == attention.padded_head_dim("k", d)
+    qp, kp, vp = attention.pad_head_dim(_t(q), _t(k), _t(v))
+    assert qp.shape[-1] == attention.padded_head_dim(d)
     scale = 1.0 / np.sqrt(d)
     out = attention.attention_reference(qp, kp, vp, _t(mask), scale=scale)[..., :d].numpy()
     ref = np.asarray(jax_attention.flash_attention(
@@ -397,8 +397,11 @@ def test_flash_head_dim_rule_matches_jax_kernels(d):
 
 
 def test_flash_head_dim_above_the_largest_instance_raises():
-    assert attention.HEAD_DIMS == (64, 80, 128)
-    assert [attention.padded_head_dim("k", d) for d in (1, 16, 64, 65, 80, 81, 128)] == \
+    """Nothing raises any more: above the largest instance (128) a head dim
+    runs on the wide body, zero-padded to a multiple of its 64-wide slab,
+    as the JAX kernel pads D to its lane width."""
+    assert attention.HEAD_DIMS == (64, 80, 128) and attention.WIDE_SLAB == 64
+    assert [attention.padded_head_dim(d) for d in (1, 16, 64, 65, 80, 81, 128)] == \
         [64, 64, 64, 80, 80, 128, 128]
-    with pytest.raises(NotImplementedError, match="above the largest.*128"):
-        attention.padded_head_dim("flash_attention", 129)
+    assert [attention.padded_head_dim(d) for d in (129, 136, 192, 193, 200, 256, 1000)] == \
+        [192, 192, 192, 256, 256, 256, 1024]

@@ -193,3 +193,95 @@ def test_tf32_round_is_to_nearest_ties_away():
     want = torch.tensor([1.0 + ulp, -(1.0 + ulp), 1.0, 2.0, 3.0], dtype=torch.float32)
     assert torch.equal(_tf32(x), want)
     assert ((_tf32(x).view(torch.int32) & 0x1FFF) == 0).all()
+
+
+_SLAB = 64
+
+
+def _emulate_wide_kernel(q, k, v, kv_mask):
+    """(o, m, l) as the wide body (D above 128) forms them: D zero-padded to
+    a multiple of the 64-wide slab, each key tile's scores gathered slab by
+    slab (q * scale split as it is read; big x big from zero a slab and
+    added in float32, the small cross terms over the whole tile apart and
+    added last), then the tile's softmax update and p v as in the other
+    body; masked-whole tiles skipped where the item has a valid key. The
+    output's column slices of 128 share these scores, so they are one
+    computation here."""
+    from torch_port_helpers import _split_tf32
+
+    b, h, tq, d = q.shape
+    dp = -(-d // _SLAB) * _SLAB
+    q, k, v = (torch.nn.functional.pad(z, (0, dp - d)) for z in (q, k, v))
+    tk = k.shape[2]
+    n_tiles = -(-tk // _TILE)
+    pad = n_tiles * _TILE - tk
+    kp, vp = (torch.nn.functional.pad(z, (0, 0, 0, pad)) for z in (k, v))
+    valid = torch.ones((b, tk), dtype=torch.bool) if kv_mask is None else kv_mask
+    bias = torch.where(valid, 0.0, -1e9).to(torch.float32)
+    bias = torch.nn.functional.pad(bias, (0, pad), value=float("-inf"))
+    qs = q * np.float32(1.0 / np.sqrt(d))
+    o = torch.zeros_like(q)
+    m = torch.full((b, h, tq), -1e30)
+    l = torch.zeros((b, h, tq))
+    for i in range(b):
+        item_skips = kv_mask is not None and bool(valid[i].any())
+        for j in range(n_tiles):
+            keys = slice(j * _TILE, (j + 1) * _TILE)
+            if item_skips and not valid[i, keys].any():
+                continue
+            s = torch.zeros((h, tq, _TILE))
+            s_lo = torch.zeros((h, tq, _TILE))
+            for c in range(0, dp, _SLAB):
+                a_big, a_small = _split_tf32(qs[i, :, :, c:c + _SLAB])
+                b_big, b_small = _split_tf32(kp[i, :, keys, c:c + _SLAB].transpose(-1, -2))
+                s_lo = s_lo + (a_small @ b_big + a_big @ b_small)
+                s = s + a_big @ b_big
+            s = s + s_lo + bias[i, keys]
+            m_new = torch.maximum(m[i], s.amax(-1))
+            alpha = torch.exp(m[i] - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l[i] = alpha * l[i] + p.sum(-1)
+            o[i] = alpha[..., None] * o[i] + _mm_3xtf32(p, vp[i, :, keys])
+            m[i] = m_new
+    return o[..., :d], m, l
+
+
+@pytest.mark.parametrize("d", [136, 192, 200, 256])
+def test_wide_head_dims_match_jax_kernels(d):
+    """Head dims above 128 (the wide body; 136 and 200 zero-padded to 192 and
+    256): the twins with the wrapper's padding rule and the true-D scale,
+    and the wide body's slab-by-slab numerics emulated, against the JAX
+    kernels in interpret mode (which pad D to their lane width), on a
+    ragged batch with a hole of masked-whole tiles. K3 2e-5 abs on the
+    items' valid rows, K5's o 1e-4 of max|o| and m, l 1e-5 relative (the
+    kernel's tolerances); the twins 1e-5 (the rule's own test)."""
+    from audio_classification_tpu.ops.pallas.attention_kernel import (
+        flash_attention_stats as jax_flash_stats,
+    )
+    from audio_classification_tpu_torch.ops.kernels.attention import pad_head_dim
+
+    b, h, t = 2, 2, 200
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3))
+    mask = _holed_masks(t, [[(0, 40), (130, 200)], [(0, 97)]])
+    tq_, tk_, tv_, tm_ = (torch.from_numpy(a) for a in (q, k, v, mask))
+    jq, jk, jv, jm = (jnp.asarray(a) for a in (q, k, v, mask))
+    ref = np.asarray(jax_flash(jq, jk, jv, jm, block_q=128, block_k=128, interpret=True))
+    ro, rm, rl = (np.asarray(x) for x in jax_flash_stats(jq, jk, jv, jm, block_q=128,
+                                                         block_k=128, interpret=True))
+    scale = 1.0 / np.sqrt(d)
+    qp, kp, vp = pad_head_dim(tq_, tk_, tv_)
+    assert qp.shape[-1] == -(-d // _SLAB) * _SLAB
+    out = attention_reference(qp, kp, vp, tm_, scale=scale)[..., :d].numpy()
+    assert np.abs(out - ref).max() < 1e-5
+    o, m, l = attention_stats_reference(qp, kp, vp, tm_, scale=scale)
+    assert np.abs(o[..., :d].numpy() - ro).max() <= 1e-5 * np.abs(ro).max()
+    np.testing.assert_allclose(m.numpy(), rm, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(l.numpy(), rl, rtol=1e-5)
+
+    eo, em, el = _emulate_wide_kernel(tq_, tk_, tv_, tm_)
+    valid_rows = mask.any(axis=1)[:, None, None, None]
+    assert np.abs(((eo / el[..., None]).numpy() - ref) * valid_rows).max() < 2e-5
+    assert np.abs(eo.numpy() - ro).max() <= 1e-4 * np.abs(ro).max()
+    np.testing.assert_allclose(em.numpy(), rm, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(el.numpy(), rl, rtol=1e-5)

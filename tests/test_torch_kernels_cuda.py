@@ -126,9 +126,12 @@ def test_flash_kernel_matches_twin(dev, b, h, t):
     assert out.shape == q32.shape
     ref = attention.attention_reference(q32, k32, v32, mask)
     assert ((out - ref).abs() * valid).max().item() < 2e-5
-    with pytest.raises(NotImplementedError, match="head dim 136"):
-        attention.flash_attention(*(torch.cat([x, x, x[..., :8]], dim=-1) for x in (q, k, v)),
-                                  mask)
+    # above the largest instance the wide body runs (136 -> 192, two column slices)
+    q136, k136, v136 = (torch.cat([x, x, x[..., :8]], dim=-1) for x in (q, k, v))
+    out = attention.flash_attention(q136, k136, v136, mask)
+    assert out.shape == q136.shape
+    ref = attention.attention_reference(q136, k136, v136, mask)
+    assert ((out - ref).abs() * valid).max().item() < 2e-5
 
 
 # (C, H, F, f_len per item, n_per_repeat): f_len of 1, one GEMM row tile
@@ -323,19 +326,20 @@ def test_flash_stats_kernel_matches_twin(dev, b, h, tq, tk, lens):
         out = attention.flash_attention(q, k, v, mask)
         o, m, l = attention.flash_attention_stats(q, k, v, mask)
         assert (out - o / l[..., None]).abs().max().item() < 2e-6
-    # 32 runs zero-padded to 64; above the largest instance raises
-    o, m, l = attention.flash_attention_stats(q[..., :32], k[..., :32], v[..., :32], mask)
-    ro, rm, rl = attention.attention_stats_reference(q[..., :32], k[..., :32], v[..., :32], mask)
-    assert o.shape == ro.shape and (o - ro).abs().max().item() <= 1e-4 * ro.abs().max().item()
-    assert ((m - rm).abs() <= 1e-5 * rm.abs().clamp_min(1.0)).all()
-    with pytest.raises(NotImplementedError, match="head dim 136"):
-        attention.flash_attention_stats(*(torch.cat([x, x, x[..., :8]], dim=-1) for x in (q, k, v)),
-                                        mask)
+    # 32 runs zero-padded to 64; 136 on the wide body, zero-padded to 192
+    for sub in ((x[..., :32] for x in (q, k, v)),
+                (torch.cat([x, x, x[..., :8]], dim=-1) for x in (q, k, v))):
+        qd, kd, vd = sub
+        o, m, l = attention.flash_attention_stats(qd, kd, vd, mask)
+        ro, rm, rl = attention.attention_stats_reference(qd, kd, vd, mask)
+        assert o.shape == ro.shape and (o - ro).abs().max().item() <= 1e-4 * ro.abs().max().item()
+        assert ((m - rm).abs() <= 1e-5 * rm.abs().clamp_min(1.0)).all()
+        assert ((l - rl).abs() <= 1e-5 * rl.abs()).all()
     with pytest.raises(ValueError, match="must be float32"):
         attention.flash_attention_stats(q, k, v[:, :, :-1], mask)
 
 
-@pytest.mark.parametrize("d", [40, 64, 80, 128])
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 136, 192, 200, 256])
 @pytest.mark.parametrize("b,tq,tk,lens", [
     (3, 70, 70, [70, 33, 0]),        # ragged, an item with no valid key, off the tiles
     (2, 65, 129, [129, 64]),         # Tq one past a 64-row block, Tk one past two key tiles
@@ -343,8 +347,10 @@ def test_flash_stats_kernel_matches_twin(dev, b, h, tq, tk, lens):
     (2, 17, 1068, [1068, 300]),      # K5's long-form block, Tq across the 16-row fragment
 ])
 def test_flash_kernels_at_every_head_dim(dev, d, b, tq, tk, lens):
-    """K3 and K5 at the instances (64, 80, 128) and at a D that runs
-    zero-padded (40 -> 64, scaled by 1 / sqrt(40)), against the twin in
+    """K3 and K5 at the instances (64, 80, 128), at the wide body's head dims
+    (192 and 256: two column slices of 64 + 128 and of 128 + 128) and at D
+    that run zero-padded (40 -> 64, 136 -> 192, 200 -> 256, scaled by
+    1 / sqrt of the true D), against the twin in
     float64 on the items with a valid key: K3 2e-5 abs, K5's o 1e-4 of
     max|o|, m and l 1e-5 relative; an item with no valid key gives
     m = -1e9 and l = Tk, as the float32 twin does."""
@@ -375,9 +381,11 @@ def test_flash_kernels_at_every_head_dim(dev, d, b, tq, tk, lens):
 
 
 def test_flash_head_dims_are_the_c_instances(dev):
-    """The wrapper's HEAD_DIMS is the set of D the C dispatch switch takes:
-    both entry points accept exactly those D (empty calls, which launch
-    nothing and read no pointer) and refuse every other D up to 256."""
+    """The wrapper's rule is the set of D the C dispatch switch takes: both
+    entry points accept exactly the D that ``padded_head_dim`` keeps as they
+    are (``HEAD_DIMS``, and every multiple of ``WIDE_SLAB`` above the
+    largest; empty calls, which launch nothing and read no pointer) and
+    refuse every other D up to 640."""
     from audio_classification_tpu_torch import _build
 
     k3 = _build.kernel("act_flash_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
@@ -385,11 +393,13 @@ def test_flash_head_dims_are_the_c_instances(dev):
     k5 = _build.kernel("act_flash_attention_stats", [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    taken = [d for d in range(1, 257)
-             if k3(None, None, None, None, None, 1, 1, 0, d, 1.0, stream) == 0]
-    taken5 = [d for d in range(1, 257)
+    dims = range(1, 641)
+    taken = [d for d in dims if k3(None, None, None, None, None, 1, 1, 0, d, 1.0, stream) == 0]
+    taken5 = [d for d in dims
               if k5(None, None, None, None, None, None, None, 1, 1, 0, 1, d, 1.0, stream) == 0]
-    assert tuple(taken) == tuple(taken5) == attention.HEAD_DIMS
+    wanted = [d for d in dims if attention.padded_head_dim(d) == d]
+    assert taken == taken5 == wanted
+    assert tuple(wanted[:3]) == attention.HEAD_DIMS and wanted[3:5] == [192, 256]
 
 
 @pytest.mark.parametrize("b,tq,tk,spans,amp", [

@@ -223,7 +223,7 @@ def test_overlap_mvp_cli_builds_its_engine_on_the_cpu_when_asked(librimix_root, 
     assert metrics["segments_overlap_streams"] >= 2 and (out_dir / "summary.json").is_file()
     with pytest.raises(NotImplementedError, match="not ported"):
         offline_overlap_mvp.main(["--librimix-root", str(librimix_root), "--preset", "tiny",
-                                  "--provider", "cpu", "--cmvn", "am.mvn",
+                                  "--provider", "cpu", "--checkpoint-dir", "ckpt",
                                   "--out-dir", str(tmp_path)])
 
 
@@ -319,12 +319,16 @@ def test_facades_match_jax(engines, librimix_root):
     assert ext.compute_batch([wav8, wav8[:6000]], SR8).shape == (2, ext.dim)
 
 
-def test_facades_unported_parts_name_their_slice(engines, librimix_root):
-    """Separator checkpoints still raise naming their slices; the SID facade
-    (ported) builds on the engine and identifies an enrolled talker."""
+def test_facades_unported_parts_name_their_slice(engines, librimix_root, tmp_path):
+    """An orbax Separator checkpoint (a directory) still raises naming its
+    slice, and a missing torch file raises FileNotFoundError as in JAX; the
+    SID facade (ported) builds on the engine and identifies an enrolled
+    talker."""
     eng = engines[1]
-    with pytest.raises(NotImplementedError, match="slice 1[45]"):
-        facades.Separator(checkpoint="sep.ckpt", engine=eng)
+    with pytest.raises(NotImplementedError, match="slice 14"):
+        facades.Separator(checkpoint=str(tmp_path), engine=eng)
+    with pytest.raises(FileNotFoundError, match="not found"):
+        facades.Separator(checkpoint=str(tmp_path / "sep.ckpt"), engine=eng)
     models = facades.SpeakerASRModels(types.SimpleNamespace(provider="cpu"), engine=eng)
     wav = read_wav(next(iter(sorted((librimix_root / "Libri2Mix").rglob("s1/*.wav")))))[0]
     models.enroll_from_map({"spk": ["w"]}, lambda _w: (wav, SR8))

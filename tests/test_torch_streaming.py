@@ -223,7 +223,7 @@ def test_streaming_app_max_seconds_and_8k_input(target_wav, tmp_path):
     ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
     ["--compute-dtype", "bfloat16"], ["--checkpoint-dir", "ckpt"],
     ["--sense-voice", "model.onnx"], ["--paraformer", "model.onnx"],
-    ["--cmvn", "am.mvn"], ["--osd-checkpoint", "osd.ckpt"],
+    ["--spk-embed-model", "spk.onnx"], ["--osd-checkpoint", "osd_params"],
 ])
 def test_streaming_app_unported_flags_raise(target_wav, tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -10,6 +10,7 @@ times come from ``time.time()``) and sv_score within ``SV_TOL``.
 import dataclasses
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -148,3 +149,130 @@ def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, small_round: bool = True) -> to
 def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One plain TF32 product (what the tensor cores give without the split)."""
     return _tf32(a) @ _tf32(b)
+
+
+# ------------------------------------------------------------ torch checkpoints
+def pyannote_state_dict(cfg, rng) -> dict:
+    """Seeded float32 tensors under pyannote's PyanNet names for ``cfg`` (a
+    PyanNetConfig of either package), band edges inside the usable band."""
+    rows = cfg.n_filters // 2 if cfg.analytic else cfg.n_filters
+    sd = {
+        "sincnet.wav_norm1d.weight": rng.randn(1) * 0.2 + 1.0,
+        "sincnet.wav_norm1d.bias": rng.randn(1) * 0.1,
+        "sincnet.conv1d.0.filterbank.low_hz_": rng.uniform(20, 0.1 * cfg.sample_rate, (rows, 1)),
+        "sincnet.conv1d.0.filterbank.band_hz_": rng.uniform(20, 0.05 * cfg.sample_rate, (rows, 1)),
+        "sincnet.norm1d.0.weight": rng.randn(cfg.n_filters) * 0.2 + 1.0,
+        "sincnet.norm1d.0.bias": rng.randn(cfg.n_filters) * 0.1,
+    }
+    cin = cfg.n_filters
+    for i, ch in enumerate(cfg.conv_channels, start=1):
+        sd[f"sincnet.conv1d.{i}.weight"] = rng.randn(ch, cin, cfg.conv_kernel) * 0.2
+        sd[f"sincnet.conv1d.{i}.bias"] = rng.randn(ch) * 0.1
+        sd[f"sincnet.norm1d.{i}.weight"] = rng.randn(ch) * 0.2 + 1.0
+        sd[f"sincnet.norm1d.{i}.bias"] = rng.randn(ch) * 0.1
+        cin = ch
+    h = cfg.lstm_hidden
+    dirs = ("", "_reverse") if cfg.bidirectional else ("",)
+    for layer in range(cfg.lstm_layers):
+        in_dim = cin if layer == 0 else len(dirs) * h
+        for sfx in dirs:
+            sd[f"lstm.weight_ih_l{layer}{sfx}"] = rng.randn(4 * h, in_dim) * 0.2
+            sd[f"lstm.weight_hh_l{layer}{sfx}"] = rng.randn(4 * h, h) * 0.2
+            sd[f"lstm.bias_ih_l{layer}{sfx}"] = rng.randn(4 * h) * 0.1
+            sd[f"lstm.bias_hh_l{layer}{sfx}"] = rng.randn(4 * h) * 0.1
+    cin = len(dirs) * h
+    for j, dim in enumerate(cfg.linear_dims):
+        sd[f"linear.{j}.weight"] = rng.randn(dim, cin) * 0.2
+        sd[f"linear.{j}.bias"] = rng.randn(dim) * 0.1
+        cin = dim
+    sd["classifier.weight"] = rng.randn(cfg.num_classes, cin) * 0.2
+    sd["classifier.bias"] = rng.randn(cfg.num_classes) * 0.1
+    return {k: v.astype(np.float32) for k, v in sd.items()}
+
+
+def asteroid_convtasnet_state_dict(cfg, rng) -> dict:
+    """Seeded float32 tensors under asteroid's ConvTasNet names for ``cfg``
+    (a ConvTasNetConfig of either package)."""
+    n, l, b, h, p = cfg.enc_dim, cfg.enc_kernel, cfg.bottleneck, cfg.hidden, cfg.conv_kernel
+    sd = {"encoder.filterbank._filters": rng.randn(n, 1, l) / np.sqrt(l),
+          "decoder.filterbank._filters": rng.randn(n, 1, l) / np.sqrt(n),
+          "masker.bottleneck.0.gamma": 1.0 + 0.1 * rng.randn(1, n, 1),
+          "masker.bottleneck.0.beta": 0.1 * rng.randn(1, n, 1),
+          "masker.bottleneck.1.weight": rng.randn(b, n, 1) / np.sqrt(n),
+          "masker.bottleneck.1.bias": 0.1 * rng.randn(b),
+          "masker.mask_net.0.weight": np.full((1,), 0.25),
+          "masker.mask_net.1.weight": rng.randn(cfg.n_src * n, b, 1) / np.sqrt(b),
+          "masker.mask_net.1.bias": 0.1 * rng.randn(cfg.n_src * n)}
+    for i in range(cfg.n_repeats * cfg.n_blocks):
+        pre = f"masker.TCN.{i}"
+        sd.update({f"{pre}.shared_block.0.weight": rng.randn(h, b, 1) / np.sqrt(b),
+                   f"{pre}.shared_block.0.bias": 0.1 * rng.randn(h),
+                   f"{pre}.shared_block.1.weight": np.full((1,), 0.25),
+                   f"{pre}.shared_block.2.gamma": 1.0 + 0.1 * rng.randn(1, h, 1),
+                   f"{pre}.shared_block.2.beta": 0.1 * rng.randn(1, h, 1),
+                   f"{pre}.shared_block.3.weight": rng.randn(h, 1, p) / np.sqrt(p),
+                   f"{pre}.shared_block.3.bias": 0.1 * rng.randn(h),
+                   f"{pre}.shared_block.4.weight": np.full((1,), 0.25),
+                   f"{pre}.shared_block.5.gamma": 1.0 + 0.1 * rng.randn(1, h, 1),
+                   f"{pre}.shared_block.5.beta": 0.1 * rng.randn(1, h, 1),
+                   f"{pre}.res_conv.weight": rng.randn(b, h, 1) / np.sqrt(h),
+                   f"{pre}.res_conv.bias": 0.1 * rng.randn(b),
+                   f"{pre}.skip_conv.weight": rng.randn(b, h, 1) / np.sqrt(h),
+                   f"{pre}.skip_conv.bias": 0.1 * rng.randn(b)})
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def save_torch_checkpoint(path, sd: dict, nested: bool = True) -> str:
+    """``torch.save`` of numpy tensors, wrapped as a lightning checkpoint
+    (``{"state_dict": ...}``) when ``nested``, else a bare state_dict."""
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    torch.save({"state_dict": tensors, "epoch": 3} if nested else tensors, str(path))
+    return str(path)
+
+
+def clearvoice_mossformer_state_dict(cfg, rng) -> dict:
+    """Seeded float32 tensors under the ClearVoice / ModelScope MossFormer
+    names for ``cfg`` (a MossFormerConfig of either package), with a rotary
+    buffer riding along as in a real checkpoint."""
+    d_e = cfg.dim * cfg.expansion
+    stem = "mask_net.mdl.mossformerM.layers"
+    sd = {"encoder.conv1d.weight": rng.randn(cfg.enc_dim, 1, cfg.enc_kernel) * 0.3,
+          "mask_net.conv1d_encoder.weight": rng.randn(cfg.dim, cfg.enc_dim, 1) * 0.2,
+          "mask_net.conv1d_encoder.bias": rng.randn(cfg.dim) * 0.1,
+          "mask_net.norm_out.weight": 1.0 + 0.1 * rng.randn(cfg.dim),
+          "mask_net.norm_out.bias": 0.1 * rng.randn(cfg.dim),
+          "mask_net.mask_head.weight": rng.randn(cfg.n_src * cfg.enc_dim, cfg.dim, 1) * 0.2,
+          "mask_net.mask_head.bias": 0.1 * rng.randn(cfg.n_src * cfg.enc_dim),
+          "decoder.weight": rng.randn(cfg.enc_dim, 1, cfg.enc_kernel) * 0.2,
+          "mask_net.mdl.rotary.freqs": rng.randn(8)}
+    for i in range(cfg.layers):
+        p = f"{stem}.{i}"
+        sd.update({f"{p}.norm.weight": 1.0 + 0.1 * rng.randn(cfg.dim),
+                   f"{p}.norm.bias": 0.1 * rng.randn(cfg.dim),
+                   f"{p}.conv.weight": rng.randn(cfg.dim, 1, cfg.conv_kernel) * 0.3,
+                   f"{p}.conv.bias": 0.1 * rng.randn(cfg.dim),
+                   f"{p}.to_u.weight": rng.randn(d_e, cfg.dim) * 0.2,
+                   f"{p}.to_u.bias": 0.1 * rng.randn(d_e),
+                   f"{p}.to_v.weight": rng.randn(d_e, cfg.dim) * 0.2,
+                   f"{p}.to_v.bias": 0.1 * rng.randn(d_e),
+                   f"{p}.to_qk.weight": rng.randn(cfg.qk_dim, cfg.dim) * 0.2,
+                   f"{p}.to_qk.bias": 0.1 * rng.randn(cfg.qk_dim),
+                   f"{p}.qk_offset_scale.gamma": 1.0 + 0.1 * rng.randn(2, cfg.qk_dim),
+                   f"{p}.qk_offset_scale.beta": 0.1 * rng.randn(2, cfg.qk_dim),
+                   f"{p}.to_out.weight": rng.randn(cfg.dim, d_e) * 0.2,
+                   f"{p}.to_out.bias": 0.1 * rng.randn(cfg.dim)})
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def write_am_mvn(path, shift, scale, bare: bool = False) -> str:
+    """A kaldi / FunASR ``am.mvn`` (<AddShift> / <Rescale> layers), or the
+    bare two-vector form."""
+    vec = lambda v: "[ " + " ".join(f"{x:.8g}" for x in v) + " ]"  # noqa: E731
+    d = len(shift)
+    if bare:
+        text = f"{vec(shift)}\n{vec(scale)}\n"
+    else:
+        text = (f"<Nnet>\n<Splice> {d} {d}\n[ 0 ]\n<AddShift> {d} {d}\n<LearnRateCoef> 0 "
+                f"{vec(shift)}\n<Rescale> {d} {d}\n<LearnRateCoef> 0 {vec(scale)}\n</Nnet>\n")
+    Path(path).write_text(text)
+    return str(path)
