@@ -116,7 +116,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "outermost (DP collectives reduce in-slice over ICI "
                         "first); TP never crosses a slice")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="bfloat16 compute (not ported yet: raises)")
+                   help="bfloat16 compute: the models run as a bfloat16 copy of their weights "
+                        "(the JAX engine's bf16 mode; the SenseVoice family with OSDNet only: "
+                        "another family or --osd-checkpoint raises)")
     p.add_argument("--wave-mixtures", type=int, default=0,
                    help="Mixtures per processing wave (0 = 4x max-batch)")
     p.add_argument("--onnx-exec", default="map", choices=["map", "direct", "auto"],

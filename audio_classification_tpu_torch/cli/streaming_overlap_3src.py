@@ -95,7 +95,9 @@ def parse_args(argv=None):
                    help="Multi-host meshes (not ported yet: raises)")
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
-                   help="bfloat16 compute (not ported yet: raises)")
+                   help="bfloat16 compute: the models run as a bfloat16 copy of their weights "
+                        "(the JAX engine's bf16 mode; the SenseVoice family with OSDNet only: "
+                        "another family or --osd-checkpoint raises)")
     return p.parse_args(argv)
 
 

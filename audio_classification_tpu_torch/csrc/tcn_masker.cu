@@ -74,6 +74,7 @@
 
 #include <atomic>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -645,6 +646,446 @@ int run_masker(const float* x, const int* f_len, const W* w_in, const W* w_dw,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 activations: act_tcn_masker_bf16 / act_tcn_masker_s8_bf16.
+//
+// The same three launches a TCN block and the same statistics as above, with
+// the JAX kernel's rounding points at dt = bfloat16 (tcn_kernel.py:176-309):
+//   A  h1 = bf16(x W_in) (float32 accumulation), + b_in in bf16, PReLU in bf16;
+//      gLN-1 partials over the bf16 values
+//   B  y = bf16(((h1 - mean) rstd) g1 + be1) on valid rows (0 elsewhere);
+//      taps (y[r-d] w0 + y[r+d] w2) + y[r] w1 in float32, rounded, + b_dw and
+//      PReLU in bf16; gLN-2 partials over the bf16 values
+//   C  A operand bf16(((h2 - mean) rstd) g2 + be2); res = bf16(.. W_res) +
+//      b_res in bf16, x = bf16(x + res); skips = bf16(skips + bf16(.. W_skip)
+//      + b_skip): the residual stream and the skip sum round at every block
+// Each elementwise step is one IEEE operation (__fadd_rn / __fmul_rn: no
+// contraction into an FMA), so the twin's float32 ops give the same bits
+// wherever the statistics agree. Products: mma.sync m16n8k16 bf16, one
+// tensor-core product where 3xTF32 takes three, accumulated in the mma's
+// float32 registers over all of K (the sum is rounded to bf16 afterwards,
+// which dwarfs the accumulator's own truncation). A block of 8 warps owns
+// 128 rows x BN (128 or 64) columns, warps 4 x 2 of 32 x BN / 2; 32-deep
+// k-tiles of A ([row][k]) and B ([k][n], as the weights lie) arrive by
+// 16-byte cp.async in a three-stage ring; A fragments are 32-bit loads,
+// B fragments ldmatrix .trans. GEMM C applies gLN-2 to its A tile in shared
+// memory once it has landed. Bound at the flagship shape: the same 1.90e11
+// flops over 989 TFLOP/s dense bf16, 0.19 ms (x in and the sum out are 10 MB,
+// the bf16 weights 9.4 MB). This design also moves [f_len, H] through device
+// memory four times a block (h1 written, read; h2 written, read: ~2.0 GB at
+// 2 bytes, 0.59 ms at 3.35 TB/s), a floor of its own above that bound.
+// K2-s8 at bf16 dequantises each block's int8 weights at the block's entry,
+// bf16((float)q * scale) with one float32 product (tcn_kernel.py:203-212),
+// into a scratch the block's three launches then read as bf16 weights.
+namespace b16 {
+
+using act::bf16;
+using act::fb;
+using act::rb;
+using act::rbf;
+
+constexpr int BK = 32;        // contraction depth of a k-tile (two k16 steps)
+constexpr int NS = 3;         // k-tiles in flight
+constexpr int AS = BK + 8;    // row stride (bf16) of an A tile: 80 bytes
+template <int BN>
+struct Tile {
+  static constexpr int BS = BN + 8;  // row stride (bf16) of a B tile
+  static constexpr int STAGE = BM * AS + BK * BS;
+  static constexpr size_t SMEM = sizeof(bf16) * NS * STAGE + sizeof(float) * 2 * MAX_K;
+  static constexpr int NT8 = BN / 16;  // n8 tiles a warp
+};
+
+struct GemmArgs {
+  const bf16* a;       // [B, F, K]: x (IN) or h2 (OUT)
+  const int* f_len;    // [B]
+  const bf16* w;       // [K, N]
+  const float* vecs;   // this block's [8+, H]
+  const float* cvecs;  // this block's [2+, C]
+  Stats st;            // IN: gLN-1 partials, out = stats + 0; OUT reads stats + 2
+  const bf16* x_in;    // OUT: [B, F, C]
+  bf16* x_out;         // OUT: [B, F, C] (may be x_in)
+  bf16* skips;         // OUT: [B, F, C]
+  bf16* h1;            // IN: [B, F, H]
+  int f, k, n, c;
+};
+
+template <int MODE, int BN>
+__global__ void __launch_bounds__(NT) gemm_kernel(GemmArgs p) {
+  using T = Tile<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  float* gsc = reinterpret_cast<float*>(smem_raw + sizeof(bf16) * NS * T::STAGE);
+  __shared__ float red[NW];
+  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int fl = p.f_len[b];
+  if (m0 >= fl) return;  // a tile wholly past f_len: nothing to compute
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int kdim = p.k, ndim = p.n;
+  const bf16* a = p.a + (size_t)b * p.f * kdim;
+  float mean = 0.f, rstd = 0.f;
+  if (MODE == OUT) {  // gLN-2's gamma, beta over the H contraction
+    mean = p.st.out[4 * b + 2];
+    rstd = p.st.out[4 * b + 3];
+    for (int k = tid; k < kdim; k += NT) {
+      gsc[k] = p.vecs[6 * kdim + k];
+      gsc[kdim + k] = p.vecs[7 * kdim + k];
+    }
+  }
+  const int n_kt = kdim / BK;
+  auto fetch = [&](int kt) {
+    if (kt < n_kt) {
+      bf16* as = smem + (kt % NS) * T::STAGE;
+      bf16* bs = as + BM * AS;
+      const int k0 = kt * BK;
+#pragma unroll
+      for (int i = 0; i < BM * BK / 8 / NT; ++i) {
+        const int q = tid + NT * i, row = q / (BK / 8), c8 = 8 * (q % (BK / 8));
+        const bool in = m0 + row < fl;
+        act::cp_async16b(as + row * AS + c8, a + (size_t)(in ? m0 + row : 0) * kdim + k0 + c8, in);
+      }
+      for (int q = tid; q < BK * BN / 8; q += NT) {
+        const int row = q / (BN / 8), c8 = 8 * (q % (BN / 8));
+        act::cp_async16b(bs + row * T::BS + c8, p.w + (size_t)(k0 + row) * ndim + n0 + c8, true);
+      }
+    }
+    act::cp_commit();
+  };
+
+  const int wm = warp % 4, wn = warp / 4;
+  float acc[2][T::NT8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < T::NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+
+  for (int kt = 0; kt < NS - 1; ++kt) fetch(kt);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    // k-tile kt has landed, and every warp is past k-tile kt - 1, whose
+    // slot the next fetch refills
+    act::cp_wait<NS - 2>();
+    __syncthreads();
+    fetch(kt + NS - 1);
+    bf16* as = smem + (kt % NS) * T::STAGE;
+    const bf16* bs = as + BM * AS;
+    if (MODE == OUT) {  // gLN-2 on the valid rows of the A tile; the rest stay 0
+#pragma unroll
+      for (int i = 0; i < BM * BK / 2 / NT; ++i) {
+        const int q = tid + NT * i, row = q / (BK / 2), c2 = 2 * (q % (BK / 2));
+        if (m0 + row < fl) {
+          __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(as + row * AS + c2);
+          const float2 v = __bfloat1622float2(*e);
+          const int k = kt * BK + c2;
+          const float y0 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.x, mean), rstd), gsc[k]),
+                                     gsc[kdim + k]);
+          const float y1 = __fadd_rn(
+              __fmul_rn(__fmul_rn(__fsub_rn(v.y, mean), rstd), gsc[k + 1]), gsc[kdim + k + 1]);
+          *e = __floats2bfloat162_rn(y0, y1);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const int kk = 16 * ks + 2 * tg;
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const bf16* r = as + (32 * wm + 16 * mi + g) * AS + kk;
+        af[mi][0] = act::ld_u32(r);
+        af[mi][1] = act::ld_u32(r + 8 * AS);
+        af[mi][2] = act::ld_u32(r + 8);
+        af[mi][3] = act::ld_u32(r + 8 * AS + 8);
+      }
+#pragma unroll
+      for (int np = 0; np < T::NT8 / 2; ++np) {
+        uint32_t b0, b1, b2, b3;
+        act::ldsm_x4_trans(b0, b1, b2, b3,
+                           bs + (16 * ks + (lane & 15)) * T::BS + (BN / 2) * wn + 16 * np +
+                               8 * (lane >> 4));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          act::mma_bf16(acc[mi][2 * np], af[mi], b0, b1);
+          act::mma_bf16(acc[mi][2 * np + 1], af[mi], b2, b3);
+        }
+      }
+    }
+  }
+  act::cp_wait<0>();
+
+  // thread holds rows g (c0, c1) and g + 8 (c2, c3) of each m16 tile,
+  // columns 2 tg, 2 tg + 1 of each n8 tile
+  if (MODE == IN) {
+    const float a1 = rbf(p.vecs[ndim]);  // vecs row 1: PReLU alpha (N = H)
+    bf16* h1 = p.h1 + (size_t)b * p.f * ndim;
+    float s = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int nt = 0; nt < T::NT8; ++nt) {
+        const int col = n0 + (BN / 2) * wn + 8 * nt + 2 * tg;
+        const float bx = rbf(p.vecs[col]), by = rbf(p.vecs[col + 1]);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = m0 + 32 * wm + 16 * mi + g + 8 * hh;
+          float v0 = rbf(__fadd_rn(rbf(acc[mi][nt][2 * hh]), bx));
+          float v1 = rbf(__fadd_rn(rbf(acc[mi][nt][2 * hh + 1]), by));
+          v0 = v0 >= 0.f ? v0 : rbf(__fmul_rn(a1, v0));
+          v1 = v1 >= 0.f ? v1 : rbf(__fmul_rn(a1, v1));
+          acc[mi][nt][2 * hh] = v0;
+          acc[mi][nt][2 * hh + 1] = v1;
+          if (r < fl) {
+            *reinterpret_cast<__nv_bfloat162*>(h1 + (size_t)r * ndim + col) =
+                __floats2bfloat162_rn(v0, v1);
+            s += v0 + v1;
+          }
+        }
+      }
+    }
+    const float cnt = (float)(min(BM, fl - m0) * BN);
+    const float mu = block_sum(s, red) / cnt;
+    float q = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < T::NT8; ++nt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if (m0 + 32 * wm + 16 * mi + g + 8 * hh < fl) {
+            const float d0 = acc[mi][nt][2 * hh] - mu, d1 = acc[mi][nt][2 * hh + 1] - mu;
+            q = fmaf(d0, d0, fmaf(d1, d1, q));
+          }
+        }
+    publish_stats(cnt, mu, block_sum(q, red), p.st, b, blockIdx.y * gridDim.x + blockIdx.x,
+                  ((fl + BM - 1) / BM) * gridDim.x);
+  } else {
+    const int c = p.c;
+    const size_t base = (size_t)b * p.f * c;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int nt = 0; nt < T::NT8; ++nt) {
+        const int col = n0 + (BN / 2) * wn + 8 * nt + 2 * tg;
+        const bool res = col < c;
+        const int cc = res ? col : col - c;
+        const float bx = rbf(p.cvecs[(res ? 0 : c) + cc]);
+        const float by = rbf(p.cvecs[(res ? 0 : c) + cc + 1]);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = m0 + 32 * wm + 16 * mi + g + 8 * hh;
+          if (r >= fl) continue;
+          const size_t o = base + (size_t)r * c + cc;
+          const float2 prev = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>((res ? p.x_in : p.skips) + o));
+          const float u0 = rbf(__fadd_rn(rbf(acc[mi][nt][2 * hh]), bx));
+          const float u1 = rbf(__fadd_rn(rbf(acc[mi][nt][2 * hh + 1]), by));
+          *reinterpret_cast<__nv_bfloat162*>((res ? p.x_out : p.skips) + o) =
+              __floats2bfloat162_rn(__fadd_rn(prev.x, u0), __fadd_rn(prev.y, u1));
+        }
+      }
+    }
+  }
+}
+
+// B at bf16: thread (row lane rl, column group cg) owns channels 4 cg .. + 3
+// of rows r0 + rl + RL v, v < VPT, as dwconv_kernel
+__global__ void __launch_bounds__(NT)
+dwconv_kernel(const bf16* __restrict__ h1, const int* __restrict__ f_len,
+              const bf16* __restrict__ w_dw, const float* __restrict__ vecs,
+              const float* __restrict__ gln1, bf16* __restrict__ h2, Stats st, int f, int hd,
+              int dil) {
+  __shared__ float red[NW];
+  const int b = blockIdx.y, fl = f_len[b];
+  const int tpr = hd / 4, rl_n = NT / tpr, rb_rows = rl_n * VPT;
+  const int r0 = blockIdx.x * rb_rows;
+  if (r0 >= fl) return;
+  const int tid = threadIdx.x, cg = tid % tpr, rl = tid / tpr, ch = 4 * cg;
+  const float mean = gln1[4 * b], rstd = gln1[4 * b + 1];
+  float g1[4], be1[4], bdw[4], tap[3][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    g1[j] = vecs[2 * hd + ch + j];
+    be1[j] = vecs[3 * hd + ch + j];
+    bdw[j] = rbf(vecs[4 * hd + ch + j]);
+#pragma unroll
+    for (int t = 0; t < 3; ++t) tap[t][j] = fb(w_dw[t * hd + ch + j]);
+  }
+  const float a2 = rbf(vecs[5 * hd]);
+  const bf16* hb = h1 + (size_t)b * f * hd + ch;
+  bf16* ob = h2 + (size_t)b * f * hd + ch;
+  float val[VPT][4];
+  float s = 0.f;
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) {
+    const int r = r0 + rl + rl_n * v;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) val[v][j] = 0.f;
+    if (r < fl) {
+      float y[3][4];
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const int src = r + (t - 1) * dil;
+        if (src >= 0 && src < fl) {  // gLN-1, rounded, then the mask: rows past f_len are 0
+          const uint2 raw = *reinterpret_cast<const uint2*>(hb + (size_t)src * hd);
+          const float in[4] = {act::lo_bf16(raw.x), act::hi_bf16(raw.x), act::lo_bf16(raw.y),
+                               act::hi_bf16(raw.y)};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            y[t][j] = rbf(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(in[j], mean), rstd), g1[j]),
+                                    be1[j]));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) y[t][j] = 0.f;
+        }
+      }
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float acc = __fadd_rn(__fadd_rn(__fmul_rn(y[0][j], tap[0][j]),
+                                              __fmul_rn(y[2][j], tap[2][j])),
+                                    __fmul_rn(y[1][j], tap[1][j]));
+        float h = rbf(__fadd_rn(rbf(acc), bdw[j]));
+        h = h >= 0.f ? h : rbf(__fmul_rn(a2, h));
+        o[j] = h;
+        val[v][j] = h;
+      }
+      uint2 packed;
+      packed.x = act::pack_bf16(o[0], o[1]);
+      packed.y = act::pack_bf16(o[2], o[3]);
+      *reinterpret_cast<uint2*>(ob + (size_t)r * hd) = packed;
+      s += (o[0] + o[1]) + (o[2] + o[3]);
+    }
+  }
+  const float cnt = (float)(min(rb_rows, fl - r0) * hd);
+  const float mu = block_sum(s, red) / cnt;
+  float q = 0.f;
+#pragma unroll
+  for (int v = 0; v < VPT; ++v) {
+    if (r0 + rl + rl_n * v < fl) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float d = val[v][j] - mu;
+        q = fmaf(d, d, q);
+      }
+    }
+  }
+  publish_stats(cnt, mu, block_sum(q, red), st, b, blockIdx.x, (fl + rb_rows - 1) / rb_rows);
+}
+
+// One block's int8 weights -> bf16 at its entry: w_in [C, H] (scales vecs
+// row 8), w_dw [3, H] (row 9), [W_res | W_skip] [H, 2C] (cvecs rows 2, 3),
+// one after another in out
+__global__ void dequant_kernel(const int8_t* __restrict__ w_in, const int8_t* __restrict__ w_dw,
+                               const int8_t* __restrict__ w_rs, const float* __restrict__ vecs,
+                               const float* __restrict__ cvecs, bf16* __restrict__ out, int c,
+                               int hd) {
+  const int n_in = c * hd, n_dw = 3 * hd, n_rs = hd * 2 * c;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_in + n_dw + n_rs;
+       i += gridDim.x * blockDim.x) {
+    float q, sc;
+    if (i < n_in) {
+      q = (float)w_in[i];
+      sc = vecs[8 * hd + i % hd];
+    } else if (i < n_in + n_dw) {
+      q = (float)w_dw[i - n_in];
+      sc = vecs[9 * hd + (i - n_in) % hd];
+    } else {
+      const int j = i - n_in - n_dw;
+      q = (float)w_rs[j];
+      sc = cvecs[2 * c + j % (2 * c)];  // rows 2, 3: the scales of W_res, then W_skip
+    }
+    out[i] = rb(__fmul_rn(q, sc));
+  }
+}
+
+template <int MODE, int BN>
+std::atomic<uint64_t>& smem_cap_raised() {
+  static std::atomic<uint64_t> raised{0};
+  return raised;
+}
+
+template <int MODE, int BN>
+cudaError_t launch_gemm_bn(const GemmArgs& p, int batch, cudaStream_t stream) {
+  const cudaError_t e = act::allow_dynamic_smem(
+      reinterpret_cast<const void*>(gemm_kernel<MODE, BN>), smem_cap_raised<MODE, BN>());
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.n / BN, (p.f + BM - 1) / BM, batch);
+  gemm_kernel<MODE, BN><<<grid, NT, Tile<BN>::SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_gemm(const GemmArgs& p, int batch, int sms, cudaStream_t stream) {
+  const long blocks128 = (long)((p.f + BM - 1) / BM) * batch * (p.n / 128);
+  return p.n % 128 == 0 && blocks128 >= sms ? launch_gemm_bn<MODE, 128>(p, batch, stream)
+                                            : launch_gemm_bn<MODE, 64>(p, batch, stream);
+}
+
+// The launches per TCN block at bf16; S8: the weights are the int8 stream,
+// dequantised block by block into wdq (C H + 3 H + 2 H C bf16) first.
+template <bool S8>
+int run_masker(const bf16* x, const int* f_len, const void* w_in, const void* w_dw,
+               const float* vecs, const void* w_rs, const float* cvecs, bf16* wdq, bf16* xs,
+               bf16* h1, bf16* h2, float* stats, float* part, unsigned* tickets, bf16* skips,
+               int batch, int f, int c, int hd, int n_blocks, int n_per_repeat, int n_part,
+               cudaStream_t stream) {
+  const int vrows = S8 ? 10 : 8, crows = S8 ? 4 : 2;
+  if (c <= 0 || hd <= 0 || c % BK != 0 || hd % 64 != 0 || 1024 % hd != 0 || n_per_repeat <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int rb_rows = (NT / (hd / 4)) * VPT;
+  if (n_part < ((f + BM - 1) / BM) * (hd / 64) || n_part < (f + rb_rows - 1) / rb_rows)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = cudaMemsetAsync(skips, 0, sizeof(bf16) * (size_t)batch * f * c, stream)) != cudaSuccess)
+    return (int)e;
+  if (batch <= 0 || f <= 0 || n_blocks <= 0) return 0;
+  if ((e = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * batch, stream)) != cudaSuccess)
+    return (int)e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const dim3 g_dw((f + rb_rows - 1) / rb_rows, batch);
+  const bf16* cur = x;
+  for (int i = 0; i < n_blocks; ++i) {
+    const float* vv = vecs + (size_t)i * vrows * hd;
+    const float* cv = cvecs + (size_t)i * crows * c;
+    float* sti = stats + (size_t)i * batch * 4;
+    const bf16 *wi, *wd, *wr;
+    if (S8) {
+      const size_t n_w = (size_t)c * hd + 3 * hd + (size_t)hd * 2 * c;
+      dequant_kernel<<<(int)((n_w + NT - 1) / NT), NT, 0, stream>>>(
+          static_cast<const int8_t*>(w_in) + (size_t)i * c * hd,
+          static_cast<const int8_t*>(w_dw) + (size_t)i * 3 * hd,
+          static_cast<const int8_t*>(w_rs) + (size_t)i * hd * 2 * c, vv, cv, wdq, c, hd);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      wi = wdq;
+      wd = wdq + (size_t)c * hd;
+      wr = wd + 3 * hd;
+    } else {
+      wi = static_cast<const bf16*>(w_in) + (size_t)i * c * hd;
+      wd = static_cast<const bf16*>(w_dw) + (size_t)i * 3 * hd;
+      wr = static_cast<const bf16*>(w_rs) + (size_t)i * hd * 2 * c;
+    }
+    GemmArgs pa{cur, f_len, wi, vv, cv, Stats{part, tickets, sti, n_part},
+                nullptr, nullptr, nullptr, h1, f, c, hd, c};
+    if ((e = launch_gemm<IN>(pa, batch, sms, stream)) != cudaSuccess) return (int)e;
+    dwconv_kernel<<<g_dw, NT, 0, stream>>>(h1, f_len, wd, vv, sti, h2,
+                                           Stats{part, tickets, sti + 2, n_part}, f, hd,
+                                           1 << (i % n_per_repeat));
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    GemmArgs pc{h2, f_len, wr, vv, cv, Stats{part, tickets, sti, n_part}, cur, xs, skips,
+                nullptr, f, hd, 2 * c, c};
+    if ((e = launch_gemm<OUT>(pc, batch, sms, stream)) != cudaSuccess) return (int)e;
+    cur = xs;
+  }
+  return 0;
+}
+
+}  // namespace b16
+
 }  // namespace
 
 // x: [B, F, C] input (read only); f_len: [B] int32 in [0, F]; per-block
@@ -677,4 +1118,33 @@ extern "C" int act_tcn_masker_s8(const float* x, const int* f_len, const int8_t*
   return run_masker<int8_t>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, xs, h1, h2, stats, part,
                             tickets, skips, batch, f, c, hd, n_blocks, n_per_repeat, n_part, 10, 4,
                             stream);
+}
+
+// bfloat16 activations, bfloat16 weights: x, w_in, w_dw, w_rs, the scratch
+// xs, h1, h2 and the output skips bf16; vecs [NB, 8, H] and cvecs [NB, 2, C]
+// float32; everything else as act_tcn_masker. Rows past f_len exactly 0.
+extern "C" int act_tcn_masker_bf16(const act::bf16* x, const int* f_len, const act::bf16* w_in,
+                                   const act::bf16* w_dw, const float* vecs,
+                                   const act::bf16* w_rs, const float* cvecs, act::bf16* xs,
+                                   act::bf16* h1, act::bf16* h2, float* stats, float* part,
+                                   unsigned* tickets, act::bf16* skips, int batch, int f, int c,
+                                   int hd, int n_blocks, int n_per_repeat, int n_part,
+                                   cudaStream_t stream) {
+  return b16::run_masker<false>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, nullptr, xs, h1, h2,
+                                stats, part, tickets, skips, batch, f, c, hd, n_blocks,
+                                n_per_repeat, n_part, stream);
+}
+
+// bfloat16 activations, the int8 weight stream (layouts as act_tcn_masker_s8);
+// wdq: scratch of C H + 3 H + 2 H C bf16 for one block's dequantised weights.
+extern "C" int act_tcn_masker_s8_bf16(const act::bf16* x, const int* f_len, const int8_t* w_in,
+                                      const int8_t* w_dw, const float* vecs, const int8_t* w_rs,
+                                      const float* cvecs, act::bf16* wdq, act::bf16* xs,
+                                      act::bf16* h1, act::bf16* h2, float* stats, float* part,
+                                      unsigned* tickets, act::bf16* skips, int batch, int f,
+                                      int c, int hd, int n_blocks, int n_per_repeat, int n_part,
+                                      cudaStream_t stream) {
+  return b16::run_masker<true>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, wdq, xs, h1, h2, stats,
+                               part, tickets, skips, batch, f, c, hd, n_blocks, n_per_repeat,
+                               n_part, stream);
 }

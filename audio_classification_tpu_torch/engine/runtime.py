@@ -18,6 +18,7 @@ uploads, and the AOT program registry.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from dataclasses import dataclass, field
@@ -151,7 +152,11 @@ class ModelPack:
     (convert/assets.load_kaldi_cmvn) normalises the SenseVoice and Paraformer
     LFR features inside their frontends: y = (x + shift) * scale. PyanNet
     serves the OSD stage only through ``set_osd_pyannet``, never through the
-    seeding."""
+    seeding.
+
+    ``version`` counts weight loads (``load_params``, ``load_state_dicts``):
+    an engine's reduced-precision copy of the models is made again when it
+    moves."""
 
     STAGES = ("osd", "sep3", "spk", "asr", "sep2", "mossformer", "vad")
     ASR_FAMILIES = ("sensevoice", "paraformer", "transducer", "whisper")
@@ -199,6 +204,7 @@ class ModelPack:
             "mossformer": MossFormer(preset.mossformer),
             "vad": VADNet(preset.vad),
         }
+        self.version = 0
         gen = torch.Generator().manual_seed(int(seed))
         last_shared = self.STAGES.index("asr")
         for i, stage in enumerate(self.STAGES):
@@ -211,7 +217,13 @@ class ModelPack:
         """Load per-stage weights (e.g. convert.from_jax.params_to_state_dicts)."""
         for stage in self.STAGES:
             if stage in state_dicts:
-                self.models[stage].load_state_dict(state_dicts[stage])
+                self.load_params(stage, state_dicts[stage])
+
+    def load_params(self, name: str, state_dict: Dict[str, torch.Tensor]) -> None:
+        """New weights for stage ``name``; bumps ``version`` (the JAX
+        ModelPack.load_params, engine/runtime.py:204-206)."""
+        self.models[name].load_state_dict(state_dict)
+        self.version += 1
 
     def set_osd_pyannet(self, cfg: PyanNetConfig, state_dict: Dict[str, torch.Tensor],
                         binarize: Optional[BinarizeConfig] = None) -> None:
@@ -253,10 +265,30 @@ class _LazyBranchRows:
         return (self._dev, self._j, int(bi), self._n)
 
 
+def _cast_copy(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """A copy of ``model`` with every floating parameter and buffer in
+    ``dtype`` (round to nearest even), without the float32 model's kept
+    constants (ops/quant.constant_of: the copy makes its own)."""
+    held = [(m, m.__dict__.pop("_constants")) for m in model.modules()
+            if "_constants" in m.__dict__]
+    try:
+        # plain tensors even when asked for inside inference_mode, so the
+        # copy also serves callers outside it
+        with torch.inference_mode(False), torch.no_grad():
+            out = copy.deepcopy(model).to(dtype)
+    finally:
+        for m, c in held:
+            m.__dict__["_constants"] = c
+    return out.requires_grad_(False)
+
+
 def _to_host(res):
     if isinstance(res, tuple):
         return tuple(_to_host(r) for r in res)
     return res.cpu().numpy()
+
+
+_BF16_LATER = "ROADMAP §1 item 3: --compute-dtype bfloat16 beyond the flagship"
 
 
 class StageEngine:
@@ -265,14 +297,29 @@ class StageEngine:
     ``mesh`` (parallel/mesh.make_mesh) serves the long-form path only:
     ``transcribe_long`` cuts one utterance's frame axis over its "data" axis.
     The batched stages do not shard their batches over a mesh (ROADMAP
-    slice 16)."""
+    slice 16).
+
+    ``compute_dtype="bfloat16"`` is the JAX engine's bf16 mode
+    (engine/runtime.py:478-597, 895-922): every stage model runs as a
+    bfloat16 copy of the pack's (``models``: each floating parameter and
+    buffer cast, BatchNorm statistics too, made again when the pack's
+    ``version`` moves), on ``feats`` / ``wav`` / the sample mask cast to
+    bfloat16, and every stage output comes back as float32. The frontends
+    and the host stay float32. It serves the flagship's models (OSDNet,
+    both separators, the embedder, SenseVoice, the VAD); another ASR
+    family, PyanNet OSD or a mesh raises NotImplementedError."""
 
     def __init__(self, pack: ModelPack, buckets: Optional[BucketSpec] = None,
-                 fbank: Optional[FbankConfig] = None, mesh=None):
+                 fbank: Optional[FbankConfig] = None, mesh=None,
+                 compute_dtype: str = "float32"):
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32|bfloat16, got {compute_dtype!r}")
         # parity with the f32 reference: no TF32 in matmuls, nor in the
-        # convolutions (cuDNN defaults to TF32)
+        # convolutions (cuDNN defaults to TF32); a bf16 product accumulates
+        # in float32 and rounds once, as the reference's dot does
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.pack = pack
         self.device = pack.device
         self.buckets = buckets or BucketSpec()
@@ -281,6 +328,30 @@ class StageEngine:
             raise ValueError(f"StageEngine: the mesh lives on {mesh.device}, the pack on "
                              f"{self.device}")
         self.mesh = mesh
+        self.compute_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+        if self.compute_dtype != torch.float32:
+            refused = (f"the {pack.asr_family} ASR family" if pack.asr_family != "sensevoice"
+                       else "PyanNet OSD" if pack.osd_pyannet is not None
+                       else "long form over a mesh" if mesh is not None else None)
+            if refused:
+                raise NotImplementedError(
+                    f"compute_dtype='bfloat16' with {refused} is not ported to "
+                    f"audio_classification_tpu_torch yet ({_BF16_LATER})")
+        self._cast_models: Dict[str, torch.nn.Module] = {}
+        self._cast_version = -1
+
+    @property
+    def models(self) -> Dict[str, torch.nn.Module]:
+        """The stage models the programs run: the pack's own in float32 (so
+        a weight load is seen at once), else a copy in ``compute_dtype`` made
+        again when ``pack.version`` moves (the JAX ``exec_params``)."""
+        if self.compute_dtype == torch.float32:
+            return self.pack.models
+        if self._cast_version != self.pack.version:
+            self._cast_models = {name: _cast_copy(m, self.compute_dtype)
+                                 for name, m in self.pack.models.items()}
+            self._cast_version = self.pack.version
+        return self._cast_models
 
     # ------------------------------------------------------ stage programs
     @staticmethod
@@ -300,12 +371,13 @@ class StageEngine:
                 acts = self.pack.osd_pyannet(self._dq(wav_i16), lengths)
                 return reduce_overlap_channels(acts)
             feats, mask = self._fbank_mask(self._dq(wav_i16), lengths)
-            return self.pack.models["osd"](feats, mask)
+            return self.models["osd"](feats.to(self.compute_dtype), mask).float()
 
     def _sep_core(self, wav, lengths, stage: str = "sep3"):
+        cdt = self.compute_dtype
         sm = (torch.arange(wav.shape[1], device=wav.device)[None, :]
-              < lengths[:, None]).float()
-        return self.pack.models[stage](wav, sm)
+              < lengths[:, None]).to(cdt)
+        return self.models[stage](wav.to(cdt), sm).float()
 
     def _branch_norm(self, rows):
         """Level restoration for separated-branch rows [..., T] headed into
@@ -317,7 +389,7 @@ class StageEngine:
 
     def _embed_core(self, wav, lengths):
         feats, mask = self._fbank_mask(wav, lengths)
-        emb = self.pack.models["spk"](feats, mask)
+        emb = self.models["spk"](feats.to(self.compute_dtype), mask).float()
         return emb / torch.clamp_min(emb.norm(dim=-1, keepdim=True), 1e-12)
 
     def _asr_decode(self, wav, lengths, language_id=0, use_itn=True, mesh=None,
@@ -328,7 +400,7 @@ class StageEngine:
         overrides its decode budget). ``mesh`` runs the SenseVoice and
         Paraformer encoders sequence-parallel (long form)."""
         p = self.pack
-        model = p.models["asr"]
+        model = self.models["asr"]
         if p.asr_family == "paraformer":
             feats, mask = paraformer_frontend(wav, lengths, p.paraformer_cfg, p.cmvn_shift,
                                               p.cmvn_scale)
@@ -344,9 +416,9 @@ class StageEngine:
             return model.greedy_decode(feats, mask, max_len)
         cfg = p.asr_cfg
         feats, mask = sensevoice_frontend(wav, lengths, cfg, p.cmvn_shift, p.cmvn_scale)
-        logits = model(feats, mask, language_id=language_id, use_itn=use_itn, mesh=mesh,
-                       sp_axis="data")
-        return ctc_greedy_decode(logits[:, cfg.num_prompt:], mask, p.tokens.blank_id)
+        logits = model(feats.to(self.compute_dtype), mask, language_id=language_id,
+                       use_itn=use_itn, mesh=mesh, sp_axis="data")
+        return ctc_greedy_decode(logits[:, cfg.num_prompt:].float(), mask, p.tokens.blank_id)
 
     def _asr_core(self, wav, lengths, language_id=0, use_itn=True):
         ids, n = self._asr_decode(wav, lengths, language_id, use_itn)
@@ -717,8 +789,10 @@ class StageEngine:
         items = [np.asarray(w, np.float32) for w in wavs]
 
         def vad_fn(w, lengths):
+            # float32 features into the stage's models, as the reference's
+            # vad_fn (no cast to the compute dtype)
             feats, mask = self._fbank_mask(self._dq(w), lengths)
-            return self.pack.models["vad"](feats, mask)
+            return self.models["vad"](feats, mask).float()
 
         outs = self._run_bucketed(items, vad_fn)
         return [out[: self.fbank_cfg.frames_for(len(w))] for out, w in zip(outs, items)]

@@ -17,7 +17,7 @@ from torch import nn
 
 from ...ops.fbank import FbankConfig, apply_lfr, log_mel_fbank
 from ...parallel.sp_encoder import sp_seq_shard, sp_seq_unshard
-from ..common import TransformerBlock, lengths_to_mask, position_table
+from ..common import Dense, LayerNorm, TransformerBlock, lengths_to_mask, position_table
 
 LANGUAGES = ("auto", "zh", "en", "yue", "ja", "ko", "nospeech")
 
@@ -54,15 +54,15 @@ class SenseVoiceEncoder(nn.Module):
         if cfg.quant not in ("none", "int8"):
             raise ValueError(f"SenseVoiceEncoder: quant must be none|int8, got {cfg.quant!r}")
         self.cfg = c = cfg
-        self.in_proj = nn.Linear(c.lfr_m * c.num_mel, c.dim)
+        self.in_proj = Dense(c.lfr_m * c.num_mel, c.dim)
         self.lang_embed = nn.Parameter(torch.empty(len(LANGUAGES), c.dim))
         self.itn_embed = nn.Parameter(torch.empty(2, c.dim))
         self.prompt_pad = nn.Parameter(torch.empty(c.num_prompt - 2, c.dim))
         for i in range(c.layers):
             self.add_module(f"block_{i}", TransformerBlock(c.dim, c.heads, c.ffn_mult,
                                                            c.conv_kernel, c.quant))
-        self.final_ln = nn.LayerNorm(c.dim, eps=1e-6)
-        self.ctc_head = nn.Linear(c.dim, c.vocab_size)
+        self.final_ln = LayerNorm(c.dim)
+        self.ctc_head = Dense(c.dim, c.vocab_size)
 
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
                 language_id: int = 0, use_itn: bool = True, mesh=None,

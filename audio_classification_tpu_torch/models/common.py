@@ -12,6 +12,18 @@ like with like:
 Traps carried over: flax ``nn.LayerNorm`` eps is 1e-6 (torch's is 1e-5),
 ``jax.nn.gelu`` is the tanh approximation, and XLA "SAME" padding is
 asymmetric for stride > 1 (``same_padding``).
+
+Reduced precision (the engine's ``compute_dtype="bfloat16"`` runs a bfloat16
+copy of every module) follows flax's dtype rules, so both packages round at
+the same points: ``Dense`` / ``DenseQ`` / ``Conv2d`` compute in
+``promote(x, weight)`` and add the bias after the product's rounding;
+``Conv1d`` computes in x's dtype (flax casts the kernel to it); the norms take
+float32 statistics and return the input's dtype (``LayerNorm`` the promoted
+one); ``BatchNorm2d`` runs flax's op order in the input's dtype. A float32
+tensor meeting bfloat16 weights promotes to float32, so the float32
+positional table, or a kernel's float32 output, turns the rest of a stack
+float32 with bfloat16-rounded weights. With float32 inputs and weights every
+layer is the plain torch call it always was.
 """
 from __future__ import annotations
 
@@ -26,6 +38,33 @@ from torch import nn
 from ..ops.kernels.attention import FLASH_MIN_T, attention_reference, flash_attention
 from ..ops.quant import constant_of, int8_conv1d, int8_matmul, quantize_weight
 from ..parallel.ring_attention import ring_attention
+
+F32 = torch.float32
+
+
+def promote(*tensors) -> torch.dtype:
+    """The dtype jnp's promotion gives these (floating) tensors."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def _all_f32(*tensors) -> bool:
+    return all(t is None or t.dtype == F32 for t in tensors)
+
+
+def param_as(owner: nn.Module, name: str, dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """``owner``'s parameter or buffer ``name`` in ``dtype``: itself when it
+    has that dtype, else a cast made once per value of it
+    (ops/quant.constant_of). A bfloat16 copy's weights meet float32
+    activations on every call of every layer past the positional table; a
+    cast a call would be a device op a call."""
+    p = getattr(owner, name)
+    if p is None or p.dtype == dtype:
+        return p
+    return constant_of(owner, f"{name}_as_{dtype}", (p,), lambda: p.to(dtype))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +81,8 @@ def same_padding(t: int, kernel: int, stride: int = 1, dilation: int = 1) -> tup
 
 
 class GlobalLayerNorm(nn.Module):
-    """gLN over (time, channels) jointly, masked for padding, f32 stats."""
+    """gLN over (time, channels) jointly, masked for padding: float32
+    statistics and affine, the result in x's dtype (models/common.py:20-47)."""
 
     def __init__(self, channels: int, eps: float = 1e-8):
         super().__init__()
@@ -51,19 +91,23 @@ class GlobalLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = x.float()
         if mask is None:
-            mean = x.mean(dim=(1, 2), keepdim=True)
-            var = ((x - mean) ** 2).mean(dim=(1, 2), keepdim=True)
+            mean = xf.mean(dim=(1, 2), keepdim=True)
+            var = ((xf - mean) ** 2).mean(dim=(1, 2), keepdim=True)
         else:
             m = mask[..., None].float()
             count = torch.clamp_min(m.sum(dim=(1, 2), keepdim=True) * x.shape[-1], 1.0)
-            mean = (x * m).sum(dim=(1, 2), keepdim=True) / count
-            var = (((x - mean) * m) ** 2).sum(dim=(1, 2), keepdim=True) / count
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.gamma + self.beta
+            mean = (xf * m).sum(dim=(1, 2), keepdim=True) / count
+            var = (((xf - mean) * m) ** 2).sum(dim=(1, 2), keepdim=True) / count
+        y = ((xf - mean) * torch.rsqrt(var + self.eps) * param_as(self, "gamma", F32)
+             + param_as(self, "beta", F32))
+        return y.to(x.dtype)
 
 
 class ChannelLayerNorm(nn.Module):
-    """Per-frame LN over channels (cLN). Input [B, T, C]."""
+    """Per-frame LN over channels (cLN). Input [B, T, C]; float32 statistics
+    and affine, the result in x's dtype."""
 
     def __init__(self, channels: int, eps: float = 1e-8):
         super().__init__()
@@ -72,9 +116,12 @@ class ChannelLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=-1, keepdim=True)
-        var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.gamma + self.beta
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps) * param_as(self, "gamma", F32)
+             + param_as(self, "beta", F32))
+        return y.to(x.dtype)
 
 
 class PReLU(nn.Module):
@@ -85,7 +132,7 @@ class PReLU(nn.Module):
         self.alpha = nn.Parameter(torch.full((1,), init))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.alpha * x)
+        return torch.where(x >= 0, x, param_as(self, "alpha", x.dtype) * x)
 
 
 class Conv1d(nn.Module):
@@ -117,24 +164,46 @@ class Conv1d(nn.Module):
             pad = (0, 0)
         else:
             pad = tuple(self.padding[0])
+        bias = param_as(self, "bias", x.dtype)
         if self.quant == "int8" and self.groups == 1:
             kernel = self.weight.permute(2, 1, 0)
             wq = constant_of(self, "wq", (self.weight,), lambda: quantize_weight(kernel))
-            y = int8_conv1d(x, kernel, self.stride, self.dilation, pad, mask=mask, wq=wq)
-            return y if self.bias is None else y + self.bias
+            y = int8_conv1d(x, kernel, self.stride, self.dilation, pad, mask=mask, wq=wq,
+                            out_dtype=x.dtype)
+            return y if bias is None else y + bias
+        plain = _all_f32(x, self.weight)
         x = x.transpose(1, 2)
         if pad != (0, 0):
             x = F.pad(x, pad)
-        y = F.conv1d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
+        # flax casts the kernel to x's dtype and adds the bias to the rounded
+        # product; in float32 the bias rides in the convolution
+        y = F.conv1d(x, param_as(self, "weight", x.dtype), bias if plain else None, self.stride, 0,
+                     self.dilation, self.groups)
+        if not plain and bias is not None:
+            y = y + bias[:, None]
         return y.transpose(1, 2)
 
 
-class DenseQ(nn.Linear):
-    """``nn.Linear`` with an optional dynamic-int8 path: the same parameters
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax ``nn.Dense`` dtype semantics: x, weight and
+    bias promote to one dtype, the product accumulates in float32 and rounds
+    to it, and the bias is added after that rounding. All-float32 is
+    ``nn.Linear`` as it is."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _all_f32(x, self.weight, self.bias):
+            return super().forward(x)
+        dt = promote(x, self.weight, self.bias)
+        return F.linear(x.to(dt), param_as(self, "weight", dt)) + param_as(self, "bias", dt)
+
+
+class DenseQ(Dense):
+    """``Dense`` with an optional dynamic-int8 path: the same parameters
     (``weight`` [out, in], ``bias``) and, under ``quant="none"``, the same
     arithmetic, so a ``state_dict`` and a seeded init do not change.
     ``quant="int8"`` routes the product through ops/quant.int8_matmul with
-    the frame ``mask`` [B, T] bounding the per-sample activation scale."""
+    the frame ``mask`` [B, T] bounding the per-sample activation scale; the
+    result is in ``promote(x, weight)``, as models/common.py:156-158."""
 
     def __init__(self, in_features: int, out_features: int, quant: str = "none"):
         super().__init__(in_features, out_features)
@@ -148,7 +217,23 @@ class DenseQ(nn.Linear):
             return super().forward(x)
         m = None if mask is None else mask[..., None]
         wq = constant_of(self, "wq", (self.weight,), lambda: quantize_weight(self.weight.t()))
-        return int8_matmul(x, self.weight.t(), mask=m, wq=wq) + self.bias
+        y = int8_matmul(x, self.weight.t(), mask=m, wq=wq, out_dtype=promote(x, self.weight))
+        return y + self.bias
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm`` (eps 1e-6): float32 statistics, the result in
+    ``promote(x, weight, bias)``. All-float32 is ``nn.LayerNorm`` as it is."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _all_f32(x, self.weight, self.bias):
+            return super().forward(x)
+        y = F.layer_norm(x.float(), self.normalized_shape, param_as(self, "weight", F32),
+                         param_as(self, "bias", F32), self.eps)
+        return y.to(promote(x, self.weight, self.bias))
 
 
 def sinusoidal_positions(n: int, d: int, offset: int = 0) -> np.ndarray:
@@ -222,13 +307,13 @@ class TransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, ffn_mult: int = 4, conv_kernel: int = 3,
                  quant: str = "none"):
         super().__init__()
-        self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-6)
+        self.LayerNorm_0 = LayerNorm(dim)
         self.MultiHeadSelfAttention_0 = MultiHeadSelfAttention(dim, heads, quant)
-        self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-6)
+        self.LayerNorm_1 = LayerNorm(dim)
         self.dwconv = None
         if conv_kernel > 0:
             self.dwconv = Conv1d(dim, dim, conv_kernel, groups=dim)
-            self.LayerNorm_2 = nn.LayerNorm(dim, eps=1e-6)
+            self.LayerNorm_2 = LayerNorm(dim)
         self.Dense_0 = DenseQ(dim, dim * ffn_mult, quant)
         self.Dense_1 = DenseQ(dim * ffn_mult, dim, quant)
 

@@ -13,7 +13,7 @@ from torch import nn
 
 from ..ops.kernels.tcn import fused_tcn_masker, stack_tcn_params
 from ..ops.quant import constant_of, int8_matmul, quantize_weight
-from .common import Conv1d, GlobalLayerNorm, PReLU
+from .common import F32, Conv1d, GlobalLayerNorm, PReLU, param_as
 
 
 @dataclass(frozen=True)
@@ -108,19 +108,20 @@ class ConvTasNet(nn.Module):
         n_frames = w.shape[1]
         frame_mask = None
         if sample_mask is not None:
-            lengths = sample_mask.sum(dim=-1).long()
-            f_len = torch.clamp_min((lengths - c.enc_kernel) // stride + 1, 1)
+            f_len = _frame_lengths(sample_mask, c.enc_kernel, stride)
             frame_mask = torch.arange(n_frames, device=w.device)[None, :] < f_len[:, None]
 
         h = self.bottleneck(self.ln_in(w, frame_mask), frame_mask)
         if c.fused_tcn == "auto" and c.conv_kernel == 3:
             fl = f_len if frame_mask is not None else torch.full(
                 (b,), n_frames, dtype=torch.int32, device=w.device)
-            # stacked (and, under int8, quantised) once per set of weights
+            # stacked (and, under int8, quantised) once per set of weights and
+            # activation dtype
             blocks = self.tcn_blocks()
+            key = "tcn_stack" if h.dtype == torch.float32 else f"tcn_stack_{h.dtype}"
             st = constant_of(
-                self, "tcn_stack", [p for blk in blocks for p in blk.parameters()],
-                lambda: stack_tcn_params(blocks, weight_quant=(c.quant == "int8")))
+                self, key, [p for blk in blocks for p in blk.parameters()],
+                lambda: stack_tcn_params(blocks, h.dtype, weight_quant=(c.quant == "int8")))
             skips = fused_tcn_masker(h, fl, st, n_per_repeat=c.n_blocks)
         else:
             skips = 0.0
@@ -144,7 +145,9 @@ class ConvTasNet(nn.Module):
             # content; zero them so decoding matches the unpadded signal
             masked = masked * frame_mask[:, :, None, None].to(masked.dtype)
 
-        # decoder: sum_n masked[f, n] dec[k, n] overlap-added at f*stride + k
+        # decoder: sum_n masked[f, n] dec[k, n] overlap-added at f*stride + k,
+        # in float32 whatever the activations' dtype (the reference's einsum
+        # asks for a float32 result)
         if c.quant == "int8":
             # masked is zero at padded frames already; the product over the
             # basis axis goes through the int8 path, then the frames [.., L]
@@ -158,10 +161,23 @@ class ConvTasNet(nn.Module):
         else:
             # a transposed conv with weight dec^T [N, 1, L]
             frames = masked.permute(0, 2, 3, 1).reshape(b * c.n_src, c.enc_dim, n_frames)
-            sig = F.conv_transpose1d(frames, self.decoder.t()[:, None, :], stride=stride)
+            sig = F.conv_transpose1d(frames.float(), param_as(self, "decoder", F32).t()[:, None, :],
+                                     stride=stride)
         sig = sig.reshape(b, c.n_src, -1)[..., :t]
         if sig.shape[-1] < t:
             sig = F.pad(sig, (0, t - sig.shape[-1]))
         if sample_mask is not None:
             sig = sig * sample_mask[:, None, :].to(sig.dtype)
         return sig
+
+
+def _frame_lengths(sample_mask: torch.Tensor, enc_kernel: int, stride: int) -> torch.Tensor:
+    """Valid encoder frames an item, max((sum(mask) - L) // stride + 1, 1),
+    in the mask's dtype as the reference computes it
+    (models/convtasnet.py:117, models/mossformer.py:105). In bfloat16 the sum
+    rounds (320000 -> 319488, 4001 -> 4000) and so do the steps after it,
+    and the frame mask compares frame indices rounded to bfloat16: a fault
+    of the reference that the port keeps, so that both give the same frames.
+    In float32 every step is exact."""
+    lengths = sample_mask.sum(dim=-1)
+    return torch.clamp_min(torch.div(lengths - enc_kernel, stride, rounding_mode="floor") + 1, 1)

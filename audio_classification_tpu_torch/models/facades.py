@@ -4,7 +4,8 @@ StageEngine:
 
 - ``default_engine`` / ``set_default_engine``: one shared engine per process
 - ``ASRRecognizer``, ``SpeakerExtractor``: recognizer and embedder handles;
-  ``create_asr_model``, the recognizer's one-of factory
+  ``create_asr_model``, the recognizer's one-of factory, and
+  ``create_extractor_model``, the embedder's
 - ``SpeakerASRModels``: the SID + ASR facade (enrollment, bank search, ASR)
 - ``OverlapAnalyzer``: analyze(samples, sr) -> [(start, end, is_overlap)]
 - ``Separator``: separate(samples, sr) -> n_src wavs at the model's rate
@@ -14,6 +15,12 @@ ModelScope / ClearVoice MossFormer: convert/torch_import.py); an orbax
 directory raises NotImplementedError naming ROADMAP slice 14. The long-form calls (``transcribe(long_form=True)``,
 ``separate_long``) take a mesh whose shards live on one device
 (parallel/mesh.make_mesh); a mesh over several cards is slice 16.
+
+The facades and factories take the JAX package's parameters in its order;
+a torch device string in ``device`` / ``provider`` (default "cuda" where the
+JAX package says "tpu") picks the device of the default engine a facade
+builds when it is given none. ``auth_token`` is accepted and unused, as
+there.
 """
 from __future__ import annotations
 
@@ -85,6 +92,16 @@ def create_asr_model(
     return ASRRecognizer(eng, language=language, use_itn=bool(sense_voice))
 
 
+def create_extractor_model(
+    *, model: str = "", num_threads: int = 1, provider: str = "cuda", debug: bool = False,
+    engine: Optional[StageEngine] = None,
+) -> "SpeakerExtractor":
+    """The reference's speaker-extractor factory (src/model.py:103-124;
+    models/facades.py:111-115): the engine's pack holds the embedder and its
+    weights, ``model`` only names them."""
+    return SpeakerExtractor(engine or default_engine(device=provider))
+
+
 class SpeakerExtractor:
     """SpeakerEmbeddingExtractor-equivalent (compute-only, batched)."""
 
@@ -113,13 +130,15 @@ class OverlapAnalyzer:
     threshold: float = 0.5
     win_sec: float = 0.5
     hop_sec: float = 0.1
+    device: str = "cuda"
     backend: Optional[str] = None
+    auth_token: Optional[str] = None
     engine: Optional[StageEngine] = None
 
     def __post_init__(self):
         self.backend = self.backend or "osdnet"
         if self.engine is None:
-            self.engine = default_engine()
+            self.engine = default_engine(device=self.device)
 
     def analyze(self, samples: np.ndarray, sr: int) -> List[Tuple[float, float, bool]]:
         dur = len(samples) / sr if sr else 0.0
@@ -141,6 +160,7 @@ class Separator:
     """
 
     backend: Optional[str] = None
+    device: str = "cuda"
     sample_rate: int = 16000
     checkpoint: Optional[str] = None
     n_src: int = 2
@@ -149,7 +169,7 @@ class Separator:
     def __post_init__(self):
         self.backend = self.backend or "convtasnet"
         if self.engine is None:
-            self.engine = default_engine()
+            self.engine = default_engine(device=self.device)
         if self.checkpoint:
             self._load_checkpoint(self.checkpoint)
         if self.backend == "mossformer":
@@ -168,12 +188,10 @@ class Separator:
             raise FileNotFoundError(f"Separator checkpoint not found: {path}")
         pack = self.engine.pack
         if self.backend == "mossformer":
-            pack.models["mossformer"].load_state_dict(
-                load_mossformer_torch(path, pack.preset.mossformer))
+            pack.load_params("mossformer", load_mossformer_torch(path, pack.preset.mossformer))
         else:
             stage = "sep3" if self.n_src == 3 else "sep2"
-            pack.models[stage].load_state_dict(
-                load_convtasnet_torch(path, getattr(pack.preset, stage)))
+            pack.load_params(stage, load_convtasnet_torch(path, getattr(pack.preset, stage)))
 
     def separate(self, samples: np.ndarray, sr: int) -> List[np.ndarray]:
         wav = self._ensure_sr(np.asarray(samples, np.float32), sr)

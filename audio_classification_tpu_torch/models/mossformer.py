@@ -20,7 +20,8 @@ from torch import nn
 
 from ..ops.kernels.attention import FLASH_MIN_T
 from ..ops.kernels.gau import gau_attention
-from .common import ChannelLayerNorm, Conv1d
+from .common import F32, ChannelLayerNorm, Conv1d, Dense, param_as
+from .convtasnet import _frame_lengths
 
 
 @dataclass(frozen=True)
@@ -50,13 +51,13 @@ class GAUBlock(nn.Module):
         d_e = c.dim * c.expansion
         self.ln = ChannelLayerNorm(c.dim)
         self.dwconv = Conv1d(c.dim, c.dim, c.conv_kernel, groups=c.dim)
-        self.to_u = nn.Linear(c.dim, d_e)
-        self.to_v = nn.Linear(c.dim, d_e)
-        self.to_qk = nn.Linear(c.dim, c.qk_dim)
+        self.to_u = Dense(c.dim, d_e)
+        self.to_v = Dense(c.dim, d_e)
+        self.to_qk = Dense(c.dim, c.qk_dim)
         # one projection z, per-role scale and shift: row 0 makes q, row 1 k
         self.gamma = nn.Parameter(torch.ones(2, c.qk_dim))
         self.beta = nn.Parameter(torch.zeros(2, c.qk_dim))
-        self.to_out = nn.Linear(d_e, c.dim)
+        self.to_out = Dense(d_e, c.dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         h = self.ln(x)
@@ -70,10 +71,14 @@ class GAUBlock(nn.Module):
         if t >= FLASH_MIN_T:
             att = gau_attention(q, k, v, mask, 1.0 / t)
         else:
-            logits = torch.matmul(q, k.transpose(1, 2)) / t
+            # float32 scores and a float32 p v on bfloat16 q, k, v, as the
+            # reference's einsums with a float32 result (its p is not rounded)
+            logits = torch.matmul(q.float(), k.float().transpose(1, 2)) / t
             if mask is not None:
                 logits = logits * mask[:, None, :].to(logits.dtype)
-            att = torch.matmul(torch.relu(logits) ** 2, v)
+            att = torch.matmul(torch.relu(logits) ** 2, v.float())
+        # att is float32 on both paths: from here the block, and the stream
+        # after it, run in float32 (with bfloat16 weights in a bfloat16 copy)
         out = self.to_out(u * att)
         if mask is not None:
             out = out * mask[..., None]
@@ -88,11 +93,11 @@ class MossFormer(nn.Module):
         self.cfg = c = cfg
         self.encoder = Conv1d(1, c.enc_dim, c.enc_kernel, stride=c.stride, use_bias=False,
                               padding="VALID")
-        self.in_proj = nn.Linear(c.enc_dim, c.dim)
+        self.in_proj = Dense(c.enc_dim, c.dim)
         for i in range(c.layers):
             self.add_module(f"gau_{i}", GAUBlock(c))
         self.ln_out = ChannelLayerNorm(c.dim)
-        self.mask_head = nn.Linear(c.dim, c.n_src * c.enc_dim)
+        self.mask_head = Dense(c.dim, c.n_src * c.enc_dim)
         self.decoder = nn.Parameter(torch.empty(c.enc_kernel, c.enc_dim))  # [L, N]
 
     def forward(self, mix: torch.Tensor, sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -108,8 +113,7 @@ class MossFormer(nn.Module):
         n_frames = w.shape[1]
         frame_mask = None
         if sample_mask is not None:
-            lengths = sample_mask.sum(dim=-1).long()
-            f_len = torch.clamp_min((lengths - c.enc_kernel) // stride + 1, 1)
+            f_len = _frame_lengths(sample_mask, c.enc_kernel, stride)
             frame_mask = torch.arange(n_frames, device=w.device)[None, :] < f_len[:, None]
 
         h = self.in_proj(w)
@@ -121,7 +125,8 @@ class MossFormer(nn.Module):
         # decoder: sum_n masked[f, n] dec[k, n] overlap-added at f*stride + k
         # is a transposed conv with weight dec^T [N, 1, L] (as in ConvTasNet)
         frames = masked.permute(0, 2, 3, 1).reshape(b * c.n_src, c.enc_dim, n_frames)
-        sig = F.conv_transpose1d(frames, self.decoder.t()[:, None, :], stride=stride)
+        sig = F.conv_transpose1d(frames.float(), param_as(self, "decoder", F32).t()[:, None, :],
+                                 stride=stride)
         sig = sig.reshape(b, c.n_src, -1)[..., :t]
         if sig.shape[-1] < t:
             sig = F.pad(sig, (0, t - sig.shape[-1]))

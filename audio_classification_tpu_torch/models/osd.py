@@ -10,7 +10,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import Conv1d, TransformerBlock, gelu, position_table
+from .common import Conv1d, Dense, TransformerBlock, gelu, position_table
 
 
 @dataclass(frozen=True)
@@ -41,7 +41,7 @@ class OSDNet(nn.Module):
         for i in range(cfg.layers):
             self.add_module(f"block_{i}", TransformerBlock(cfg.dim, cfg.heads,
                                                            conv_kernel=cfg.conv_kernel))
-        self.head = nn.Linear(cfg.dim, 2)
+        self.head = Dense(cfg.dim, 2)
 
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg

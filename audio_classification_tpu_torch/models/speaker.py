@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.signal import l2norm
+from .common import Dense, param_as, promote
 
 
 @dataclass(frozen=True)
@@ -32,14 +33,46 @@ class SpeakerEmbedderConfig:
     sample_rate: int = 16000
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax ``nn.Conv`` dtype semantics: input, kernel and
+    bias promote to one dtype and the bias is added after the product's
+    rounding. All-float32 is ``nn.Conv2d`` as it is."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype == self.bias.dtype == torch.float32:
+            return super().forward(x)
+        dt = promote(x, self.weight, self.bias)
+        y = self._conv_forward(x.to(dt), param_as(self, "weight", dt), None)
+        return y + param_as(self, "bias", dt)[:, None, None]
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Inference BatchNorm. Below float32 (a bfloat16 copy holds bfloat16
+    running statistics, as the reference casts every floating leaf) it runs
+    flax's op order in the promoted dtype, each op rounded:
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias. All-float32 is
+    ``nn.BatchNorm2d`` as it is."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype == self.running_var.dtype == torch.float32:
+            return super().forward(x)
+        dt = promote(x, self.running_mean, self.running_var, self.weight, self.bias)
+
+        def col(name):
+            return param_as(self, name, dt)[:, None, None]
+
+        mul = torch.rsqrt(col("running_var") + self.eps) * col("weight")
+        return (x.to(dt) - col("running_mean")) * mul + col("bias")
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
     # flax "SAME": pad 1 for 3x3 at stride 1; a 1x1 conv at stride 2 needs
     # no padding (ceil(T/2) outputs either way)
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5)  # flax BatchNorm default epsilon
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=1e-5)  # flax BatchNorm default epsilon
 
 
 class Res2Block(nn.Module):
@@ -78,14 +111,18 @@ class AttentiveStatsPool(nn.Module):
 
     def __init__(self, channels: int, hidden: int = 128):
         super().__init__()
-        self.Dense_0 = nn.Linear(channels, hidden)
-        self.Dense_1 = nn.Linear(hidden, channels)
+        self.Dense_0 = Dense(channels, hidden)
+        self.Dense_1 = Dense(hidden, channels)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         a = self.Dense_1(torch.tanh(self.Dense_0(x)))
         if mask is not None:
             a = a.masked_fill(~mask[..., None], -1e9)
-        w = torch.softmax(a, dim=1)
+        if a.dtype == torch.float32:
+            w = torch.softmax(a, dim=1)
+        else:  # jax.nn.softmax's ops, each rounded to a's dtype
+            e = torch.exp(a - a.amax(dim=1, keepdim=True))
+            w = e / e.sum(dim=1, keepdim=True)
         mean = (w * x).sum(dim=1)
         var = (w * (x - mean[:, None, :]) ** 2).sum(dim=1)
         return torch.cat([mean, torch.sqrt(var + 1e-7)], dim=-1)
@@ -107,7 +144,7 @@ class SpeakerEmbedder(nn.Module):
             cin = ch
             freq = -(-freq // stride)
         self.asp = AttentiveStatsPool(freq * cin, c.asp_hidden)
-        self.proj = nn.Linear(2 * freq * cin, c.embed_dim)
+        self.proj = Dense(2 * freq * cin, c.embed_dim)
 
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg

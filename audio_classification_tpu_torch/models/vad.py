@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import Conv1d, gelu
+from .common import Conv1d, Dense, gelu
 
 
 @dataclass(frozen=True)
@@ -40,7 +40,7 @@ class VADNet(nn.Module):
         for i in range(c.layers):
             self.add_module(f"conv_{i}", Conv1d(c.num_mel if i == 0 else c.dim, c.dim, c.kernel,
                                                 dilation=2 ** i))
-        self.head = nn.Linear(c.dim, 1)
+        self.head = Dense(c.dim, 1)
 
     def forward(self, feats: torch.Tensor,
                 frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

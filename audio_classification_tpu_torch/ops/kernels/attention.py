@@ -94,6 +94,16 @@ def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return tuple(F.pad(x, (0, pad)) for x in (q, k, v))
 
 
+def _refuse_bf16(name: str, *xs) -> None:
+    """K3 / K5 have no bfloat16 entry point yet, on either device (the JAX
+    kernels take bf16 q, k, v, but the engine's bf16 mode feeds them float32:
+    the encoders' float32 positional table promotes the stream first)."""
+    if any(x.dtype == torch.bfloat16 for x in xs):
+        raise NotImplementedError(
+            f"{name}: bfloat16 q, k, v are not ported to audio_classification_tpu_torch "
+            "yet (ROADMAP §2 item 1: the bf16 entry points of K3 / K5)")
+
+
 def _check_qkv(name: str, q, k, v, kv_mask):
     """Shapes, types and devices the kernels take -> (q, k, v, mask) ready
     for the launch, D zero-padded to the head dim it runs at; raises
@@ -125,6 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors run the plain twin; CUDA tensors launch the kernel (any D,
     zero-padded to the head dim it runs at, ``padded_head_dim``; scale
     1 / sqrt(D) of the true D)."""
+    _refuse_bf16("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, kv_mask)
     if not q.is_cuda:
@@ -162,6 +173,7 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (Tk >= 1;
     any D, zero-padded as in ``flash_attention``)."""
+    _refuse_bf16("flash_attention_stats", q, k, v)
     if q.device.type == "cpu":
         return attention_stats_reference(q, k, v, kv_mask)
     if not q.is_cuda:

@@ -7,6 +7,12 @@ Bound and design are in the source's header. The plain twin below walks
 blocks of query rows (as the JAX package's ``_gau_blockwise_ref``), so it
 never holds a [T, T] matrix: at T = 63999 frames a dense float32 [T, T] is
 16 GB per item.
+
+bfloat16 q, k, v (MossFormer's first GAU layer in the engine's bf16 mode)
+take their own entry point, ``act_gau_attention_bf16``: both products are
+single bf16 tensor-core products with float32 accumulators, and p is rounded
+to bfloat16 before p v, as the JAX kernel casts p to v's dtype
+(attention_kernel.py:337). The output is float32 either way.
 """
 from __future__ import annotations
 
@@ -24,49 +30,66 @@ MAX_QK_DIM = 128  # the kernel's shared-memory tiles are sized for Dqk <= 128
 
 def gau_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             kv_mask: Optional[torch.Tensor], scale: float,
-                            block_q: int = 1024) -> torch.Tensor:
+                            block_q: int = 1024, acc: Optional[torch.dtype] = None
+                            ) -> torch.Tensor:
     """Plain twin, blockwise over query rows: [B, T, Dqk] q, k and
     [B, T, De] v + optional [B, T] 0/1 key mask -> [B, T, De]. A masked key
-    contributes exactly 0 (the mask multiplies the scaled logits)."""
+    contributes exactly 0 (the mask multiplies the scaled logits).
+
+    The products run in ``acc`` (default: float32, or the inputs' dtype when
+    it is wider); bfloat16 inputs round p to bfloat16 before p v, as the
+    bf16 kernel does, and give float32."""
     b, t, _ = q.shape
-    out = torch.empty((b, t, v.shape[-1]), dtype=torch.float32, device=q.device)
-    kt = k.transpose(1, 2)
-    m = None if kv_mask is None else kv_mask.to(torch.float32)[:, None, :]
+    lowp = q.dtype == torch.bfloat16
+    acc = acc or (torch.float32 if lowp else q.dtype)
+    out_dtype = torch.float32 if lowp else acc
+    out = torch.empty((b, t, v.shape[-1]), dtype=out_dtype, device=q.device)
+    kt = k.to(acc).transpose(1, 2)
+    va = v.to(acc)
+    m = None if kv_mask is None else kv_mask.to(acc)[:, None, :]
     for i0 in range(0, t, block_q):
-        s = torch.matmul(q[:, i0:i0 + block_q], kt) * scale
+        s = torch.matmul(q[:, i0:i0 + block_q].to(acc), kt) * scale
         if m is not None:
             s = s * m
-        out[:, i0:i0 + block_q] = torch.matmul(torch.relu(s) ** 2, v)
+        p = torch.relu(s) ** 2
+        if lowp:
+            p = p.to(torch.bfloat16).to(acc)
+        out[:, i0:i0 + block_q] = torch.matmul(p, va)
     return out
 
 
 @functools.cache
-def _entry():
+def _entry(name: str):
     """The C entry point, built, loaded and declared at the first launch."""
-    return _build.kernel("act_gau_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    return _build.kernel(name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                          + [ctypes.c_float, ctypes.c_void_p])
 
 
 def gau_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
-    """[B, T, Dqk] f32 q, k, [B, T, De] f32 v + optional [B, T] bool key mask
-    -> [B, T, De] f32.
+    """[B, T, Dqk] q, k, [B, T, De] v, all float32 or all bfloat16, +
+    optional [B, T] bool key mask -> [B, T, De] f32.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel
-    (Dqk and De multiples of 4, Dqk <= 128)."""
+    CPU tensors run the plain twin; CUDA tensors launch the kernel of their
+    dtype (float32: Dqk and De multiples of 4; bfloat16: multiples of 8;
+    Dqk <= 128), counted in ``launches`` / ``launches_bf16``. A bfloat16 q
+    never runs the float32 kernel."""
+    b, t, dqk = q.shape
+    de = v.shape[-1]
+    for name, x, shape in (("q", q, (b, t, dqk)), ("k", k, (b, t, dqk)), ("v", v, (b, t, de))):
+        if (q.dtype not in (torch.float32, torch.bfloat16) or x.dtype != q.dtype
+                or tuple(x.shape) != shape or x.device != q.device):
+            raise ValueError(f"gau_attention: {name} must be float32 or bfloat16 (as q) {shape} "
+                             f"on {q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
     if q.device.type == "cpu":
         return gau_attention_reference(q, k, v, kv_mask, scale)
     if not q.is_cuda:
         raise ValueError(f"gau_attention: unsupported device {q.device}")
-    b, t, dqk = q.shape
-    de = v.shape[-1]
-    for name, x, shape in (("q", q, (b, t, dqk)), ("k", k, (b, t, dqk)), ("v", v, (b, t, de))):
-        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != q.device:
-            raise ValueError(f"gau_attention: {name} must be float32 {shape} on {q.device}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if dqk % 4 or de % 4 or not 0 < dqk <= MAX_QK_DIM:
-        raise ValueError(f"gau_attention: needs Dqk % 4 == 0, Dqk <= {MAX_QK_DIM} and "
-                         f"De % 4 == 0, got Dqk={dqk}, De={de}")
+    lowp = q.dtype == torch.bfloat16
+    step = 8 if lowp else 4
+    if dqk % step or de % step or not 0 < dqk <= MAX_QK_DIM:
+        raise ValueError(f"gau_attention: needs Dqk % {step} == 0, Dqk <= {MAX_QK_DIM} and "
+                         f"De % {step} == 0 for {q.dtype}, got Dqk={dqk}, De={de}")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     mask_ptr = None
     if kv_mask is not None:
@@ -82,12 +105,18 @@ def gau_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, t, de), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    fn = _entry()
-    gau_attention.launches += 1
-    _build.check("act_gau_attention", fn(
+    name = "act_gau_attention_bf16" if lowp else "act_gau_attention"
+    fn = _entry(name)
+    if lowp:
+        gau_attention.launches_bf16 += 1
+    else:
+        gau_attention.launches += 1
+    _build.check(name, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), b, t, dqk, de,
         float(scale), torch.cuda.current_stream(q.device).cuda_stream))
     return out
 
 
-gau_attention.launches = 0  # kernel launches, counted where they happen
+# kernel launches, counted where they happen: float32 and bfloat16 entry points
+gau_attention.launches = 0
+gau_attention.launches_bf16 = 0

@@ -11,6 +11,13 @@ the valid rows only, with deterministic gLN statistics; bound and design
 are in the source's header. ``tcn_masker_reference`` is the plain twin, op
 for op the dense TCN loop on the stacked weights (tcn_kernel.py:370-419),
 run on the dequantised stack for an int8 one.
+
+bfloat16 activations (the engine's bf16 mode) take their own entry points,
+``act_tcn_masker_bf16`` and ``act_tcn_masker_s8_bf16``: one bf16 tensor-core
+product where 3xTF32 takes three, rounded where the JAX kernel rounds
+(tcn_kernel.py:176-309, ``dt = x_in.dtype``): the residual stream, h1, h2
+and the skip sum are bfloat16, so ``x += res`` and ``skips += skip`` round
+at every block. Their twin is ``tcn_masker_reference_lowp``.
 """
 from __future__ import annotations
 
@@ -23,56 +30,65 @@ from ... import _build
 from ..quant import quantize_weight
 
 _EPS = 1e-8  # GlobalLayerNorm eps
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def stack_tcn_params(blocks, weight_quant: bool = False) -> dict:
+def stack_tcn_params(blocks, dtype: torch.dtype = torch.float32,
+                     weight_quant: bool = False) -> dict:
     """Per-block TCNBlock modules (repeat-major order) -> the stacked dict
     of tcn_kernel.stack_tcn_params: w_in [NB, C, H], w_dw [NB, 3, H],
-    w_res / w_skip [NB, H, C], vecs [NB, 8, H] (b_in, a1, g1, be1, b_dw, a2,
-    g2, be2) and cvecs [NB, 2, C] (b_res, b_skip), all float32.
+    w_res / w_skip [NB, H, C] in ``dtype`` (the activations'), vecs
+    [NB, 8, H] (b_in, a1, g1, be1, b_dw, a2, g2, be2) and cvecs [NB, 2, C]
+    (b_res, b_skip) in float32 from the parameters as they are (a bfloat16
+    copy's are bfloat16-rounded values).
 
     ``weight_quant``: the int8 weight stream. The four weight tensors are
     quantised symmetric per OUT channel and per BLOCK (one block's outliers
     must not flatten another block's grid) to int8, and their float32 scales
     ride in the vector bundles: vecs [NB, 10, H] rows 8, 9 (w_in, w_dw) and
-    cvecs [NB, 4, C] rows 2, 3 (w_res, w_skip). Inference only."""
+    cvecs [NB, 4, C] rows 2, 3 (w_res, w_skip). The kernel dequantises to
+    the activations' dtype. Inference only."""
     h = blocks[0].in_conv.weight.shape[0]
 
     def row(x):
         return x.detach().float().reshape(-1).expand(h)
 
-    w_in = torch.stack([b.in_conv.weight[:, :, 0].t() for b in blocks])
-    w_dw = torch.stack([b.dw_conv.weight[:, 0, :].t() for b in blocks])
-    w_res = torch.stack([b.res_conv.weight[:, :, 0].t() for b in blocks])
-    w_skip = torch.stack([b.skip_conv.weight[:, :, 0].t() for b in blocks])
+    weights = {
+        "w_in": torch.stack([b.in_conv.weight[:, :, 0].t() for b in blocks]),
+        "w_dw": torch.stack([b.dw_conv.weight[:, 0, :].t() for b in blocks]),
+        "w_res": torch.stack([b.res_conv.weight[:, :, 0].t() for b in blocks]),
+        "w_skip": torch.stack([b.skip_conv.weight[:, :, 0].t() for b in blocks]),
+    }
     vecs = torch.stack([torch.stack([
         row(b.in_conv.bias), row(b.prelu1.alpha), row(b.norm1.gamma), row(b.norm1.beta),
         row(b.dw_conv.bias), row(b.prelu2.alpha), row(b.norm2.gamma), row(b.norm2.beta),
     ]) for b in blocks])
     cvecs = torch.stack([torch.stack([b.res_conv.bias, b.skip_conv.bias]) for b in blocks])
-    out = {"w_in": w_in, "w_dw": w_dw, "w_res": w_res, "w_skip": w_skip,
-           "vecs": vecs, "cvecs": cvecs}
-    out = {k: v.detach().float().contiguous() for k, v in out.items()}
+    out = {k: v.detach().to(dtype).contiguous() for k, v in weights.items()}
+    out["vecs"] = vecs.detach().float().contiguous()
+    out["cvecs"] = cvecs.detach().float().contiguous()
     if weight_quant:
         # [NB, X, OUT] with the block axis kept apart: the absmax runs over X
         # only, which is quantising block by block
         scales = {}
         for name in ("w_in", "w_dw", "w_res", "w_skip"):
-            out[name], scales[name] = quantize_weight(out[name], channel_axis=-1, keep_axes=(0,))
+            out[name], scales[name] = quantize_weight(weights[name].detach(), channel_axis=-1,
+                                                      keep_axes=(0,))
         out["vecs"] = torch.cat([out["vecs"], scales["w_in"], scales["w_dw"]], dim=1)
         out["cvecs"] = torch.cat([out["cvecs"], scales["w_res"], scales["w_skip"]], dim=1)
     return out
 
 
-def dequant_stack(st: dict) -> dict:
+def dequant_stack(st: dict, dtype: torch.dtype = torch.float32) -> dict:
     """int8 weight-stream stack -> float stack: ``int8 * scale`` in float32,
-    one rounding, exactly what the kernel forms on its operand loads."""
+    rounded once to ``dtype``, exactly what the kernel forms on its operand
+    loads (in float32) or at block entry (in bfloat16; tcn_kernel.py:203-212)."""
     vecs, cvecs = st["vecs"], st["cvecs"]
     return {
-        "w_in": st["w_in"].float() * vecs[:, 8][:, None, :],
-        "w_dw": st["w_dw"].float() * vecs[:, 9][:, None, :],
-        "w_res": st["w_res"].float() * cvecs[:, 2][:, None, :],
-        "w_skip": st["w_skip"].float() * cvecs[:, 3][:, None, :],
+        "w_in": (st["w_in"].float() * vecs[:, 8][:, None, :]).to(dtype),
+        "w_dw": (st["w_dw"].float() * vecs[:, 9][:, None, :]).to(dtype),
+        "w_res": (st["w_res"].float() * cvecs[:, 2][:, None, :]).to(dtype),
+        "w_skip": (st["w_skip"].float() * cvecs[:, 3][:, None, :]).to(dtype),
         "vecs": vecs[:, :8].contiguous(), "cvecs": cvecs[:, :2].contiguous(),
     }
 
@@ -112,23 +128,83 @@ def tcn_masker_reference(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     return skips
 
 
+def tcn_masker_reference_lowp(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
+                              n_per_repeat: int,
+                              acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain twin of the bfloat16 entry points: [B, F, C] bf16 + [B]
+    valid-frame counts -> [B, F, C] bf16 skip sum, rounded where the JAX
+    kernel rounds at ``dt = bfloat16`` (tcn_kernel.py:176-309):
+
+    1. h1 = bf16(x W_in), + b_in in bf16, PReLU in bf16;
+    2. gLN-1: statistics over the valid rows of the bf16 values, the affine
+       in ``acc``, rounded to bf16, then the row mask;
+    3. depthwise: (left w0 + right w2) + mid w1 in ``acc``, rounded, + b_dw
+       in bf16, PReLU in bf16; gLN-2 as gLN-1 (no row mask);
+    4. res / skip = bf16(gLN-2 W), + the bias in bf16; x += res and
+       skips += skip in bf16.
+
+    Products and statistics run in ``acc`` (float32; float64 for an oracle
+    of the card's kernel fed the same inputs). An int8 stack is dequantised
+    to bf16 up front. The statistics are two-pass (mean, then the centred
+    sum of squares), as the card's kernel merges them."""
+    dt = x.dtype
+    if st["w_in"].dtype == torch.int8:
+        st = dequant_stack(st, dt)
+    nb, hd = st["w_in"].shape[0], st["w_in"].shape[-1]
+    f = x.shape[1]
+    mask = torch.arange(f, device=x.device)[None, :] < f_len.to(x.device)[:, None]
+    mf = mask[..., None].to(acc)
+    count = torch.clamp_min(mf.sum(dim=(1, 2), keepdim=True) * hd, 1.0)
+
+    def gln(z, gamma, beta):
+        zf = z.to(acc)
+        mean = (zf * mf).sum(dim=(1, 2), keepdim=True) / count
+        var = (((zf - mean) * mf) ** 2).sum(dim=(1, 2), keepdim=True) / count
+        return (((zf - mean) * torch.rsqrt(var + _EPS)) * gamma.to(acc) + beta.to(acc)).to(dt)
+
+    def prelu(z, a):
+        return torch.where(z >= 0, z, a.to(dt) * z)
+
+    def mm(a, w):
+        return (a.to(acc) @ w.to(acc)).to(dt)
+
+    h, skips = x, torch.zeros_like(x)
+    for i in range(nb):
+        dil = 2 ** (i % n_per_repeat)
+        v, cv = st["vecs"][i], st["cvecs"][i]
+        h1 = prelu(mm(h, st["w_in"][i]) + v[0].to(dt), v[1])
+        h1 = (gln(h1, v[2], v[3]) * mask[..., None].to(dt)).to(acc)
+        pad = F.pad(h1, (0, 0, dil, dil))
+        w = st["w_dw"][i].to(acc)
+        taps = (pad[:, :f] * w[0] + pad[:, 2 * dil:] * w[2]) + h1 * w[1]
+        h2 = gln(prelu(taps.to(dt) + v[4].to(dt), v[5]), v[6], v[7])
+        h = h + (mm(h2, st["w_res"][i]) + cv[0].to(dt))
+        skips = skips + (mm(h2, st["w_skip"][i]) + cv[1].to(dt))
+    return skips
+
+
 def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
                      n_per_repeat: int) -> torch.Tensor:
-    """[B, F, C] f32 bottleneck stream + [B] valid-frame counts + stacked
-    block weights (float32, or the int8 stream of
-    ``stack_tcn_params(weight_quant=True)``) -> [B, F, C] f32 skip sum.
+    """[B, F, C] float32 or bfloat16 bottleneck stream + [B] valid-frame
+    counts + stacked block weights (in x's dtype, or the int8 stream of
+    ``stack_tcn_params(weight_quant=True)``; vecs and cvecs float32) ->
+    [B, F, C] skip sum in x's dtype.
 
     Contract, the same on both devices: rows f < f_len[b] are the dense TCN
-    loop's skip sum; rows f >= f_len[b] are exactly 0. (The JAX kernel fills
-    them with values no caller reads: Conv-TasNet zeroes padded frames after
-    the mask conv. No valid row depends on a padded one.) CPU tensors run
-    the plain twin and zero its padded rows; CUDA tensors launch the kernel
-    of the stack's weight type (counted in ``launches`` / ``launches_s8``),
-    which computes no row past f_len."""
+    loop's skip sum (in bfloat16 at the JAX kernel's rounding points); rows
+    f >= f_len[b] are exactly 0. (The JAX kernel fills them with values no
+    caller reads: Conv-TasNet zeroes padded frames after the mask conv. No
+    valid row depends on a padded one.) CPU tensors run the plain twin of x's
+    dtype and zero its padded rows; CUDA tensors launch the kernel of x's
+    dtype and the stack's weight type (counted in ``launches`` /
+    ``launches_s8`` / ``launches_bf16`` / ``launches_s8_bf16``), which
+    computes no row past f_len. A bfloat16 x never runs a float32 kernel."""
     wq = st["w_in"].dtype == torch.int8
     b, f, c = x.shape
     nb, _, hd = st["w_in"].shape
-    wt = torch.int8 if wq else torch.float32
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"fused_tcn_masker: x must be float32 or bfloat16, got {x.dtype}")
+    wt = torch.int8 if wq else x.dtype
     vrows, crows = (10, 4) if wq else (8, 2)
     shapes = {"w_in": (wt, (nb, c, hd)), "w_dw": (wt, (nb, 3, hd)), "w_res": (wt, (nb, hd, c)),
               "w_skip": (wt, (nb, hd, c)), "vecs": (torch.float32, (nb, vrows, hd)),
@@ -138,12 +214,12 @@ def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"fused_tcn_masker: {name} must be {dtype} {shape} on "
                              f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"fused_tcn_masker: x must be float32, got {x.dtype}")
     if tuple(f_len.shape) != (b,):
         raise ValueError(f"fused_tcn_masker: f_len must be [{b}], got {tuple(f_len.shape)}")
+    lowp = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        out = tcn_masker_reference(x, f_len, st, n_per_repeat=n_per_repeat)
+        twin = tcn_masker_reference_lowp if lowp else tcn_masker_reference
+        out = twin(x, f_len, st, n_per_repeat=n_per_repeat)
         valid = torch.arange(f)[None, :] < f_len.to(torch.int64)[:, None]
         return torch.where(valid[..., None], out, torch.zeros((), dtype=out.dtype))
     if not x.is_cuda:
@@ -157,28 +233,35 @@ def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     weights = [st[k].contiguous() for k in ("w_in", "w_dw", "vecs")]
     cvecs = st["cvecs"].contiguous()
     xs, skips = torch.empty_like(x), torch.empty_like(x)
-    h1, h2 = (torch.empty((b, f, hd), dtype=torch.float32, device=x.device) for _ in range(2))
+    h1, h2 = (torch.empty((b, f, hd), dtype=x.dtype, device=x.device) for _ in range(2))
     stats = torch.empty((nb, b, 4), dtype=torch.float32, device=x.device)
     # room for one gLN partial per block of an item: GEMM blocks of 128 rows
     # x 64 or 128 columns, depthwise blocks of 4096 / H rows
     n_part = 2 * -(-f // 128) * (hd // 64)
     part = torch.empty((b, n_part, 3), dtype=torch.float32, device=x.device)
     tickets = torch.empty((b,), dtype=torch.int32, device=x.device)
-    name = "act_tcn_masker_s8" if wq else "act_tcn_masker"
-    fn = _build.kernel(name, [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    if wq:
-        fused_tcn_masker.launches_s8 += 1
-    else:
-        fused_tcn_masker.launches += 1
-    _build.check(name, fn(
-        x.data_ptr(), fl.data_ptr(), weights[0].data_ptr(), weights[1].data_ptr(),
-        weights[2].data_ptr(), w_rs.data_ptr(), cvecs.data_ptr(), xs.data_ptr(), h1.data_ptr(),
-        h2.data_ptr(), stats.data_ptr(), part.data_ptr(), tickets.data_ptr(), skips.data_ptr(),
-        b, f, c, hd, nb, n_per_repeat, n_part, torch.cuda.current_stream(x.device).cuda_stream))
+    ptrs = [x.data_ptr(), fl.data_ptr(), weights[0].data_ptr(), weights[1].data_ptr(),
+            weights[2].data_ptr(), w_rs.data_ptr(), cvecs.data_ptr()]
+    if lowp and wq:
+        # one block's weights dequantised to bfloat16 at its entry, reused
+        # block after block (stream order)
+        wdq = torch.empty(c * hd + 3 * hd + 2 * hd * c, dtype=x.dtype, device=x.device)
+        ptrs.append(wdq.data_ptr())
+    ptrs += [xs.data_ptr(), h1.data_ptr(), h2.data_ptr(), stats.data_ptr(), part.data_ptr(),
+             tickets.data_ptr(), skips.data_ptr()]
+    name = "act_tcn_masker" + ("_s8" if wq else "") + ("_bf16" if lowp else "")
+    fn = _build.kernel(name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+    counter = "launches" + ("_s8" if wq else "") + ("_bf16" if lowp else "")
+    setattr(fused_tcn_masker, counter, getattr(fused_tcn_masker, counter) + 1)
+    _build.check(name, fn(*ptrs, b, f, c, hd, nb, n_per_repeat, n_part,
+                          torch.cuda.current_stream(x.device).cuda_stream))
     return skips
 
 
-# kernel launches, counted where they happen: the float entry point and the
-# int8 weight stream's
+# kernel launches, counted where they happen: one counter an entry point
+# (float32 / int8 weight stream, float32 / bfloat16 activations)
 fused_tcn_masker.launches = 0
 fused_tcn_masker.launches_s8 = 0
+fused_tcn_masker.launches_bf16 = 0
+fused_tcn_masker.launches_s8_bf16 = 0

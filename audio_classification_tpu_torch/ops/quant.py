@@ -107,19 +107,22 @@ def int_matmul(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                wq: Optional[tuple] = None) -> torch.Tensor:
+                wq: Optional[tuple] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x [B, ..., K] @ w [K, N] with per-sample activation scales (bounded
-    by ``mask``, broadcastable to x) and per-column weight scales. ``wq``:
+    by ``mask``, broadcastable to x) and per-column weight scales, rescaled
+    in float32 and rounded once to ``out_dtype``. ``wq``:
     ``quantize_weight(w, channel_axis=-1)`` made earlier, for a constant w."""
     x8, sx = quantize_dynamic(x, mask)
     w8, sw = quantize_weight(w, channel_axis=-1) if wq is None else wq  # [1, N]
     acc = int_matmul(x8.reshape(-1, x8.shape[-1]), w8).reshape(*x8.shape[:-1], w8.shape[-1])
-    return acc * (sx * sw.reshape(-1))
+    return (acc * (sx * sw.reshape(-1))).to(out_dtype)
 
 
 def int8_conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1, dilation: int = 1,
                 padding=(0, 0), mask: Optional[torch.Tensor] = None,
-                wq: Optional[tuple] = None) -> torch.Tensor:
+                wq: Optional[tuple] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Feature-last conv1d (groups = 1) on the int8 path.
 
     x: [B, T, Cin] float; kernel: [K, Cin, Cout] float (tap-major, the
@@ -127,7 +130,7 @@ def int8_conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1, dilation
     exactly; mask: optional [B, T] validity (scale reduction only). The
     windows are gathered into [B, T', K * Cin] rows for one integer GEMM.
     ``wq``: ``quantize_weight(kernel, channel_axis=-1)`` made earlier, for a
-    constant kernel."""
+    constant kernel. The float32 rescale rounds once to ``out_dtype``."""
     x8, sx = quantize_dynamic(x, None if mask is None else mask[..., None])
     w8, sw = quantize_weight(kernel, channel_axis=-1) if wq is None else wq  # [1, 1, Cout]
     k, cin, cout = kernel.shape
@@ -140,4 +143,4 @@ def int8_conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1, dilation
         x8 = x8[:, idx, :]  # [B, T', K, Cin]
     b, t_out = x8.shape[0], x8.shape[1]
     acc = int_matmul(x8.reshape(b * t_out, k * cin), w8.reshape(k * cin, cout))
-    return acc.reshape(b, t_out, cout) * (sx * sw.reshape(1, 1, -1))
+    return (acc.reshape(b, t_out, cout) * (sx * sw.reshape(1, 1, -1))).to(out_dtype)

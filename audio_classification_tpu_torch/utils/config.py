@@ -93,7 +93,7 @@ class Overlap3Config:
     model_parallel: int = 0           # TP: separators' TCN hidden dim over M chips
     slices: int = 1                   # multi-slice deployments: DP spans slices x chips
                                       # with the DCN factor outermost (TP stays in-slice)
-    compute_dtype: str = "float32"    # "bfloat16" is not ported (raises)
+    compute_dtype: str = "float32"    # "bfloat16": the models run in bf16 (norm stats f32)
     wave_mixtures: int = 0            # mixtures per wave (0 = 4x max_batch); larger waves
                                       # amortize per-phase dispatch latency over more audio
     onnx_exec: str = "map"            # ONNX checkpoints: "map" weights onto our modules,

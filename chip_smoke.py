@@ -44,6 +44,18 @@ points at the full preset, reading every kernel's launch count around each:
   overlapped (K1, K2, K3) and to every frame clean (K1, K3); the
   torch.profiler trace must name the engine's stage ranges.
 
+- --compute-dtype bfloat16: the flagship CLI forced to overlap and to clean
+  (the masker's bf16 entry point K2 bf16), with --sep-backend mossformer
+  (K4 bf16 in the first GAU layer, K4 float32 in the seven after it) and
+  with --quant int8 (K2-s8 bf16), a 6 s replay of the streaming application
+  and one serving tick of two sessions under --quant int8; the float32
+  masker entry points must stay unlaunched on these paths.
+
+The bf16 entry points are held to their bf16 twins and to the twins run in
+float64 (the same rounding points) at the float phases' shapes, timed by
+graph replay beside the float32 entry points, and the full-preset stages of
+a bf16 engine on the card are held to the same bf16 engine on the CPU.
+
 K3 and K5 are also held to their float64 twin at the head dims beside 64
 (Paraformer's 80 at its main shapes, 128, and 40, which the wrapper pads;
 192 and 256 on the wide body, and 200, which it pads to 256), each family's
@@ -83,6 +95,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # 1.83 GHz, the clock behind the data sheet's tensor rates
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_SFU_PER_S = 16 * 132 * 1.83e9
+# the bf16 entry points of K2 / K2-s8 / K4: one bf16 tensor-core product per
+# product, at the data sheet's dense bf16 rate (989 TFLOP/s, H100 SXM)
+PEAK_BF16_FLOPS = 989e12
 # the long-form path: a 200 s utterance snaps to the 256 s bucket, whose
 # (256 * SR - 400) // 160 + 1 = 25598 fbank frames make ceil(25598 / 6) = 4267
 # LFR frames + 4 prompt frames; 4 shards pad that to 4 x 1068. The utterance's
@@ -702,6 +717,154 @@ def check_gau(torch, np) -> dict:
     return {**cases[0], "max_abs_err": max(c["max_abs_err"] for c in cases), "cases": cases}
 
 
+def bf16_bound(flops: float, nbytes: float) -> dict:
+    """The bf16 entry points: the larger of the products at the data
+    sheet's dense bf16 tensor rate and the bytes at the memory rate."""
+    by_ops, by_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def _bf16_stack(torch, tcn, model, quant: bool) -> dict:
+    """The stack a bf16 engine's masker runs: the bf16 copy of the
+    full-preset Conv-TasNet's blocks (weights and vector bundles rounded
+    to bf16), as StageEngine's copy makes it."""
+    import copy
+
+    return tcn.stack_tcn_params(copy.deepcopy(model).to(torch.bfloat16).tcn_blocks(),
+                                torch.bfloat16, weight_quant=quant)
+
+
+def check_tcn_bf16(torch, np, quant: bool) -> dict:
+    """K2 (``quant`` False) or K2-s8 at bf16 against their bf16 twin and
+    the twin run in float64 (the same rounding points, float64 between
+    them) at the float phases' shapes: B=1, F=31999 with a 20 s segment's
+    f_len, and 8 ragged 2 s windows. The bf16 residual stream and skip sum
+    round at every one of the 24 blocks, so a flip of one rounding in a
+    row (another summation order) is carried down the stack: held to 5e-2
+    of max|twin| on valid rows (tests/test_bf16.py's bf16-vs-f32 bound) and
+    a mean of 5e-3; padded rows exactly 0, repeat calls bit-identical. The
+    s8 entry point must equal the bf16 entry point on the stack dequantised
+    to bf16. Device ms by CUDA-graph replay, the float32 entry point's on
+    the float32 stack beside it."""
+    from audio_classification_tpu_torch.engine.runtime import EnginePreset, ModelPack
+    from audio_classification_tpu_torch.ops.kernels import tcn
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(7 if quant else 6)
+    model = ModelPack(EnginePreset(), seed=0, device=dev).models["sep3"]
+    st = _bf16_stack(torch, tcn, model, quant)
+    st32 = tcn.stack_tcn_params(model.tcn_blocks(), weight_quant=quant)
+    nb, c, hd = st["w_in"].shape
+    f32, f2 = (32 * SR - 32) // 16 + 1, (2 * SR - 32) // 16 + 1
+    name = "tcn_masker_s8_bf16" if quant else "tcn_masker_bf16"
+    cases = []
+    for b, f, lens, iters in ((1, f32, [(20 * SR - 32) // 16 + 1], 10),
+                              (8, f2, [f2, f2, 1500, f2, 1000, f2, 750, f2], 20)):
+        x = torch.randn((b, f, c), generator=gen).to(dev).to(bf)
+        f_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        k2 = lambda: tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=8)  # noqa: E731
+        out, again = k2(), k2()
+        torch.cuda.synchronize()
+        ref = tcn.tcn_masker_reference_lowp(x, f_len, st, n_per_repeat=8).float()
+        ref64 = tcn.tcn_masker_reference_lowp(x, f_len, st, n_per_repeat=8,
+                                              acc=torch.float64).float()
+        valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
+        n_valid = sum(lens)
+        peak = (ref64.abs() * valid).max().item()
+        err = ((out.float() - ref).abs() * valid)
+        err64 = ((out.float() - ref64).abs() * valid)
+        x32 = x.float()
+        case = {"shape": [b, f, c], "f_len": lens, "max_abs_err": err.max().item(),
+                "rel_err": err.max().item() / peak,
+                "mean_rel_err": err.sum().item() / (n_valid * c) / peak,
+                "max_abs_err_vs_float64_twin": err64.max().item(),
+                "rel_err_vs_float64_twin": err64.max().item() / peak,
+                "twin_rel_err_vs_float64_twin": ((ref - ref64).abs() * valid).max().item() / peak,
+                "tol_rel": 5e-2, "tol_mean_rel": 5e-3,
+                "padded_rows_zero": not (out.float() * ~valid).any().item(),
+                "repeat_identical": torch.equal(out, again),
+                "ms": graph_ms(torch, k2, iters),
+                "f32_entry_ms": graph_ms(torch, lambda: tcn.fused_tcn_masker(
+                    x32, f_len, st32, n_per_repeat=8), iters),
+                "plain_ms": cuda_ms(torch, lambda: tcn.tcn_masker_reference_lowp(
+                    x, f_len, st, n_per_repeat=8), max(iters // 5, 2)),
+                "library_ms": None}  # no single PyTorch call computes the masker
+        if quant:
+            deq = tcn.fused_tcn_masker(x, f_len, tcn.dequant_stack(st, bf), n_per_repeat=8)
+            case["equal_to_bf16_entry_on_dequantised_stack"] = torch.equal(out, deq)
+        # the float phases' count over the VALID frames; bytes: valid rows of
+        # x in and of the sum out at 2 bytes, the weights at their own width
+        case.update(bf16_bound(nb * n_valid * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd),
+                               2.0 * 2 * n_valid * c
+                               + sum(t.numel() * t.element_size() for t in st.values())))
+        case["share"] = case["bound_ms"] / case["ms"]
+        log({"phase": "kernel", "name": name, **case})
+        assert math.isfinite(case["rel_err"]) and case["rel_err"] <= 5e-2, case
+        assert case["rel_err_vs_float64_twin"] <= 5e-2, case
+        assert case["mean_rel_err"] <= 5e-3, case
+        assert case["padded_rows_zero"] and case["repeat_identical"], case
+        assert case.get("equal_to_bf16_entry_on_dequantised_stack", True), case
+        cases.append(case)
+    return {**cases[0], "max_abs_err": max(c_["max_abs_err"] for c_ in cases), "cases": cases}
+
+
+def check_gau_bf16(torch, np) -> dict:
+    """K4's bf16 entry point (MossFormer's first GAU layer in a bf16 engine)
+    against its bf16 twin and the twin in float64 (p rounded to bf16 in
+    both) at the float phase's shapes: the 8 s bucket with 11999 keys valid
+    and a ragged batch of 3 with one item masked whole. 2e-3 of max|out|:
+    the two sums' orders differ in float32, and a p that lands on a bf16
+    rounding boundary goes either way. Device ms by graph replay, the
+    float32 entry point's on the same values beside it."""
+    from audio_classification_tpu_torch.ops.kernels import gau
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    cases = []
+    for b, t, lens, iters in ((1, 15999, [11999], 10), (3, 1237, [1237, 700, 0], 20)):
+        q, k = (torch.randn((b, t, 128), generator=gen).to(dev).to(bf) for _ in range(2))
+        v = torch.randn((b, t, 768), generator=gen).to(dev).to(bf)
+        mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        scale = 1.0 / t
+        k4 = lambda: gau.gau_attention(q, k, v, mask, scale)  # noqa: E731
+        out, again = k4(), k4()
+        torch.cuda.synchronize()
+        ref = gau.gau_attention_reference(q, k, v, mask, scale)
+        ref64 = gau.gau_attention_reference(q, k, v, mask, scale, acc=torch.float64)
+        peak = ref64.abs().max().item()
+        err, err64 = (out - ref).abs().max().item(), (out - ref64).abs().max().item()
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        n_valid = sum(lens)
+        case = {"shape": [b, t, 128, 768], "valid_keys": lens, "max_abs_err": err,
+                "rel_err": err / peak, "max_abs_err_vs_float64_twin": err64,
+                "rel_err_vs_float64_twin": err64 / peak,
+                "twin_rel_err_vs_float64_twin": (ref - ref64).abs().max().item() / peak,
+                "tol_rel": 2e-3, "repeat_identical": torch.equal(out, again),
+                "ms": graph_ms(torch, k4, iters),
+                "f32_entry_ms": graph_ms(torch, lambda: gau.gau_attention(q32, k32, v32, mask,
+                                                                           scale), iters),
+                "plain_ms": graph_ms(torch, lambda: gau.gau_attention_reference(
+                    q, k, v, mask, scale), iters),
+                "wrapper_ms": cuda_ms(torch, k4, iters),
+                "library_ms": None,  # no single PyTorch call computes relu^2 attention
+                # over the valid keys: q read and out (float32) written for
+                # every row, k and v for the valid keys alone, at 2 bytes
+                **bf16_bound(2.0 * t * n_valid * (128 + 768),
+                             2.0 * (q.numel() + n_valid * (128 + 768)) + 4.0 * out.numel()
+                             + mask.numel())}
+        case["share"] = case["bound_ms"] / case["ms"]
+        log({"phase": "kernel", "name": "gau_attention_bf16", **case})
+        assert math.isfinite(err) and err <= 2e-3 * peak and err64 <= 2e-3 * peak, case
+        assert case["repeat_identical"], case
+        assert not out[torch.tensor(lens, device=dev) == 0].any()  # the masked item: zeros
+        cases.append(case)
+    return {**cases[0], "max_abs_err": max(c["max_abs_err"] for c in cases), "cases": cases}
+
+
 def check_small_input_against_cpu(torch, np) -> None:
     """The full-preset stages on the card (kernels) against the same weights
     on the CPU (plain twins) for two 4 s items: OSD probs, separated
@@ -774,6 +937,61 @@ def check_small_input_against_cpu(torch, np) -> None:
             report[name + "_int8"] = rel
             assert math.isfinite(rel) and rel <= 3e-2, (name, rel)
     log({"phase": "small_input_vs_cpu_int8", "rel_err": report, "tol_rel": 3e-2})
+
+
+def check_bf16_against_cpu(torch, np) -> None:
+    """The full-preset stages of a ``compute_dtype="bfloat16"`` engine on the
+    card (the bf16 kernels, cuBLAS / cuDNN in bf16) against the same bf16
+    engine on the CPU (the bf16 twins, torch's CPU bf16 ops) for two items
+    of 4 s (MossFormer: 2 s). Both round at the same points, their float32
+    sums run in other orders, and a flipped bf16 rounding is carried on:
+    through Conv-TasNet's 24 masker blocks, whose residual stream is bf16,
+    as far as bf16 is from float32 itself. So the tolerance of each stage is
+    the distance between the CPU's bf16 and float32 engines on the same
+    input (max |.| over max |float32|): the card's bf16 must stand no
+    further from the CPU's bf16 than bf16 stands from float32."""
+    from audio_classification_tpu_torch.engine.runtime import EnginePreset, ModelPack, StageEngine
+    from audio_classification_tpu_torch.models.asr.sensevoice import sensevoice_frontend
+
+    n = 4 * SR
+    src = talkers(n, 2)
+    wav = np.stack([sum(src) * 0.25, src[0] * 0.5]).astype(np.float32)
+    wav_i16 = np.clip(np.rint(wav * 32768), -32768, 32767).astype(np.int16)
+    lens = np.array([n, 3 * SR], np.int32)
+    cpu_pack = ModelPack(EnginePreset(), seed=0, device="cpu")
+    engines = {"cuda": StageEngine(ModelPack(EnginePreset(), seed=0, device="cuda"),
+                                   compute_dtype="bfloat16"),
+               "cpu": StageEngine(cpu_pack, compute_dtype="bfloat16"),
+               "cpu_f32": StageEngine(cpu_pack)}
+
+    def asr_logits(e, w, l):
+        feats, mask = sensevoice_frontend(e._dq(w), l, e.pack.asr_cfg)
+        return e.models["asr"](feats.to(e.compute_dtype), mask)
+
+    stages = {
+        "osd_probs": lambda e, w, l: e._osd_fn(w, l),
+        "sep_branches": lambda e, w, l: e._sep_core(e._dq(w), l),
+        "mossformer_branches": lambda e, w, l: e._sep_core(e._dq(w[:, : 2 * SR]), l // 2,
+                                                           "mossformer"),
+        "spk_embeddings": lambda e, w, l: e._embed_core(e._dq(w), l),
+        "asr_logits": asr_logits,
+    }
+    report = {}
+    with torch.inference_mode():
+        for name, fn in stages.items():
+            outs = {}
+            for d, e in engines.items():
+                w = torch.from_numpy(wav_i16).to(e.device)
+                outs[d] = fn(e, w, torch.from_numpy(lens).to(e.device)).float().cpu()
+            peak = max(outs["cpu_f32"].abs().max().item(), 1e-12)
+            rel = (outs["cuda"] - outs["cpu"]).abs().max().item() / peak
+            gap = (outs["cpu"] - outs["cpu_f32"]).abs().max().item() / peak
+            report[name] = {"rel_err": rel, "tol_rel_bf16_vs_f32": gap,
+                            "l2_rel_err": ((outs["cuda"] - outs["cpu"]).norm()
+                                           / outs["cpu"].norm()).item()}
+    log({"phase": "small_input_vs_cpu_bf16", "stages": report})
+    for name, r in report.items():
+        assert math.isfinite(r["rel_err"]) and r["rel_err"] <= r["tol_rel_bf16_vs_f32"], (name, r)
 
 
 def check_families_against_cpu(torch, np) -> None:
@@ -1201,6 +1419,40 @@ def run_paths(torch, np, counters: dict) -> dict:
                  unexpected=("tcn_masker",))
     assert r.metrics["segments_overlap_streams"] > 0
 
+    # --compute-dtype bfloat16: the flagship scenes on both backends and the
+    # int8 overlap scene. The masker runs its bf16 entry points and the
+    # float32 ones stay unlaunched; MossFormer's first GAU layer takes bf16
+    # q, k, v and the seven after it float32 (the kernel's float32 output
+    # promotes the stream); K3 is fed float32 (the encoders' positional
+    # table promotes their streams)
+    bf16 = ["--compute-dtype", "bfloat16"]
+    masker_entries = ("tcn_masker", "tcn_masker_s8", "tcn_masker_bf16", "tcn_masker_s8_bf16")
+    r = flagship("overlap3 --compute-dtype bfloat16 --osd-thr 0.0",
+                 ["--input-wavs", str(work / "mix.wav"), "--osd-thr", "0.0", *bf16], "overlap",
+                 ("fbank_power_mel", "tcn_masker_bf16", "flash_attention"),
+                 unexpected=tuple(k for k in masker_entries if k != "tcn_masker_bf16"))
+    assert r.metrics["segments_overlap_streams"] > 0
+    r = flagship("overlap3 --compute-dtype bfloat16 --osd-thr 1.0",
+                 ["--input-wavs", str(work / "mix.wav"), "--osd-thr", "1.0", *bf16], "clean",
+                 ("fbank_power_mel", "flash_attention"), unexpected=masker_entries)
+    assert r.metrics["segments_clean"] > 0
+    r = flagship("overlap3 --compute-dtype bfloat16 --sep-backend mossformer",
+                 ["--input-wavs", str(work / "mix2.wav"), "--osd-thr", "0.0",
+                  "--sep-backend", "mossformer", *bf16], "overlap",
+                 ("fbank_power_mel", "gau_attention_bf16", "gau_attention"))
+    assert r.metrics["segments_overlap_streams"] > 0
+    r = flagship("overlap3 --compute-dtype bfloat16 --sep-backend mossformer --osd-thr 1.0",
+                 ["--input-wavs", str(work / "mix2.wav"), "--osd-thr", "1.0",
+                  "--sep-backend", "mossformer", *bf16], "clean",
+                 ("fbank_power_mel",), unexpected=("gau_attention", "gau_attention_bf16"))
+    assert r.metrics["segments_clean"] > 0
+    r = flagship("overlap3 --compute-dtype bfloat16 --quant int8",
+                 ["--input-wavs", str(work / "mix.wav"), "--osd-thr", "0.0", "--quant", "int8",
+                  *bf16], "overlap",
+                 ("fbank_power_mel", "tcn_masker_s8_bf16", "flash_attention"),
+                 unexpected=tuple(k for k in masker_entries if k != "tcn_masker_s8_bf16"))
+    assert r.metrics["segments_overlap_streams"] > 0
+
     # streaming application: a 12 s three-talker wav replayed as fast as it
     # goes, captured in 1024-sample chunks and analysed in blocks of
     # 31 x 1024 samples by the pipeline's worker thread. The worker prints a
@@ -1233,6 +1485,25 @@ def run_paths(torch, np, counters: dict) -> dict:
              "records": len(recs),
              "kinds": {k: sum(x["kind"] == k for x in recs)
                        for k in ("clean", "overlap", "full_separation")}})
+
+    # ... and a few blocks of it (6 s: three windows) at bf16
+    write_wav(work / "stream6.wav", 0.6 * mix12[: 6 * SR] / np.abs(mix12).max(), SR)
+    fed6 = -(-6 * SR // block)
+    name = "streaming_overlap_3src --compute-dtype bfloat16"
+    app, launches = _counted(
+        torch, counters, ("fbank_power_mel", "tcn_masker_bf16"), name,
+        lambda: streaming_overlap_3src.main(
+            ["--target-wav", str(work / "target.wav"), "--input-wav", str(work / "stream6.wav"),
+             "--no-realtime", "--process-seconds", "2.0", "--compute-dtype", "bfloat16",
+             "--sv-threshold", "-1", "--preset", "full", "--seed", "0",
+             "--output-dir", str(work / "out_stream_bf16")]), ("tcn_masker",))
+    add(launches)
+    stats = app.pipeline.latency_stats()
+    assert not app.pipeline._worker.is_alive() and stats["chunks"] == fed6, (stats, fed6)
+    recs = app.all_results
+    assert sum(x["kind"] == "full_separation" for x in recs) == 3 * fed6, len(recs)
+    assert all(math.isfinite(x["sv_score"]) for x in recs)
+    log({"phase": "pipeline", "path": name, "windows_fed": fed6, **stats, "records": len(recs)})
 
     # multi-session server: 8 callers of 12 s (one recorded at 8 kHz), 2 s
     # windows, every tick batching one window of every session
@@ -1291,6 +1562,32 @@ def run_paths(torch, np, counters: dict) -> dict:
     for got in (got8, got16):
         assert sum(x["kind"] == "full_separation" for x in got) == 3, got
         assert all(math.isfinite(x["sv_score"]) for x in got)
+
+    # one serving tick at bf16 with the int8 weight stream: two sessions'
+    # first 2 s windows batched into K2-s8's bf16 entry point
+    args_bf16 = serve_streams.parse_args(
+        ["--wavs", "-", "--targets", str(work / "target.wav"), "--quant", "int8",
+         "--compute-dtype", "bfloat16", "--sv-threshold", "-1", "--preset", "full",
+         "--seed", "0"])
+
+    def bf16_tick():
+        server = StreamingServer(args_bf16, autostart=False)
+        try:
+            sids = [server.open_session(target_wav=str(work / "target.wav")) for _ in range(2)]
+            for sid, path in zip(sids, calls[:2]):
+                server.add_audio(sid, to_mono(read_wav(path)[0])[: 2 * SR])
+            assert server.step() == 2
+            return [server.get_results(sid) for sid in sids]
+        finally:
+            server.close()
+
+    got, launches = _counted(torch, counters, ("fbank_power_mel", "tcn_masker_s8_bf16"),
+                             "StreamingServer --compute-dtype bfloat16 --quant int8, one tick",
+                             bf16_tick, ("tcn_masker", "tcn_masker_s8", "tcn_masker_bf16"))
+    add(launches)
+    for g in got:
+        assert sum(x["kind"] == "full_separation" for x in g) == 3, g
+        assert all(math.isfinite(x["sv_score"]) for x in g)
 
     # the other three ASR families through the flagship CLI (seeded weights:
     # a value that is not an .onnx file selects the family), on the 20 s
@@ -1549,7 +1846,10 @@ def main() -> int:
                "tcn_masker_s8": check_tcn_s8(torch, np),
                "flash_attention": check_attention(torch, np),
                "gau_attention": check_gau(torch, np),
-               "flash_attention_stats": check_attention_stats(torch, np)}
+               "flash_attention_stats": check_attention_stats(torch, np),
+               "tcn_masker_bf16": check_tcn_bf16(torch, np, quant=False),
+               "tcn_masker_s8_bf16": check_tcn_bf16(torch, np, quant=True),
+               "gau_attention_bf16": check_gau_bf16(torch, np)}
     # K3 and K5 at D = 80 (Paraformer), 128 and a padded 40: their cases join
     # the kernels' records, errors against the float64 twin
     for name, cases in check_attention_head_dims(torch, np).items():
@@ -1557,16 +1857,20 @@ def main() -> int:
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                            *(c["max_abs_err"] for c in cases))
     check_small_input_against_cpu(torch, np)
+    check_bf16_against_cpu(torch, np)
     check_families_against_cpu(torch, np)
     check_pyannet_against_cpu(torch, np)
-    # each wrapper's count of kernel launches; the masker's two C entry points
-    # count apart
+    # each wrapper's count of kernel launches; the masker's four C entry
+    # points and K4's two count apart
     counters = {"fbank_power_mel": (fbank_power_mel, "launches"),
                 "tcn_masker": (fused_tcn_masker, "launches"),
                 "tcn_masker_s8": (fused_tcn_masker, "launches_s8"),
                 "flash_attention": (flash_attention, "launches"),
                 "gau_attention": (gau_attention, "launches"),
-                "flash_attention_stats": (flash_attention_stats, "launches")}
+                "flash_attention_stats": (flash_attention_stats, "launches"),
+                "tcn_masker_bf16": (fused_tcn_masker, "launches_bf16"),
+                "tcn_masker_s8_bf16": (fused_tcn_masker, "launches_s8_bf16"),
+                "gau_attention_bf16": (gau_attention, "launches_bf16")}
     launches = run_paths(torch, np, counters)
     for k, n in run_long_form(torch, np, counters).items():
         launches[k] += n
@@ -1589,6 +1893,14 @@ def main() -> int:
         # K3's body with the other epilogue: act_flash_attention_stats
         "flash_attention_stats": ("audio_classification_tpu_torch/csrc/flash_attention.cu",
                                   "audio_classification_tpu/ops/pallas/attention_kernel.py:293"),
+        # the bf16 entry points: act_tcn_masker_bf16, act_tcn_masker_s8_bf16,
+        # act_gau_attention_bf16 (the JAX kernels at dt = bfloat16)
+        "tcn_masker_bf16": ("audio_classification_tpu_torch/csrc/tcn_masker.cu",
+                            "audio_classification_tpu/ops/pallas/tcn_kernel.py:489"),
+        "tcn_masker_s8_bf16": ("audio_classification_tpu_torch/csrc/tcn_masker.cu",
+                               "audio_classification_tpu/ops/pallas/tcn_kernel.py:489"),
+        "gau_attention_bf16": ("audio_classification_tpu_torch/csrc/gau_attention.cu",
+                               "audio_classification_tpu/ops/pallas/attention_kernel.py:410"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name],

@@ -18,6 +18,9 @@ frame shapes K1 was called at. Scenes:
   mossformer   6 s two-talker mixture, forced overlap, --sep-backend mossformer
                (8 s bucket, K4 at T = 15999 in 8 layers)
   overlap-int8 the overlap scene under --quant int8 (K2-s8 at F = 31999)
+  overlap-bf16, clean-bf16, mossformer-bf16, overlap-int8-bf16
+               the four file scenes above with --compute-dtype bfloat16
+               (K2 / K2-s8 bf16; K4 bf16 in the first GAU layer)
   streaming    --quant int8: the six 1.984 s blocks of a 12 s three-talker
                wav through StreamingOverlap3Pipeline._analyze_segment
   serving      --quant int8: 8 sessions x 12 s, six ticks of 8 windows of 2 s
@@ -167,16 +170,18 @@ def main() -> int:
                            sep_backend="mossformer"),
         "overlap-int8": dict(input_wavs=[str(work / "mix.wav")], osd_thr=0.0, quant="int8"),
     }
+    for name in list(file_scenes):
+        file_scenes[name + "-bf16"] = dict(file_scenes[name], compute_dtype="bfloat16")
     engines = {}
 
-    def engine_for(q):
-        if q not in engines:
-            engines[q] = build_engine(Overlap3Config(**base, quant=q))
-        return engines[q]
+    def engine_for(q, dtype="float32"):
+        if (q, dtype) not in engines:
+            engines[q, dtype] = build_engine(Overlap3Config(**base, quant=q, compute_dtype=dtype))
+        return engines[q, dtype]
 
     def file_scene(name):
         cfg = Overlap3Config(**base, **file_scenes[name])
-        engine = engine_for(cfg.quant)
+        engine = engine_for(cfg.quant, cfg.compute_dtype)
 
         def run():
             res = Overlap3Pipeline(cfg, engine=engine).run()
@@ -259,14 +264,17 @@ def main() -> int:
             t0 = time.perf_counter()
             run()
             traced_wall = (time.perf_counter() - t0) * 1e3
-        # device events: kernels and copies, and the int8:: ranges mirrored
-        # onto the device's timeline (first to last kernel launched under one)
+        # device events: kernels and copies, and the record_function ranges
+        # mirrored onto the device's timeline (first to last kernel launched
+        # under one): this script's int8:: and fbank:: ranges and the engine's
+        # own engine.* stage ranges (utils/profiling.stage_range), which are
+        # no device work and must not count as busy time or as device ops
         by_name, intervals, ranges = {}, [], {}
         for ev in prof.events():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
             span = (ev.time_range.start, ev.time_range.end)
-            if ev.name.startswith(("int8::", "fbank::")):
+            if ev.name.startswith(("int8::", "fbank::", "engine.")):
                 ranges.setdefault(ev.name, []).append(span)
                 continue
             by_name[ev.name] = by_name.get(ev.name, [0, 0.0])

@@ -489,3 +489,149 @@ def test_ring_attention_on_the_card(dev, n, t):
     rows = mask[:, :, None, None]
     assert ((out - ref).abs() * rows).max().item() < 2e-5
     assert ((out - k3).abs() * rows).max().item() < 2e-5
+
+
+# ------------------------------------------------------------ bf16 entry points
+# K2 / K2-s8 at bf16 against the bf16 twin and the twin run in float64 (the
+# same rounding points): the residual stream and the skip sum round to bf16
+# at every block, so one flipped rounding in a row (another float32
+# summation order) is carried down the 8 blocks: max 3e-2 and mean 3e-3 of
+# max|twin| on valid rows (measured on an NVIDIA H100 at these cases:
+# <= 1.3e-2 and 1.1e-3; the float32 twin itself is as far from the float64
+# one)
+TCN_BF16_TOL, TCN_BF16_MEAN_TOL = 3e-2, 3e-3
+
+
+def _bf16_stack(st, quant):
+    """A float32 test stack as a bf16 copy's would be: weights bf16 (the
+    int8 stream as it is), the vector bundles' parameter rows rounded."""
+    out = dict(st)
+    if not quant:
+        for name in ("w_in", "w_dw", "w_res", "w_skip"):
+            out[name] = st[name].to(torch.bfloat16)
+    vecs, cvecs = st["vecs"].clone(), st["cvecs"].clone()
+    vecs[:, :8] = vecs[:, :8].to(torch.bfloat16).float()
+    cvecs[:, :2] = cvecs[:, :2].to(torch.bfloat16).float()
+    out["vecs"], out["cvecs"] = vecs, cvecs
+    return out
+
+
+def _check_tcn_bf16_call(dev, st, c, f, lens, npr):
+    g = torch.Generator().manual_seed(f + len(lens))
+    x = torch.randn((len(lens), f, c), generator=g).to(dev).to(torch.bfloat16)
+    f_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=npr)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
+    for acc in (torch.float32, torch.float64):
+        ref = tcn.tcn_masker_reference_lowp(x, f_len, st, n_per_repeat=npr, acc=acc).float()
+        if valid.any():
+            err = (out.float() - ref).abs() * valid
+            peak = (ref.abs() * valid).max().item()
+            assert err.max().item() <= TCN_BF16_TOL * peak
+            assert err.sum().item() / (valid.sum().item() * c) <= TCN_BF16_MEAN_TOL * peak
+    assert not (out * ~valid).any()
+    assert torch.equal(out, tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=npr))
+    poisoned = torch.where(valid, x, (1e4 * torch.sign(torch.randn_like(x.float()))).to(x.dtype))
+    assert torch.equal(out, tcn.fused_tcn_masker(poisoned, f_len, st, n_per_repeat=npr))
+    return x, f_len, out
+
+
+def _tcn_counts():
+    m = tcn.fused_tcn_masker
+    return (m.launches, m.launches_s8, m.launches_bf16, m.launches_s8_bf16)
+
+
+@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_CASES)
+def test_tcn_bf16_kernel_matches_twin(dev, c, hd, f, lens, npr, monkeypatch):
+    """K2's bf16 entry point at the row-tile edges (f_len 0, 1, 127-129, F;
+    dilations to 128 past short f_len): each call one bf16 launch, never the
+    float32 entry point and never a twin."""
+    st = _bf16_stack(_tcn_stack(torch.Generator().manual_seed(c), dev, c, hd, 8, quant=False),
+                     quant=False)
+    before = _tcn_counts()
+
+    def refuse(x, *a, **k):
+        if x.is_cuda:
+            raise AssertionError("a twin got a CUDA tensor")
+        return twin(x, *a, **k)
+
+    twin = tcn.tcn_masker_reference_lowp
+    monkeypatch.setattr(tcn, "tcn_masker_reference", refuse)
+    monkeypatch.setattr(tcn, "tcn_masker_reference_lowp", refuse)
+    x, f_len = (torch.randn((len(lens), f, c), device=dev).to(torch.bfloat16),
+                torch.tensor(lens, dtype=torch.int32, device=dev))
+    tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=npr)
+    monkeypatch.undo()
+    assert _tcn_counts() == (before[0], before[1], before[2] + 1, before[3])
+    _check_tcn_bf16_call(dev, st, c, f, lens, npr)
+    assert _tcn_counts() == (before[0], before[1], before[2] + 4, before[3])
+
+
+@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_CASES)
+def test_tcn_s8_bf16_kernel_matches_twin_and_bf16_kernel(dev, c, hd, f, lens, npr):
+    """K2-s8 at bf16: as K2 bf16 against the twins, and EQUAL to the bf16
+    entry point on the stack dequantised to bf16 (the block-entry dequant
+    gives the same bf16 weights). Each entry point counts its own."""
+    st = _bf16_stack(_tcn_stack(torch.Generator().manual_seed(c + 1), dev, c, hd, 8,
+                                quant=True), quant=True)
+    before = _tcn_counts()
+    x, f_len, out = _check_tcn_bf16_call(dev, st, c, f, lens, npr)
+    assert _tcn_counts() == (before[0], before[1], before[2], before[3] + 3)
+    deq = tcn.fused_tcn_masker(x, f_len, tcn.dequant_stack(st, torch.bfloat16),
+                               n_per_repeat=npr)
+    assert torch.equal(out, deq)
+    assert _tcn_counts() == (before[0], before[1], before[2] + 1, before[3] + 3)
+
+
+# K4 at bf16 against its bf16 twin and the float64 one: p rounds to bf16 in
+# both, the sums run in other orders, so a p on a rounding boundary may go
+# either way: 2e-3 of max|out| (measured <= 6.3e-4 on an NVIDIA H100)
+GAU_BF16_TOL = 2e-3
+
+
+@pytest.mark.parametrize("b,t,dqk,de,lens", [
+    (1, 1, 128, 768, [1]),
+    (3, 333, 32, 96, [333, 111, 0]),           # the tiny preset's widths, one item masked whole
+    (2, 31, 128, 768, [31, 30]),               # T at both sides of the 32-key tile
+    (2, 33, 128, 768, [33, 1]),
+    (2, 63, 128, 768, [63, 32]),               # ... and of the 64-row block
+    (2, 65, 128, 768, [65, 64]),
+    (2, 1000, 64, 1000, [1000, 517]),          # De over several 384-column chunks
+    (2, 200, 104, 8, [200, 9]),                # Dqk % 16 == 8 (the last k-step half zero)
+    (1, 4099, 128, 768, [3000]),               # masked tail tiles skipped
+    (3, 1237, 128, 768, [1237, 700, 0]),
+])
+def test_gau_bf16_kernel_matches_twin(dev, b, t, dqk, de, lens):
+    g = torch.Generator().manual_seed(t + de + 1)
+    q, k = (torch.randn((b, t, dqk), generator=g).to(dev).to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, t, de), generator=g).to(dev).to(torch.bfloat16)
+    mask = (torch.arange(t)[None, :] < torch.tensor(lens)[:, None]).to(dev)
+    empty = ~mask.any(dim=1)
+    before = (gau.gau_attention.launches, gau.gau_attention.launches_bf16)
+    out = gau.gau_attention(q, k, v, mask, 4.0 / t)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    for acc in (torch.float32, torch.float64):
+        ref = gau.gau_attention_reference(q, k, v, mask, 4.0 / t, acc=acc)
+        assert (out - ref).abs().max().item() <= GAU_BF16_TOL * max(ref.abs().max().item(),
+                                                                    1e-30)
+    assert not out[empty].any()
+    assert torch.equal(out, gau.gau_attention(q, k, v, mask, 4.0 / t))
+    assert (gau.gau_attention.launches, gau.gau_attention.launches_bf16) == \
+        (before[0], before[1] + 2)
+    with pytest.raises(ValueError, match="Dqk % 8"):
+        gau.gau_attention(q[..., :12], k[..., :12], v, mask, 1.0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gau.gau_attention(q, k, v.float(), mask, 1.0)
+
+
+def test_flash_kernels_refuse_bf16_on_the_card(dev):
+    q = torch.zeros((1, 2, 70, 64), device=dev, dtype=torch.bfloat16)
+    before = (attention.flash_attention.launches, attention.flash_attention_stats.launches)
+    for fn in (attention.flash_attention, attention.flash_attention_stats):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(q, q, q, None)
+    assert (attention.flash_attention.launches,
+            attention.flash_attention_stats.launches) == before

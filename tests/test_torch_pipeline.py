@@ -114,7 +114,7 @@ def test_cli_main_file_mode_writes_artifacts(wavs, tmp_path):
     ["--paraformer", "model.onnx"], ["--osd-checkpoint", "osd_params"], ["--model-parallel", "2"],
     ["--data-parallel", "2"], ["--arena-codec", "mulaw"],
     ["--sense-voice", "model.onnx"], ["--encoder", "enc.onnx"],
-    ["--checkpoint-dir", "ckpt"], ["--compute-dtype", "bfloat16"],
+    ["--checkpoint-dir", "ckpt"],
 ])
 def test_unported_flags_raise(wavs, flags):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -247,7 +247,7 @@ def test_serve_streams_cli(fixtures, tmp_path, quant):
 
 @pytest.mark.parametrize("flags", [
     ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
-    ["--compute-dtype", "bfloat16"], ["--arena-codec", "mulaw"], ["--checkpoint-dir", "ckpt"],
+    ["--arena-codec", "mulaw"], ["--checkpoint-dir", "ckpt"],
     ["--sense-voice", "model.onnx"], ["--encoder", "enc.onnx"],
 ])
 def test_serve_streams_unported_flags_raise(fixtures, flags):

@@ -221,7 +221,7 @@ def test_streaming_app_max_seconds_and_8k_input(target_wav, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
-    ["--compute-dtype", "bfloat16"], ["--checkpoint-dir", "ckpt"],
+    ["--checkpoint-dir", "ckpt"],
     ["--sense-voice", "model.onnx"], ["--paraformer", "model.onnx"],
     ["--spk-embed-model", "spk.onnx"], ["--osd-checkpoint", "osd_params"],
 ])

@@ -49,20 +49,27 @@ def _int8(preset, **sep_kw):
         asr=dataclasses.replace(preset.asr, quant="int8"))
 
 
-def shared_engines(quant: str):
-    """The JAX engine and the port's on the same tiny weights and buckets.
-    Under int8 the presets carry the quant fields ``build_engine`` sets; the
-    JAX tiny separators always run the dense loop, so the port's take
-    fused_tcn="off" (the same model, activations quantised too)."""
+def shared_engines(quant: str, compute_dtype: str = "float32"):
+    """The JAX engine and the port's on the same tiny weights and buckets,
+    both in ``compute_dtype``. Under int8 the presets carry the quant fields
+    ``build_engine`` sets; the JAX tiny separators always run the dense loop
+    (bottleneck 32 never fuses), so the port's take fused_tcn="off" (the same
+    model, activations quantised too); in bfloat16 too, so that both run the
+    dense loop's rounding."""
     jp, tp = jax_tiny_preset(), tiny_preset()
     if quant == "int8":
         jp, tp = _int8(jp), _int8(tp, fused_tcn="off")
+    elif compute_dtype != "float32":
+        tp = dataclasses.replace(tp, sep3=dataclasses.replace(tp.sep3, fused_tcn="off"),
+                                 sep2=dataclasses.replace(tp.sep2, fused_tcn="off"))
     jax_pack = JaxModelPack(jp, seed=0)
     pack = ModelPack(tp, seed=1, device="cpu")  # every weight is overwritten
     pack.load_state_dicts(params_to_state_dicts(
         {k: jax_pack.params[k] for k in ModelPack.STAGES}))
-    jax_eng = JaxStageEngine(jax_pack, JaxBucketSpec(jax_default_buckets(SR, 0.5, 8.0), 4))
-    eng = StageEngine(pack, BucketSpec(default_buckets(SR, 0.5, 8.0), 4))
+    jax_eng = JaxStageEngine(jax_pack, JaxBucketSpec(jax_default_buckets(SR, 0.5, 8.0), 4),
+                             compute_dtype=compute_dtype)
+    eng = StageEngine(pack, BucketSpec(default_buckets(SR, 0.5, 8.0), 4),
+                      compute_dtype=compute_dtype)
     return jax_eng, eng
 
 
@@ -86,11 +93,11 @@ def _sig(rec):
             round(rec["end"] - rec["start"], 3), rec["text"])
 
 
-def assert_records_match(got, ref):
+def assert_records_match(got, ref, sv_tol=SV_TOL):
     got, ref = sorted(got, key=_sig), sorted(ref, key=_sig)
     assert [_sig(r) for r in got] == [_sig(r) for r in ref]
     for g, r in zip(got, ref):
-        assert abs(g["sv_score"] - r["sv_score"]) <= SV_TOL
+        assert abs(g["sv_score"] - r["sv_score"]) <= sv_tol
         assert g["target_src_text"] == r["target_src_text"]
 
 
