@@ -5,3 +5,7 @@ verification -> SenseVoice CTC ASR; the flagship 3-source runner, the
 multi-session server, in float32 or with ``--quant int8``), with the JAX
 package's Pallas kernels on those paths rewritten as CUDA C++ kernels for
 sm_90a (csrc/). Runs on the GPU unless the caller asks for the CPU."""
+
+__version__ = "0.1.0"
+
+G_SAMPLE_RATE = 16000

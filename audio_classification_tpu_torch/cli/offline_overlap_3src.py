@@ -117,8 +117,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "first); TP never crosses a slice")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="bfloat16 compute: the models run as a bfloat16 copy of their weights "
-                        "(the JAX engine's bf16 mode; the SenseVoice family with OSDNet only: "
-                        "another family or --osd-checkpoint raises)")
+                        "(the JAX engine's bf16 mode; every ASR family, OSDNet or an "
+                        "--osd-checkpoint PyanNet)")
     p.add_argument("--wave-mixtures", type=int, default=0,
                    help="Mixtures per processing wave (0 = 4x max-batch)")
     p.add_argument("--onnx-exec", default="map", choices=["map", "direct", "auto"],

@@ -84,8 +84,8 @@ def parse_args(argv=None):
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="bfloat16 compute: the models run as a bfloat16 copy of their weights "
-                        "(the JAX engine's bf16 mode; the SenseVoice family with OSDNet only: "
-                        "another family or --osd-checkpoint raises)")
+                        "(the JAX engine's bf16 mode; every ASR family, OSDNet or an "
+                        "--osd-checkpoint PyanNet)")
     p.add_argument("--arena-codec", dest="arena_codec", default="i16",
                    choices=["i16", "mulaw"],
                    help="Wave-arena upload encoding (mulaw is not ported: raises)")

@@ -14,7 +14,9 @@
 // have separate lengths: in the ring a shard's queries meet every other
 // shard's keys. A key block that is masked whole gives m = -1e9 and l = its
 // key count (every s rounds to -1e9 in float32), which the merge scales by
-// exp(-1e9 - m_valid) = 0.
+// exp(-1e9 - m_valid) = 0. bfloat16 q, k, v take entry points of their own
+// (act_flash_attention_bf16, act_flash_attention_stats_bf16: namespace b16
+// below, with its design and bound).
 //
 // Bound on the H100: at D = 64 the two products (s = q k^T, acc += p v) are
 // 4 T_q T_k D operations over O(T D) bytes, so the kernel is bound by
@@ -80,6 +82,7 @@
 
 #include <atomic>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 // warps a block, 16 query rows each. 4 in the library; the block-size
@@ -691,6 +694,424 @@ int dispatch(const float* q, const float* k, const float* v, const uint8_t* kv_m
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16 q, k, v: act_flash_attention_bf16 (K3) and
+// act_flash_attention_stats_bf16 (K5), the JAX body _kernel at bf16
+// (attention_kernel.py:64-113): s = (q . k) accumulated in float32 (each
+// bf16 product is exact in float32), then * scale (1 / sqrt of the true D)
+// and + the key bias, in float32; m, l and alpha in float32, l summed from
+// the unrounded p; p = exp(s - m) rounded to bfloat16 (p.astype(v.dtype)
+// :99) before p v, which accumulates in float32; a float32 output (the
+// out_shape :129-130). p is rounded against the running max, so the result
+// depends on the key-tile width: this body's 64 keys are its twin's
+// block_k on the card (ops/kernels/attention.attention_reference_lowp).
+// Design: mma.sync m16n8k16 bf16 with float32 accumulators for both
+// products, one tensor-core product where 3xTF32 takes three. A block of
+// NW warps owns 16 NW query rows, 16 a warp; q [rows][D] is staged once,
+// K and V tiles of 64 keys by 16-byte cp.async into a two-stage ring (the
+// next tile lands under this one's products). The score fragment of two
+// neighbouring n8 tiles is, once rounded to bf16, the A fragment of p v's
+// k16 step (FA2), so p never leaves the registers; V's B fragments come
+// from the [key][dim] tile by ldmatrix .trans. Each tile's scores and each
+// 16-column slice of its p v are gathered from zero and added to the
+// running values in IEEE float32, so no tensor-core sum runs past a tile.
+// The exponentials are expf (IEEE-accurate, as the twins' torch.exp): a
+// faster approximation would move p across a bf16 rounding boundary more
+// often. Masked tiles are skipped as in the float32 body. Head dims 64, 80
+// and 128 are instances (whole-D tiles); above 128 the wide body takes any
+// multiple of 64: output columns in slices of 128 over grid z, the scores
+// over 64-wide slabs of q and k staged in turn, each slab's part added in
+// float32. Bound: 4 Tq Tk_valid D flops over 989 TFLOP/s dense bf16, the
+// Tq Tk_valid exponentials at 16 per SM per clock, or the bytes (PERF.md).
+namespace b16 {
+
+using act::bf16;
+
+constexpr int DVW = 128;  // output columns a block of the wide body
+
+// q . k of one key tile into s [n8 tile of keys][c0..c3] (rows g, g + 8 of
+// the warp's 16; keys 8 nt + 2 tg, + 1), from zero over DQ dims: q_w is the
+// warp's row g at word 2 tg of a q tile with row stride QS, kt the key tile's
+// row g at 2 tg (stride QS)
+template <int DQ, int QS>
+__device__ __forceinline__ void tile_scores(float (&s)[BK / 8][4], const bf16* q_w,
+                                            const bf16* kt) {
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DQ; kk += 16) {
+    const uint32_t a[4] = {act::ld_u32(q_w + kk), act::ld_u32(q_w + 8 * QS + kk),
+                           act::ld_u32(q_w + kk + 8), act::ld_u32(q_w + 8 * QS + kk + 8)};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      const bf16* kr = kt + 8 * nt * QS + kk;
+      act::mma_bf16(s[nt], a, act::ld_u32(kr), act::ld_u32(kr + 8));
+    }
+  }
+}
+
+// One computed key tile, shared by both bodies: s (the tile's q . k) is
+// scaled and biased, the rows' running max m and sum l (this thread's part)
+// updated, p rounded to bf16 and p v added to acc over DN columns of the V
+// tile vt ([key][column], row stride VS, from the block's first column)
+template <int DN, int VS>
+__device__ __forceinline__ void tile_update(float (&s)[BK / 8][4], const float* bias, float scale,
+                                            const bf16* vt, float (&acc)[DN / 8][4], float& m0,
+                                            float& m1, float& l0, float& l1, int tg, int lane) {
+  float mt0 = -INFINITY, mt1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * nt + 2 * tg);
+    s[nt][0] = __fadd_rn(__fmul_rn(s[nt][0], scale), bb.x);
+    s[nt][1] = __fadd_rn(__fmul_rn(s[nt][1], scale), bb.y);
+    s[nt][2] = __fadd_rn(__fmul_rn(s[nt][2], scale), bb.x);
+    s[nt][3] = __fadd_rn(__fmul_rn(s[nt][3], scale), bb.y);
+    mt0 = fmaxf(mt0, fmaxf(s[nt][0], s[nt][1]));
+    mt1 = fmaxf(mt1, fmaxf(s[nt][2], s[nt][3]));
+  }
+  mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 1));
+  mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 2));
+  mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 1));
+  mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 2));
+  const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+  const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  l0 *= alpha0;
+  l1 *= alpha1;
+  // p, summed into l unrounded, then rounded to bf16 as the A fragments of
+  // p v: k16 step j's are the score fragments of n8 tiles 2j and 2j + 1
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) {
+    float p[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      p[h][0] = expf(s[2 * j + h][0] - mn0);
+      p[h][1] = expf(s[2 * j + h][1] - mn0);
+      p[h][2] = expf(s[2 * j + h][2] - mn1);
+      p[h][3] = expf(s[2 * j + h][3] - mn1);
+      l0 += p[h][0] + p[h][1];
+      l1 += p[h][2] + p[h][3];
+    }
+    pa[j][0] = act::pack_bf16(p[0][0], p[0][1]);
+    pa[j][1] = act::pack_bf16(p[0][2], p[0][3]);
+    pa[j][2] = act::pack_bf16(p[1][0], p[1][1]);
+    pa[j][3] = act::pack_bf16(p[1][2], p[1][3]);
+  }
+  // p v in 16-column slices, each from zero over the tile's 64 keys
+#pragma unroll
+  for (int np = 0; np < DN / 16; ++np) {
+    float pv[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      uint32_t b0, b1, b2, b3;
+      act::ldsm_x4_trans(b0, b1, b2, b3,
+                         vt + (16 * j + (lane & 15)) * VS + 16 * np + 8 * (lane >> 4));
+      act::mma_bf16(pv[0], pa[j], b0, b1);
+      act::mma_bf16(pv[1], pa[j], b2, b3);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* a = acc[2 * np + h];
+      a[0] = __fadd_rn(__fmul_rn(a[0], alpha0), pv[h][0]);
+      a[1] = __fadd_rn(__fmul_rn(a[1], alpha0), pv[h][1]);
+      a[2] = __fadd_rn(__fmul_rn(a[2], alpha1), pv[h][2]);
+      a[3] = __fadd_rn(__fmul_rn(a[3], alpha1), pv[h][3]);
+    }
+  }
+}
+
+// The epilogue of both bodies: l summed across the quad, then rows r0 and r1
+// of out (row stride `stride` floats, from row `row_base`) written at
+// columns c0 + [0, dv) (K3 divided by max(l, 1e-30)), and, for K5 where
+// `stats`, the rows' m and l. Thread tg holds columns 8 n + 2 tg, + 1.
+template <bool EMIT_STATS, int DN>
+__device__ __forceinline__ void store_rows(const float (&acc)[DN / 8][4], float m0, float m1,
+                                           float l0, float l1, float* out, float* m_out,
+                                           float* l_out, size_t row_base, int tq, int r0, int r1,
+                                           int tg, int stride, int c0, int dv, bool stats) {
+  l0 += __shfl_xor_sync(FULL, l0, 1);
+  l0 += __shfl_xor_sync(FULL, l0, 2);
+  l1 += __shfl_xor_sync(FULL, l1, 1);
+  l1 += __shfl_xor_sync(FULL, l1, 2);
+  const float d0 = EMIT_STATS ? 1.f : fmaxf(l0, 1e-30f);
+  const float d1 = EMIT_STATS ? 1.f : fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < DN / 8; ++n) {
+    const int d = 8 * n + 2 * tg;
+    if (d >= dv) continue;
+    if (r0 < tq) {
+      *reinterpret_cast<float2*>(out + (row_base + r0) * stride + c0 + d) =
+          make_float2(__fdiv_rn(acc[n][0], d0), __fdiv_rn(acc[n][1], d0));
+    }
+    if (r1 < tq) {
+      *reinterpret_cast<float2*>(out + (row_base + r1) * stride + c0 + d) =
+          make_float2(__fdiv_rn(acc[n][2], d1), __fdiv_rn(acc[n][3], d1));
+    }
+  }
+  if (EMIT_STATS && stats && tg == 0) {
+    if (r0 < tq) {
+      m_out[row_base + r0] = m0;
+      l_out[row_base + r0] = l0;
+    }
+    if (r1 < tq) {
+      m_out[row_base + r1] = m1;
+      l_out[row_base + r1] = l1;
+    }
+  }
+}
+
+// the body at head dim D (64, 80 or 128): q, K and V tiles over the whole D
+template <int D>
+struct Dims {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  static constexpr int S = D + 8;  // row stride (bf16) of the q, K and V tiles
+  static size_t smem_bytes(int tk) {
+    return sizeof(bf16) * ((size_t)ROWS * S + 2 * (size_t)NS * BK * S) +
+           sizeof(float) * NS * BK + sizeof(int) * NS + (size_t)(tk + BK - 1) / BK;
+  }
+};
+
+template <int D, bool EMIT_STATS>
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                 float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                 int heads, int tq, int tk, float scale) {
+  constexpr int S = Dims<D>::S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);                // [ROWS][S]
+  bf16* k_s = q_s + ROWS * S;                                   // [NS][BK][S]
+  bf16* v_s = k_s + NS * BK * S;                                // [NS][BK][S]
+  float* bias_s = reinterpret_cast<float*>(v_s + NS * BK * S);  // [NS][BK]
+  int* tile_s = reinterpret_cast<int*>(bias_s + NS * BK);       // [NS]: first key, -1 if empty
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(tile_s + NS);    // [n_tiles]: holds a valid key
+
+  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int row0 = blockIdx.x * ROWS;
+  const int r0 = row0 + 16 * warp + g, r1 = r0 + 8;
+  const bf16* qh = q + (size_t)bh * tq * D;
+  const bf16* kh = k + (size_t)bh * tk * D;
+  const bf16* vh = v + (size_t)bh * tk * D;
+  const uint8_t* mrow = kv_mask ? kv_mask + (size_t)(bh / heads) * tk : nullptr;
+  const int n_tiles = (tk + BK - 1) / BK;
+
+  // q once, in the first stage's commit group (rows past tq zero-filled)
+  for (int c = tid; c < ROWS * D / 8; c += NT) {
+    const int r = c / (D / 8), d = 8 * (c % (D / 8));
+    const bool in = row0 + r < tq;
+    act::cp_async16b(q_s + r * S + d, qh + (size_t)(in ? row0 + r : 0) * D + d, in);
+  }
+  const bool skip = mark_live_tiles(mrow, tk, n_tiles, live_s, tid);
+  // stage `tile` (n_tiles: nothing) into ring slot st; one commit group
+  auto stage = [&](int tile, int st) {
+    if (tile < n_tiles) {
+      const int k0 = tile * BK;
+      for (int c = tid; c < BK * D / 8; c += NT) {
+        const int j = c / (D / 8), d = 8 * (c % (D / 8));
+        const bool in = k0 + j < tk;
+        const size_t off = (size_t)(in ? k0 + j : 0) * D + d;
+        act::cp_async16b(k_s + (st * BK + j) * S + d, kh + off, in);
+        act::cp_async16b(v_s + (st * BK + j) * S + d, vh + off, in);
+      }
+      if (tid < BK) bias_s[st * BK + tid] = key_bias(k0 + tid, tk, mrow);
+    }
+    if (tid == 0) tile_s[st] = tile < n_tiles ? tile * BK : -1;
+    cp_commit();
+  };
+
+  int fetch = next_live(0, skip, n_tiles, live_s);
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    stage(fetch, st);
+    fetch = fetch < n_tiles ? next_live(fetch + 1, skip, n_tiles, live_s) : n_tiles;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = NEG_INIT, m1 = NEG_INIT, l0 = 0.f, l1 = 0.f;  // rows r0, r1 (l: this thread's part)
+  const bf16* q_w = q_s + (16 * warp + g) * S + 2 * tg;
+
+  for (int it = 0;; ++it) {
+    cp_wait<NS - 2>();
+    __syncthreads();  // tile `it` (and q) landed; the slot refilled below is consumed
+    const int st = it % NS;
+    if (tile_s[st] < 0) break;
+    stage(fetch, (it + NS - 1) % NS);
+    fetch = fetch < n_tiles ? next_live(fetch + 1, skip, n_tiles, live_s) : n_tiles;
+
+    float s[BK / 8][4];
+    tile_scores<D, S>(s, q_w, k_s + st * BK * S + g * S + 2 * tg);
+    tile_update<D, S>(s, bias_s + st * BK, scale, v_s + st * BK * S, acc, m0, m1, l0, l1, tg,
+                      lane);
+  }
+
+  store_rows<EMIT_STATS, D>(acc, m0, m1, l0, l1, out, m_out, l_out, (size_t)bh * tq, tq, r0, r1,
+                            tg, D, 0, D, true);
+}
+
+// The wide body, for any head dim dp above 128 that is a multiple of SLAB.
+// Block (x, y, z) owns ROWS query rows of head y and output columns
+// [128 z, 128 z + 128) of dp. For each computed key tile its V column slice
+// and key bias are issued first (one slot; they land while the scores are
+// formed), then the scores are gathered over dp / SLAB slabs of q and k
+// staged in turn, each slab's part from zero added to s in float32; then
+// tile_update as above. Every slice forms the same scores in the same
+// order, so slice 0 writes K5's m and l.
+struct Wide {
+  static constexpr int QS = SLAB + 8;  // row stride (bf16) of the q and k slabs
+  static constexpr int VS = DVW + 8;   // of the V column slice
+  static size_t smem_bytes(int tk) {
+    return sizeof(bf16) * ((size_t)(ROWS + BK) * QS + (size_t)BK * VS) + sizeof(float) * BK +
+           (size_t)(tk + BK - 1) / BK;
+  }
+};
+
+template <bool EMIT_STATS>
+__global__ void __launch_bounds__(NT)
+flash_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                  float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+                  int heads, int tq, int tk, int dp, float scale) {
+  constexpr int QS = Wide::QS, VS = Wide::VS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);                 // [ROWS][QS]: a q slab
+  bf16* k_s = q_s + ROWS * QS;                                   // [BK][QS]: a k slab
+  bf16* v_s = k_s + BK * QS;                                     // [BK][VS]: the V slice
+  float* bias_s = reinterpret_cast<float*>(v_s + BK * VS);       // [BK]
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(bias_s + BK);     // [n_tiles]
+
+  const int bh = blockIdx.y;
+  const int c0 = blockIdx.z * DVW, dv = min(DVW, dp - c0);  // this block's output columns
+  const int n_slabs = dp / SLAB;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int row0 = blockIdx.x * ROWS;
+  const int r0 = row0 + 16 * warp + g, r1 = r0 + 8;
+  const bf16* qh = q + (size_t)bh * tq * dp;
+  const bf16* kh = k + (size_t)bh * tk * dp;
+  const bf16* vh = v + (size_t)bh * tk * dp;
+  const uint8_t* mrow = kv_mask ? kv_mask + (size_t)(bh / heads) * tk : nullptr;
+  const int n_tiles = (tk + BK - 1) / BK;
+
+  const bool skip = mark_live_tiles(mrow, tk, n_tiles, live_s, tid);
+  float acc[DVW / 8][4];
+#pragma unroll
+  for (int n = 0; n < DVW / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = NEG_INIT, m1 = NEG_INIT, l0 = 0.f, l1 = 0.f;
+  const bf16* q_w = q_s + (16 * warp + g) * QS + 2 * tg;
+
+  for (int tile = next_live(0, skip, n_tiles, live_s); tile < n_tiles;
+       tile = next_live(tile + 1, skip, n_tiles, live_s)) {
+    const int k0 = tile * BK;
+    for (int c = tid; c < BK * DVW / 8; c += NT) {
+      const int j = c / (DVW / 8), d = 8 * (c % (DVW / 8));
+      const bool in = k0 + j < tk && d < dv;
+      act::cp_async16b(v_s + j * VS + d, vh + (in ? (size_t)(k0 + j) * dp + c0 + d : 0), in);
+    }
+    if (tid < BK) bias_s[tid] = key_bias(k0 + tid, tk, mrow);
+    cp_commit();
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int slab = 0; slab < n_slabs; ++slab) {
+      const int d0 = slab * SLAB;
+      for (int c = tid; c < ROWS * SLAB / 8; c += NT) {
+        const int r = c / (SLAB / 8), d = 8 * (c % (SLAB / 8));
+        const bool in = row0 + r < tq;
+        act::cp_async16b(q_s + r * QS + d, qh + (size_t)(in ? row0 + r : 0) * dp + d0 + d, in);
+      }
+      for (int c = tid; c < BK * SLAB / 8; c += NT) {
+        const int j = c / (SLAB / 8), d = 8 * (c % (SLAB / 8));
+        const bool in = k0 + j < tk;
+        act::cp_async16b(k_s + j * QS + d, kh + (size_t)(in ? k0 + j : 0) * dp + d0 + d, in);
+      }
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();  // the slab (and, at the first, the V slice and bias) landed
+      float sb[BK / 8][4];
+      tile_scores<SLAB, QS>(sb, q_w, k_s + g * QS + 2 * tg);
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = __fadd_rn(s[nt][i], sb[nt][i]);
+      }
+      __syncthreads();  // every warp is done with the slab before the next is staged
+    }
+    tile_update<DVW, VS>(s, bias_s, scale, v_s, acc, m0, m1, l0, l1, tg, lane);
+    __syncthreads();  // the V slice and bias are consumed before the next tile's land
+  }
+
+  store_rows<EMIT_STATS, DVW>(acc, m0, m1, l0, l1, out, m_out, l_out, (size_t)bh * tq, tq, r0, r1,
+                              tg, dp, c0, dv, blockIdx.z == 0);
+}
+
+template <int D, bool EMIT_STATS>
+std::atomic<uint64_t> smem_cap_raised{0};
+template <bool EMIT_STATS>
+std::atomic<uint64_t> wide_cap_raised{0};
+
+template <int D, bool EMIT_STATS>
+int launch(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_mask, float* out,
+           float* m_out, float* l_out, int batch, int heads, int tq, int tk, float scale,
+           cudaStream_t stream) {
+  if (tq <= 0 || batch <= 0) return 0;
+  const cudaError_t err =
+      act::allow_dynamic_smem(reinterpret_cast<const void*>(flash_fwd_kernel<D, EMIT_STATS>),
+                              smem_cap_raised<D, EMIT_STATS>);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((tq + ROWS - 1) / ROWS, batch * heads);
+  flash_fwd_kernel<D, EMIT_STATS><<<grid, NT, Dims<D>::smem_bytes(tk), stream>>>(
+      q, k, v, kv_mask, out, m_out, l_out, heads, tq, tk, scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool EMIT_STATS>
+int launch_wide(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_mask, float* out,
+                float* m_out, float* l_out, int batch, int heads, int tq, int tk, int dp,
+                float scale, cudaStream_t stream) {
+  if (tq <= 0 || batch <= 0) return 0;
+  const cudaError_t err = act::allow_dynamic_smem(
+      reinterpret_cast<const void*>(flash_wide_kernel<EMIT_STATS>), wide_cap_raised<EMIT_STATS>);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((tq + ROWS - 1) / ROWS, batch * heads, (dp + DVW - 1) / DVW);
+  flash_wide_kernel<EMIT_STATS><<<grid, NT, Wide::smem_bytes(tk), stream>>>(
+      q, k, v, kv_mask, out, m_out, l_out, heads, tq, tk, dp, scale);
+  return (int)cudaGetLastError();
+}
+
+// the same set of head dims as the float32 dispatch above
+template <bool EMIT_STATS>
+int dispatch(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_mask, float* out,
+             float* m_out, float* l_out, int batch, int heads, int tq, int tk, int head_dim,
+             float scale, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64:
+      return launch<64, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
+                                    scale, stream);
+    case 80:
+      return launch<80, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
+                                    scale, stream);
+    case 128:
+      return launch<128, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
+                                     scale, stream);
+    default:
+      if (head_dim > 128 && head_dim % SLAB == 0) {
+        return launch_wide<EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
+                                       head_dim, scale, stream);
+      }
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace b16
+
 }  // namespace
 
 // K3. q, k, v, out: [B, H, T, D] f32 contiguous, D = head_dim in {64, 80,
@@ -712,4 +1133,27 @@ extern "C" int act_flash_attention_stats(const float* q, const float* k, const f
   if (tk <= 0) return (int)cudaErrorInvalidValue;
   return dispatch<true>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk, head_dim,
                         scale, stream);
+}
+
+// K3 at bfloat16. q, k, v: [B, H, T, D] bf16 contiguous, 16-byte aligned;
+// out: [B, H, T, D] f32; D = head_dim as for K3; kv_mask as for K3.
+extern "C" int act_flash_attention_bf16(const act::bf16* q, const act::bf16* k,
+                                        const act::bf16* v, const uint8_t* kv_mask, float* out,
+                                        int batch, int heads, int t, int head_dim, float scale,
+                                        cudaStream_t stream) {
+  return b16::dispatch<false>(q, k, v, kv_mask, out, nullptr, nullptr, batch, heads, t, t,
+                              head_dim, scale, stream);
+}
+
+// K5 at bfloat16. q: [B, H, Tq, D], k, v: [B, H, Tk, D] bf16 contiguous,
+// 16-byte aligned; out [B, H, Tq, D], m_out, l_out [B, H, Tq] f32; D and
+// kv_mask as for K5. Tk >= 1.
+extern "C" int act_flash_attention_stats_bf16(const act::bf16* q, const act::bf16* k,
+                                              const act::bf16* v, const uint8_t* kv_mask,
+                                              float* out, float* m_out, float* l_out, int batch,
+                                              int heads, int tq, int tk, int head_dim,
+                                              float scale, cudaStream_t stream) {
+  if (tk <= 0) return (int)cudaErrorInvalidValue;
+  return b16::dispatch<true>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
+                             head_dim, scale, stream);
 }

@@ -1,4 +1,4 @@
 """Dataset walkers (host I/O)."""
-from .librimix import Libri2Mix8kDataset, LibriMixDataset
+from .librimix import Libri2Mix8kDataset, LibriMixDataset, LibriMixItem
 
-__all__ = ["LibriMixDataset", "Libri2Mix8kDataset"]
+__all__ = ["Libri2Mix8kDataset", "LibriMixDataset", "LibriMixItem"]

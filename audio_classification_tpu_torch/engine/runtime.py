@@ -38,7 +38,7 @@ from ..models.convtasnet import ConvTasNet, ConvTasNetConfig
 from ..models.mossformer import MossFormer, MossFormerConfig
 from ..models.osd import OSDConfig, OSDNet, probs_to_hop_flags
 from ..models.pyannet import (BinarizeConfig, PyanNet, PyanNetConfig, hysteresis_intervals,
-                              reduce_overlap_channels)
+                              reduce_overlap_channels, rounded_copy)
 from ..models.speaker import SpeakerEmbedder, SpeakerEmbedderConfig
 from ..models.vad import VADConfig, VADNet
 from ..ops.fbank import FbankConfig, log_mel_fbank
@@ -238,6 +238,7 @@ class ModelPack:
         model.load_state_dict(state_dict)
         self.osd_pyannet = model.to(self.device).eval()
         self.osd_binarize = binarize
+        self.version += 1  # new OSD weights, as the JAX pack's load_params counts them
 
 
 class WaveArena:
@@ -254,12 +255,20 @@ class WaveArena:
 
 class _LazyBranchRows:
     """Device-resident separated branches [n_src, T_bucket] of one overlap
-    row; ``ref(bi)`` names one branch for StageEngine.transcribe_branches."""
+    row: indexing brings one branch [T] to the host; ``ref(bi)`` names one
+    branch for StageEngine.pull_branch_rows (several in one transfer) or
+    StageEngine.transcribe_branches (none to the host)."""
 
     __slots__ = ("_dev", "_j", "_n")
 
     def __init__(self, dev: torch.Tensor, j: int, n: int):
         self._dev, self._j, self._n = dev, j, n
+
+    def __len__(self) -> int:
+        return int(self._dev.shape[1])
+
+    def __getitem__(self, bi: int) -> np.ndarray:
+        return self._dev[self._j, bi, : self._n].cpu().numpy()
 
     def ref(self, bi: int) -> tuple:
         return (self._dev, self._j, int(bi), self._n)
@@ -286,9 +295,6 @@ def _to_host(res):
     if isinstance(res, tuple):
         return tuple(_to_host(r) for r in res)
     return res.cpu().numpy()
-
-
-_BF16_LATER = "ROADMAP §1 item 3: --compute-dtype bfloat16 beyond the flagship"
 
 
 class StageEngine:
@@ -329,14 +335,6 @@ class StageEngine:
                              f"{self.device}")
         self.mesh = mesh
         self.compute_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
-        if self.compute_dtype != torch.float32:
-            refused = (f"the {pack.asr_family} ASR family" if pack.asr_family != "sensevoice"
-                       else "PyanNet OSD" if pack.osd_pyannet is not None
-                       else "long form over a mesh" if mesh is not None else None)
-            if refused:
-                raise NotImplementedError(
-                    f"compute_dtype='bfloat16' with {refused} is not ported to "
-                    f"audio_classification_tpu_torch yet ({_BF16_LATER})")
         self._cast_models: Dict[str, torch.nn.Module] = {}
         self._cast_version = -1
 
@@ -344,12 +342,16 @@ class StageEngine:
     def models(self) -> Dict[str, torch.nn.Module]:
         """The stage models the programs run: the pack's own in float32 (so
         a weight load is seen at once), else a copy in ``compute_dtype`` made
-        again when ``pack.version`` moves (the JAX ``exec_params``)."""
+        again when ``pack.version`` moves (the JAX ``exec_params``), with
+        PyanNet's under ``"osd_pyannet"`` when the pack serves OSD by it."""
         if self.compute_dtype == torch.float32:
             return self.pack.models
         if self._cast_version != self.pack.version:
             self._cast_models = {name: _cast_copy(m, self.compute_dtype)
                                  for name, m in self.pack.models.items()}
+            if self.pack.osd_pyannet is not None:
+                self._cast_models["osd_pyannet"] = rounded_copy(self.pack.osd_pyannet,
+                                                                self.compute_dtype)
             self._cast_version = self.pack.version
         return self._cast_models
 
@@ -368,8 +370,9 @@ class StageEngine:
     def _osd_fn(self, wav_i16, lengths):
         with stage_range("osd"):
             if self.pack.osd_pyannet is not None:
-                acts = self.pack.osd_pyannet(self._dq(wav_i16), lengths)
-                return reduce_overlap_channels(acts)
+                pyannet = (self.pack.osd_pyannet if self.compute_dtype == torch.float32
+                           else self.models["osd_pyannet"])
+                return reduce_overlap_channels(pyannet(self._dq(wav_i16), lengths))
             feats, mask = self._fbank_mask(self._dq(wav_i16), lengths)
             return self.models["osd"](feats.to(self.compute_dtype), mask).float()
 
@@ -399,24 +402,24 @@ class StageEngine:
         beam search), whisper-style (greedy with a KV cache; ``max_len``
         overrides its decode budget). ``mesh`` runs the SenseVoice and
         Paraformer encoders sequence-parallel (long form)."""
-        p = self.pack
+        p, cdt = self.pack, self.compute_dtype
         model = self.models["asr"]
         if p.asr_family == "paraformer":
             feats, mask = paraformer_frontend(wav, lengths, p.paraformer_cfg, p.cmvn_shift,
                                               p.cmvn_scale)
-            logits, counts = model(feats, mask, mesh=mesh, sp_axis="data")
-            return paraformer_greedy(logits, counts)
+            logits, counts = model(feats.to(cdt), mask, mesh=mesh, sp_axis="data")
+            return paraformer_greedy(logits.float(), counts)
         if p.asr_family == "transducer":
             feats, mask = transducer_frontend(wav, lengths, p.transducer_cfg)
             if p.decoding_method == "modified_beam_search":
-                return model.beam_decode(feats, mask, p.num_active_paths)
-            return model.greedy_decode(feats, mask)
+                return model.beam_decode(feats.to(cdt), mask, p.num_active_paths)
+            return model.greedy_decode(feats.to(cdt), mask)
         if p.asr_family == "whisper":
             feats, mask = whisper_frontend(wav, lengths, p.whisper_cfg)
-            return model.greedy_decode(feats, mask, max_len)
+            return model.greedy_decode(feats.to(cdt), mask, max_len)
         cfg = p.asr_cfg
         feats, mask = sensevoice_frontend(wav, lengths, cfg, p.cmvn_shift, p.cmvn_scale)
-        logits = model(feats.to(self.compute_dtype), mask, language_id=language_id,
+        logits = model(feats.to(cdt), mask, language_id=language_id,
                        use_itn=use_itn, mesh=mesh, sp_axis="data")
         return ctc_greedy_decode(logits[:, cfg.num_prompt:].float(), mask, p.tokens.blank_id)
 
@@ -678,8 +681,12 @@ class StageEngine:
             return self._launch_bucketed_arena(arena, spans, fn)
         return self._launch_bucketed(list(chunks), fn)
 
+    def collect_tokens(self, handle) -> List[Tuple[np.ndarray, int]]:
+        """Wait for an ASR launch -> [(token ids, n_tokens)] per item."""
+        return [(ids, int(n)) for ids, n in self._collect_bucketed(handle)]
+
     def collect_transcribe(self, handle) -> List[str]:
-        return [self.pack.tokens.decode(ids[:n]) for ids, n in self._collect_bucketed(handle)]
+        return [self.pack.tokens.decode(ids[:n]) for ids, n in self.collect_tokens(handle)]
 
     def transcribe(self, chunks: Sequence[np.ndarray], language: str = "auto",
                    use_itn: bool = True) -> List[str]:
@@ -732,6 +739,14 @@ class StageEngine:
         ids, n = self._asr_decode(w, lens, lang_id, use_itn, mesh=self.mesh, max_len=max_len)
         return p.tokens.decode(ids[0, : int(n[0])].cpu().numpy())
 
+    def process_clean(self, chunks: Sequence[np.ndarray], target_vecs: Sequence[np.ndarray],
+                      language: str = "auto", use_itn: bool = True) -> List[Tuple[float, str]]:
+        """The fused clean path (embed, SV score, ASR) over chunks ->
+        [(sv_score, text)]; only scores and token ids come to the host."""
+        if not len(chunks):
+            return []
+        return self.collect_clean(self.launch_clean(chunks, target_vecs, language, use_itn))
+
     def launch_clean(self, chunks, target_vecs, language: str = "auto", use_itn: bool = True,
                      arena: Optional[WaveArena] = None, spans=None):
         """Fused clean path: embed + SV score + ASR per chunk."""
@@ -745,6 +760,22 @@ class StageEngine:
     def collect_clean(self, handle) -> List[Tuple[float, str]]:
         return [(float(score), self.pack.tokens.decode(ids[:n]))
                 for score, ids, n in self._collect_bucketed(handle)]
+
+    def process_overlap(self, chunks: Sequence[np.ndarray], target_vecs: Sequence[np.ndarray],
+                        language: str = "auto", use_itn: bool = True,
+                        return_branches: bool = False, backend: str = "convtasnet",
+                        lazy_branches: bool = False) -> List[dict]:
+        """The fused overlap path (separation, per-branch SV, best-branch
+        ASR) over chunks -> [{"scores": [S], "best": int, "text": str[,
+        "branches": [S, T]]}]. The branches come back with
+        ``return_branches``; with ``lazy_branches`` too they stay on the
+        device until a branch is read (``_LazyBranchRows``)."""
+        if not len(chunks):
+            return []
+        handle = self.launch_overlap(chunks, target_vecs, language, use_itn, return_branches,
+                                     backend)
+        return self.collect_overlap(handle, chunks, return_branches, backend,
+                                    lazy_branches=lazy_branches)
 
     def launch_overlap(self, chunks, target_vecs, language: str = "auto", use_itn: bool = True,
                        return_branches: bool = False, backend: str = "convtasnet",
@@ -796,6 +827,26 @@ class StageEngine:
 
         outs = self._run_bucketed(items, vad_fn)
         return [out[: self.fbank_cfg.frames_for(len(w))] for out, w in zip(outs, items)]
+
+    @staticmethod
+    def pull_branch_rows(refs: Sequence[tuple]) -> List[np.ndarray]:
+        """Separated branches named by ``_LazyBranchRows.ref`` handles, which
+        may span several bucket batches -> one [T] array each: the rows of
+        each batch gathered on the device and brought over in one copy."""
+        groups: Dict[int, List[int]] = {}
+        devs: Dict[int, torch.Tensor] = {}
+        for i, (dev, _j, _bi, _n) in enumerate(refs):
+            groups.setdefault(id(dev), []).append(i)
+            devs[id(dev)] = dev
+        out: List[Optional[np.ndarray]] = [None] * len(refs)
+        for key, idxs in groups.items():
+            dev = devs[key]
+            js = torch.tensor([refs[i][1] for i in idxs], device=dev.device)
+            bis = torch.tensor([refs[i][2] for i in idxs], device=dev.device)
+            sel = dev[js, bis, :].cpu().numpy()
+            for row, i in enumerate(idxs):
+                out[i] = sel[row, : refs[i][3]]
+        return out  # type: ignore[return-value]
 
     @torch.inference_mode()
     def transcribe_branches(self, refs: Sequence[tuple], language: str = "auto",

@@ -21,7 +21,7 @@ from torch import nn
 
 from ...ops.fbank import FbankConfig, apply_lfr, log_mel_fbank
 from ...parallel.sp_encoder import sp_seq_shard, sp_seq_unshard
-from ..common import TransformerBlock, lengths_to_mask, position_table
+from ..common import Dense, LayerNorm, TransformerBlock, lengths_to_mask, position_table
 
 
 @dataclass(frozen=True)
@@ -97,17 +97,17 @@ class Paraformer(nn.Module):
         if cfg.quant not in ("none", "int8"):
             raise ValueError(f"Paraformer: quant must be none|int8, got {cfg.quant!r}")
         self.cfg = c = cfg
-        self.in_proj = nn.Linear(c.lfr_m * c.num_mel, c.dim)
+        self.in_proj = Dense(c.lfr_m * c.num_mel, c.dim)
         for i in range(c.enc_layers):
             self.add_module(f"enc_{i}", TransformerBlock(c.dim, c.heads, c.ffn_mult,
                                                          c.conv_kernel, c.quant))
-        self.enc_ln = nn.LayerNorm(c.dim, eps=1e-6)
-        self.cif_hidden = nn.Linear(c.dim, c.dim)
-        self.cif_out = nn.Linear(c.dim, 1)
+        self.enc_ln = LayerNorm(c.dim)
+        self.cif_hidden = Dense(c.dim, c.dim)
+        self.cif_out = Dense(c.dim, 1)
         for i in range(c.dec_layers):
             self.add_module(f"dec_{i}", TransformerBlock(c.dim, c.heads, c.ffn_mult, 0))
-        self.dec_ln = nn.LayerNorm(c.dim, eps=1e-6)
-        self.out = nn.Linear(c.dim, c.vocab_size)
+        self.dec_ln = LayerNorm(c.dim)
+        self.out = Dense(c.dim, c.vocab_size)
 
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
                 mesh=None, sp_axis: str = "data") -> tuple:

@@ -20,7 +20,8 @@ import torch
 from torch import nn
 
 from ...ops.fbank import FbankConfig, log_mel_fbank
-from ..common import Conv1d, TransformerBlock, gelu, lengths_to_mask, position_table
+from ..common import (Conv1d, Dense, LayerNorm, TransformerBlock, gelu, lengths_to_mask,
+                      position_table)
 from .beam import left_pack_symbols, modified_beam_search
 
 
@@ -52,7 +53,7 @@ class TransducerEncoder(nn.Module):
         for i in range(c.layers):
             self.add_module(f"block_{i}", TransformerBlock(c.dim, c.heads, c.ffn_mult,
                                                            c.conv_kernel, c.quant))
-        self.out_ln = nn.LayerNorm(c.dim, eps=1e-6)
+        self.out_ln = LayerNorm(c.dim)
 
     def forward(self, feats: torch.Tensor,
                 frame_mask: Optional[torch.Tensor] = None) -> tuple:
@@ -88,7 +89,7 @@ class TransducerPredictor(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.pred_dim)
-        self.proj = nn.Linear(cfg.context * cfg.pred_dim, cfg.pred_dim)
+        self.proj = Dense(cfg.context * cfg.pred_dim, cfg.pred_dim)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [..., context] -> [..., pred_dim]."""
@@ -99,9 +100,9 @@ class TransducerPredictor(nn.Module):
 class TransducerJoiner(nn.Module):
     def __init__(self, cfg: TransducerConfig):
         super().__init__()
-        self.enc_proj = nn.Linear(cfg.dim, cfg.joiner_dim)
-        self.pred_proj = nn.Linear(cfg.pred_dim, cfg.joiner_dim)
-        self.out = nn.Linear(cfg.joiner_dim, cfg.vocab_size)
+        self.enc_proj = Dense(cfg.dim, cfg.joiner_dim)
+        self.pred_proj = Dense(cfg.pred_dim, cfg.joiner_dim)
+        self.out = Dense(cfg.joiner_dim, cfg.vocab_size)
 
     def forward(self, enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
         return self.out(torch.tanh(self.enc_proj(enc) + self.pred_proj(pred)))

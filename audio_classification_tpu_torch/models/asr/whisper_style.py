@@ -20,7 +20,8 @@ import torch
 from torch import nn
 
 from ...ops.fbank import FbankConfig, log_mel_fbank
-from ..common import Conv1d, DenseQ, MultiHeadSelfAttention, gelu, lengths_to_mask, position_table
+from ..common import (Conv1d, Dense, DenseQ, LayerNorm, MultiHeadSelfAttention, gelu,
+                      lengths_to_mask, param_as, position_table)
 
 
 @dataclass(frozen=True)
@@ -64,8 +65,8 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.dim, self.heads = dim, heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.out = nn.Linear(dim, dim)
+        self.qkv = Dense(dim, 3 * dim)
+        self.out = Dense(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Full-sequence causal attention (teacher forcing)."""
@@ -89,10 +90,10 @@ class CrossAttention(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.dim, self.heads = dim, heads
-        self.q = nn.Linear(dim, dim)
-        self.k = nn.Linear(dim, dim)
-        self.v = nn.Linear(dim, dim)
-        self.out = nn.Linear(dim, dim)
+        self.q = Dense(dim, dim)
+        self.k = Dense(dim, dim)
+        self.v = Dense(dim, dim)
+        self.out = Dense(dim, dim)
 
     def precompute(self, mem: torch.Tensor) -> tuple:
         return _split_heads(self.k(mem), self.heads), _split_heads(self.v(mem), self.heads)
@@ -108,13 +109,13 @@ class CrossAttention(nn.Module):
 class DecoderBlock(nn.Module):
     def __init__(self, dim: int, heads: int, ffn_mult: int):
         super().__init__()
-        self.ln1 = nn.LayerNorm(dim, eps=1e-6)
-        self.ln2 = nn.LayerNorm(dim, eps=1e-6)
-        self.ln3 = nn.LayerNorm(dim, eps=1e-6)
+        self.ln1 = LayerNorm(dim)
+        self.ln2 = LayerNorm(dim)
+        self.ln3 = LayerNorm(dim)
         self.self_attn = CausalSelfAttention(dim, heads)
         self.cross_attn = CrossAttention(dim, heads)
-        self.fc1 = nn.Linear(dim, dim * ffn_mult)
-        self.fc2 = nn.Linear(dim * ffn_mult, dim)
+        self.fc1 = Dense(dim, dim * ffn_mult)
+        self.fc2 = Dense(dim * ffn_mult, dim)
 
     def _ffn(self, x):
         return x + self.fc2(gelu(self.fc1(self.ln3(x))))
@@ -136,9 +137,9 @@ class _EncBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, ffn_mult: int, quant: str = "none"):
         super().__init__()
-        self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-6)
+        self.LayerNorm_0 = LayerNorm(dim)
         self.attn = MultiHeadSelfAttention(dim, heads, quant)
-        self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-6)
+        self.LayerNorm_1 = LayerNorm(dim)
         self.Dense_1 = DenseQ(dim, dim * ffn_mult, quant)
         self.Dense_0 = DenseQ(dim * ffn_mult, dim, quant)
 
@@ -161,11 +162,11 @@ class WhisperStyle(nn.Module):
         self.sub2 = Conv1d(c.dim, c.dim, 3, stride=2, padding=((1, 1),))
         for i in range(c.enc_layers):
             self.add_module(f"enc_{i}", _EncBlock(c.dim, c.heads, c.ffn_mult, c.quant))
-        self.enc_ln = nn.LayerNorm(c.dim, eps=1e-6)
+        self.enc_ln = LayerNorm(c.dim)
         self.tok_embed = nn.Embedding(c.vocab_size, c.dim)
         for i in range(c.dec_layers):
             self.add_module(f"dec_{i}", DecoderBlock(c.dim, c.heads, c.ffn_mult))
-        self.dec_ln = nn.LayerNorm(c.dim, eps=1e-6)
+        self.dec_ln = LayerNorm(c.dim)
 
     def _dec_blocks(self):
         return [getattr(self, f"dec_{i}") for i in range(self.cfg.dec_layers)]
@@ -199,7 +200,14 @@ class WhisperStyle(nn.Module):
                                                            mem.device)[None]
         for blk in self._dec_blocks():
             y = blk(y, mem, mem_mask)
-        return self.dec_ln(y) @ self.tok_embed.weight.t()
+        return self._logits(self.dec_ln(y))
+
+    def _logits(self, y: torch.Tensor) -> torch.Tensor:
+        """y @ the token embedding^T, in jnp's promoted dtype (a bfloat16
+        table meets the float32 stream as a float32 cast of itself)."""
+        emb = param_as(self.tok_embed, "weight", torch.promote_types(y.dtype,
+                                                                    self.tok_embed.weight.dtype))
+        return y @ emb.t()
 
     def forward(self, feats, frame_mask, tokens) -> torch.Tensor:
         mem, mem_mask = self.encode(feats, frame_mask)
@@ -228,7 +236,7 @@ class WhisperStyle(nn.Module):
             x_t = self.tok_embed(tokens[:, i : i + 1]) + pos_table[i]
             for blk, (kc, vc), (mk, mv) in zip(blocks, caches, cross):
                 x_t = blk.step(x_t, kc, vc, i, mk, mv, mem_mask)
-            logits = (self.dec_ln(x_t) @ self.tok_embed.weight.t())[:, 0]
+            logits = self._logits(self.dec_ln(x_t))[:, 0]
             nxt = torch.where(done, c.eos_id, logits.argmax(dim=-1))
             tokens[:, i + 1] = nxt
             count = count + (~done & (nxt != c.eos_id)).to(torch.int32)

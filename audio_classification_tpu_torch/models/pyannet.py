@@ -26,9 +26,18 @@ On a padded batch the forward is the JAX module's, item by item:
 
 The sinc conv (251 taps) and the LSTM run with TF32 off whoever calls the
 model (``ops.signal.no_tf32``): cuDNN would otherwise take TF32 for both.
+
+``rounded_copy`` is the model the engine's bfloat16 mode runs: the JAX
+osd_fn applies PyanNet to the float32 wave with every parameter cast to
+bfloat16 (engine/runtime.py:499-503, 904-921), and jnp's promotion makes
+that a float32 network on bfloat16-rounded weights, but for two sums that
+meet only parameters and Python scalars and so stay in bfloat16: the sinc
+band edges (``_sinc_filters``: low, high and band) and each LSTM's
+``b_ih + b_hh``.
 """
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass
 from typing import Any, Tuple
@@ -179,6 +188,8 @@ class PyanNet(nn.Module):
             self.linear.append(nn.Linear(cin, dim))
             cin = dim
         self.classifier = nn.Linear(cin, c.num_classes)
+        #: the dtype of the sinc band-edge arithmetic (``rounded_copy``)
+        self.edge_dtype = torch.float32
 
     def forward(self, wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         with no_tf32():
@@ -189,7 +200,8 @@ class PyanNet(nn.Module):
         lengths = lengths.long()
         x = wav.float()[:, None, :]                                       # [B, 1, T]
         x = _masked_instance_norm(x, _frame_mask(x.shape[2], lengths), self.wav_norm)
-        x = F.conv1d(x, sinc_filters(c, self.sinc.low_hz, self.sinc.band_hz), stride=c.stride)
+        edges = (self.sinc.low_hz.to(self.edge_dtype), self.sinc.band_hz.to(self.edge_dtype))
+        x = F.conv1d(x, sinc_filters(c, *edges).float(), stride=c.stride)
         x = F.max_pool1d(x.abs(), c.pool)
         flen = torch.clamp_min((lengths - c.kernel_size) // c.stride + 1, 0) // c.pool
         mask = _frame_mask(x.shape[2], flen)
@@ -216,6 +228,32 @@ class PyanNet(nn.Module):
         for lin in self.linear:
             x = F.leaky_relu(lin(x))
         return torch.sigmoid(self.classifier(x)) * mask[..., None]
+
+
+def rounded_copy(model: PyanNet, dtype: torch.dtype) -> PyanNet:
+    """The JAX PyanNet on parameters cast to ``dtype`` (bfloat16), as a
+    float32 model: every weight rounded to ``dtype`` and held in float32,
+    the sinc band edges computed in ``dtype`` (``edge_dtype``), and each
+    LSTM's two biases replaced by their sum rounded to ``dtype`` (the JAX
+    ``b_ih + b_hh``, models/pyannet.py:223) with ``b_hh`` zero. The wave,
+    the SincNet, the cuDNN LSTMs and the head stay float32.
+
+    The JAX forward itself raises at bf16 params (its ``lax.conv`` of the
+    two conv stages refuses a float32 input with a bfloat16 kernel,
+    ROADMAP §3); this is what jnp's promotion gives at every other op, with
+    the conv kernels widened to float32 as the promotion would widen them."""
+    out = copy.deepcopy(model).float()
+    with torch.no_grad():
+        for p in out.parameters():
+            p.copy_(p.to(dtype))
+        for layer in out.lstm:
+            for lstm in layer.values():
+                for k in range(lstm.num_layers):
+                    b_ih, b_hh = getattr(lstm, f"bias_ih_l{k}"), getattr(lstm, f"bias_hh_l{k}")
+                    b_ih.copy_(b_ih.to(dtype) + b_hh.to(dtype))
+                    b_hh.zero_()
+    out.edge_dtype = dtype
+    return out.requires_grad_(False)
 
 
 @dataclass(frozen=True)

@@ -9,6 +9,16 @@ parallel/ring_attention.py merges across key blocks). Bound and design are
 in the source's header. K3's plain twin is the dense masked softmax the JAX
 package uses below the flash threshold (models/common.py:237-245); K5's is
 the same softmax stopped before its division, with K5's 0 / -1e9 key bias.
+
+bfloat16 q, k, v take entry points of their own (``act_flash_attention_bf16``,
+``act_flash_attention_stats_bf16``), as the JAX kernels take bf16: the
+scores, m, l and the accumulator stay float32, p is rounded to bfloat16
+before p v (attention_kernel.py:99) and the output is float32. p is rounded
+against the running max of the key blocks seen so far, so the result
+depends on the key-block width: the twins ``attention_reference_lowp`` /
+``attention_stats_reference_lowp`` take it as ``block_k`` (``BLOCK_K``, the
+kernels' tile, by default; the JAX kernel's is min(256, round_up(Tk, 128)),
+attention_kernel.py:247).
 """
 from __future__ import annotations
 
@@ -35,6 +45,9 @@ FLASH_MIN_T = 512
 #: columns add nothing to q k^T, and the padded output columns are sliced off
 HEAD_DIMS = (64, 80, 128)
 WIDE_SLAB = 64
+#: keys a tile of the CUDA bodies (csrc/flash_attention.cu BK): the block
+#: width the bfloat16 twins take by default, on the CPU as on the card
+BLOCK_K = 64
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,6 +82,60 @@ def attention_stats_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v), m, p.sum(dim=-1)
 
 
+def attention_stats_reference_lowp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   kv_mask: Optional[torch.Tensor] = None,
+                                   scale: Optional[float] = None, block_k: int = BLOCK_K,
+                                   acc: torch.dtype = torch.float32) -> tuple:
+    """K5's twin at bfloat16 q, k, v -> (o, m, l) in ``acc``: the JAX body's
+    streaming softmax over key blocks of ``block_k`` (keys past Tk left
+    out, as the kernels leave them): per block, s = (q k^T) * scale + bias
+    (0 / -1e9), m' = max(m, rowmax s), alpha = exp(m - m'), p = exp(s - m'),
+    l = alpha l + rowsum p (p unrounded), o = alpha o + bf16(p) v.
+    ``acc=torch.float64`` is the oracle with the same rounding points."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    qa, ka, va = (x.to(acc) for x in (q, k, v))
+    tk = k.shape[2]
+    bias = None
+    if kv_mask is not None:
+        bias = torch.zeros(kv_mask.shape, dtype=acc, device=q.device)
+        bias = bias.masked_fill(~kv_mask.bool(), -1e9)[:, None, None, :]
+    m = torch.full(q.shape[:3], -1e30, dtype=acc, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape, dtype=acc, device=q.device)
+    for j0 in range(0, tk, block_k):
+        j1 = min(j0 + block_k, tk)
+        s = torch.matmul(qa, ka[:, :, j0:j1].transpose(-1, -2)) * scale
+        if bias is not None:
+            s = s + bias[..., j0:j1]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = alpha * l + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.matmul(p.to(torch.bfloat16).to(acc), va[:, :, j0:j1])
+        m = m_new
+    return o, m, l
+
+
+def attention_reference_lowp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             kv_mask: Optional[torch.Tensor] = None,
+                             scale: Optional[float] = None, block_k: int = BLOCK_K,
+                             acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """K3's twin at bfloat16 q, k, v: ``attention_stats_reference_lowp``'s
+    o / max(l, 1e-30), in ``acc``."""
+    o, _m, l = attention_stats_reference_lowp(q, k, v, kv_mask, scale, block_k, acc)
+    return o / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def _is_bf16(name: str, q, k, v) -> bool:
+    """Whether q, k, v are bfloat16; raises ValueError unless all three are
+    float32 (float64 too, on the CPU twin) or all three bfloat16."""
+    dts = {x.dtype for x in (q, k, v)}
+    if len(dts) != 1 or torch.float16 in dts:
+        raise ValueError(f"{name}: q, k and v must be all float32 or all bfloat16, got "
+                         f"{', '.join(str(x.dtype) for x in (q, k, v))}")
+    return dts == {torch.bfloat16}
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -94,26 +161,17 @@ def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     return tuple(F.pad(x, (0, pad)) for x in (q, k, v))
 
 
-def _refuse_bf16(name: str, *xs) -> None:
-    """K3 / K5 have no bfloat16 entry point yet, on either device (the JAX
-    kernels take bf16 q, k, v, but the engine's bf16 mode feeds them float32:
-    the encoders' float32 positional table promotes the stream first)."""
-    if any(x.dtype == torch.bfloat16 for x in xs):
-        raise NotImplementedError(
-            f"{name}: bfloat16 q, k, v are not ported to audio_classification_tpu_torch "
-            "yet (ROADMAP §2 item 1: the bf16 entry points of K3 / K5)")
-
-
 def _check_qkv(name: str, q, k, v, kv_mask):
     """Shapes, types and devices the kernels take -> (q, k, v, mask) ready
     for the launch, D zero-padded to the head dim it runs at; raises
-    ValueError on anything else."""
+    ValueError on anything else (q's dtype, float32 or bfloat16, for all)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     for label, x, shape in (("q", q, (b, h, tq, d)), ("k", k, (b, h, tk, d)),
                             ("v", v, (b, h, tk, d))):
-        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != q.device:
-            raise ValueError(f"{name}: {label} must be float32 {shape} on "
+        if (x.dtype != q.dtype or q.dtype not in (torch.float32, torch.bfloat16)
+                or tuple(x.shape) != shape or x.device != q.device):
+            raise ValueError(f"{name}: {label} must be float32 or bfloat16 (as q) {shape} on "
                              f"{q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
     if kv_mask is not None:
         if tuple(kv_mask.shape) != (b, tk) or kv_mask.device != q.device:
@@ -130,13 +188,18 @@ def _check_qkv(name: str, q, k, v, kv_mask):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[B, H, T, D] f32 q, k, v + optional [B, T] bool key mask -> [B, H, T, D].
+    """[B, H, T, D] q, k, v, all float32 or all bfloat16, + optional [B, T]
+    bool key mask -> [B, H, T, D] float32.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (any D,
-    zero-padded to the head dim it runs at, ``padded_head_dim``; scale
-    1 / sqrt(D) of the true D)."""
-    _refuse_bf16("flash_attention", q, k, v)
+    CPU tensors run the plain twin (``attention_reference``; at bfloat16
+    ``attention_reference_lowp`` over the kernels' key tiles); CUDA tensors
+    launch the kernel of their dtype (any D, zero-padded to the head dim it
+    runs at, ``padded_head_dim``; scale 1 / sqrt(D) of the true D), counted
+    in ``launches`` or ``launches_bf16``."""
+    lowp = _is_bf16("flash_attention", q, k, v)
     if q.device.type == "cpu":
+        if lowp:
+            return attention_reference_lowp(q, k, v, kv_mask)
         return attention_reference(q, k, v, kv_mask)
     if not q.is_cuda:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -146,35 +209,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(self-attention only; flash_attention_stats takes both)")
     q, k, v, kv_mask = _check_qkv("flash_attention", q, k, v, kv_mask)
     mask_ptr = None if kv_mask is None else kv_mask.data_ptr()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out[..., :d]
-    fn = _build.kernel("act_flash_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    name = "act_flash_attention_bf16" if lowp else "act_flash_attention"
+    fn = _build.kernel(name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
-    flash_attention.launches += 1
+    if lowp:
+        flash_attention.launches_bf16 += 1
+    else:
+        flash_attention.launches += 1
     flash_attention.launches_by_head_dim[d] += 1
-    _build.check("act_flash_attention", fn(
+    _build.check(name, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), b, h, t,
         q.shape[-1], 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream))
     return out[..., :d]  # the padded columns sliced off (a view)
 
 
-flash_attention.launches = 0  # kernel launches, counted where they happen
-flash_attention.launches_by_head_dim = collections.Counter()  # the same, by the true D
+# kernel launches, counted where they happen: the float32 and bfloat16 entry
+# points apart, and both together by the true D
+flash_attention.launches = 0
+flash_attention.launches_bf16 = 0
+flash_attention.launches_by_head_dim = collections.Counter()
 
 
 def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_mask: Optional[torch.Tensor] = None) -> tuple:
-    """K5: q [B, H, Tq, D], k, v [B, H, Tk, D] f32 + optional [B, Tk] bool key
-    mask -> (o [B, H, Tq, D], m [B, H, Tq], l [B, H, Tq]): the streaming
-    softmax without its final division (``attention_stats_reference``).
-    o / l is the attention over these keys; triples of several key blocks
-    merge by rescaling to a common m (parallel/ring_attention.py).
+    """K5: q [B, H, Tq, D], k, v [B, H, Tk, D], all float32 or all
+    bfloat16, + optional [B, Tk] bool key mask -> float32 (o [B, H, Tq, D],
+    m [B, H, Tq], l [B, H, Tq]): the streaming softmax without its final
+    division (``attention_stats_reference``; at bfloat16
+    ``attention_stats_reference_lowp``). o / l is the attention over these
+    keys; triples of several key blocks merge by rescaling to a common m
+    (parallel/ring_attention.py).
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (Tk >= 1;
-    any D, zero-padded as in ``flash_attention``)."""
-    _refuse_bf16("flash_attention_stats", q, k, v)
+    CPU tensors run the plain twin; CUDA tensors launch the kernel of their
+    dtype (Tk >= 1; any D, zero-padded as in ``flash_attention``)."""
+    lowp = _is_bf16("flash_attention_stats", q, k, v)
     if q.device.type == "cpu":
+        if lowp:
+            return attention_stats_reference_lowp(q, k, v, kv_mask)
         return attention_stats_reference(q, k, v, kv_mask)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_stats: unsupported device {q.device}")
@@ -184,17 +258,21 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_stats: needs at least one key")
     q, k, v, kv_mask = _check_qkv("flash_attention_stats", q, k, v, kv_mask)
     mask_ptr = None if kv_mask is None else kv_mask.data_ptr()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     out_d = out[..., :d]  # the padded columns sliced off (a view)
     if out.numel() == 0:
         return out_d, m, l
-    fn = _build.kernel("act_flash_attention_stats", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    name = "act_flash_attention_stats_bf16" if lowp else "act_flash_attention_stats"
+    fn = _build.kernel(name, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
-    flash_attention_stats.launches += 1
+    if lowp:
+        flash_attention_stats.launches_bf16 += 1
+    else:
+        flash_attention_stats.launches += 1
     flash_attention_stats.launches_by_head_dim[d] += 1
-    _build.check("act_flash_attention_stats", fn(
+    _build.check(name, fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), m.data_ptr(),
         l.data_ptr(), b, h, tq, tk, q.shape[-1], 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream))
@@ -202,4 +280,5 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_stats.launches = 0  # K5's launches, counted apart from K3's
+flash_attention_stats.launches_bf16 = 0
 flash_attention_stats.launches_by_head_dim = collections.Counter()

@@ -40,12 +40,18 @@ def _local_attn_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: 
     The two branches mask differently. K5 adds a 0 / -1e9 bias, so a block
     masked whole comes back as m = -1e9, l = Tb; the dense block gives
     m = -1e30, l = 0, o = 0. Both vanish in the merge, exp(m_b - m_new) = 0,
-    once the row has met one valid key in any block."""
+    once the row has met one valid key in any block.
+
+    bfloat16 q, k, v go to K5's bfloat16 entry as they are (p rounded to
+    bf16 there); the dense block computes them in float32, as the JAX
+    einsums with ``preferred_element_type=float32`` and p promoting v do.
+    Either way the triple is float32."""
     if q.shape[2] >= FLASH_MIN_T:
         if not math.isclose(scale, 1.0 / math.sqrt(q.shape[-1])):
             raise ValueError("ring attention: K5 scales by 1/sqrt(D) only")
         o, m, l = flash_attention_stats(q, k, v, kv_mask)
         return m, l, o
+    q, k, v = q.float(), k.float(), v.float()
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     if kv_mask is not None:
         keep = kv_mask.bool()[:, None, None, :]
@@ -84,9 +90,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, axis
                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-softmax attention with the sequence axis cut over ``axis``.
 
-    q, k, v: [B, T, H, D]; T must divide by mesh.shape[axis]. Optional
-    kv_mask [B, T] (True = valid key) masks padded positions; its blocks
-    travel the ring with K and V. Returns [B, T, H, D]."""
+    q, k, v: [B, T, H, D], all float32 or all bfloat16; T must divide by
+    mesh.shape[axis]. Optional kv_mask [B, T] (True = valid key) masks
+    padded positions; its blocks travel the ring with K and V. Returns
+    [B, T, H, D] float32 (the merge is float32 at either dtype)."""
     n = mesh.shape[axis]
     b, t, h, d = q.shape
     if t % n != 0:

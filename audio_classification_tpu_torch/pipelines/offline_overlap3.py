@@ -147,8 +147,7 @@ def build_engine(cfg, device=None) -> StageEngine:
     defaults; without a PyanNet they have no effect, as in JAX).
 
     ``compute_dtype`` ("float32" or "bfloat16") goes to the StageEngine, as
-    the JAX runner passes it (pipelines/offline_overlap3.py:320-322); the
-    engine refuses bfloat16 where it is not ported yet."""
+    the JAX runner passes it (pipelines/offline_overlap3.py:320-322)."""
     check_ported(cfg)
     quant = getattr(cfg, "quant", "none")
     if quant not in ("none", "int8"):

@@ -51,10 +51,22 @@ points at the full preset, reading every kernel's launch count around each:
   and one serving tick of two sessions under --quant int8; the float32
   masker entry points must stay unlaunched on these paths.
 
+- --compute-dtype bfloat16 beyond the flagship: the flagship CLI with each
+  other ASR family and with PyanNet serving OSD, forced to overlap (K2 bf16,
+  K3 float32: the encoders' float32 positional tables promote their
+  streams, as in JAX); the 200 s utterance on bf16 engines over 4 shards
+  (K5 float32, 192 launches) and without a mesh (K3 float32), SenseVoice
+  and Paraformer, texts equal; K3 / K5's bf16 entry points stay unlaunched
+  on all of these, and are reached through the op entry and through the
+  ring of 4 on bf16 q, k, v (16 K5 bf16 launches).
+
 The bf16 entry points are held to their bf16 twins and to the twins run in
 float64 (the same rounding points) at the float phases' shapes, timed by
-graph replay beside the float32 entry points, and the full-preset stages of
-a bf16 engine on the card are held to the same bf16 engine on the CPU.
+graph replay beside the float32 entry points (K3 / K5 bf16 beside SDPA at
+bf16 too), and the full-preset stages of a bf16 engine on the card are held
+to the same bf16 engine on the CPU: the flagship's stages, each other
+family's recognizer (encoder outputs and token ids, greedy and beam),
+PyanNet and SenseVoice over a mesh of 4.
 
 K3 and K5 are also held to their float64 twin at the head dims beside 64
 (Paraformer's 80 at its main shapes, 128, and 40, which the wrapper pads;
@@ -726,6 +738,129 @@ def bf16_bound(flops: float, nbytes: float) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
+def bf16_tensor_bound(flops: float, exps: float, nbytes: float) -> dict:
+    """K3 / K5's bf16 entry points: the larger of the products at the dense
+    bf16 tensor rate, the exponentials at the SFU rate and the bytes."""
+    terms = {"tensor_bf16": flops / PEAK_BF16_FLOPS * 1e3,
+             "sfu_exp": exps / PEAK_SFU_PER_S * 1e3,
+             "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term], "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "flops": flops, "exps": exps, "bytes": nbytes}
+
+
+def check_attention_bf16(torch, np) -> dict:
+    """K3 and K5 at bf16 q, k, v (act_flash_attention_bf16 /
+    act_flash_attention_stats_bf16) at the float32 phases' shapes: K3 at
+    [8,8,537,64], [1,8,537,64], [1,4,800,64] ragged, [1,8,4271,64] with 3337
+    keys valid, D = 80 [1,4,533,80], D = 128 [2,4,200,128] ragged, D = 40
+    and D = 200 ragged (zero-padded to 64 and to the wide body's 256); K5 on
+    a shard's [1,8,1068,64] block with all keys valid and with 133, and
+    [3,8,537,64] x 1068 keys ragged. Each against the bf16 twin over the
+    kernels' own 64-key blocks (p is rounded against the running max, so the
+    block width is part of the function) and against that twin in float64
+    (the same rounding points): a float32 sum in another order moves a p
+    across a bf16 rounding boundary now and then, and one flip moves an
+    output by up to 2^-9 p |v| / l, so o is held to 2e-3 of max|o| and its
+    mean error to 5e-5 of mean|o| (an unrounded p v or another block width
+    is ~1e-3 off in the mean); m and l to 1e-5 relative. Device ms by graph
+    replay with the twin's and SDPA's at bf16 on the same inputs (K3's
+    library call; beside K5 a yardstick of another function), the float32
+    entry point's on the same values, and each call through Python."""
+    from audio_classification_tpu_torch.ops.kernels import attention
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    ts = -(-LONG_T // LONG_SHARDS)
+    out_cases = {"K3": [], "K5": []}
+    for kind, b, h, tq, tk, d, lens in (
+            ("K3", 8, 8, 537, 537, 64, [537 - 97 * i % 537 for i in range(8)]),
+            ("K3", 1, 8, 537, 537, 64, [537]),
+            ("K3", 1, 4, 800, 800, 64, [800]),
+            ("K3", 1, 8, LONG_T, LONG_T, 64, [LONG_VALID_T]),
+            ("K3", 1, 4, 533, 533, 80, [533]),
+            ("K3", 2, 4, 200, 200, 128, [200, 77]),
+            ("K3", 2, 4, 300, 300, 40, [300, 129]),
+            ("K3", 2, 4, 300, 300, 200, [300, 129]),
+            ("K5", 1, 8, ts, ts, 64, [ts]),
+            ("K5", 1, 8, ts, ts, 64, [LONG_VALID_T - 3 * ts]),
+            ("K5", 3, 8, 537, 1068, 64, [1068, 300, 33])):
+        q = torch.randn((b, h, tq, d), generator=gen).to(dev).to(bf)
+        k, v = (torch.randn((b, h, tk, d), generator=gen).to(dev).to(bf) for _ in range(2))
+        mask = torch.arange(tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        n_valid = int(mask.sum())
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask[:, None, None, :])
+        case = {"kernel": kind, "shape": [b, h, tq, d], "keys": tk, "valid_keys": lens,
+                "instance": attention.padded_head_dim(d), "block_k": attention.BLOCK_K}
+        if kind == "K3":
+            fn = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
+            twin = lambda: attention.attention_reference_lowp(q, k, v, mask)  # noqa: E731
+            f32 = lambda: attention.flash_attention(q32, k32, v32, mask)  # noqa: E731
+            got, again = (fn(),), (fn(),)
+            torch.cuda.synchronize()
+            refs = ((twin(),), (attention.attention_reference_lowp(q, k, v, mask,
+                                                                   acc=torch.float64),))
+            n_out = 4 * q.numel()
+        else:
+            fn = lambda: attention.flash_attention_stats(q, k, v, mask)  # noqa: E731
+            twin = lambda: attention.attention_stats_reference_lowp(q, k, v, mask)  # noqa: E731
+            f32 = lambda: attention.flash_attention_stats(q32, k32, v32, mask)  # noqa: E731
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            refs = (twin(), attention.attention_stats_reference_lowp(q, k, v, mask,
+                                                                    acc=torch.float64))
+            n_out = 4 * (q.numel() + 2 * b * h * tq)
+        assert got[0].dtype == torch.float32 and got[0].shape == (b, h, tq, d)
+        for label, ref in zip(("", "_vs_float64_twin"), refs):
+            ro = ref[0].float()
+            err = (got[0] - ro).abs()
+            case["max_abs_err" + label] = err.max().item()
+            case["rel_err" + label] = err.max().item() / ro.abs().max().item()
+            case["mean_rel_err" + label] = err.mean().item() / ro.abs().mean().item()
+            if kind == "K5":
+                rm, rl = ref[1].float(), ref[2].float()
+                case["m_rel_err" + label] = ((got[1] - rm).abs()
+                                             / rm.abs().clamp_min(1.0)).max().item()
+                case["l_rel_err" + label] = ((got[2] - rl).abs() / rl.abs()).max().item()
+        case.update({
+            "tol_rel": 2e-3, "tol_mean_rel": 5e-5, "tol_ml_rel": 1e-5,
+            "repeat_identical": all(torch.equal(x, y) for x, y in zip(got, again)),
+            "ms": graph_ms(torch, fn, 20), "plain_ms": graph_ms(torch, twin, 20),
+            "f32_entry_ms": graph_ms(torch, f32, 20),
+            "library_ms" if kind == "K3" else "sdpa_ms_same_inputs":
+                graph_ms(torch, sdpa, 20) if tq == tk or kind == "K3" else None,
+            "wrapper_ms": cuda_ms(torch, fn, 20),
+            # over the valid keys (a tile with none is skipped, a masked key
+            # adds exp(-1e9) = 0): q read and the outputs written for every
+            # row, k and v for the valid keys, at 2 bytes
+            **bf16_tensor_bound(4.0 * h * tq * n_valid * d, 1.0 * h * tq * n_valid,
+                                2.0 * (q.numel() + 2 * h * d * n_valid) + n_out
+                                + mask.numel())})
+        if kind == "K5":
+            case["library_ms"] = None  # no single PyTorch call returns (o, m, l)
+        else:
+            case["ms_over_library_ms"] = case["ms"] / case["library_ms"]
+        case["share"] = case["bound_ms"] / case["ms"]
+        log({"phase": "kernel", "name": "flash_attention_bf16" if kind == "K3"
+             else "flash_attention_stats_bf16", **case})
+        for label in ("", "_vs_float64_twin"):
+            assert math.isfinite(case["rel_err" + label]), case
+            assert case["rel_err" + label] <= 2e-3, case
+            assert case["mean_rel_err" + label] <= 5e-5, case
+            if kind == "K5":
+                assert case["m_rel_err" + label] <= 1e-5, case
+                assert case["l_rel_err" + label] <= 1e-5, case
+        assert case["repeat_identical"], case
+        out_cases[kind].append(case)
+    return {name: {**cases[0], "max_abs_err": max(c["max_abs_err"] for c in cases),
+                   "cases": cases}
+            for name, cases in (("flash_attention_bf16", out_cases["K3"]),
+                                ("flash_attention_stats_bf16", out_cases["K5"]))}
+
+
 def _bf16_stack(torch, tcn, model, quant: bool) -> dict:
     """The stack a bf16 engine's masker runs: the bf16 copy of the
     full-preset Conv-TasNet's blocks (weights and vector bundles rounded
@@ -1200,6 +1335,154 @@ def check_pyannet_against_cpu(torch, np) -> None:
          "frame_period": cfg.frame_period, "lstm_calls": cfg.lstm_layers * 2,
          "osd_call_20s_in_32s_bucket": call, "device": gpu_name_and_power_limit()})
 
+def check_bf16_paths_against_cpu(torch, np) -> None:
+    """The paths this port opened to ``compute_dtype="bfloat16"`` after the
+    flagship, on the card against the same bf16 models on the CPU, as
+    ``check_bf16_against_cpu`` holds the flagship's stages: each output's
+    tolerance is the distance between the CPU's bf16 and float32 runs on
+    the same input (max |.| over max |float32|). The recognizers at the full
+    preset (seeded weights) on two 4 s items: Paraformer's logits on the
+    fired tokens, the transducer's and whisper-style encoders' outputs; and
+    their token ids (CIF counts and ids, greedy and modified beam search,
+    whisper's KV-cache greedy), which must equal the CPU's bf16 ids wherever
+    the CPU's bf16 and float32 ids agree. PyanNet at pyannote/segmentation's
+    widths (the float32 net on bf16-rounded weights) on a 10 s ragged
+    batch. SenseVoice over a mesh of 4 shards on the one card: the logits
+    and text of a 40 s utterance through the bf16 engine's ring."""
+    from audio_classification_tpu_torch.convert.torch_import import load_pyannet_torch
+    from audio_classification_tpu_torch.engine.runtime import (
+        EnginePreset,
+        ModelPack,
+        StageEngine,
+        _cast_copy,
+        seeded_init_,
+    )
+    from audio_classification_tpu_torch.models.asr.paraformer import (
+        Paraformer,
+        paraformer_frontend,
+        paraformer_greedy,
+    )
+    from audio_classification_tpu_torch.models.asr.sensevoice import sensevoice_frontend
+    from audio_classification_tpu_torch.models.asr.transducer import (
+        Transducer,
+        transducer_frontend,
+    )
+    from audio_classification_tpu_torch.models.asr.whisper_style import (
+        WhisperStyle,
+        whisper_frontend,
+    )
+    from audio_classification_tpu_torch.models.pyannet import PyanNet, rounded_copy
+    from audio_classification_tpu_torch.parallel.mesh import make_mesh
+
+    bf = torch.bfloat16
+    preset = EnginePreset()
+    n = 4 * SR
+    src = talkers(n, 3)
+    wav = np.stack([sum(src) * 0.25, src[1] * 0.5]).astype(np.float32)
+    lens = np.array([n, 3 * SR], np.int64)
+
+    def paraformer(m, w, l, dt):
+        feats, mask = paraformer_frontend(w, l, m.cfg)
+        logits, counts = m(feats.to(dt), mask)
+        ids, _ = paraformer_greedy(logits.float(), counts)
+        rows = torch.arange(logits.shape[1], device=w.device)[None, :] < counts[:, None]
+        return logits.float() * rows[..., None], {"counts": counts, "ids": ids}
+
+    def transducer(m, w, l, dt):
+        feats, mask = transducer_frontend(w, l, m.cfg)
+        enc, emask = m.encoder(feats.to(dt), mask)
+        return enc.float() * emask[..., None], {
+            "greedy": m.greedy_decode(feats.to(dt), mask)[0],
+            "beam4": m.beam_decode(feats.to(dt), mask, 4)[0]}
+
+    def whisper(m, w, l, dt):
+        feats, mask = whisper_frontend(w, l, m.cfg)
+        mem, mmask = m.encode(feats.to(dt), mask)
+        return mem.float() * mmask[..., None], {"greedy": m.greedy_decode(feats.to(dt), mask)[0]}
+
+    def compare(outs):
+        """outs: {run: (tensor, {name: ids})} for cuda / cpu bf16 and cpu f32."""
+        peak = max(outs["cpu_f32"][0].abs().max().item(), 1e-12)
+        rel = (outs["cuda"][0] - outs["cpu"][0]).abs().max().item() / peak
+        gap = (outs["cpu"][0] - outs["cpu_f32"][0]).abs().max().item() / peak
+        ids = {}
+        for k in outs["cpu"][1]:
+            same = bool(torch.equal(outs["cuda"][1][k], outs["cpu"][1][k]))
+            bf16_kept = bool(torch.equal(outs["cpu"][1][k], outs["cpu_f32"][1][k]))
+            ids[k] = {"equal_to_cpu_bf16": same, "cpu_bf16_equal_to_f32": bf16_kept,
+                      "tokens": int((outs["cpu"][1][k] != 0).sum())}
+            assert same or not bf16_kept, (k, ids[k])
+        assert math.isfinite(rel) and rel <= gap, (rel, gap)
+        return {"rel_err": rel, "tol_rel_bf16_vs_f32": gap, "ids": ids}
+
+    report = {}
+    for name, cls, cfg, run in (("paraformer", Paraformer, preset.paraformer, paraformer),
+                                ("transducer", Transducer, preset.transducer, transducer),
+                                ("whisper", WhisperStyle, preset.whisper, whisper)):
+        outs = {}
+        for d, run_name in (("cuda", "cuda"), ("cpu", "cpu")):
+            model = seeded_init_(cls(cfg), torch.Generator().manual_seed(0)).to(d).eval()
+            copies = {run_name: _cast_copy(model, bf)}
+            if d == "cpu":
+                copies["cpu_f32"] = model
+            for key, m in copies.items():
+                dt = bf if key != "cpu_f32" else torch.float32
+                with torch.inference_mode():
+                    x, ids = run(m, torch.from_numpy(wav).to(d), torch.from_numpy(lens).to(d), dt)
+                outs[key] = (x.float().cpu(), {k: v.cpu() for k, v in ids.items()})
+        report[name] = compare(outs)
+
+    # PyanNet: its bf16 copy (weights rounded, band edges and LSTM bias sums
+    # in bf16) on both devices, and the float32 net on the CPU
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    write_pyannote_checkpoint(torch, np, work / "segmentation.ckpt", seed=21)
+    pcfg, sd = load_pyannet_torch(str(work / "segmentation.ckpt"))
+    psrc = talkers(10 * SR, 31)
+    pwav = np.stack([sum(psrc) / 3.0, np.where(np.arange(10 * SR) < 7.3 * SR, psrc[1], 0.0)])
+    pwav = (0.6 * pwav / np.abs(pwav).max()).astype(np.float32)
+    plens = np.array([10 * SR, int(7.3 * SR)], np.int64)
+    outs = {}
+    for d in ("cuda", "cpu"):
+        model = PyanNet(pcfg)
+        model.load_state_dict(sd)
+        model = model.to(d).eval()
+        runs = {d: rounded_copy(model, bf), **({"cpu_f32": model} if d == "cpu" else {})}
+        for key, m in runs.items():
+            with torch.inference_mode():
+                outs[key] = (m(torch.from_numpy(pwav).to(d), torch.from_numpy(plens).to(d))
+                             .float().cpu(), {})
+    report["pyannet"] = compare(outs)
+
+    # SenseVoice over 4 shards of the one card: a 40 s utterance (64 s
+    # bucket, 1067 + 4 frames: 268 a shard, the ring's dense blocks)
+    speech = sum(talkers(40 * SR, 33)) / 3.0
+    speech = (0.6 * speech / np.abs(speech).max()).astype(np.float32)
+    outs, texts = {}, {}
+    for d in ("cuda", "cpu"):
+        pack = ModelPack(EnginePreset(), seed=0, device=d)
+        mesh = make_mesh(LONG_SHARDS, devices=[d] * LONG_SHARDS)
+        runs = {d: StageEngine(pack, mesh=mesh, compute_dtype="bfloat16")}
+        if d == "cpu":
+            runs["cpu_f32"] = StageEngine(pack, mesh=mesh)
+        for key, eng in runs.items():
+            t = eng.buckets.long_bucket_for(len(speech))
+            with torch.inference_mode():
+                w = torch.zeros((1, t), device=d)
+                w[0, : len(speech)] = torch.from_numpy(np.round(speech * 32768) / 32768).to(d)
+                feats, mask = sensevoice_frontend(w, torch.tensor([len(speech)], device=d),
+                                                  pack.asr_cfg)
+                logits = eng.models["asr"](feats.to(eng.compute_dtype), mask, mesh=mesh,
+                                           sp_axis="data").float()
+            texts[key] = eng.transcribe_long(speech)
+            outs[key] = (logits.cpu(), {})
+    report["sensevoice, mesh of 4"] = {**compare(outs), "texts": {
+        "equal_to_cpu_bf16": texts["cuda"] == texts["cpu"],
+        "cpu_bf16_equal_to_f32": texts["cpu"] == texts["cpu_f32"], "len": len(texts["cpu"])}}
+    assert texts["cuda"] == texts["cpu"] or texts["cpu"] != texts["cpu_f32"], report
+    log({"phase": "bf16_paths_vs_cpu", **report})
+
+
 def device_ops(torch, fn) -> dict:
     """One call of fn after a warm one: its wall, then the device ops it
     queued and their device time under torch.profiler (a second call)."""
@@ -1610,6 +1893,26 @@ def run_paths(torch, np, counters: dict) -> dict:
                          head_dims={("flash_attention", head_dim): 1})
             assert r.metrics["segments_total"] > 0
 
+    # --compute-dtype bfloat16 with each of those families, and with PyanNet
+    # serving OSD, forced to overlap: the masker runs its bf16 entry point
+    # and K3 takes float32 (each encoder's float32 positional table promotes
+    # its stream, as in JAX: tests/test_torch_bf16_kernels.py records it in
+    # both packages), so K3's and K5's bf16 entry points stay unlaunched
+    attn_bf16 = ("flash_attention_bf16", "flash_attention_stats_bf16")
+    for family, flags, head_dim in families:
+        r = flagship(f"overlap3 {family} --compute-dtype bfloat16 --osd-thr 0.0",
+                     ["--input-wavs", str(work / "mix.wav"), "--osd-thr", "0.0", *flags, *bf16],
+                     "overlap", ("fbank_power_mel", "tcn_masker_bf16", "flash_attention"),
+                     unexpected=attn_bf16 + ("tcn_masker",),
+                     head_dims={("flash_attention", head_dim): 1})
+        assert r.metrics["segments_overlap_streams"] > 0
+    r = flagship("pyannet-flagship --compute-dtype bfloat16 overlap",
+                 ["--input-wavs", str(work / "mix.wav"), *files, "--osd-onset", "0.0",
+                  "--osd-offset", "0.0", "--osd-min-on", "0.1", "--osd-min-off", "0.1", *bf16],
+                 "overlap", ("fbank_power_mel", "tcn_masker_bf16", "flash_attention"),
+                 unexpected=attn_bf16 + ("tcn_masker",))
+    assert r.metrics["segments_overlap_streams"] > 0
+
     # the speaker-ID product: a synthetic set of 4 talkers x 2 enrollment
     # wavs and 8 test wavs (one at 8 kHz), through both CLIs at the full
     # preset; their output files are read back
@@ -1759,6 +2062,65 @@ def run_long_form(torch, np, counters: dict) -> dict:
              "tol_rel": 1e-3})
         assert rel <= 1e-3, (backend, rel)
 
+    # the same utterance on bf16 engines, over 4 shards and without a mesh:
+    # the encoder's stream is float32 past its positional table, so the
+    # ring's K5 and the unsharded K3 take float32 as in JAX, and their bf16
+    # entry points stay unlaunched
+    attn_bf16 = {"flash_attention_bf16": 0, "flash_attention_stats_bf16": 0}
+    text4b = transcribe(f"transcribe long_form, {LONG_SEC} s, mesh of {LONG_SHARDS}, bfloat16",
+                        StageEngine(pack, mesh=make_mesh(LONG_SHARDS), compute_dtype="bfloat16"),
+                        speech, ("fbank_power_mel",),
+                        {"flash_attention_stats": layers * LONG_SHARDS ** 2, "flash_attention": 0,
+                         **attn_bf16})
+    text1b = transcribe(f"transcribe long_form, {LONG_SEC} s, no mesh, bfloat16",
+                        StageEngine(pack, compute_dtype="bfloat16"), speech, ("fbank_power_mel",),
+                        {"flash_attention": layers, "flash_attention_stats": 0, **attn_bf16})
+    log({"phase": "long_form_bf16", "seconds": LONG_SEC, "text_len": len(text1b),
+         "texts_equal": text4b == text1b, "texts_equal_float32": text1b == text1})
+    assert text4b == text1b and len(text1b) > 0, (text4b[:80], text1b[:80])
+
+    # K3 and K5's bf16 entry points, which no engine path feeds: a caller
+    # reaches them through the op entry and through the ring, on bf16 q, k,
+    # v as the JAX functions take them. The ring of 4 over the 4272 frames
+    # of the long-form test above: 16 K5 launches of 1068-frame blocks
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    t = -(-LONG_T // LONG_SHARDS) * LONG_SHARDS
+    q, k, v = (torch.randn((1, t, 8, 64), generator=gen).cuda().to(torch.bfloat16)
+               for _ in range(3))
+    kv_mask = (torch.arange(t, device="cuda") < LONG_VALID_T)[None, :]
+    from audio_classification_tpu_torch.ops.kernels import attention
+    from audio_classification_tpu_torch.parallel.ring_attention import ring_attention
+
+    ring, launches = _counted(
+        torch, counters, (), f"ring_attention, bfloat16 q, k, v, mesh of {LONG_SHARDS}",
+        lambda: ring_attention(q, k, v, make_mesh(LONG_SHARDS), kv_mask=kv_mask),
+        exact={"flash_attention_stats_bf16": LONG_SHARDS ** 2, "flash_attention_stats": 0})
+    for kk, nn in launches.items():
+        total[kk] += nn
+    qh, kh, vh = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+    k3, launches = _counted(
+        torch, counters, (), "flash_attention op entry, bfloat16 q, k, v",
+        lambda: attention.flash_attention(qh, kh, vh, kv_mask).transpose(1, 2),
+        exact={"flash_attention_bf16": 1, "flash_attention": 0})
+    for kk, nn in launches.items():
+        total[kk] += nn
+    # the ring merges K5's float32 triples. Against one K3 call on the same
+    # bf16 values it rounds p against other running maxima (key blocks of
+    # 1068 cut into 64-key tiles, not 64-key tiles from key 0), which moves
+    # the output about as far as not rounding p at all (the twins on the
+    # CPU: 1.16e-3 and 1.11e-3 of max|out| at this shape). So the ring is
+    # held to twice the distance between K3 at bf16 and K3 at float32 on
+    # the same values, on the valid rows
+    rows = kv_mask[:, :, None, None]
+    peak = (k3.abs() * rows).max().item()
+    k3_f32 = attention.flash_attention(qh.float(), kh.float(), vh.float(), kv_mask).transpose(1, 2)
+    diff = ((ring - k3).abs() * rows).max().item() / peak
+    gap = ((k3_f32 - k3).abs() * rows).max().item() / peak
+    log({"phase": "ring_attention_bf16", "shape": [1, t, 8, 64], "shards": LONG_SHARDS,
+         "dtype_out": str(ring.dtype), "rel_diff_vs_flash_attention_bf16": diff,
+         "rel_gap_bf16_vs_float32": gap, "tol_rel": 2 * gap})
+    assert ring.dtype == torch.float32 and diff <= 2 * gap, (diff, gap)
+
     # the other three families on the same 200 s utterance, without a mesh
     # (K3 from T = 512 on: Paraformer's encoder at T = 4267, D = 80, 8 layers;
     # the transducer's at T = 6400 and the whisper-style one's at T = 12800,
@@ -1796,10 +2158,22 @@ def run_long_form(torch, np, counters: dict) -> dict:
                 StageEngine(fpack, mesh=make_mesh(LONG_SHARDS)), speech, ("fbank_power_mel",),
                 {"flash_attention_stats": layers * LONG_SHARDS ** 2, "flash_attention": 0},
                 {("flash_attention_stats", 80): layers * LONG_SHARDS ** 2})
+            # at bf16, over 4 shards and without: float32 K5 / K3 at D = 80
+            for mesh_b, exact in ((make_mesh(LONG_SHARDS), {
+                    "flash_attention_stats": layers * LONG_SHARDS ** 2, "flash_attention": 0}),
+                                  (None, {"flash_attention": layers, "flash_attention_stats": 0})):
+                key = "paraformer, bfloat16" + (", mesh of 4" if mesh_b is not None else "")
+                texts[key] = transcribe(
+                    f"transcribe long_form, {LONG_SEC} s, {key}",
+                    StageEngine(fpack, mesh=mesh_b, compute_dtype="bfloat16"), speech,
+                    ("fbank_power_mel",), {**exact, **attn_bf16})
     log({"phase": "long_form_families", "seconds": LONG_SEC,
          "text_len": {k: len(v) for k, v in texts.items()},
-         "paraformer_texts_equal": texts["paraformer"] == texts["paraformer, mesh of 4"]})
+         "paraformer_texts_equal": texts["paraformer"] == texts["paraformer, mesh of 4"],
+         "paraformer_bf16_texts_equal": (texts["paraformer, bfloat16"]
+                                         == texts["paraformer, bfloat16, mesh of 4"])})
     assert texts["paraformer"] == texts["paraformer, mesh of 4"]
+    assert texts["paraformer, bfloat16"] == texts["paraformer, bfloat16, mesh of 4"]
     return total
 
 
@@ -1849,7 +2223,8 @@ def main() -> int:
                "flash_attention_stats": check_attention_stats(torch, np),
                "tcn_masker_bf16": check_tcn_bf16(torch, np, quant=False),
                "tcn_masker_s8_bf16": check_tcn_bf16(torch, np, quant=True),
-               "gau_attention_bf16": check_gau_bf16(torch, np)}
+               "gau_attention_bf16": check_gau_bf16(torch, np),
+               **check_attention_bf16(torch, np)}
     # K3 and K5 at D = 80 (Paraformer), 128 and a padded 40: their cases join
     # the kernels' records, errors against the float64 twin
     for name, cases in check_attention_head_dims(torch, np).items():
@@ -1860,6 +2235,7 @@ def main() -> int:
     check_bf16_against_cpu(torch, np)
     check_families_against_cpu(torch, np)
     check_pyannet_against_cpu(torch, np)
+    check_bf16_paths_against_cpu(torch, np)
     # each wrapper's count of kernel launches; the masker's four C entry
     # points and K4's two count apart
     counters = {"fbank_power_mel": (fbank_power_mel, "launches"),
@@ -1870,7 +2246,9 @@ def main() -> int:
                 "flash_attention_stats": (flash_attention_stats, "launches"),
                 "tcn_masker_bf16": (fused_tcn_masker, "launches_bf16"),
                 "tcn_masker_s8_bf16": (fused_tcn_masker, "launches_s8_bf16"),
-                "gau_attention_bf16": (gau_attention, "launches_bf16")}
+                "gau_attention_bf16": (gau_attention, "launches_bf16"),
+                "flash_attention_bf16": (flash_attention, "launches_bf16"),
+                "flash_attention_stats_bf16": (flash_attention_stats, "launches_bf16")}
     launches = run_paths(torch, np, counters)
     for k, n in run_long_form(torch, np, counters).items():
         launches[k] += n
@@ -1901,6 +2279,13 @@ def main() -> int:
                                "audio_classification_tpu/ops/pallas/tcn_kernel.py:489"),
         "gau_attention_bf16": ("audio_classification_tpu_torch/csrc/gau_attention.cu",
                                "audio_classification_tpu/ops/pallas/attention_kernel.py:410"),
+        # act_flash_attention_bf16, act_flash_attention_stats_bf16: the JAX
+        # body at bf16 q, k, v (p cast to v's dtype :99)
+        "flash_attention_bf16": ("audio_classification_tpu_torch/csrc/flash_attention.cu",
+                                 "audio_classification_tpu/ops/pallas/attention_kernel.py:268"),
+        "flash_attention_stats_bf16": (
+            "audio_classification_tpu_torch/csrc/flash_attention.cu",
+            "audio_classification_tpu/ops/pallas/attention_kernel.py:293"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name],

@@ -21,6 +21,13 @@ frame shapes K1 was called at. Scenes:
   overlap-bf16, clean-bf16, mossformer-bf16, overlap-int8-bf16
                the four file scenes above with --compute-dtype bfloat16
                (K2 / K2-s8 bf16; K4 bf16 in the first GAU layer)
+  paraformer, transducer, beam, whisper (and each with -bf16)
+               the clean scene with another ASR family (seeded weights;
+               beam: the transducer with modified_beam_search, 4 paths)
+  pyannet (and pyannet-bf16)
+               the overlap scene with PyanNet serving OSD, from a pyannote
+               checkpoint at the published widths (chip_smoke.py's), forced
+               through the hysteresis flags to every frame overlapped
   streaming    --quant int8: the six 1.984 s blocks of a 12 s three-talker
                wav through StreamingOverlap3Pipeline._analyze_segment
   serving      --quant int8: 8 sessions x 12 s, six ticks of 8 windows of 2 s
@@ -93,7 +100,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_scene: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import LONG_SEC, LONG_SHARDS, SR, talkers
+    from chip_smoke import LONG_SEC, LONG_SHARDS, SR, talkers, write_pyannote_checkpoint
 
     from audio_classification_tpu_torch.audio_io import write_wav
     from audio_classification_tpu_torch.cli import serve_streams, streaming_overlap_3src
@@ -170,18 +177,36 @@ def main() -> int:
                            sep_backend="mossformer"),
         "overlap-int8": dict(input_wavs=[str(work / "mix.wav")], osd_thr=0.0, quant="int8"),
     }
+    transducer = dict(encoder="seeded", decoder="seeded", joiner="seeded")
+    families = {"paraformer": dict(paraformer="seeded"), "transducer": transducer,
+                "beam": dict(transducer, decoding_method="modified_beam_search",
+                             num_active_paths=4),
+                "whisper": dict(whisper_encoder="seeded", whisper_decoder="seeded")}
+    for name, flags in families.items():
+        file_scenes[name] = dict(file_scenes["clean"], **flags)
+    write_pyannote_checkpoint(torch, np, work / "segmentation.ckpt", seed=21)
+    file_scenes["pyannet"] = dict(file_scenes["overlap"],
+                                  osd_checkpoint=str(work / "segmentation.ckpt"), osd_onset=0.0,
+                                  osd_offset=0.0, osd_min_on=0.1, osd_min_off=0.1)
     for name in list(file_scenes):
         file_scenes[name + "-bf16"] = dict(file_scenes[name], compute_dtype="bfloat16")
     engines = {}
 
-    def engine_for(q, dtype="float32"):
-        if (q, dtype) not in engines:
-            engines[q, dtype] = build_engine(Overlap3Config(**base, quant=q, compute_dtype=dtype))
-        return engines[q, dtype]
+    def engine_for(q="none", dtype="float32", **fields):
+        """One engine per set of engine flags (quant, dtype, the family's,
+        the OSD checkpoint's): the pipeline-only fields do not key it."""
+        fields = {k: v for k, v in fields.items()
+                  if k not in ("input_wavs", "osd_thr", "sep_backend")}
+        key = (q, dtype, tuple(sorted(fields.items())))
+        if key not in engines:
+            engines[key] = build_engine(Overlap3Config(**base, quant=q, compute_dtype=dtype,
+                                                       **fields))
+        return engines[key]
 
     def file_scene(name):
         cfg = Overlap3Config(**base, **file_scenes[name])
-        engine = engine_for(cfg.quant, cfg.compute_dtype)
+        fields = {k: v for k, v in file_scenes[name].items() if k not in ("quant", "compute_dtype")}
+        engine = engine_for(cfg.quant, cfg.compute_dtype, **fields)
 
         def run():
             res = Overlap3Pipeline(cfg, engine=engine).run()

@@ -1,8 +1,9 @@
-"""The bfloat16 halves of K2 / K2-s8 and K4 on the CPU: their plain twins
-(``tcn_masker_reference_lowp``, ``gau_attention_reference`` on bf16
+"""The bfloat16 halves of K2 / K2-s8, K3 / K5 and K4 on the CPU: their
+plain twins (``tcn_masker_reference_lowp``, ``attention_reference_lowp`` /
+``attention_stats_reference_lowp``, ``gau_attention_reference`` on bf16
 inputs) against the JAX kernels run in interpret mode at bf16, the
-reference's bf16 length sum, the dtypes the engine's bf16 mode hands the
-attention kernels in both packages, and K3 / K5's refusal of bf16.
+reference's bf16 length sum, and the dtypes the engine's bf16 mode hands
+the attention kernels in both packages, path by path.
 
 Tolerances are measured (the comment at each) and bounded by bf16's own
 spacing: a twin and a kernel that sum in another order in float32 round an
@@ -45,6 +46,16 @@ MASKER_MEAN_TOL = 3e-3
 # K4: the p rounding to bf16 is the same in both, the sums' order is not
 # (measured 3.0e-7; the float32 p v on the unrounded p is 1.5e-3 away)
 GAU_TOL = 1e-5
+# K3 / K5 at JAX's key blocks: float32 summation order moves a p across a
+# bf16 rounding boundary now and then, and one flip moves an output by up
+# to 2^-9 p |v| / l, so the max error is that of a few flips (measured
+# <= 4.2e-4 of max|o|) while the mean stays at float32 level (measured
+# <= 2.8e-6 of mean|o|). Rounding p against another block partition (the
+# kernels' 64 keys) or not at all is another function: mean 5.5e-4 and
+# 1.4e-3. m absolute, l relative (measured 1.2e-6 both).
+FLASH_TOL = 1e-3
+FLASH_MEAN_TOL = 2e-5
+FLASH_STATS_TOL = 1e-5
 
 WIDE = dict(n_src=3, enc_dim=64, enc_kernel=16, bottleneck=128, hidden=128, n_blocks=4,
             n_repeats=2)
@@ -240,14 +251,32 @@ def bf16_dtypes_seen():
     return seen
 
 
-def test_bf16_attention_cores_receive_float32_in_both_packages(bf16_dtypes_seen):
-    """At bf16 K3's inputs are float32 in both packages: OSDNet and
-    SenseVoice add their float32 positional table before the first block,
-    which promotes the stream (ROADMAP §2 item 1: K3 / K5's bf16 entry
-    points stay unported and are on no engine path)."""
+def test_bf16_attention_cores_receive_float32_in_both_packages(bf16_dtypes_seen,
+                                                               bf16_dtypes_by_path):
+    """At bf16 the dtype that reaches K3 / K5 is float32 on every engine
+    path, in both packages: OSDNet, SenseVoice and the other families'
+    encoders add their float32 positional table before the first block,
+    which promotes the stream, the mesh's rings included (so K3 / K5's bf16
+    entry points are on no engine path). Per path (``PATHS``): the same
+    entries in the same order in both packages; the rings' as sets, since
+    the port calls K5 once a shard and step while the JAX shard body is
+    traced once a layer for its first block and once for the loop over the
+    others. The mesh's encoder rings reach K5; Paraformer's decoder, over
+    its few acoustic tokens and never sharded, K3."""
     for pkg in ("jax", "torch"):
         attn = [dt for name, dt in bf16_dtypes_seen[pkg] if name == "attn"]
         assert attn and set(attn) == {"float32"}, pkg
+    for path in PATHS:
+        seen = bf16_dtypes_by_path[path]
+        assert seen["torch"] and seen["jax"], path
+        if path.startswith("mesh"):
+            assert set(seen["torch"]) == set(seen["jax"]), path
+        else:
+            assert seen["torch"] == seen["jax"], path
+        want = {"mesh-sensevoice": {"stats"},
+                "mesh-paraformer": {"stats", "attn"}}.get(path, {"attn"})
+        assert {name for name, _ in seen["torch"]} == want, path
+        assert {dt for _, dt in seen["torch"]} == {"float32"}, path
 
 
 def test_bf16_gau_sees_both_dtypes_in_one_forward(bf16_dtypes_seen):
@@ -259,8 +288,161 @@ def test_bf16_gau_sees_both_dtypes_in_one_forward(bf16_dtypes_seen):
     assert gau_dts["torch"] == gau_dts["jax"] == ["bfloat16", "float32"]
 
 
+def _flash_inputs(d, seed=0, b=2, h=2, tq=300, tk=300, valid=(300, 111)):
+    rng = np.random.default_rng(seed + d)
+    q = rng.standard_normal((b, h, tq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, tk, d)).astype(np.float32) for _ in range(2))
+    mask = np.arange(tk)[None, :] < np.array(valid)[:, None]
+    return q, k, v, mask
+
+
+def _jax_block_k(tk):
+    """The JAX kernel's key block at its defaults (attention_kernel.py:247)."""
+    return min(256, -(-tk // 128) * 128)
+
+
+def _assert_flash_close(got, want, tol=FLASH_TOL, mean_tol=FLASH_MEAN_TOL):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want)
+    assert err.max() <= tol * np.abs(want).max()
+    assert err.mean() <= mean_tol * np.abs(want).mean()
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_stats"])
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 200])
+def test_bf16_flash_twins_match_pallas_kernels(fn, d):
+    """K3 / K5's bf16 twins at the JAX kernel's key blocks against the
+    Pallas kernels at bf16 in interpret mode, ragged masks, D on both sides
+    of the instances (40 and 200 zero-padded on the card): o within
+    FLASH_TOL / FLASH_MEAN_TOL, m and l within FLASH_STATS_TOL. The same
+    twin at the kernels' 64-key blocks is another function there."""
+    tq, tk, valid = (300, 300, (300, 111)) if fn == "flash_attention" else (200, 333, (333, 70))
+    q, k, v, mask = _flash_inputs(d, tq=tq, tk=tk, valid=valid)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    tb = [torch.from_numpy(a).to(BF) for a in (q, k, v)]
+    tm = torch.from_numpy(mask)
+    bk = _jax_block_k(tk)
+    if fn == "flash_attention":
+        want = np.asarray(jax_attn.flash_attention(*jb, jnp.asarray(mask), interpret=True))
+        got = attention.attention_reference_lowp(*tb, tm, block_k=bk)
+        assert got.dtype == torch.float32
+        _assert_flash_close(got.numpy(), want)
+        other = attention.attention_reference_lowp(*tb, tm, block_k=64).numpy()
+    else:
+        wo, wm, wl = (np.asarray(x) for x in jax_attn.flash_attention_stats(
+            *jb, jnp.asarray(mask), interpret=True))
+        o, m, l = attention.attention_stats_reference_lowp(*tb, tm, block_k=bk)
+        assert o.dtype == m.dtype == l.dtype == torch.float32
+        _assert_flash_close(o.numpy(), wo)
+        assert np.abs(m.numpy() - wm).max() <= FLASH_STATS_TOL
+        assert (np.abs(l.numpy() - wl) / wl).max() <= FLASH_STATS_TOL
+        want, other = wo, attention.attention_stats_reference_lowp(*tb, tm, block_k=64)[0].numpy()
+    assert np.abs(other - want).mean() > 10 * FLASH_MEAN_TOL * np.abs(want).mean()
+
+
+def test_bf16_flash_twin_float64_has_the_same_rounding_points():
+    """The float64 twin (``acc=torch.float64``) rounds p at the same points:
+    it stays within FLASH_TOL of the float32 twin, while the float32 twin
+    on the same values without the rounding does not agree to that mean."""
+    q, k, v, mask = _flash_inputs(64, seed=5)
+    tb = [torch.from_numpy(a).to(BF) for a in (q, k, v)]
+    tm = torch.from_numpy(mask)
+    lo = attention.attention_reference_lowp(*tb, tm)
+    hi = attention.attention_reference_lowp(*tb, tm, acc=torch.float64)
+    assert hi.dtype == torch.float64
+    _assert_flash_close(lo.numpy(), hi.numpy())
+    f32 = attention.attention_reference(*(x.float() for x in tb), tm)
+    assert (f32 - hi).abs().mean() > 10 * FLASH_MEAN_TOL * hi.abs().mean()
+
+
 @pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_stats"])
 def test_flash_kernels_still_refuse_bf16(fn):
-    q = torch.zeros((1, 2, 8, 16), dtype=BF)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §2 item 1"):
-        getattr(attention, fn)(q, q, q, None)
+    """The wrappers take bf16 q, k, v (the name is kept from when they
+    refused them): on the CPU they run the bf16 twin over the kernels' own
+    64-key tiles and return float32, as the Pallas kernel at those blocks
+    does; they still refuse q, k, v of mixed dtypes and float16."""
+    q, k, v, mask = _flash_inputs(64, seed=9, tq=200, tk=200, valid=(200, 40))
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    tb = [torch.from_numpy(a).to(BF) for a in (q, k, v)]
+    tm = torch.from_numpy(mask)
+    got = getattr(attention, fn)(*tb, tm)
+    want = getattr(jax_attn, fn)(*jb, jnp.asarray(mask), block_k=attention.BLOCK_K,
+                                 interpret=True)
+    if fn == "flash_attention":
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FLASH_TOL * np.abs(w).max())
+    _assert_flash_close(got[0].numpy(), np.asarray(want[0]))
+    for bad in ((tb[0], tb[1], tb[2].float()), tuple(x.half() for x in tb)):
+        with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+            getattr(attention, fn)(*bad, tm)
+
+
+# ------------------------------------------------------------ attention dtype per path
+PATHS = ("paraformer", "transducer", "whisper", "pyannet-flagship", "mesh-sensevoice",
+         "mesh-paraformer")
+
+
+def _record_both(mp, seen):
+    """Record the dtype of q at each K3 (``attn``) and K5 (``stats``) entry
+    of both packages, every attention core forced onto its kernel."""
+    from audio_classification_tpu_torch.parallel import ring_attention
+
+    mp.setenv("ACT_FLASH_ATTN", "1")
+    for name, fn in (("attn", "flash_attention"), ("stats", "flash_attention_stats")):
+        mp.setattr(jax_attn, fn, _record(seen["jax"], getattr(jax_attn, fn), name))
+    mp.setattr(common, "FLASH_MIN_T", 1)
+    mp.setattr(common, "flash_attention", _record(seen["torch"], common.flash_attention, "attn"))
+    mp.setattr(ring_attention, "FLASH_MIN_T", 1)
+    mp.setattr(ring_attention, "flash_attention_stats",
+               _record(seen["torch"], ring_attention.flash_attention_stats, "stats"))
+
+
+@pytest.fixture(scope="module")
+def bf16_dtypes_by_path():
+    """Each path's bf16 engines in both packages on shared tiny weights:
+    the three other families' bucketed transcription, the flagship with
+    PyanNet serving OSD (the port's PyanNet, then SenseVoice; the JAX
+    engine's bf16 osd_fn raises before any attention, ROADMAP §3, so its
+    record is SenseVoice's) and long form over a mesh of 2 for the JAX
+    LONG_FORM_FAMILIES."""
+    from audio_classification_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from audio_classification_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
+    from audio_classification_tpu_torch.parallel.mesh import make_mesh
+    from test_torch_asr_families import LENGTHS, family_packs
+    from test_torch_long_form import _bursts
+    from test_torch_pyannet import TINY
+
+    wav = _bursts(8000, seed=3)
+    out = {}
+    for path in PATHS:
+        family = path.split("-")[-1] if path.startswith("mesh") else path
+        family = "sensevoice" if path == "pyannet-flagship" else family
+        jax_pack, pack = family_packs(family)
+        jspec, spec = JaxBucketSpec(LENGTHS, 4), BucketSpec(LENGTHS, 4)
+        jkw, kw = {}, {}
+        if path.startswith("mesh"):
+            jkw = dict(mesh=jax_make_mesh(2, model_axis=1))
+            kw = dict(mesh=make_mesh(2, devices=["cpu"] * 2))
+        seen = {"jax": [], "torch": []}
+        mp = pytest.MonkeyPatch()
+        try:
+            _record_both(mp, seen)
+            jeng = JaxStageEngine(jax_pack, jspec, compute_dtype="bfloat16", **jkw)
+            eng = StageEngine(pack, spec, compute_dtype="bfloat16", **kw)
+            if path == "pyannet-flagship":
+                cfg = PyanNetConfig(**TINY)
+                pack.set_osd_pyannet(cfg, PyanNet(cfg).state_dict())
+                eng.osd_segments(wav, 16000, 0.5, 0.5, 0.1)
+            if path.startswith("mesh"):
+                jeng.transcribe_long(wav)
+                eng.transcribe_long(wav)
+            else:
+                jeng.transcribe([wav])
+                eng.transcribe([wav])
+        finally:
+            mp.undo()
+        out[path] = seen
+    return out

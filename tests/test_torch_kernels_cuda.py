@@ -381,9 +381,10 @@ def test_flash_kernels_at_every_head_dim(dev, d, b, tq, tk, lens):
 
 
 def test_flash_head_dims_are_the_c_instances(dev):
-    """The wrapper's rule is the set of D the C dispatch switch takes: both
-    entry points accept exactly the D that ``padded_head_dim`` keeps as they
-    are (``HEAD_DIMS``, and every multiple of ``WIDE_SLAB`` above the
+    """The wrapper's rule is the set of D the C dispatch switch takes: the
+    four entry points (float32 and bf16, K3 and K5) accept exactly the D
+    that ``padded_head_dim`` keeps as they are (``HEAD_DIMS``, and every
+    multiple of ``WIDE_SLAB`` above the
     largest; empty calls, which launch nothing and read no pointer) and
     refuse every other D up to 640."""
     from audio_classification_tpu_torch import _build
@@ -392,13 +393,20 @@ def test_flash_head_dims_are_the_c_instances(dev):
                        + [ctypes.c_float, ctypes.c_void_p])
     k5 = _build.kernel("act_flash_attention_stats", [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    k3b = _build.kernel("act_flash_attention_bf16", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                        + [ctypes.c_float, ctypes.c_void_p])
+    k5b = _build.kernel("act_flash_attention_stats_bf16", [ctypes.c_void_p] * 7
+                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     dims = range(1, 641)
     taken = [d for d in dims if k3(None, None, None, None, None, 1, 1, 0, d, 1.0, stream) == 0]
     taken5 = [d for d in dims
               if k5(None, None, None, None, None, None, None, 1, 1, 0, 1, d, 1.0, stream) == 0]
+    taken_b = [d for d in dims if k3b(None, None, None, None, None, 1, 1, 0, d, 1.0, stream) == 0]
+    taken5_b = [d for d in dims
+                if k5b(None, None, None, None, None, None, None, 1, 1, 0, 1, d, 1.0, stream) == 0]
     wanted = [d for d in dims if attention.padded_head_dim(d) == d]
-    assert taken == taken5 == wanted
+    assert taken == taken5 == taken_b == taken5_b == wanted
     assert tuple(wanted[:3]) == attention.HEAD_DIMS and wanted[3:5] == [192, 256]
 
 
@@ -628,10 +636,73 @@ def test_gau_bf16_kernel_matches_twin(dev, b, t, dqk, de, lens):
 
 
 def test_flash_kernels_refuse_bf16_on_the_card(dev):
+    """bf16 q, k, v launch the bf16 entry points, counted apart (the name
+    is kept from when they were refused); q, k, v of mixed dtypes and
+    float16 are still refused, launching nothing."""
     q = torch.zeros((1, 2, 70, 64), device=dev, dtype=torch.bfloat16)
-    before = (attention.flash_attention.launches, attention.flash_attention_stats.launches)
-    for fn in (attention.flash_attention, attention.flash_attention_stats):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(q, q, q, None)
-    assert (attention.flash_attention.launches,
-            attention.flash_attention_stats.launches) == before
+    fns = (attention.flash_attention, attention.flash_attention_stats)
+    before = [(fn.launches, fn.launches_bf16) for fn in fns]
+    for fn in fns:
+        for bad in ((q, q, q.float()), (q.half(), q.half(), q.half())):
+            with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+                fn(*bad, None)
+    assert [(fn.launches, fn.launches_bf16) for fn in fns] == before
+    out = attention.flash_attention(q, q, q, None)
+    o, m, l = attention.flash_attention_stats(q, q, q, None)
+    torch.cuda.synchronize()
+    assert out.dtype == o.dtype == m.dtype == l.dtype == torch.float32
+    assert [(fn.launches, fn.launches_bf16) for fn in fns] == [(n, b + 1) for n, b in before]
+    # all scores 0: uniform weights over zero values, l = Tk
+    assert not out.any() and not o.any() and (m == 0).all() and (l == 70).all()
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 200, 256])
+@pytest.mark.parametrize("b,tq,tk,lens", [
+    (3, 70, 70, [70, 33, 0]),        # ragged, an item with no valid key, off the tiles
+    (2, 65, 129, [129, 64]),         # Tq one past a 64-row block, Tk one past two key tiles
+    (1, 533, 533, [533]),            # Paraformer's 32 s bucket (LFR frames)
+    (2, 17, 1068, [1068, 300]),      # K5's long-form block, Tq across the 16-row fragment
+])
+def test_flash_bf16_kernels_match_twins(dev, d, b, tq, tk, lens):
+    """K3 and K5's bf16 entry points at the instances, the wide body and
+    zero-padded D, against the bf16 twin over the kernels' 64-key blocks
+    and against it in float64 (the same rounding points), on the items with
+    a valid key: o within 2e-3 of max|o| and its mean within 5e-5 of
+    mean|o| (a float32 sum in another order flips a p's bf16 rounding now
+    and then), m and l within 1e-5 relative. An item with no valid key gives
+    m = -1e9 and l = Tk, as the float32 kernels; repeat calls are
+    bit-identical."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(d * 1000 + tq + tk + 7)
+    q = torch.randn((b, 4, tq, d), generator=g).to(dev).to(bf)
+    k, v = (torch.randn((b, 4, tk, d), generator=g).to(dev).to(bf) for _ in range(2))
+    lens_t = torch.tensor(lens, device=dev)
+    mask = torch.arange(tk, device=dev)[None, :] < lens_t[:, None]
+    has_key = lens_t > 0
+    sel = has_key.view(-1, 1, 1, 1)
+    o, m, l = attention.flash_attention_stats(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and o.shape == (b, 4, tq, d) and torch.isfinite(o).all()
+    assert all(torch.equal(x, y) for x, y in zip((o, m, l),
+                                                 attention.flash_attention_stats(q, k, v, mask)))
+    for acc in (torch.float32, torch.float64):
+        ro, rm, rl = (x.float() for x in attention.attention_stats_reference_lowp(
+            q, k, v, mask, acc=acc))
+        err = (o - ro).abs() * sel
+        assert err.max().item() <= 2e-3 * (ro.abs() * sel).max().item()
+        assert err.sum().item() <= 5e-5 * (ro.abs() * sel).sum().item()
+        assert ((m - rm).abs() <= 1e-5 * rm.abs().clamp_min(1.0))[has_key].all()
+        assert ((l - rl).abs() <= 1e-5 * rl.abs())[has_key].all()
+    if not has_key.all():
+        assert (m[~has_key] == -1e9).all() and (l[~has_key] == tk).all()
+    if tq == tk:
+        before = attention.flash_attention.launches_bf16
+        out = attention.flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        assert attention.flash_attention.launches_bf16 == before + 1
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        for acc in (torch.float32, torch.float64):
+            ref = attention.attention_reference_lowp(q, k, v, mask, acc=acc).float()
+            err = (out - ref).abs() * sel
+            assert err.max().item() <= 2e-3 * (ref.abs() * sel).max().item()
+            assert err.sum().item() <= 5e-5 * (ref.abs() * sel).sum().item()
