@@ -51,7 +51,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--osd-hop", type=float, default=0.1)
     # Separation
     p.add_argument("--sep-backend", default="convtasnet")
-    p.add_argument("--sep-checkpoint", default="", help="asteroid Conv-TasNet torch checkpoint path (an orbax dir from cli/train_separator --export raises: not ported yet)")
+    p.add_argument("--sep-checkpoint", default="", help="separator weights: a directory of cli/train_separator --export, or an asteroid Conv-TasNet torch checkpoint (an orbax dir: convert it with scripts/orbax_to_torch.py)")
     p.add_argument("--osd-checkpoint", default="", help="OSD weights: orbax dir (cli/distill_osd) or pyannote segmentation torch checkpoint (.bin/.ckpt/.pt)")
     p.add_argument("--osd-onset", type=float, default=-1.0,
                    help="PyanNet OSD: pyannote Binarize onset (enables hysteresis)")
@@ -82,7 +82,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--provider", default="cuda",
                    help="Device: cuda (raises when no GPU is found) or cpu")
     # Target speaker
-    p.add_argument("--spk-embed-model", default="", help="Speaker embedding checkpoint path")
+    p.add_argument("--spk-embed-model", default="", help="Speaker embedder weights: a directory of cli/train_speaker --export")
     p.add_argument("--sv-threshold", type=float, default=0.6, help="Cosine similarity threshold (0~1)")
     # Overlap handling
     p.add_argument("--min-overlap-dur", type=float, default=0.4)
@@ -101,7 +101,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--sep-details-out", default="overlap_sep_details.csv")
     # framework knobs (the JAX runner's; unported ones raise)
     p.add_argument("--preset", default="full", choices=["full", "tiny"])
-    p.add_argument("--checkpoint-dir", default="", help="orbax checkpoint dir for all model params")
+    p.add_argument("--checkpoint-dir", default="", help="model-pack directory for all model params (train/checkpoint.save_model_pack, or scripts/orbax_to_torch.py from an orbax dir)")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-segment-sec", type=float, default=64.0)
     p.add_argument("--profile-dir", default="", help="torch.profiler trace output dir (a Chrome trace of the run, stage ranges engine.osd / overlap / clean / asr)")

@@ -55,6 +55,12 @@ def _all_f32(*tensors) -> bool:
     return all(t is None or t.dtype == F32 for t in tensors)
 
 
+def wide(x: torch.Tensor) -> torch.dtype:
+    """The dtype of float32 statistics and products: float32, or x's dtype
+    where that is wider (float64, as a gradient check runs)."""
+    return torch.promote_types(x.dtype, F32)
+
+
 def param_as(owner: nn.Module, name: str, dtype: torch.dtype) -> Optional[torch.Tensor]:
     """``owner``'s parameter or buffer ``name`` in ``dtype``: itself when it
     has that dtype, else a cast made once per value of it
@@ -82,7 +88,8 @@ def same_padding(t: int, kernel: int, stride: int = 1, dilation: int = 1) -> tup
 
 class GlobalLayerNorm(nn.Module):
     """gLN over (time, channels) jointly, masked for padding: float32
-    statistics and affine, the result in x's dtype (models/common.py:20-47)."""
+    statistics and affine (``wide``), the result in x's dtype
+    (models/common.py:20-47)."""
 
     def __init__(self, channels: int, eps: float = 1e-8):
         super().__init__()
@@ -91,23 +98,24 @@ class GlobalLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        xf = x.float()
+        dt = wide(x)
+        xf = x.to(dt)
         if mask is None:
             mean = xf.mean(dim=(1, 2), keepdim=True)
             var = ((xf - mean) ** 2).mean(dim=(1, 2), keepdim=True)
         else:
-            m = mask[..., None].float()
+            m = mask[..., None].to(dt)
             count = torch.clamp_min(m.sum(dim=(1, 2), keepdim=True) * x.shape[-1], 1.0)
             mean = (xf * m).sum(dim=(1, 2), keepdim=True) / count
             var = (((xf - mean) * m) ** 2).sum(dim=(1, 2), keepdim=True) / count
-        y = ((xf - mean) * torch.rsqrt(var + self.eps) * param_as(self, "gamma", F32)
-             + param_as(self, "beta", F32))
+        y = ((xf - mean) * torch.rsqrt(var + self.eps) * param_as(self, "gamma", dt)
+             + param_as(self, "beta", dt))
         return y.to(x.dtype)
 
 
 class ChannelLayerNorm(nn.Module):
     """Per-frame LN over channels (cLN). Input [B, T, C]; float32 statistics
-    and affine, the result in x's dtype."""
+    and affine (``wide``), the result in x's dtype."""
 
     def __init__(self, channels: int, eps: float = 1e-8):
         super().__init__()
@@ -116,11 +124,12 @@ class ChannelLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        dt = wide(x)
+        xf = x.to(dt)
         mean = xf.mean(dim=-1, keepdim=True)
         var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
-        y = ((xf - mean) * torch.rsqrt(var + self.eps) * param_as(self, "gamma", F32)
-             + param_as(self, "beta", F32))
+        y = ((xf - mean) * torch.rsqrt(var + self.eps) * param_as(self, "gamma", dt)
+             + param_as(self, "beta", dt))
         return y.to(x.dtype)
 
 
@@ -222,8 +231,9 @@ class DenseQ(Dense):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm`` (eps 1e-6): float32 statistics, the result in
-    ``promote(x, weight, bias)``. All-float32 is ``nn.LayerNorm`` as it is."""
+    """flax ``nn.LayerNorm`` (eps 1e-6): float32 statistics (``wide``), the
+    result in ``promote(x, weight, bias)``. All-float32 is ``nn.LayerNorm``
+    as it is."""
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-6)
@@ -231,8 +241,9 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if _all_f32(x, self.weight, self.bias):
             return super().forward(x)
-        y = F.layer_norm(x.float(), self.normalized_shape, param_as(self, "weight", F32),
-                         param_as(self, "bias", F32), self.eps)
+        dt = wide(x)
+        y = F.layer_norm(x.to(dt), self.normalized_shape, param_as(self, "weight", dt),
+                         param_as(self, "bias", dt), self.eps)
         return y.to(promote(x, self.weight, self.bias))
 
 

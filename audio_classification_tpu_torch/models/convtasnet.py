@@ -13,7 +13,7 @@ from torch import nn
 
 from ..ops.kernels.tcn import fused_tcn_masker, stack_tcn_params
 from ..ops.quant import constant_of, int8_matmul, quantize_weight
-from .common import F32, Conv1d, GlobalLayerNorm, PReLU, param_as
+from .common import Conv1d, GlobalLayerNorm, PReLU, param_as, wide
 
 
 @dataclass(frozen=True)
@@ -147,7 +147,7 @@ class ConvTasNet(nn.Module):
 
         # decoder: sum_n masked[f, n] dec[k, n] overlap-added at f*stride + k,
         # in float32 whatever the activations' dtype (the reference's einsum
-        # asks for a float32 result)
+        # asks for a float32 result), float64 kept
         if c.quant == "int8":
             # masked is zero at padded frames already; the product over the
             # basis axis goes through the int8 path, then the frames [.., L]
@@ -161,7 +161,8 @@ class ConvTasNet(nn.Module):
         else:
             # a transposed conv with weight dec^T [N, 1, L]
             frames = masked.permute(0, 2, 3, 1).reshape(b * c.n_src, c.enc_dim, n_frames)
-            sig = F.conv_transpose1d(frames.float(), param_as(self, "decoder", F32).t()[:, None, :],
+            dt = wide(frames)
+            sig = F.conv_transpose1d(frames.to(dt), param_as(self, "decoder", dt).t()[:, None, :],
                                      stride=stride)
         sig = sig.reshape(b, c.n_src, -1)[..., :t]
         if sig.shape[-1] < t:

@@ -10,9 +10,11 @@ StageEngine:
 - ``OverlapAnalyzer``: analyze(samples, sr) -> [(start, end, is_overlap)]
 - ``Separator``: separate(samples, sr) -> n_src wavs at the model's rate
 
-``Separator(checkpoint=...)`` loads a torch file (asteroid Conv-TasNet,
+``Separator(checkpoint=...)`` loads a checkpoint directory of the port
+(cli/train_separator --export) or a torch file (asteroid Conv-TasNet,
 ModelScope / ClearVoice MossFormer: convert/torch_import.py); an orbax
-directory raises NotImplementedError naming ROADMAP slice 14. The long-form calls (``transcribe(long_form=True)``,
+directory raises NotImplementedError naming scripts/orbax_to_torch.py, the
+converter. The long-form calls (``transcribe(long_form=True)``,
 ``separate_long``) take a mesh whose shards live on one device
 (parallel/mesh.make_mesh); a mesh over several cards is slice 16.
 
@@ -176,17 +178,21 @@ class Separator:
             self.sample_rate = self.engine.pack.preset.mossformer.sample_rate
 
     def _load_checkpoint(self, path: str) -> None:
-        """A torch file into the backend's separator: MossFormer (ModelScope
-        / ClearVoice naming; MossFormerImportError on drift), else Conv-TasNet
+        """A checkpoint directory of the port (cli/train_separator --export;
+        an orbax one raises NotImplementedError naming the converter) or a
+        torch file into the backend's separator: MossFormer (ModelScope /
+        ClearVoice naming; MossFormerImportError on drift), else Conv-TasNet
         with ``n_src`` sources (asteroid naming)."""
+        pack = self.engine.pack
         if os.path.isdir(path):
-            raise NotImplementedError(
-                f"Separator(checkpoint={path!r}): orbax checkpoint directories "
-                "(train/checkpoint.py, ROADMAP slice 14) are not ported to "
-                "audio_classification_tpu_torch yet; a torch file loads")
+            from ..train.checkpoint import load_params
+
+            stage = ("mossformer" if self.backend == "mossformer"
+                     else "sep3" if self.n_src == 3 else "sep2")
+            pack.load_params(stage, load_params(path, pack.models[stage]))
+            return
         if not os.path.isfile(path):
             raise FileNotFoundError(f"Separator checkpoint not found: {path}")
-        pack = self.engine.pack
         if self.backend == "mossformer":
             pack.load_params("mossformer", load_mossformer_torch(path, pack.preset.mossformer))
         else:

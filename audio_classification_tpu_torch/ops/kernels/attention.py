@@ -19,6 +19,20 @@ depends on the key-block width: the twins ``attention_reference_lowp`` /
 ``attention_stats_reference_lowp`` take it as ``block_k`` (``BLOCK_K``, the
 kernels' tile, by default; the JAX kernel's is min(256, round_up(Tk, 128)),
 attention_kernel.py:247).
+
+Gradients: with grad enabled and an input that requires it, the wrappers go
+through ``_FlashCore`` / ``_FlashStatsCore``, the counterparts of the JAX
+``custom_vjp``s (attention_kernel.py:194-232). Their forward is the wrapper's
+(the kernel on the card, counted as ever; the twin on the CPU) and saves the
+inputs, not the scores. Their backward differentiates the plain twin, as the
+JAX ``bwd`` differentiates its XLA replica ``_blockwise_ref``: one block of
+query rows at a time (a multiple of 256 rows, ``backward_rows``: about 16M
+scores a block) is recomputed under autograd and dk, dv summed over the
+blocks, so the backward holds one block's scores and never [T, T]. The JAX package has no backward Pallas kernel, so neither has
+the port: the backward is torch code, as XLA code is outside a kernel. At
+bfloat16 the twin is the JAX replica's: p rounded to bfloat16 against the
+row's max over all keys (one key block), dk and dv summed in float32. The
+key mask gets no gradient.
 """
 from __future__ import annotations
 
@@ -48,6 +62,18 @@ WIDE_SLAB = 64
 #: keys a tile of the CUDA bodies (csrc/flash_attention.cu BK): the block
 #: width the bfloat16 twins take by default, on the CPU as on the card
 BLOCK_K = 64
+#: query rows the backward recomputes at a time: a multiple of 256 (the JAX
+#: replica's block_q) whose scores hold about BACKWARD_BLOCK_ELEMS values
+#: (64 MB in float32): few and large products, a bounded peak memory
+BACKWARD_BLOCK_Q = 256
+BACKWARD_BLOCK_ELEMS = 1 << 24
+
+
+def backward_rows(rows: int, scores_per_row: int) -> int:
+    """Query rows a backward block takes when each row holds
+    ``scores_per_row`` scores (batch x heads x keys)."""
+    fit = BACKWARD_BLOCK_ELEMS // max(scores_per_row, 1) // BACKWARD_BLOCK_Q * BACKWARD_BLOCK_Q
+    return min(max(rows, 1), max(fit, BACKWARD_BLOCK_Q))
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -186,6 +212,82 @@ def _check_qkv(name: str, q, k, v, kv_mask):
     return _aligned(q), _aligned(k), _aligned(v), kv_mask
 
 
+def _wants_grad(*tensors) -> bool:
+    """Whether autograd records this call: grad mode on and an input that
+    requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def blockwise_vjp(twin, q, k, v, cots, row_axis: int) -> tuple:
+    """(dq, dk, dv) of ``twin(q_rows, k, v)`` (one tensor or a tuple) at the
+    cotangents ``cots`` of its outputs, recomputed a block of query rows
+    (along ``row_axis`` of q and of each cotangent) at a time
+    (``backward_rows``); dk and dv sum over the blocks in float32 (or the
+    inputs' wider dtype)."""
+    n_rows = q.shape[row_axis]
+    step = backward_rows(n_rows, math.prod(q.shape[:row_axis]) * k.shape[row_axis])
+    acc = torch.promote_types(k.dtype, torch.float32)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=acc, device=k.device)
+    dv = torch.zeros(v.shape, dtype=acc, device=v.device)
+    with torch.enable_grad():
+        kd, vd = k.detach().requires_grad_(), v.detach().requires_grad_()
+        for i0 in range(0, n_rows, step):
+            rows = (slice(None),) * row_axis + (slice(i0, i0 + step),)
+            qb = q[rows].detach().requires_grad_()
+            outs = twin(qb, kd, vd)
+            dqb, dkb, dvb = torch.autograd.grad(outs if isinstance(outs, tuple) else (outs,),
+                                                (qb, kd, vd), [g[rows] for g in cots])
+            dq[rows] = dqb
+            dk += dkb
+            dv += dvb
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _twin_vjp(q, k, v, kv_mask, cots, stats: bool) -> tuple:
+    """``blockwise_vjp`` of K3's (or, with ``stats``, K5's) plain twin. At
+    bfloat16 the twin takes one key block: p rounds against the row's max
+    over all keys, as in the JAX replica."""
+    if q.dtype == torch.bfloat16:
+        fn = attention_stats_reference_lowp if stats else attention_reference_lowp
+        twin = lambda qb, kd, vd: fn(qb, kd, vd, kv_mask, block_k=max(k.shape[2], 1))  # noqa: E731
+    else:
+        fn = attention_stats_reference if stats else attention_reference
+        twin = lambda qb, kd, vd: fn(qb, kd, vd, kv_mask)  # noqa: E731
+    return blockwise_vjp(twin, q, k, v, cots, row_axis=2)
+
+
+class _FlashCore(torch.autograd.Function):
+    """K3 under autograd (attention_kernel.py:194-211): the wrapper's
+    forward, the twin's blockwise backward; no gradient for the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        return _flash_forward(q, k, v, kv_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        return (*_twin_vjp(q, k, v, kv_mask, (g,), stats=False), None)
+
+
+class _FlashStatsCore(torch.autograd.Function):
+    """K5 under autograd (attention_kernel.py:214-232): cotangents for all
+    three of (o, m, l) go through the twin, whose row max (``amax``) splits
+    its gradient evenly among ties, as ``jnp.max``'s does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        return _flash_stats_forward(q, k, v, kv_mask)
+
+    @staticmethod
+    def backward(ctx, go, gm, gl):
+        q, k, v, kv_mask = ctx.saved_tensors
+        return (*_twin_vjp(q, k, v, kv_mask, (go, gm, gl), stats=True), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, H, T, D] q, k, v, all float32 or all bfloat16, + optional [B, T]
@@ -195,7 +297,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attention_reference_lowp`` over the kernels' key tiles); CUDA tensors
     launch the kernel of their dtype (any D, zero-padded to the head dim it
     runs at, ``padded_head_dim``; scale 1 / sqrt(D) of the true D), counted
-    in ``launches`` or ``launches_bf16``."""
+    in ``launches`` or ``launches_bf16``. Under autograd the call goes
+    through ``_FlashCore`` (the same forward, the twin's backward)."""
+    if _wants_grad(q, k, v):
+        return _FlashCore.apply(q, k, v, kv_mask)
+    return _flash_forward(q, k, v, kv_mask)
+
+
+def _flash_forward(q, k, v, kv_mask):
     lowp = _is_bf16("flash_attention", q, k, v)
     if q.device.type == "cpu":
         if lowp:
@@ -244,7 +353,14 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (parallel/ring_attention.py).
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel of their
-    dtype (Tk >= 1; any D, zero-padded as in ``flash_attention``)."""
+    dtype (Tk >= 1; any D, zero-padded as in ``flash_attention``). Under
+    autograd the call goes through ``_FlashStatsCore``."""
+    if _wants_grad(q, k, v):
+        return _FlashStatsCore.apply(q, k, v, kv_mask)
+    return _flash_stats_forward(q, k, v, kv_mask)
+
+
+def _flash_stats_forward(q, k, v, kv_mask):
     lowp = _is_bf16("flash_attention_stats", q, k, v)
     if q.device.type == "cpu":
         if lowp:

@@ -13,6 +13,17 @@ take their own entry point, ``act_gau_attention_bf16``: both products are
 single bf16 tensor-core products with float32 accumulators, and p is rounded
 to bfloat16 before p v, as the JAX kernel casts p to v's dtype
 (attention_kernel.py:337). The output is float32 either way.
+
+Gradients: with grad enabled and an input that requires it, the wrapper goes
+through ``_GauCore``, the counterpart of the JAX ``custom_vjp``
+(attention_kernel.py:390-407): its forward is the wrapper's (the kernel on
+the card, counted as ever; the twin on the CPU) and saves the inputs; its
+backward differentiates the twin a block of query rows at a time
+(attention.blockwise_vjp: about 16M scores a block), as the JAX ``bwd``
+differentiates ``_gau_blockwise_ref``, summing dk and dv over the blocks in
+float32. The key mask gets no gradient. There is no
+backward kernel, as there is no backward Pallas kernel: the backward is torch
+code, as XLA code is outside a kernel.
 """
 from __future__ import annotations
 
@@ -23,7 +34,7 @@ from typing import Optional
 import torch
 
 from ... import _build
-from .attention import _aligned
+from .attention import _aligned, _wants_grad, blockwise_vjp
 
 MAX_QK_DIM = 128  # the kernel's shared-memory tiles are sized for Dqk <= 128
 
@@ -65,6 +76,26 @@ def _entry(name: str):
                          + [ctypes.c_float, ctypes.c_void_p])
 
 
+class _GauCore(torch.autograd.Function):
+    """K4 under autograd: the wrapper's forward, the twin's blockwise
+    backward; no gradient for the mask or the scale."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.scale = scale
+        return _gau_forward(q, k, v, kv_mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        dq, dk, dv = blockwise_vjp(
+            lambda qb, kd, vd: gau_attention_reference(qb, kd, vd, kv_mask, ctx.scale,
+                                                       block_q=qb.shape[1]),
+            q, k, v, (g,), row_axis=1)
+        return dq, dk, dv, None, None
+
+
 def gau_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
     """[B, T, Dqk] q, k, [B, T, De] v, all float32 or all bfloat16, +
@@ -73,11 +104,20 @@ def gau_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors run the plain twin; CUDA tensors launch the kernel of their
     dtype (float32: Dqk and De multiples of 4; bfloat16: multiples of 8;
     Dqk <= 128), counted in ``launches`` / ``launches_bf16``. A bfloat16 q
-    never runs the float32 kernel."""
+    never runs the float32 kernel. Under autograd the call goes through
+    ``_GauCore`` (the same forward, the twin's backward)."""
+    if _wants_grad(q, k, v):
+        return _GauCore.apply(q, k, v, kv_mask, scale)
+    return _gau_forward(q, k, v, kv_mask, scale)
+
+
+def _gau_forward(q, k, v, kv_mask, scale):
     b, t, dqk = q.shape
     de = v.shape[-1]
+    # float64 (the twin's gradcheck) on the CPU only: the kernels take neither
+    dtypes = (torch.float32, torch.bfloat16) + ((torch.float64,) if q.device.type == "cpu" else ())
     for name, x, shape in (("q", q, (b, t, dqk)), ("k", k, (b, t, dqk)), ("v", v, (b, t, de))):
-        if (q.dtype not in (torch.float32, torch.bfloat16) or x.dtype != q.dtype
+        if (q.dtype not in dtypes or x.dtype != q.dtype
                 or tuple(x.shape) != shape or x.device != q.device):
             raise ValueError(f"gau_attention: {name} must be float32 or bfloat16 (as q) {shape} "
                              f"on {q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")

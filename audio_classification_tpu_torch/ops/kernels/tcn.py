@@ -18,19 +18,37 @@ product where 3xTF32 takes three, rounded where the JAX kernel rounds
 (tcn_kernel.py:176-309, ``dt = x_in.dtype``): the residual stream, h1, h2
 and the skip sum are bfloat16, so ``x += res`` and ``skips += skip`` round
 at every block. Their twin is ``tcn_masker_reference_lowp``.
+
+Gradients: with grad enabled and an input that requires it (x, or a stack
+built with grad on, which keeps its weights attached to the TCNBlocks'
+parameters), the wrapper goes through ``_MaskerCore``, the counterpart of the
+JAX ``custom_vjp`` (tcn_kernel.py:422-445). Its forward is the wrapper's (the
+kernel on the card, counted as ever; the twin on the CPU) and saves the
+inputs. Its backward recomputes the twin of x's dtype over the whole stack
+under autograd and differentiates it for x and the stack's tensors, as the
+JAX ``bwd`` differentiates ``tcn_masker_reference`` (at bfloat16:
+``tcn_masker_reference_lowp`` with the replica's bias order, ``bias_last``);
+f_len gets none, and the cotangent of the padded rows, whose output is the
+constant 0, is dropped. An int8 stack's backward raises NotImplementedError,
+as the JAX one does. There is no backward kernel, as there is no backward
+Pallas kernel: the backward is torch code, as XLA code is outside a kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from ... import _build
 from ..quant import quantize_weight
+from .attention import _wants_grad
 
 _EPS = 1e-8  # GlobalLayerNorm eps
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the stack's tensors, in the order _MaskerCore takes them
+STACK_KEYS = ("w_in", "w_dw", "w_res", "w_skip", "vecs", "cvecs")
 
 
 def stack_tcn_params(blocks, dtype: torch.dtype = torch.float32,
@@ -47,11 +65,19 @@ def stack_tcn_params(blocks, dtype: torch.dtype = torch.float32,
     must not flatten another block's grid) to int8, and their float32 scales
     ride in the vector bundles: vecs [NB, 10, H] rows 8, 9 (w_in, w_dw) and
     cvecs [NB, 4, C] rows 2, 3 (w_res, w_skip). The kernel dequantises to
-    the activations' dtype. Inference only."""
+    the activations' dtype. Inference only.
+
+    With grad enabled the float stack stays attached to the parameters (its
+    gradient reaches each TCNBlock through ``torch.stack``); without, it is
+    detached."""
     h = blocks[0].in_conv.weight.shape[0]
+    keep = torch.is_grad_enabled() and not weight_quant
+
+    def cut(x):
+        return x if keep else x.detach()
 
     def row(x):
-        return x.detach().float().reshape(-1).expand(h)
+        return cut(x).float().reshape(-1).expand(h)
 
     weights = {
         "w_in": torch.stack([b.in_conv.weight[:, :, 0].t() for b in blocks]),
@@ -64,9 +90,9 @@ def stack_tcn_params(blocks, dtype: torch.dtype = torch.float32,
         row(b.dw_conv.bias), row(b.prelu2.alpha), row(b.norm2.gamma), row(b.norm2.beta),
     ]) for b in blocks])
     cvecs = torch.stack([torch.stack([b.res_conv.bias, b.skip_conv.bias]) for b in blocks])
-    out = {k: v.detach().to(dtype).contiguous() for k, v in weights.items()}
-    out["vecs"] = vecs.detach().float().contiguous()
-    out["cvecs"] = cvecs.detach().float().contiguous()
+    out = {k: cut(v).to(dtype).contiguous() for k, v in weights.items()}
+    out["vecs"] = cut(vecs).float().contiguous()
+    out["cvecs"] = cut(cvecs).float().contiguous()
     if weight_quant:
         # [NB, X, OUT] with the block axis kept apart: the absmax runs over X
         # only, which is quantising block by block
@@ -118,19 +144,19 @@ def tcn_masker_reference(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     for i in range(nb):
         dil = 2 ** (i % n_per_repeat)
         v = st["vecs"][i]
-        h1 = prelu(h @ st["w_in"][i] + v[0], v[1, 0])
+        h1 = prelu(h @ st["w_in"][i] + v[0], v[1])
         h1 = gln(h1, v[2], v[3]) * mf
         h2 = F.conv1d(h1.transpose(1, 2), st["w_dw"][i].t()[:, None, :], padding=dil,
                       dilation=dil, groups=hd).transpose(1, 2)
-        h2 = gln(prelu(h2 + v[4], v[5, 0]), v[6], v[7])
+        h2 = gln(prelu(h2 + v[4], v[5]), v[6], v[7])
         h = h + h2 @ st["w_res"][i] + st["cvecs"][i, 0]
         skips = skips + h2 @ st["w_skip"][i] + st["cvecs"][i, 1]
     return skips
 
 
 def tcn_masker_reference_lowp(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
-                              n_per_repeat: int,
-                              acc: torch.dtype = torch.float32) -> torch.Tensor:
+                              n_per_repeat: int, acc: torch.dtype = torch.float32,
+                              bias_last: bool = False) -> torch.Tensor:
     """Plain twin of the bfloat16 entry points: [B, F, C] bf16 + [B]
     valid-frame counts -> [B, F, C] bf16 skip sum, rounded where the JAX
     kernel rounds at ``dt = bfloat16`` (tcn_kernel.py:176-309):
@@ -141,7 +167,10 @@ def tcn_masker_reference_lowp(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     3. depthwise: (left w0 + right w2) + mid w1 in ``acc``, rounded, + b_dw
        in bf16, PReLU in bf16; gLN-2 as gLN-1 (no row mask);
     4. res / skip = bf16(gLN-2 W), + the bias in bf16; x += res and
-       skips += skip in bf16.
+       skips += skip in bf16. With ``bias_last`` the bias comes after the
+       sum instead, (x + bf16(gLN-2 W)) + b, as the JAX XLA replica
+       ``tcn_masker_reference`` (tcn_kernel.py:411-416) adds it: the
+       function the JAX backward differentiates, and so the port's.
 
     Products and statistics run in ``acc`` (float32; float64 for an oracle
     of the card's kernel fed the same inputs). An int8 stack is dequantised
@@ -178,9 +207,49 @@ def tcn_masker_reference_lowp(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
         w = st["w_dw"][i].to(acc)
         taps = (pad[:, :f] * w[0] + pad[:, 2 * dil:] * w[2]) + h1 * w[1]
         h2 = gln(prelu(taps.to(dt) + v[4].to(dt), v[5]), v[6], v[7])
-        h = h + (mm(h2, st["w_res"][i]) + cv[0].to(dt))
-        skips = skips + (mm(h2, st["w_skip"][i]) + cv[1].to(dt))
+        if bias_last:
+            h = h + mm(h2, st["w_res"][i]) + cv[0].to(dt)
+            skips = skips + mm(h2, st["w_skip"][i]) + cv[1].to(dt)
+        else:
+            h = h + (mm(h2, st["w_res"][i]) + cv[0].to(dt))
+            skips = skips + (mm(h2, st["w_skip"][i]) + cv[1].to(dt))
     return skips
+
+
+def _valid_rows(f_len: torch.Tensor, f: int, device) -> torch.Tensor:
+    """[B, F, 1] bool: the rows below each item's valid-frame count."""
+    return (torch.arange(f, device=device)[None, :]
+            < f_len.to(device=device, dtype=torch.int64)[:, None])[..., None]
+
+
+class _MaskerCore(torch.autograd.Function):
+    """K2 under autograd: the wrapper's forward, the twin's backward over
+    the whole stack (``STACK_KEYS``); none for f_len."""
+
+    @staticmethod
+    def forward(ctx, x, f_len, n_per_repeat, *stack):
+        ctx.save_for_backward(x, f_len, *stack)
+        ctx.n_per_repeat = n_per_repeat
+        return _masker_forward(x, f_len, dict(zip(STACK_KEYS, stack)), n_per_repeat)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, f_len, *stack = ctx.saved_tensors
+        if stack[0].dtype == torch.int8:
+            raise NotImplementedError(
+                "the s8 weight-stream masker is inference-only: train with "
+                "quant='none' (the trainer does), then serve quantized")
+        twin = (functools.partial(tcn_masker_reference_lowp, bias_last=True)
+                if x.dtype == torch.bfloat16 else tcn_masker_reference)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (x, *stack)]
+            out = twin(leaves[0], f_len, dict(zip(STACK_KEYS, leaves[1:])),
+                       n_per_repeat=ctx.n_per_repeat)
+            g = g * _valid_rows(f_len, x.shape[1], g.device).to(g.dtype)
+            # a one-block stack leaves w_res unused (no block reads its residual)
+            grads = [torch.zeros_like(t) if d is None else d
+                     for t, d in zip(leaves, torch.autograd.grad(out, leaves, g, allow_unused=True))]
+        return grads[0], None, None, *grads[1:]
 
 
 def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
@@ -198,17 +267,27 @@ def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     dtype and zero its padded rows; CUDA tensors launch the kernel of x's
     dtype and the stack's weight type (counted in ``launches`` /
     ``launches_s8`` / ``launches_bf16`` / ``launches_s8_bf16``), which
-    computes no row past f_len. A bfloat16 x never runs a float32 kernel."""
+    computes no row past f_len. A bfloat16 x never runs a float32 kernel.
+    Under autograd the call goes through ``_MaskerCore`` (the same forward,
+    the twin's backward)."""
+    if _wants_grad(x, *(st[k] for k in STACK_KEYS)):
+        return _MaskerCore.apply(x, f_len, n_per_repeat, *(st[k] for k in STACK_KEYS))
+    return _masker_forward(x, f_len, st, n_per_repeat)
+
+
+def _masker_forward(x, f_len, st, n_per_repeat):
     wq = st["w_in"].dtype == torch.int8
     b, f, c = x.shape
     nb, _, hd = st["w_in"].shape
-    if x.dtype not in _DTYPES:
+    # float64 (the twin's gradcheck) on the CPU only: the kernels take neither
+    if x.dtype not in _DTYPES and not (x.dtype == torch.float64 and x.device.type == "cpu"):
         raise ValueError(f"fused_tcn_masker: x must be float32 or bfloat16, got {x.dtype}")
     wt = torch.int8 if wq else x.dtype
+    vt = torch.float64 if x.dtype == torch.float64 else torch.float32
     vrows, crows = (10, 4) if wq else (8, 2)
     shapes = {"w_in": (wt, (nb, c, hd)), "w_dw": (wt, (nb, 3, hd)), "w_res": (wt, (nb, hd, c)),
-              "w_skip": (wt, (nb, hd, c)), "vecs": (torch.float32, (nb, vrows, hd)),
-              "cvecs": (torch.float32, (nb, crows, c))}
+              "w_skip": (wt, (nb, hd, c)), "vecs": (vt, (nb, vrows, hd)),
+              "cvecs": (vt, (nb, crows, c))}
     for name, (dtype, shape) in shapes.items():
         t = st[name]
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != x.device:
@@ -220,8 +299,8 @@ def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     if x.device.type == "cpu":
         twin = tcn_masker_reference_lowp if lowp else tcn_masker_reference
         out = twin(x, f_len, st, n_per_repeat=n_per_repeat)
-        valid = torch.arange(f)[None, :] < f_len.to(torch.int64)[:, None]
-        return torch.where(valid[..., None], out, torch.zeros((), dtype=out.dtype))
+        return torch.where(_valid_rows(f_len, f, x.device), out,
+                           torch.zeros((), dtype=out.dtype))
     if not x.is_cuda:
         raise ValueError(f"fused_tcn_masker: unsupported device {x.device}")
     if c % 32 or hd % 64 or 1024 % hd:

@@ -37,22 +37,30 @@ from ..metrics import agg_stats, maybe_round, sdr_improvement_pit
 from ..models.asr.tokens import TokenTable
 from ..models.pyannet import BinarizeConfig
 from ..runtime.monitor import ResourceMonitor
+from ..train.checkpoint import (ORBAX_HINT, check_state_dict, is_orbax_dir, load_model_pack,
+                                load_params)
 from ..utils.config import Overlap3Config
 
 # the flags that name model files: the ASR families' (reference:
 # src/model.py:37-100), the speaker model's and the VAD's. A value that is not
-# an .onnx file or an orbax directory selects the model with seeded weights,
-# as the JAX pipeline does; weight files raise in check_ported
+# an .onnx file or a directory selects the model with seeded weights, as the
+# JAX pipeline does; .onnx files raise in check_ported
 _MODEL_FILE_FLAGS = ("paraformer", "encoder", "decoder", "joiner", "whisper_encoder",
-                     "whisper_decoder", "sense_voice", "wenet_ctc", "model", "silero_vad_model")
+                     "whisper_decoder", "sense_voice", "wenet_ctc", "model", "spk_embed_model",
+                     "silero_vad_model")
+
+# the flags whose directory is a checkpoint of the port (train/checkpoint.py),
+# loaded in build_engine: --sense-voice and --spk-embed-model / --model take
+# an export of cli/train_asr / cli/train_speaker, --sep-checkpoint one of
+# cli/train_separator, --checkpoint-dir a whole model pack
+_CHECKPOINT_DIR_FLAGS = ("sense_voice", "spk_embed_model", "model", "sep_checkpoint",
+                         "checkpoint_dir")
 
 # torch files an --osd-checkpoint may name: a pyannote segmentation checkpoint
 _TORCH_SUFFIXES = (".bin", ".ckpt", ".pt", ".pth")
 
 # (config field, its default, what porting it needs)
 _NOT_PORTED = (
-    ("spk_embed_model", "", "ONNX / orbax speaker weights (models/convert, ROADMAP slice 15)"),
-    ("checkpoint_dir", "", "orbax checkpoints (train/checkpoint.py, ROADMAP slice 14)"),
     ("onnx_exec", "map", "direct ONNX execution (ROADMAP slice 15)"),
     ("onnx_asr_skip_frames", -1, "direct ONNX execution (ROADMAP slice 15)"),
     ("data_parallel", 0, "multi-GPU meshes (ROADMAP slice 16)"),
@@ -64,35 +72,87 @@ _NOT_PORTED = (
 
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for any option this package does not run
-    yet, and for model weight files: an .onnx value of a family flag, of
-    --model / --spk-embed-model or --silero-vad-model (ONNX import, ROADMAP
-    slice 15), an orbax directory (slices 14 and 15), and an
-    --osd-checkpoint other than a torch file (orbax OSD params, slice 14).
-    A torch file of --sep-checkpoint (asteroid Conv-TasNet) or
-    --osd-checkpoint (pyannote PyanNet) loads in ``build_engine``."""
+    yet, and for model weights it does not read: an .onnx value of a family
+    flag, of --model / --spk-embed-model or --silero-vad-model (ONNX import,
+    ROADMAP slice 15), a directory of a family flag other than
+    --sense-voice (slice 15), an orbax directory of a checkpoint flag
+    (converted by scripts/orbax_to_torch.py), and an --osd-checkpoint other
+    than a torch file (OSD params of cli/distill_osd, slice 14b). A torch
+    file of --sep-checkpoint (asteroid Conv-TasNet) or --osd-checkpoint
+    (pyannote PyanNet) and a checkpoint directory of the port
+    (``_CHECKPOINT_DIR_FLAGS``) load in ``build_engine``."""
     for name, default, needs in _NOT_PORTED:
         if getattr(cfg, name, default) != default:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')}: {needs} is not ported to "
                 "audio_classification_tpu_torch yet")
-    sep = getattr(cfg, "sep_checkpoint", "") or ""
+    for name in _CHECKPOINT_DIR_FLAGS:
+        value = getattr(cfg, name, "") or ""
+        if value and is_orbax_dir(value):
+            raise NotImplementedError(f"--{name.replace('_', '-')} {value}: {ORBAX_HINT}")
     osd = getattr(cfg, "osd_checkpoint", "") or ""
-    for flag, value, torch_file in (("sep-checkpoint", sep, not Path(sep).is_dir()),
-                                    ("osd-checkpoint", osd, osd.endswith(_TORCH_SUFFIXES))):
-        if value and not torch_file:
-            raise NotImplementedError(
-                f"--{flag} {value}: orbax checkpoint directories (train/checkpoint.py, ROADMAP "
-                "slice 14) are not ported to audio_classification_tpu_torch yet; a torch file "
-                "loads (--sep-checkpoint: asteroid Conv-TasNet; --osd-checkpoint: pyannote "
-                f"PyanNet, {'/'.join(_TORCH_SUFFIXES)})")
+    if osd and not osd.endswith(_TORCH_SUFFIXES):
+        raise NotImplementedError(
+            f"--osd-checkpoint {osd}: OSD params of cli/distill_osd (ROADMAP slice 14b) are "
+            "not ported to audio_classification_tpu_torch yet; a pyannote PyanNet torch file "
+            f"({'/'.join(_TORCH_SUFFIXES)}) loads")
     for name in _MODEL_FILE_FLAGS:
         value = getattr(cfg, name, "") or ""
-        if value.endswith(".onnx") or (value and Path(value).is_dir()):
+        if value.endswith(".onnx") or (value and Path(value).is_dir()
+                                       and name not in _CHECKPOINT_DIR_FLAGS):
             raise NotImplementedError(
-                f"--{name.replace('_', '-')} {value}: loading ONNX / orbax model weights "
+                f"--{name.replace('_', '-')} {value}: loading ONNX model weights "
                 "(models/convert, ROADMAP slice 15) is not ported to "
                 "audio_classification_tpu_torch yet; any other value selects the "
                 "model with seeded weights")
+
+
+def _load_stage_dir(pack, stage: str, path: str, flag: str, hint: str) -> None:
+    """A ``save_params`` directory into stage ``stage``; names or shapes
+    that differ from the preset's model fail loud."""
+    try:
+        sd = load_params(path, pack.models[stage])
+    except ValueError as e:
+        raise ValueError(f"{flag} {path}: the checkpoint does not match the "
+                         f"'{pack.preset.name}' preset's {stage} config -- {hint} "
+                         f"(cause: {e})") from e
+    pack.load_params(stage, sd)
+
+
+def load_checkpoint_dirs(pack, cfg) -> None:
+    """The checkpoint directories of the port that ``cfg`` names, into
+    ``pack``, in the JAX runner's order (pipelines/offline_overlap3.py
+    build_engine): --sense-voice (SenseVoice family only), --spk-embed-model
+    (or --model), --checkpoint-dir (every stage), --sep-checkpoint (the
+    first separator stage whose names and shapes it matches: sep3, sep2,
+    then mossformer)."""
+    sv = getattr(cfg, "sense_voice", "") or ""
+    if sv and Path(sv).is_dir() and pack.asr_family == "sensevoice":
+        _load_stage_dir(pack, "asr", sv, "--sense-voice",
+                        "vocab from --tokens, dims from the preset")
+    spk = getattr(cfg, "spk_embed_model", "") or getattr(cfg, "model", "") or ""
+    if spk and Path(spk).is_dir():
+        _load_stage_dir(pack, "spk", spk, "--spk-embed-model",
+                        "was it trained with other --channels / --embed-dim?")
+    ckpt = getattr(cfg, "checkpoint_dir", "") or ""
+    if ckpt:
+        load_model_pack(pack, ckpt)
+    sep = getattr(cfg, "sep_checkpoint", "") or ""
+    if sep and Path(sep).is_dir():
+        sd = load_params(sep)
+        stages = ("sep3", "sep2", "mossformer")
+        errors = []
+        for stage in stages:
+            try:
+                check_state_dict(sd, pack.models[stage].state_dict(), stage)
+            except ValueError as e:
+                errors.append(str(e))
+                continue
+            pack.load_params(stage, sd)
+            return
+        raise ValueError(f"--sep-checkpoint {sep}: the checkpoint matches none of the "
+                         f"separator presets {stages} -- was it trained with other --enc-dim "
+                         f"/ --hidden / --mf-dim flags? (causes: {'; '.join(errors)})")
 
 
 def asr_family(cfg) -> str:
@@ -138,9 +198,11 @@ def build_engine(cfg, device=None) -> StageEngine:
     decoders have no int8 path and stay float.
 
     Weight and asset files, as the JAX runner reads them: ``cmvn`` (a
-    kaldi am.mvn for the SenseVoice and Paraformer frontends),
-    ``sep_checkpoint`` (an asteroid Conv-TasNet torch file, into the
-    3-source separator) and ``osd_checkpoint`` (a pyannote segmentation
+    kaldi am.mvn for the SenseVoice and Paraformer frontends), the port's
+    checkpoint directories (``load_checkpoint_dirs``: what the training
+    CLIs export, a whole model pack, or scripts/orbax_to_torch.py wrote),
+    ``sep_checkpoint`` (a directory, or an asteroid Conv-TasNet torch file,
+    into the 3-source separator) and ``osd_checkpoint`` (a pyannote segmentation
     torch file: PyanNet serves OSD, and any of ``osd_onset`` /
     ``osd_offset`` / ``osd_min_on`` / ``osd_min_off`` >= 0 switches its
     segments to pyannote's hysteresis, the others at BinarizeConfig's
@@ -179,8 +241,9 @@ def build_engine(cfg, device=None) -> StageEngine:
                      decoding_method=getattr(cfg, "decoding_method", "greedy_search"),
                      num_active_paths=getattr(cfg, "num_active_paths", 4),
                      cmvn=load_kaldi_cmvn(cmvn_path) if cmvn_path else None)
+    load_checkpoint_dirs(pack, cfg)
     sep_ckpt = getattr(cfg, "sep_checkpoint", "")
-    if sep_ckpt:
+    if sep_ckpt and not Path(sep_ckpt).is_dir():
         pack.load_params("sep3", load_convtasnet_torch(sep_ckpt, preset.sep3))
     osd_ckpt = getattr(cfg, "osd_checkpoint", "")
     if osd_ckpt:

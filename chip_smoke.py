@@ -60,6 +60,18 @@ points at the full preset, reading every kernel's launch count around each:
   on all of these, and are reached through the op entry and through the
   ring of 4 on bf16 q, k, v (16 K5 bf16 launches).
 
+- training: each kernel's autograd Function (the kernel's forward, the
+  twin's backward) against autograd through the float64 twin at the
+  training shapes, with its forward + backward time (K3 beside SDPA's);
+  then train_separator (MossFormer at EnginePreset's widths on 4 s crops at
+  8 kHz, 8 K4 launches a step, resumed; Conv-TasNet at the flagship's
+  widths, the dense loop: no K2), train_asr (SenseVoice 512 / 8 / 12 on
+  32 s wavs: K1, K3; resumed; with --seq-parallel over 4 shards on 124 s
+  wavs: K5 192 launches a forward) and train_speaker (the serving
+  embedder's widths: K1) through their main(), each model's one step on the
+  card against the CPU, and the exports served by the flagship CLI
+  (--sep-checkpoint, --spk-embed-model) and Separator(checkpoint=).
+
 The bf16 entry points are held to their bf16 twins and to the twins run in
 float64 (the same rounding points) at the float phases' shapes, timed by
 graph replay beside the float32 entry points (K3 / K5 bf16 beside SDPA at
@@ -2177,6 +2189,412 @@ def run_long_form(torch, np, counters: dict) -> dict:
     return total
 
 
+def _grads(torch, fn, inputs, cots) -> tuple:
+    """Gradients of sum(out * cot) over fn's outputs, for every input."""
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, leaves, cots)
+
+
+def _grad_errs(got, ref) -> list:
+    """Per input: max|got - ref| / max|ref|, in float64."""
+    return [((g.double() - r.double()).abs().max() / r.double().abs().max().clamp_min(1e-30))
+            .item() for g, r in zip(got, ref)]
+
+
+def _grad_norm_errs(got, ref) -> list:
+    """Per input: ||got - ref|| / ||ref||, in float64."""
+    return [((g.double() - r.double()).norm() / r.double().norm().clamp_min(1e-30)).item()
+            for g, r in zip(got, ref)]
+
+
+def _stats_tied(q, k, v):
+    """K5's (o, m, l) on a key block masked whole, in float64 and written
+    out apart from the port: every score sits at the -1e9 bias, where
+    float32 (ulp 64) makes them one number, so they are forced equal here
+    while their gradient still flows (s - s.detach() - 1e9); the row max
+    (amax) splits its gradient evenly among the ties, as jnp.max's does."""
+    s = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+    s = s - s.detach() - 1e9
+    m = s.amax(dim=-1)
+    p = (s - m[..., None]).exp()
+    return p @ v, m, p.sum(dim=-1)
+
+
+def check_train_grads(torch, np) -> dict:
+    """Each kernel's autograd Function (ops/kernels: the kernel's forward,
+    the twin's backward) on the card against autograd in float64 on the same
+    inputs, at the training paths' shapes: K4 at a 4 s 8 kHz MossFormer crop
+    ([2, 3999], Dqk 128, De 768, keys 3999 / 3000 valid), K3 at SenseVoice's
+    32 s crop ([2, 8, 537, 64], ragged), K5 at one ring shard of the 124 s
+    crop ([1, 8, 1068, 64], 900 keys valid; and a block masked whole), K2
+    over the full-preset stack ([2, 3999, 128], 24 blocks, H 512, f_len
+    3999 / 3000). The float64 reference is the twin, except for the block
+    masked whole: there every float32 score at the -1e9 bias is the same
+    number (the row max splits its gradient among all keys, as in JAX),
+    where float64 would keep them apart, so its reference is ``_stats_tied``.
+    Per input the max error relative to max|grad| and the error's norm
+    relative to the gradient's, held to fixed bounds: K3-K5 1e-4 of max;
+    K2 2e-2 of max and 2e-3 in norm (float32 autodiff through the 24 gLN
+    blocks of the seeded stack is itself 1.5e-2 of max and 1.1e-3 in norm
+    from float64 at this shape: the Function's backward is that autodiff,
+    on an NVIDIA H100 80GB HBM3 as on the CPU); beside them, logged,
+    the float32 twin's own distance. Forward + backward ms (CUDA events
+    around a loop of calls: the backward is torch code); SDPA's forward +
+    backward on K3's masked inputs as the library time. An int8 stack's
+    backward raises."""
+    from audio_classification_tpu_torch.engine.runtime import EnginePreset, ModelPack
+    from audio_classification_tpu_torch.ops.kernels import attention, gau, tcn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(31)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def lens_mask(t, lens):
+        return torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+
+    out = {}
+
+    def case(name, fn, ref_fn, inputs, cots, tol, iters, flops, library=None, tol_norm=None,
+             ref64=None):
+        """``flops``: the forward's products over the valid keys / frames.
+        The bound of forward + backward: the forward's products and the
+        backward's two a forward product, all at the 3xTF32 rate (float32
+        accuracy on the tensor cores), or the bytes (inputs, cotangents and
+        gradients once each), the larger; beside it the same at the float32
+        SIMT rate (``bound_simt_ms``). ``ref64``: the float64 reference
+        when it is not ``ref_fn``."""
+        got = _grads(torch, fn, inputs, cots)
+        torch.cuda.synchronize()
+        ref = _grads(torch, ref64 or ref_fn, [x.double() for x in inputs],
+                     [c.double() for c in cots])
+        errs, norms = _grad_errs(got, ref), _grad_norm_errs(got, ref)
+        # the float32 twin's own autograd against the same reference, logged
+        plain = _grads(torch, ref_fn, inputs, cots)
+        rec = {"name": name, "shapes": [list(x.shape) for x in inputs], "rel_err": errs,
+               "norm_rel_err": norms,
+               "reference": "float64 twin" if ref64 is None else "float64, scores tied",
+               "plain_rel_err": _grad_errs(plain, ref), "tol_rel": tol, "tol_norm": tol_norm,
+               "fwd_bwd_ms": cuda_ms(torch, lambda: _grads(torch, fn, inputs, cots), iters),
+               "plain_fwd_bwd_ms": cuda_ms(torch, lambda: _grads(torch, ref_fn, inputs, cots),
+                                           iters),
+               "library_fwd_bwd_ms": None if library is None else cuda_ms(
+                   torch, lambda: _grads(torch, library, inputs, cots), iters)}
+        nbytes = 4.0 * (2 * sum(x.numel() for x in inputs) + sum(c.numel() for c in cots))
+        by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        by_ops = 3 * flops / PEAK_3XTF32_FLOPS * 1e3
+        rec.update({"bound_ms": max(by_ops, by_bytes),
+                    "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+                    "bound_simt_ms": max(3 * flops / PEAK_F32_FLOPS * 1e3, by_bytes)})
+        log({"phase": "train_grads", **rec})
+        assert all(math.isfinite(e) and e <= tol for e in errs), rec
+        assert tol_norm is None or all(e <= tol_norm for e in norms), rec
+        out.setdefault(name.split()[0], []).append(rec)
+
+    # K4: MossFormer's 4 s crop
+    t = 3999
+    mask = lens_mask(t, [t, 3000])
+    case("gau_attention", lambda q, k, v: gau.gau_attention(q, k, v, mask, 1.0 / t),
+         lambda q, k, v: gau.gau_attention_reference(q, k, v, mask, 1.0 / t),
+         [randn(2, t, 128), randn(2, t, 128), randn(2, t, 768)], [randn(2, t, 768)], 1e-4, 5,
+         2.0 * t * (t + 3000) * (128 + 768))
+    # K3: SenseVoice's 32 s crop
+    t = 537
+    mask = lens_mask(t, [t, 440])
+    qkv = [randn(2, 8, t, 64) for _ in range(3)]
+    case("flash_attention", lambda q, k, v: attention.flash_attention(q, k, v, mask),
+         lambda q, k, v: attention.attention_reference(q, k, v, mask), qkv,
+         [randn(2, 8, t, 64)], 1e-4, 20, 4.0 * 8 * t * (t + 440) * 64,
+         # yardstick only: the port never calls it
+         library=lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+             q, k, v, attn_mask=mask[:, None, None, :]))
+    # K5: one shard block of the ring, a ragged one and one masked whole
+    t = 1068
+    qkv = [randn(1, 8, t, 64) for _ in range(3)]
+    cots = [randn(1, 8, t, 64), randn(1, 8, t), randn(1, 8, t)]
+    for label, valid, ref64 in (("ragged", 900, None), ("masked whole", 0, _stats_tied)):
+        mask = lens_mask(t, [valid])
+        case(f"flash_attention_stats {label}",
+             lambda q, k, v: attention.flash_attention_stats(q, k, v, mask),
+             lambda q, k, v: attention.attention_stats_reference(q, k, v, mask), qkv, cots,
+             1e-4, 20, 4.0 * 8 * t * max(valid, 1) * 64, ref64=ref64)
+    # K2: the full-preset stack at the 4 s crop
+    model = ModelPack(EnginePreset(), seed=0, device=dev).models["sep3"]
+    with torch.no_grad():
+        st = tcn.stack_tcn_params(model.tcn_blocks())
+        st8 = tcn.stack_tcn_params(model.tcn_blocks(), weight_quant=True)
+    t = 3999
+    f_len = torch.tensor([t, 3000], dtype=torch.int32, device=dev)
+    g = randn(2, t, 128) * lens_mask(t, [t, 3000])[..., None]
+
+    def masker(x, *stack):
+        return tcn.fused_tcn_masker(x, f_len, dict(zip(tcn.STACK_KEYS, stack)), n_per_repeat=8)
+
+    def masker_twin(x, *stack):
+        return tcn.tcn_masker_reference(x, f_len, dict(zip(tcn.STACK_KEYS, stack)),
+                                        n_per_repeat=8)
+
+    # float32 autodiff through the 24 gLN blocks of the seeded stack is
+    # itself 1.5e-2 of max and 1.1e-3 in norm from float64 at this shape
+    # (its statistics' sums cancel): fixed bounds of 2e-2 and 2e-3
+    case("tcn_masker", masker, masker_twin, [randn(2, t, 128), *(st[k] for k in tcn.STACK_KEYS)],
+         [g], 2e-2, 3, 24 * (t + 3000) * (6.0 * 128 * 512 + 6 * 512), tol_norm=2e-3)
+    x = randn(1, 400, 128).requires_grad_()
+    y = tcn.fused_tcn_masker(x, f_len[:1].clamp_max(400), st8, n_per_repeat=8)
+    try:
+        y.sum().backward()
+    except NotImplementedError as e:
+        log({"phase": "train_grads", "name": "tcn_masker_s8", "backward": "raises",
+             "message": str(e)})
+    else:
+        raise AssertionError("the int8 stack's backward did not raise")
+    return out
+
+
+def _step_vs_cpu(torch, name, make, loss_fn, batch, dtype=None) -> dict:
+    """One step's loss and gradients of ``make()``'s model (seeded init on
+    the CPU, a copy moved to the card) on the card against the CPU in
+    ``dtype``, TF32 off: the loss within 1e-3 relative and every gradient
+    within 1e-3 of the largest |grad|. float32 by default; float64 for a
+    path that runs no kernel of the port (Conv-TasNet's dense loop), whose
+    float32 autodiff is itself ~2e-3 from float64 at its random init (its
+    decoder and SI-SDR matrix stay float32 even then, as the reference
+    computes them). Logged beside a float32 comparison, not held: each
+    device's distance from the CPU in float64."""
+    import copy
+
+    dtype = dtype or torch.float32
+    runs = {"cpu": ("cpu", dtype), "cuda": ("cuda", dtype)}
+    if dtype != torch.float64:
+        runs["cpu64"] = ("cpu", torch.float64)
+    model = make().eval()  # as the trainers hold it: BatchNorm on its statistics
+    res = {}
+    for key, (dev, dt) in runs.items():
+        m = copy.deepcopy(model).to(dev, dt)
+        b = {k: v.to(dev, dt) if v.is_floating_point() else v.to(dev) for k, v in batch.items()}
+        loss = loss_fn(m, b)
+        loss.backward()
+        res[key] = (float(loss.detach()), {n: p.grad.detach().cpu().double()
+                                           for n, p in m.named_parameters() if p.grad is not None})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res["cpu"], res["cuda"]
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    gerr = max((g_gpu[n] - g).abs().max().item() for n, g in g_cpu.items()) / top
+    rec = {"phase": "train_step_vs_cpu", "path": name, "dtype": str(dtype).split(".")[-1],
+           "loss_cuda": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": abs(l_gpu - l_cpu) / abs(l_cpu),
+           "grad_rel_err": gerr, "tol_rel": 1e-3, "n_grads": len(g_cpu)}
+    if "cpu64" in res:
+        l_64, g_64 = res["cpu64"]
+        top64 = max(g.abs().max().item() for g in g_64.values())
+        rec.update({"loss_cpu_float64": l_64, **{
+            f"{d}_vs_float64_grad_rel_err": max((gd[n] - g).abs().max().item()
+                                                for n, g in g_64.items()) / top64
+            for d, gd in (("cpu", g_cpu), ("cuda", g_gpu))}})
+    log(rec)
+    assert set(g_gpu) == set(g_cpu), name
+    assert rec["loss_rel_err"] <= 1e-3 and gerr <= 1e-3, rec
+    return rec
+
+
+def run_train_paths(torch, np, counters: dict) -> dict:
+    """The three training CLIs through their main() on the card at full
+    widths, each with its launch counts (K4 8 times a MossFormer forward,
+    the dense Conv-TasNet loop no K2, K3 12 times a SenseVoice forward,
+    K5 192 times a forward over 4 shards), their losses per step finite, a
+    one-step card-vs-CPU check of each model and loss, and the exports
+    loaded by offline_overlap_3src --sep-checkpoint / --spk-embed-model and
+    Separator(checkpoint=) -> total launches per kernel."""
+    from audio_classification_tpu_torch.audio_io import write_wav
+    from audio_classification_tpu_torch.cli import train_asr, train_separator, train_speaker
+    from audio_classification_tpu_torch.cli.offline_overlap_3src import main as overlap3_main
+    from audio_classification_tpu_torch.models import facades
+    from audio_classification_tpu_torch.models.asr.ctc import ctc_loss
+    from audio_classification_tpu_torch.models.asr.sensevoice import (SenseVoiceConfig,
+                                                                     SenseVoiceEncoder,
+                                                                     sensevoice_frontend)
+    from audio_classification_tpu_torch.models.mossformer import MossFormerConfig
+    from audio_classification_tpu_torch.models.convtasnet import ConvTasNetConfig
+    from audio_classification_tpu_torch.models.speaker import SpeakerEmbedderConfig
+    from audio_classification_tpu_torch.ops.fbank import FbankConfig, log_mel_fbank
+    from audio_classification_tpu_torch.parallel.mesh import make_mesh
+    from audio_classification_tpu_torch.train.trainer import SeparatorTrainer, flax_init_
+
+    work = ROOT / "build" / "chip_smoke" / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    total = {k: 0 for k in counters}
+
+    def run(name, cli, argv, ckpt, expect, exact=None, unexpected=()):
+        _, launches = _counted(torch, counters, expect, name, lambda: cli.main(argv),
+                               unexpected, exact)
+        for k, n in launches.items():
+            total[k] += n
+        meta = json.loads((ckpt / "run.json").read_text())
+        losses = meta["losses"]
+        log({"phase": "train", "path": name, "losses": losses,
+             **{k: v for k, v in meta.items() if k.endswith(("before", "after"))}})
+        assert losses and all(math.isfinite(x) for x in losses), (name, losses)
+
+    gen = torch.Generator().manual_seed(40)
+
+    # train_separator --arch mossformer at EnginePreset's MossFormer: 3 steps
+    # of 2 x 4 s at 8 kHz (T = 3999 frames: K4 in each of the 8 GAU layers,
+    # 8 launches a step) and the two held-out SI-SDRi evaluations (one
+    # forward of 16 crops each), then --resume for 2 more
+    mf = MossFormerConfig()
+    mf_args = ["--synthetic", "--arch", "mossformer", "--n-src", "2", "--sample-rate", "8000",
+               "--seconds", "4", "--batch", "2", "--enc-dim", str(mf.enc_dim), "--mf-dim",
+               str(mf.dim), "--mf-qk-dim", str(mf.qk_dim), "--mf-expansion", str(mf.expansion),
+               "--mf-layers", str(mf.layers), "--log-every", "1", "--provider", "cuda",
+               "--ckpt-dir", str(work / "mf_ck")]
+    no_k2 = ("tcn_masker", "tcn_masker_s8", "tcn_masker_bf16", "tcn_masker_s8_bf16")
+    run("train_separator mossformer", train_separator,
+        [*mf_args, "--steps", "3", "--export", str(work / "mf_export")], work / "mf_ck",
+        ("gau_attention",), {"gau_attention": mf.layers * (3 + 2)},
+        ("gau_attention_bf16",) + no_k2)
+    run("train_separator mossformer --resume", train_separator,
+        [*mf_args, "--steps", "5", "--resume"], work / "mf_ck",
+        ("gau_attention",), {"gau_attention": mf.layers * (2 + 2)})
+    # the same model and loss, one step on a 0.52 s crop (519 frames: K4 on
+    # the card, its twin on the CPU), card against CPU
+    mix = 0.3 * torch.randn((2, 4160), generator=gen)
+    refs = 0.3 * torch.randn((2, 2, 4160), generator=gen)
+    mask = torch.ones((2, 4160))
+    mask[1, 3000:] = 0.0
+    _step_vs_cpu(torch, "train_separator mossformer",
+                 lambda: SeparatorTrainer(mf, seed=0, device="cpu").model,
+                 lambda m, b: _pit(m, b), {"mix": mix, "refs": refs, "mask": mask})
+
+    # train_separator --arch convtasnet at the flagship's widths (N 512, B
+    # 128, H 512, 8 x 3): the dense TCN loop, as the JAX trainer trains it,
+    # so K2 is not launched
+    tas = ConvTasNetConfig(n_src=2, enc_kernel=16, sample_rate=16000)
+    run("train_separator convtasnet", train_separator,
+        ["--synthetic", "--arch", "convtasnet", "--n-src", "2", "--sample-rate", "16000",
+         "--seconds", "2", "--batch", "2", "--enc-dim", str(tas.enc_dim), "--bottleneck",
+         str(tas.bottleneck), "--hidden", str(tas.hidden), "--n-blocks", str(tas.n_blocks),
+         "--n-repeats", str(tas.n_repeats), "--steps", "3", "--log-every", "1",
+         "--provider", "cuda", "--ckpt-dir", str(work / "tas_ck")], work / "tas_ck",
+        (), {k: 0 for k in no_k2})
+    mix = 0.3 * torch.randn((2, 8000), generator=gen)
+    refs = 0.3 * torch.randn((2, 2, 8000), generator=gen)
+    _step_vs_cpu(torch, "train_separator convtasnet",
+                 lambda: SeparatorTrainer(tas, seed=0, device="cpu").model,
+                 lambda m, b: _pit(m, b), {"mix": mix, "refs": refs, "mask": torch.ones((2, 8000))},
+                 dtype=torch.float64)
+
+    # train_asr, SenseVoice 512 / 8 / 12, on a manifest of 32 s wavs (3198
+    # fbank frames: 533 LFR frames + 4 prompts, so K3 runs in each of the 12
+    # blocks): 3 steps and the two CER evaluations, then --resume for 2
+    words = ["abcab", "bacca", "cabba", "abcca", "bbaca"]
+
+    def manifest(name, seconds, n):
+        lines = []
+        for i in range(n):
+            wav = sum(talkers(int(seconds * SR), 50 + i)) / 3.0
+            write_wav(work / f"{name}{i}.wav", (0.5 * wav / np.abs(wav).max()).astype(np.float32),
+                      SR)
+            lines.append(json.dumps({"wav": str(work / f"{name}{i}.wav"), "text": words[i]}))
+        (work / f"{name}.jsonl").write_text("\n".join(lines) + "\n")
+        return work / f"{name}.jsonl"
+
+    sv = SenseVoiceConfig(vocab_size=4)  # the char vocab of the texts: blank, a, b, c
+    asr_args = ["--max-seconds", "32", "--batch", "2", "--dim", str(sv.dim), "--heads",
+                str(sv.heads), "--layers", str(sv.layers), "--conv-kernel", str(sv.conv_kernel),
+                "--log-every", "1", "--provider", "cuda", "--ckpt-dir", str(work / "asr_ck"),
+                "--manifest", str(manifest("utt", 32, 5))]
+    run("train_asr", train_asr, [*asr_args, "--steps", "3"], work / "asr_ck",
+        ("fbank_power_mel", "flash_attention"), {"flash_attention": sv.layers * (3 + 2)},
+        ("flash_attention_stats",))
+    run("train_asr --resume", train_asr, [*asr_args, "--steps", "5", "--resume"], work / "asr_ck",
+        ("fbank_power_mel", "flash_attention"), {"flash_attention": sv.layers * (2 + 2)})
+    # --seq-parallel over 4 shards of the card on 124 s wavs: 12398 fbank
+    # frames, 2067 LFR frames + 4 prompts, padded to 4 x 518, so every block
+    # of the ring runs K5 (12 layers x 16 block pairs = 192 launches a
+    # forward); the CER evaluations run the encoder without the mesh (K3)
+    run("train_asr --seq-parallel --data-parallel 4", train_asr,
+        ["--max-seconds", "124", "--batch", "2", "--dim", str(sv.dim), "--heads", str(sv.heads),
+         "--layers", str(sv.layers), "--conv-kernel", str(sv.conv_kernel), "--log-every", "1",
+         "--provider", "cuda", "--ckpt-dir", str(work / "sp_ck"), "--steps", "2",
+         "--seq-parallel", "--data-parallel", "4", "--manifest", str(manifest("long", 124, 3))],
+        work / "sp_ck", ("fbank_power_mel", "flash_attention_stats", "flash_attention"),
+        {"flash_attention_stats": sv.layers * 16 * 2, "flash_attention": sv.layers * 2})
+    fb = FbankConfig()
+    wavs = []
+    for i, seconds in enumerate((32, 124)):
+        w = sum(talkers(seconds * SR, 60 + i)) / 3.0
+        wavs.append(torch.from_numpy(np.stack([w, w[::-1].copy()]).astype(np.float32) * 0.2))
+    for label, wav, mesh in (("train_asr", wavs[0], None),
+                             ("train_asr --seq-parallel", wavs[1], 4)):
+        lens = torch.tensor([wav.shape[1], wav.shape[1] * 3 // 4])
+
+        def ctc(m, b, mesh=mesh):
+            feats, fmask = sensevoice_frontend(b["wav"], b["lens"], m.cfg)
+            sp = None if mesh is None else make_mesh(mesh, devices=[b["wav"].device] * mesh)
+            logits = m(feats, fmask, mesh=sp)[:, m.cfg.num_prompt:]
+            return ctc_loss(logits, fmask, b["labels"], b["lab_lens"])
+
+        _step_vs_cpu(torch, label, lambda: flax_init_(SenseVoiceEncoder(sv), 0), ctc,
+                     {"wav": wav, "lens": lens, "labels": torch.tensor([[1, 2, 3, 1, 2]] * 2),
+                      "lab_lens": torch.tensor([5, 3])})
+
+    # train_speaker at the serving embedder's widths (32, 64, 128, 256 / 192):
+    # fbank features by K1
+    spk = SpeakerEmbedderConfig()
+    run("train_speaker", train_speaker,
+        ["--synthetic", "--channels", ",".join(map(str, spk.channels)), "--embed-dim",
+         str(spk.embed_dim), "--batch", "8", "--max-seconds", "2", "--num-speakers", "8",
+         "--steps", "3", "--log-every", "1", "--provider", "cuda",
+         "--ckpt-dir", str(work / "spk_ck"), "--export", str(work / "spk_export")],
+        work / "spk_ck", ("fbank_power_mel",))
+    feats = log_mel_fbank(torch.from_numpy(np.stack(talkers(2 * SR, 70)[:2]) * 0.3), fb)
+    _step_vs_cpu(torch, "train_speaker",
+                 lambda: flax_init_(train_speaker.embedder_with_head(spk, 8), 0), _aam,
+                 {"feats": feats, "labels": torch.tensor([3, 5])})
+
+    # the exports serve: the MossFormer export through --sep-checkpoint (the
+    # preset's mossformer stage) and the embedder through --spk-embed-model
+    # in the flagship CLI, and through Separator(checkpoint=)
+    two = talkers(6 * SR, 5)[:2]
+    peak = np.abs(two[0] + two[1]).max()
+    write_wav(work / "mix2.wav", 0.6 * (two[0] + two[1]) / peak, SR)
+    write_wav(work / "target.wav", 0.6 * two[0][: 3 * SR] / peak, SR)
+    (out_dir, result), launches = _counted(
+        torch, counters, ("fbank_power_mel", "gau_attention"), "overlap3 trained exports",
+        lambda: overlap3_main(["--input-wavs", str(work / "mix2.wav"), "--target-wav",
+                               str(work / "target.wav"), "--osd-thr", "0.0", "--sep-backend",
+                               "mossformer", "--sep-checkpoint", str(work / "mf_export"),
+                               "--spk-embed-model", str(work / "spk_export"), "--preset", "full",
+                               "--seed", "0", "--sv-threshold", "-1", "--out-dir",
+                               str(work / "out")]))
+    for k, n in launches.items():
+        total[k] += n
+    recs = [json.loads(x) for x in (out_dir / "segments.jsonl").read_text().splitlines()]
+    assert recs and all(r["kind"] == "overlap" and math.isfinite(r["sv_score"]) for r in recs)
+    sep = facades.Separator(backend="mossformer", checkpoint=str(work / "mf_export"))
+    streams = sep.separate(two[0] + two[1], SR)
+    assert len(streams) == 2 and all(np.isfinite(s).all() for s in streams)
+    log({"phase": "train_exports", "segments": len(recs), "separator_streams": len(streams)})
+    return total
+
+
+def _pit(model, b):
+    """cli/train_separator's loss: PIT SI-SDR of the separated mixture."""
+    from audio_classification_tpu_torch.train.losses import pit_si_sdr_loss
+
+    return pit_si_sdr_loss(model(b["mix"], b["mask"]), b["refs"], b["mask"])
+
+
+def _aam(model, b):
+    """cli/train_speaker's loss: AAM softmax against the model's centres."""
+    from audio_classification_tpu_torch.train.losses import aam_softmax_loss
+
+    emb, centres = model(b["feats"])
+    return aam_softmax_loss(emb, b["labels"], centres)
+
+
 def main() -> int:
     try:
         import torch
@@ -2215,6 +2633,10 @@ def main() -> int:
     log({"phase": "build", "nvcc_sec": nvcc_s, "sec": time.perf_counter() - t0,
          "library": _build.library_path().name})
 
+    # the inference phases run without autograd, as the engine does: the
+    # kernels' wrappers then launch as they always have (a stack of TCN
+    # weights built with grad on stays attached to the model's parameters)
+    torch.set_grad_enabled(False)
     results = {"fbank_power_mel": check_fbank(torch, np),
                "tcn_masker": check_tcn(torch, np),
                "tcn_masker_s8": check_tcn_s8(torch, np),
@@ -2251,6 +2673,12 @@ def main() -> int:
                 "flash_attention_stats_bf16": (flash_attention_stats, "launches_bf16")}
     launches = run_paths(torch, np, counters)
     for k, n in run_long_form(torch, np, counters).items():
+        launches[k] += n
+    # the training slice, gradients on: the kernels' autograd Functions, then
+    # the training CLIs
+    torch.set_grad_enabled(True)
+    check_train_grads(torch, np)
+    for k, n in run_train_paths(torch, np, counters).items():
         launches[k] += n
     for k, n in launches.items():
         assert n > 0, f"kernel {k} was not launched on any path"

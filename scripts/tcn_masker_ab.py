@@ -45,6 +45,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tcn_masker_ab: needs a CUDA device", file=sys.stderr)
         return 2
+    torch.set_grad_enabled(False)  # inference stacks: detached, no autograd
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

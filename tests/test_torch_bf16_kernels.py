@@ -94,7 +94,7 @@ def test_bf16_stack_matches_jax(wide_case, quant):
     st_jax = jax_stack(blocks, jnp.bfloat16, weight_quant=quant)
     for k, v in st_jax.items():
         assert str(st[k].dtype).split(".")[-1] == str(v.dtype), k
-        np.testing.assert_array_equal(st[k].float().numpy(),
+        np.testing.assert_array_equal(st[k].detach().float().numpy(),
                                       np.asarray(v).astype(np.float32), err_msg=k)
 
 
@@ -111,7 +111,7 @@ def test_bf16_masker_twin_matches_pallas_kernel(wide_case, quant):
     ref = np.asarray(jax_fused_tcn(jnp.asarray(x, jnp.bfloat16), jnp.asarray(f_len),
                                    jax_stack(blocks, jnp.bfloat16, weight_quant=quant),
                                    n_per_repeat=4, tile=64, interpret=True)).astype(np.float32)
-    got = out.float().numpy()
+    got = out.detach().float().numpy()
     valid = (np.arange(x.shape[1])[None, :] < f_len[:, None])[..., None]
     err = np.abs((got - ref) * valid)
     scale = np.abs(ref * valid).max()

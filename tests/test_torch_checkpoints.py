@@ -224,6 +224,7 @@ def test_build_engine_opens_every_flag(tmp_path):
 def test_orbax_checkpoints_still_raise(tmp_path, flag):
     """An orbax directory (and, for --osd-checkpoint, any value that names
     no torch file) raises NotImplementedError naming slice 14."""
+    (tmp_path / "_CHECKPOINT_METADATA").write_text("{}")  # what orbax writes
     for value in ([str(tmp_path)] + (["osd_params"] if flag == "osd_checkpoint" else [])):
         with pytest.raises(NotImplementedError, match="slice 14"):
             build_engine(Overlap3Config(**_cfg(tmp_path), provider="cpu", **{flag: value}))

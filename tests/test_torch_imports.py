@@ -1,6 +1,6 @@
 """The port stands alone: no module of audio_classification_tpu_torch, and
-not chip_smoke.py, imports jax, flax or the JAX package, and none of their
-code strings reaches into the JAX package's directory."""
+not chip_smoke.py, imports jax, flax, optax, orbax or the JAX package, and
+none of their code strings reaches into the JAX package's directory."""
 import ast
 import re
 from pathlib import Path
@@ -9,7 +9,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FILES = sorted((REPO / "audio_classification_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "flax", "audio_classification_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "audio_classification_tpu")
 JAX_PACKAGE = re.compile(r"audio_classification_tpu(?!_torch)")
 # the one allowed mention in code: a "file.py:line" citation of the TPU kernel
 # a CUDA kernel replaces (chip_smoke.py's kernel table)
@@ -29,6 +29,14 @@ def _docstrings(tree) -> set:
 
 def test_walks_the_whole_port():
     assert len(FILES) >= 45 and (REPO / "chip_smoke.py") in FILES
+
+
+def test_walks_the_training_slice():
+    """The training package and the training CLIs are among the files held."""
+    port = REPO / "audio_classification_tpu_torch"
+    want = [port / "train" / f"{m}.py" for m in ("losses", "trainer", "checkpoint", "data")]
+    want += [port / "cli" / f"train_{m}.py" for m in ("separator", "asr", "speaker")]
+    assert all(p in FILES for p in want)
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -221,9 +221,12 @@ def test_overlap_mvp_cli_builds_its_engine_on_the_cpu_when_asked(librimix_root, 
         "--osd-thr", "0.0", "--sep-backend", "mossformer", "--max-files", "1",
         "--max-segment-sec", "4", "--out-dir", str(tmp_path)])
     assert metrics["segments_overlap_streams"] >= 2 and (out_dir / "summary.json").is_file()
+    orbax = tmp_path / "orbax"  # a directory an orbax checkpointer wrote
+    orbax.mkdir()
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
     with pytest.raises(NotImplementedError, match="not ported"):
         offline_overlap_mvp.main(["--librimix-root", str(librimix_root), "--preset", "tiny",
-                                  "--provider", "cpu", "--checkpoint-dir", "ckpt",
+                                  "--provider", "cpu", "--checkpoint-dir", str(orbax),
                                   "--out-dir", str(tmp_path)])
 
 
@@ -325,6 +328,7 @@ def test_facades_unported_parts_name_their_slice(engines, librimix_root, tmp_pat
     SID facade (ported) builds on the engine and identifies an enrolled
     talker."""
     eng = engines[1]
+    (tmp_path / "_CHECKPOINT_METADATA").write_text("{}")  # what orbax writes
     with pytest.raises(NotImplementedError, match="slice 14"):
         facades.Separator(checkpoint=str(tmp_path), engine=eng)
     with pytest.raises(FileNotFoundError, match="not found"):

@@ -114,9 +114,13 @@ def test_cli_main_file_mode_writes_artifacts(wavs, tmp_path):
     ["--paraformer", "model.onnx"], ["--osd-checkpoint", "osd_params"], ["--model-parallel", "2"],
     ["--data-parallel", "2"], ["--arena-codec", "mulaw"],
     ["--sense-voice", "model.onnx"], ["--encoder", "enc.onnx"],
-    ["--checkpoint-dir", "ckpt"],
+    ["--checkpoint-dir", "ORBAX_DIR"],
 ])
-def test_unported_flags_raise(wavs, flags):
+def test_unported_flags_raise(wavs, tmp_path, flags):
+    # a directory an orbax checkpointer wrote (the port's own loads)
+    (tmp_path / "orbax").mkdir()
+    (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")
+    flags = [str(tmp_path / "orbax") if f == "ORBAX_DIR" else f for f in flags]
     with pytest.raises(NotImplementedError, match="not ported"):
         main(["--input-wavs", str(wavs / "mix.wav"), "--target-wav",
               str(wavs / "target.wav"), "--preset", "tiny", "--provider", "cpu", *flags])

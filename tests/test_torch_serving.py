@@ -247,10 +247,14 @@ def test_serve_streams_cli(fixtures, tmp_path, quant):
 
 @pytest.mark.parametrize("flags", [
     ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
-    ["--arena-codec", "mulaw"], ["--checkpoint-dir", "ckpt"],
+    ["--arena-codec", "mulaw"], ["--checkpoint-dir", "ORBAX_DIR"],
     ["--sense-voice", "model.onnx"], ["--encoder", "enc.onnx"],
 ])
-def test_serve_streams_unported_flags_raise(fixtures, flags):
+def test_serve_streams_unported_flags_raise(fixtures, tmp_path, flags):
+    # a directory an orbax checkpointer wrote (the port's own loads)
+    (tmp_path / "orbax").mkdir()
+    (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")
+    flags = [str(tmp_path / "orbax") if f == "ORBAX_DIR" else f for f in flags]
     with pytest.raises(NotImplementedError, match="not ported"):
         serve_streams.main(["--wavs", "a.wav", "--targets", fixtures["targets"][0],
                             "--preset", "tiny", "--provider", "cpu", *flags])

@@ -221,11 +221,15 @@ def test_streaming_app_max_seconds_and_8k_input(target_wav, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
-    ["--checkpoint-dir", "ckpt"],
+    ["--checkpoint-dir", "ORBAX_DIR"],
     ["--sense-voice", "model.onnx"], ["--paraformer", "model.onnx"],
     ["--spk-embed-model", "spk.onnx"], ["--osd-checkpoint", "osd_params"],
 ])
 def test_streaming_app_unported_flags_raise(target_wav, tmp_path, flags):
+    # a directory an orbax checkpointer wrote (the port's own loads)
+    (tmp_path / "orbax").mkdir()
+    (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")
+    flags = [str(tmp_path / "orbax") if f == "ORBAX_DIR" else f for f in flags]
     with pytest.raises(NotImplementedError, match="not ported"):
         streaming_overlap_3src.main(["--target-wav", target_wav, "--preset", "tiny",
                                      "--provider", "cpu", "--output-dir", str(tmp_path), *flags])
