@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its native host
+codecs.
 
 Every ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers it includes) is
 compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source and all
@@ -13,6 +14,16 @@ The library name carries a hash of the sources, headers and flags, so an edit
 rebuilds at first use and an unchanged tree reuses the last build. Each C
 entry point returns ``cudaGetLastError()`` after its launches; the Python
 wrappers raise on a non-zero code (``check``).
+
+The host codecs (``native/wavcodec.cpp``, ``native/ringbuffer.cpp``: the WAV
+decoder / encoder and the streaming ring buffer, plain C interfaces) are built
+the same way with ``g++`` at first use, one library a source, into
+``build/native/`` under a hash of the source and flags (``host_library``):
+
+    g++ -O3 -fPIC -std=c++17 -shared -o build/native/lib<name>_<hash>.so native/<name>.cpp
+
+A failed build raises with the compiler's output: nothing falls back to the
+numpy codecs on its own.
 """
 from __future__ import annotations
 
@@ -30,6 +41,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+NATIVE = Path(__file__).resolve().parent / "native"
+HOST_BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 
 def _sources() -> list:
@@ -129,3 +143,46 @@ def _entry(name: str, argtypes: tuple):
 def check(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
+
+
+def find_gxx() -> Optional[str]:
+    """g++ on PATH; None without one."""
+    return shutil.which("g++")
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``native/<name>.cpp`` builds: named after a hash of the source
+    and the flags, so an edit rebuilds and an unchanged source reuses."""
+    src = NATIVE / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    return HOST_BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile ``native/<name>.cpp`` with g++ unless this source hash is
+    built already -> the library's path. RuntimeError with the compiler's
+    output when it fails, or when there is no compiler."""
+    out = host_library_path(name)
+    if out.is_file():
+        return out
+    gxx = find_gxx()
+    if gxx is None:
+        raise RuntimeError(f"no C++ compiler (g++) to build native/{name}.cpp")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(NATIVE / f"{name}.cpp")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on native/{name}.cpp ({proc.returncode}):\n"
+                           f"{proc.stderr}{proc.stdout}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def host_library(name: str) -> ctypes.CDLL:
+    """The native host library ``name`` ("wavcodec", "ringbuffer"), built
+    at first use and loaded once."""
+    return ctypes.CDLL(str(build_host(name)))

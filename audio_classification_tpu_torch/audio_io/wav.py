@@ -10,13 +10,21 @@ module implements the codec directly:
 - ``write_wav`` <- float32/float64/int16 samples
 
 Supported encodings: PCM 8/16/24/32-bit, IEEE float32/float64, any channel
-count. The codec is numpy only.
+count. ``read_wav`` and ``write_wav`` go through the port's native C++ codec
+(native/wavcodec.cpp, built with g++ at first use by ``_build.host_library``;
+a failed build raises). The numpy functions ``read_wav_numpy`` /
+``write_wav_numpy`` are the plain versions the tests hold it to. As in the
+JAX package, a file the native decoder refuses goes through the numpy parser,
+which names what is wrong with it, and a pcm16 write the native encoder
+cannot make (the file does not open) goes through the numpy writer, which
+raises the OS error.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 import struct
-from pathlib import Path
 from typing import Tuple
 
 import numpy as np
@@ -29,6 +37,37 @@ _DATA = b"data"
 _FORMAT_PCM = 1
 _FORMAT_IEEE_FLOAT = 3
 _FORMAT_EXTENSIBLE = 0xFFFE
+
+# ---------------------------------------------------------------------------
+# native codec (native/wavcodec.cpp)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _native_lib() -> ctypes.CDLL:
+    """The C++ codec, built at first use; its entry points declared."""
+    from .._build import host_library
+
+    lib = host_library("wavcodec")
+    lib.wav_read_info.restype = ctypes.c_int
+    lib.wav_read_info.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+    lib.wav_read_f32.restype = ctypes.c_longlong
+    lib.wav_read_f32.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
+                                 ctypes.c_longlong]
+    lib.wav_write_pcm16.restype = ctypes.c_int
+    lib.wav_write_pcm16.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_float),
+                                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    return lib
+
+
+def _shape(x: np.ndarray, channels: int, always_2d: bool) -> np.ndarray:
+    if channels > 1:
+        x = x.reshape(-1, channels).T
+    elif always_2d:
+        x = x[None, :]
+    return np.ascontiguousarray(x)
+
 
 # ---------------------------------------------------------------------------
 # numpy implementation
@@ -107,20 +146,35 @@ def _parse_wav_bytes(data: bytes) -> Tuple[np.ndarray, int, int]:
 
 
 def read_wav(path: str | os.PathLike, always_2d: bool = False) -> Tuple[np.ndarray, int]:
-    """Read a WAV file -> (float32 samples, sample_rate).
+    """Read a WAV file -> (float32 samples, sample_rate), by the native codec.
 
     Mono files return shape [T]; multichannel return [C, T].
-    With ``always_2d=True`` mono returns [1, T].
+    With ``always_2d=True`` mono returns [1, T]. A truncated file gives the
+    whole frames it holds.
     """
     path = os.fspath(path)
-    with open(path, "rb") as f:
+    lib = _native_lib()
+    sr, ch, nf = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    if lib.wav_read_info(path.encode(), ctypes.byref(sr), ctypes.byref(ch), ctypes.byref(nf)) == 0:
+        # never allocate more samples than the file could hold (>= 1 byte
+        # each), whatever frame count a corrupt header declares
+        n = min(nf.value * ch.value, os.path.getsize(path))
+        buf = np.empty(n, dtype=np.float32)
+        got = lib.wav_read_f32(path.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n)
+        if got >= 0:
+            channels = ch.value
+            x = buf[: (got // channels) * channels] if channels > 1 else buf[:got]
+            return _shape(x, channels, always_2d), sr.value
+    return read_wav_numpy(path, always_2d)
+
+
+def read_wav_numpy(path: str | os.PathLike, always_2d: bool = False) -> Tuple[np.ndarray, int]:
+    """``read_wav``'s plain numpy version (the same decode; ValueError names
+    what is wrong with a file it cannot parse)."""
+    with open(os.fspath(path), "rb") as f:
         data = f.read()
     x, sr_v, channels = _parse_wav_bytes(data)
-    if channels > 1:
-        x = x.reshape(-1, channels).T
-    elif always_2d:
-        x = x[None, :]
-    return np.ascontiguousarray(x), sr_v
+    return _shape(x, channels, always_2d), sr_v
 
 
 def to_mono(x: np.ndarray) -> np.ndarray:
@@ -139,11 +193,33 @@ def write_wav(
     sample_rate: int,
     encoding: str = "pcm16",
 ) -> None:
-    """Write samples to a WAV file.
+    """Write samples to a WAV file; float samples to pcm16 go through the
+    native encoder, everything else as ``write_wav_numpy`` writes it.
 
     ``samples``: [T] or [C, T] float (clipped to [-1, 1] for pcm16) or int16.
     ``encoding``: "pcm16" or "float32".
     """
+    x = np.asarray(samples)
+    if x.ndim == 1:
+        x = x[None, :]
+    if encoding == "pcm16" and x.dtype != np.int16:
+        channels = x.shape[0]
+        f = np.ascontiguousarray(np.clip(x.T.reshape(-1).astype(np.float32), -1.0, 1.0))
+        if _native_lib().wav_write_pcm16(os.fspath(path).encode(),
+                                         f.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                                         f.size, int(channels), int(sample_rate)) == 0:
+            return
+    write_wav_numpy(path, samples, sample_rate, encoding)
+
+
+def write_wav_numpy(
+    path: str | os.PathLike,
+    samples: np.ndarray,
+    sample_rate: int,
+    encoding: str = "pcm16",
+) -> None:
+    """``write_wav``'s plain numpy version: the same bytes (pcm16 rounds
+    half to even in both)."""
     path = os.fspath(path)
     x = np.asarray(samples)
     if x.ndim == 1:

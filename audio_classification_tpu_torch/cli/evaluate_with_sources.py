@@ -53,7 +53,7 @@ def parse_args(argv=None):
     p.add_argument("--osd-hop", type=float, default=0.1)
     p.add_argument("--sep-backend", default="convtasnet")
     p.add_argument("--sep-checkpoint", default="")
-    p.add_argument("--osd-checkpoint", default="", help="OSD weights: orbax dir (cli/distill_osd) or pyannote segmentation torch checkpoint (.bin/.ckpt/.pt)")
+    p.add_argument("--osd-checkpoint", default="", help="OSD weights: a params dir of cli/distill_osd or a pyannote segmentation torch checkpoint (.bin/.ckpt/.pt/.pth); an orbax dir raises (scripts/orbax_to_torch.py converts it)")
     p.add_argument("--osd-onset", type=float, default=-1.0,
                    help="PyanNet OSD: pyannote Binarize onset (enables hysteresis)")
     p.add_argument("--osd-offset", type=float, default=-1.0,

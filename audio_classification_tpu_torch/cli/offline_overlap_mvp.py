@@ -61,7 +61,7 @@ def parse_args(argv=None):
     p.add_argument("--osd-hop", type=float, default=0.1)
     p.add_argument("--sep-backend", default="convtasnet")
     p.add_argument("--sep-checkpoint", default="")
-    p.add_argument("--osd-checkpoint", default="", help="OSD weights: orbax dir (cli/distill_osd) or pyannote segmentation torch checkpoint (.bin/.ckpt/.pt)")
+    p.add_argument("--osd-checkpoint", default="", help="OSD weights: a params dir of cli/distill_osd or a pyannote segmentation torch checkpoint (.bin/.ckpt/.pt/.pth); an orbax dir raises (scripts/orbax_to_torch.py converts it)")
     p.add_argument("--min-overlap-dur", type=float, default=0.4)
     p.add_argument("--out-dir", default="test_overlap")
     p.add_argument("--enable-metrics", action="store_true")

@@ -27,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..train.trainer import embedder_with_head
 from .train_separator import check_parallel, refuse_onnx
 
 SR = 16000
@@ -128,27 +129,6 @@ class SyntheticSampler:
             u = synth_utterance(self.rng, int(s), self.t_max / SR)[: self.t_max]
             wavs[i, : u.size] = u
         return wavs, labels
-
-
-def embedder_with_head(cfg, n_spk: int):
-    """The embedder (submodule ``embedder``) and the trainable AAM class
-    centres ``aam_centers`` [n_spk, embed_dim] in one module; forward(feats)
-    -> (embeddings, centres)."""
-    import torch
-    from torch import nn
-
-    from ..models.speaker import SpeakerEmbedder
-
-    class EmbedderWithHead(nn.Module):
-        def __init__(self):
-            super().__init__()
-            self.embedder = SpeakerEmbedder(cfg)
-            self.aam_centers = nn.Parameter(torch.empty(n_spk, cfg.embed_dim))
-
-        def forward(self, feats):
-            return self.embedder(feats), self.aam_centers
-
-    return EmbedderWithHead()
 
 
 def main(argv=None):

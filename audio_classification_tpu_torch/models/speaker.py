@@ -48,13 +48,17 @@ class Conv2d(nn.Conv2d):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """Inference BatchNorm. Below float32 (a bfloat16 copy holds bfloat16
-    running statistics, as the reference casts every floating leaf) it runs
-    flax's op order in the promoted dtype, each op rounded:
-    y = (x - mean) * (rsqrt(var + eps) * scale) + bias. All-float32 is
-    ``nn.BatchNorm2d`` as it is."""
+    running statistics, as the reference casts every floating leaf), and
+    where the running statistics are trained as parameters
+    (pipelines/quality_gate: the reference's gate trains the whole variable
+    tree, batch statistics included), it runs flax's op order in the
+    promoted dtype, each op rounded:
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias. All-float32 with
+    the statistics as buffers is ``nn.BatchNorm2d`` as it is."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == self.weight.dtype == self.running_var.dtype == torch.float32:
+        if (x.dtype == self.weight.dtype == self.running_var.dtype == torch.float32
+                and not self.running_var.requires_grad):
             return super().forward(x)
         dt = promote(x, self.running_mean, self.running_var, self.weight, self.bias)
 

@@ -52,9 +52,10 @@ _MODEL_FILE_FLAGS = ("paraformer", "encoder", "decoder", "joiner", "whisper_enco
 # the flags whose directory is a checkpoint of the port (train/checkpoint.py),
 # loaded in build_engine: --sense-voice and --spk-embed-model / --model take
 # an export of cli/train_asr / cli/train_speaker, --sep-checkpoint one of
-# cli/train_separator, --checkpoint-dir a whole model pack
+# cli/train_separator, --osd-checkpoint the output of cli/distill_osd,
+# --checkpoint-dir a whole model pack
 _CHECKPOINT_DIR_FLAGS = ("sense_voice", "spk_embed_model", "model", "sep_checkpoint",
-                         "checkpoint_dir")
+                         "osd_checkpoint", "checkpoint_dir")
 
 # torch files an --osd-checkpoint may name: a pyannote segmentation checkpoint
 _TORCH_SUFFIXES = (".bin", ".ckpt", ".pt", ".pth")
@@ -75,12 +76,14 @@ def check_ported(cfg) -> None:
     yet, and for model weights it does not read: an .onnx value of a family
     flag, of --model / --spk-embed-model or --silero-vad-model (ONNX import,
     ROADMAP slice 15), a directory of a family flag other than
-    --sense-voice (slice 15), an orbax directory of a checkpoint flag
-    (converted by scripts/orbax_to_torch.py), and an --osd-checkpoint other
-    than a torch file (OSD params of cli/distill_osd, slice 14b). A torch
-    file of --sep-checkpoint (asteroid Conv-TasNet) or --osd-checkpoint
-    (pyannote PyanNet) and a checkpoint directory of the port
-    (``_CHECKPOINT_DIR_FLAGS``) load in ``build_engine``."""
+    --sense-voice (slice 15), and an orbax directory of a checkpoint flag
+    (converted by scripts/orbax_to_torch.py). A torch file of
+    --sep-checkpoint (asteroid Conv-TasNet) or --osd-checkpoint (pyannote
+    PyanNet) and a checkpoint directory of the port
+    (``_CHECKPOINT_DIR_FLAGS``; for --osd-checkpoint the params directory
+    cli/distill_osd writes) load in ``build_engine``. An --osd-checkpoint
+    that names neither a directory nor a torch file raises
+    FileNotFoundError."""
     for name, default, needs in _NOT_PORTED:
         if getattr(cfg, name, default) != default:
             raise NotImplementedError(
@@ -91,11 +94,10 @@ def check_ported(cfg) -> None:
         if value and is_orbax_dir(value):
             raise NotImplementedError(f"--{name.replace('_', '-')} {value}: {ORBAX_HINT}")
     osd = getattr(cfg, "osd_checkpoint", "") or ""
-    if osd and not osd.endswith(_TORCH_SUFFIXES):
-        raise NotImplementedError(
-            f"--osd-checkpoint {osd}: OSD params of cli/distill_osd (ROADMAP slice 14b) are "
-            "not ported to audio_classification_tpu_torch yet; a pyannote PyanNet torch file "
-            f"({'/'.join(_TORCH_SUFFIXES)}) loads")
+    if osd and not osd.endswith(_TORCH_SUFFIXES) and not Path(osd).is_dir():
+        raise FileNotFoundError(
+            f"--osd-checkpoint {osd}: neither a params directory of cli/distill_osd nor a "
+            f"pyannote PyanNet torch file ({'/'.join(_TORCH_SUFFIXES)})")
     for name in _MODEL_FILE_FLAGS:
         value = getattr(cfg, name, "") or ""
         if value.endswith(".onnx") or (value and Path(value).is_dir()
@@ -202,11 +204,13 @@ def build_engine(cfg, device=None) -> StageEngine:
     checkpoint directories (``load_checkpoint_dirs``: what the training
     CLIs export, a whole model pack, or scripts/orbax_to_torch.py wrote),
     ``sep_checkpoint`` (a directory, or an asteroid Conv-TasNet torch file,
-    into the 3-source separator) and ``osd_checkpoint`` (a pyannote segmentation
-    torch file: PyanNet serves OSD, and any of ``osd_onset`` /
+    into the 3-source separator) and ``osd_checkpoint``: a params directory
+    of cli/distill_osd into the OSD stage (held to the preset's OSDNet, as
+    the JAX runner loads it into the "osd" stage), or a pyannote
+    segmentation torch file: PyanNet serves OSD, and any of ``osd_onset`` /
     ``osd_offset`` / ``osd_min_on`` / ``osd_min_off`` >= 0 switches its
     segments to pyannote's hysteresis, the others at BinarizeConfig's
-    defaults; without a PyanNet they have no effect, as in JAX).
+    defaults; without a PyanNet they have no effect, as in JAX.
 
     ``compute_dtype`` ("float32" or "bfloat16") goes to the StageEngine, as
     the JAX runner passes it (pipelines/offline_overlap3.py:320-322)."""
@@ -246,7 +250,10 @@ def build_engine(cfg, device=None) -> StageEngine:
     if sep_ckpt and not Path(sep_ckpt).is_dir():
         pack.load_params("sep3", load_convtasnet_torch(sep_ckpt, preset.sep3))
     osd_ckpt = getattr(cfg, "osd_checkpoint", "")
-    if osd_ckpt:
+    if osd_ckpt and Path(osd_ckpt).is_dir():
+        _load_stage_dir(pack, "osd", osd_ckpt, "--osd-checkpoint",
+                        "was it distilled with another --preset?")
+    elif osd_ckpt:
         pn_cfg, pn_sd = load_pyannet_torch(osd_ckpt)
         hyst = {field: float(getattr(cfg, f"osd_{flag}", -1.0))
                 for field, flag in (("onset", "onset"), ("offset", "offset"),

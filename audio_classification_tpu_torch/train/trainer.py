@@ -138,6 +138,25 @@ def flax_init_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     return module
 
 
+def embedder_with_head(cfg, n_spk: int):
+    """The embedder (submodule ``embedder``) and the trainable AAM class
+    centres ``aam_centers`` [n_spk, embed_dim] in one module; forward(feats)
+    -> (embeddings, centres). cli/train_speaker and the quality gate's
+    speaker stage train it (flax_init_ draws the centres)."""
+    from ..models.speaker import SpeakerEmbedder
+
+    class EmbedderWithHead(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embedder = SpeakerEmbedder(cfg)
+            self.aam_centers = torch.nn.Parameter(torch.empty(n_spk, cfg.embed_dim))
+
+        def forward(self, feats):
+            return self.embedder(feats), self.aam_centers
+
+    return EmbedderWithHead()
+
+
 def _to_device(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)

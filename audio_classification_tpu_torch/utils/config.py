@@ -39,8 +39,8 @@ class Overlap3Config:
     sep_backend: str = "convtasnet"
     sep_checkpoint: str = ""
     # OSD
-    osd_checkpoint: str = ""          # orbax OSD params (cli/distill_osd) or
-                                      # pyannote torch ckpt (.bin/.ckpt/.pt)
+    osd_checkpoint: str = ""          # params dir of cli/distill_osd or
+                                      # pyannote torch ckpt (.bin/.ckpt/.pt/.pth)
     # pyannote Binarize hysteresis for the PyanNet OSD path (negative =
     # unset; any field >= 0 enables hysteresis, unset fields use pyannote
     # defaults onset/offset 0.5, durations 0.0)

@@ -72,6 +72,15 @@ points at the full preset, reading every kernel's launch count around each:
   card against the CPU, and the exports served by the flagship CLI
   (--sep-checkpoint, --spk-embed-model) and Separator(checkpoint=).
 
+- slice 14b: the quality-gate CLI at --steps-scale 0.05 (all four stages
+  trained on the synthetic world, then the flagship with real SV gating on
+  2 held-out scenes: K1, and K2 at the world's widths C 64 / H 128), its
+  artifact's keys those of the JAX package's QUALITY_r05.json; distill_osd
+  at the full preset on 4 s synthetic crops, then with a pyannote teacher at
+  the published widths (K1), its output loaded through --osd-checkpoint
+  into build_engine and the flagship CLI; and the native host codecs (the
+  C++ WAV codec and ring buffer against their numpy versions, host only).
+
 The bf16 entry points are held to their bf16 twins and to the twins run in
 float64 (the same rounding points) at the float phases' shapes, timed by
 graph replay beside the float32 entry points (K3 / K5 bf16 beside SDPA at
@@ -80,7 +89,9 @@ to the same bf16 engine on the CPU: the flagship's stages, each other
 family's recognizer (encoder outputs and token ids, greedy and beam),
 PyanNet and SenseVoice over a mesh of 4.
 
-K3 and K5 are also held to their float64 twin at the head dims beside 64
+K2 is also held to its twin and its float64 twin at the quality gate's
+world widths (8 blocks, C 64, H 128, B 4 ragged). K3 and K5 are also held
+to their float64 twin at the head dims beside 64
 (Paraformer's 80 at its main shapes, 128, and 40, which the wrapper pads;
 192 and 256 on the wide body, and 200, which it pads to 256), each family's
 recognizer on the card to the same weights on the CPU, and PyanNet at its
@@ -391,7 +402,39 @@ def check_tcn(torch, np) -> dict:
         case, _ = _tcn_case(torch, tcn, st, x, f_len, 8, iters)
         log({"phase": "kernel", "name": "tcn_masker", **case})
         cases.append(case)
+    cases.append(_check_tcn_world(torch, tcn, gen))
     return {**cases[0], "max_abs_err": max(c_["max_abs_err"] for c_ in cases), "cases": cases}
+
+
+def _check_tcn_world(torch, tcn, gen) -> dict:
+    """K2 at the quality gate's world separator (pipelines/quality_gate
+    .world_configs: 8 blocks of C 64 / H 128, 4 a repeat): 4 rows of the 4 s
+    bucket (F = 7999) with a ragged f_len, the shape of the gate's
+    calibration and scene segments. Held to the float32 twin (_tcn_case) and
+    to the twin run in float64, both within 1e-3 of max|ref| on valid rows."""
+    from audio_classification_tpu_torch.engine.runtime import ModelPack
+    from audio_classification_tpu_torch.pipelines.quality_gate import world_configs
+
+    dev = torch.device("cuda")
+    preset, tokens = world_configs()
+    cfg = preset.sep3
+    model = ModelPack(preset, seed=0, tokens=tokens, device=dev).models["sep3"]
+    st = tcn.stack_tcn_params(model.tcn_blocks())
+    f = (4 * SR - cfg.enc_kernel) // cfg.stride + 1
+    x = torch.randn((4, f, cfg.bottleneck), generator=gen).to(dev)
+    f_len = torch.tensor([f, 5999, 3999, 2373], dtype=torch.int32, device=dev)
+    case, out = _tcn_case(torch, tcn, st, x, f_len, cfg.n_blocks, 20)
+    st64 = {k: v.double() if v.is_floating_point() else v for k, v in st.items()}
+    ref64 = tcn.tcn_masker_reference(x.double(), f_len, st64, n_per_repeat=cfg.n_blocks)
+    valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
+    err64 = ((out.double() - ref64).abs() * valid).max().item()
+    case.update({"world": "quality gate", "blocks": int(st["w_in"].shape[0]),
+                 "C": cfg.bottleneck, "H": cfg.hidden, "max_abs_err_f64": err64,
+                 "rel_err_f64": err64 / (ref64.abs() * valid).max().item()})
+    log({"phase": "kernel", "name": "tcn_masker", **case})
+    assert (case["blocks"], case["C"], case["H"]) == (8, 64, 128), case
+    assert math.isfinite(err64) and case["rel_err_f64"] <= 1e-3, case
+    return case
 
 
 def check_tcn_s8(torch, np) -> dict:
@@ -2580,6 +2623,145 @@ def run_train_paths(torch, np, counters: dict) -> dict:
     return total
 
 
+def _quiet(fn):
+    """Run fn with its standard output kept -> (result, the text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def run_quality_paths(torch, np, counters: dict) -> dict:
+    """Slice 14b on the card, each entry point with its launch counts:
+    the quality-gate CLI at --steps-scale 0.05 (all four stages trained,
+    the flagship run on 2 held-out scenes with real SV gating: K1 in every
+    stage's batches and the pipeline, K2 in the SV calibration's and the
+    scenes' overlap path at the world's widths); distill_osd at the full
+    preset on synthetic scenes and with a pyannote teacher written at the
+    published widths, its output loaded by --osd-checkpoint into
+    build_engine and the flagship CLI; then the native host codecs, on the
+    host only -> total launches per kernel."""
+    import re
+
+    from audio_classification_tpu_torch.audio_io import read_wav, write_wav
+    from audio_classification_tpu_torch.cli import distill_osd, quality_gate
+    from audio_classification_tpu_torch.cli.offline_overlap_3src import main as overlap3_main
+    from audio_classification_tpu_torch.pipelines.offline_overlap3 import build_engine
+    from audio_classification_tpu_torch.train.checkpoint import load_params
+    from audio_classification_tpu_torch.utils.config import Overlap3Config
+
+    work = ROOT / "build" / "chip_smoke" / "gate"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    total = {k: 0 for k in counters}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    lowp = ("tcn_masker_s8", "tcn_masker_bf16", "tcn_masker_s8_bf16", "gau_attention",
+            "gau_attention_bf16", "flash_attention_bf16", "flash_attention_stats_bf16")
+    # ---- the quality gate: the CLI a user runs, at 5 % of the step budget
+    out = work / "QUALITY_smoke.json"
+    (artifact, text), launches = _counted(
+        torch, counters, ("fbank_power_mel", "tcn_masker"), "quality_gate --steps-scale 0.05",
+        lambda: _quiet(lambda: quality_gate.main(
+            ["--out", str(out), "--steps-scale", "0.05", "--scenes", "2", "--no-gate-exit",
+             "--ckpt-dir", str(work / "world_pack")])), lowp)
+    add(launches)
+    walls = {k: float(v) for k, v in re.findall(r"^  (\w+) wall ([\d.]+) s$", text, re.M)}
+    on_disk = json.loads(out.read_text())
+    want_keys = list(json.loads((ROOT / "QUALITY_r05.json").read_text()))
+    losses = {k: on_disk[k] for k in ("sep_final_loss", "osd_final_loss", "spk_final_loss",
+                                      "asr_final_loss")}
+    log({"phase": "quality_gate", "stage_wall_sec": walls, "losses": losses,
+         **{k: on_disk[k] for k in ("backend", "device", "quality_ok",
+                                    "target_hit_rate_segments", "cer_mean", "cer_clean_mean",
+                                    "cer_oracle_sep_mean", "sep_sisdri_mean",
+                                    "sv_threshold_calibrated", "segments_total",
+                                    "train_wall_sec", "pipeline_wall_sec",
+                                    "pipeline_wall_cold_sec")},
+         "launches": launches})
+    assert list(on_disk) == want_keys, (list(on_disk), want_keys)
+    assert on_disk["backend"] == "cuda" and on_disk["device"] == torch.cuda.get_device_name(0)
+    assert sorted(walls) == ["asr", "osd", "sep", "spk"], walls
+    assert all(math.isfinite(v) for v in losses.values()), losses
+    assert artifact["quality_ok"] == on_disk["quality_ok"]
+
+    # ---- distill_osd: the full preset's OSDNet on 4 s crops, energy labels,
+    # then the pyannote teacher (PyanNet at the published widths) on the card
+    write_pyannote_checkpoint(torch, np, work / "segmentation.ckpt", seed=31)
+    base = ["--synthetic", "--preset", "full", "--steps", "20", "--batch", "8", "--dur", "4",
+            "--f1-target", "0.0", "--seed", "0"]
+    for name, extra in (("distill_osd", []),
+                        ("distill_osd --teacher-ckpt",
+                         ["--teacher-ckpt", str(work / "segmentation.ckpt")])):
+        dst = work / ("osd_teacher" if extra else "osd_energy")
+        (m, text), launches = _counted(
+            torch, counters, ("fbank_power_mel",), name,
+            lambda: _quiet(lambda: distill_osd.main([*base, *extra, "--out", str(dst)])),
+            lowp + ("tcn_masker",))
+        add(launches)
+        bce = [float(x) for x in re.findall(r"frame BCE ([\d.]+)", text)]
+        run = json.loads((dst / "run.json").read_text())
+        log({"phase": "distill_osd", "path": name, "bce": bce, "f1": m["f1"],
+             "precision": m["precision"], "recall": m["recall"], "device": run["device"],
+             "launches": launches})
+        assert bce and all(math.isfinite(x) for x in bce), bce
+        assert run["cuda_device_name"] == torch.cuda.get_device_name(0)
+
+    # its output through --osd-checkpoint: into build_engine on the card, then
+    # one offline_overlap_3src scene
+    engine = build_engine(Overlap3Config(seed=0, osd_checkpoint=str(work / "osd_teacher")))
+    saved = load_params(work / "osd_teacher")
+    for k, v in engine.pack.models["osd"].state_dict().items():
+        assert torch.equal(v.cpu(), saved[k]), k
+    src = talkers(6 * SR, 7)
+    mix = sum(src) / 3.0
+    write_wav(work / "mix.wav", 0.6 * mix / np.abs(mix).max(), SR)
+    write_wav(work / "target.wav", 0.6 * src[0][: 3 * SR] / np.abs(src[0]).max(), SR)
+    (out_dir, result), launches = _counted(
+        torch, counters, ("fbank_power_mel",), "overlap3 --osd-checkpoint distill_osd",
+        lambda: overlap3_main(["--input-wavs", str(work / "mix.wav"), "--target-wav",
+                               str(work / "target.wav"), "--preset", "full", "--seed", "0",
+                               "--sv-threshold", "-1", "--osd-checkpoint",
+                               str(work / "osd_teacher"), "--out-dir", str(work / "out")]),
+        lowp)
+    add(launches)
+    log({"phase": "pipeline", "path": "overlap3 --osd-checkpoint distill_osd",
+         "segments_total": result.metrics["segments_total"],
+         "segments_overlap_streams": result.metrics["segments_overlap_streams"],
+         "segments_clean": result.metrics["segments_clean"]})
+    assert result.metrics["segments_total"] > 0 and (out_dir / "summary.json").is_file()
+
+    # ---- the native host codecs (host only): both paths, equal bytes
+    from audio_classification_tpu_torch.audio_io.stream_buffer import NumpyRingBuffer, RingBuffer
+    from audio_classification_tpu_torch.audio_io.wav import read_wav_numpy, write_wav_numpy
+
+    x = np.stack(talkers(10 * SR, 8)[:2]) * 0.4
+    t0 = time.perf_counter()
+    write_wav(work / "native.wav", x, SR)
+    back, sr = read_wav(work / "native.wav")
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    write_wav_numpy(work / "numpy.wav", x, SR)
+    back_np, _ = read_wav_numpy(work / "numpy.wav")
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    same_bytes = (work / "native.wav").read_bytes() == (work / "numpy.wav").read_bytes()
+    rings = [RingBuffer(4000), NumpyRingBuffer(4000)]
+    outs = [[r.push(x[0][i: i + 3000]) for i in range(0, 12000, 3000)]
+            + [float(r.pop(2500).sum()), r.size, r.dropped] for r in rings]
+    log({"phase": "native_codecs", "shape": list(x.shape), "bytes_equal": same_bytes,
+         "samples_equal": bool(np.array_equal(back, back_np)), "ring": outs[0],
+         "native_write_read_ms": native_ms, "numpy_write_read_ms": numpy_ms})
+    assert same_bytes and sr == SR and np.array_equal(back, back_np), "native codec"
+    assert outs[0] == outs[1], outs
+    return total
+
+
 def _pit(model, b):
     """cli/train_separator's loss: PIT SI-SDR of the separated mixture."""
     from audio_classification_tpu_torch.train.losses import pit_si_sdr_loss
@@ -2679,6 +2861,10 @@ def main() -> int:
     torch.set_grad_enabled(True)
     check_train_grads(torch, np)
     for k, n in run_train_paths(torch, np, counters).items():
+        launches[k] += n
+    # slice 14b: the quality gate, distill_osd and --osd-checkpoint DIR, and
+    # the native host codecs
+    for k, n in run_quality_paths(torch, np, counters).items():
         launches[k] += n
     for k, n in launches.items():
         assert n > 0, f"kernel {k} was not launched on any path"

@@ -12,9 +12,10 @@ script runs where the JAX package is installed (JAX on the CPU is enough):
 - a model pack (train/checkpoint.save_model_pack: {stage: variables}) becomes
   a model-pack directory of the port, which ``--checkpoint-dir`` loads;
 - a params-only export (cli/train_separator, train_asr, train_speaker
-  ``--export``: one stage's {"params": ...(, "batch_stats": ...)}) becomes a
-  params directory, which ``--sep-checkpoint`` / ``Separator(checkpoint=)``,
-  ``--sense-voice`` and ``--spk-embed-model`` load;
+  ``--export``, and cli/distill_osd ``--out``: one stage's {"params":
+  ...(, "batch_stats": ...)}) becomes a params directory, which
+  ``--sep-checkpoint`` / ``Separator(checkpoint=)``, ``--sense-voice``,
+  ``--spk-embed-model`` and ``--osd-checkpoint`` load;
 - the leaves map through audio_classification_tpu_torch/convert/from_jax.py
   (``params_to_state_dicts`` / ``variables_to_state_dict``).
 

@@ -222,12 +222,16 @@ def test_build_engine_opens_every_flag(tmp_path):
 
 @pytest.mark.parametrize("flag", ["sep_checkpoint", "osd_checkpoint"])
 def test_orbax_checkpoints_still_raise(tmp_path, flag):
-    """An orbax directory (and, for --osd-checkpoint, any value that names
-    no torch file) raises NotImplementedError naming slice 14."""
+    """An orbax directory raises NotImplementedError naming slice 14 and the
+    converter; an --osd-checkpoint that names neither a directory (the
+    params cli/distill_osd writes load since it is ported) nor a torch file
+    raises FileNotFoundError."""
     (tmp_path / "_CHECKPOINT_METADATA").write_text("{}")  # what orbax writes
-    for value in ([str(tmp_path)] + (["osd_params"] if flag == "osd_checkpoint" else [])):
-        with pytest.raises(NotImplementedError, match="slice 14"):
-            build_engine(Overlap3Config(**_cfg(tmp_path), provider="cpu", **{flag: value}))
+    with pytest.raises(NotImplementedError, match="orbax_to_torch.*slice 14"):
+        build_engine(Overlap3Config(**_cfg(tmp_path), provider="cpu", **{flag: str(tmp_path)}))
+    if flag == "osd_checkpoint":
+        with pytest.raises(FileNotFoundError, match="distill_osd"):
+            build_engine(Overlap3Config(**_cfg(tmp_path), provider="cpu", **{flag: "osd_params"}))
 
 
 def _shared_engines(tmp_path, binarize=None, cmvn=None):

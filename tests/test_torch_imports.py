@@ -39,6 +39,18 @@ def test_walks_the_training_slice():
     assert all(p in FILES for p in want)
 
 
+def test_walks_the_quality_gate_slice():
+    """The quality gate, distill_osd, the native codecs' loaders and their
+    build are among the files held; the C++ sources are the port's own."""
+    port = REPO / "audio_classification_tpu_torch"
+    want = [port / "pipelines" / "quality_gate.py", port / "cli" / "quality_gate.py",
+            port / "cli" / "distill_osd.py", port / "audio_io" / "wav.py",
+            port / "audio_io" / "stream_buffer.py", port / "_build.py"]
+    assert all(p in FILES for p in want)
+    for name in ("wavcodec", "ringbuffer"):
+        assert (port / "native" / f"{name}.cpp").is_file()
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import_and_no_path_into_the_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -111,7 +111,7 @@ def test_cli_main_file_mode_writes_artifacts(wavs, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--paraformer", "model.onnx"], ["--osd-checkpoint", "osd_params"], ["--model-parallel", "2"],
+    ["--paraformer", "model.onnx"], ["--osd-checkpoint", "ORBAX_DIR"], ["--model-parallel", "2"],
     ["--data-parallel", "2"], ["--arena-codec", "mulaw"],
     ["--sense-voice", "model.onnx"], ["--encoder", "enc.onnx"],
     ["--checkpoint-dir", "ORBAX_DIR"],

@@ -223,7 +223,7 @@ def test_streaming_app_max_seconds_and_8k_input(target_wav, tmp_path):
     ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
     ["--checkpoint-dir", "ORBAX_DIR"],
     ["--sense-voice", "model.onnx"], ["--paraformer", "model.onnx"],
-    ["--spk-embed-model", "spk.onnx"], ["--osd-checkpoint", "osd_params"],
+    ["--spk-embed-model", "spk.onnx"], ["--osd-checkpoint", "ORBAX_DIR"],
 ])
 def test_streaming_app_unported_flags_raise(target_wav, tmp_path, flags):
     # a directory an orbax checkpointer wrote (the port's own loads)
