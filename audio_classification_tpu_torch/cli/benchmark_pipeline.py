@@ -5,8 +5,9 @@ scripts/benchmark_pipeline.py:66-547).
 Same flag names and output files (timestamped dir under --out-dir with
 detail.jsonl / predictions.csv / summary.json / summary.txt, optional
 cpu_usage.csv/.png with --plot-cpu). The ASR family comes from
---paraformer / --sense-voice / --encoder (seeded weights; an .onnx file is
-not ported yet and raises). Runs on the GPU unless ``--provider cpu`` is
+--paraformer / --sense-voice / --encoder (seeded weights, or the .onnx files
+these flags and --model name, read by ``--onnx-exec map|direct|auto`` as the
+flagship runner reads them). Runs on the GPU unless ``--provider cpu`` is
 given.
 
     python -m audio_classification_tpu_torch.cli.benchmark_pipeline \
@@ -59,7 +60,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--onnx-exec", default="map", choices=["map", "direct", "auto"],
-                   help="ONNX checkpoints (not ported yet: any other value raises)")
+                   help="ONNX checkpoints: map weights onto our modules, execute the "
+                        "exported graph directly, or try map then fall back to direct")
     p.add_argument("--batch-mode", action="store_true",
                    help="Batch the whole test list through the device (per-"
                         "utterance times become apportioned batch shares)")

@@ -29,8 +29,9 @@ weight conversion. This tool is the recipe:
    (train/checkpoint.save_params) with a run.json manifest, which every
    pipeline loads via ``--osd-checkpoint DIR``.
 
-Runs on the card unless ``--provider cpu``. ``--export-onnx`` raises
-NotImplementedError (ONNX export, ROADMAP slice 15) before any training.
+Runs on the card unless ``--provider cpu``. ``--export-onnx FILE`` also
+writes the distilled head as an ONNX graph (convert/onnx_export: fbank
+feats of a ``--dur`` crop -> per-frame probs).
 The batch stays ``--batch`` (the JAX tool rounds it up to a multiple of its
 device count; the port trains on one device).
 
@@ -47,7 +48,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .train_separator import refuse_onnx
 
 SR = 16000
 
@@ -82,7 +82,8 @@ def parse_args(argv=None):
     p.add_argument("--out", required=True,
                    help="Output params directory (--osd-checkpoint input)")
     p.add_argument("--export-onnx", default="",
-                   help="ONNX export of the distilled OSD head (not ported: ROADMAP slice 15)")
+                   help="Also write the distilled OSD head as an ONNX file (fbank feats of a "
+                        "--dur crop -> probs)")
     p.add_argument("--provider", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -154,7 +155,6 @@ def make_trainer(cfg, lr: float, seed: int, device):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    refuse_onnx(("--export-onnx", args.export_onnx))
 
     import torch
 
@@ -320,6 +320,14 @@ def main(argv=None) -> dict:
     write_run_manifest(args.out, args, {"f1": m["f1"],
                                         "precision": m["precision"],
                                         "recall": m["recall"]})
+    if args.export_onnx:
+        from ..convert.from_jax import state_dict_to_variables
+        from ..convert.onnx_export import export_osdnet
+
+        frames = fb.frames_for(int(dur * SR))
+        export_osdnet(state_dict_to_variables(model), cfg, args.export_onnx, frames=frames)
+        print(f"exported ONNX: {args.export_onnx} "
+              f"(feats [batch,{frames},{cfg.num_mel}] -> probs)")
     if m["f1"] is not None and m["f1"] < args.f1_target:
         print(f"QUALITY BAR FAILED: f1 {m['f1']} < target {args.f1_target}")
         sys.exit(1)

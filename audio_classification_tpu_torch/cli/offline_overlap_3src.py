@@ -68,8 +68,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--decoder", default="")
     p.add_argument("--joiner", default="")
     p.add_argument("--whisper-encoder", default="",
-                   help="Whisper-style ASR family (seeded weights unless an .onnx file, "
-                        "which is not ported yet: raises)")
+                   help="Whisper-style ASR family (seeded weights unless an .onnx file: "
+                        "the encoder graph, with --whisper-decoder's)")
     p.add_argument("--whisper-decoder", default="")
     p.add_argument("--tokens", default="")
     p.add_argument("--cmvn", default="", help="kaldi am.mvn CMVN stats for the ASR frontend")
@@ -82,7 +82,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--provider", default="cuda",
                    help="Device: cuda (raises when no GPU is found) or cpu")
     # Target speaker
-    p.add_argument("--spk-embed-model", default="", help="Speaker embedder weights: a directory of cli/train_speaker --export")
+    p.add_argument("--spk-embed-model", default="", help="Speaker embedder weights: a directory of cli/train_speaker --export, or an .onnx graph (--onnx-exec)")
     p.add_argument("--sv-threshold", type=float, default=0.6, help="Cosine similarity threshold (0~1)")
     # Overlap handling
     p.add_argument("--min-overlap-dur", type=float, default=0.4)

@@ -12,10 +12,12 @@ score) and report.txt with the same lines.
 
 The reference registers five recognizer families (paraformer, sense_voice,
 transducer, wenet_ctc, whisper — :278-359); the one-of selection is
-validated the same way and each flag selects the engine's family with
-seeded weights (wenet_ctc shares the CTC decode path). Model files (.onnx,
-including --silero-vad-model) are not ported yet and raise. Runs on the GPU
-unless ``--provider cpu`` is given.
+validated the same way and each flag selects the engine's family, with
+seeded weights or the .onnx files it names (``build_engine``: graph-aware
+mapping; --wenet-ctc serves its graph directly and shares the CTC decode
+path). An .onnx --silero-vad-model maps onto the VAD stage
+(convert/onnx_graph_map), as the JAX CLI loads it. Runs on the GPU unless
+``--provider cpu`` is given.
 
     python -m audio_classification_tpu_torch.cli.speaker_id_vad_asr \
         --speaker-file enroll.txt --test-list test.txt --paraformer seeded --apply-vad
@@ -169,8 +171,13 @@ def main(argv=None):
     # VAD configured exactly as the reference does; by default it is NOT fed
     # (reference parity — the reference's offline loop never applies it),
     # --apply-vad makes it a working front gate.
-    # (an .onnx --silero-vad-model raised in build_engine: not ported yet)
     vad = VoiceActivityDetector(VADConfig(min_silence_duration=0.25, min_speech_duration=0.25))
+    if args.silero_vad_model.endswith(".onnx"):
+        from ..convert.onnx_graph_map import import_onnx_state_dict
+
+        engine.pack.load_params(
+            "vad", import_onnx_state_dict(args.silero_vad_model, "vad", engine.pack.preset.vad))
+        print(f"loaded VAD weights from {args.silero_vad_model}")
 
     test_list_path = Path(args.test_list)
     assert test_list_path.is_file(), f"{test_list_path} not found"

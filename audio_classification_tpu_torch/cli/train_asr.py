@@ -15,8 +15,11 @@ audio_classification_tpu/cli/train_asr.py).
   ``--tokens``, the dims the serving preset's).
 
 The gate: CER before and after through the pipelines' greedy CTC decode and
-token table. ``--init-onnx`` and ``--export-onnx`` raise (ONNX import and
-export, ROADMAP slice 15), as do several cards (slice 16).
+token table. ``--init-onnx FILE`` fine-tunes the weights of a SenseVoice
+ONNX graph mapped onto the ``--preset``'s asr dims (convert/onnx_graph_map);
+``--export-onnx FILE`` writes the trained encoder as an ONNX graph
+(``--export-quant int8`` the dynamic-int8 form; the frames of the
+``--max-seconds`` batch are baked in). Several cards raise (slice 16).
 
     python -m audio_classification_tpu_torch.cli.train_asr --synthetic --steps 400 \\
         --export asr_dir [--provider cpu]
@@ -30,7 +33,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .train_separator import check_parallel, refuse_onnx
+from .train_separator import check_parallel
 
 SR = 16000
 _ALPHABET = "abcdefgh"
@@ -65,7 +68,9 @@ def parse_args(argv=None):
     m.add_argument("--conv-kernel", type=int, default=7,
                    help="Depthwise conv kernel (match the serving preset's asr config when "
                         "exporting: full=11, tiny=3)")
-    m.add_argument("--init-onnx", default="", help="ONNX import (not ported: slice 15)")
+    m.add_argument("--init-onnx", default="",
+                   help="Fine-tune from a SenseVoice .onnx graph (mapped onto the --preset's "
+                        "asr dims; --dim / --heads / --layers are then ignored)")
     m.add_argument("--cmvn", default="",
                    help="Kaldi am.mvn stats applied in the frontend (match serving's --cmvn)")
     m.add_argument("--preset", default="full", choices=["full", "tiny"],
@@ -84,7 +89,9 @@ def parse_args(argv=None):
     c.add_argument("--resume", action="store_true")
     c.add_argument("--export", default="",
                    help="Write the trained weights (serves via --sense-voice <dir>)")
-    c.add_argument("--export-onnx", default="", help="ONNX export (not ported: slice 15)")
+    c.add_argument("--export-onnx", default="",
+                   help="Also write the trained encoder as an ONNX file (feats + language "
+                        "-> logits)")
     c.add_argument("--export-quant", default="none", choices=["none", "int8"],
                    help="Quantisation of --export-onnx")
     return p.parse_args(argv)
@@ -165,7 +172,6 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.synthetic and not args.manifest:
         raise SystemExit("pick a data source: --manifest FILE or --synthetic")
-    refuse_onnx(("--init-onnx", args.init_onnx), ("--export-onnx", args.export_onnx))
     n_shards = check_parallel(args, "--seq-parallel", args.seq_parallel)
 
     import torch
@@ -202,9 +208,20 @@ def main(argv=None):
         sampler = ManifestSampler(items, tokens, t_max, rng)
         val_sampler = ManifestSampler(val_items, tokens, t_max, np.random.default_rng(123))
 
-    cfg = SenseVoiceConfig(vocab_size=tokens.vocab_size, dim=args.dim, heads=args.heads,
-                           layers=args.layers, conv_kernel=args.conv_kernel)
-    model = flax_init_(SenseVoiceEncoder(cfg), args.seed).to(device)
+    if args.init_onnx:
+        from ..convert.onnx_graph_map import import_onnx_state_dict
+        from ..engine.runtime import EnginePreset, tiny_preset
+
+        base = tiny_preset() if args.preset == "tiny" else EnginePreset()
+        cfg = dataclasses.replace(base.asr, vocab_size=tokens.vocab_size)
+        model = SenseVoiceEncoder(cfg)
+        model.load_state_dict(import_onnx_state_dict(args.init_onnx, "sensevoice", cfg))
+        model = model.to(device)
+        print(f"[train_asr] fine-tuning mapped weights from {args.init_onnx}")
+    else:
+        cfg = SenseVoiceConfig(vocab_size=tokens.vocab_size, dim=args.dim, heads=args.heads,
+                               layers=args.layers, conv_kernel=args.conv_kernel)
+        model = flax_init_(SenseVoiceEncoder(cfg), args.seed).to(device)
 
     cmvn_mean = cmvn_istd = None
     if args.cmvn:
@@ -265,6 +282,20 @@ def main(argv=None):
         save_params(model, args.export, config=dataclasses.asdict(cfg))
         print(f"[train_asr] exported serving params -> {args.export} "
               f"(use --sense-voice {args.export}; vocab must match --tokens)")
+    if args.export_onnx:
+        from ..convert.from_jax import state_dict_to_variables
+        from ..convert.onnx_export import export_sensevoice
+
+        t_len = sampler.t_max  # every batch is padded to it
+        with torch.no_grad():
+            frames = int(frontend(torch.zeros((1, t_len), device=device),
+                                  torch.full((1,), t_len, device=device))[0].shape[1])
+        export_sensevoice(state_dict_to_variables(model), cfg, args.export_onnx,
+                          frames=frames, quant=args.export_quant)
+        q = f", {args.export_quant}" if args.export_quant != "none" else ""
+        print(f"[train_asr] exported ONNX -> {args.export_onnx} "
+              f"(feats [batch,{frames},{cfg.lfr_m * cfg.num_mel}] + "
+              f"language [1] -> logits{q})")
     for d in filter(None, {args.ckpt_dir, args.export}):
         write_run_manifest(d, args, {"cer_before": c0, "cer_after": c1, "losses": losses})
     return c0, c1

@@ -15,8 +15,9 @@
   ``Separator(checkpoint=DIR)`` load.
 
 The gate line at the end is the held-out SI-SDRi through the pipelines' PIT
-metric (metrics/sisdr), printed as the JAX CLI prints it. ``--export-onnx``
-raises (ONNX export, ROADMAP slice 15); ``--model-parallel`` > 1,
+metric (metrics/sisdr), printed as the JAX CLI prints it. ``--export-onnx
+FILE`` writes the trained separator as an ONNX graph (convert/onnx_export:
+mix [batch, T] -> est, T baked from ``--seconds``); ``--model-parallel`` > 1,
 ``--slices`` > 1 and ``--data-parallel`` > 1 without ``--time-shard`` raise
 (several cards, slice 16).
 
@@ -84,7 +85,9 @@ def parse_args(argv=None):
     c.add_argument("--export", default="",
                    help="Write the trained weights (loads via --sep-checkpoint / "
                         "Separator(checkpoint=...))")
-    c.add_argument("--export-onnx", default="", help="ONNX export (not ported: slice 15)")
+    c.add_argument("--export-onnx", default="",
+                   help="Also write the trained separator as an ONNX file (mix [batch, T] "
+                        "-> est, T = --seconds; Conv-TasNet or MossFormer by --arch)")
     return p.parse_args(argv)
 
 
@@ -105,15 +108,6 @@ def check_parallel(args, shard_flag: str = "", shards_on: bool = False) -> int:
             "audio_classification_tpu_torch yet (ROADMAP slice 16)"
             + (f"; with {shard_flag} it gives {n} shards on the one card" if shard_flag else ""))
     return n
-
-
-def refuse_onnx(*flags) -> None:
-    """ONNX import and export wait for ROADMAP slice 15."""
-    for flag, value in flags:
-        if value:
-            raise NotImplementedError(
-                f"{flag} {value}: ONNX import / export is not ported to "
-                "audio_classification_tpu_torch yet (ROADMAP slice 15)")
 
 
 def synthetic_batch(rng, b, n_src, t, sr):
@@ -195,7 +189,6 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.synthetic and not args.librimix_root:
         raise SystemExit("pick a data source: --librimix-root DIR or --synthetic")
-    refuse_onnx(("--export-onnx", args.export_onnx))
     n_shards = check_parallel(args, "--time-shard", args.time_shard)
 
     import torch
@@ -273,6 +266,15 @@ def main(argv=None):
         save_params(trainer.model, args.export, config=dataclasses.asdict(cfg), arch=args.arch)
         print(f"[train_separator] exported serving params -> {args.export} "
               f"(use --sep-checkpoint {args.export})")
+    if args.export_onnx:
+        from ..convert.from_jax import state_dict_to_variables
+        from ..convert.onnx_export import export_convtasnet, export_mossformer
+
+        exporter = export_mossformer if args.arch == "mossformer" else export_convtasnet
+        exporter(state_dict_to_variables(trainer.model), cfg, args.export_onnx,
+                 seconds=args.seconds)
+        print(f"[train_separator] exported ONNX -> {args.export_onnx} "
+              f"(mix [batch,{t}] -> est [batch,{args.n_src},{t}])")
     for d in filter(None, {args.ckpt_dir, args.export}):
         write_run_manifest(d, args, {"si_sdri_before": before, "si_sdri_after": after,
                                      "losses": losses})

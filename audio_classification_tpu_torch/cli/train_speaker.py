@@ -13,7 +13,9 @@ The gate: held-out identification accuracy through SpeakerBank's cosine
 search, with same / different-speaker cosine means and the EER, before and
 after. The embedder's BatchNorm layers run on their initial statistics (the
 module stays in ``eval()``), so they act as learnable affines, as in the JAX
-CLI. ``--export-onnx`` raises (slice 15), as do several cards (slice 16).
+CLI. ``--export-onnx FILE`` writes the embedder as an ONNX graph (fbank
+feats [batch, frames] -> emb, frames of the ``--max-seconds`` crop);
+several cards raise (slice 16).
 
     python -m audio_classification_tpu_torch.cli.train_speaker --synthetic \\
         --steps 300 --export spk_dir [--provider cpu]
@@ -28,7 +30,7 @@ from pathlib import Path
 import numpy as np
 
 from ..train.trainer import embedder_with_head
-from .train_separator import check_parallel, refuse_onnx
+from .train_separator import check_parallel
 
 SR = 16000
 
@@ -69,7 +71,8 @@ def parse_args(argv=None):
     c.add_argument("--resume", action="store_true")
     c.add_argument("--export", default="",
                    help="Write the embedder's weights (serves via --spk-embed-model <dir>)")
-    c.add_argument("--export-onnx", default="", help="ONNX export (not ported: slice 15)")
+    c.add_argument("--export-onnx", default="",
+                   help="Also write the embedder as an ONNX file (fbank feats -> emb)")
     return p.parse_args(argv)
 
 
@@ -135,7 +138,6 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.synthetic and not args.manifest:
         raise SystemExit("pick a data source: --manifest FILE or --synthetic")
-    refuse_onnx(("--export-onnx", args.export_onnx))
     check_parallel(args)
 
     import torch
@@ -256,6 +258,15 @@ def main(argv=None):
         save_params(model.embedder, args.export, config=dataclasses.asdict(cfg))
         print(f"[train_speaker] exported serving params -> {args.export} "
               f"(use --spk-embed-model {args.export})")
+    if args.export_onnx:
+        from ..convert.from_jax import state_dict_to_variables
+        from ..convert.onnx_export import export_speaker
+
+        frames = fb.frames_for(t_max)  # the training crop's fbank frames
+        export_speaker(state_dict_to_variables(model.embedder), cfg, args.export_onnx,
+                       frames=frames)
+        print(f"[train_speaker] exported ONNX -> {args.export_onnx} "
+              f"(feats [batch,{frames},{fb.num_bins}] -> emb)")
     for d in filter(None, {args.ckpt_dir, args.export}):
         write_run_manifest(d, args, {"accuracy_before": a0, "accuracy_after": a1,
                                      "eer_after": e1, "losses": losses})

@@ -28,6 +28,14 @@ LSTM direction's w_ih / w_hh / b_ih / b_hh become nn.LSTM's ``weight_ih_l0``
 
 Leaves may be numpy or jax arrays; the converter reads them with
 ``np.asarray`` and needs no jax import of its own.
+
+The inverse, ``state_dict_to_variables`` (``module_variables`` of a module)
+and ``pyannet_state_dict_to_params``, turns the port's weights back into
+those trees of numpy arrays: the layout the ONNX exporters
+(convert/onnx_export) and the graph-aware importer (convert/onnx_graph_map)
+share with the JAX package. A ``weight`` leaf's owner module decides what it
+was: a Linear / Conv1d / Conv2d kernel, a LayerNorm / BatchNorm scale, an
+Embedding's embedding.
 """
 from __future__ import annotations
 
@@ -107,3 +115,86 @@ def pyannet_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             for name, a in sub.items():
                 sd[f"{key}.{name}"] = t(a)
     return sd
+
+
+def _kernel_back(a: np.ndarray) -> np.ndarray:
+    """The inverse of ``_param``'s kernel transposes."""
+    if a.ndim == 2:
+        return a.T
+    if a.ndim == 3:
+        return a.transpose(2, 1, 0)
+    return a.transpose(2, 3, 1, 0)
+
+
+def _put(tree: dict, path, leaf: str, a: np.ndarray) -> None:
+    for m in path:
+        tree = tree.setdefault(m, {})
+    tree[leaf] = np.ascontiguousarray(a)
+
+
+def state_dict_to_variables(module: torch.nn.Module, state_dict=None) -> dict:
+    """The port's module (or ``state_dict`` laid out as its own) -> flax
+    variables {"params": ..., ["batch_stats": ...]} of float32 numpy arrays:
+    the inverse of ``variables_to_state_dict``."""
+    from ..models.common import Conv1d
+
+    sd = module.state_dict() if state_dict is None else state_dict
+    owners = dict(module.named_modules())
+    params: dict = {}
+    stats: dict = {}
+    for key, t in sd.items():
+        *mods, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        a = t.detach().float().cpu().numpy()
+        if leaf in ("running_mean", "running_var"):
+            _put(stats, mods, {"running_mean": "mean", "running_var": "var"}[leaf], a)
+            continue
+        if leaf == "weight":
+            owner = owners[".".join(mods)]
+            if isinstance(owner, (torch.nn.Linear, torch.nn.Conv2d, Conv1d)):
+                leaf, a = "kernel", _kernel_back(a)
+            elif isinstance(owner, torch.nn.Embedding):
+                leaf = "embedding"
+            elif isinstance(owner, (torch.nn.LayerNorm, torch.nn.BatchNorm2d)):
+                leaf = "scale"
+            else:
+                raise ValueError(f"{key}: no flax leaf for a weight of {type(owner).__name__}")
+        _put(params, mods, leaf, a)
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def module_variables(models: Mapping[str, torch.nn.Module]) -> Dict[str, dict]:
+    """{stage: module} (e.g. ``ModelPack.models``) -> {stage: variables}."""
+    return {stage: state_dict_to_variables(m) for stage, m in models.items()}
+
+
+_LSTM_BACK = {v: k for k, v in _LSTM_NAMES.items()}
+
+
+def pyannet_state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The port's PyanNet state_dict -> the JAX PyanNet params tree (lists
+    for ``lstm`` and ``linear``), float32 numpy leaves: the inverse of
+    ``pyannet_params_to_state_dict``."""
+    params: dict = {}
+    for key, t in sd.items():
+        a = np.ascontiguousarray(t.detach().float().cpu().numpy())
+        parts = key.split(".")
+        if parts[0] == "lstm":
+            _, i, direction, name = parts
+            layers = params.setdefault("lstm", [])
+            while len(layers) <= int(i):
+                layers.append({})
+            layers[int(i)].setdefault(direction, {})[_LSTM_BACK[name]] = a
+        elif parts[0] == "linear":
+            _, i, name = parts
+            layers = params.setdefault("linear", [])
+            while len(layers) <= int(i):
+                layers.append({})
+            layers[int(i)][name] = a
+        else:
+            params.setdefault(parts[0], {})[parts[1]] = a
+    return params

@@ -185,6 +185,7 @@ class ModelPack:
                 torch.as_tensor(np.asarray(c, np.float32)).to(self.device) for c in cmvn)
         self.osd_pyannet: Optional[PyanNet] = None
         self.osd_binarize: Optional[BinarizeConfig] = None
+        self.onnx_stages: Dict[str, Any] = {}  # stage -> convert/onnx_stage override
         self.tokens = tokens or TokenTable.char_table("abcdefghijklmnopqrstuvwxyz '")
         vocab = max(preset.asr.vocab_size, self.tokens.vocab_size)
         self.asr_cfg = dataclasses.replace(preset.asr, vocab_size=vocab)
@@ -239,6 +240,49 @@ class ModelPack:
         self.osd_pyannet = model.to(self.device).eval()
         self.osd_binarize = binarize
         self.version += 1  # new OSD weights, as the JAX pack's load_params counts them
+
+    def set_onnx_stage(self, name: str, stage: Any) -> None:
+        """Serve stage ``name`` ("spk" | "asr" | "vad") by DIRECT execution
+        of a reference .onnx graph (convert/onnx_stage: OnnxStage, or the
+        transducer triple / whisper pair) instead of the port's own module
+        (reference: src/model.py:79-124 runs these graphs via onnxruntime).
+        The stage carries its weights on its own device, which must be the
+        pack's. Set it before constructing a StageEngine: an engine reads
+        the overrides when it is built (the JAX engine resolves them when it
+        builds its jitted programs)."""
+        if name not in ("spk", "asr", "vad"):
+            raise ValueError(f"direct ONNX execution not supported for stage "
+                             f"'{name}' (supported: spk, asr, vad)")
+        stage_family = getattr(stage, "family", "generic")
+        if name == "asr":
+            if self.asr_family == "transducer":
+                if stage_family != "transducer":
+                    raise ValueError(
+                        "direct transducer execution needs the encoder/"
+                        "decoder/joiner triple (OnnxTransducerStage), not a "
+                        "single-graph OnnxStage")
+            elif self.asr_family == "whisper":
+                if stage_family != "whisper":
+                    raise ValueError(
+                        "direct whisper execution needs the encoder/decoder "
+                        "pair (OnnxWhisperStage), not a single-graph "
+                        "OnnxStage")
+            elif self.asr_family not in ("sensevoice", "paraformer"):
+                raise ValueError(
+                    "direct ONNX ASR execution supports the sensevoice, "
+                    f"paraformer, transducer and whisper families, not "
+                    f"'{self.asr_family}' (use the graph-aware importer)")
+            elif self.asr_family == "paraformer" \
+                    and len(getattr(stage, "outputs", [])) < 2:
+                raise ValueError(
+                    "direct paraformer execution needs the export's (logits, "
+                    "token_num) output pair; construct OnnxStage(n_outputs=2)")
+        dev = getattr(stage, "device", self.device)
+        if torch.device(dev).type != self.device.type:
+            raise ValueError(f"the ONNX stage for '{name}' runs on {dev}, the pack on "
+                             f"{self.device}: build it with device={str(self.device)!r}")
+        self.onnx_stages[name] = stage
+        self.version += 1
 
 
 class WaveArena:
@@ -337,6 +381,11 @@ class StageEngine:
         self.compute_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
         self._cast_models: Dict[str, torch.nn.Module] = {}
         self._cast_version = -1
+        # direct ONNX overrides (ModelPack.set_onnx_stage) are read HERE, as
+        # the JAX engine resolves them when it builds its programs: one set
+        # on the pack later is not seen by this engine
+        self.onnx_stages: Dict[str, Any] = dict(pack.onnx_stages)
+        self._onnx_params: Dict[str, Any] = {}
 
     @property
     def models(self) -> Dict[str, torch.nn.Module]:
@@ -354,6 +403,24 @@ class StageEngine:
                                                                 self.compute_dtype)
             self._cast_version = self.pack.version
         return self._cast_models
+
+    def _stage_params(self, name: str):
+        """A direct ONNX stage's weights as the stage programs read them:
+        its own in float32; in bfloat16 mode a copy with every floating
+        weight rounded to bfloat16 (the JAX engine's exec_params casts the
+        stage's params with the pack's)."""
+        stage = self.onnx_stages[name]
+        if self.compute_dtype == torch.float32:
+            return stage.params
+
+        def cast(tree):
+            if isinstance(tree, dict):
+                return {k: cast(v) for k, v in tree.items()}
+            return tree.to(self.compute_dtype) if tree.is_floating_point() else tree
+
+        if name not in self._onnx_params:
+            self._onnx_params[name] = cast(stage.params)
+        return self._onnx_params[name]
 
     # ------------------------------------------------------ stage programs
     @staticmethod
@@ -392,7 +459,11 @@ class StageEngine:
 
     def _embed_core(self, wav, lengths):
         feats, mask = self._fbank_mask(wav, lengths)
-        emb = self.models["spk"](feats.to(self.compute_dtype), mask).float()
+        spk_exec = self.onnx_stages.get("spk")
+        if spk_exec is not None:
+            emb = spk_exec(self._stage_params("spk"), feats, mask)
+        else:
+            emb = self.models["spk"](feats.to(self.compute_dtype), mask).float()
         return emb / torch.clamp_min(emb.norm(dim=-1, keepdim=True), 1e-12)
 
     def _asr_decode(self, wav, lengths, language_id=0, use_itn=True, mesh=None,
@@ -401,27 +472,50 @@ class StageEngine:
         Paraformer (CIF + parallel argmax), transducer (greedy or modified
         beam search), whisper-style (greedy with a KV cache; ``max_len``
         overrides its decode budget). ``mesh`` runs the SenseVoice and
-        Paraformer encoders sequence-parallel (long form)."""
+        Paraformer encoders sequence-parallel (long form). A direct ONNX
+        stage (``onnx_stages["asr"]``) takes the frontend's features in
+        place of the module, for every family."""
         p, cdt = self.pack, self.compute_dtype
         model = self.models["asr"]
+        asr_exec = self.onnx_stages.get("asr")
+        params = self._stage_params("asr") if asr_exec is not None else None
         if p.asr_family == "paraformer":
             feats, mask = paraformer_frontend(wav, lengths, p.paraformer_cfg, p.cmvn_shift,
                                               p.cmvn_scale)
-            logits, counts = model(feats.to(cdt), mask, mesh=mesh, sp_axis="data")
+            if asr_exec is not None:
+                # funasr / sherpa paraformer exports emit (logits [B,N,V],
+                # token_num [B]): reference src/model.py:69-77
+                logits, counts = asr_exec(params, feats, mask, language_id=language_id,
+                                          use_itn=use_itn)[:2]
+                counts = torch.clamp(torch.round(counts).to(torch.int32), 0, logits.shape[1])
+            else:
+                logits, counts = model(feats.to(cdt), mask, mesh=mesh, sp_axis="data")
             return paraformer_greedy(logits.float(), counts)
         if p.asr_family == "transducer":
             feats, mask = transducer_frontend(wav, lengths, p.transducer_cfg)
-            if p.decoding_method == "modified_beam_search":
+            beam = p.decoding_method == "modified_beam_search"
+            if asr_exec is not None:
+                return asr_exec.decode(params, feats, mask,
+                                       beam=p.num_active_paths if beam else 0)
+            if beam:
                 return model.beam_decode(feats.to(cdt), mask, p.num_active_paths)
             return model.greedy_decode(feats.to(cdt), mask)
         if p.asr_family == "whisper":
             feats, mask = whisper_frontend(wav, lengths, p.whisper_cfg)
+            if asr_exec is not None:
+                return asr_exec.decode(params, feats, mask, max_len)
             return model.greedy_decode(feats.to(cdt), mask, max_len)
         cfg = p.asr_cfg
         feats, mask = sensevoice_frontend(wav, lengths, cfg, p.cmvn_shift, p.cmvn_scale)
-        logits = model(feats.to(cdt), mask, language_id=language_id,
-                       use_itn=use_itn, mesh=mesh, sp_axis="data")
-        return ctc_greedy_decode(logits[:, cfg.num_prompt:].float(), mask, p.tokens.blank_id)
+        if asr_exec is not None:
+            # the export consumes the language / textnorm prompts itself and
+            # emits skip_frames prompt logits, which OnnxStage drops
+            body = asr_exec(params, feats, mask, language_id=language_id, use_itn=use_itn)
+        else:
+            logits = model(feats.to(cdt), mask, language_id=language_id,
+                           use_itn=use_itn, mesh=mesh, sp_axis="data")
+            body = logits[:, cfg.num_prompt:].float()
+        return ctc_greedy_decode(body, mask, p.tokens.blank_id)
 
     def _asr_core(self, wav, lengths, language_id=0, use_itn=True):
         ids, n = self._asr_decode(wav, lengths, language_id, use_itn)
@@ -717,14 +811,15 @@ class StageEngine:
         O(T) either way; that serves all four families
         (``LONG_FORM_SINGLE_CHIP``: the transducer and whisper decode frame
         by frame over the full-context encoding, whisper with a decode
-        budget scaled to the audio). A family that cannot take the mesh
-        falls back to ``transcribe``. Inputs snap to the long bucket grid
+        budget scaled to the audio). A family that cannot take the mesh,
+        and a direct ONNX ASR stage, fall back to ``transcribe``. Inputs snap to the long bucket grid
         (``BucketSpec.long_bucket_for``: the x2 grid extended past the
         segment cap, without the ad-hoc-bucket warning)."""
         wav = np.asarray(wav, np.float32)
         p = self.pack
         capable = self.LONG_FORM_FAMILIES if self.mesh is not None else self.LONG_FORM_SINGLE_CHIP
-        if p.asr_family not in capable:
+        if p.asr_family not in capable or self.onnx_stages.get("asr") is not None:
+            # an exported graph has no mesh switch and bakes its shapes
             return self.transcribe([wav], language, use_itn)[0]
         lang_id = LANGUAGES.index(language) if language in LANGUAGES else 0
         t = self.buckets.long_bucket_for(len(wav))
@@ -823,6 +918,9 @@ class StageEngine:
             # float32 features into the stage's models, as the reference's
             # vad_fn (no cast to the compute dtype)
             feats, mask = self._fbank_mask(self._dq(w), lengths)
+            vad_exec = self.onnx_stages.get("vad")
+            if vad_exec is not None:
+                return vad_exec(self._stage_params("vad"), feats, mask)
             return self.models["vad"](feats, mask).float()
 
         outs = self._run_bucketed(items, vad_fn)

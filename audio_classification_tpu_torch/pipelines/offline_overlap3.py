@@ -11,7 +11,11 @@ metric field names and the gating semantics are the JAX pipeline's
 (reference: overlap3_core.py:174-937); time_* fields are wall-clock around
 each stage's device work.
 
-Options of the JAX runner that this package does not port yet raise
+Model files are read as the JAX runner reads them: an .onnx value of a
+family flag, of --spk-embed-model / --model, maps onto the port's modules
+(``--onnx-exec map``), runs as the graph itself (``direct``) or tries map
+first (``auto``); checkpoint directories of the port and torch files load
+too. Options of the JAX runner that this package does not port yet raise
 NotImplementedError naming the ROADMAP slice that brings them
 (``check_ported``); none is ignored.
 """
@@ -42,9 +46,11 @@ from ..train.checkpoint import (ORBAX_HINT, check_state_dict, is_orbax_dir, load
 from ..utils.config import Overlap3Config
 
 # the flags that name model files: the ASR families' (reference:
-# src/model.py:37-100), the speaker model's and the VAD's. A value that is not
-# an .onnx file or a directory selects the model with seeded weights, as the
-# JAX pipeline does; .onnx files raise in check_ported
+# src/model.py:37-100), the speaker model's and the VAD's. An .onnx file loads
+# (``load_onnx_models``; --silero-vad-model in cli/speaker_id_vad_asr), a
+# value that is neither an .onnx file nor a directory selects the model with
+# seeded weights, as the JAX pipeline does, and a directory of a flag not in
+# _CHECKPOINT_DIR_FLAGS raises in check_ported
 _MODEL_FILE_FLAGS = ("paraformer", "encoder", "decoder", "joiner", "whisper_encoder",
                      "whisper_decoder", "sense_voice", "wenet_ctc", "model", "spk_embed_model",
                      "silero_vad_model")
@@ -62,8 +68,6 @@ _TORCH_SUFFIXES = (".bin", ".ckpt", ".pt", ".pth")
 
 # (config field, its default, what porting it needs)
 _NOT_PORTED = (
-    ("onnx_exec", "map", "direct ONNX execution (ROADMAP slice 15)"),
-    ("onnx_asr_skip_frames", -1, "direct ONNX execution (ROADMAP slice 15)"),
     ("data_parallel", 0, "multi-GPU meshes (ROADMAP slice 16)"),
     ("model_parallel", 0, "multi-GPU meshes (ROADMAP slice 16)"),
     ("slices", 1, "multi-GPU meshes (ROADMAP slice 16)"),
@@ -73,11 +77,12 @@ _NOT_PORTED = (
 
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for any option this package does not run
-    yet, and for model weights it does not read: an .onnx value of a family
-    flag, of --model / --spk-embed-model or --silero-vad-model (ONNX import,
-    ROADMAP slice 15), a directory of a family flag other than
-    --sense-voice (slice 15), and an orbax directory of a checkpoint flag
-    (converted by scripts/orbax_to_torch.py). A torch file of
+    yet (``_NOT_PORTED``), and for model weights it does not read: a
+    directory of a model-file flag that takes none (every family flag but
+    --sense-voice, and --silero-vad-model: the JAX package reads none
+    either), and an orbax directory of a checkpoint flag (converted by
+    scripts/orbax_to_torch.py). An .onnx file of a model-file flag loads in
+    ``build_engine`` (``load_onnx_models``). A torch file of
     --sep-checkpoint (asteroid Conv-TasNet) or --osd-checkpoint (pyannote
     PyanNet) and a checkpoint directory of the port
     (``_CHECKPOINT_DIR_FLAGS``; for --osd-checkpoint the params directory
@@ -98,15 +103,16 @@ def check_ported(cfg) -> None:
         raise FileNotFoundError(
             f"--osd-checkpoint {osd}: neither a params directory of cli/distill_osd nor a "
             f"pyannote PyanNet torch file ({'/'.join(_TORCH_SUFFIXES)})")
+    mode = getattr(cfg, "onnx_exec", "map")
+    if mode not in ("map", "direct", "auto"):
+        raise ValueError(f"--onnx-exec must be map|direct|auto, got {mode!r}")
     for name in _MODEL_FILE_FLAGS:
         value = getattr(cfg, name, "") or ""
-        if value.endswith(".onnx") or (value and Path(value).is_dir()
-                                       and name not in _CHECKPOINT_DIR_FLAGS):
+        if value and Path(value).is_dir() and name not in _CHECKPOINT_DIR_FLAGS:
             raise NotImplementedError(
-                f"--{name.replace('_', '-')} {value}: loading ONNX model weights "
-                "(models/convert, ROADMAP slice 15) is not ported to "
-                "audio_classification_tpu_torch yet; any other value selects the "
-                "model with seeded weights")
+                f"--{name.replace('_', '-')} {value}: a directory is not a model file of "
+                "this flag (the JAX package reads none either): give its .onnx file; any "
+                "other value selects the model with seeded weights")
 
 
 def _load_stage_dir(pack, stage: str, path: str, flag: str, hint: str) -> None:
@@ -157,6 +163,103 @@ def load_checkpoint_dirs(pack, cfg) -> None:
                          f"/ --hidden / --mf-dim flags? (causes: {'; '.join(errors)})")
 
 
+def load_onnx_models(pack, cfg) -> None:
+    """The .onnx files ``cfg`` names, into ``pack``, as the JAX runner loads
+    them (pipelines/offline_overlap3.py build_engine). ``onnx_exec``:
+
+    * "map": the graph-aware importer (convert/onnx_graph_map) puts the
+      graph's weights onto the port's module, failing loud on a topology
+      that does not match;
+    * "direct": the graph itself serves the stage (convert/onnx_stage,
+      ``pack.set_onnx_stage``);
+    * "auto": map, and direct where mapping fails.
+
+    --sense-voice x.onnx drops ``onnx_asr_skip_frames`` leading logit frames
+    in direct mode (default: the prompt count); --wenet-ctc always runs
+    direct, on plain fbank frames (LFR collapsed to 1); --whisper-encoder /
+    --whisper-decoder, --paraformer (direct: the (logits, token_num) pair)
+    and --encoder / --decoder / --joiner select their family's stage;
+    --spk-embed-model (or --model) the speaker embedder's."""
+    from ..convert.onnx_graph_map import import_onnx_state_dict
+    from ..convert.onnx_stage import OnnxStage, OnnxTransducerStage, OnnxWhisperStage
+
+    mode = getattr(cfg, "onnx_exec", "map")
+    family, dev = pack.asr_family, pack.device
+
+    def _load(stage: str, files, mapper: str, mod_cfg, direct_builder=None, **stage_kw):
+        if mode != "direct":
+            try:
+                pack.load_params(stage, import_onnx_state_dict(files, mapper, mod_cfg))
+                return
+            except Exception as e:
+                if mode == "map":
+                    raise
+                print(f"[build_engine] graph-aware mapping for stage '{stage}' failed "
+                      f"({e}); serving the graph directly")
+        if direct_builder is not None:
+            pack.set_onnx_stage(stage, direct_builder())
+            return
+        first = files[0] if isinstance(files, list) else files
+        pack.set_onnx_stage(stage, OnnxStage(first, device=dev, **stage_kw))
+
+    sv = getattr(cfg, "sense_voice", "") or ""
+    if sv.endswith(".onnx") and family == "sensevoice":
+        # real SenseVoice exports emit their 4 prompt positions in the CTC
+        # logits; drop them before decode unless overridden
+        skip = int(getattr(cfg, "onnx_asr_skip_frames", -1))
+        _load("asr", sv, "sensevoice", pack.asr_cfg,
+              skip_frames=pack.asr_cfg.num_prompt if skip < 0 else skip)
+    wn = getattr(cfg, "wenet_ctc", "") or ""
+    if wn.endswith(".onnx") and family == "sensevoice" and not sv:
+        # the WeNet CTC family (reference sp-id:346-357, from_wenet_ctc):
+        # plain fbank frames in, no prompt positions in the logits, the
+        # engine's CTC decode; no graph-aware mapper exists for it
+        pack.asr_cfg = dataclasses.replace(pack.asr_cfg, lfr_m=1, lfr_n=1)
+        skip = max(int(getattr(cfg, "onnx_asr_skip_frames", -1)), 0)
+        pack.set_onnx_stage("asr", OnnxStage(wn, skip_frames=skip, device=dev))
+    wh = getattr(cfg, "whisper_encoder", "") or ""
+    if wh.endswith(".onnx") and family == "whisper":
+        wh_dec = getattr(cfg, "whisper_decoder", "") or ""
+        files = [wh] + ([wh_dec] if wh_dec.endswith(".onnx") else [])
+
+        def _whisper_direct():
+            if len(files) != 2:
+                raise ValueError("direct whisper execution needs both "
+                                 "--whisper-encoder and --whisper-decoder")
+            wc = pack.whisper_cfg
+            return OnnxWhisperStage(
+                files[0], files[1], sot_sequence=(wc.bos_id,), eot_id=wc.eos_id,
+                max_decode_len=wc.max_decode_len, num_mel=wc.num_mel,
+                language=getattr(cfg, "whisper_language", "") or None,
+                task=getattr(cfg, "whisper_task", "transcribe"), device=dev)
+
+        _load("asr", files, "whisper", pack.whisper_cfg, direct_builder=_whisper_direct)
+    pf = getattr(cfg, "paraformer", "") or ""
+    if pf.endswith(".onnx") and family == "paraformer":
+        _load("asr", pf, "paraformer", pack.paraformer_cfg, n_outputs=2)
+    enc = getattr(cfg, "encoder", "") or ""
+    if enc.endswith(".onnx") and family == "transducer":
+        # the reference's from_transducer takes encoder / decoder / joiner
+        # files (src/model.py:88-99); whichever are given, in that order
+        files = [enc] + [f for f in (getattr(cfg, "decoder", ""), getattr(cfg, "joiner", ""))
+                         if (f or "").endswith(".onnx")]
+
+        def _transducer_direct():
+            if len(files) != 3:
+                raise ValueError("direct transducer execution needs all three of "
+                                 "--encoder/--decoder/--joiner .onnx files")
+            return OnnxTransducerStage(*files, blank_id=pack.tokens.blank_id, device=dev)
+
+        _load("asr", files, "transducer", pack.transducer_cfg,
+              direct_builder=_transducer_direct)
+    # the flagship runner calls the speaker model --spk-embed-model; the SID
+    # benchmark and sp-id scripts call it --model (reference:
+    # benchmark_pipeline.py:498-504, sp-id:491-501)
+    spk = getattr(cfg, "spk_embed_model", "") or getattr(cfg, "model", "") or ""
+    if spk.endswith(".onnx"):
+        _load("spk", spk, "speaker", pack.preset.spk)
+
+
 def asr_family(cfg) -> str:
     """The ASR family the config's flags select, in the reference's one-of
     order: --paraformer, then --encoder (transducer), then
@@ -199,7 +302,9 @@ def build_engine(cfg, device=None) -> StageEngine:
     without it. MossFormer, OSDNet, the speaker embedder, the VAD and the
     decoders have no int8 path and stay float.
 
-    Weight and asset files, as the JAX runner reads them: ``cmvn`` (a
+    Weight and asset files, as the JAX runner reads them: .onnx files of
+    the family flags and the speaker model's (``load_onnx_models``, by
+    ``onnx_exec``), ``cmvn`` (a
     kaldi am.mvn for the SenseVoice and Paraformer frontends), the port's
     checkpoint directories (``load_checkpoint_dirs``: what the training
     CLIs export, a whole model pack, or scripts/orbax_to_torch.py wrote),
@@ -245,6 +350,7 @@ def build_engine(cfg, device=None) -> StageEngine:
                      decoding_method=getattr(cfg, "decoding_method", "greedy_search"),
                      num_active_paths=getattr(cfg, "num_active_paths", 4),
                      cmvn=load_kaldi_cmvn(cmvn_path) if cmvn_path else None)
+    load_onnx_models(pack, cfg)
     load_checkpoint_dirs(pack, cfg)
     sep_ckpt = getattr(cfg, "sep_checkpoint", "")
     if sep_ckpt and not Path(sep_ckpt).is_dir():

@@ -81,6 +81,20 @@ points at the full preset, reading every kernel's launch count around each:
   into build_engine and the flagship CLI; and the native host codecs (the
   C++ WAV codec and ring buffer against their numpy versions, host only).
 
+- slice 15, ONNX (files in a temporary directory): the port's exporters
+  write every stage of the full-preset pack (SenseVoice float and int8);
+  the flagship CLI serves a SenseVoice graph (runtime textnorm input) and
+  the speaker export mapped onto the modules (--onnx-exec map: records equal
+  to the same CLI on the same weights from a checkpoint directory) and run
+  whole by the graph executor (direct: texts equal, K3 unlaunched in the
+  ASR stage, the logits' error against K3 stated); the int8 export through
+  the executor on the card against the CPU (the first MatMulInteger's int32
+  accumulators equal); speaker_id_vad_asr with --silero-vad-model vad.onnx;
+  the Paraformer, transducer (greedy, beam) and whisper direct stages on
+  fixture graphs at the preset's widths; convert_models --verify,
+  export_models, and distill_asr at the full SenseVoice widths from the
+  exported teacher (K1, K3; losses falling).
+
 The bf16 entry points are held to their bf16 twins and to the twins run in
 float64 (the same rounding points) at the float phases' shapes, timed by
 graph replay beside the float32 entry points (K3 / K5 bf16 beside SDPA at
@@ -2762,6 +2776,434 @@ def run_quality_paths(torch, np, counters: dict) -> dict:
     return total
 
 
+def _sv_einsum_block(ox, g, x, blk, dim, heads, conv_kernel):
+    """onnx_export's transformer block with the attention products as Einsum
+    nodes: the graph-aware importer takes every MatMul / Gemm for a dense
+    layer, so a graph with MatMul attention does not map."""
+    np = ox.np
+    dh = dim // heads
+    h = ox._layernorm(g, x, blk["LayerNorm_0"])
+    q, k, v = g.add("Split", [ox._dense(g, h, blk["MultiHeadSelfAttention_0"]["qkv"])],
+                    n_out=3, axis=-1)
+
+    def split_heads(z):
+        z = g.add("Reshape", [z, g.init("shape", np.asarray([0, 0, heads, dh], np.int64))])
+        return g.add("Transpose", [z], perm=[0, 2, 1, 3])
+
+    q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    sc = g.add("Einsum", [q, k], equation="bhqd,bhkd->bhqk")
+    sc = g.add("Mul", [sc, g.init("scale", np.float32(1.0 / np.sqrt(dh)).reshape(()))])
+    o = g.add("Einsum", [g.add("Softmax", [sc], axis=-1), v], equation="bhqk,bhkd->bhqd")
+    o = g.add("Transpose", [o], perm=[0, 2, 1, 3])
+    o = g.add("Reshape", [o, g.init("shape", np.asarray([0, 0, dim], np.int64))])
+    x = g.add("Add", [x, ox._dense(g, o, blk["MultiHeadSelfAttention_0"]["out"])])
+    hc = g.add("Transpose", [ox._layernorm(g, x, blk["LayerNorm_1"])], perm=[0, 2, 1])
+    hc = ox._conv(g, hc, blk["dwconv"], groups=dim, pads=ox._same_pads(1, conv_kernel))
+    x = g.add("Add", [x, ox._silu(g, g.add("Transpose", [hc], perm=[0, 2, 1]))])
+    h = ox._gelu_tanh(g, ox._dense(g, ox._layernorm(g, x, blk["LayerNorm_2"]), blk["Dense_0"]))
+    return g.add("Add", [x, ox._dense(g, h, blk["Dense_1"])])
+
+
+def write_sensevoice_graph(tree, cfg, path, frames: int) -> None:
+    """SenseVoice as the reference's sherpa export takes its inputs (feats,
+    language [1] and textnorm [1] at run time), with Einsum attention and
+    the positional table sliced to the input's frame count (at most
+    ``frames``): a graph the graph-aware importer maps and the executor
+    runs at any bucket. onnx_export.export_sensevoice bakes the text-norm
+    row and writes MatMul attention, so its graph does not map back."""
+    from audio_classification_tpu_torch.convert import onnx_export as ox
+    from audio_classification_tpu_torch.models.common import sinusoidal_positions
+
+    np = ox.np
+    p, pr = tree["params"], cfg.num_prompt
+    i64 = lambda v: np.asarray(v, np.int64)
+    g = ox.OnnxGraphWriter("sensevoice")
+    x = ox._dense(g, "feats", p["in_proj"])
+    lang = g.add("Gather", [g.init("lang_embed", p["lang_embed"]), "language"], axis=0)
+    itn = g.add("Gather", [g.init("itn_embed", p["itn_embed"]), "textnorm"], axis=0)
+    prompt = g.add("Concat", [lang, itn, g.init("prompt_pad", p["prompt_pad"])], axis=0)
+    prompt = g.add("Unsqueeze", [prompt, g.init("axes", i64([0]))])
+    shp = g.add("Shape", ["feats"])
+    batch = g.add("Slice", [shp, g.init("s", i64([0])), g.init("e", i64([1]))])
+    target = g.add("Concat", [batch, g.init("pd", i64([pr, cfg.dim]))], axis=0)
+    x = g.add("Concat", [g.add("Expand", [prompt, target]), x], axis=1)
+    t = g.add("Add", [g.add("Slice", [shp, g.init("s", i64([1])), g.init("e", i64([2]))]),
+                      g.init("pr", i64([pr]))])
+    pos = g.add("Slice", [g.init("pos", sinusoidal_positions(frames + pr, cfg.dim)),
+                          g.init("s", i64([0])), t, g.init("a", i64([0]))])
+    x = g.add("Add", [x, pos])
+    for i in range(cfg.layers):
+        x = _sv_einsum_block(ox, g, x, p[f"block_{i}"], cfg.dim, cfg.heads, cfg.conv_kernel)
+    g.add("Identity", [ox._dense(g, ox._layernorm(g, x, p["final_ln"]), p["ctc_head"])],
+          out="logits")
+    Path(path).write_bytes(g.serialize(
+        inputs=[("feats", np.float32, ["batch", "frames", cfg.lfr_m * cfg.num_mel]),
+                ("language", np.int64, [1]), ("textnorm", np.int64, [1])],
+        outputs=[("logits", np.float32, ["batch", "prompt_frames", cfg.vocab_size])]))
+
+
+def write_family_graphs(np, work: Path, preset) -> dict:
+    """The direct stages' fixture graphs of the Paraformer, transducer and
+    whisper families at the preset's widths (feature dims, model dims,
+    vocab), written with the port's OnnxGraphWriter: the shapes of the
+    reference's sherpa / funasr exports, the weights seeded. No exporter of
+    the package writes these families (nor does the JAX one's)."""
+    from audio_classification_tpu_torch.convert.onnx_export import OnnxGraphWriter
+
+    rng = np.random.default_rng(71)
+    r = lambda *s: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+    i64 = lambda v: np.asarray(v, np.int64)
+    out = {}
+    # Paraformer: speech [B, T, 560] + lengths -> (logits [B, N, V], token_num)
+    pc, n_tok = preset.paraformer, 32
+    g = OnnxGraphWriter("paraformer")
+    head = g.add("Slice", ["speech", g.init("s", i64([0])), g.init("e", i64([n_tok])),
+                           g.init("a", i64([1]))])
+    h = g.add("Tanh", [g.add("MatMul", [head, g.init("w1", r(pc.lfr_m * pc.num_mel, pc.dim))])])
+    g.add("MatMul", [h, g.init("w2", r(pc.dim, pc.vocab_size))], out="logits")
+    cap = g.add("Div", ["speech_lengths", g.init("six", np.asarray([6], np.int32))])
+    g.add("Min", [cap, g.init("cap", np.asarray([n_tok], np.int32))], out="token_num")
+    out["paraformer"] = work / "paraformer.onnx"
+    out["paraformer"].write_bytes(g.serialize(
+        inputs=[("speech", np.float32, ["B", "T", pc.lfr_m * pc.num_mel]),
+                ("speech_lengths", np.int32, ["B"])],
+        outputs=[("logits", np.float32, ["B", n_tok, pc.vocab_size]),
+                 ("token_num", np.int32, ["B"])]))
+    # transducer triple: encoder (stride-4 subsampling conv), stateless
+    # decoder over a context of 2, joiner
+    tc = preset.transducer
+    g = OnnxGraphWriter("encoder")
+    xt = g.add("Transpose", ["x"], perm=[0, 2, 1])
+    y = g.add("Conv", [xt, g.init("w", r(tc.num_mel * 5, tc.dim).T.reshape(tc.dim, tc.num_mel, 5)
+                                         .copy())], strides=[4], pads=[2, 2])
+    g.add("Transpose", [g.add("Relu", [y])], out="encoder_out", perm=[0, 2, 1])
+    ln = g.add("Add", [g.add("Div", [g.add("Sub", ["x_lens", g.init("one", np.asarray([1], np.int32))]),
+                                    g.init("four", np.asarray([4], np.int32))]),
+                       g.init("one", np.asarray([1], np.int32))], out="encoder_out_lens")
+    out["encoder"] = work / "encoder.onnx"
+    out["encoder"].write_bytes(g.serialize(
+        inputs=[("x", np.float32, ["B", "T", tc.num_mel]), ("x_lens", np.int32, ["B"])],
+        outputs=[("encoder_out", np.float32, ["B", "T", tc.dim]),
+                 ("encoder_out_lens", np.int32, ["B"])]))
+    g = OnnxGraphWriter("decoder")
+    e = g.add("Gather", [g.init("emb", r(tc.vocab_size, tc.pred_dim)), "y"])
+    e = g.add("Reshape", [e, g.init("shape", i64([0, 2 * tc.pred_dim]))])
+    g.add("Relu", [g.add("MatMul", [e, g.init("w", r(2 * tc.pred_dim, tc.dim))])],
+          out="decoder_out")
+    out["decoder"] = work / "decoder.onnx"
+    out["decoder"].write_bytes(g.serialize(
+        inputs=[("y", np.int64, ["B", 2])], outputs=[("decoder_out", np.float32, ["B", tc.dim])]))
+    g = OnnxGraphWriter("joiner")
+    hj = g.add("Tanh", [g.add("Add", ["encoder_out", "decoder_out"])])
+    g.add("MatMul", [hj, g.init("w", r(tc.dim, tc.vocab_size))], out="logit")
+    out["joiner"] = work / "joiner.onnx"
+    out["joiner"].write_bytes(g.serialize(
+        inputs=[("encoder_out", np.float32, ["B", tc.dim]),
+                ("decoder_out", np.float32, ["B", tc.dim])],
+        outputs=[("logit", np.float32, ["B", tc.vocab_size])]))
+    # whisper pair: channels-first mel encoder -> cross [B, 1, D]; decoder
+    # with token / offset inputs and a fixed-size self-attention cache
+    wc = preset.whisper
+    g = OnnxGraphWriter("whisper_encoder")
+    pr = g.add("MatMul", [g.add("Transpose", ["mel"], perm=[0, 2, 1]),
+                          g.init("w", r(wc.num_mel, wc.dim))])
+    g.add("ReduceMean", [g.add("Tanh", [pr])], out="cross_k", axes=[1], keepdims=1)
+    out["whisper_encoder"] = work / "whisper_encoder.onnx"
+    out["whisper_encoder"].write_bytes(g.serialize(
+        inputs=[("mel", np.float32, ["B", wc.num_mel, "T"])],
+        outputs=[("cross_k", np.float32, ["B", 1, wc.dim])]))
+    g = OnnxGraphWriter("whisper_decoder")
+    te = g.add("Gather", [g.init("emb", r(wc.vocab_size, wc.dim)), "tokens"])
+    hd = g.add("Tanh", [g.add("Add", [te, "cross_k"])])
+    g.add("MatMul", [hd, g.init("w", r(wc.dim, wc.vocab_size) * 4)], out="logits")
+    g.add("Add", ["in_n_layer_self_k_cache", g.init("one", np.float32(1.0).reshape(()))],
+          out="out_n_layer_self_k_cache")
+    out["whisper_decoder"] = work / "whisper_decoder.onnx"
+    out["whisper_decoder"].write_bytes(g.serialize(
+        inputs=[("tokens", np.int64, ["B", "n"]), ("offset", np.int64, ["B"]),
+                ("in_n_layer_self_k_cache", np.float32, [4, "B", "L", wc.dim]),
+                ("cross_k", np.float32, ["B", 1, wc.dim])],
+        outputs=[("logits", np.float32, ["B", "n", wc.vocab_size]),
+                 ("out_n_layer_self_k_cache", np.float32, [4, "B", "L", wc.dim])]))
+    return out
+
+
+def run_onnx_paths(torch, np, counters: dict) -> dict:
+    """Slice 15, ONNX, at the full preset (seeded weights), files in a
+    temporary directory: the port's exporters write every stage; the
+    flagship CLI serves a SenseVoice graph and the speaker export mapped onto
+    the port's modules (--onnx-exec map: records equal to the CLI on the same
+    weights from a checkpoint directory) and run by the graph executor
+    (direct: K3 unlaunched in the ASR stage, texts equal to map mode, the
+    logits' error against K3's 3xTF32 stated); the int8 SenseVoice export
+    through the executor on the card against the CPU (the first
+    MatMulInteger's int32 accumulators equal); the VAD export through
+    speaker_id_vad_asr; each other family's direct stage once; then
+    convert_models --verify, export_models and distill_asr. Each path's
+    launches, walls and device ops are logged."""
+    import tempfile
+
+    from audio_classification_tpu_torch.audio_io import write_wav
+    from audio_classification_tpu_torch.cli import (convert_models, distill_asr, export_models,
+                                                    speaker_id_vad_asr)
+    from audio_classification_tpu_torch.cli.offline_overlap_3src import main as overlap3_main
+    from audio_classification_tpu_torch.convert import onnx_export as ox
+    from audio_classification_tpu_torch.convert.from_jax import state_dict_to_variables
+    from audio_classification_tpu_torch.convert.onnx_exec import OnnxModel
+    from audio_classification_tpu_torch.convert.onnx_import import ValueInfo
+    from audio_classification_tpu_torch.engine.runtime import EnginePreset, ModelPack
+    from audio_classification_tpu_torch.models.asr.sensevoice import sensevoice_frontend
+    from audio_classification_tpu_torch.pipelines.offline_overlap3 import build_engine
+    from audio_classification_tpu_torch.train.checkpoint import save_model_pack
+    from audio_classification_tpu_torch.utils.config import Overlap3Config
+
+    total = {k: 0 for k in counters}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_onnx_")
+    work = Path(tmp.name)
+    preset = EnginePreset()
+    pack = ModelPack(preset, seed=0)
+    cfg = pack.asr_cfg
+    var = {k: state_dict_to_variables(m) for k, m in pack.models.items()}
+    # the 32 s bucket's LFR frames, from the port's frontend
+    with torch.inference_mode():
+        feats32, _ = sensevoice_frontend(torch.zeros(1, 32 * SR, device="cuda"),
+                                         torch.tensor([32 * SR], device="cuda"), cfg)
+    frames = int(feats32.shape[1])
+    assert frames == cfg.out_frames(32 * SR) - cfg.num_prompt, frames
+
+    # ---- exports of every stage, sizes and walls
+    fb_frames = preset.spk.sample_rate // 100 * 4 - 2  # fbank frames of 4 s: 398
+    exports = {}
+    for name, fn, tree, c, kw in (
+            ("sensevoice", ox.export_sensevoice, var["asr"], cfg, dict(frames=frames)),
+            ("sensevoice_int8", ox.export_sensevoice, var["asr"], cfg,
+             dict(frames=frames, quant="int8")),
+            ("speaker", ox.export_speaker, var["spk"], preset.spk, dict(frames=fb_frames)),
+            ("osdnet", ox.export_osdnet, var["osd"], preset.osd, dict(frames=fb_frames)),
+            ("vadnet", ox.export_vadnet, var["vad"], preset.vad, dict(frames=fb_frames)),
+            ("convtasnet3", ox.export_convtasnet, var["sep3"], preset.sep3, dict(seconds=4.0)),
+            ("mossformer", ox.export_mossformer, var["mossformer"], preset.mossformer,
+             dict(seconds=4.0))):
+        t0 = time.perf_counter()
+        fn(tree, c, str(work / f"{name}.onnx"), **kw)
+        exports[name] = {"wall_sec": time.perf_counter() - t0,
+                         "bytes": (work / f"{name}.onnx").stat().st_size}
+    t0 = time.perf_counter()
+    write_sensevoice_graph(var["asr"], cfg, work / "sv.onnx", frames)
+    exports["sensevoice_runtime_textnorm"] = {"wall_sec": time.perf_counter() - t0,
+                                              "bytes": (work / "sv.onnx").stat().st_size}
+    log({"phase": "onnx_exports", "frames": frames, **exports})
+
+    # ---- map mode: the flagship CLI on the .onnx files against the same CLI
+    # on the same weights from the port's checkpoint directory. The graphs
+    # have no length input (as the reference's exports): the executor sees a
+    # padded batch whole, so the audio fills its buckets (a 32 s mixture, an
+    # 8 s target) for direct mode to compute what the modules compute
+    src = talkers(32 * SR, 3)
+    mix = sum(src) / 3.0
+    write_wav(work / "mix.wav", 0.6 * mix / np.abs(mix).max(), SR)
+    target = talkers(8 * SR, 4)[0]
+    write_wav(work / "target.wav", 0.6 * target / np.abs(target).max(), SR)
+    save_model_pack(pack, work / "pack")
+    base = ["--input-wavs", str(work / "mix.wav"), "--target-wav", str(work / "target.wav"),
+            "--preset", "full", "--seed", "0", "--sv-threshold", "-1"]
+    onnx_files = ["--sense-voice", str(work / "sv.onnx"), "--spk-embed-model",
+                  str(work / "speaker.onnx")]
+    kernels = ("fbank_power_mel", "tcn_masker", "flash_attention")
+
+    def records(argv, name, expect):
+        (out_dir, result), launches = _counted(torch, counters, expect, name, lambda: overlap3_main(
+            [*base, *argv, "--out-dir", str(work / "out")]))
+        add(launches)
+        recs = [json.loads(x) for x in (out_dir / "segments.jsonl").read_text().splitlines()]
+        return recs, launches
+
+    for thr, kind, expect in (("0.0", "overlap", kernels),
+                              ("1.0", "clean", ("fbank_power_mel", "flash_attention"))):
+        ref, l_ref = records(["--checkpoint-dir", str(work / "pack"), "--osd-thr", thr],
+                             f"onnx checkpoint-dir {kind}", expect)
+        got, l_map = records([*onnx_files, "--onnx-exec", "map", "--osd-thr", thr],
+                             f"onnx map {kind}", expect)
+        assert got and all(r["kind"] == kind for r in got), got
+        keys = ("kind", "start", "end", "stream", "text", "sv_score", "target_src_text")
+        assert [[r[k] for k in keys] for r in got] == [[r[k] for k in keys] for r in ref]
+        assert {k: l_map[k] for k in kernels} == {k: l_ref[k] for k in kernels}
+        log({"phase": "onnx_map", "scene": kind, "records": len(got),
+             "launches": {k: l_map[k] for k in kernels}})
+        direct, l_dir = records([*onnx_files, "--onnx-exec", "direct", "--osd-thr", thr],
+                                f"onnx direct {kind}", ("fbank_power_mel",))
+        assert [r["text"] for r in direct] == [r["text"] for r in got], (direct, got)
+        assert l_dir["fbank_power_mel"] == l_map["fbank_power_mel"]
+
+    # ---- direct vs map on the engine: the ASR stage alone (32 s items
+    # filling the 32 s bucket: K3 at [2, 8, 537, 64] in map mode, none
+    # direct)
+    engines = {}
+    for mode, sv in (("map", "sv.onnx"), ("direct", "sv.onnx"), ("direct_export", "sensevoice.onnx")):
+        engines[mode] = build_engine(Overlap3Config(
+            preset="full", seed=0, sense_voice=str(work / sv), spk_embed_model=str(
+                work / "speaker.onnx"), onnx_exec="map" if mode == "map" else "direct"))
+    wav32 = (0.6 * mix / np.abs(mix).max()).astype(np.float32)
+    other = talkers(32 * SR, 5)[0]
+    other = (0.6 * other / np.abs(other).max()).astype(np.float32)
+    texts, calls = {}, {}
+    for mode, eng in engines.items():
+        texts[mode], launches = _counted(torch, counters, ("fbank_power_mel",), f"onnx asr {mode}",
+                                         lambda e=eng: e.transcribe([wav32, other]),
+                                         exact={"flash_attention": 0} if mode != "map" else None)
+        add(launches)
+        if mode == "map":
+            assert launches["flash_attention"] == cfg.layers, launches
+        calls[mode] = device_ops(torch, lambda e=eng: e.transcribe([wav32]))
+    assert texts["direct"] == texts["map"] == texts["direct_export"], texts
+    m_eng, d_eng = engines["map"], engines["direct"]
+    with torch.inference_mode():
+        w = torch.from_numpy(wav32).cuda()[None]
+        feats, mask = sensevoice_frontend(w, torch.tensor([w.shape[1]], device="cuda"), cfg)
+        ref = m_eng.models["asr"](feats, mask)[:, cfg.num_prompt:]
+        stage = d_eng.onnx_stages["asr"]
+        got = stage(stage.params, feats, mask)
+        got_exp = engines["direct_export"].onnx_stages["asr"]
+        got_exp = got_exp(got_exp.params, feats, mask)
+    valid = mask[0]
+    err = (got - ref)[0, valid].abs().max().item() / ref[0, valid].abs().max().item()
+    err_exp = (got_exp - ref)[0, valid].abs().max().item() / ref[0, valid].abs().max().item()
+    log({"phase": "onnx_direct_vs_map", "shape": list(feats.shape), "logits_rel_err": err,
+         "export_logits_rel_err": err_exp, "texts_equal": True,
+         "device": gpu_name_and_power_limit(), "per_call": calls})
+    assert err <= 1e-3 and err_exp <= 1e-3, (err, err_exp)
+    # the speaker stage: the export mapped vs run whole
+    emb = {}
+    for mode in ("map", "direct"):
+        eng = engines[mode]
+        emb[mode] = eng.embed([wav32[: 4 * SR], wav32[4 * SR: 6 * SR]])
+        calls[f"spk_{mode}"] = device_ops(torch, lambda e=eng: e.embed([wav32[: 4 * SR]]))
+    spk_err = float(np.abs(emb["map"] - emb["direct"]).max())
+    assert spk_err <= 1e-3, spk_err
+
+    # ---- int8 through the executor: card against CPU on the same feats
+    feats_np = feats.cpu().numpy()
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        m = OnnxModel(str(work / "sensevoice_int8.onnx"), device=dev)
+        node = next(n for n in m.graph.nodes if n.op_type == "MatMulInteger")
+        dql = next(n for n in m.graph.nodes if n.op_type == "DynamicQuantizeLinear")
+        m.graph.outputs += [ValueInfo(name=node.outputs[0]), ValueInfo(name=dql.outputs[0])]
+        t0 = time.perf_counter()
+        o = m(feats=feats_np, language=np.zeros(1, np.int64))
+        outs[dev] = {k: v.cpu() for k, v in o.items()}
+        outs[dev]["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    acc_equal = torch.equal(outs["cuda"][node.outputs[0]], outs["cpu"][node.outputs[0]])
+    q_equal = torch.equal(outs["cuda"][dql.outputs[0]], outs["cpu"][dql.outputs[0]])
+    lc, lcpu = outs["cuda"]["logits"][0, cfg.num_prompt:], outs["cpu"]["logits"][0, cfg.num_prompt:]
+    v = valid.cpu()
+    int8_err = (lc - lcpu)[v].abs().max().item() / lcpu[v].abs().max().item()
+    agree = float((lc.argmax(-1) == lcpu.argmax(-1))[v].float().mean())
+    log({"phase": "onnx_int8_exec", "first_matmulinteger": list(outs["cpu"][node.outputs[0]].shape),
+         "accumulators_equal": acc_equal, "quantized_inputs_equal": q_equal,
+         "logits_rel_err": int8_err, "argmax_agreement": agree,
+         "wall_ms": {d: outs[d]["wall_ms"] for d in outs}})
+    assert acc_equal and q_equal, "int8 accumulators differ between the card and the CPU"
+    assert math.isfinite(int8_err)
+
+    # ---- the VAD export through speaker_id_vad_asr, and each family's
+    # direct stage once
+    sid = work / "sid"
+    sid.mkdir()
+    enroll, tests = [], []
+    for i, f0 in enumerate((120.0, 230.0)):
+        x = talkers(3 * SR, 80 + i, f0s=(f0,))[0]
+        write_wav(sid / f"e{i}.wav", 0.5 * x / np.abs(x).max(), SR)
+        enroll.append(f"spk{i} {sid / f'e{i}.wav'}")
+        x = talkers(2 * SR, 90 + i, f0s=(f0 * 1.02,))[0]
+        write_wav(sid / f"t{i}.wav", 0.5 * x / np.abs(x).max(), SR)
+        tests.append(f"spk{i} {sid / f't{i}.wav'}")
+    (sid / "speakers.txt").write_text("\n".join(enroll) + "\n")
+    (sid / "test.txt").write_text("\n".join(tests) + "\n")
+    run_dir, launches = _counted(
+        torch, counters, ("fbank_power_mel",), "speaker_id_vad_asr --silero-vad-model vad.onnx",
+        lambda: speaker_id_vad_asr.main([
+            "--speaker-file", str(sid / "speakers.txt"), "--test-list", str(sid / "test.txt"),
+            "--preset", "full", "--sense-voice", "seeded", "--apply-vad", "--silero-vad-model",
+            str(work / "vadnet.onnx"), "--out-dir", str(sid / "out")]))
+    add(launches)
+    assert "Test utterances: 2" in (run_dir / "report.txt").read_text()
+    fam = write_family_graphs(np, work, preset)
+    for name, flags in (
+            ("paraformer", ["--paraformer", str(fam["paraformer"])]),
+            ("transducer", ["--encoder", str(fam["encoder"]), "--decoder", str(fam["decoder"]),
+                            "--joiner", str(fam["joiner"])]),
+            ("transducer beam", ["--encoder", str(fam["encoder"]), "--decoder",
+                                 str(fam["decoder"]), "--joiner", str(fam["joiner"]),
+                                 "--decoding-method", "modified_beam_search"]),
+            ("whisper", ["--whisper-encoder", str(fam["whisper_encoder"]), "--whisper-decoder",
+                         str(fam["whisper_decoder"])])):
+        kw = {f.lstrip("-").replace("-", "_"): v for f, v in zip(flags[::2], flags[1::2])}
+        eng = build_engine(Overlap3Config(preset="full", seed=0, onnx_exec="direct", **kw))
+        assert "asr" in eng.onnx_stages, name
+        out, launches = _counted(torch, counters, ("fbank_power_mel",), f"onnx {name} direct",
+                                 lambda e=eng: e.transcribe([wav32[: 8 * SR]]),
+                                 exact={"flash_attention": 0})
+        add(launches)
+        log({"phase": "onnx_family", "family": name, "text_len": len(out[0]),
+             **device_ops(torch, lambda e=eng: e.transcribe([wav32[: 8 * SR]]))})
+
+    # ---- tools: convert_models --verify over a reference-layout tree,
+    # export_models for all stages, distill_asr with the exported teacher
+    ref_dir = work / "models"
+    (ref_dir / "speaker-recognition").mkdir(parents=True)
+    shutil.copy(work / "speaker.onnx",
+                ref_dir / "speaker-recognition" / "3dspeaker_speech_eres2net_sv_16k.onnx")
+    (ref_dir / "vad").mkdir()
+    shutil.copy(work / "vadnet.onnx", ref_dir / "vad" / "silero_vad.onnx")
+    svd = ref_dir / "asr" / "sherpa-onnx-sense-voice-full"
+    svd.mkdir(parents=True)
+    shutil.copy(work / "sv.onnx", svd / "model.onnx")
+    (svd / "tokens.txt").write_text("\n".join(["<blk> 0"] + [
+        f"{chr(0x4e00 + i)} {i}" for i in range(1, cfg.vocab_size)]) + "\n", encoding="utf-8")
+    t0 = time.perf_counter()
+    verified = convert_models.main(["--verify", str(ref_dir), "--verify-out",
+                                    str(work / "verify.json"), "--preset", "full"])
+    log({"phase": "onnx_verify", "wall_sec": time.perf_counter() - t0,
+         "checks": [{k: r[k] for k in ("model", "check", "status", "seconds")}
+                    for r in verified["checks"]]})
+    assert verified["ok"] and all(r["status"] == "pass" for r in verified["checks"]), verified
+    t0 = time.perf_counter()
+    written = export_models.main(["--out-dir", str(work / "exported"), "--preset", "full",
+                                  "--seconds", "4", "--checkpoint-dir", str(work / "pack")])
+    assert len(written) == 7
+    log({"phase": "onnx_export_models", "wall_sec": time.perf_counter() - t0,
+         "files": {Path(p).name: Path(p).stat().st_size for p in written}})
+    tokens = work / "tokens.txt"
+    tokens.write_text("\n".join(["<blk> 0"] + [f"{c} {i}" for i, c in enumerate("abcdefgh", 1)]
+                                + [f"<unused{i}> {i}" for i in range(9, cfg.vocab_size)]) + "\n")
+    losses = []
+
+    def distill():
+        with torch.enable_grad():
+            return distill_asr.main([
+                "--teacher-onnx", str(work / "sensevoice.onnx"), "--tokens", str(tokens),
+                "--synthetic", "--max-seconds", "32", "--steps", "4", "--batch", "2",
+                "--lr", "1e-3", "--dim", str(cfg.dim), "--heads", str(cfg.heads), "--layers",
+                str(cfg.layers), "--conv-kernel", str(cfg.conv_kernel), "--log-every", "1",
+                "--export", str(work / "student")])
+
+    (a0, a1), launches = _counted(torch, counters, ("fbank_power_mel", "flash_attention"),
+                                  "distill_asr --synthetic", distill)
+    add(launches)
+    losses = json.loads((work / "student" / "run.json").read_text())["losses"]
+    log({"phase": "onnx_distill_asr", "losses": losses, "agreement_before": a0,
+         "agreement_after": a1})
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], losses
+    tmp.cleanup()
+    return total
+
+
 def _pit(model, b):
     """cli/train_separator's loss: PIT SI-SDR of the separated mixture."""
     from audio_classification_tpu_torch.train.losses import pit_si_sdr_loss
@@ -2855,6 +3297,9 @@ def main() -> int:
                 "flash_attention_stats_bf16": (flash_attention_stats, "launches_bf16")}
     launches = run_paths(torch, np, counters)
     for k, n in run_long_form(torch, np, counters).items():
+        launches[k] += n
+    # slice 15: ONNX export, map and direct serving, the tools, distill_asr
+    for k, n in run_onnx_paths(torch, np, counters).items():
         launches[k] += n
     # the training slice, gradients on: the kernels' autograd Functions, then
     # the training CLIs

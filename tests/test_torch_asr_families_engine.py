@@ -152,8 +152,8 @@ def test_build_engine_wires_the_family_flags(family, quant):
     """build_engine from the CLI's own flags, on the seeded weights: the
     pack's family and its int8 switch follow the flags; the seeded engine
     transcribes. Beam search outside the transducer raises the JAX
-    package's ValueError; an .onnx value still raises NotImplementedError
-    naming slice 15."""
+    package's ValueError; an .onnx value is read as a model file (a missing
+    one raises FileNotFoundError, as the JAX runner's reader does)."""
     args = offline_overlap_3src.parse_args(
         ["--input-wavs", "m.wav", "--target-wav", "t.wav", "--preset", "tiny",
          "--provider", "cpu", "--quant", quant, *FLAGS[family]])
@@ -165,7 +165,7 @@ def test_build_engine_wires_the_family_flags(family, quant):
     assert isinstance(eng.transcribe([_bursts(6000, seed=1)])[0], str)
     onnx = list(FLAGS[family])
     onnx[1] = "model.onnx"
-    with pytest.raises(NotImplementedError, match="not ported.*slice 15|slice 15.*not ported"):
+    with pytest.raises(FileNotFoundError, match="model.onnx"):
         build_engine(offline_overlap_3src.parse_args(
             ["--input-wavs", "m.wav", "--preset", "tiny", "--provider", "cpu", *onnx]))
     if family != "transducer":

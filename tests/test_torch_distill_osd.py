@@ -242,11 +242,23 @@ def test_teacher_ckpt_runs_in_the_port(tmp_path):
 
 
 def test_export_onnx_raises_before_training(tmp_path, monkeypatch):
-    monkeypatch.setattr(dosd, "make_trainer", lambda *a, **k: pytest.fail("trained"))
-    with pytest.raises(NotImplementedError, match="slice 15"):
-        dosd.main(RUN + ["--out", str(tmp_path / "o"), "--provider", "cpu",
-                         "--export-onnx", str(tmp_path / "osd.onnx")])
-    assert not (tmp_path / "o").exists()
+    """--export-onnx raised before training until the ONNX slice; it now
+    writes the distilled head after training, a graph of the fbank frames of
+    a --dur crop that the port's executor runs as the trained module."""
+    from audio_classification_tpu_torch.convert.onnx_exec import OnnxModel
+    from audio_classification_tpu_torch.engine import tiny_preset
+    from audio_classification_tpu_torch.models.osd import OSDNet
+
+    onnx_path = tmp_path / "osd.onnx"
+    dosd.main(RUN + ["--steps", "1", "--batch", "2", "--out", str(tmp_path / "o"),
+                     "--provider", "cpu", "--export-onnx", str(onnx_path)])
+    model = OSDNet(tiny_preset().osd)
+    model.load_state_dict(load_params(tmp_path / "o"))
+    graph = OnnxModel(str(onnx_path), device="cpu")
+    feats = np.random.default_rng(0).standard_normal((1, 198, 80)).astype(np.float32)
+    with torch.no_grad():
+        ref = model.eval()(torch.from_numpy(feats), torch.ones(1, 198, dtype=torch.bool))
+    np.testing.assert_allclose(graph(feats=feats)["probs"].numpy(), ref.numpy(), atol=1e-5)
 
 
 def test_f1_below_target_exits_1(tmp_path):

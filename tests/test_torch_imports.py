@@ -51,6 +51,18 @@ def test_walks_the_quality_gate_slice():
         assert (port / "native" / f"{name}.cpp").is_file()
 
 
+def test_walks_the_onnx_slice():
+    """The ONNX reader, executor, graph-aware importer, stages, exporters and
+    verification harness, and the ONNX CLIs, are among the files held: the
+    port's own copies, numpy-only ones included."""
+    port = REPO / "audio_classification_tpu_torch"
+    want = [port / "convert" / f"{m}.py" for m in ("onnx_import", "onnx_exec", "onnx_graph_map",
+                                                   "onnx_stage", "onnx_export", "verify")]
+    want += [port / "cli" / f"{m}.py" for m in ("convert_models", "export_models",
+                                                "distill_asr")]
+    assert all(p in FILES for p in want)
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import_and_no_path_into_the_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -111,12 +111,14 @@ def test_cli_main_file_mode_writes_artifacts(wavs, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--paraformer", "model.onnx"], ["--osd-checkpoint", "ORBAX_DIR"], ["--model-parallel", "2"],
+    ["--sense-voice", "ORBAX_DIR"], ["--osd-checkpoint", "ORBAX_DIR"], ["--model-parallel", "2"],
     ["--data-parallel", "2"], ["--arena-codec", "mulaw"],
-    ["--sense-voice", "model.onnx"], ["--encoder", "enc.onnx"],
+    ["--spk-embed-model", "ORBAX_DIR"], ["--slices", "2"],
     ["--checkpoint-dir", "ORBAX_DIR"],
 ])
 def test_unported_flags_raise(wavs, tmp_path, flags):
+    """Options the port does not run raise NotImplementedError. (.onnx model
+    files load since the ONNX slice: tests/test_torch_onnx_stage.py.)"""
     # a directory an orbax checkpointer wrote (the port's own loads)
     (tmp_path / "orbax").mkdir()
     (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")

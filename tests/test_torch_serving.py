@@ -248,9 +248,11 @@ def test_serve_streams_cli(fixtures, tmp_path, quant):
 @pytest.mark.parametrize("flags", [
     ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
     ["--arena-codec", "mulaw"], ["--checkpoint-dir", "ORBAX_DIR"],
-    ["--sense-voice", "model.onnx"], ["--encoder", "enc.onnx"],
+    ["--sense-voice", "ORBAX_DIR"], ["--spk-embed-model", "ORBAX_DIR"],
 ])
 def test_serve_streams_unported_flags_raise(fixtures, tmp_path, flags):
+    """(.onnx model files load since the ONNX slice; an orbax directory of a
+    weight flag still raises.)"""
     # a directory an orbax checkpointer wrote (the port's own loads)
     (tmp_path / "orbax").mkdir()
     (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")

@@ -222,10 +222,12 @@ def test_streaming_app_max_seconds_and_8k_input(target_wav, tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
     ["--checkpoint-dir", "ORBAX_DIR"],
-    ["--sense-voice", "model.onnx"], ["--paraformer", "model.onnx"],
-    ["--spk-embed-model", "spk.onnx"], ["--osd-checkpoint", "ORBAX_DIR"],
+    ["--sense-voice", "ORBAX_DIR"], ["--sep-checkpoint", "ORBAX_DIR"],
+    ["--spk-embed-model", "ORBAX_DIR"], ["--osd-checkpoint", "ORBAX_DIR"],
 ])
 def test_streaming_app_unported_flags_raise(target_wav, tmp_path, flags):
+    """(.onnx model files load since the ONNX slice; an orbax directory of a
+    weight flag still raises.)"""
     # a directory an orbax checkpointer wrote (the port's own loads)
     (tmp_path / "orbax").mkdir()
     (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")

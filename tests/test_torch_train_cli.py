@@ -145,15 +145,17 @@ def test_train_asr_seq_parallel_and_speaker_export_serves(tmp_path):
 
 
 @pytest.mark.parametrize("cli,flags,slice_", [
-    (train_asr, ["--init-onnx", "sv.onnx"], "slice 15"),
-    (train_asr, ["--export-onnx", "sv.onnx"], "slice 15"),
-    (train_separator, ["--export-onnx", "sep.onnx"], "slice 15"),
-    (train_speaker, ["--export-onnx", "spk.onnx"], "slice 15"),
+    (train_asr, ["--model-parallel", "2"], "slice 16"),
+    (train_asr, ["--slices", "2"], "slice 16"),
+    (train_separator, ["--slices", "2"], "slice 16"),
+    (train_speaker, ["--data-parallel", "2"], "slice 16"),
     (train_separator, ["--model-parallel", "2"], "slice 16"),
     (train_separator, ["--data-parallel", "2"], "slice 16"),
     (train_asr, ["--data-parallel", "2"], "slice 16"),
 ])
 def test_unported_training_flags_raise(cli, flags, slice_):
+    """What needs several cards raises (--init-onnx / --export-onnx work
+    since the ONNX slice: tests/test_torch_onnx_cli.py)."""
     with pytest.raises(NotImplementedError, match=slice_):
         cli.main(["--synthetic", "--steps", "1", "--provider", "cpu", *flags])
 
