@@ -145,6 +145,16 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {code}")
 
 
+def launch(name: str, fn, device, *args) -> None:
+    """Call the kernel entry ``fn(*args, stream)`` with ``device`` current
+    and that device's current stream as the last argument: a launch goes to
+    the card its tensors are on, whatever card the caller has current."""
+    import torch
+
+    with torch.cuda.device(device):
+        check(name, fn(*args, torch.cuda.current_stream(device).cuda_stream))
+
+
 def find_gxx() -> Optional[str]:
     """g++ on PATH; None without one."""
     return shutil.which("g++")

@@ -23,6 +23,7 @@ from pathlib import Path
 from ..models.facades import SpeakerASRModels, set_default_engine
 from ..pipelines.offline_overlap3 import build_engine
 from ..pipelines.sid_benchmark import BenchmarkRunner, load_audio, load_pairs, load_refs
+from ..utils.config import SidBenchmarkConfig
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -66,6 +67,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="Batch the whole test list through the device (per-"
                         "utterance times become apportioned batch shares)")
     return p.parse_args(argv)
+
+
+def config_from_args(args: argparse.Namespace) -> SidBenchmarkConfig:
+    """The parsed flags that SidBenchmarkConfig names, typed (the runner
+    reads the namespace, whose other flags it also takes)."""
+    fields = SidBenchmarkConfig.__dataclass_fields__
+    return SidBenchmarkConfig(**{k: getattr(args, k) for k in fields if hasattr(args, k)})
 
 
 def main(argv=None):

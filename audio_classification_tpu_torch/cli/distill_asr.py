@@ -25,8 +25,12 @@ custom-sized encoder by per-frame logit distillation:
 - checkpoint / resume / export as cli/train_asr (``--export`` serves via
   ``--sense-voice <dir>`` when the dims match the preset);
 - ``--seq-parallel``: the student's attention ring-parallel over
-  ``--data-parallel`` N shards of the frame axis on the one card, as in
-  cli/train_asr; several cards raise (slice 16).
+  ``--data-parallel`` N shards of the frame axis, as in cli/train_asr.
+Parallelism (parallel/launch.py): ``--data-parallel`` N ranks under
+``torchrun``, one card each, each taking ``--batch`` rows (the global batch
+is N x ``--batch``, as in JAX); ``--seq-parallel`` spends the N shards on
+the frame axis instead (the batch whole on each), on N ranks or, in one
+process, on the one card. Only rank 0 writes.
 
 Runs on the card unless ``--provider cpu``.
 
@@ -42,7 +46,6 @@ from pathlib import Path
 
 import numpy as np
 
-from .train_separator import check_parallel
 
 SR = 16000
 
@@ -167,8 +170,6 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.synthetic and not args.manifest:
         raise SystemExit("pick a data source: --manifest FILE or --synthetic")
-    n_shards = check_parallel(args, "--seq-parallel", args.seq_parallel)
-
     import torch
 
     from ..convert.onnx_exec import OnnxModel
@@ -178,12 +179,14 @@ def main(argv=None):
     from ..models.asr.ctc import ctc_greedy_decode, ctc_loss
     from ..models.asr.sensevoice import SenseVoiceConfig, sensevoice_frontend
     from ..models.asr.tokens import TokenTable
-    from ..parallel.mesh import make_mesh
+    from ..parallel.launch import is_writer, training_mesh
     from ..train.checkpoint import save_params
     from ..train.data import write_run_manifest
     from ..train.trainer import ModuleTrainer
 
     device = resolve_device(args.provider)
+    mesh = training_mesh(args, device, "--seq-parallel", args.seq_parallel)
+    device = mesh.device if mesh is not None else device
     tokens = TokenTable.load(args.tokens)
     cfg = SenseVoiceConfig(vocab_size=tokens.vocab_size, dim=args.dim,
                            heads=args.heads, layers=args.layers,
@@ -231,7 +234,7 @@ def main(argv=None):
     # stream keeps that draw
     sampler.batch(2)
     student = make_student(cfg, args.seed).to(device)
-    sp_mesh = make_mesh(n_shards, devices=[device] * n_shards) if args.seq_parallel else None
+    sp_mesh = mesh if args.seq_parallel else None
     temp = float(args.kd_temp)
 
     def loss_fn(module, b):
@@ -247,7 +250,10 @@ def main(argv=None):
                                                      blank_id=tokens.blank_id)
         return loss
 
-    trainer = ModuleTrainer(student, loss_fn, lr=args.lr)
+    trainer = ModuleTrainer(student, loss_fn, lr=args.lr, device=device, mesh=mesh,
+                            shard_batch=not args.seq_parallel)
+    global_batch = args.batch * (1 if args.seq_parallel or mesh is None
+                                 else mesh.shape["data"])
 
     start_step = 0
     if args.resume and args.ckpt_dir and Path(args.ckpt_dir).is_dir():
@@ -282,15 +288,15 @@ def main(argv=None):
     max_label = 32
     losses = []
     for step in range(start_step + 1, args.steps + 1):
-        wav, lens = sampler.batch(args.batch)
+        wav, lens = sampler.batch(global_batch)
         wav_d, lens_d = to_dev(wav), to_dev(lens)
         t_logits, t_ids, t_lens = teacher_fwd(wav_d, lens_d)
         batch = {"wav": wav_d, "lens": lens_d, "t_logits": t_logits}
         if args.ctc_weight > 0:
             ids = t_ids.cpu().numpy()[:, :max_label]
             ll = np.minimum(t_lens.cpu().numpy(), max_label).astype(np.int32)
-            labels = np.zeros((args.batch, max_label), np.int32)
-            for i in range(args.batch):
+            labels = np.zeros((global_batch, max_label), np.int32)
+            for i in range(global_batch):
                 labels[i, : ll[i]] = ids[i, : ll[i]]
             batch["labels"] = labels
             batch["lab_lens"] = ll
@@ -307,6 +313,8 @@ def main(argv=None):
     a1 = agreement()
     print(f"[distill_asr] teacher-agreement CER after: {a1:.3f}")
 
+    if not is_writer():  # a rank of a mesh: rank 0 writes
+        return a0, a1
     if args.export:
         save_params(student, args.export, config=dataclasses.asdict(cfg))
         print(f"[distill_asr] exported student params -> {args.export} "

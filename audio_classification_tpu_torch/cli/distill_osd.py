@@ -29,7 +29,10 @@ weight conversion. This tool is the recipe:
    (train/checkpoint.save_params) with a run.json manifest, which every
    pipeline loads via ``--osd-checkpoint DIR``.
 
-Runs on the card unless ``--provider cpu``. ``--export-onnx FILE`` also
+Runs on the card unless ``--provider cpu``. Under ``torchrun`` the step is
+data-parallel over every rank of the world, one card each, as the JAX tool
+runs over every device: the batch rounds up to a multiple of the world and
+the frame BCE is the masked mean over the whole batch; rank 0 writes. ``--export-onnx FILE`` also
 writes the distilled head as an ONNX graph (convert/onnx_export: fbank
 feats of a ``--dur`` crop -> per-frame probs).
 The batch stays ``--batch`` (the JAX tool rounds it up to a multiple of its
@@ -135,9 +138,10 @@ def teacher_labels(probs: np.ndarray, frame_sec: float, centers: np.ndarray) -> 
     return out.astype(np.float32)
 
 
-def make_trainer(cfg, lr: float, seed: int, device):
+def make_trainer(cfg, lr: float, seed: int, device, mesh=None):
     """OSDNet (the port's flax-rule init from ``seed``) under frame BCE over
-    the frames both the model's output and the labels have."""
+    the frames both the model's output and the labels have; data-parallel
+    over ``mesh``'s data entries when one is given."""
     import torch
 
     from ..models.osd import OSDNet
@@ -148,9 +152,11 @@ def make_trainer(cfg, lr: float, seed: int, device):
         probs = module(b["feats"])
         n = min(probs.shape[1], b["labels"].shape[1])
         return frame_bce_loss(probs[:, :n], b["labels"][:, :n],
-                              torch.ones(probs[:, :n].shape[:2], device=probs.device))
+                              torch.ones(probs[:, :n].shape[:2], device=probs.device),
+                              parts=True)
 
-    return ModuleTrainer(flax_init_(OSDNet(cfg), seed), loss_fn, lr=lr, device=device)
+    return ModuleTrainer(flax_init_(OSDNet(cfg), seed), loss_fn, lr=lr, device=device,
+                         mesh=mesh)
 
 
 def main(argv=None) -> dict:
@@ -167,7 +173,11 @@ def main(argv=None) -> dict:
     from ..train.checkpoint import save_params
     from ..train.data import write_run_manifest
 
+    from ..parallel.launch import is_writer, world_mesh
+
     device = resolve_device(args.provider)
+    mesh = world_mesh(device)  # DP over every rank of the world, as JAX over every device
+    device = mesh.device if mesh is not None else device
     preset = tiny_preset() if args.preset == "tiny" else EnginePreset()
     cfg = preset.osd
     fb = FbankConfig()
@@ -272,10 +282,14 @@ def main(argv=None) -> dict:
         return {"feats": fbank_batch(wb), "labels": np.stack(labels)}
 
     batch(1)  # the JAX tool traces OSDNet's init on this draw: the same stream
-    trainer = make_trainer(cfg, args.lr, args.seed, device)
+    n_dev = 1 if mesh is None else mesh.shape["data"]
+    bsz = -(-args.batch // n_dev) * n_dev  # even DP shards
+    if bsz != args.batch:
+        print(f"batch {args.batch} -> {bsz} (multiple of {n_dev} ranks)")
+    trainer = make_trainer(cfg, args.lr, args.seed, device, mesh)
     model = trainer.model
     for step in range(1, args.steps + 1):
-        loss = trainer.train_step(batch(args.batch))
+        loss = trainer.train_step(batch(bsz))
         if step == 1 or step % 100 == 0:
             print(f"step {step:5d}  frame BCE {float(loss):.4f}")
 
@@ -315,6 +329,8 @@ def main(argv=None) -> dict:
     print(f"held-out OSD vs energy GT: precision={m['precision']} "
           f"recall={m['recall']} f1={m['f1']}")
 
+    if not is_writer():  # a rank of the world: rank 0 writes
+        return m
     save_params(model, args.out, config=dataclasses.asdict(cfg), preset=args.preset)
     print(f"saved OSD params: {args.out} (use --osd-checkpoint {args.out})")
     write_run_manifest(args.out, args, {"f1": m["f1"],

@@ -21,6 +21,7 @@ import json
 from datetime import datetime
 from pathlib import Path
 
+from ..parallel.launch import is_writer
 from ..pipelines.offline_overlap3 import Overlap3Pipeline, PipelineResult
 from ..utils.config import Overlap3Config
 from ..utils.profiling import trace
@@ -106,15 +107,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-segment-sec", type=float, default=64.0)
     p.add_argument("--profile-dir", default="", help="torch.profiler trace output dir (a Chrome trace of the run, stage ranges engine.osd / overlap / clean / asr)")
     p.add_argument("--data-parallel", type=int, default=0,
-                   help="Shard stage batches over N chips (0 = single device)")
+                   help="Shard stage batches over N cards, one torchrun rank each "
+                        "(torchrun --nproc-per-node N x M; 0 = single device)")
     p.add_argument("--model-parallel", type=int, default=0,
                    help="TP: shard the separators' TCN hidden dim over M "
-                        "chips (mesh = data x model; 0 = off)")
+                        "cards (mesh = data x model ranks; 0 = off)")
     p.add_argument("--slices", type=int, default=1,
-                   help="Multi-slice deployments: the data axis spans "
-                        "slices x per-slice chips with the DCN factor "
-                        "outermost (DP collectives reduce in-slice over ICI "
-                        "first); TP never crosses a slice")
+                   help="Multi-node deployments: the data axis spans "
+                        "slices x per-node cards, node-major (torchrun "
+                        "ranks); TP never crosses a node")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="bfloat16 compute: the models run as a bfloat16 copy of their weights "
                         "(the JAX engine's bf16 mode; every ASR family, OSDNet or an "
@@ -219,12 +220,14 @@ def main(argv=None):
         raise SystemExit("Provide --librimix-root (dataset mode) or --input-wavs (file mode)")
     pipeline = Overlap3Pipeline(cfg)  # raises for options not ported yet
 
+    with trace(cfg.profile_dir):
+        result = pipeline.run()
+    if not is_writer():  # a rank of a mesh: rank 0 writes
+        return None, result
     base_out = Path(cfg.out_dir)
     base_out.mkdir(parents=True, exist_ok=True)
     out_dir = base_out / datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     out_dir.mkdir(parents=True, exist_ok=True)
-    with trace(cfg.profile_dir):
-        result = pipeline.run()
     write_artifacts(out_dir, result, cfg)
     print(
         f"Done. segments={result.metrics.get('segments_total')}, "

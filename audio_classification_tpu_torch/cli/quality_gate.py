@@ -46,13 +46,18 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     from ..engine.runtime import resolve_device
+    from ..parallel.launch import is_writer, world_mesh
     from ..pipelines.quality_gate import run_quality_gate, write_quality_json
 
     device = resolve_device(args.provider)
+    mesh = world_mesh(device)  # data-parallel over the world, as JAX over every device
+    device = mesh.device if mesh is not None else device
     m = run_quality_gate(steps_scale=args.steps_scale, n_scenes=args.scenes,
                          seed=args.seed, eval_seed=args.eval_seed,
                          ckpt_dir=args.ckpt_dir, reuse_ckpt=args.reuse_ckpt,
-                         device=device)
+                         device=device, mesh=mesh)
+    if not is_writer():  # a rank of the world: rank 0 writes
+        return m
     artifact = write_quality_json(m, args.out, hit_gate=args.hit_gate,
                                   cer_gate=args.cer_gate, device=device)
     print(f"quality gate: {'OK' if artifact['quality_ok'] else 'FAILED'} "

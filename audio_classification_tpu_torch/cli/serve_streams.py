@@ -23,6 +23,7 @@ import argparse
 import json
 import time
 
+from ..parallel.launch import is_writer
 from ..audio_io import read_wav, to_mono
 from ..pipelines.serving import StreamingServer
 
@@ -75,12 +76,12 @@ def parse_args(argv=None):
     p.add_argument("--max-segment-sec", type=float, default=16.0)
     p.add_argument("--data-parallel", type=int, default=0,
                    help="Shard every tick's cross-session batches over N "
-                        "devices (not ported yet: raises)")
+                        "cards, one torchrun rank each")
     p.add_argument("--model-parallel", type=int, default=0,
-                   help="Shard the separators' TCN hidden dim over M devices "
-                        "(not ported yet: raises)")
+                   help="Shard the separators' TCN hidden dim over M cards "
+                        "(mesh = data x model torchrun ranks)")
     p.add_argument("--slices", type=int, default=1,
-                   help="Multi-host meshes (not ported yet: raises)")
+                   help="Multi-node meshes: the data axis node-major over the ranks")
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="bfloat16 compute: the models run as a bfloat16 copy of their weights "
@@ -88,7 +89,7 @@ def parse_args(argv=None):
                         "--osd-checkpoint PyanNet)")
     p.add_argument("--arena-codec", dest="arena_codec", default="i16",
                    choices=["i16", "mulaw"],
-                   help="Wave-arena upload encoding (mulaw is not ported: raises)")
+                   help="Wave-arena encoding: int16, or 8-bit mu-law (half the bytes)")
     p.add_argument("--out", default="", help="Write all records to this JSONL")
     return p.parse_args(argv)
 
@@ -146,7 +147,7 @@ def main(argv=None):
     stats["wall_sec"] = round(wall, 2)
     stats["serving_rtf"] = round(wall / audio_total, 4) if audio_total else None
     print(f"serving stats: {json.dumps(stats)}")
-    if args.out:
+    if args.out and is_writer():  # a rank of a mesh: rank 0 writes
         with open(args.out, "w") as f:
             for s in sessions:
                 for rec in s["records"]:

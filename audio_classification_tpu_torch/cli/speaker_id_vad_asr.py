@@ -32,6 +32,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from ..parallel.launch import is_writer
 from ..models.facades import SpeakerExtractor, create_asr_model, set_default_engine
 from ..models.speaker import SpeakerBank
 from ..models.vad import VADConfig, VoiceActivityDetector
@@ -77,10 +78,10 @@ def get_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--data-parallel", type=int, default=0, dest="data_parallel",
-                   help="Devices on the mesh 'data' axis (multi-GPU meshes are not "
-                        "ported yet: raises)")
+                   help="Cards on the mesh 'data' axis, one torchrun rank each "
+                        "(DP batch sharding)")
     p.add_argument("--model-parallel", type=int, default=0, dest="model_parallel",
-                   help="Devices on the mesh 'model' axis (not ported yet: raises)")
+                   help="Cards on the mesh 'model' axis (TP)")
     p.add_argument("--long-form", action="store_true", dest="long_form",
                    help="Transcribe each utterance as ONE full-context "
                         "program instead of per-segment batching; the encoder's "
@@ -231,6 +232,8 @@ def main(argv=None):
 
     acc = correct / total if total else 0.0
     print(f"Eval done. Accuracy: {acc:.4f} ({correct}/{total}), unknown: {unknown_cnt}")
+    if not is_writer():  # a rank of a mesh: rank 0 writes
+        return None
     run_dir = write_eval_outputs(
         base_out_dir=Path(args.out_dir), rows=rows, train_speakers=len(enrolled),
         total=total, correct=correct, unknown_cnt=unknown_cnt, model=args.model,

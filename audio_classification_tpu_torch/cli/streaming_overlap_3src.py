@@ -28,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..parallel.launch import is_writer
 from ..audio_io import RingBuffer, read_wav, to_mono
 from ..pipelines.streaming import StreamingOverlap3Pipeline
 
@@ -86,13 +87,13 @@ def parse_args(argv=None):
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-segment-sec", type=float, default=16.0)
     p.add_argument("--data-parallel", type=int, default=0,
-                   help="Shard per-chunk stage batches over N devices "
-                        "(not ported yet: raises)")
+                   help="Shard per-chunk stage batches over N cards, one torchrun "
+                        "rank each (torchrun --nproc-per-node N)")
     p.add_argument("--model-parallel", type=int, default=0,
-                   help="Shard the separators' TCN hidden dim over M devices "
-                        "(not ported yet: raises)")
+                   help="Shard the separators' TCN hidden dim over M cards "
+                        "(mesh = data x model torchrun ranks)")
     p.add_argument("--slices", type=int, default=1,
-                   help="Multi-host meshes (not ported yet: raises)")
+                   help="Multi-node meshes: the data axis node-major over the ranks")
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="bfloat16 compute: the models run as a bfloat16 copy of their weights "
@@ -111,7 +112,8 @@ class StreamingApplication:
         self.all_results = []
         self.running = False
         self.output_dir = Path(args.output_dir)
-        self.output_dir.mkdir(parents=True, exist_ok=True)
+        if is_writer():  # a rank of a mesh: rank 0 writes
+            self.output_dir.mkdir(parents=True, exist_ok=True)
         self._threads = []
 
     # ------------------------------------------------------------ capture
@@ -180,7 +182,7 @@ class StreamingApplication:
             self.all_results.append(rec)
 
     def _save_results(self):
-        if not self.all_results:
+        if not self.all_results or not is_writer():
             return
         ts = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         out = self.output_dir / f"results_{ts}.jsonl"

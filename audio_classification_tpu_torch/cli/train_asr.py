@@ -8,8 +8,8 @@ audio_classification_tpu/cli/train_asr.py).
   built from the manifest's texts; ``--cmvn am.mvn`` normalises the LFR
   features as at serving;
 - ``--seq-parallel``: every attention block ring-parallel over
-  ``--data-parallel`` N shards of the frame axis on the one card
-  (parallel/sp_encoder; K5 in the ring once a shard block has 512 frames);
+  ``--data-parallel`` N shards of the frame axis (parallel/sp_encoder; K5 in
+  the ring once a shard block has 512 frames);
 - checkpoint / resume (``--ckpt-dir``, ``--resume``) and ``--export DIR``,
   which serving loads by ``--sense-voice DIR`` (the vocab must match
   ``--tokens``, the dims the serving preset's).
@@ -19,7 +19,12 @@ token table. ``--init-onnx FILE`` fine-tunes the weights of a SenseVoice
 ONNX graph mapped onto the ``--preset``'s asr dims (convert/onnx_graph_map);
 ``--export-onnx FILE`` writes the trained encoder as an ONNX graph
 (``--export-quant int8`` the dynamic-int8 form; the frames of the
-``--max-seconds`` batch are baked in). Several cards raise (slice 16).
+``--max-seconds`` batch are baked in).
+Parallelism (parallel/launch.py): ``--data-parallel`` N ranks under
+``torchrun``, one card each, each taking ``--batch`` rows (the global batch
+is N x ``--batch``, as in JAX); ``--seq-parallel`` spends the N shards on
+the frame axis instead (the batch whole on each), on N ranks or, in one
+process, on the one card. Only rank 0 writes.
 
     python -m audio_classification_tpu_torch.cli.train_asr --synthetic --steps 400 \\
         --export asr_dir [--provider cpu]
@@ -33,7 +38,6 @@ from pathlib import Path
 
 import numpy as np
 
-from .train_separator import check_parallel
 
 SR = 16000
 _ALPHABET = "abcdefgh"
@@ -172,8 +176,6 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.synthetic and not args.manifest:
         raise SystemExit("pick a data source: --manifest FILE or --synthetic")
-    n_shards = check_parallel(args, "--seq-parallel", args.seq_parallel)
-
     import torch
 
     from ..convert.assets import load_kaldi_cmvn
@@ -182,12 +184,14 @@ def main(argv=None):
     from ..models.asr.ctc import ctc_greedy_decode, ctc_loss
     from ..models.asr.sensevoice import SenseVoiceConfig, SenseVoiceEncoder, sensevoice_frontend
     from ..models.asr.tokens import TokenTable
-    from ..parallel.mesh import make_mesh
+    from ..parallel.launch import is_writer, training_mesh
     from ..train.checkpoint import save_params
     from ..train.data import write_run_manifest
     from ..train.trainer import ModuleTrainer, flax_init_
 
     device = resolve_device(args.provider)
+    mesh = training_mesh(args, device, "--seq-parallel", args.seq_parallel)
+    device = mesh.device if mesh is not None else device
     rng = np.random.default_rng(args.seed)
     if args.synthetic:
         tokens = TokenTable.char_table(_ALPHABET)
@@ -233,14 +237,17 @@ def main(argv=None):
     def frontend(wav, lens):
         return sensevoice_frontend(wav, lens, cfg, cmvn_mean=cmvn_mean, cmvn_istd=cmvn_istd)
 
-    sp_mesh = make_mesh(n_shards, devices=[device] * n_shards) if args.seq_parallel else None
+    sp_mesh = mesh if args.seq_parallel else None
 
     def loss_fn(module, b):
         feats, mask = frontend(b["wav"], b["lens"])
         logits = module(feats, mask, mesh=sp_mesh)[:, cfg.num_prompt:]
         return ctc_loss(logits, mask, b["labels"], b["lab_lens"], blank_id=tokens.blank_id)
 
-    trainer = ModuleTrainer(model, loss_fn, lr=args.lr)
+    trainer = ModuleTrainer(model, loss_fn, lr=args.lr, device=device, mesh=mesh,
+                            shard_batch=not args.seq_parallel)
+    global_batch = args.batch * (1 if args.seq_parallel or mesh is None
+                                 else mesh.shape["data"])
 
     start_step = 0
     if args.resume and args.ckpt_dir and Path(args.ckpt_dir).is_dir():
@@ -264,7 +271,7 @@ def main(argv=None):
     losses = []
     t0 = time.time()
     for step in range(start_step + 1, args.steps + 1):
-        b, _ = sampler.batch(args.batch)
+        b, _ = sampler.batch(global_batch)
         loss = trainer.train_step(b)
         losses.append(loss)
         if step % args.log_every == 0 or step == start_step + 1:
@@ -278,6 +285,8 @@ def main(argv=None):
     c1, (r1, h1) = eval_cer()
     print(f"[train_asr] CER after: {c1:.3f}  (e.g. ref='{r1}' hyp='{h1}')")
 
+    if not is_writer():  # a rank of a mesh: rank 0 writes
+        return c0, c1
     if args.export:
         save_params(model, args.export, config=dataclasses.asdict(cfg))
         print(f"[train_asr] exported serving params -> {args.export} "

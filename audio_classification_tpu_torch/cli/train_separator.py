@@ -6,9 +6,14 @@
   scenes (``--synthetic``);
 - model: ``--arch convtasnet|mossformer`` at the widths of the flags; a
   Conv-TasNet trains its dense TCN loop, as the JAX trainer does;
-- ``--time-shard``: each crop's time axis cut into ``--data-parallel`` N
-  shards on the one card (parallel/sp_convtasnet), the backward through the
-  same halos and sums;
+- parallelism (parallel/launch.py): ``--data-parallel`` N x
+  ``--model-parallel`` M ranks under ``torchrun``, one card each: each of
+  the N data entries takes ``--batch`` rows (the global batch is N x
+  ``--batch``, as in JAX) and the separator runs tensor-parallel over M;
+  ``--time-shard`` cuts each crop's time axis into ``--data-parallel`` N
+  shards instead (parallel/sp_convtasnet), on N ranks or, in one process,
+  on the one card, the backward through the same halos and sums. Only rank
+  0 writes checkpoints and exports;
 - checkpoint / resume: ``--ckpt-dir`` keeps params, Adam moments and step
   every ``--save-every`` steps; ``--resume`` continues from them exactly;
 - ``--export DIR``: the trained weights, which ``--sep-checkpoint DIR`` and
@@ -17,9 +22,7 @@
 The gate line at the end is the held-out SI-SDRi through the pipelines' PIT
 metric (metrics/sisdr), printed as the JAX CLI prints it. ``--export-onnx
 FILE`` writes the trained separator as an ONNX graph (convert/onnx_export:
-mix [batch, T] -> est, T baked from ``--seconds``); ``--model-parallel`` > 1,
-``--slices`` > 1 and ``--data-parallel`` > 1 without ``--time-shard`` raise
-(several cards, slice 16).
+mix [batch, T] -> est, T baked from ``--seconds``).
 
     python -m audio_classification_tpu_torch.cli.train_separator --synthetic \\
         --steps 300 --export sep_dir [--provider cpu]
@@ -72,7 +75,8 @@ def parse_args(argv=None):
     mf.add_argument("--mf-expansion", type=int, default=2)
     par = p.add_argument_group("parallelism")
     par.add_argument("--data-parallel", type=int, default=0,
-                     help="With --time-shard: the number of time shards on the card")
+                     help="Data-parallel ranks (torchrun, one card each); with "
+                          "--time-shard the time shards (on the one card without torchrun)")
     par.add_argument("--model-parallel", type=int, default=0)
     par.add_argument("--slices", type=int, default=1)
     par.add_argument("--time-shard", action="store_true",
@@ -89,25 +93,6 @@ def parse_args(argv=None):
                    help="Also write the trained separator as an ONNX file (mix [batch, T] "
                         "-> est, T = --seconds; Conv-TasNet or MossFormer by --arch)")
     return p.parse_args(argv)
-
-
-def check_parallel(args, shard_flag: str = "", shards_on: bool = False) -> int:
-    """The shard count a one-card run takes from --data-parallel; raises
-    NotImplementedError for what needs several cards (ROADMAP slice 16):
-    --model-parallel or --slices above 1, and --data-parallel above 1
-    unless ``shards_on`` (``shard_flag``, --time-shard or --seq-parallel,
-    puts the shards on the one card)."""
-    if args.model_parallel > 1 or args.slices > 1:
-        raise NotImplementedError(
-            "--model-parallel / --slices: tensor and multi-slice parallelism over several "
-            "cards are not ported to audio_classification_tpu_torch yet (ROADMAP slice 16)")
-    n = max(args.data_parallel, 1)
-    if n > 1 and not shards_on:
-        raise NotImplementedError(
-            f"--data-parallel {n}: data parallelism over several cards is not ported to "
-            "audio_classification_tpu_torch yet (ROADMAP slice 16)"
-            + (f"; with {shard_flag} it gives {n} shards on the one card" if shard_flag else ""))
-    return n
 
 
 def synthetic_batch(rng, b, n_src, t, sr):
@@ -189,13 +174,11 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.synthetic and not args.librimix_root:
         raise SystemExit("pick a data source: --librimix-root DIR or --synthetic")
-    n_shards = check_parallel(args, "--time-shard", args.time_shard)
-
     import torch
 
     from ..engine.runtime import resolve_device
     from ..metrics import sdr_improvement_pit_2
-    from ..parallel.mesh import make_mesh
+    from ..parallel.launch import is_writer, training_mesh
     from ..train.checkpoint import save_params
     from ..train.data import write_run_manifest
     from ..train.trainer import SeparatorTrainer
@@ -204,9 +187,11 @@ def main(argv=None):
     sr = args.sample_rate
     t = int(args.seconds * sr)
     cfg = separator_config(args)
-    mesh = make_mesh(n_shards, devices=[device] * n_shards) if args.time_shard else None
+    mesh = training_mesh(args, device, "--time-shard", args.time_shard)
+    device = mesh.device if mesh is not None else device
     trainer = SeparatorTrainer(cfg, mesh=mesh, lr=args.lr, seed=args.seed,
                                time_shard=args.time_shard, device=device)
+    global_batch = args.batch * (1 if args.time_shard or mesh is None else mesh.shape["data"])
 
     start_step = 0
     if args.resume and args.ckpt_dir and Path(args.ckpt_dir).is_dir():
@@ -247,7 +232,7 @@ def main(argv=None):
     losses = []
     t0 = time.time()
     for step in range(start_step + 1, args.steps + 1):
-        mix, refs = sample(args.batch)
+        mix, refs = sample(global_batch)
         loss = trainer.train_step(mix, refs, np.ones_like(mix))
         losses.append(loss)
         if step % args.log_every == 0 or step == start_step + 1:
@@ -262,6 +247,8 @@ def main(argv=None):
     print(f"[train_separator] held-out SI-SDRi after: {after:+.2f} dB "
           f"(gain {after - before:+.2f} dB)")
 
+    if not is_writer():  # a rank of a mesh: rank 0 writes
+        return before, after
     if args.export:
         save_params(trainer.model, args.export, config=dataclasses.asdict(cfg), arch=args.arch)
         print(f"[train_separator] exported serving params -> {args.export} "

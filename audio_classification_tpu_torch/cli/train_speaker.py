@@ -14,8 +14,10 @@ search, with same / different-speaker cosine means and the EER, before and
 after. The embedder's BatchNorm layers run on their initial statistics (the
 module stays in ``eval()``), so they act as learnable affines, as in the JAX
 CLI. ``--export-onnx FILE`` writes the embedder as an ONNX graph (fbank
-feats [batch, frames] -> emb, frames of the ``--max-seconds`` crop);
-several cards raise (slice 16).
+feats [batch, frames] -> emb, frames of the ``--max-seconds`` crop).
+``--data-parallel`` N ranks under ``torchrun`` (parallel/launch.py), one
+card each, take ``--batch`` rows each (the global batch is N x ``--batch``,
+as in JAX); only rank 0 writes.
 
     python -m audio_classification_tpu_torch.cli.train_speaker --synthetic \\
         --steps 300 --export spk_dir [--provider cpu]
@@ -30,7 +32,6 @@ from pathlib import Path
 import numpy as np
 
 from ..train.trainer import embedder_with_head
-from .train_separator import check_parallel
 
 SR = 16000
 
@@ -138,8 +139,6 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.synthetic and not args.manifest:
         raise SystemExit("pick a data source: --manifest FILE or --synthetic")
-    check_parallel(args)
-
     import torch
 
     from ..engine.runtime import resolve_device
@@ -151,7 +150,11 @@ def main(argv=None):
     from ..train.losses import aam_softmax_loss
     from ..train.trainer import ModuleTrainer, flax_init_
 
+    from ..parallel.launch import is_writer, training_mesh
+
     device = resolve_device(args.provider)
+    mesh = training_mesh(args, device)
+    device = mesh.device if mesh is not None else device
     cfg = SpeakerEmbedderConfig(channels=tuple(int(c) for c in args.channels.split(",")),
                                 scale=args.scale, embed_dim=args.embed_dim,
                                 asp_hidden=args.asp_hidden)
@@ -188,7 +191,8 @@ def main(argv=None):
         emb, w = module(b["feats"])
         return aam_softmax_loss(emb, b["labels"], w, margin=args.margin, scale=args.aam_scale)
 
-    trainer = ModuleTrainer(model, loss_fn, lr=args.lr)
+    trainer = ModuleTrainer(model, loss_fn, lr=args.lr, device=device, mesh=mesh)
+    global_batch = args.batch * (1 if mesh is None else mesh.shape["data"])
 
     start_step = 0
     if args.resume and args.ckpt_dir and Path(args.ckpt_dir).is_dir():
@@ -236,7 +240,7 @@ def main(argv=None):
     losses = []
     t0 = time.time()
     for step in range(start_step + 1, args.steps + 1):
-        wavs, labels = sampler.batch(args.batch)
+        wavs, labels = sampler.batch(global_batch)
         loss = trainer.train_step({"feats": fbank_batch(wavs), "labels": labels})
         losses.append(loss)
         if step % args.log_every == 0 or step == start_step + 1:
@@ -252,6 +256,8 @@ def main(argv=None):
           f"(same-cos {s1:.3f} / diff-cos {d1:.3f} / EER {e1:.3f} "
           f"@thr {thr1:.3f} -- a calibrated --sv-threshold)")
 
+    if not is_writer():  # a rank of a mesh: rank 0 writes
+        return a0, a1
     if args.export:
         # the embedder alone, shaped as the engine's spk stage; the AAM
         # centres are dropped

@@ -1,6 +1,6 @@
 """Length bucketing + padded batch assembly (host copy of
-audio_classification_tpu/engine/bucketing.py without the mu-law arena
-codec).
+audio_classification_tpu/engine/bucketing.py, the mu-law arena codec
+included).
 
 XLA compiles one program per shape; segments have arbitrary lengths
 (reference processes them one by one at native length —
@@ -170,6 +170,49 @@ def flat_pack_i16(
     buf = np.zeros(n_pad, dtype=np.int16)
     for x, off, n in zip(items, offsets, lengths):
         buf[off : off + n] = quantize_i16(x[..., :n])
+    return buf, offsets, lengths
+
+
+MULAW_MU = 255.0
+MULAW_ZERO = 128  # encode(0): the mask/pad fill byte (decodes to exact 0)
+
+
+def mulaw_encode(x: np.ndarray) -> np.ndarray:
+    """float [-1, 1] -> uint8 mu-law code (mu = 255, linear 8-bit code
+    grid): y = sign(x) * log1p(mu * |x|) / log1p(mu), code =
+    rint((y + 1) * 127.5). Half the arena bytes of int16, ~38 dB SNR on
+    speech-level signals."""
+    x = np.clip(np.asarray(x, np.float32), -1.0, 1.0)
+    y = np.sign(x) * np.log1p(MULAW_MU * np.abs(x)) / np.log1p(MULAW_MU)
+    return np.clip(np.rint((y + 1.0) * 127.5), 0, 255).astype(np.uint8)
+
+
+def mulaw_decode_lut() -> np.ndarray:
+    """[256] float32 inverse of mulaw_encode (the device decode is one
+    ``lut[code]`` gather). lut[MULAW_ZERO] is pinned to exact 0, so mask and
+    pad fill bytes decode to true silence."""
+    code = np.arange(256, dtype=np.float32)
+    y = code / 127.5 - 1.0
+    x = np.sign(y) * ((1.0 + MULAW_MU) ** np.abs(y) - 1.0) / MULAW_MU
+    x[MULAW_ZERO] = 0.0
+    return x.astype(np.float32)
+
+
+def flat_pack_mulaw(
+    items: Sequence[np.ndarray], tail: int, grid: int = 1 << 20
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``flat_pack_i16`` with the 8-bit mu-law codec: the same layout
+    (offsets, lengths, tail, grid), half the bytes; padding bytes are
+    MULAW_ZERO (decode to exact 0). StageEngine(arena_codec="mulaw")."""
+    lengths = np.array([int(x.shape[-1]) for x in items], dtype=np.int64)
+    offsets = np.zeros(len(items), dtype=np.int64)
+    if len(items):
+        np.cumsum(lengths[:-1], out=offsets[1:])
+    total = int(lengths.sum()) + int(tail)
+    n_pad = -(-total // grid) * grid
+    buf = np.full(n_pad, MULAW_ZERO, dtype=np.uint8)
+    for x, off, n in zip(items, offsets, lengths):
+        buf[off : off + n] = mulaw_encode(x[..., :n])
     return buf, offsets, lengths
 
 

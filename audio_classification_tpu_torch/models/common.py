@@ -28,7 +28,7 @@ layer is the plain torch call it always was.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -73,6 +73,19 @@ def param_as(owner: nn.Module, name: str, dtype: torch.dtype) -> Optional[torch.
     return constant_of(owner, f"{name}_as_{dtype}", (p,), lambda: p.to(dtype))
 
 
+def leaf_as(owner: nn.Module, name: str, dtype: torch.dtype,
+            params: Optional[dict] = None) -> Optional[torch.Tensor]:
+    """``param_as``, or with ``params`` (a tensor-parallel shard's leaves,
+    parallel/tp.model_shards) ``params[name]`` cast on each call, None where
+    the shard has no such leaf. A shard is a new view a call, and model
+    shard 0 starts where its leaf does: a kept cast of it would be keyed like
+    the whole leaf's."""
+    if params is None:
+        return param_as(owner, name, dtype)
+    p = params.get(name)
+    return None if p is None else p.to(dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (tanh approximation)."""
     return F.gelu(x, approximate="tanh")
@@ -84,6 +97,24 @@ def same_padding(t: int, kernel: int, stride: int = 1, dilation: int = 1) -> tup
     out = -(-t // stride)
     total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - t, 0)
     return total // 2, total - total // 2
+
+
+def conv1d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1, dilation: int = 1,
+           padding="SAME", groups: int = 1) -> torch.Tensor:
+    """[B, T, Cin] x [K, Cin/groups, Cout] -> [B, T', Cout]: the JAX package's
+    feature-last functional conv (lax.conv_general_dilated with
+    ("NHC", "HIO", "NHC")). ``padding`` is "SAME" (XLA's: extra pad on the
+    right, so asymmetric at stride 2), "VALID" or ``[(lo, hi)]``."""
+    k = kernel.shape[0]
+    if padding == "SAME":
+        pad = same_padding(x.shape[1], k, stride, dilation)
+    elif padding == "VALID":
+        pad = (0, 0)
+    else:
+        pad = tuple(padding[0])
+    xt = F.pad(x.transpose(1, 2), pad) if pad != (0, 0) else x.transpose(1, 2)
+    y = F.conv1d(xt, kernel.permute(2, 1, 0).to(x.dtype), None, stride, 0, dilation, groups)
+    return y.transpose(1, 2)
 
 
 class GlobalLayerNorm(nn.Module):
@@ -98,19 +129,34 @@ class GlobalLayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dt = wide(x)
-        xf = x.to(dt)
+        return self.shards([x], mask)[0]
+
+    def shards(self, xs: List[torch.Tensor], mask: Optional[torch.Tensor] = None,
+               params: Optional[List[Optional[dict]]] = None,
+               total: Optional[Callable] = None) -> List[torch.Tensor]:
+        """gLN of a tensor split along its channels: ``xs`` one tensor, or
+        a rank's tensor-parallel shards with their ``params`` (gamma / beta
+        columns) and ``total`` summing per-shard statistics over every shard
+        of the axis (parallel/collectives.psum). The count runs over all of
+        ``gamma``'s channels."""
+        dt = wide(xs[0])
+        xf = [x.to(dt) for x in xs]
+        total = total or (lambda parts: parts[0])
+        channels = self.gamma.shape[0]
         if mask is None:
-            mean = xf.mean(dim=(1, 2), keepdim=True)
-            var = ((xf - mean) ** 2).mean(dim=(1, 2), keepdim=True)
+            m, count = None, float(xs[0].shape[1] * channels)
         else:
             m = mask[..., None].to(dt)
-            count = torch.clamp_min(m.sum(dim=(1, 2), keepdim=True) * x.shape[-1], 1.0)
-            mean = (xf * m).sum(dim=(1, 2), keepdim=True) / count
-            var = (((xf - mean) * m) ** 2).sum(dim=(1, 2), keepdim=True) / count
-        y = ((xf - mean) * torch.rsqrt(var + self.eps) * param_as(self, "gamma", dt)
-             + param_as(self, "beta", dt))
-        return y.to(x.dtype)
+            count = torch.clamp_min(m.sum(dim=(1, 2), keepdim=True) * channels, 1.0)
+        mean = total([(x if m is None else x * m).sum(dim=(1, 2), keepdim=True)
+                      for x in xf]) / count
+        var = total([((x - mean if m is None else (x - mean) * m) ** 2).sum(dim=(1, 2),
+                                                                            keepdim=True)
+                     for x in xf]) / count
+        inv = torch.rsqrt(var + self.eps)
+        return [((xv - mean) * inv * leaf_as(self, "gamma", dt, p)
+                 + leaf_as(self, "beta", dt, p)).to(x.dtype)
+                for xv, x, p in zip(xf, xs, params or [None] * len(xs))]
 
 
 class ChannelLayerNorm(nn.Module):
@@ -140,8 +186,8 @@ class PReLU(nn.Module):
         super().__init__()
         self.alpha = nn.Parameter(torch.full((1,), init))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, param_as(self, "alpha", x.dtype) * x)
+    def forward(self, x: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:
+        return torch.where(x >= 0, x, leaf_as(self, "alpha", x.dtype, params) * x)
 
 
 class Conv1d(nn.Module):
@@ -155,7 +201,11 @@ class Conv1d(nn.Module):
     by the optional frame ``mask``, per-out-channel weight scales, exact
     integer accumulation; the bias is added after, in float. Without
     gradients the int8 weight is made once and kept until the weight changes
-    (ops/quant.constant_of)."""
+    (ops/quant.constant_of).
+
+    ``params`` stands in for the module's weight and bias (a tensor-parallel
+    shard, parallel/tp.model_shards; a float conv): the groups then follow
+    the shard's input width."""
 
     def __init__(self, cin: int, features: int, kernel_size: int, stride: int = 1,
                  dilation: int = 1, groups: int = 1, use_bias: bool = True,
@@ -166,28 +216,31 @@ class Conv1d(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, cin // groups, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                params: Optional[dict] = None) -> torch.Tensor:
         if self.padding == "SAME":
             pad = same_padding(x.shape[1], self.kernel_size, self.stride, self.dilation)
         elif self.padding == "VALID":
             pad = (0, 0)
         else:
             pad = tuple(self.padding[0])
-        bias = param_as(self, "bias", x.dtype)
-        if self.quant == "int8" and self.groups == 1:
+        bias = leaf_as(self, "bias", x.dtype, params)
+        if self.quant == "int8" and self.groups == 1 and params is None:
             kernel = self.weight.permute(2, 1, 0)
             wq = constant_of(self, "wq", (self.weight,), lambda: quantize_weight(kernel))
             y = int8_conv1d(x, kernel, self.stride, self.dilation, pad, mask=mask, wq=wq,
                             out_dtype=x.dtype)
             return y if bias is None else y + bias
-        plain = _all_f32(x, self.weight)
+        weight = self.weight if params is None else params["weight"]
+        groups = self.groups if params is None else x.shape[-1] // weight.shape[1]
+        plain = _all_f32(x, weight)
         x = x.transpose(1, 2)
         if pad != (0, 0):
             x = F.pad(x, pad)
         # flax casts the kernel to x's dtype and adds the bias to the rounded
         # product; in float32 the bias rides in the convolution
-        y = F.conv1d(x, param_as(self, "weight", x.dtype), bias if plain else None, self.stride, 0,
-                     self.dilation, self.groups)
+        y = F.conv1d(x, leaf_as(self, "weight", x.dtype, params), bias if plain else None,
+                     self.stride, 0, self.dilation, groups)
         if not plain and bias is not None:
             y = y + bias[:, None]
         return y.transpose(1, 2)
@@ -197,13 +250,18 @@ class Dense(nn.Linear):
     """``nn.Linear`` with flax ``nn.Dense`` dtype semantics: x, weight and
     bias promote to one dtype, the product accumulates in float32 and rounds
     to it, and the bias is added after that rounding. All-float32 is
-    ``nn.Linear`` as it is."""
+    ``nn.Linear`` as it is. ``params`` stands in for the weight and bias (a
+    tensor-parallel shard, parallel/tp.model_shards; no bias where it has
+    none)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _all_f32(x, self.weight, self.bias):
-            return super().forward(x)
-        dt = promote(x, self.weight, self.bias)
-        return F.linear(x.to(dt), param_as(self, "weight", dt)) + param_as(self, "bias", dt)
+    def forward(self, x: torch.Tensor, params: Optional[dict] = None) -> torch.Tensor:
+        weight, bias = ((self.weight, self.bias) if params is None
+                        else (params["weight"], params.get("bias")))
+        if _all_f32(x, weight, bias):
+            return F.linear(x, weight, bias)
+        dt = promote(x, weight, bias)
+        y = F.linear(x.to(dt), leaf_as(self, "weight", dt, params))
+        return y if bias is None else y + leaf_as(self, "bias", dt, params)
 
 
 class DenseQ(Dense):

@@ -13,6 +13,9 @@ from torch import nn
 
 from ..ops.kernels.tcn import fused_tcn_masker, stack_tcn_params
 from ..ops.quant import constant_of, int8_matmul, quantize_weight
+from ..parallel.collectives import enter_sharded
+from ..parallel.mesh import convtasnet_param_spec
+from ..parallel.tp import model_shards, model_total, of, row_sum, tensor_parallel
 from .common import Conv1d, GlobalLayerNorm, PReLU, param_as, wide
 
 
@@ -45,7 +48,13 @@ class ConvTasNetConfig:
 
 
 class TCNBlock(nn.Module):
-    """One dilated depthwise-separable conv block with residual + skip."""
+    """One dilated depthwise-separable conv block with residual + skip.
+
+    ``mesh`` with a model axis above 1 splits H over its model shards
+    (parallel/tp.py): in_conv and dw_conv column-parallel, the gLN
+    statistics summed over the shards, res_conv and skip_conv row-parallel
+    with their sums all-reduced. Without one the block is one shard of its
+    own weights."""
 
     def __init__(self, c: ConvTasNetConfig, dilation: int):
         super().__init__()
@@ -59,14 +68,34 @@ class TCNBlock(nn.Module):
         self.res_conv = Conv1d(c.hidden, c.bottleneck, 1, quant=c.quant)
         self.skip_conv = Conv1d(c.hidden, c.bottleneck, 1, quant=c.quant)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]):
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], mesh=None):
+        shards = model_shards(self, mesh, _tcn_rule, _TCN_SUBS, ("res_conv", "skip_conv"))
+        tp = shards[0] is not None
+        xs = enter_sharded(x, mesh) if tp else x
         # the frame mask bounds the int8 activation scale: padded frames hold
         # normalised garbage after gLN and must not move a sample's grid
-        h = self.norm1(self.prelu1(self.in_conv(x, mask)), mask)
+        hs = [self.prelu1(self.in_conv(xs, mask, of(s, "in_conv")), of(s, "prelu1"))
+              for s in shards]
+        hs = self.norm1.shards(hs, mask, [of(s, "norm1") for s in shards], model_total(mesh))
         if mask is not None:
-            h = h * mask[..., None]
-        h = self.norm2(self.prelu2(self.dw_conv(h)), mask)
-        return x + self.res_conv(h, mask), self.skip_conv(h, mask)
+            hs = [h * mask[..., None] for h in hs]
+        hs = [self.prelu2(self.dw_conv(h, params=of(s, "dw_conv")), of(s, "prelu2"))
+              for h, s in zip(hs, shards)]
+        hs = self.norm2.shards(hs, mask, [of(s, "norm2") for s in shards], model_total(mesh))
+        res, skip = (row_sum([conv(h, mask, of(s, name)) for h, s in zip(hs, shards)], mesh,
+                             conv.bias)
+                     for name, conv in (("res_conv", self.res_conv),
+                                        ("skip_conv", self.skip_conv)))
+        return x + res, skip
+
+
+_TCN_SUBS = ("in_conv", "prelu1", "norm1", "dw_conv", "prelu2", "norm2", "res_conv", "skip_conv")
+
+
+def _tcn_rule(name: str, leaf) -> tuple:
+    """``convtasnet_param_spec``, with the gLN gamma / beta read by the
+    shard's columns of H too."""
+    return ("model",) if name.startswith("norm") else convtasnet_param_spec(name, leaf)
 
 
 class ConvTasNet(nn.Module):
@@ -93,7 +122,11 @@ class ConvTasNet(nn.Module):
         return [getattr(self, f"tcn_{r}_{xb}")
                 for r in range(c.n_repeats) for xb in range(c.n_blocks)]
 
-    def forward(self, mix: torch.Tensor, sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, mix: torch.Tensor, sample_mask: Optional[torch.Tensor] = None,
+                mesh=None) -> torch.Tensor:
+        """``mesh`` with a model axis above 1 runs the masker tensor-parallel
+        (the dense loop of TCNBlocks, H split over the model shards);
+        otherwise the mesh changes nothing here."""
         c = self.cfg
         b, t = mix.shape
         stride = c.stride
@@ -112,7 +145,12 @@ class ConvTasNet(nn.Module):
             frame_mask = torch.arange(n_frames, device=w.device)[None, :] < f_len[:, None]
 
         h = self.bottleneck(self.ln_in(w, frame_mask), frame_mask)
-        if c.fused_tcn == "auto" and c.conv_kernel == 3:
+        tp = tensor_parallel(mesh)
+        if tp and c.quant == "int8":
+            raise ValueError("tensor parallelism serves float and bfloat16 separators: the "
+                             "int8 path's per-sample activation scales span the whole hidden "
+                             "width")
+        if not tp and c.fused_tcn == "auto" and c.conv_kernel == 3:
             fl = f_len if frame_mask is not None else torch.full(
                 (b,), n_frames, dtype=torch.int32, device=w.device)
             # stacked (and, under int8, quantised) once per set of weights and
@@ -126,7 +164,7 @@ class ConvTasNet(nn.Module):
         else:
             skips = 0.0
             for blk in self.tcn_blocks():
-                h, skip = blk(h, frame_mask)
+                h, skip = blk(h, frame_mask, mesh if tp else None)
                 skips = skips + skip
         m = self.mask_conv(self.mask_prelu(skips), frame_mask)
         m = m.reshape(b, n_frames, c.n_src, c.enc_dim)

@@ -15,8 +15,9 @@ StageEngine:
 ModelScope / ClearVoice MossFormer: convert/torch_import.py); an orbax
 directory raises NotImplementedError naming scripts/orbax_to_torch.py, the
 converter. The long-form calls (``transcribe(long_form=True)``,
-``separate_long``) take a mesh whose shards live on one device
-(parallel/mesh.make_mesh); a mesh over several cards is slice 16.
+``separate_long``) take a mesh (parallel/mesh.make_mesh): its shards on one
+device in one process, or one rank per card under torchrun, each rank with
+the whole mixture in and the whole result out.
 
 The facades and factories take the JAX package's parameters in its order;
 a torch device string in ``device`` / ``provider`` (default "cuda" where the

@@ -20,6 +20,9 @@ from torch import nn
 
 from ..ops.kernels.attention import FLASH_MIN_T
 from ..ops.kernels.gau import gau_attention
+from ..parallel.collectives import enter_sharded
+from ..parallel.mesh import mossformer_param_spec
+from ..parallel.tp import model_shards, of, row_sum
 from .common import F32, ChannelLayerNorm, Conv1d, Dense, param_as
 from .convtasnet import _frame_lengths
 
@@ -59,27 +62,36 @@ class GAUBlock(nn.Module):
         self.beta = nn.Parameter(torch.zeros(2, c.qk_dim))
         self.to_out = Dense(d_e, c.dim)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
         h = self.ln(x)
         h = h + F.silu(self.dwconv(h))
-        u = F.silu(self.to_u(h))
-        v = F.silu(self.to_v(h))
         z = self.to_qk(h)
         q = z * self.gamma[0] + self.beta[0]
         k = z * self.gamma[1] + self.beta[1]
         t = x.shape[1]
-        if t >= FLASH_MIN_T:
-            att = gau_attention(q, k, v, mask, 1.0 / t)
-        else:
-            # float32 scores and a float32 p v on bfloat16 q, k, v, as the
-            # reference's einsums with a float32 result (its p is not rounded)
-            logits = torch.matmul(q.float(), k.float().transpose(1, 2)) / t
-            if mask is not None:
-                logits = logits * mask[:, None, :].to(logits.dtype)
-            att = torch.matmul(torch.relu(logits) ** 2, v.float())
-        # att is float32 on both paths: from here the block, and the stream
-        # after it, run in float32 (with bfloat16 weights in a bfloat16 copy)
-        out = self.to_out(u * att)
+        # a model axis above 1 splits d_e over its shards (parallel/tp.py)
+        shards = model_shards(self, mesh, mossformer_param_spec, ("to_u", "to_v", "to_out"),
+                              ("to_out",))
+        tp = shards[0] is not None
+        if tp:
+            h, q, k = (enter_sharded(a, mesh) for a in (h, q, k))
+        outs = []
+        for s in shards:
+            u = F.silu(self.to_u(h, of(s, "to_u")))
+            v = F.silu(self.to_v(h, of(s, "to_v")))
+            if t >= FLASH_MIN_T:
+                att = gau_attention(q, k, v, mask, 1.0 / t)
+            else:
+                # float32 scores and a float32 p v on bfloat16 q, k, v, as the
+                # reference's einsums with a float32 result (its p is not rounded)
+                logits = torch.matmul(q.float(), k.float().transpose(1, 2)) / t
+                if mask is not None:
+                    logits = logits * mask[:, None, :].to(logits.dtype)
+                att = torch.matmul(torch.relu(logits) ** 2, v.float())
+            # att is float32 on both paths: from here the block, and the stream
+            # after it, run in float32 (with bfloat16 weights in a bfloat16 copy)
+            outs.append(self.to_out(u * att, of(s, "to_out")))
+        out = row_sum(outs, mesh, self.to_out.bias)
         if mask is not None:
             out = out * mask[..., None]
         return x + out
@@ -100,7 +112,10 @@ class MossFormer(nn.Module):
         self.mask_head = Dense(c.dim, c.n_src * c.enc_dim)
         self.decoder = nn.Parameter(torch.empty(c.enc_kernel, c.enc_dim))  # [L, N]
 
-    def forward(self, mix: torch.Tensor, sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, mix: torch.Tensor, sample_mask: Optional[torch.Tensor] = None,
+                mesh=None) -> torch.Tensor:
+        """``mesh`` with a model axis above 1 runs every GAU tensor-parallel
+        (d_e split over the model shards, K4 on each shard's columns of v)."""
         c = self.cfg
         b, t = mix.shape
         stride = c.stride
@@ -118,7 +133,7 @@ class MossFormer(nn.Module):
 
         h = self.in_proj(w)
         for i in range(c.layers):
-            h = getattr(self, f"gau_{i}")(h, frame_mask)
+            h = getattr(self, f"gau_{i}")(h, frame_mask, mesh)
         m = torch.relu(self.mask_head(self.ln_out(h))).reshape(b, n_frames, c.n_src, c.enc_dim)
 
         masked = w[:, :, None, :] * m  # [B, F, S, N]

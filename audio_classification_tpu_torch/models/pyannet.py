@@ -89,6 +89,69 @@ class PyanNetConfig:
         return t
 
 
+def _to_mel(hz):
+    return 2595.0 * np.log10(1.0 + hz / 700.0)
+
+
+def _to_hz(mel):
+    return 700.0 * (10.0 ** (mel / 2595.0) - 1.0)
+
+
+def init_pyannet_params(cfg: PyanNetConfig, seed: int = 0) -> dict:
+    """A fresh PyanNet parameter tree with the torch modules' default inits,
+    drawn from ``numpy.random.RandomState(seed)`` in the JAX package's
+    order (models/pyannet.py: its tree of numpy arrays, bit for bit; the
+    port's PyanNet takes it through convert/from_jax.pyannet_params_to_state_dict):
+    sinc band edges on the mel scale, conv / LSTM / linear weights and
+    biases uniform in +-1/sqrt(fan_in), norms 1 and 0."""
+    rng = np.random.RandomState(seed)
+    rows = cfg.n_filters // 2 if cfg.analytic else cfg.n_filters
+    low_hz, high_hz = 30.0, cfg.sample_rate / 2 - (cfg.min_low_hz + cfg.min_band_hz)
+    hz = _to_hz(np.linspace(_to_mel(low_hz), _to_mel(high_hz), rows + 1))
+
+    def lin(fan_out, fan_in):
+        b = 1.0 / math.sqrt(fan_in)
+        return rng.uniform(-b, b, (fan_out, fan_in)).astype(np.float32)
+
+    def vec(fan_out, fan_in):
+        b = 1.0 / math.sqrt(fan_in)
+        return rng.uniform(-b, b, (fan_out,)).astype(np.float32)
+
+    params: dict = {
+        "wav_norm": {"weight": np.ones(1, np.float32), "bias": np.zeros(1, np.float32)},
+        "sinc": {"low_hz": hz[:-1, None].astype(np.float32),
+                 "band_hz": np.diff(hz)[:, None].astype(np.float32)},
+        "norm0": {"weight": np.ones(cfg.n_filters, np.float32),
+                  "bias": np.zeros(cfg.n_filters, np.float32)},
+    }
+    cin = cfg.n_filters
+    for i, ch in enumerate(cfg.conv_channels, start=1):
+        b = 1.0 / math.sqrt(cin * cfg.conv_kernel)
+        params[f"conv{i}"] = {
+            "weight": rng.uniform(-b, b, (ch, cin, cfg.conv_kernel)).astype(np.float32),
+            "bias": rng.uniform(-b, b, (ch,)).astype(np.float32),
+        }
+        params[f"norm{i}"] = {"weight": np.ones(ch, np.float32), "bias": np.zeros(ch, np.float32)}
+        cin = ch
+    h = cfg.lstm_hidden
+    dirs = ("fw", "bw") if cfg.bidirectional else ("fw",)
+    lstm = []
+    for layer in range(cfg.lstm_layers):
+        in_dim = cin if layer == 0 else h * len(dirs)
+        lstm.append({d: {"w_ih": lin(4 * h, in_dim), "w_hh": lin(4 * h, h),
+                         "b_ih": vec(4 * h, h), "b_hh": vec(4 * h, h)} for d in dirs})
+    params["lstm"] = lstm
+    cin = h * len(dirs)
+    linear = []
+    for dim in cfg.linear_dims:
+        linear.append({"weight": lin(dim, cin), "bias": vec(dim, cin)})
+        cin = dim
+    params["linear"] = linear
+    params["classifier"] = {"weight": lin(cfg.num_classes, cin),
+                            "bias": vec(cfg.num_classes, cin)}
+    return params
+
+
 def sinc_filters(cfg: PyanNetConfig, low_hz: torch.Tensor, band_hz: torch.Tensor) -> torch.Tensor:
     """[n_filters, 1, K] conv weight from the learnable band edges [R, 1]
     (SincConv_fast's construction: the closed-form band-pass left half
@@ -190,6 +253,14 @@ class PyanNet(nn.Module):
         self.classifier = nn.Linear(cin, c.num_classes)
         #: the dtype of the sinc band-edge arithmetic (``rounded_copy``)
         self.edge_dtype = torch.float32
+
+    def init(self, seed: int = 0) -> "PyanNet":
+        """Fresh weights, ``init_pyannet_params(cfg, seed)`` (the JAX
+        ``PyanNet.init``), loaded into this module; -> self."""
+        from ..convert.from_jax import pyannet_params_to_state_dict
+
+        self.load_state_dict(pyannet_params_to_state_dict(init_pyannet_params(self.cfg, seed)))
+        return self
 
     def forward(self, wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         with no_tf32():

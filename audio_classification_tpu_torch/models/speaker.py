@@ -170,20 +170,15 @@ class SpeakerBank:
     reaches the threshold, else "" (which callers map to "unknown").
 
     ``device`` defaults to the first CUDA device (raising without one) or to
-    the device of ``mesh``. A mesh whose shards all live on one device keeps
-    the bank there; a mesh over several distinct devices, which would shard
-    the bank's rows across cards, raises NotImplementedError (ROADMAP slice
-    16)."""
+    the device of ``mesh``. ``mesh`` shards the bank's rows over
+    ``shard_axis`` (the JAX bank's NamedSharding): each local entry holds
+    its rows (zero-padded to the axis' tiling), scores them, and the
+    scores of every shard come back to every rank (collectives.all_gather),
+    so ``scores`` / ``search`` keep their meaning."""
 
-    def __init__(self, dim: int, mesh=None, device=None):
+    def __init__(self, dim: int, mesh=None, device=None, shard_axis: str = "data"):
+        self.mesh, self.shard_axis = mesh, shard_axis
         if mesh is not None:
-            flat = [d for row in mesh.devices for d in row]
-            distinct = {(d.type, d.index if d.index is not None else 0) for d in flat}
-            if len(distinct) > 1:
-                raise NotImplementedError(
-                    f"SpeakerBank: a mesh over {len(distinct)} distinct devices would "
-                    "shard the bank across cards, which is not ported to "
-                    "audio_classification_tpu_torch yet (ROADMAP slice 16)")
             device = mesh.device if device is None else device
         from ..engine.runtime import resolve_device
 
@@ -204,20 +199,35 @@ class SpeakerBank:
 
     @property
     def matrix(self) -> torch.Tensor:
-        """[S, D] l2-normalised bank, uploaded once after each change."""
+        """[S', D] l2-normalised bank, uploaded once after each change; with
+        a mesh, the rows of this rank's shards of the zero-padded bank."""
         if self._mat is None:
             mat = np.stack(self._vecs) if self._vecs else np.zeros((0, self.dim), np.float32)
-            self._mat = torch.from_numpy(mat).to(self.device)
+            if self.mesh is not None and len(self._vecs):
+                n = self.mesh.shape[self.shard_axis]
+                mat = np.concatenate([mat, np.zeros(((-len(mat)) % n, self.dim), mat.dtype)])
+                per = len(mat) // n
+                mine = self.mesh.local_range(self.shard_axis)
+                mat = mat[mine.start * per:mine.stop * per]
+            self._mat = torch.from_numpy(np.ascontiguousarray(mat)).to(self.device)
         return self._mat
 
     @torch.inference_mode()
     def scores(self, embs) -> torch.Tensor:
-        """[B, D] (any scale) -> [B, S] cosine scores in one matmul."""
+        """[B, D] (any scale) -> [B, S] cosine scores in one matmul (a
+        matmul a shard under a mesh, then the shards' columns joined)."""
         if not isinstance(embs, torch.Tensor):
             embs = torch.from_numpy(np.ascontiguousarray(embs, np.float32))
         e = embs.to(self.device, torch.float32)
         e = e / torch.clamp_min(e.norm(dim=-1, keepdim=True), 1e-12)
-        return e @ self.matrix.t()
+        if self.mesh is None or not self._vecs:
+            return e @ self.matrix.t()
+        from ..parallel.collectives import all_gather
+
+        per = self.matrix.shape[0] // self.mesh.local_count(self.shard_axis)
+        shards = [e @ self.matrix[i * per:(i + 1) * per].t()
+                  for i in range(self.mesh.local_count(self.shard_axis))]
+        return all_gather(shards, self.mesh, self.shard_axis, dim=1)[:, : len(self.names)]
 
     def search(self, emb, threshold: float) -> str:
         if not self.names:

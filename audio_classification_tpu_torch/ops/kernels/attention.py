@@ -329,9 +329,8 @@ def _flash_forward(q, k, v, kv_mask):
     else:
         flash_attention.launches += 1
     flash_attention.launches_by_head_dim[d] += 1
-    _build.check(name, fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), b, h, t,
-        q.shape[-1], 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream))
+    _build.launch(name, fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+                  out.data_ptr(), b, h, t, q.shape[-1], 1.0 / math.sqrt(d))
     return out[..., :d]  # the padded columns sliced off (a view)
 
 
@@ -388,10 +387,9 @@ def _flash_stats_forward(q, k, v, kv_mask):
     else:
         flash_attention_stats.launches += 1
     flash_attention_stats.launches_by_head_dim[d] += 1
-    _build.check(name, fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), m.data_ptr(),
-        l.data_ptr(), b, h, tq, tk, q.shape[-1], 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream))
+    _build.launch(name, fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+                  out.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, tq, tk, q.shape[-1],
+                  1.0 / math.sqrt(d))
     return out_d, m, l
 
 

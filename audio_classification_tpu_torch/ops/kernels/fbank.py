@@ -84,10 +84,9 @@ def fbank_power_mel(frames: torch.Tensor, bases: FbankBases, log_floor: float) -
     fn = _build.kernel("act_fbank_power_mel", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
     fbank_power_mel.launches += 1
-    _build.check("act_fbank_power_mel", fn(
-        frames.data_ptr(), bases.twiddle.data_ptr(), bases.bands.data_ptr(),
-        bases.band_w.data_ptr(), out.data_ptr(), n, n_fft, nb, bw, float(log_floor),
-        torch.cuda.current_stream(frames.device).cuda_stream))
+    _build.launch("act_fbank_power_mel", fn, frames.device, frames.data_ptr(),
+                  bases.twiddle.data_ptr(), bases.bands.data_ptr(), bases.band_w.data_ptr(),
+                  out.data_ptr(), n, n_fft, nb, bw, float(log_floor))
     return out
 
 

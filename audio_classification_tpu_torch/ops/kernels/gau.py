@@ -151,9 +151,8 @@ def _gau_forward(q, k, v, kv_mask, scale):
         gau_attention.launches_bf16 += 1
     else:
         gau_attention.launches += 1
-    _build.check(name, fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), b, t, dqk, de,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream))
+    _build.launch(name, fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+                  out.data_ptr(), b, t, dqk, de, float(scale))
     return out
 
 

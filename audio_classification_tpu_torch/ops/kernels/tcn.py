@@ -333,8 +333,7 @@ def _masker_forward(x, f_len, st, n_per_repeat):
                        + [ctypes.c_void_p])
     counter = "launches" + ("_s8" if wq else "") + ("_bf16" if lowp else "")
     setattr(fused_tcn_masker, counter, getattr(fused_tcn_masker, counter) + 1)
-    _build.check(name, fn(*ptrs, b, f, c, hd, nb, n_per_repeat, n_part,
-                          torch.cuda.current_stream(x.device).cuda_stream))
+    _build.launch(name, fn, x.device, *ptrs, b, f, c, hd, nb, n_per_repeat, n_part)
     return skips
 
 

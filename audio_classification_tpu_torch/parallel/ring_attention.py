@@ -11,10 +11,13 @@ from kernel K5 (ops/kernels/attention.flash_attention_stats, its twin on the
 CPU) and the [Ts, Ts] block logits never reach device memory; below it from
 the dense block.
 
-The shard program is written once, as a loop over the shards in one
-process: the mesh's entries name one device (parallel/mesh.py). The only
-thing that crosses shards is ``_ppermute_ring``; a mesh over several cards
-puts its send/recv there and leaves the shard body as it is.
+The shard program is written once, over this rank's local list of shards
+(parallel/mesh.py): at world size 1 every shard, in one process; under
+``torchrun`` the rank's own. The only thing that crosses shards is the ring
+step (parallel/collectives.ring_shift): a rotation of the local list whose
+ends go to the neighbouring ranks. Every rank takes the whole [B, T, H, D]
+input, runs its query blocks and joins every rank's output blocks at exit
+(collectives.all_gather), so the caller sees the whole output.
 
 Layout: the public function takes [B, T, H, D], as the JAX function does.
 Inside, everything stays in K5's [B, H, Ts, D] layout: one transposing copy
@@ -29,6 +32,7 @@ from typing import List, Optional
 import torch
 
 from ..ops.kernels.attention import FLASH_MIN_T, flash_attention_stats
+from .collectives import all_gather, enter_sharded, ring_shift
 
 
 def _local_attn_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -63,13 +67,6 @@ def _local_attn_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: 
     return m, p.sum(dim=-1), torch.matmul(p, v)
 
 
-def _ppermute_ring(blocks: List) -> List:
-    """One ring step: shard i receives what shard i - 1 held (the
-    ``ppermute`` with perm [(j, j + 1 mod n)] of the JAX shard body). Every
-    shard lives in this process, so it is a rotation of the list."""
-    return blocks[-1:] + blocks[:-1]
-
-
 def _merge(carry: tuple, block: tuple) -> tuple:
     """Fold one block's (m, l, o) into the running triple."""
     m, l, o = carry
@@ -99,24 +96,30 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, axis
     if t % n != 0:
         raise ValueError(f"ring_attention: T = {t} must divide by the {n} shards of {axis!r}")
     scale = 1.0 / math.sqrt(d)
-    q_blk = _to_blocks(q, n)
-    k_cur, v_cur = list(_to_blocks(k, n)), list(_to_blocks(v, n))
-    mask_cur = [None] * n
+    mine = mesh.local_range(axis)
+    # whole on every rank in, whole out: a rank's gradient of q, k, v covers
+    # only its blocks until it is summed over the axis
+    q, k, v = (enter_sharded(z, mesh, axis) for z in (q, k, v))
+    q_blk = _to_blocks(q, n)[mine.start:mine.stop]
+    k_cur = list(_to_blocks(k, n)[mine.start:mine.stop])
+    v_cur = list(_to_blocks(v, n)[mine.start:mine.stop])
+    mask_cur: List = [None] * len(mine)
     if kv_mask is not None:
         # bytes, the form K5 takes: converted here once, not at each of its n^2 calls
         mask_u8 = kv_mask.to(torch.uint8).reshape(b, n, t // n)
-        mask_cur = list(mask_u8.transpose(0, 1).contiguous())
+        mask_cur = list(mask_u8.transpose(0, 1)[mine.start:mine.stop].contiguous())
 
-    carry = [_local_attn_block(q_blk[i], k_cur[i], v_cur[i], scale, mask_cur[i])
-             for i in range(n)]
+    loc = range(len(mine))
+    carry = [_local_attn_block(q_blk[i], k_cur[i], v_cur[i], scale, mask_cur[i]) for i in loc]
     for _ in range(1, n):
-        k_cur, v_cur, mask_cur = (_ppermute_ring(z) for z in (k_cur, v_cur, mask_cur))
+        k_cur, v_cur, mask_cur = (ring_shift(z, mesh, axis) for z in (k_cur, v_cur, mask_cur))
         carry = [_merge(carry[i], _local_attn_block(q_blk[i], k_cur[i], v_cur[i], scale,
                                                     mask_cur[i]))
-                 for i in range(n)]
-    out = torch.stack([o / torch.clamp_min(l, 1e-30)[..., None] for _m, l, o in carry])
-    # [n, B, H, Ts, D] -> [B, T, H, D]
-    return out.permute(1, 0, 3, 2, 4).reshape(b, t, h, d)
+                 for i in loc]
+    out = all_gather([o / torch.clamp_min(l, 1e-30)[..., None] for _m, l, o in carry],
+                     mesh, axis, dim=2)
+    # [B, H, T, D] -> [B, T, H, D]
+    return out.transpose(1, 2).reshape(b, t, h, d)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

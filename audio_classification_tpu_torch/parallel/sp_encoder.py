@@ -7,7 +7,8 @@ projections, FFN) need nothing from another shard. ``sp_seq_shard`` /
 ``sp_seq_unshard`` are how an encoder enters and leaves the sharded regime:
 pad the sequence to a multiple of the shard count with masked frames, slice
 the padding off afterwards. The JAX functions also pin shardings for the
-SPMD partitioner; with every shard in one process there is nothing to pin.
+SPMD partitioner; here every rank holds the whole sequence and ring_attention
+runs the rank's own shards, so there is nothing to pin.
 """
 from __future__ import annotations
 

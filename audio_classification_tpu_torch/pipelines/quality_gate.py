@@ -170,14 +170,14 @@ def build_world_engine(seed: int = 0, ckpt_dir: Optional[str] = None, device=Non
 # One function a stage, so a test can start a stage from the JAX init.
 
 
-def sep_stage_trainer(cfg, seed: int, device):
+def sep_stage_trainer(cfg, seed: int, device, mesh=None):
     """The 3-source separator's PIT SI-SDR trainer (the dense TCN loop)."""
     from ..train.trainer import SeparatorTrainer
 
-    return SeparatorTrainer(cfg, lr=5e-4, seed=seed, device=device)
+    return SeparatorTrainer(cfg, mesh=mesh, lr=5e-4, seed=seed, device=device)
 
 
-def osd_stage_trainer(cfg, seed: int, device):
+def osd_stage_trainer(cfg, seed: int, device, mesh=None):
     """OSDNet under frame BCE on every frame."""
     from ..models.osd import OSDNet
     from ..train.losses import frame_bce_loss
@@ -185,9 +185,11 @@ def osd_stage_trainer(cfg, seed: int, device):
 
     def loss_fn(module, b):
         return frame_bce_loss(module(b["feats"]), b["labels"],
-                              torch.ones(b["labels"].shape[:2], device=b["labels"].device))
+                              torch.ones(b["labels"].shape[:2], device=b["labels"].device),
+                              parts=True)
 
-    return ModuleTrainer(flax_init_(OSDNet(cfg), seed), loss_fn, lr=3e-4, device=device)
+    return ModuleTrainer(flax_init_(OSDNet(cfg), seed), loss_fn, lr=3e-4, device=device,
+                         mesh=mesh)
 
 
 def _statistics_as_parameters(module: torch.nn.Module) -> torch.nn.Module:
@@ -203,7 +205,7 @@ def _statistics_as_parameters(module: torch.nn.Module) -> torch.nn.Module:
     return module
 
 
-def spk_stage_trainer(cfg, seed: int, device):
+def spk_stage_trainer(cfg, seed: int, device, mesh=None):
     """The speaker embedder with its AAM head (margin 0.2, scale 30)."""
     from ..train.losses import aam_softmax_loss
     from ..train.trainer import ModuleTrainer, embedder_with_head, flax_init_
@@ -213,10 +215,10 @@ def spk_stage_trainer(cfg, seed: int, device):
         return aam_softmax_loss(emb, b["labels"], w, margin=0.2, scale=30.0)
 
     module = _statistics_as_parameters(flax_init_(embedder_with_head(cfg, N_SPK), seed))
-    return ModuleTrainer(module, loss_fn, lr=3e-4, device=device)
+    return ModuleTrainer(module, loss_fn, lr=3e-4, device=device, mesh=mesh)
 
 
-def asr_stage_trainer(cfg, tokens, steps: int, seed: int, device):
+def asr_stage_trainer(cfg, tokens, steps: int, seed: int, device, mesh=None):
     """SenseVoice under CTC, warmup + cosine from a 1e-3 peak over
     ``steps`` updates."""
     from ..models.asr.ctc import ctc_loss
@@ -229,12 +231,13 @@ def asr_stage_trainer(cfg, tokens, steps: int, seed: int, device):
         return ctc_loss(logits, mask, b["labels"], b["lab_lens"], blank_id=tokens.blank_id)
 
     return ModuleTrainer(flax_init_(SenseVoiceEncoder(cfg), seed), loss_fn,
-                         lr=warmup_cosine(1e-3, steps), device=device)
+                         lr=warmup_cosine(1e-3, steps), device=device, mesh=mesh)
 
 
 def train_world_pack(steps_scale: float = 1.0, seed: int = 0,
                      log=print, ckpt_dir: Optional[str] = None,
-                     stages: tuple = ("sep", "osd", "spk", "asr"), device=None) -> tuple:
+                     stages: tuple = ("sep", "osd", "spk", "asr"), device=None,
+                     mesh=None) -> tuple:
     """Train the listed stages on the synthetic world -> (engine, tokens,
     stage losses dict). Step counts scale with ``steps_scale`` (1.0 is the
     full gate). ``ckpt_dir`` saves the trained pack (train/checkpoint
@@ -242,22 +245,26 @@ def train_world_pack(steps_scale: float = 1.0, seed: int = 0,
     work can iterate without retraining (restore via build_world_engine).
     ``stages`` trains a subset (untrained stages keep their seed init;
     without "sep" the ASR's separation-in-the-loop rows fall back to additive
-    residue). Everything runs on ``device`` (default: the card). Each stage
-    logs its wall as "  <stage> wall <seconds> s"."""
+    residue). Everything runs on ``device`` (default: the card). ``mesh``
+    (a data-parallel mesh over a torchrun world, as the JAX gate's over every
+    device) splits each stage's batches over its data entries; rank 0
+    writes. Each stage logs its wall as "  <stage> wall <seconds> s"."""
     from ..engine import ModelPack
     from ..engine.runtime import resolve_device
     from ..ops.fbank import FbankConfig, log_mel_fbank
 
-    device = resolve_device(device)
+    device = resolve_device(device if mesh is None else mesh.device)
+    # the stage factories take the mesh only when there is one (a test
+    # starting a stage from the JAX init replaces them with their old form)
+    on_mesh = {} if mesh is None else {"mesh": mesh}
 
     def n_steps(base: int) -> int:
         return max(1, int(round(base * steps_scale)))
 
-    # the mesh's data axis: the port's trainers place a batch on one device
-    # (several cards wait for ROADMAP slice 16), so it is 1 and bs(n) = n.
-    # The gate's batches (8, 16) are multiples of the JAX tests' 8 virtual
-    # devices too, so both packages draw the same batch sizes.
-    n_data = 1
+    # the mesh's data axis (1 without a mesh: bs(n) = n). The gate's batches
+    # (8, 16) are multiples of the JAX tests' 8 virtual devices too, so both
+    # packages draw the same batch sizes.
+    n_data = 1 if mesh is None else mesh.shape["data"]
 
     def bs(n: int) -> int:
         return max(n_data, -(-n // n_data) * n_data)
@@ -289,7 +296,7 @@ def train_world_pack(steps_scale: float = 1.0, seed: int = 0,
     t_len = SR
     if "sep" in stages:
         log("[1/4] training 3-src separator (PIT SI-SDR)")
-        sep_trainer = sep_stage_trainer(sep_cfg, seed, device)
+        sep_trainer = sep_stage_trainer(sep_cfg, seed, device, **on_mesh)
 
     def sep_ref(spk: int, gain_scale: float = 1.0) -> np.ndarray:
         """One source track: a word at a random offset, silence elsewhere."""
@@ -357,7 +364,7 @@ def train_world_pack(steps_scale: float = 1.0, seed: int = 0,
     osd_trainer = None
     if "osd" in stages:
         osd_batch(1)  # the JAX stage traces its init on this draw
-        osd_trainer = osd_stage_trainer(osd_cfg, seed, device)
+        osd_trainer = osd_stage_trainer(osd_cfg, seed, device, **on_mesh)
         for step in range(1, n_steps(400) + 1):
             loss = osd_trainer.train_step(osd_batch(bs(8)))
             if step % 200 == 0:
@@ -380,7 +387,7 @@ def train_world_pack(steps_scale: float = 1.0, seed: int = 0,
     if "spk" in stages:
         log("[3/4] training speaker embedder (AAM)")
         spk_batch(2)  # the JAX stage traces its init on this draw
-        spk_trainer = spk_stage_trainer(spk_cfg, seed, device)
+        spk_trainer = spk_stage_trainer(spk_cfg, seed, device, **on_mesh)
         for step in range(1, n_steps(300) + 1):
             loss = spk_trainer.train_step(spk_batch(bs(16)))
             if step % 150 == 0:
@@ -488,7 +495,7 @@ def train_world_pack(steps_scale: float = 1.0, seed: int = 0,
     asr_trainer = None
     if "asr" in stages:
         asr_batch(2)  # the JAX stage traces its init on this draw
-        asr_trainer = asr_stage_trainer(asr_cfg, tokens, asr_steps, seed, device)
+        asr_trainer = asr_stage_trainer(asr_cfg, tokens, asr_steps, seed, device, **on_mesh)
         for step in range(1, asr_steps + 1):
             loss = asr_trainer.train_step(asr_batch(bs(16)))
             if step % 300 == 0:
@@ -509,7 +516,9 @@ def train_world_pack(steps_scale: float = 1.0, seed: int = 0,
                                  if k.startswith(prefix)})
     if asr_trainer is not None:
         pack.load_params("asr", asr_trainer.model.state_dict())
-    if ckpt_dir is not None:
+    from ..parallel.launch import is_writer
+
+    if ckpt_dir is not None and is_writer():
         from ..train.checkpoint import save_model_pack
 
         save_model_pack(pack, ckpt_dir)
@@ -522,14 +531,16 @@ def train_world_pack(steps_scale: float = 1.0, seed: int = 0,
 def run_quality_gate(steps_scale: float = 1.0, n_scenes: int = 6,
                      seed: int = 0, eval_seed: int = 424242,
                      log=print, ckpt_dir: Optional[str] = None,
-                     reuse_ckpt: bool = False, device=None) -> Dict:
+                     reuse_ckpt: bool = False, device=None, mesh=None) -> Dict:
     """Train the world pack, calibrate sv_threshold on dev scenes, run the
     flagship pipeline on held-out scenes -> metrics dict (the reference's
     field names + per-record CER, decomposed per layer: clean recognizer /
     oracle-separated spans / actual pipeline branches).
 
     ``ckpt_dir`` + ``reuse_ckpt`` skip the retrain when a saved world pack
-    exists. Everything runs on ``device`` (default: the card)."""
+    exists. Everything runs on ``device`` (default: the card); ``mesh``
+    trains data-parallel (``train_world_pack``), and every rank then
+    evaluates the same scenes."""
     import tempfile
 
     from ..audio_io import write_wav
@@ -546,7 +557,7 @@ def run_quality_gate(steps_scale: float = 1.0, n_scenes: int = 6,
         losses = json.loads(lp.read_text()) if lp.exists() else {}
     else:
         engine, tokens, losses = train_world_pack(steps_scale, seed, log=log,
-                                                  ckpt_dir=ckpt_dir, device=device)
+                                                  ckpt_dir=ckpt_dir, device=device, mesh=mesh)
     t_train = time.time() - t0
 
     # ------------------------------ calibrate sv_threshold on dev scenes

@@ -25,6 +25,12 @@ runs the engine only through its public methods, which set
 ``torch.inference_mode`` themselves (the mode is thread-local); as in the
 reference it prints a tick's failure and goes on, and ``stats()["ticks"]``
 counts only the ticks that ran to the end.
+
+Over an engine mesh of several ranks (``--data-parallel`` under torchrun)
+every rank runs a server on the same feeds, each with its own drop-oldest
+bound, and a tick is a collective: the ranks agree on each session's window
+by its number (``_agreed_work``), so a window one rank dropped is dropped on
+all of them and the ticks' collectives pair up.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import numpy as np
 
 from ..audio_io import read_wav, to_mono
 from ..engine.runtime import G_SAMPLE_RATE, StageEngine
+from ..parallel.collectives import spans_ranks, world_min
 from .offline_overlap3 import build_engine
 
 
@@ -50,6 +57,10 @@ class _Session:
     results: List[dict] = field(default_factory=list)
     buffered: List[np.ndarray] = field(default_factory=list)
     closed: bool = False
+    windows: int = 0   # windows enqueued so far: the next one's number
+
+
+_NO_WINDOW = 2 ** 62   # a session with no pending window, in the ranks' agreement
 
 
 class StreamingServer:
@@ -155,7 +166,8 @@ class StreamingServer:
         audio = np.concatenate(s.buffered)
         s.buffered.clear()
         now = time.time()
-        item = dict(audio=audio, sr=sr, start=now - len(audio) / sr, end=now)
+        item = dict(audio=audio, sr=sr, start=now - len(audio) / sr, end=now, seq=s.windows)
+        s.windows += 1
         if len(s.pending) >= self.MAX_PENDING:   # drop-oldest backpressure
             s.pending.pop(0)
             self.chunks_dropped += 1
@@ -205,15 +217,22 @@ class StreamingServer:
         """Run ONE tick synchronously (autostart=False mode): gather the
         pending chunk from every session, process them as one batched pass.
         Returns the number of chunks processed."""
-        with self._lock:
-            work = self._gather_work_locked()
-        if not work:
-            return 0
-        t0 = time.time()
-        self._tick(work)
-        self.tick_latencies.append(time.time() - t0)
-        self.tick_batch_sizes.append(len(work))
-        return len(work)
+        if spans_ranks(self.engine.mesh):
+            work = self._agreed_work() or []
+        else:
+            with self._lock:
+                work = self._gather_work_locked()
+        try:
+            if not work:
+                return 0
+            t0 = time.time()
+            self._tick(work)
+            self.tick_latencies.append(time.time() - t0)
+            self.tick_batch_sizes.append(len(work))
+            return len(work)
+        finally:
+            with self._lock:
+                self._busy = False
 
     def stats(self) -> Dict[str, Any]:
         """Aggregate serving stats: tick latency percentiles + how much
@@ -250,20 +269,62 @@ class StreamingServer:
                 work.append((s, s.pending.pop(0)))
         return work
 
+    def _agreed_work(self) -> Optional[List[tuple]]:
+        """Under an engine mesh over several ranks every rank runs its own
+        server on the same feeds, and a tick's batch is a collective. The
+        ranks agree (collectives.world_min) on one window of each session:
+        the newest of the ranks' oldest pending windows, which ranks behind
+        it drop up to, and a session joins the tick when every rank holds
+        that window. They stop when all of them are stopped. The lock is
+        held throughout, so no window is dropped between the agreement and
+        the pops. -> the tick's work, or None to stop."""
+        mesh = self.engine.mesh
+        with self._lock:
+            sids = sorted(self._sessions)
+            open_ = [self._sessions[i] for i in sids]
+            open_ = [s if s.pending and not s.closed else None for s in open_]
+            n = -world_min([-len(sids)], mesh)[0]  # the most sessions any rank has
+            pad = n - len(sids)
+            oldest = [_NO_WINDOW if s is None else s.pending[0]["seq"] for s in open_]
+            newest = [-1 if s is None else s.pending[-1]["seq"] for s in open_]
+            agreed = world_min([-w for w in oldest] + [-_NO_WINDOW] * pad + newest + [-1] * pad
+                               + [int(self._stopped)], mesh)
+            if agreed[-1]:
+                return None
+            work = []
+            for s, want, held in zip(open_, agreed[:n], agreed[n:2 * n]):
+                want = -want
+                if s is None or want > held:
+                    continue
+                while s.pending[0]["seq"] < want:
+                    s.pending.pop(0)
+                    self.chunks_dropped += 1
+                work.append((s, s.pending.pop(0)))
+            self._busy = True
+        return work
+
     def _tick_loop(self) -> None:
+        lockstep = spans_ranks(self.engine.mesh)
         while True:
             with self._lock:
                 while not self._stopped and not any(
                     s.pending for s in self._sessions.values()
                 ):
                     self._wake.wait(timeout=0.5)
-                if self._stopped:
+                if self._stopped and not lockstep:
                     return
-                work = self._gather_work_locked()
-                self._busy = True
+                if not lockstep:
+                    work = self._gather_work_locked()
+                    self._busy = True
+            if lockstep:
+                work = self._agreed_work()
+                if work is None:
+                    return
             if not work:
                 with self._lock:
                     self._busy = False
+                    if lockstep:   # no window every rank holds yet: wait for a feed
+                        self._wake.wait(timeout=0.02)
                 continue
             try:
                 t0 = time.time()

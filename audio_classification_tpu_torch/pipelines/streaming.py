@@ -27,7 +27,11 @@ import numpy as np
 
 from ..audio_io import read_wav, to_mono
 from ..engine.runtime import G_SAMPLE_RATE, StageEngine
+from ..parallel.collectives import spans_ranks, world_min
 from .offline_overlap3 import build_engine
+
+
+_FEED_END = 2 ** 62   # a closed feed, in the ranks' agreement on a chunk
 
 
 @dataclass
@@ -40,6 +44,7 @@ class StreamingSegment:
     sample_rate: int
     is_overlap: bool = False
     stream_id: Optional[int] = None
+    seq: int = 0   # the chunk's number in its pipeline's feed
 
 
 class StreamingOverlap3Pipeline:
@@ -52,6 +57,7 @@ class StreamingOverlap3Pipeline:
         self._work: "queue.Queue[Optional[StreamingSegment]]" = queue.Queue(maxsize=8)
         self._worker = threading.Thread(target=self._worker_loop, daemon=True, name="overlap3-worker")
         self._stopped = False
+        self._chunks_in = 0
         self._load_target_speaker(target_wav_path)
         self._worker.start()
 
@@ -90,7 +96,8 @@ class StreamingOverlap3Pipeline:
         self.audio_buffer = []
         now = time.time()
         sr = int(getattr(self.args, "sample_rate", G_SAMPLE_RATE))
-        seg = StreamingSegment(audio, now - len(audio) / sr, now, sr)
+        seg = StreamingSegment(audio, now - len(audio) / sr, now, sr, seq=self._chunks_in)
+        self._chunks_in += 1
         try:
             self._work.put_nowait(seg)
         except queue.Full:
@@ -121,9 +128,12 @@ class StreamingOverlap3Pipeline:
 
     # ------------------------------------------------------------- worker
     def _worker_loop(self):
+        lockstep = spans_ranks(self.engine.mesh)
         while True:
             seg = self._work.get()
-            if seg is None or self._stopped:
+            if lockstep:
+                seg = self._agreed_segment(seg)
+            if seg is None or (self._stopped and not lockstep):
                 return
             try:
                 t0 = time.time()
@@ -131,6 +141,22 @@ class StreamingOverlap3Pipeline:
                 self.chunk_latencies.append(time.time() - t0)
             except Exception as e:  # keep the worker alive on bad chunks
                 print(f"Segment analysis error: {e}")
+
+    def _agreed_segment(self, seg: Optional[StreamingSegment]) -> Optional[StreamingSegment]:
+        """Under an engine mesh over several ranks every rank runs this
+        pipeline on the same feed, each queue with its own drop-oldest
+        bound, and a chunk's analysis is a collective. The ranks agree
+        (collectives.world_min) on the newest of the chunks they took; a rank
+        behind it takes further chunks up to it, and a rank's closed feed
+        stands past every chunk. -> the agreed chunk, or None to stop."""
+        mesh = self.engine.mesh
+        while True:
+            mine = _FEED_END if seg is None else seg.seq
+            newest, oldest = world_min([-mine, mine], mesh)
+            if -newest == oldest:
+                return seg
+            while seg is not None and seg.seq < -newest:
+                seg = self._work.get()
 
     def _analyze_segment(self, segment: StreamingSegment):
         eng = self.engine

@@ -33,15 +33,19 @@ def si_sdr_loss_matrix(refs: torch.Tensor, ests: torch.Tensor, mask: torch.Tenso
 
 
 def frame_bce_loss(probs: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
-                   eps: float = 1e-7) -> torch.Tensor:
+                   eps: float = 1e-7, parts: bool = False):
     """Masked binary cross-entropy over frames: probs, labels [..., T(, C)],
-    mask broadcastable over the frame axis."""
+    mask broadcastable over the frame axis. ``parts=True`` returns the
+    masked mean's (numerator, denominator) instead: a data-parallel trainer
+    sums each over the whole batch before it divides (train/trainer.py)."""
     p = torch.clamp(probs, eps, 1.0 - eps)
     bce = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))
     m = mask.to(bce.dtype)
     while m.ndim < bce.ndim:
         m = m[..., None]
     ratio = bce.numel() / m.numel() if m.numel() else 1.0
+    if parts:
+        return (bce * m).sum(), m.sum() * ratio
     return (bce * m).sum() / torch.clamp_min(m.sum() * ratio, 1.0)
 
 

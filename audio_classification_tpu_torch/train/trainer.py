@@ -14,17 +14,29 @@ enabled: the JAX speaker trainer runs BatchNorm on its init statistics
 statistics and move the running ones. Only parameters reach the optimizer,
 never BatchNorm buffers.
 
-Tensor-parallel parameter rules and data parallelism over several cards wait
-for ROADMAP slice 16: a mesh here names one card n times, and only the
-time-sharded separator (``time_shard=True``) and the sequence-parallel
-encoder use it.
+A mesh (parallel/mesh.py) runs a step over its entries, one rank per card
+under ``torchrun`` (every entry in one process at world size 1):
+
+- DP: each data entry takes its rows of the batch; the loss is the global
+  one (a batch mean over all rows, or a masked mean whose numerator and
+  denominator are summed over every row: a loss function may return the
+  pair), and the gradients are summed over the data ranks;
+- TP (``SeparatorTrainer``, model axis > 1): the separators' TP forwards
+  (parallel/tp.py). Every rank holds the logical parameters, and the model
+  shards' gradient slices are summed over the model ranks where a weight
+  enters its shards (collectives.enter_sharded), so each rank has the full
+  gradient and ``optax.clip_by_global_norm``'s norm is the logical
+  parameters' norm, each replicated leaf counted once;
+- ``time_shard`` / a sequence-parallel loss: the data axis carries time
+  (parallel/sp_convtasnet, ring attention), the gradients of the time
+  shards summed over the data ranks.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -32,6 +44,8 @@ import torch
 from ..engine.runtime import resolve_device, seeded_init_
 from ..models.convtasnet import ConvTasNet, ConvTasNetConfig
 from ..models.mossformer import MossFormer, MossFormerConfig
+from ..parallel.collectives import reduce_replicated
+from ..parallel.mesh import shard_batch
 from .losses import pit_si_sdr_loss
 
 
@@ -163,6 +177,34 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x)).to(device)
 
 
+def _sum_grads(params, group) -> None:
+    """Sum every parameter's gradient over the ranks of ``group`` (one
+    all-reduce of the flattened gradients; a missing one counts as 0)."""
+    import torch.distributed as dist
+
+    params = list(params)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    off = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[off:off + g.numel()].view_as(g).clone()
+        off += g.numel()
+
+
+def _global_loss(parts, rows, mesh) -> torch.Tensor:
+    """Per data entry a batch mean (weighted by its rows) or a (numerator,
+    denominator) pair -> the loss of the whole batch, which every rank
+    then holds (its backward: each rank's own rows)."""
+    if isinstance(parts[0], tuple):
+        num = reduce_replicated([p[0] for p in parts], mesh, "data")
+        den = reduce_replicated([torch.as_tensor(p[1]).detach().to(num) for p in parts],
+                                mesh, "data")
+        return num / torch.clamp_min(den, 1.0)
+    total = reduce_replicated([p * r for p, r in zip(parts, rows)], mesh, "data")
+    return total / float(rows[0] * mesh.shape["data"])  # the entries split evenly
+
+
 class _Trainer:
     """What both trainers share: the clipped Adam step, the state, save and
     restore."""
@@ -170,12 +212,16 @@ class _Trainer:
     model: torch.nn.Module
     optimizer: ClippedAdam
     step: int
+    #: the process group the gradients are summed over, if any
+    _grad_group = None
 
     def _update(self, loss_of: Callable[[], torch.Tensor]) -> float:
         self.optimizer.zero_grad()
         with torch.enable_grad():
             loss = loss_of()
         loss.backward()
+        if self._grad_group is not None:
+            _sum_grads(self.optimizer.params, self._grad_group)
         self.optimizer.step()
         self.step += 1
         return float(loss.detach())
@@ -185,10 +231,13 @@ class _Trainer:
         return TrainState(self.model.state_dict(), self.optimizer.state_dict(), self.step)
 
     def save(self, ckpt_dir: str) -> None:
-        """Write a resumable mid-run checkpoint (params + Adam moments + step)."""
+        """Write a resumable mid-run checkpoint (params + Adam moments +
+        step); under a mesh rank 0 writes (every rank holds the same)."""
+        from ..parallel.launch import is_writer
         from .checkpoint import save_train_state
 
-        save_train_state(self.state, ckpt_dir)
+        if is_writer():
+            save_train_state(self.state, ckpt_dir)
 
     def restore(self, ckpt_dir: str) -> int:
         """Resume from ``save``; returns the restored step."""
@@ -201,24 +250,36 @@ class _Trainer:
         return st.step
 
 
+def _data_group(mesh):
+    """The data axis's process group when it spans more than one rank."""
+    if mesh is None or not mesh.distributed or len(mesh.axis_ranks("data")) < 2:
+        return None
+    return mesh.groups["data"]
+
+
 class SeparatorTrainer(_Trainer):
     """PIT SI-SDR trainer for a ConvTasNetConfig or MossFormerConfig model.
 
     Conv-TasNet trains its dense TCN loop (``fused_tcn="off"``), as the JAX
     trainer does (trainer.py:93), so the trained function is the JAX one.
-    ``time_shard=True`` runs the forward through the time-sharded separator
-    (parallel/sp_convtasnet) over ``mesh``'s "data" shards; the backward
-    runs through the same halos and sums. Weights: the port's flax-rule init
+    With ``mesh`` the batch splits over its "data" entries (DP) and a
+    "model" axis above 1 runs the TP forward (parallel/tp.py) by the
+    architecture's rule (parallel/mesh.convtasnet_param_spec /
+    mossformer_param_spec). ``time_shard=True`` runs the forward through the
+    time-sharded separator (parallel/sp_convtasnet) over ``mesh``'s "data"
+    shards instead, the batch whole on every shard; the backward runs
+    through the same halos and sums. Weights: the port's flax-rule init
     from ``seed``, on ``device`` (default: the mesh's, else the first CUDA
     device)."""
 
-    def __init__(self, cfg, mesh=None, lr=1e-3, seed: int = 0, time_shard: bool = False,
-                 device=None):
+    def __init__(self, cfg, mesh=None, lr=1e-3, seed: int = 0,
+                 time_shard: bool = False, device=None):
         self.cfg = cfg
         self.time_shard = bool(time_shard)
         if self.time_shard and mesh is None:
             raise ValueError("SeparatorTrainer: time_shard needs a mesh")
         self.mesh = mesh
+        self._grad_group = _data_group(mesh)
         self.device = resolve_device(mesh.device if device is None and mesh is not None
                                      else device)
         if isinstance(cfg, MossFormerConfig):
@@ -232,16 +293,20 @@ class SeparatorTrainer(_Trainer):
         self.step = 0
 
     def loss(self, mix: torch.Tensor, refs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """The PIT loss of one batch, differentiable."""
+        """The PIT loss of one batch, differentiable (the whole batch's, on
+        every rank)."""
         if self.time_shard:
             from ..parallel.sp_convtasnet import sp_separate, sp_separate_mossformer
 
             sp_fn = sp_separate_mossformer if isinstance(self.cfg, MossFormerConfig) else sp_separate
             lengths = mask.to(torch.int64).sum(dim=-1)
             ests = sp_fn(self.model, mix, lengths, self.mesh)
-        else:
-            ests = self.model(mix, mask)
-        return pit_si_sdr_loss(ests, refs, mask)
+            return pit_si_sdr_loss(ests, refs, mask)
+        if self.mesh is None:
+            return pit_si_sdr_loss(self.model(mix, mask), refs, mask)
+        shards = shard_batch(self.mesh, (mix, refs, mask))
+        parts = [pit_si_sdr_loss(self.model(m, k, mesh=self.mesh), r, k) for m, r, k in shards]
+        return _global_loss(parts, [s[0].shape[0] for s in shards], self.mesh)
 
     def train_step(self, mix, refs, mask) -> float:
         """mix [B, T], refs [B, n_src, T], mask [B, T] -> loss (float)."""
@@ -250,20 +315,45 @@ class SeparatorTrainer(_Trainer):
 
 
 class ModuleTrainer(_Trainer):
-    """Trainer for any module and loss: ``loss_fn(module, batch)`` -> scalar,
-    batch a dict of arrays moved to the module's device. Covers OSD / VAD
-    frame BCE, speaker AAM softmax and SenseVoice CTC. The module's own
-    parameters (as they are: the JAX init in the parity tests, the port's
-    init in the CLIs) are what Adam trains."""
+    """Trainer for any module and loss: ``loss_fn(module, batch)`` -> a
+    scalar batch mean, or a (numerator, denominator) pair for a masked mean
+    (``frame_bce_loss(..., parts=True)``), batch a dict of arrays moved to
+    the module's device. Covers OSD / VAD frame BCE, speaker AAM softmax and
+    SenseVoice CTC. The module's own parameters (as they are: the JAX init
+    in the parity tests, the port's init in the CLIs) are what Adam trains.
 
-    def __init__(self, module: torch.nn.Module, loss_fn: Callable, lr=1e-3, device=None):
+    With ``mesh`` the batch splits over its "data" entries
+    (``shard_batch``) and the loss is the whole batch's: a pair sums its
+    numerator and denominator over every row, a mean weighs each entry by
+    its rows. ``shard_batch=False`` keeps the batch whole on every entry,
+    for a loss that spends the data axis on something else (a
+    sequence-parallel encoder); its gradients are then whole on every rank
+    already."""
+
+    def __init__(self, module: torch.nn.Module, loss_fn: Callable, lr=1e-3, device=None,
+                 mesh=None, shard_batch: bool = True):
         self.model = module
         self.loss_fn = loss_fn
-        self.device = next(module.parameters()).device if device is None else resolve_device(device)
+        self.mesh = mesh
+        self.shard_batch = bool(shard_batch)
+        if device is None:
+            device = mesh.device if mesh is not None else next(module.parameters()).device
+        self.device = resolve_device(device)
         module.to(self.device).eval()
         self.optimizer = make_optimizer(module.parameters(), lr)
         self.step = 0
+        self._grad_group = _data_group(mesh) if self.shard_batch else None
+
+    def _loss(self, batch) -> torch.Tensor:
+        if self.mesh is None or not self.shard_batch:
+            out = self.loss_fn(self.model, batch)
+            return out[0] / torch.clamp_min(torch.as_tensor(out[1]).to(out[0]), 1.0) \
+                if isinstance(out, tuple) else out
+        shards = shard_batch(self.mesh, batch)
+        parts = [self.loss_fn(self.model, b) for b in shards]
+        rows = [int(next(iter(b.values())).shape[0]) for b in shards]
+        return _global_loss(parts, rows, self.mesh)
 
     def train_step(self, batch: Dict[str, Any]) -> float:
         batch = {k: _to_device(v, self.device) for k, v in batch.items()}
-        return self._update(lambda: self.loss_fn(self.model, batch))
+        return self._update(lambda: self._loss(batch))

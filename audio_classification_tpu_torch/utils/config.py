@@ -1,5 +1,5 @@
-"""Typed pipeline config (host copy of audio_classification_tpu/utils/config.py,
-Overlap3Config only) mirroring the reference CLI surface.
+"""Typed pipeline configs (host copy of audio_classification_tpu/utils/config.py:
+Overlap3Config and SidBenchmarkConfig) mirroring the reference CLI surface.
 
 The reference passes raw argparse namespaces into components that read them
 with getattr defaults (reference: overlap3_core.py:146-160, SURVEY.md §5.6).
@@ -113,3 +113,41 @@ class Overlap3Config:
                                       # bytes, ~38 dB SNR; device LUT decode)
     quant: str = "none"               # "int8": separators and the ASR encoder on the
                                       # int8 path (ops/quant; K2's int8 weight stream)
+
+
+@dataclass
+class SidBenchmarkConfig:
+    """Flags of benchmark_pipeline.py (SID + ASR benchmark); the JAX
+    package's fields and defaults, but ``provider``, which names the port's
+    devices (cuda, or cpu when asked for)."""
+
+    speaker_file: str = ""
+    test_list: str = ""
+    model: str = ""                    # speaker embedding model path (reference name)
+    threshold: float = 0.5
+    num_threads: int = 1
+    provider: str = "cuda"
+    paraformer: str = ""
+    sense_voice: str = ""
+    encoder: str = ""
+    decoder: str = ""
+    joiner: str = ""
+    tokens: str = ""
+    cmvn: str = ""
+    decoding_method: str = "greedy_search"  # greedy_search | modified_beam_search
+                                            # (beam: transducer family only)
+    num_active_paths: int = 4               # beam width for modified_beam_search
+    feature_dim: int = 80
+    language: str = "auto"
+    debug: bool = False
+    emb_cache_dir: str = ""
+    load_speaker_embeds: str = ""
+    save_speaker_embeds: str = ""
+    ref_text_list: str = ""
+    out_dir: str = "test/benchmark"
+    monitor_interval: float = 0.5
+    preset: str = "full"
+    checkpoint_dir: str = ""
+    max_batch: int = 8
+    onnx_exec: str = "map"
+    onnx_asr_skip_frames: int = -1

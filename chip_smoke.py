@@ -95,6 +95,17 @@ points at the full preset, reading every kernel's launch count around each:
   export_models, and distill_asr at the full SenseVoice widths from the
   exported teacher (K1, K3; losses falling).
 
+- slice 16, the mesh paths (``mesh_paths``; the lease has one card and NCCL
+  refuses two ranks on one card, so traffic between ranks is tested over gloo
+  on the CPU): the flagship overlap scene on a DP 4 and a DP 2 x TP 2 mesh of
+  entries on the one card (K1, K2 / the TP dense loop, K3), then both under
+  NCCL with a world of 1, records equal to the meshless run's; the 200 s
+  utterance over a ring of 4 under NCCL (K5 192 launches) and ring attention
+  on the ring's blocks; MossFormer at TP 2 (K4 on v's 384 columns), K4 at
+  De 384 and 192 against its twin; both separators at TP 2 in bfloat16
+  against the meshless bfloat16 engine; one DP 2 x TP 2 SeparatorTrainer step in
+  float64 against the meshless step; dryrun_multichip(2).
+
 The bf16 entry points are held to their bf16 twins and to the twins run in
 float64 (the same rounding points) at the float phases' shapes, timed by
 graph replay beside the float32 entry points (K3 / K5 bf16 beside SDPA at
@@ -741,6 +752,54 @@ def check_attention_head_dims(torch, np) -> dict:
     return {"flash_attention": k3, "flash_attention_stats": k5}
 
 
+def _gau_case(torch, gau, gen, b: int, t: int, de: int, lens, iters: int) -> dict:
+    """K4 against its blockwise twin (float32, and float64 as the oracle) at
+    q, k [b, t, 128], v [b, t, de], the first ``lens`` keys of each item
+    valid; device time by CUDA-graph replay, each call through Python
+    beside."""
+    dev = torch.device("cuda")
+    q, k = (torch.randn((b, t, 128), generator=gen).to(dev) for _ in range(2))
+    v = torch.randn((b, t, de), generator=gen).to(dev)
+    mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    scale = 1.0 / t
+    out = gau.gau_attention(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    ref = gau.gau_attention_reference(q, k, v, mask, scale)
+    # the twin in float64 as well: the float32 twin adds its own error
+    ref64 = gau.gau_attention_reference(q.double(), k.double(), v.double(), mask, scale)
+    err = (out - ref).abs().max().item()
+    err64 = (out - ref64).abs().max().item()
+    peak = ref64.abs().max().item()
+    k4 = lambda: gau.gau_attention(q, k, v, mask, scale)  # noqa: E731
+    twin = lambda: gau.gau_attention_reference(q, k, v, mask, scale)  # noqa: E731
+    n_valid = sum(lens)
+    case = {"shape": [b, t, 128, de], "valid_keys": lens, "max_abs_err": err,
+            "rel_err": err / peak, "max_abs_err_vs_float64_twin": err64,
+            "rel_err_vs_float64_twin": err64 / peak,
+            "twin_rel_err_vs_float64_twin": (ref - ref64).abs().max().item() / peak,
+            "tol_rel": 1e-4,
+            # device time (graph replay); each call through Python beside
+            "ms": graph_ms(torch, k4, iters), "plain_ms": graph_ms(torch, twin, iters),
+            "wrapper_ms": cuda_ms(torch, k4, iters),
+            "plain_eager_ms": cuda_ms(torch, twin, iters),
+            "library_ms": None,  # no single PyTorch call computes relu^2 attention
+            # over the valid keys (a masked key contributes exactly 0): q read
+            # and out written for every row, k and v for the valid keys alone
+            **tensor_bound(2.0 * t * n_valid * (128 + de), 0.0,
+                           4.0 * (q.numel() + n_valid * (128 + de) + out.numel())
+                           + mask.numel())}
+    case["share"] = case["bound_ms"] / case["ms"]
+    case["share_simt"] = case["bound_simt_ms"] / case["ms"]
+    log({"phase": "kernel", "name": "gau_attention", **case})
+    # float32 accuracy on both sides (the kernel in 3xTF32 on the tensor
+    # cores tile by tile, ~3e-7 of max|out| in the CPU emulation; the twin in
+    # cuBLAS's blocked order): 1e-4 of max|out| against each twin
+    assert math.isfinite(err) and err <= 1e-4 * peak, case
+    assert err64 <= 1e-4 * peak, case
+    assert not out[torch.tensor(lens, device=dev) == 0].any()  # fully masked item: exact zeros
+    return case
+
+
 def check_gau(torch, np) -> dict:
     """K4 against its blockwise twin at the main path's shape (one 8 s bucket
     of the full-preset MossFormer: T = 15999 frames, Dqk 128, De 768, the
@@ -750,51 +809,10 @@ def check_gau(torch, np) -> dict:
     replay, each call through Python beside, for the kernel and its twin."""
     from audio_classification_tpu_torch.ops.kernels import gau
 
-    dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(4)
-    cases = []
-    for b, t, lens, iters in ((1, 15999, [11999], 10), (1, 31999, [31999], 4),
-                              (3, 1237, [1237, 700, 0], 20)):
-        q, k = (torch.randn((b, t, 128), generator=gen).to(dev) for _ in range(2))
-        v = torch.randn((b, t, 768), generator=gen).to(dev)
-        mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
-        scale = 1.0 / t
-        out = gau.gau_attention(q, k, v, mask, scale)
-        torch.cuda.synchronize()
-        ref = gau.gau_attention_reference(q, k, v, mask, scale)
-        # the twin in float64 as well: the float32 twin adds its own error
-        ref64 = gau.gau_attention_reference(q.double(), k.double(), v.double(), mask, scale)
-        err = (out - ref).abs().max().item()
-        err64 = (out - ref64).abs().max().item()
-        peak = ref64.abs().max().item()
-        k4 = lambda: gau.gau_attention(q, k, v, mask, scale)  # noqa: E731
-        twin = lambda: gau.gau_attention_reference(q, k, v, mask, scale)  # noqa: E731
-        n_valid = sum(lens)
-        cases.append({"shape": [b, t, 128, 768], "valid_keys": lens, "max_abs_err": err,
-                      "rel_err": err / peak, "max_abs_err_vs_float64_twin": err64,
-                      "rel_err_vs_float64_twin": err64 / peak,
-                      "twin_rel_err_vs_float64_twin": (ref - ref64).abs().max().item() / peak,
-                      "tol_rel": 1e-4,
-                      # device time (graph replay); each call through Python beside
-                      "ms": graph_ms(torch, k4, iters), "plain_ms": graph_ms(torch, twin, iters),
-                      "wrapper_ms": cuda_ms(torch, k4, iters),
-                      "plain_eager_ms": cuda_ms(torch, twin, iters),
-                      "library_ms": None,  # no single PyTorch call computes relu^2 attention
-                      # over the valid keys (a masked key contributes exactly 0):
-                      # q read and out written for every row, k and v for the
-                      # valid keys alone
-                      **tensor_bound(2.0 * t * n_valid * (128 + 768), 0.0,
-                                        4.0 * (q.numel() + n_valid * (128 + 768) + out.numel())
-                                        + mask.numel())})
-        cases[-1]["share"] = cases[-1]["bound_ms"] / cases[-1]["ms"]
-        cases[-1]["share_simt"] = cases[-1]["bound_simt_ms"] / cases[-1]["ms"]
-        log({"phase": "kernel", "name": "gau_attention", **cases[-1]})
-        # float32 accuracy on both sides (the kernel in 3xTF32 on the tensor
-        # cores tile by tile, ~3e-7 of max|out| in the CPU emulation; the
-        # twin in cuBLAS's blocked order): 1e-4 of max|out| against each twin
-        assert math.isfinite(err) and err <= 1e-4 * peak, cases[-1]
-        assert err64 <= 1e-4 * peak, cases[-1]
-        assert not out[torch.tensor(lens, device=dev) == 0].any()  # fully masked item: exact zeros
+    cases = [_gau_case(torch, gau, gen, b, t, 768, lens, iters)
+             for b, t, lens, iters in ((1, 15999, [11999], 10), (1, 31999, [31999], 4),
+                                       (3, 1237, [1237, 700, 0], 20))]
     return {**cases[0], "max_abs_err": max(c["max_abs_err"] for c in cases), "cases": cases}
 
 
@@ -3219,6 +3237,224 @@ def _aam(model, b):
     return aam_softmax_loss(emb, b["labels"], centres)
 
 
+def _same_records(recs, ref, name: str) -> None:
+    """A mesh run's records against the meshless run's: kind, span, stream
+    and text exact, sv_score within 1e-3 relative."""
+    assert len(recs) == len(ref) > 0, (name, len(recs), len(ref))
+    for a, b in zip(recs, ref):
+        for key in ("kind", "start", "end", "stream", "text"):
+            assert a.get(key) == b.get(key), (name, key, a.get(key), b.get(key))
+        sa, sb = a.get("sv_score"), b.get("sv_score")
+        assert (sa is None) == (sb is None), (name, sa, sb)
+        if sa is not None:
+            assert abs(sa - sb) <= 1e-3 * max(1.0, abs(sb)), (name, sa, sb)
+
+
+def run_mesh_paths(torch, np, counters: dict) -> tuple:
+    """Slice 16, the mesh paths at the full preset (seeded random weights)
+    on the one card -> (launches per kernel, K4 cases at the TP shard
+    widths). The lease has one card, and NCCL refuses two ranks on one
+    card, so this phase shows the shard arithmetic with a mesh's entries in
+    one process, and NCCL with a world of 1 on every mesh path; traffic
+    between ranks is tested over gloo on the CPU (tests/test_torch_mesh_*):
+
+    1. the flagship overlap scene (the 20 s mixture forced to overlap) on a
+       DP 4 mesh (each entry's rows: K1, K2, K3) and on a DP 2 x TP 2 mesh
+       (the TP separator is the dense TCN loop: no K2), records equal to the
+       meshless run's;
+    2. the same two runs under NCCL with a world of 1 (file:// init,
+       destroyed after), equal to (1); also the 200 s utterance through
+       transcribe(long_form=True) over a ring of 4 (K5 192 launches), its
+       encoder logits against the one-shard path, and ring attention over
+       [1, 4272, 8, 64] against the dense oracle (16 K5 launches);
+    3. the MossFormer scene at TP 2 (K4 on v's De / 2 = 384 columns),
+       records equal to the meshless run's; K4 at De 384 and 192 against its
+       twin, timed; both separators at TP 2 in bfloat16 against the
+       meshless bfloat16 engine on the same algorithm (2e-2 of max|s|);
+    4. SeparatorTrainer DP 2 x TP 2 at the preset's Conv-TasNet widths: one
+       step in float64 against the meshless step;
+    5. dryrun_multichip(2) over the one card's entries."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from audio_classification_tpu_torch.engine.runtime import ModelPack, StageEngine
+    from audio_classification_tpu_torch.models import facades
+    from audio_classification_tpu_torch.models.asr.sensevoice import sensevoice_frontend
+    from audio_classification_tpu_torch.ops.kernels import gau
+    from audio_classification_tpu_torch.parallel.dryrun import dryrun_multichip
+    from audio_classification_tpu_torch.parallel.mesh import make_mesh
+    from audio_classification_tpu_torch.parallel.ring_attention import (reference_attention,
+                                                                        ring_attention)
+    from audio_classification_tpu_torch.pipelines.offline_overlap3 import (Overlap3Pipeline,
+                                                                           build_engine)
+    from audio_classification_tpu_torch.train.trainer import SeparatorTrainer
+    from audio_classification_tpu_torch.utils.config import Overlap3Config
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke"
+    total = {k: 0 for k in counters}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    def scene(cfg, name, engine, expect, unexpected=()):
+        res, launches = _counted(torch, counters, expect, name,
+                                 lambda: Overlap3Pipeline(cfg, engine=engine).run(), unexpected)
+        add(launches)
+        return res.segments
+
+    def cfg_of(**kw):
+        return Overlap3Config(target_wav=str(work / "target.wav"), preset="full", seed=0,
+                              sv_threshold=-1.0, osd_thr=0.0, out_dir=str(work / "mesh_out"),
+                              **kw)
+
+    cfg = cfg_of(input_wavs=[str(work / "mix.wav")])
+    base = build_engine(cfg)
+    ref = scene(cfg, "mesh_paths overlap scene, no mesh", base,
+                ("fbank_power_mel", "tcn_masker", "flash_attention"))
+    layouts = {"dp4": (4, 1, ("fbank_power_mel", "tcn_masker", "flash_attention"), ()),
+               "dp2xtp2": (4, 2, ("fbank_power_mel", "flash_attention"), ("tcn_masker",))}
+
+    def mesh_scenes(tag):
+        for name, (n, mp, expect, unexpected) in layouts.items():
+            mesh = make_mesh(n, model_axis=mp)
+            assert mesh.distributed == (tag == "nccl world 1"), mesh
+            recs = scene(cfg, f"mesh_paths overlap scene, {name}, {tag}",
+                         StageEngine(base.pack, base.buckets, mesh=mesh), expect, unexpected)
+            _same_records(recs, ref, name)
+            log({"phase": "mesh_scene", "layout": name, "mesh": mesh.shape, "how": tag,
+                 "records": len(recs), "equal_to_meshless": True})
+
+    mesh_scenes("entries on one card")
+    init = Path(tempfile.mkdtemp(dir=work)) / "pg_init"
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1)
+    try:
+        mesh_scenes("nccl world 1")
+        # long form over a ring of 4 under NCCL: K5 on every block pair
+        pack = base.pack
+        layers = pack.asr_cfg.layers
+        speech = sum(talkers(LONG_SEC * SR, 30)) / 3.0
+        speech = (0.6 * speech / np.abs(speech).max()).astype(np.float32)
+        ring4 = StageEngine(pack, mesh=make_mesh(LONG_SHARDS))
+        text4, launches = _counted(
+            torch, counters, ("fbank_power_mel",), f"mesh_paths long form {LONG_SEC} s, "
+            f"ring of {LONG_SHARDS}, nccl world 1",
+            lambda: facades.ASRRecognizer(ring4).transcribe(speech, SR, long_form=True),
+            exact={"flash_attention_stats": layers * LONG_SHARDS ** 2, "flash_attention": 0})
+        add(launches)
+        text1 = StageEngine(pack).transcribe_long(speech)
+        with torch.inference_mode():
+            t = ring4.buckets.long_bucket_for(len(speech))
+            w = torch.zeros((1, t), device="cuda")
+            w[0, : len(speech)] = torch.from_numpy(np.round(speech * 32768) / 32768).to("cuda")
+            feats, mask = sensevoice_frontend(w, torch.tensor([len(speech)], device="cuda"),
+                                              pack.asr_cfg)
+            dense = pack.models["asr"](feats, mask)
+            ring = pack.models["asr"](feats, mask, mesh=ring4.mesh, sp_axis="data")
+        valid = torch.cat([torch.ones((1, pack.asr_cfg.num_prompt), dtype=torch.bool,
+                                      device="cuda"), mask], dim=1)[..., None]
+        err = ((dense - ring).abs() * valid).max().item()
+        peak = (dense.abs() * valid).max().item()
+        # ring attention itself over [1, 4272, 8, 64], the ring of 4's blocks
+        gen = torch.Generator(device="cpu").manual_seed(16)
+        q, k, v = (torch.randn((1, 4272, 8, 64), generator=gen).to("cuda") for _ in range(3))
+        kv_mask = torch.arange(4272, device="cuda")[None, :] < 3337
+        out, launches = _counted(torch, counters, (), "mesh_paths ring attention, ring of 4, "
+                                 "nccl world 1",
+                                 lambda: ring_attention(q, k, v, ring4.mesh, kv_mask=kv_mask),
+                                 exact={"flash_attention_stats": LONG_SHARDS ** 2})
+        add(launches)
+        oracle = reference_attention(q.double(), k.double(), v.double(), kv_mask)
+        ring_err = (out.double() - oracle).abs().max().item() / oracle.abs().max().item()
+        log({"phase": "mesh_long_form", "how": "nccl world 1", "seconds": LONG_SEC,
+             "shards": LONG_SHARDS, "texts_equal": text4 == text1, "text_len": len(text1),
+             "logits_rel_err": err / peak, "tol_rel": 1e-3,
+             "ring_attention_rel_err_vs_float64_oracle": ring_err, "ring_tol_rel": 1e-4})
+        assert text4 == text1 and len(text1) > 0, (text4[:80], text1[:80])
+        assert err <= 1e-3 * peak and ring_err <= 1e-4, (err, peak, ring_err)
+    finally:
+        dist.destroy_process_group()
+
+    # MossFormer at TP 2: K4 on v's 384 columns in every GAU of each shard
+    cfg2 = cfg_of(input_wavs=[str(work / "mix2.wav")], sep_backend="mossformer")
+    base2 = build_engine(cfg2)
+    ref2 = scene(cfg2, "mesh_paths mossformer scene, no mesh", base2,
+                 ("fbank_power_mel", "gau_attention"))
+    tp2 = StageEngine(base2.pack, base2.buckets, mesh=make_mesh(2, model_axis=2))
+    recs2 = scene(cfg2, "mesh_paths mossformer scene, tp2", tp2,
+                  ("fbank_power_mel", "gau_attention"))
+    _same_records(recs2, ref2, "mossformer tp2")
+    gen = torch.Generator(device="cpu").manual_seed(44)
+    k4_cases = [_gau_case(torch, gau, gen, 1, 15999, de, [11999], 10) for de in (384, 192)]
+
+    # TP 2 in bfloat16 (the bfloat16 copy's shard weights meet MossFormer's
+    # float32 stream), each separator against the meshless bfloat16 engine
+    # on the same algorithm (for Conv-TasNet the dense TCN loop, which TP
+    # runs; K2 bf16 rounds at other points) within 2e-2 of max|s|: TP rounds
+    # each shard's product to bfloat16 before the sum (1.75e-2 on the CPU at
+    # the preset's widths); a wrong shard or bias would be O(1). The distance
+    # of both from float32 is logged beside.
+    mix4 = sum(talkers(4 * SR, 46)) / 3.0
+    mix4 = (0.6 * mix4 / np.abs(mix4).max()).astype(np.float32)
+    preset = base.pack.preset
+    dense = ModelPack(dataclasses.replace(
+        preset, sep3=dataclasses.replace(preset.sep3, fused_tcn="off")), seed=0, device="cuda")
+    dense.load_params("sep3", base.pack.models["sep3"].state_dict())
+    for backend, pack, expect in (("convtasnet", dense, ()),
+                                  ("mossformer", base2.pack, ("gau_attention",))):
+        ref32 = StageEngine(pack, base.buckets).separate([mix4], backend=backend)[0]
+        plain = StageEngine(pack, base.buckets, compute_dtype="bfloat16").separate(
+            [mix4], backend=backend)[0]
+        tp_bf16 = StageEngine(pack, base.buckets, mesh=make_mesh(2, model_axis=2),
+                              compute_dtype="bfloat16")
+        got_s, launches = _counted(torch, counters, expect,
+                                   f"mesh_paths {backend} separate, tp2, bfloat16",
+                                   lambda: tp_bf16.separate([mix4], backend=backend)[0],
+                                   ("tcn_masker", "tcn_masker_bf16"))
+        add(launches)
+        peak = float(np.abs(ref32).max())
+        e_tp, e_plain, e_pair = (float(np.abs(a - b).max() / peak)
+                                 for a, b in ((got_s, ref32), (plain, ref32), (got_s, plain)))
+        log({"phase": "mesh_tp_bfloat16", "backend": backend, "layout": "tp2",
+             "shape": list(got_s.shape), "rel_err_vs_meshless_bfloat16": e_pair,
+             "tol_rel": 2e-2, "rel_err_vs_float32": e_tp,
+             "meshless_bfloat16_rel_err_vs_float32": e_plain, "launches": launches})
+        assert got_s.shape == ref32.shape and np.isfinite(got_s).all(), backend
+        assert e_pair <= 2e-2, (backend, e_pair)
+
+    # one DP 2 x TP 2 training step in float64 against the meshless step
+    with torch.enable_grad():
+        sep_cfg = base.pack.preset.sep3
+        rng = np.random.default_rng(5)
+        refs = torch.from_numpy(0.3 * rng.standard_normal((4, 3, 8000))).to("cuda")
+        mix, mask = refs.sum(dim=1), torch.ones((4, 8000), dtype=torch.float64, device="cuda")
+        steps = {}
+        for name, mesh in (("no mesh", None), ("dp2xtp2", make_mesh(4, model_axis=2))):
+            tr = SeparatorTrainer(sep_cfg, mesh=mesh, lr=1e-3, seed=0, device="cuda")
+            tr.model.double()
+            loss = tr._update(lambda: tr.loss(mix, refs, mask))
+            steps[name] = (loss, {n: p.detach().clone() for n, p in tr.model.named_parameters()},
+                           {n: p.grad.clone() for n, p in tr.model.named_parameters()
+                            if p.grad is not None})
+        (l0, w0, g0), (l1, w1, g1) = steps["no mesh"], steps["dp2xtp2"]
+        g_err = max(((g1[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                    for n, g in g0.items())
+        w_err = max((w1[n] - w).abs().max().item() for n, w in w0.items())
+        log({"phase": "mesh_train_step", "layout": "dp2xtp2", "dtype": "float64",
+             "loss": l1, "loss_no_mesh": l0, "loss_rel_err": abs(l1 - l0) / abs(l0),
+             "grad_rel_err_max": g_err, "weights_max_abs_diff": w_err})
+        assert abs(l1 - l0) <= 1e-9 * abs(l0) and g_err <= 1e-7 and w_err <= 1e-9, \
+            (l0, l1, g_err, w_err)
+
+    dry = dryrun_multichip(2)
+    log({"phase": "dryrun_multichip", "entries": 2, "how": "entries on one card", **dry})
+    log({"phase": "mesh_paths", "sec": time.perf_counter() - t_phase})
+    return total, k4_cases
+
+
 def main() -> int:
     try:
         import torch
@@ -3301,6 +3537,14 @@ def main() -> int:
     # slice 15: ONNX export, map and direct serving, the tools, distill_asr
     for k, n in run_onnx_paths(torch, np, counters).items():
         launches[k] += n
+    # slice 16: the mesh paths on the one card (entries, NCCL with a world of
+    # 1), K4 at the TP shard widths
+    mesh_launches, k4_tp = run_mesh_paths(torch, np, counters)
+    for k, n in mesh_launches.items():
+        launches[k] += n
+    results["gau_attention"]["cases"] += k4_tp
+    results["gau_attention"]["max_abs_err"] = max(results["gau_attention"]["max_abs_err"],
+                                                  *(c["max_abs_err"] for c in k4_tp))
     # the training slice, gradients on: the kernels' autograd Functions, then
     # the training CLIs
     torch.set_grad_enabled(True)

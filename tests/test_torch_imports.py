@@ -83,3 +83,12 @@ def test_no_jax_import_and_no_path_into_the_jax_package(path):
             if JAX_PACKAGE.search(node.value) and not CITATION.match(node.value):
                 raise AssertionError(f"{path}:{node.lineno} names the JAX package in code: "
                                      f"{node.value!r}")
+
+
+def test_walks_the_mesh_slice():
+    """The mesh, its collectives, the TP forwards, the launch helper and the
+    dry run are among the files held."""
+    port = REPO / "audio_classification_tpu_torch" / "parallel"
+    want = [port / f"{m}.py" for m in ("mesh", "collectives", "tp", "launch", "dryrun",
+                                       "ring_attention", "sp_convtasnet", "sp_encoder")]
+    assert all(p in FILES for p in want)

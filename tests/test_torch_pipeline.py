@@ -110,22 +110,36 @@ def test_cli_main_file_mode_writes_artifacts(wavs, tmp_path):
     assert summary["dataset"] == "manual-files" and summary["segments"] == len(recs)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--sense-voice", "ORBAX_DIR"], ["--osd-checkpoint", "ORBAX_DIR"], ["--model-parallel", "2"],
-    ["--data-parallel", "2"], ["--arena-codec", "mulaw"],
-    ["--spk-embed-model", "ORBAX_DIR"], ["--slices", "2"],
-    ["--checkpoint-dir", "ORBAX_DIR"],
+_NOT_READ = (NotImplementedError, "not ported")
+_TORCHRUN = (ValueError, "one rank per card: torchrun --nproc-per-node 2")
+
+
+@pytest.mark.parametrize("flags,refusal", [
+    (["--sense-voice", "ORBAX_DIR"], _NOT_READ), (["--osd-checkpoint", "ORBAX_DIR"], _NOT_READ),
+    (["--model-parallel", "2"], _TORCHRUN), (["--data-parallel", "2"], _TORCHRUN),
+    (["--arena-codec", "mulaw"], None), (["--spk-embed-model", "ORBAX_DIR"], _NOT_READ),
+    (["--slices", "2"], None), (["--checkpoint-dir", "ORBAX_DIR"], _NOT_READ),
 ])
-def test_unported_flags_raise(wavs, tmp_path, flags):
-    """Options the port does not run raise NotImplementedError. (.onnx model
-    files load since the ONNX slice: tests/test_torch_onnx_stage.py.)"""
+def test_unported_flags_raise(wavs, tmp_path, flags, refusal):
+    """Weights the port does not read raise NotImplementedError (.onnx model
+    files load since the ONNX slice: tests/test_torch_onnx_stage.py). A mesh
+    over several cards is one torchrun rank per card, so --data-parallel /
+    --model-parallel above 1 in one process raise with the command to run
+    (tests/test_torch_mesh_ranks.py runs them over gloo ranks);
+    --arena-codec mulaw runs, and --slices without a mesh does nothing, as
+    in JAX."""
     # a directory an orbax checkpointer wrote (the port's own loads)
     (tmp_path / "orbax").mkdir()
     (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")
     flags = [str(tmp_path / "orbax") if f == "ORBAX_DIR" else f for f in flags]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["--input-wavs", str(wavs / "mix.wav"), "--target-wav",
-              str(wavs / "target.wav"), "--preset", "tiny", "--provider", "cpu", *flags])
+    argv = ["--input-wavs", str(wavs / "mix.wav"), "--target-wav", str(wavs / "target.wav"),
+            "--preset", "tiny", "--provider", "cpu", "--out-dir", str(tmp_path / "out"), *flags]
+    if refusal is None:
+        out_dir, result = main(argv)
+        assert (out_dir / "segments.jsonl").is_file() and result.metrics["segments_total"] >= 1
+        return
+    with pytest.raises(refusal[0], match=refusal[1]):
+        main(argv)
 
 
 def test_dataset_mode_and_resampling_raise(wavs, engines, tmp_path):

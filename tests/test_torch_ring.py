@@ -184,9 +184,10 @@ def test_mesh_shapes_and_what_it_refuses():
     assert make_mesh(3, devices=["cpu"] * 8).shape == {"data": 3, "model": 1}
     with pytest.raises(ValueError, match="must divide"):
         cpu_mesh(8, model_axis=3)
-    # several distinct devices: the NCCL rotation is a later slice
+    # several distinct devices in one process: a mesh over several cards is
+    # one rank per card under torchrun, and the message says so
     for devs in (["cuda:0", "cuda:1"], ["cpu", "cuda:0"]):
-        with pytest.raises(NotImplementedError, match="slice 16"):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
             make_mesh(2, devices=devs)
     assert make_mesh(2, devices=["cuda", "cuda:0"]).shape["data"] == 2  # one card named twice
     if not torch.cuda.is_available():

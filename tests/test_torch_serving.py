@@ -245,19 +245,33 @@ def test_serve_streams_cli(fixtures, tmp_path, quant):
         assert len(full) == 2 * 3  # two windows, three branches each
 
 
-@pytest.mark.parametrize("flags", [
-    ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
-    ["--arena-codec", "mulaw"], ["--checkpoint-dir", "ORBAX_DIR"],
-    ["--sense-voice", "ORBAX_DIR"], ["--spk-embed-model", "ORBAX_DIR"],
+_NOT_READ = (NotImplementedError, "not ported")
+_TORCHRUN = (ValueError, "one rank per card: torchrun --nproc-per-node 2")
+
+
+@pytest.mark.parametrize("flags,refusal", [
+    (["--data-parallel", "2"], _TORCHRUN), (["--model-parallel", "2"], _TORCHRUN),
+    (["--slices", "2"], None), (["--arena-codec", "mulaw"], None),
+    (["--checkpoint-dir", "ORBAX_DIR"], _NOT_READ), (["--sense-voice", "ORBAX_DIR"], _NOT_READ),
+    (["--spk-embed-model", "ORBAX_DIR"], _NOT_READ),
 ])
-def test_serve_streams_unported_flags_raise(fixtures, tmp_path, flags):
+def test_serve_streams_unported_flags_raise(fixtures, tmp_path, flags, refusal):
     """(.onnx model files load since the ONNX slice; an orbax directory of a
-    weight flag still raises.)"""
+    weight flag still raises.) --data-parallel / --model-parallel above 1 in
+    one process raise with the torchrun command to run; --arena-codec mulaw
+    and --slices (no mesh: nothing to lay out) serve."""
     # a directory an orbax checkpointer wrote (the port's own loads)
     (tmp_path / "orbax").mkdir()
     (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")
     flags = [str(tmp_path / "orbax") if f == "ORBAX_DIR" else f for f in flags]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    if refusal is None:
+        write_wav(tmp_path / "call.wav", fixtures["mixes"][0], SR)
+        stats = serve_streams.main(["--wavs", str(tmp_path / "call.wav"), "--targets",
+                                    fixtures["targets"][0], "--preset", "tiny",
+                                    "--max-segment-sec", "8", "--provider", "cpu", *flags])
+        assert stats["sessions"] == 1 and stats["audio_sec_total"] == 2.0
+        return
+    with pytest.raises(refusal[0], match=refusal[1]):
         serve_streams.main(["--wavs", "a.wav", "--targets", fixtures["targets"][0],
                             "--preset", "tiny", "--provider", "cpu", *flags])
 

@@ -30,7 +30,7 @@ from audio_classification_tpu_torch.engine import BucketSpec, StageEngine
 from audio_classification_tpu_torch.models import facades
 from audio_classification_tpu_torch.models.speaker import SpeakerBank
 from audio_classification_tpu_torch.models.vad import VADConfig, VoiceActivityDetector
-from audio_classification_tpu_torch.parallel.mesh import Mesh, make_mesh
+from audio_classification_tpu_torch.parallel.mesh import make_mesh
 from audio_classification_tpu_torch.pipelines import sid_benchmark
 from test_torch_asr_families import family_packs
 
@@ -103,16 +103,20 @@ def test_speaker_bank_matches_jax():
 
 
 def test_speaker_bank_mesh_rule():
-    """A mesh whose shards live on one device keeps the bank there; a mesh
-    over several distinct devices raises NotImplementedError naming slice
-    16; the default device is the card, which raises without one."""
+    """A mesh whose shards live on one device keeps the bank there, its rows
+    split over the shards (zero-padded: 3 speakers on 2 shards); a mesh over
+    several distinct devices in one process is refused by make_mesh with
+    the torchrun command (one rank per card, tests/test_torch_mesh_ranks.py);
+    the default device is the card, which raises without one."""
     bank = SpeakerBank(4, mesh=make_mesh(2, devices=["cpu"] * 2))
     assert bank.device.type == "cpu"
-    bank.add("a", np.ones(4))
-    assert bank.search(np.ones(4), 0.9) == "a"
-    two = Mesh(((torch.device("cpu"),), (torch.device("meta"),)))
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        SpeakerBank(4, mesh=two)
+    for name, v in (("a", [1, 0, 0, 0]), ("b", [0, 1, 0, 0]), ("c", [0, 0, 1, 1])):
+        bank.add(name, np.asarray(v, np.float32))
+    assert bank.matrix.shape == (4, 4)
+    assert bank.scores(np.ones((1, 4), np.float32)).shape == (1, 3)
+    assert bank.search(np.asarray([0, 0, 1, 0.9]), 0.9) == "c"
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
+        make_mesh(2, devices=["cpu", "meta"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SpeakerBank(4)

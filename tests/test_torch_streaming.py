@@ -219,22 +219,38 @@ def test_streaming_app_max_seconds_and_8k_input(target_wav, tmp_path):
     assert app.all_results
 
 
-@pytest.mark.parametrize("flags", [
-    ["--data-parallel", "2"], ["--model-parallel", "2"], ["--slices", "2"],
-    ["--checkpoint-dir", "ORBAX_DIR"],
-    ["--sense-voice", "ORBAX_DIR"], ["--sep-checkpoint", "ORBAX_DIR"],
-    ["--spk-embed-model", "ORBAX_DIR"], ["--osd-checkpoint", "ORBAX_DIR"],
+_NOT_READ = (NotImplementedError, "not ported")
+_TORCHRUN = (ValueError, "one rank per card: torchrun --nproc-per-node 2")
+
+
+@pytest.mark.parametrize("flags,refusal", [
+    (["--data-parallel", "2"], _TORCHRUN), (["--model-parallel", "2"], _TORCHRUN),
+    (["--slices", "2"], None),
+    (["--checkpoint-dir", "ORBAX_DIR"], _NOT_READ),
+    (["--sense-voice", "ORBAX_DIR"], _NOT_READ), (["--sep-checkpoint", "ORBAX_DIR"], _NOT_READ),
+    (["--spk-embed-model", "ORBAX_DIR"], _NOT_READ), (["--osd-checkpoint", "ORBAX_DIR"], _NOT_READ),
 ])
-def test_streaming_app_unported_flags_raise(target_wav, tmp_path, flags):
+def test_streaming_app_unported_flags_raise(target_wav, tmp_path, flags, refusal):
     """(.onnx model files load since the ONNX slice; an orbax directory of a
-    weight flag still raises.)"""
+    weight flag still raises.) --data-parallel / --model-parallel above 1 in
+    one process raise with the torchrun command to run (the gloo ranks of
+    tests/test_torch_mesh_ranks.py run them); --slices without a mesh does
+    nothing, as in JAX, and the replay runs."""
     # a directory an orbax checkpointer wrote (the port's own loads)
     (tmp_path / "orbax").mkdir()
     (tmp_path / "orbax" / "_CHECKPOINT_METADATA").write_text("{}")
     flags = [str(tmp_path / "orbax") if f == "ORBAX_DIR" else f for f in flags]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        streaming_overlap_3src.main(["--target-wav", target_wav, "--preset", "tiny",
-                                     "--provider", "cpu", "--output-dir", str(tmp_path), *flags])
+    argv = ["--target-wav", target_wav, "--preset", "tiny", "--provider", "cpu",
+            "--output-dir", str(tmp_path), *flags]
+    if refusal is None:
+        write_wav(tmp_path / "mix.wav", _tone(2.0, 440), SR)
+        app = streaming_overlap_3src.main([*argv, "--input-wav", str(tmp_path / "mix.wav"),
+                                           "--no-realtime", "--process-seconds", "2",
+                                           "--max-segment-sec", "8"])
+        assert app.pipeline.latency_stats()["chunks"] >= 1 and app.all_results
+        return
+    with pytest.raises(refusal[0], match=refusal[1]):
+        streaming_overlap_3src.main(argv)
 
 
 def test_streaming_app_beam_search_needs_the_transducer(target_wav, tmp_path):

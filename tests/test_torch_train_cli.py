@@ -144,20 +144,32 @@ def test_train_asr_seq_parallel_and_speaker_export_serves(tmp_path):
     assert _equal_weights(eng.pack.models["spk"], sd)
 
 
-@pytest.mark.parametrize("cli,flags,slice_", [
-    (train_asr, ["--model-parallel", "2"], "slice 16"),
-    (train_asr, ["--slices", "2"], "slice 16"),
-    (train_separator, ["--slices", "2"], "slice 16"),
-    (train_speaker, ["--data-parallel", "2"], "slice 16"),
-    (train_separator, ["--model-parallel", "2"], "slice 16"),
-    (train_separator, ["--data-parallel", "2"], "slice 16"),
-    (train_asr, ["--data-parallel", "2"], "slice 16"),
+@pytest.mark.parametrize("cli,flags,refusal", [
+    (train_asr, ["--model-parallel", "2"], "torchrun --nproc-per-node 2 .*--model-parallel 2"),
+    (train_asr, ["--slices", "2"], None),
+    (train_separator, ["--slices", "2"], None),
+    (train_speaker, ["--data-parallel", "2"], "torchrun --nproc-per-node 2"),
+    (train_separator, ["--model-parallel", "2"], "torchrun --nproc-per-node 2"),
+    (train_separator, ["--data-parallel", "2"], "with --time-shard one process puts 2 shards"),
+    (train_asr, ["--data-parallel", "2"], "with --seq-parallel one process puts 2 shards"),
 ])
-def test_unported_training_flags_raise(cli, flags, slice_):
-    """What needs several cards raises (--init-onnx / --export-onnx work
-    since the ONNX slice: tests/test_torch_onnx_cli.py)."""
-    with pytest.raises(NotImplementedError, match=slice_):
-        cli.main(["--synthetic", "--steps", "1", "--provider", "cpu", *flags])
+def test_unported_training_flags_raise(cli, flags, refusal):
+    """A mesh over several cards is one torchrun rank per card: in one
+    process --data-parallel / --model-parallel above 1 raise with the command
+    to run (a shard flag puts the shards on the one card instead; the gloo
+    worlds of tests/test_torch_mesh_ranks.py run them over ranks). --slices
+    without a mesh does nothing, as in JAX, and the run goes on."""
+    argv = ["--synthetic", "--steps", "1", "--provider", "cpu", *flags]
+    if cli is train_asr:
+        argv += ["--batch", "2", "--dim", "32", "--heads", "2", "--layers", "1"]
+    elif cli is train_separator:
+        argv += ["--batch", "2", "--seconds", "0.5", "--enc-dim", "16", "--bottleneck", "8",
+                 "--hidden", "16", "--n-blocks", "1", "--n-repeats", "1"]
+    if refusal is None:
+        assert all(np.isfinite(cli.main(argv)))
+    else:
+        with pytest.raises(ValueError, match=refusal):
+            cli.main(argv)
 
 
 def test_train_separator_on_a_librimix_tree_with_dynamic_mix(tmp_path, capsys):
