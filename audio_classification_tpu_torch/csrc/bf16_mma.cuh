@@ -1,8 +1,9 @@
-// Device helpers shared by the bfloat16 entry points of K2 (tcn_masker.cu)
-// and K4 (gau_attention.cu): one mma.sync m16n8k16 bf16 product with float32
-// accumulators, the transposing ldmatrix that turns a [k][n] shared-memory
-// tile into B fragments, and the round-to-nearest-even casts the kernels
-// use at the JAX kernels' rounding points.
+// Device helpers shared by the bfloat16 entry points of K3 / K5
+// (flash_attention.cu) and K4 (gau_attention.cu): one mma.sync m16n8k16 bf16
+// product with float32 accumulators, the transposing ldmatrix that turns a
+// [k][n] shared-memory tile into B fragments; and the round-to-nearest-even
+// casts every bf16 kernel (K2 bf16 in tcn_masker.cu too) uses at the JAX
+// kernels' rounding points.
 //
 // Fragments (g = lane / 4, tg = lane % 4), 32 bits = two bf16, low half first:
 //   A (row-major 16 x 16): a0 (g, 2tg..+1), a1 (g + 8, 2tg..+1),

@@ -13,11 +13,14 @@ for op the dense TCN loop on the stacked weights (tcn_kernel.py:370-419),
 run on the dequantised stack for an int8 one.
 
 bfloat16 activations (the engine's bf16 mode) take their own entry points,
-``act_tcn_masker_bf16`` and ``act_tcn_masker_s8_bf16``: one bf16 tensor-core
-product where 3xTF32 takes three, rounded where the JAX kernel rounds
-(tcn_kernel.py:176-309, ``dt = x_in.dtype``): the residual stream, h1, h2
-and the skip sum are bfloat16, so ``x += res`` and ``skips += skip`` round
-at every block. Their twin is ``tcn_masker_reference_lowp``.
+``act_tcn_masker_bf16`` and ``act_tcn_masker_s8_bf16``: Hopper's warpgroup
+products (``wgmma``) fed through a TMA ring by persistent kernels that walk
+only the valid row tiles, one bf16 tensor-core product where 3xTF32 takes
+three, rounded where the JAX kernel rounds (tcn_kernel.py:176-309,
+``dt = x_in.dtype``): the residual stream, h1, h2 and the skip sum are
+bfloat16, so ``x += res`` and ``skips += skip`` round at every block. Their
+twin is ``tcn_masker_reference_lowp``. ``bf16_plan`` picks their tile shapes
+and grids from the bucket on the host.
 
 Gradients: with grad enabled and an input that requires it (x, or a stack
 built with grad on, which keeps its weights attached to the TCNBlocks'
@@ -47,6 +50,12 @@ from .attention import _wants_grad
 
 _EPS = 1e-8  # GlobalLayerNorm eps
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the bf16 GEMMs' tile shapes, numbered as the C entry points take them:
+#: (consumer warpgroups, columns); a tile has 64 rows a warpgroup, and one
+#: CTA runs on an SM at 2 warpgroups, two at 1
+BF16_TILES = ((2, 128), (2, 64), (1, 64))
+#: rows of a bf16 depthwise chunk (DR in csrc/tcn_masker.cu), by 64 channels
+BF16_DW_ROWS = 128
 #: the stack's tensors, in the order _MaskerCore takes them
 STACK_KEYS = ("w_in", "w_dw", "w_res", "w_skip", "vecs", "cvecs")
 
@@ -216,6 +225,56 @@ def tcn_masker_reference_lowp(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     return skips
 
 
+def bf16_plan(batch: int, f: int, c: int, hd: int, sms: int) -> dict:
+    """The bf16 entry points' launch plan for a [batch, f] bucket at widths
+    (C, H) on a card of ``sms`` multiprocessors: for GEMM A (N = H) and GEMM
+    C (N = 2 C), the first tile shape of ``BF16_TILES`` whose columns divide
+    N and whose tiles over the whole bucket fill the card, else the one with
+    the most tiles (1 x 64); its persistent grid is the tiles, at most a CTA
+    a slot (2 an SM at 1 warpgroup). Only the host's shapes enter: f_len
+    stays on the device, where each CTA walks the valid tiles of the grid.
+    The depthwise pass walks chunks of ``BF16_DW_ROWS`` rows by 64 channels
+    the same way, two CTAs an SM (``grid_dw``). ``wdq_per_block``: the int8
+    stack's bf16 copy, elements a TCN block."""
+    def pick(n):
+        best = None
+        for cfg, (nwg, bn) in enumerate(BF16_TILES):
+            if n % bn:
+                continue
+            tiles = batch * -(-f // (64 * nwg)) * (n // bn)
+            best = (cfg, max(1, min(tiles, sms * (2 if nwg == 1 else 1))))
+            if tiles >= sms:
+                break
+        return best
+
+    (cfg_in, grid_in), (cfg_out, grid_out) = pick(hd), pick(2 * c)
+    chunks = batch * -(-f // BF16_DW_ROWS) * (hd // 64)
+    return {"cfg_in": cfg_in, "grid_in": grid_in, "cfg_out": cfg_out, "grid_out": grid_out,
+            "grid_dw": max(1, min(chunks, 2 * sms)),
+            "wdq_per_block": c * hd + 3 * hd + 2 * hd * c}
+
+
+def bf16_schedule(f_len, bm: int, n_ct: int, grid: int) -> list:
+    """The tiles each CTA of a bf16 GEMM or depthwise launch computes, as
+    the kernels walk them (``count_tiles`` / ``tile_at`` in csrc/tcn_masker.cu): the
+    valid tiles, items in order, then row tiles of ``bm`` rows below the
+    item's f_len, then the ``n_ct`` column tiles of a row tile, numbered
+    t = 0, 1, ...; CTA k takes t = k, k + grid, ... -> per CTA a list of
+    (item, row tile, column tile). The device reads f_len; this is the same
+    order on the host, for the tests."""
+    tiles = [(b, rt, ct) for b, fl in enumerate(f_len) for rt in range(-(-int(fl) // bm))
+             for ct in range(n_ct)]
+    return [tiles[k::grid] for k in range(grid)]
+
+
+def gln_partials(f: int, hd: int) -> int:
+    """Room for one gLN partial per block of an item: GEMM blocks of 128
+    rows x 64 or 128 columns (bf16: tiles of 64 rows x 64 columns at the
+    most), depthwise blocks of 4096 / H rows (bf16: chunks of
+    ``BF16_DW_ROWS`` rows x 64 channels)."""
+    return 2 * -(-f // 128) * (hd // 64)
+
+
 def _valid_rows(f_len: torch.Tensor, f: int, device) -> torch.Tensor:
     """[B, F, 1] bool: the rows below each item's valid-frame count."""
     return (torch.arange(f, device=device)[None, :]
@@ -314,27 +373,34 @@ def _masker_forward(x, f_len, st, n_per_repeat):
     xs, skips = torch.empty_like(x), torch.empty_like(x)
     h1, h2 = (torch.empty((b, f, hd), dtype=x.dtype, device=x.device) for _ in range(2))
     stats = torch.empty((nb, b, 4), dtype=torch.float32, device=x.device)
-    # room for one gLN partial per block of an item: GEMM blocks of 128 rows
-    # x 64 or 128 columns, depthwise blocks of 4096 / H rows
-    n_part = 2 * -(-f // 128) * (hd // 64)
+    n_part = gln_partials(f, hd)
     part = torch.empty((b, n_part, 3), dtype=torch.float32, device=x.device)
-    tickets = torch.empty((b,), dtype=torch.int32, device=x.device)
+    # a ticket an item, and one a launch (the bf16 kernels)
+    tickets = torch.empty((b + 1,), dtype=torch.int32, device=x.device)
     ptrs = [x.data_ptr(), fl.data_ptr(), weights[0].data_ptr(), weights[1].data_ptr(),
             weights[2].data_ptr(), w_rs.data_ptr(), cvecs.data_ptr()]
-    if lowp and wq:
-        # one block's weights dequantised to bfloat16 at its entry, reused
-        # block after block (stream order)
-        wdq = torch.empty(c * hd + 3 * hd + 2 * hd * c, dtype=x.dtype, device=x.device)
-        ptrs.append(wdq.data_ptr())
+    plan = []
+    if lowp:
+        pl = bf16_plan(b, f, c, hd, _multiprocessors(x.device))
+        plan = [pl["cfg_in"], pl["grid_in"], pl["cfg_out"], pl["grid_out"], pl["grid_dw"]]
+        if wq:
+            # the whole stack dequantised to bfloat16 once a call
+            wdq = torch.empty(nb * pl["wdq_per_block"], dtype=x.dtype, device=x.device)
+            ptrs.append(wdq.data_ptr())
     ptrs += [xs.data_ptr(), h1.data_ptr(), h2.data_ptr(), stats.data_ptr(), part.data_ptr(),
              tickets.data_ptr(), skips.data_ptr()]
     name = "act_tcn_masker" + ("_s8" if wq else "") + ("_bf16" if lowp else "")
-    fn = _build.kernel(name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 7
+    fn = _build.kernel(name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (7 + len(plan))
                        + [ctypes.c_void_p])
     counter = "launches" + ("_s8" if wq else "") + ("_bf16" if lowp else "")
     setattr(fused_tcn_masker, counter, getattr(fused_tcn_masker, counter) + 1)
-    _build.launch(name, fn, x.device, *ptrs, b, f, c, hd, nb, n_per_repeat, n_part)
+    _build.launch(name, fn, x.device, *ptrs, b, f, c, hd, nb, n_per_repeat, n_part, *plan)
     return skips
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # kernel launches, counted where they happen: one counter an entry point

@@ -551,7 +551,12 @@ def _tcn_counts():
     return (m.launches, m.launches_s8, m.launches_bf16, m.launches_s8_bf16)
 
 
-@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_CASES)
+# the bf16 entry points also at the streaming window (B 1, F 1999 all valid:
+# the bf16 streaming replay's call), whose GEMMs take the 1 x 64 tiles
+_TCN_BF16_CASES = _TCN_CASES + [(128, 512, 1999, [1999], 8)]
+
+
+@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_BF16_CASES)
 def test_tcn_bf16_kernel_matches_twin(dev, c, hd, f, lens, npr, monkeypatch):
     """K2's bf16 entry point at the row-tile edges (f_len 0, 1, 127-129, F;
     dilations to 128 past short f_len): each call one bf16 launch, never the
@@ -577,7 +582,7 @@ def test_tcn_bf16_kernel_matches_twin(dev, c, hd, f, lens, npr, monkeypatch):
     assert _tcn_counts() == (before[0], before[1], before[2] + 4, before[3])
 
 
-@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_CASES)
+@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_BF16_CASES)
 def test_tcn_s8_bf16_kernel_matches_twin_and_bf16_kernel(dev, c, hd, f, lens, npr):
     """K2-s8 at bf16: as K2 bf16 against the twins, and EQUAL to the bf16
     entry point on the stack dequantised to bf16 (the block-entry dequant
@@ -591,6 +596,32 @@ def test_tcn_s8_bf16_kernel_matches_twin_and_bf16_kernel(dev, c, hd, f, lens, np
                                n_per_repeat=npr)
     assert torch.equal(out, deq)
     assert _tcn_counts() == (before[0], before[1], before[2] + 1, before[3] + 3)
+
+
+@pytest.mark.parametrize("cfg", range(len(tcn.BF16_TILES)))
+@pytest.mark.parametrize("c,hd,f,lens", [(128, 512, 300, [300, 129]), (64, 128, 77, [77, 1, 0]),
+                                         (32, 64, 1999, [1999, 1000])])
+def test_tcn_bf16_every_tile_shape_matches_twin(dev, c, hd, f, lens, cfg, monkeypatch):
+    """Each tile shape of the bf16 GEMMs (forced for both, on every grid
+    from 1 CTA to the card's slots) against the twins, padded rows zero,
+    repeat calls identical: the plan only picks among shapes that are all
+    right."""
+    st = _bf16_stack(_tcn_stack(torch.Generator().manual_seed(cfg), dev, c, hd, 4, quant=False),
+                     quant=False)
+    nwg, bn = tcn.BF16_TILES[cfg]
+    plan = tcn.bf16_plan
+    for grid in (1, 7, None):
+        def forced(b, f_, c_, hd_, sms, grid=grid):
+            pl = plan(b, f_, c_, hd_, sms)
+            for k, n in (("in", hd_), ("out", 2 * c_)):
+                if n % bn == 0:
+                    tiles = b * -(-f_ // (64 * nwg)) * (n // bn)
+                    pl["cfg_" + k] = cfg
+                    pl["grid_" + k] = grid or min(tiles, sms * (2 if nwg == 1 else 1))
+            return pl
+
+        monkeypatch.setattr(tcn, "bf16_plan", forced)
+        _check_tcn_bf16_call(dev, st, c, f, lens, 4)
 
 
 # K4 at bf16 against its bf16 twin and the float64 one: p rounds to bf16 in
