@@ -16,7 +16,8 @@
 // key count (every s rounds to -1e9 in float32), which the merge scales by
 // exp(-1e9 - m_valid) = 0. bfloat16 q, k, v take entry points of their own
 // (act_flash_attention_bf16, act_flash_attention_stats_bf16: namespace b16
-// below, with its design and bound).
+// below, on the wgmma / TMA pipeline of attention_wgmma.cuh, with its design,
+// bound and times).
 //
 // Bound on the H100: at D = 64 the two products (s = q k^T, acc += p v) are
 // 4 T_q T_k D operations over O(T D) bytes, so the kernel is bound by
@@ -82,7 +83,7 @@
 
 #include <atomic>
 
-#include "bf16_mma.cuh"
+#include "attention_wgmma.cuh"  // the bf16 bodies (namespace b16)
 #include "tf32_mma.cuh"
 
 // warps a block, 16 query rows each. 4 in the library; the block-size
@@ -694,419 +695,280 @@ int dispatch(const float* q, const float* k, const float* v, const uint8_t* kv_m
   }
 }
 
-
 // ---------------------------------------------------------------------------
 // bfloat16 q, k, v: act_flash_attention_bf16 (K3) and
 // act_flash_attention_stats_bf16 (K5), the JAX body _kernel at bf16
-// (attention_kernel.py:64-113): s = (q . k) accumulated in float32 (each
-// bf16 product is exact in float32), then * scale (1 / sqrt of the true D)
-// and + the key bias, in float32; m, l and alpha in float32, l summed from
-// the unrounded p; p = exp(s - m) rounded to bfloat16 (p.astype(v.dtype)
-// :99) before p v, which accumulates in float32; a float32 output (the
-// out_shape :129-130). p is rounded against the running max, so the result
-// depends on the key-tile width: this body's 64 keys are its twin's
-// block_k on the card (ops/kernels/attention.attention_reference_lowp).
-// Design: mma.sync m16n8k16 bf16 with float32 accumulators for both
-// products, one tensor-core product where 3xTF32 takes three. A block of
-// NW warps owns 16 NW query rows, 16 a warp; q [rows][D] is staged once,
-// K and V tiles of 64 keys by 16-byte cp.async into a two-stage ring (the
-// next tile lands under this one's products). The score fragment of two
-// neighbouring n8 tiles is, once rounded to bf16, the A fragment of p v's
-// k16 step (FA2), so p never leaves the registers; V's B fragments come
-// from the [key][dim] tile by ldmatrix .trans. Each tile's scores and each
-// 16-column slice of its p v are gathered from zero and added to the
-// running values in IEEE float32, so no tensor-core sum runs past a tile.
-// The exponentials are expf (IEEE-accurate, as the twins' torch.exp): a
-// faster approximation would move p across a bf16 rounding boundary more
-// often. Masked tiles are skipped as in the float32 body. Head dims 64, 80
-// and 128 are instances (whole-D tiles); above 128 the wide body takes any
-// multiple of 64: output columns in slices of 128 over grid z, the scores
-// over 64-wide slabs of q and k staged in turn, each slab's part added in
-// float32. Bound: 4 Tq Tk_valid D flops over 989 TFLOP/s dense bf16, the
-// Tq Tk_valid exponentials at 16 per SM per clock, or the bytes (PERF.md).
+// (attention_kernel.py:64-113; flash_attention :268, flash_attention_stats
+// :293): s = (q . k) accumulated in float32 (each bf16 product is exact in
+// float32), then * scale (1 / sqrt of the true D) and + the key bias, in
+// float32; m, l and alpha in float32, l summed from the unrounded p; p =
+// exp(s - m) rounded to bfloat16 (p.astype(v.dtype) :99) before p v, which
+// accumulates in float32; a float32 output (the out_shape :129-130). p is
+// rounded against the running max of 64-key tiles, so the result depends on
+// the tile width: 64 keys, the twin's block_k on the card
+// (ops/kernels/attention.attention_reference_lowp), and keys are never
+// split across blocks.
+// Bound: 4 Tq Tk_valid D flops over 989 TFLOP/s dense bf16, the Tq Tk_valid
+// exponentials at 16 per SM per clock, or the bytes: 0.0295 ms (operations)
+// at [1,8,4271,64] with 3337 keys valid.
+// Design: the wgmma pipeline of attention_wgmma.cuh (a producer warp feeding
+// K and V tiles by TMA, both products on wgmma, p in registers as p v's A
+// operand; see its header). Head dims 64, 80, 128, 192 and 256 are
+// instances whose p v is one wgmma of N = D (D = 80: its 160-byte rows take
+// two 64-wide boxes, the second zero-filled by TMA past column 80, and the
+// scores run 5 k16 steps); a 64 x D float32 accumulator is 128 registers a
+// thread at D = 256. Above 256 it no longer fits: the wide body (below)
+// splits the output columns into slices of at most 256 over grid z and
+// forms the scores once a slice, q and K streamed in 64-wide boxes. A block
+// is one consumer warpgroup of 64 rows (plan(), mirrored by
+// ops/kernels/attention.bf16_plan; two an SM at D = 64): two warpgroups on
+// one K / V ring were slower at every shape (0.194 against 0.153 ms at
+// [1,8,4271,64]), and registers sized for three blocks an SM timed the same.
+// What bounds a tile is the softmax's issue slots: the IEEE-accurate expf
+// the function keeps (as the twin's exp) is ~8 instructions an element.
+// Times (NVIDIA H100 80GB HBM3, 700.00 W; scripts/flash_attention_ab.py
+// --bf16, graph replay): K3 0.155 ms at [1,8,4271,64] (SDPA at bf16 0.22),
+// 0.029 at [8,8,537,64] ragged (SDPA 0.075), 0.011-0.015 at the small
+// shapes (SDPA 0.017-0.026); above SDPA only at [2,4,300,40] (1.2x) and
+// [2,4,300,200] (1.02x), where the wrapper's zero-pad copies are 6 of the
+// call's 7 device ops. K5 0.024 at [1,8,1068,64]. The mma.sync design this
+// replaces took 0.2445 / 0.032 / 0.017-0.048 and K5 0.039 (PERF.md).
 namespace b16 {
 
 using act::bf16;
+namespace aw = act::attn;
 
-constexpr int DVW = 128;  // output columns a block of the wide body
+constexpr int WNS = 4;               // stages of the wide body's ring
+constexpr int WSLOT = 4 * aw::BOX;   // a stage: two q boxes and two K boxes, or a V slice
 
-// q . k of one key tile into s [n8 tile of keys][c0..c3] (rows g, g + 8 of
-// the warp's 16; keys 8 nt + 2 tg, + 1), from zero over DQ dims: q_w is the
-// warp's row g at word 2 tg of a q tile with row stride QS, kt the key tile's
-// row g at 2 tg (stride QS)
-template <int DQ, int QS>
-__device__ __forceinline__ void tile_scores(float (&s)[BK / 8][4], const bf16* q_w,
-                                            const bf16* kt) {
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DQ; kk += 16) {
-    const uint32_t a[4] = {act::ld_u32(q_w + kk), act::ld_u32(q_w + 8 * QS + kk),
-                           act::ld_u32(q_w + kk + 8), act::ld_u32(q_w + 8 * QS + kk + 8)};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const bf16* kr = kt + 8 * nt * QS + kk;
-      act::mma_bf16(s[nt], a, act::ld_u32(kr), act::ld_u32(kr + 8));
-    }
-  }
-}
-
-// One computed key tile, shared by both bodies: s (the tile's q . k) is
-// scaled and biased, the rows' running max m and sum l (this thread's part)
-// updated, p rounded to bf16 and p v added to acc over DN columns of the V
-// tile vt ([key][column], row stride VS, from the block's first column)
-template <int DN, int VS>
-__device__ __forceinline__ void tile_update(float (&s)[BK / 8][4], const float* bias, float scale,
-                                            const bf16* vt, float (&acc)[DN / 8][4], float& m0,
-                                            float& m1, float& l0, float& l1, int tg, int lane) {
-  float mt0 = -INFINITY, mt1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * nt + 2 * tg);
-    s[nt][0] = __fadd_rn(__fmul_rn(s[nt][0], scale), bb.x);
-    s[nt][1] = __fadd_rn(__fmul_rn(s[nt][1], scale), bb.y);
-    s[nt][2] = __fadd_rn(__fmul_rn(s[nt][2], scale), bb.x);
-    s[nt][3] = __fadd_rn(__fmul_rn(s[nt][3], scale), bb.y);
-    mt0 = fmaxf(mt0, fmaxf(s[nt][0], s[nt][1]));
-    mt1 = fmaxf(mt1, fmaxf(s[nt][2], s[nt][3]));
-  }
-  mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 1));
-  mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 2));
-  mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 1));
-  mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 2));
-  const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-  const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
-  l0 *= alpha0;
-  l1 *= alpha1;
-  // p, summed into l unrounded, then rounded to bf16 as the A fragments of
-  // p v: k16 step j's are the score fragments of n8 tiles 2j and 2j + 1
-  uint32_t pa[BK / 16][4];
-#pragma unroll
-  for (int j = 0; j < BK / 16; ++j) {
-    float p[2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      p[h][0] = expf(s[2 * j + h][0] - mn0);
-      p[h][1] = expf(s[2 * j + h][1] - mn0);
-      p[h][2] = expf(s[2 * j + h][2] - mn1);
-      p[h][3] = expf(s[2 * j + h][3] - mn1);
-      l0 += p[h][0] + p[h][1];
-      l1 += p[h][2] + p[h][3];
-    }
-    pa[j][0] = act::pack_bf16(p[0][0], p[0][1]);
-    pa[j][1] = act::pack_bf16(p[0][2], p[0][3]);
-    pa[j][2] = act::pack_bf16(p[1][0], p[1][1]);
-    pa[j][3] = act::pack_bf16(p[1][2], p[1][3]);
-  }
-  // p v in 16-column slices, each from zero over the tile's 64 keys
-#pragma unroll
-  for (int np = 0; np < DN / 16; ++np) {
-    float pv[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t b0, b1, b2, b3;
-      act::ldsm_x4_trans(b0, b1, b2, b3,
-                         vt + (16 * j + (lane & 15)) * VS + 16 * np + 8 * (lane >> 4));
-      act::mma_bf16(pv[0], pa[j], b0, b1);
-      act::mma_bf16(pv[1], pa[j], b2, b3);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* a = acc[2 * np + h];
-      a[0] = __fadd_rn(__fmul_rn(a[0], alpha0), pv[h][0]);
-      a[1] = __fadd_rn(__fmul_rn(a[1], alpha0), pv[h][1]);
-      a[2] = __fadd_rn(__fmul_rn(a[2], alpha1), pv[h][2]);
-      a[3] = __fadd_rn(__fmul_rn(a[3], alpha1), pv[h][3]);
-    }
-  }
-}
-
-// The epilogue of both bodies: l summed across the quad, then rows r0 and r1
-// of out (row stride `stride` floats, from row `row_base`) written at
-// columns c0 + [0, dv) (K3 divided by max(l, 1e-30)), and, for K5 where
-// `stats`, the rows' m and l. Thread tg holds columns 8 n + 2 tg, + 1.
-template <bool EMIT_STATS, int DN>
-__device__ __forceinline__ void store_rows(const float (&acc)[DN / 8][4], float m0, float m1,
-                                           float l0, float l1, float* out, float* m_out,
-                                           float* l_out, size_t row_base, int tq, int r0, int r1,
-                                           int tg, int stride, int c0, int dv, bool stats) {
-  l0 += __shfl_xor_sync(FULL, l0, 1);
-  l0 += __shfl_xor_sync(FULL, l0, 2);
-  l1 += __shfl_xor_sync(FULL, l1, 1);
-  l1 += __shfl_xor_sync(FULL, l1, 2);
-  const float d0 = EMIT_STATS ? 1.f : fmaxf(l0, 1e-30f);
-  const float d1 = EMIT_STATS ? 1.f : fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int n = 0; n < DN / 8; ++n) {
-    const int d = 8 * n + 2 * tg;
-    if (d >= dv) continue;
-    if (r0 < tq) {
-      *reinterpret_cast<float2*>(out + (row_base + r0) * stride + c0 + d) =
-          make_float2(__fdiv_rn(acc[n][0], d0), __fdiv_rn(acc[n][1], d0));
-    }
-    if (r1 < tq) {
-      *reinterpret_cast<float2*>(out + (row_base + r1) * stride + c0 + d) =
-          make_float2(__fdiv_rn(acc[n][2], d1), __fdiv_rn(acc[n][3], d1));
-    }
-  }
-  if (EMIT_STATS && stats && tg == 0) {
-    if (r0 < tq) {
-      m_out[row_base + r0] = m0;
-      l_out[row_base + r0] = l0;
-    }
-    if (r1 < tq) {
-      m_out[row_base + r1] = m1;
-      l_out[row_base + r1] = l1;
-    }
-  }
-}
-
-// the body at head dim D (64, 80 or 128): q, K and V tiles over the whole D
-template <int D>
-struct Dims {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  static constexpr int S = D + 8;  // row stride (bf16) of the q, K and V tiles
-  static size_t smem_bytes(int tk) {
-    return sizeof(bf16) * ((size_t)ROWS * S + 2 * (size_t)NS * BK * S) +
-           sizeof(float) * NS * BK + sizeof(int) * NS + (size_t)(tk + BK - 1) / BK;
-  }
+// The plan of a call (D = the padded head dim): output columns a block (D,
+// or a wide body's slice of at most 256, rounded up to 64) and the grid (a
+// block a 64-row tile of an item and a slice)
+struct Plan {
+  int cols, gx, gy, gz;
 };
-
-template <int D, bool EMIT_STATS>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                 float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-                 int heads, int tq, int tk, float scale) {
-  constexpr int S = Dims<D>::S;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);                // [ROWS][S]
-  bf16* k_s = q_s + ROWS * S;                                   // [NS][BK][S]
-  bf16* v_s = k_s + NS * BK * S;                                // [NS][BK][S]
-  float* bias_s = reinterpret_cast<float*>(v_s + NS * BK * S);  // [NS][BK]
-  int* tile_s = reinterpret_cast<int*>(bias_s + NS * BK);       // [NS]: first key, -1 if empty
-  uint8_t* live_s = reinterpret_cast<uint8_t*>(tile_s + NS);    // [n_tiles]: holds a valid key
-
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int row0 = blockIdx.x * ROWS;
-  const int r0 = row0 + 16 * warp + g, r1 = r0 + 8;
-  const bf16* qh = q + (size_t)bh * tq * D;
-  const bf16* kh = k + (size_t)bh * tk * D;
-  const bf16* vh = v + (size_t)bh * tk * D;
-  const uint8_t* mrow = kv_mask ? kv_mask + (size_t)(bh / heads) * tk : nullptr;
-  const int n_tiles = (tk + BK - 1) / BK;
-
-  // q once, in the first stage's commit group (rows past tq zero-filled)
-  for (int c = tid; c < ROWS * D / 8; c += NT) {
-    const int r = c / (D / 8), d = 8 * (c % (D / 8));
-    const bool in = row0 + r < tq;
-    act::cp_async16b(q_s + r * S + d, qh + (size_t)(in ? row0 + r : 0) * D + d, in);
-  }
-  const bool skip = mark_live_tiles(mrow, tk, n_tiles, live_s, tid);
-  // stage `tile` (n_tiles: nothing) into ring slot st; one commit group
-  auto stage = [&](int tile, int st) {
-    if (tile < n_tiles) {
-      const int k0 = tile * BK;
-      for (int c = tid; c < BK * D / 8; c += NT) {
-        const int j = c / (D / 8), d = 8 * (c % (D / 8));
-        const bool in = k0 + j < tk;
-        const size_t off = (size_t)(in ? k0 + j : 0) * D + d;
-        act::cp_async16b(k_s + (st * BK + j) * S + d, kh + off, in);
-        act::cp_async16b(v_s + (st * BK + j) * S + d, vh + off, in);
-      }
-      if (tid < BK) bias_s[st * BK + tid] = key_bias(k0 + tid, tk, mrow);
-    }
-    if (tid == 0) tile_s[st] = tile < n_tiles ? tile * BK : -1;
-    cp_commit();
-  };
-
-  int fetch = next_live(0, skip, n_tiles, live_s);
-#pragma unroll
-  for (int st = 0; st < NS - 1; ++st) {
-    stage(fetch, st);
-    fetch = fetch < n_tiles ? next_live(fetch + 1, skip, n_tiles, live_s) : n_tiles;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = NEG_INIT, m1 = NEG_INIT, l0 = 0.f, l1 = 0.f;  // rows r0, r1 (l: this thread's part)
-  const bf16* q_w = q_s + (16 * warp + g) * S + 2 * tg;
-
-  for (int it = 0;; ++it) {
-    cp_wait<NS - 2>();
-    __syncthreads();  // tile `it` (and q) landed; the slot refilled below is consumed
-    const int st = it % NS;
-    if (tile_s[st] < 0) break;
-    stage(fetch, (it + NS - 1) % NS);
-    fetch = fetch < n_tiles ? next_live(fetch + 1, skip, n_tiles, live_s) : n_tiles;
-
-    float s[BK / 8][4];
-    tile_scores<D, S>(s, q_w, k_s + st * BK * S + g * S + 2 * tg);
-    tile_update<D, S>(s, bias_s + st * BK, scale, v_s + st * BK * S, acc, m0, m1, l0, l1, tg,
-                      lane);
-  }
-
-  store_rows<EMIT_STATS, D>(acc, m0, m1, l0, l1, out, m_out, l_out, (size_t)bh * tq, tq, r0, r1,
-                            tg, D, 0, D, true);
+inline Plan plan(int batch, int heads, int tq, int d) {
+  const int n_sl = (d + 255) / 256, cols = d <= 256 ? d : ((d + n_sl - 1) / n_sl + 63) / 64 * 64;
+  return Plan{cols, (tq + 63) / 64, batch * heads, d <= 256 ? 1 : n_sl};
 }
 
-// The wide body, for any head dim dp above 128 that is a multiple of SLAB.
-// Block (x, y, z) owns ROWS query rows of head y and output columns
-// [128 z, 128 z + 128) of dp. For each computed key tile its V column slice
-// and key bias are issued first (one slot; they land while the scores are
-// formed), then the scores are gathered over dp / SLAB slabs of q and k
-// staged in turn, each slab's part from zero added to s in float32; then
-// tile_update as above. Every slice forms the same scores in the same
+// The wide body, for head dims above 256 (multiples of 64): one consumer
+// warpgroup of 64 rows and one producer warp; block (x, y, z) owns output
+// columns [z cols, z cols + cols) of item y. For each live key tile the
+// producer streams the scores' units (two 64-wide boxes of q and of K a
+// stage; at an odd D / 64 the last unit's second boxes lie past D and are
+// zero-filled, so every unit is the same 8 k16 steps and the consumer's
+// products take one path) and then the tile's V slice with its key bias; the
+// consumer sums the scores over the units, then runs the softmax and p v as
+// the narrow body does, without the overlap. Every slice forms the same scores in the same
 // order, so slice 0 writes K5's m and l.
-struct Wide {
-  static constexpr int QS = SLAB + 8;  // row stride (bf16) of the q and k slabs
-  static constexpr int VS = DVW + 8;   // of the V column slice
-  static size_t smem_bytes(int tk) {
-    return sizeof(bf16) * ((size_t)(ROWS + BK) * QS + (size_t)BK * VS) + sizeof(float) * BK +
-           (size_t)(tk + BK - 1) / BK;
+template <bool EMIT_STATS, int CW>
+__global__ void __launch_bounds__(160, 1)
+    wide_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, const aw::Params p) {
+  constexpr int MODE = EMIT_STATS ? aw::STATS : aw::SOFTMAX;
+  constexpr int NV = CW / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = act::smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t ring = act::smem_u32(base);
+  float* coef = reinterpret_cast<float*>(base + WNS * WSLOT);     // [WNS][BK]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(coef + WNS * aw::BK);
+  uint8_t* live = reinterpret_cast<uint8_t*>(bars + 2 * WNS);
+  const uint32_t full = act::smem_u32(bars), empty = full + 8 * WNS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int item = blockIdx.y, row0 = blockIdx.x * 64, c0 = blockIdx.z * CW;
+  const int nd = p.out_cols / 64, n_units = (nd + 1) / 2;
+  const uint8_t* mrow = p.mask ? p.mask + (size_t)(item / p.heads) * p.tk : nullptr;
+  const int n_tiles = (p.tk + aw::BK - 1) / aw::BK;
+  if (tid == 0) {
+    for (int s = 0; s < WNS; ++s) {
+      act::mbar_init(full + 8 * s, 32);
+      act::mbar_init(empty + 8 * s, 4);
+    }
+    act::mbar_fence_init();
   }
-};
+  const bool skip = aw::mark_live<MODE>(mrow, p.tk, n_tiles, live);
 
-template <bool EMIT_STATS>
-__global__ void __launch_bounds__(NT)
-flash_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                  float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-                  int heads, int tq, int tk, int dp, float scale) {
-  constexpr int QS = Wide::QS, VS = Wide::VS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);                 // [ROWS][QS]: a q slab
-  bf16* k_s = q_s + ROWS * QS;                                   // [BK][QS]: a k slab
-  bf16* v_s = k_s + BK * QS;                                     // [BK][VS]: the V slice
-  float* bias_s = reinterpret_cast<float*>(v_s + BK * VS);       // [BK]
-  uint8_t* live_s = reinterpret_cast<uint8_t*>(bias_s + BK);     // [n_tiles]
+  if (warp == 4) {  // the producer warp
+    if (lane == 0) {
+      act::tma_prefetch_map(&mq);
+      act::tma_prefetch_map(&mk);
+      act::tma_prefetch_map(&mv);
+    }
+    int s = 0;
+    uint32_t ph = 0;
+    auto advance = [&]() {
+      if (++s == WNS) {
+        s = 0;
+        ph ^= 1;
+      }
+    };
+    for (int tile = aw::next_live(0, skip, n_tiles, live); tile < n_tiles;
+         tile = aw::next_live(tile + 1, skip, n_tiles, live)) {
+      for (int u = 0; u < n_units; ++u) {
+        act::mbar_wait(empty + 8 * s, ph ^ 1);
+        if (lane == 0) {
+          const uint32_t st = ring + s * WSLOT, bar = full + 8 * s;
+          act::mbar_arrive_expect_tx(bar, WSLOT);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {  // past D (an odd D / 64): zero-filled
+            act::tma_load_3d(st + c * aw::BOX, &mq, bar, 64 * (2 * u + c), row0, item);
+            act::tma_load_3d(st + (2 + c) * aw::BOX, &mk, bar, 64 * (2 * u + c),
+                             tile * aw::BK, item);
+          }
+        } else {
+          act::mbar_arrive(full + 8 * s);
+        }
+        advance();
+      }
+      act::mbar_wait(empty + 8 * s, ph ^ 1);
+      const int j = tile * aw::BK + 2 * lane;
+      *reinterpret_cast<float2*>(coef + s * aw::BK + 2 * lane) =
+          make_float2(aw::key_coef<MODE>(j, p.tk, mrow), aw::key_coef<MODE>(j + 1, p.tk, mrow));
+      if (lane == 0) {
+        const uint32_t st = ring + s * WSLOT, bar = full + 8 * s;
+        act::mbar_arrive_expect_tx(bar, NV * aw::BOX);
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          act::tma_load_3d(st + c * aw::BOX, &mv, bar, c0 + 64 * c, tile * aw::BK, item);
+        }
+      } else {
+        act::mbar_arrive(full + 8 * s);
+      }
+      advance();
+    }
+    return;
+  }
 
-  const int bh = blockIdx.y;
-  const int c0 = blockIdx.z * DVW, dv = min(DVW, dp - c0);  // this block's output columns
-  const int n_slabs = dp / SLAB;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int row0 = blockIdx.x * ROWS;
+  const int g = lane >> 2, t = lane & 3;
   const int r0 = row0 + 16 * warp + g, r1 = r0 + 8;
-  const bf16* qh = q + (size_t)bh * tq * dp;
-  const bf16* kh = k + (size_t)bh * tk * dp;
-  const bf16* vh = v + (size_t)bh * tk * dp;
-  const uint8_t* mrow = kv_mask ? kv_mask + (size_t)(bh / heads) * tk : nullptr;
-  const int n_tiles = (tk + BK - 1) / BK;
-
-  const bool skip = mark_live_tiles(mrow, tk, n_tiles, live_s, tid);
-  float acc[DVW / 8][4];
+  float o[CW / 2];
 #pragma unroll
-  for (int n = 0; n < DVW / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = NEG_INIT, m1 = NEG_INIT, l0 = 0.f, l1 = 0.f;
-  const bf16* q_w = q_s + (16 * warp + g) * QS + 2 * tg;
-
-  for (int tile = next_live(0, skip, n_tiles, live_s); tile < n_tiles;
-       tile = next_live(tile + 1, skip, n_tiles, live_s)) {
-    const int k0 = tile * BK;
-    for (int c = tid; c < BK * DVW / 8; c += NT) {
-      const int j = c / (DVW / 8), d = 8 * (c % (DVW / 8));
-      const bool in = k0 + j < tk && d < dv;
-      act::cp_async16b(v_s + j * VS + d, vh + (in ? (size_t)(k0 + j) * dp + c0 + d : 0), in);
+  for (int i = 0; i < CW / 2; ++i) o[i] = 0.f;
+  float m0 = aw::NEG_INIT, m1 = aw::NEG_INIT, l0 = 0.f, l1 = 0.f;
+  float s[32];
+  uint32_t pa[16];
+  int st = 0;
+  uint32_t ph = 0;
+  auto release = [&]() {  // this warp is done with stage st
+    __syncwarp();
+    if (lane == 0) act::mbar_arrive(empty + 8 * st);
+    if (++st == WNS) {
+      st = 0;
+      ph ^= 1;
     }
-    if (tid < BK) bias_s[tid] = key_bias(k0 + tid, tk, mrow);
-    cp_commit();
-
-    float s[BK / 8][4];
+  };
+  for (int tile = aw::next_live(0, skip, n_tiles, live); tile < n_tiles;
+       tile = aw::next_live(tile + 1, skip, n_tiles, live)) {
+    for (int u = 0; u < n_units; ++u) {
+      act::mbar_wait(full + 8 * st, ph);
+      const uint32_t sa = ring + st * WSLOT;
+      act::fence_operands(s);
+      act::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    for (int slab = 0; slab < n_slabs; ++slab) {
-      const int d0 = slab * SLAB;
-      for (int c = tid; c < ROWS * SLAB / 8; c += NT) {
-        const int r = c / (SLAB / 8), d = 8 * (c % (SLAB / 8));
-        const bool in = row0 + r < tq;
-        act::cp_async16b(q_s + r * QS + d, qh + (size_t)(in ? row0 + r : 0) * dp + d0 + d, in);
-      }
-      for (int c = tid; c < BK * SLAB / 8; c += NT) {
-        const int j = c / (SLAB / 8), d = 8 * (c % (SLAB / 8));
-        const bool in = k0 + j < tk;
-        act::cp_async16b(k_s + j * QS + d, kh + (size_t)(in ? k0 + j : 0) * dp + d0 + d, in);
-      }
-      cp_commit();
-      cp_wait<0>();
-      __syncthreads();  // the slab (and, at the first, the V slice and bias) landed
-      float sb[BK / 8][4];
-      tile_scores<SLAB, QS>(sb, q_w, k_s + g * QS + 2 * tg);
+      for (int c = 0; c < 2; ++c) {
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = __fadd_rn(s[nt][i], sb[nt][i]);
+        for (int ks = 0; ks < 4; ++ks) {
+          act::wgmma_ss<64, 0>(s, act::desc_sw128(sa + c * aw::BOX + 32 * ks, 16, 1024),
+                               act::desc_sw128(sa + (2 + c) * aw::BOX + 32 * ks, 16, 1024),
+                               u > 0 || c > 0 || ks > 0);
+        }
       }
-      __syncthreads();  // every warp is done with the slab before the next is staged
+      act::wgmma_commit();
+      act::wgmma_wait<0>();
+      act::fence_operands(s);
+      release();
     }
-    tile_update<DVW, VS>(s, bias_s, scale, v_s, acc, m0, m1, l0, l1, tg, lane);
-    __syncthreads();  // the V slice and bias are consumed before the next tile's land
+    act::mbar_wait(full + 8 * st, ph);
+    float al0, al1;
+    aw::softmax_tile(s, coef + st * aw::BK, p.scale, t, m0, m1, l0, l1, al0, al1);
+    aw::pack_p(s, pa);
+    aw::rescale(o, al0, al1);
+    aw::issue_pv<CW>(o, pa, ring + st * WSLOT);
+    act::wgmma_wait<0>();
+    act::fence_operands(o);
+    act::fence_regs(pa);
+    release();
   }
-
-  store_rows<EMIT_STATS, DVW>(acc, m0, m1, l0, l1, out, m_out, l_out, (size_t)bh * tq, tq, r0, r1,
-                              tg, dp, c0, dv, blockIdx.z == 0);
+  aw::store_rows<MODE, CW / 2>(o, m0, m1, l0, l1, p, (size_t)item * p.tq, r0, r1, c0, t,
+                               blockIdx.z == 0);
 }
 
-template <int D, bool EMIT_STATS>
-std::atomic<uint64_t> smem_cap_raised{0};
-template <bool EMIT_STATS>
-std::atomic<uint64_t> wide_cap_raised{0};
-
-template <int D, bool EMIT_STATS>
-int launch(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_mask, float* out,
-           float* m_out, float* l_out, int batch, int heads, int tq, int tk, float scale,
-           cudaStream_t stream) {
-  if (tq <= 0 || batch <= 0) return 0;
-  const cudaError_t err =
-      act::allow_dynamic_smem(reinterpret_cast<const void*>(flash_fwd_kernel<D, EMIT_STATS>),
-                              smem_cap_raised<D, EMIT_STATS>);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((tq + ROWS - 1) / ROWS, batch * heads);
-  flash_fwd_kernel<D, EMIT_STATS><<<grid, NT, Dims<D>::smem_bytes(tk), stream>>>(
-      q, k, v, kv_mask, out, m_out, l_out, heads, tq, tk, scale);
+template <bool EMIT_STATS, int CW>
+int launch_wide(dim3 grid, const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                const aw::Params& p, cudaStream_t stream) {
+  static std::atomic<uint64_t> raised{0};
+  const auto kernel = wide_kernel<EMIT_STATS, CW>;
+  const cudaError_t e = act::allow_dynamic_smem(reinterpret_cast<const void*>(kernel), raised);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = 1024 + (size_t)WNS * WSLOT + sizeof(float) * WNS * aw::BK +
+                      sizeof(uint64_t) * 2 * WNS + (size_t)(p.tk + aw::BK - 1) / aw::BK;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 160, smem, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
 }
 
-template <bool EMIT_STATS>
-int launch_wide(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_mask, float* out,
-                float* m_out, float* l_out, int batch, int heads, int tq, int tk, int dp,
-                float scale, cudaStream_t stream) {
-  if (tq <= 0 || batch <= 0) return 0;
-  const cudaError_t err = act::allow_dynamic_smem(
-      reinterpret_cast<const void*>(flash_wide_kernel<EMIT_STATS>), wide_cap_raised<EMIT_STATS>);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((tq + ROWS - 1) / ROWS, batch * heads, (dp + DVW - 1) / DVW);
-  flash_wide_kernel<EMIT_STATS><<<grid, NT, Wide::smem_bytes(tk), stream>>>(
-      q, k, v, kv_mask, out, m_out, l_out, heads, tq, tk, dp, scale);
-  return (int)cudaGetLastError();
+// threads, stages and dynamic shared memory of the block a plan launches
+template <int ND, int KS, int DV, int NWG>
+void block_facts(int n_tiles, int* out) {
+  using C = aw::Cfg<ND, KS, DV, NWG>;
+  out[0] = C::THREADS;
+  out[1] = C::NS;
+  out[2] = (int)C::smem_bytes(n_tiles);
+}
+inline int plan_facts(int d, int tk, int* out) {
+  const int n_tiles = (tk + aw::BK - 1) / aw::BK;
+  switch (d) {
+    case 64: block_facts<1, 4, 64, 1>(n_tiles, out); return 0;
+    case 80: block_facts<2, 5, 80, 1>(n_tiles, out); return 0;
+    case 128: block_facts<2, 8, 128, 1>(n_tiles, out); return 0;
+    case 192: block_facts<3, 12, 192, 1>(n_tiles, out); return 0;
+    case 256: block_facts<4, 16, 256, 1>(n_tiles, out); return 0;
+    default:
+      out[0] = 160;
+      out[1] = WNS;
+      out[2] = (int)(1024 + (size_t)WNS * WSLOT + sizeof(float) * WNS * aw::BK +
+                     sizeof(uint64_t) * 2 * WNS + (size_t)n_tiles);
+      return 0;
+  }
 }
 
-// the same set of head dims as the float32 dispatch above
+// the same set of head dims as the float32 dispatch above: 64, 80, 128 and
+// every multiple of 64 above 128
 template <bool EMIT_STATS>
 int dispatch(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_mask, float* out,
-             float* m_out, float* l_out, int batch, int heads, int tq, int tk, int head_dim,
-             float scale, cudaStream_t stream) {
-  switch (head_dim) {
+             float* m_out, float* l_out, int batch, int heads, int tq, int tk, int d, float scale,
+             cudaStream_t stream) {
+  constexpr int MODE = EMIT_STATS ? aw::STATS : aw::SOFTMAX;
+  if (!(d == 64 || d == 80 || d == 128 || (d > 128 && d % 64 == 0)))
+    return (int)cudaErrorInvalidValue;
+  if (tq <= 0 || batch <= 0 || heads <= 0) return 0;
+  const int items = batch * heads;
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = act::tmap_3d_bf16(&mq, q, d, tq, items, 64, 64)) != cudaSuccess ||
+      (e = act::tmap_3d_bf16(&mk, k, d, tk, items, 64, 64)) != cudaSuccess ||
+      (e = act::tmap_3d_bf16(&mv, v, d, tk, items, 64, 64)) != cudaSuccess)
+    return (int)e;
+  const aw::Params p{kv_mask, out, m_out, l_out, heads, tq, tk, d, scale};
+  const Plan pl = plan(batch, heads, tq, d);
+  const dim3 grid(pl.gx, pl.gy, pl.gz);
+  switch (d) {
     case 64:
-      return launch<64, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
-                                    scale, stream);
+      return aw::launch<MODE, 1, 4, 64, 1>(grid, mq, mk, mv, p, stream);
     case 80:
-      return launch<80, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
-                                    scale, stream);
+      return aw::launch<MODE, 2, 5, 80, 1>(grid, mq, mk, mv, p, stream);
     case 128:
-      return launch<128, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
-                                     scale, stream);
+      return aw::launch<MODE, 2, 8, 128, 1>(grid, mq, mk, mv, p, stream);
+    case 192:
+      return aw::launch<MODE, 3, 12, 192, 1>(grid, mq, mk, mv, p, stream);
+    case 256:
+      return aw::launch<MODE, 4, 16, 256, 1>(grid, mq, mk, mv, p, stream);
     default:
-      if (head_dim > 128 && head_dim % SLAB == 0) {
-        return launch_wide<EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
-                                       head_dim, scale, stream);
-      }
-      return (int)cudaErrorInvalidValue;
+      return pl.cols == 192 ? launch_wide<EMIT_STATS, 192>(grid, mq, mk, mv, p, stream)
+                            : launch_wide<EMIT_STATS, 256>(grid, mq, mk, mv, p, stream);
   }
 }
 
@@ -1156,4 +1018,22 @@ extern "C" int act_flash_attention_stats_bf16(const act::bf16* q, const act::bf1
   if (tk <= 0) return (int)cudaErrorInvalidValue;
   return b16::dispatch<true>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
                              head_dim, scale, stream);
+}
+
+// The plan of a bf16 K3 / K5 call at head dim head_dim (as the entry points
+// take it: 64, 80, 128 or a multiple of 64 above 128) into out[7]: output
+// columns a block, grid x, y, z, threads a block, ring stages, dynamic
+// shared memory bytes (ops/kernels/attention.bf16_plan computes the same on
+// the host).
+extern "C" int act_flash_attention_bf16_plan(int batch, int heads, int tq, int tk, int head_dim,
+                                             int* out) {
+  if (!(head_dim == 64 || head_dim == 80 || head_dim == 128 ||
+        (head_dim > 128 && head_dim % 64 == 0)))
+    return (int)cudaErrorInvalidValue;
+  const b16::Plan pl = b16::plan(batch, heads, tq, head_dim);
+  out[0] = pl.cols;
+  out[1] = pl.gx;
+  out[2] = pl.gy;
+  out[3] = pl.gz;
+  return b16::plan_facts(head_dim, tk, out + 4);
 }

@@ -80,7 +80,7 @@
 
 #include <atomic>
 
-#include "bf16_mma.cuh"
+#include "attention_wgmma.cuh"  // the bf16 body (namespace b16)
 #include "tf32_mma.cuh"
 
 namespace {
@@ -474,199 +474,113 @@ std::atomic<uint64_t> smem_cap_raised{0};  // the kernel's cap, raised once per 
 // ---------------------------------------------------------------------------
 // bfloat16 q, k, v: act_gau_attention_bf16, the JAX kernel at bf16
 // (_gau_kernel, attention_kernel.py:320-343): s = (q . k) * scale in float32,
-// s *= mask, p = relu(s)^2 in float32, p rounded to bf16 (p.astype(v.dtype)),
-// out += p v in float32; the output is float32.
-// Design: mma.sync m16n8k16 bf16 with float32 accumulators for both
-// products: one tensor-core product where 3xTF32 takes three, and no split.
-// A block of 8 warps owns BM = 64 query rows and one DC = 384-wide chunk of
-// De (blockIdx.x; the scores are formed once per chunk: at De = 768 that is
-// 1.14x the minimum work, and no cluster). Key tiles of BK = 32: K [32][Dqk]
-// and V [32][384] by 16-byte cp.async into a two-stage ring, one live tile
-// ahead; q [64][Dqk] staged once. Per tile: scores (warp w: m16 tile w % 4 x
-// keys 16 (w / 4) .. + 15, Dqk / 16 k-steps of 32-bit fragment loads), then
-// p in bf16 into shared memory [64][32], then p v (warp w: rows 32 (w % 2)
-// .. + 31, columns 96 (w / 2) .. + 95: 96 accumulators, V fragments by
-// ldmatrix .trans). Masked keys add exactly 0, so key tiles whose mask bytes
-// are all 0 are skipped (a live-tile map in the prologue), as the float32
-// body does; a fully masked item writes zeros. Bound: 2 T n_valid (Dqk + De)
-// flops over 989 TFLOP/s dense bf16: 0.35 ms at [1, 15999, 128 | 768] with
-// 11999 keys valid.
+// s *= mask, p = relu(s)^2 in float32, p rounded to bf16 (p.astype(v.dtype)
+// :337), out += p v in float32; the output is float32, every query row
+// written. Replaces attention_kernel.py::gau_attention (:410) at bf16.
+// Bound: 2 T n_valid (Dqk + De) flops over 989 TFLOP/s dense bf16: 0.348 ms
+// at [1, 15999, 128 | 768] with 11999 keys valid; p v is 6/7 of it.
+// Design: the wgmma pipeline of attention_wgmma.cuh (TMA ring of K and V
+// tiles, the scores and p v on wgmma, p = bf16(relu(s scale m)^2) formed in
+// registers as p v's A operand, the next tile's scores issued before this
+// tile's p v). A block owns one chunk of at most 256 of the De columns
+// (grid z): nc = ceil(De / 256) chunks of CW = ceil(De / nc) rounded up to
+// 64 (De 768: 3 x 256; 384: 2 x 192; 192: 1 x 192), and forms its rows'
+// scores itself. Why not once a row tile: a 64 x De float32 accumulator is
+// De / 2 registers a thread of a warpgroup (384 at De 768), so one row
+// tile's columns need three warpgroups at 256 (128 accumulators + 32 scores
+// + 16 of p + addresses, ~200 registers a thread); three consumer and a
+// producer warpgroup hold at most 160 a consumer thread even with
+// setmaxnreg (65536 registers an SM), and p would have to reach the other
+// two through shared memory every tile. Three chunks form the scores three
+// times (1.29x the minimum work), but no warpgroup waits on another.
+// L2 traffic: each K tile (16 KB) and V chunk tile (32 KB) feeds 64 rows a
+// warpgroup; one warpgroup a block was bound by it (48 KB a tile, 0.86 ms).
+// So a block is two consumer warpgroups of 64 rows on the same K / V ring
+// (128 rows a tile), with a producer warpgroup whose registers go to them
+// by setmaxnreg (232 a consumer thread: nine warps would cap every thread
+// at 168, under the ~206 a 256-column warpgroup needs); one warpgroup and
+// a producer warp where halving the blocks saves no round of the grid.
+// Shared memory at CW 256: q 32 KB, 3 stages of K (16 KB) and V (32 KB), one
+// block an SM. Masked keys add exactly 0 (relu(0)^2 = 0), so a key tile
+// whose mask bytes are all 0 is skipped (a live-tile map in the prologue);
+// a fully masked item computes no tile and writes zeros.
+// Times (NVIDIA H100 80GB HBM3, 700.00 W; scripts/gau_attention_ab.py, graph
+// replay): 0.60 ms at [1, 15999, 128 | 768] with 11999 keys valid (share
+// 0.58; ~75% of the tensor peak on the 1.29x work), 0.37 at De 384, 0.027 at
+// [3, 1237] ragged (0.023 with one warpgroup a block, which the plan cannot
+// pick there: the masked item's blocks do no work); the mma.sync design
+// this replaces took 2.90 / 1.48 / 0.087 (PERF.md).
 namespace b16 {
 
 using act::bf16;
+namespace aw = act::attn;
 
-constexpr int BM = 64;           // query rows a block
-constexpr int BK = 32;           // keys a tile
-constexpr int DC = 384;          // output columns a block
-constexpr int NW = 8;
-constexpr int NT = NW * 32;
-constexpr int QS = MAX_DQK + 8;  // row stride (bf16) of q and K tiles
-constexpr int VS = DC + 8;       // row stride of a V tile
-constexpr int PS = BK + 8;       // row stride of the p tile
-constexpr int NS = 2;
-constexpr int WC = DC / 4;       // p v: columns a warp
-constexpr int NT8 = WC / 8;      // n8 tiles a warp (12)
-
-constexpr size_t smem_bytes(int n_tiles) {
-  return sizeof(bf16) * ((size_t)BM * QS + NS * BK * QS + NS * BK * VS + BM * PS) +
-         (size_t)n_tiles;  // + one live byte a key tile
+// The plan of a call: consumer warpgroups a block, output columns a block
+// (CW), the grid (row blocks, items, chunks). Two warpgroups (128 rows
+// sharing each K / V tile) where halving the blocks saves a round of the
+// card's 132 SMs, else one (measured, PERF.md: two win at [1,15999|768],
+// [1,15999|192] and [1,4000|768], one at grids of a round or less)
+struct Plan {
+  int nwg, cols, gx, gy, gz;
+};
+inline Plan plan(int batch, int t, int de) {
+  const int nc = (de + 255) / 256, cols = ((de + nc - 1) / nc + 63) / 64 * 64;
+  const long long per_row = (long long)batch * nc;
+  const long long rounds1 = ((t + 63) / 64 * per_row + 131) / 132;
+  const long long rounds2 = ((t + 127) / 128 * per_row + 131) / 132;
+  const int nwg = rounds2 < rounds1 ? 2 : 1;
+  return Plan{nwg, cols, (t + 64 * nwg - 1) / (64 * nwg), batch, nc};
 }
 
-__global__ void __launch_bounds__(NT, 1)
-gau_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           const uint8_t* __restrict__ kv_mask, float* __restrict__ out, int t, int dqk, int de,
-           float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + BM * QS;
-  bf16* vs = ks + NS * BK * QS;
-  bf16* ps = vs + NS * BK * VS;
-  uint8_t* live = reinterpret_cast<uint8_t*>(ps + BM * PS);
-  const int b = blockIdx.z, r0 = blockIdx.y * BM, c0 = blockIdx.x * DC;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int n_tiles = (t + BK - 1) / BK;
-  const int d16 = (dqk + 15) / 16 * 16;  // scores' contraction, zero-padded
-  const uint8_t* mk = kv_mask ? kv_mask + (size_t)b * t : nullptr;
-  const bf16* qb = q + (size_t)b * t * dqk;
-  const bf16* kb = k + (size_t)b * t * dqk;
-  const bf16* vb = v + (size_t)b * t * de;
-
-  for (int j = tid; j < n_tiles; j += NT) {
-    bool any = mk == nullptr;
-    for (int i = j * BK; !any && i < min(t, (j + 1) * BK); ++i) any = mk[i] != 0;
-    live[j] = any;
+template <int ND, int DV, int NWG>
+int launch_cfg(dim3 grid, const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+               const aw::Params& p, cudaStream_t stream, int* facts) {
+  using C = aw::Cfg<ND, 4 * ND, DV, NWG>;
+  if (facts) {
+    facts[0] = C::THREADS;
+    facts[1] = C::NS;
+    facts[2] = (int)C::smem_bytes((p.tk + aw::BK - 1) / aw::BK);
+    return 0;
   }
-  // q once: rows past T and dims past Dqk are zeros
-  for (int c = tid; c < BM * (d16 / 8); c += NT) {
-    const int row = c / (d16 / 8), c8 = 8 * (c % (d16 / 8));
-    const bool in = r0 + row < t && c8 < dqk;
-    act::cp_async16b(qs + row * QS + c8, qb + (size_t)(in ? r0 + row : 0) * dqk + (in ? c8 : 0),
-                     in);
-  }
-  auto fetch = [&](int tile, int slot) {
-    const int key0 = tile * BK;
-    bf16* kd = ks + slot * BK * QS;
-    for (int c = tid; c < BK * (d16 / 8); c += NT) {
-      const int row = c / (d16 / 8), c8 = 8 * (c % (d16 / 8));
-      const bool in = key0 + row < t && c8 < dqk;
-      act::cp_async16b(kd + row * QS + c8,
-                       kb + (size_t)(in ? key0 + row : 0) * dqk + (in ? c8 : 0), in);
-    }
-    bf16* vd = vs + slot * BK * VS;
-    for (int c = tid; c < BK * (DC / 8); c += NT) {
-      const int row = c / (DC / 8), c8 = 8 * (c % (DC / 8));
-      const bool in = key0 + row < t && c0 + c8 < de;
-      act::cp_async16b(vd + row * VS + c8,
-                       vb + (size_t)(in ? key0 + row : 0) * de + (in ? c0 + c8 : 0), in);
-    }
-  };
-  __syncthreads();  // the live map
-  auto next_live = [&](int j) {
-    while (j < n_tiles && !live[j]) ++j;
-    return j;
-  };
-
-  float acc[2][NT8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < NT8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
-
-  int tile = next_live(0), slot = 0;
-  if (tile < n_tiles) fetch(tile, 0);
-  act::cp_commit();
-  const int smt = warp % 4, skey = 16 * (warp / 4);   // scores: m16 tile, first key
-  const int pwm = warp % 2, pwc = WC * (warp / 2);     // p v: row half, first column
-  while (tile < n_tiles) {
-    const int nxt = next_live(tile + 1);
-    if (nxt < n_tiles) fetch(nxt, slot ^ 1);
-    act::cp_commit();
-    act::cp_wait<1>();
-    __syncthreads();  // this tile (and q) have landed
-    const bf16* kt = ks + slot * BK * QS;
-    const bf16* vt = vs + slot * BK * VS;
-    // scores of rows 16 smt + (g, g + 8) x keys skey + 8 j + (2 tg, 2 tg + 1)
-    float s[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    for (int kk = 0; kk < d16; kk += 16) {
-      const bf16* qr = qs + (16 * smt + g) * QS + kk + 2 * tg;
-      const uint32_t a[4] = {act::ld_u32(qr), act::ld_u32(qr + 8 * QS), act::ld_u32(qr + 8),
-                             act::ld_u32(qr + 8 * QS + 8)};
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bf16* kr = kt + (skey + 8 * j + g) * QS + kk + 2 * tg;
-        act::mma_bf16(s[j], a, act::ld_u32(kr), act::ld_u32(kr + 8));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int kc = skey + 8 * j + 2 * tg;  // key within the tile
-      const int key = tile * BK + kc;
-      const float m0 = key < t && (mk == nullptr || mk[key]) ? 1.f : 0.f;
-      const float m1 = key + 1 < t && (mk == nullptr || mk[key + 1]) ? 1.f : 0.f;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float x0 = fmaxf(__fmul_rn(__fmul_rn(s[j][2 * hh], scale), m0), 0.f);
-        const float x1 = fmaxf(__fmul_rn(__fmul_rn(s[j][2 * hh + 1], scale), m1), 0.f);
-        *reinterpret_cast<uint32_t*>(ps + (16 * smt + g + 8 * hh) * PS + kc) =
-            act::pack_bf16(__fmul_rn(x0, x0), __fmul_rn(x1, x1));
-      }
-    }
-    __syncthreads();  // p complete
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const bf16* pr = ps + (32 * pwm + 16 * mi + g) * PS + kk + 2 * tg;
-        a[mi][0] = act::ld_u32(pr);
-        a[mi][1] = act::ld_u32(pr + 8 * PS);
-        a[mi][2] = act::ld_u32(pr + 8);
-        a[mi][3] = act::ld_u32(pr + 8 * PS + 8);
-      }
-#pragma unroll
-      for (int np = 0; np < NT8 / 2; ++np) {
-        uint32_t b0, b1, b2, b3;
-        act::ldsm_x4_trans(b0, b1, b2, b3,
-                           vt + (kk + (lane & 15)) * VS + pwc + 16 * np + 8 * (lane >> 4));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          act::mma_bf16(acc[mi][2 * np], a[mi], b0, b1);
-          act::mma_bf16(acc[mi][2 * np + 1], a[mi], b2, b3);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this slot and with p
-    tile = nxt;
-    slot ^= 1;
-  }
-  act::cp_wait<0>();
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int nt = 0; nt < NT8; ++nt) {
-      const int col = c0 + pwc + 8 * nt + 2 * tg;
-      if (col >= de) continue;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = r0 + 32 * pwm + 16 * mi + g + 8 * hh;
-        if (r < t) {
-          *reinterpret_cast<float2*>(out + ((size_t)b * t + r) * de + col) =
-              make_float2(acc[mi][nt][2 * hh], acc[mi][nt][2 * hh + 1]);
-        }
-      }
-    }
-  }
+  return aw::launch<aw::RELU2, ND, 4 * ND, DV, NWG>(grid, mq, mk, mv, p, stream);
 }
 
-std::atomic<uint64_t> smem_cap_raised{0};
+// the instance of a chunk width: q and K in one or two 64-wide boxes
+// (Dqk <= 64 or above), one or two consumer warpgroups
+template <int DV>
+int launch_cols(bool wide_q, int nwg, dim3 grid, const CUtensorMap& mq, const CUtensorMap& mk,
+                const CUtensorMap& mv, const aw::Params& p, cudaStream_t stream, int* facts) {
+  if (nwg == 2) {
+    return wide_q ? launch_cfg<2, DV, 2>(grid, mq, mk, mv, p, stream, facts)
+                  : launch_cfg<1, DV, 2>(grid, mq, mk, mv, p, stream, facts);
+  }
+  return wide_q ? launch_cfg<2, DV, 1>(grid, mq, mk, mv, p, stream, facts)
+                : launch_cfg<1, DV, 1>(grid, mq, mk, mv, p, stream, facts);
+}
+
+// The call (facts == null) or, into facts[3], the threads, stages and shared
+// memory of the block it launches
+inline int run(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_mask, float* out,
+               int batch, int t, int dqk, int de, float scale, cudaStream_t stream, int* facts) {
+  const Plan pl = plan(batch, t, de);
+  CUtensorMap mq, mk, mv;
+  if (!facts) {
+    cudaError_t e;
+    if ((e = act::tmap_3d_bf16(&mq, q, dqk, t, batch, 64, 64)) != cudaSuccess ||
+        (e = act::tmap_3d_bf16(&mk, k, dqk, t, batch, 64, 64)) != cudaSuccess ||
+        (e = act::tmap_3d_bf16(&mv, v, de, t, batch, 64, 64)) != cudaSuccess)
+      return (int)e;
+  }
+  const aw::Params p{kv_mask, out, nullptr, nullptr, 1, t, t, de, scale};
+  const dim3 grid(pl.gx, pl.gy, pl.gz);
+  const bool wide_q = dqk > 64;
+  switch (pl.cols) {
+    case 64: return launch_cols<64>(wide_q, pl.nwg, grid, mq, mk, mv, p, stream, facts);
+    case 128: return launch_cols<128>(wide_q, pl.nwg, grid, mq, mk, mv, p, stream, facts);
+    case 192: return launch_cols<192>(wide_q, pl.nwg, grid, mq, mk, mv, p, stream, facts);
+    default: return launch_cols<256>(wide_q, pl.nwg, grid, mq, mk, mv, p, stream, facts);
+  }
+}
 
 }  // namespace b16
 
@@ -699,11 +613,21 @@ extern "C" int act_gau_attention_bf16(const act::bf16* q, const act::bf16* k,
                                       cudaStream_t stream) {
   if (dqk <= 0 || dqk > MAX_DQK || dqk % 8 || de <= 0 || de % 8) return (int)cudaErrorInvalidValue;
   if (t <= 0 || batch <= 0) return 0;
-  const cudaError_t err = act::allow_dynamic_smem(
-      reinterpret_cast<const void*>(b16::gau_kernel), b16::smem_cap_raised);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((de + b16::DC - 1) / b16::DC, (t + b16::BM - 1) / b16::BM, batch);
-  b16::gau_kernel<<<grid, b16::NT, b16::smem_bytes((t + b16::BK - 1) / b16::BK), stream>>>(
-      q, k, v, kv_mask, out, t, dqk, de, scale);
-  return (int)cudaGetLastError();
+  return b16::run(q, k, v, kv_mask, out, batch, t, dqk, de, scale, stream, nullptr);
+}
+
+// The plan of a bf16 call into out[8]: consumer warpgroups a block, output
+// columns a block, grid x, y, z, threads a block, ring stages, dynamic
+// shared memory bytes (ops/kernels/gau.bf16_plan computes the same on the
+// host).
+extern "C" int act_gau_attention_bf16_plan(int batch, int t, int dqk, int de, int* out) {
+  if (dqk <= 0 || dqk > MAX_DQK || dqk % 8 || de <= 0 || de % 8) return (int)cudaErrorInvalidValue;
+  const b16::Plan pl = b16::plan(batch, t, de);
+  out[0] = pl.nwg;
+  out[1] = pl.cols;
+  out[2] = pl.gx;
+  out[3] = pl.gy;
+  out[4] = pl.gz;
+  return b16::run(nullptr, nullptr, nullptr, nullptr, nullptr, batch, t, dqk, de, 0.f, nullptr,
+                  out + 5);
 }

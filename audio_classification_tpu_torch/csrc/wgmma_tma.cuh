@@ -1,5 +1,6 @@
 // Hopper's own machinery for the port's kernels (first used by K2 bf16 in
-// tcn_masker.cu): warpgroup products (wgmma.mma_async m64nNk16 bf16 with
+// tcn_masker.cu, then by the bf16 attention pipeline, attention_wgmma.cuh):
+// warpgroup products (wgmma.mma_async m64nNk16 bf16 with
 // float32 accumulators, A from shared memory or from registers), their
 // fence / commit / wait discipline, shared-memory matrix descriptors for
 // the 128-byte swizzle, mbarriers, 3-D TMA tile loads, named barriers, and
@@ -15,6 +16,8 @@
 //     64 k} one after another along n, each 64 rows of 128 bytes.
 //     Descriptor: LBO = the byte stride between the 64-column boxes, SBO
 //     1024 (8 k rows); the k16 step s starts 2048 s bytes in. imm-trans-b 1.
+//   B, K-major ([n][k] with k contiguous, as K lies for q k^T): laid out and
+//     described as A, n in the place of the rows. imm-trans-b 0.
 // Accumulator of m64nNk16 (warp w of the warpgroup, g = lane / 4, t = lane
 // % 4): d[4 j + 0, 1] at row 16 w + g, columns 8 j + 2 t, + 1; d[4 j + 2, 3]
 // at row 16 w + g + 8. A from registers: warp w's 16 rows as the m16n8k16
@@ -83,6 +86,19 @@ __device__ __forceinline__ void named_sync(uint32_t id, uint32_t count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// ------------------------------------------------- register reallocation
+// hand registers back (dec) or take them (inc) for the rest of this
+// warpgroup's life: all its warps execute it; a kernel launched with a
+// producer warpgroup gives the consumers more than the launch's share
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // ------------------------------------------------------------------ wgmma
 // descriptor of a 128-byte-swizzled tile at shared address `addr` (byte
 // offsets lbo, sbo; see the layouts above)
@@ -123,6 +139,20 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
       "+f"(d[o + 20]), "+f"(d[o + 21]), "+f"(d[o + 22]), "+f"(d[o + 23]), "+f"(d[o + 24]), \
       "+f"(d[o + 25]), "+f"(d[o + 26]), "+f"(d[o + 27]), "+f"(d[o + 28]), "+f"(d[o + 29]), \
       "+f"(d[o + 30]), "+f"(d[o + 31])
+#define ACT_WG_OPS8(o)                                                                   \
+  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]),        \
+      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define ACT_WG_D40 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  " %32, %33, %34, %35, %36, %37, %38, %39}"
+#define ACT_WG_D96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+  " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+  " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+  " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
 #define ACT_WG_D32 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
   " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -142,42 +172,61 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
   " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
 
 // d (+)= a b over one k16 step, N = 64 / 128 / 256 columns: A (K-major) and
-// B (MN-major) from shared memory by descriptor. accumulate == 0 overwrites d.
-template <int N>
+// B from shared memory by descriptor, B MN-major (TB = 1, [k][n] as the
+// weights and V lie) or K-major (TB = 0, [n][k] as K lies for q k^T).
+// accumulate == 0 overwrites d.
+template <int N, int TB = 1>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int accumulate) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: N is 64, 128 or 256");
+  static_assert(TB == 0 || TB == 1, "wgmma_ss: TB is 0 or 1");
   if constexpr (N == 64) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACT_WG_D32
-                 ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+                 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
                  : ACT_WG_OPS32(0)
-                 : "l"(da), "l"(db), "r"(accumulate));
+                 : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
   } else if constexpr (N == 128) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " ACT_WG_D64
-                 ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+                 ", %64, %65, p, 1, 1, 0, %67;\n}\n"
                  : ACT_WG_OPS32(0), ACT_WG_OPS32(32)
-                 : "l"(da), "l"(db), "r"(accumulate));
+                 : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
   } else {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " ACT_WG_D128
-                 ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+                 ", %128, %129, p, 1, 1, 0, %131;\n}\n"
                  : ACT_WG_OPS32(0), ACT_WG_OPS32(32), ACT_WG_OPS32(64), ACT_WG_OPS32(96)
-                 : "l"(da), "l"(db), "r"(accumulate));
+                 : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
   }
 }
 
-// the same with A from registers: a = this warp's m16n8k16 A fragment
+// the same with A from registers (a = this warp's m16n8k16 A fragment) and
+// B MN-major, N = 64 / 80 / 128 / 192 / 256 columns (80 and 192: the bf16
+// attention's p v at head dims 80 and 192; a B wider than one 64-column box
+// continues in the next box, LBO bytes on)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs: N is 64, 128 or 256");
+  static_assert(N == 64 || N == 80 || N == 128 || N == 192 || N == 256,
+                "wgmma_rs: N is 64, 80, 128, 192 or 256");
   if constexpr (N == 64) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACT_WG_D32
                  ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
                  : ACT_WG_OPS32(0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 80) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " ACT_WG_D40
+                 ", {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+                 : ACT_WG_OPS32(0), ACT_WG_OPS8(32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 192) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " ACT_WG_D96
+                 ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+                 : ACT_WG_OPS32(0), ACT_WG_OPS32(32), ACT_WG_OPS32(64)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
   } else if constexpr (N == 128) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -195,6 +244,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 #undef ACT_WG_OPS32
+#undef ACT_WG_OPS8
+#undef ACT_WG_D40
+#undef ACT_WG_D96
 #undef ACT_WG_D32
 #undef ACT_WG_D64
 #undef ACT_WG_D128

@@ -11,9 +11,11 @@ package uses below the flash threshold (models/common.py:237-245); K5's is
 the same softmax stopped before its division, with K5's 0 / -1e9 key bias.
 
 bfloat16 q, k, v take entry points of their own (``act_flash_attention_bf16``,
-``act_flash_attention_stats_bf16``), as the JAX kernels take bf16: the
-scores, m, l and the accumulator stay float32, p is rounded to bfloat16
-before p v (attention_kernel.py:99) and the output is float32. p is rounded
+``act_flash_attention_stats_bf16``: both products on ``wgmma`` in the
+attention pipeline of csrc/attention_wgmma.cuh, planned by ``bf16_plan``),
+as the JAX kernels take bf16: the scores, m, l and the accumulator stay
+float32, p is rounded to bfloat16 before p v (attention_kernel.py:99) and
+the output is float32. p is rounded
 against the running max of the key blocks seen so far, so the result
 depends on the key-block width: the twins ``attention_reference_lowp`` /
 ``attention_stats_reference_lowp`` take it as ``block_k`` (``BLOCK_K``, the
@@ -175,6 +177,50 @@ def padded_head_dim(d: int) -> int:
         if d <= inst:
             return inst
     return -(-d // WIDE_SLAB) * WIDE_SLAB
+
+
+#: the bf16 bodies' blocks (csrc/attention_wgmma.cuh): a {64, 64} bf16 box
+#: of 128-byte rows, and the shared memory the ring's stages are sized within
+BF16_BOX = 64 * 128
+BF16_SMEM_CAP = 224 * 1024
+#: the wide body (head dims above 256): its stages, each four boxes
+BF16_WIDE_STAGES = 4
+
+
+def bf16_block(nd: int, dv: int, nwg: int, n_tiles: int) -> dict:
+    """Threads, ring stages and dynamic shared memory of a block of the bf16
+    attention pipeline (``attention_wgmma.cuh`` ``Cfg``) with ``nd`` boxes of
+    q and K, ``dv`` columns of p v and ``nwg`` consumer warpgroups (one
+    takes a producer warp, two a producer warpgroup), over ``n_tiles`` key
+    tiles."""
+    nv = -(-dv // 64)
+    q_bytes, slot = nwg * nd * BF16_BOX, (nd + nv) * BF16_BOX
+    stages = min(4, (BF16_SMEM_CAP - q_bytes - 4096) // slot)
+    return {"threads": 128 * nwg + (128 if nwg == 2 else 32), "stages": stages,
+            "smem": 1024 + q_bytes + stages * slot + 4 * stages * BLOCK_K
+                    + 8 * (2 * stages + 1) + n_tiles}
+
+
+def bf16_plan(batch: int, heads: int, tq: int, tk: int, d: int) -> dict:
+    """The launch of a bf16 K3 / K5 call on q [batch, heads, tq, d] and
+    [.., tk, d] keys, as ``csrc/flash_attention.cu`` plans it (its
+    ``act_flash_attention_bf16_plan`` returns the same): the head dim it
+    runs at, output columns a block, the grid (64-row tiles, batch x heads,
+    column slices) and the block's threads, stages and shared memory. A
+    block is one consumer warpgroup of 64 query rows. Up to 256 it holds
+    every column (one wgmma of N = D for p v); above, the wide body splits
+    them into slices of at most 256, rounded up to 64."""
+    dp = padded_head_dim(d)
+    items, n_tiles = batch * heads, -(-tk // BLOCK_K)
+    if dp > 256:
+        n_sl = -(-dp // 256)
+        cols = -(-(-(-dp // n_sl)) // 64) * 64
+        wide = 4 * BF16_BOX
+        block = {"threads": 160, "stages": BF16_WIDE_STAGES,
+                 "smem": 1024 + BF16_WIDE_STAGES * (wide + 4 * BLOCK_K + 16) + n_tiles}
+        return {"head_dim": dp, "cols": cols, "grid": (-(-tq // 64), items, n_sl), **block}
+    return {"head_dim": dp, "cols": dp, "grid": (-(-tq // 64), items, 1),
+            **bf16_block(-(-dp // 64), dp, 1, n_tiles)}
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:

@@ -10,8 +10,9 @@ never holds a [T, T] matrix: at T = 63999 frames a dense float32 [T, T] is
 
 bfloat16 q, k, v (MossFormer's first GAU layer in the engine's bf16 mode)
 take their own entry point, ``act_gau_attention_bf16``: both products are
-single bf16 tensor-core products with float32 accumulators, and p is rounded
-to bfloat16 before p v, as the JAX kernel casts p to v's dtype
+single bf16 ``wgmma`` products with float32 accumulators (the attention
+pipeline of csrc/attention_wgmma.cuh, planned by ``bf16_plan``), and p is
+rounded to bfloat16 before p v, as the JAX kernel casts p to v's dtype
 (attention_kernel.py:337). The output is float32 either way.
 
 Gradients: with grad enabled and an input that requires it, the wrapper goes
@@ -34,7 +35,7 @@ from typing import Optional
 import torch
 
 from ... import _build
-from .attention import _aligned, _wants_grad, blockwise_vjp
+from .attention import BLOCK_K, _aligned, _wants_grad, bf16_block, blockwise_vjp
 
 MAX_QK_DIM = 128  # the kernel's shared-memory tiles are sized for Dqk <= 128
 
@@ -67,6 +68,27 @@ def gau_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = p.to(torch.bfloat16).to(acc)
         out[:, i0:i0 + block_q] = torch.matmul(p, va)
     return out
+
+
+#: the card's SMs, whose rounds of blocks the plan counts
+BF16_SMS = 132
+
+
+def bf16_plan(batch: int, t: int, dqk: int, de: int) -> dict:
+    """The launch of a bf16 K4 call, as ``csrc/gau_attention.cu`` plans it
+    (its ``act_gau_attention_bf16_plan`` returns the same): one chunk of the
+    De columns a block, nc = ceil(De / 256) chunks of ceil(De / nc) columns
+    rounded up to 64; two consumer warpgroups a block (128 query rows
+    sharing each K / V tile) where halving the blocks saves a round of
+    ``BF16_SMS``, else one; the grid (row blocks, batch, chunks) and the
+    block's threads, stages and shared memory (q and K in one 64-wide box up
+    to Dqk 64, else two)."""
+    nc = -(-de // 256)
+    cols = -(-(-(-de // nc)) // 64) * 64
+    rounds = [-(-(-(-t // (64 * n)) * batch * nc) // BF16_SMS) for n in (1, 2)]
+    nwg = 2 if rounds[1] < rounds[0] else 1
+    return {"nwg": nwg, "cols": cols, "grid": (-(-t // (64 * nwg)), batch, nc),
+            **bf16_block(1 if dqk <= 64 else 2, cols, nwg, -(-t // BLOCK_K))}
 
 
 @functools.cache

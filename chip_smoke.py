@@ -853,7 +853,10 @@ def check_attention_bf16(torch, np) -> dict:
     is ~1e-3 off in the mean); m and l to 1e-5 relative. Device ms by graph
     replay with the twin's and SDPA's at bf16 on the same inputs (K3's
     library call; beside K5 a yardstick of another function), the float32
-    entry point's on the same values, and each call through Python."""
+    entry point's on the same values, and each call through Python; the
+    launch plan (``attention.bf16_plan``) and the device operations one call
+    queues (``queued_ops``: the zero-pad copies of D = 40 and 200 beside the
+    kernel)."""
     from audio_classification_tpu_torch.ops.kernels import attention
 
     dev = torch.device("cuda")
@@ -881,7 +884,8 @@ def check_attention_bf16(torch, np) -> dict:
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask[:, None, None, :])
         case = {"kernel": kind, "shape": [b, h, tq, d], "keys": tk, "valid_keys": lens,
-                "instance": attention.padded_head_dim(d), "block_k": attention.BLOCK_K}
+                "instance": attention.padded_head_dim(d), "block_k": attention.BLOCK_K,
+                "plan": attention.bf16_plan(b, h, tq, tk, d)}
         if kind == "K3":
             fn = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
             twin = lambda: attention.attention_reference_lowp(q, k, v, mask)  # noqa: E731
@@ -919,7 +923,7 @@ def check_attention_bf16(torch, np) -> dict:
             "f32_entry_ms": graph_ms(torch, f32, 20),
             "library_ms" if kind == "K3" else "sdpa_ms_same_inputs":
                 graph_ms(torch, sdpa, 20) if tq == tk or kind == "K3" else None,
-            "wrapper_ms": cuda_ms(torch, fn, 20),
+            "wrapper_ms": cuda_ms(torch, fn, 20), "device_ops": queued_ops(torch, fn),
             # over the valid keys (a tile with none is skipped, a masked key
             # adds exp(-1e9) = 0): q read and the outputs written for every
             # row, k and v for the valid keys, at 2 bytes
@@ -1053,16 +1057,20 @@ def check_gau_bf16(torch, np) -> dict:
     and a ragged batch of 3 with one item masked whole. 2e-3 of max|out|:
     the two sums' orders differ in float32, and a p that lands on a bf16
     rounding boundary goes either way. Device ms by graph replay, the
-    float32 entry point's on the same values beside it."""
+    float32 entry point's on the same values beside it. Also v's 384
+    columns with 11999 keys valid: bf16 ``separate`` at TP 2 runs K4 there.
+    Each case logs the launch plan (``gau.bf16_plan``) and the device
+    operations one call queues (``queued_ops``)."""
     from audio_classification_tpu_torch.ops.kernels import gau
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
     gen = torch.Generator(device="cpu").manual_seed(8)
     cases = []
-    for b, t, lens, iters in ((1, 15999, [11999], 10), (3, 1237, [1237, 700, 0], 20)):
+    for b, t, de, lens, iters in ((1, 15999, 768, [11999], 10), (3, 1237, 768, [1237, 700, 0], 20),
+                                  (1, 15999, 384, [11999], 10)):
         q, k = (torch.randn((b, t, 128), generator=gen).to(dev).to(bf) for _ in range(2))
-        v = torch.randn((b, t, 768), generator=gen).to(dev).to(bf)
+        v = torch.randn((b, t, de), generator=gen).to(dev).to(bf)
         mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
         scale = 1.0 / t
         k4 = lambda: gau.gau_attention(q, k, v, mask, scale)  # noqa: E731
@@ -1074,11 +1082,12 @@ def check_gau_bf16(torch, np) -> dict:
         err, err64 = (out - ref).abs().max().item(), (out - ref64).abs().max().item()
         q32, k32, v32 = q.float(), k.float(), v.float()
         n_valid = sum(lens)
-        case = {"shape": [b, t, 128, 768], "valid_keys": lens, "max_abs_err": err,
+        case = {"shape": [b, t, 128, de], "valid_keys": lens, "max_abs_err": err,
                 "rel_err": err / peak, "max_abs_err_vs_float64_twin": err64,
                 "rel_err_vs_float64_twin": err64 / peak,
                 "twin_rel_err_vs_float64_twin": (ref - ref64).abs().max().item() / peak,
                 "tol_rel": 2e-3, "repeat_identical": torch.equal(out, again),
+                "plan": gau.bf16_plan(b, t, 128, de), "device_ops": queued_ops(torch, k4),
                 "ms": graph_ms(torch, k4, iters),
                 "f32_entry_ms": graph_ms(torch, lambda: gau.gau_attention(q32, k32, v32, mask,
                                                                            scale), iters),
@@ -1088,8 +1097,8 @@ def check_gau_bf16(torch, np) -> dict:
                 "library_ms": None,  # no single PyTorch call computes relu^2 attention
                 # over the valid keys: q read and out (float32) written for
                 # every row, k and v for the valid keys alone, at 2 bytes
-                **bf16_bound(2.0 * t * n_valid * (128 + 768),
-                             2.0 * (q.numel() + n_valid * (128 + 768)) + 4.0 * out.numel()
+                **bf16_bound(2.0 * t * n_valid * (128 + de),
+                             2.0 * (q.numel() + n_valid * (128 + de)) + 4.0 * out.numel()
                              + mask.numel())}
         case["share"] = case["bound_ms"] / case["ms"]
         log({"phase": "kernel", "name": "gau_attention_bf16", **case})
@@ -1600,6 +1609,25 @@ def device_ops(torch, fn) -> dict:
     evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     us = sum(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0.0) for e in evs)
     return {"wall_ms": wall * 1e3, "device_ops": len(evs), "device_ms": us / 1e3}
+
+
+def queued_ops(torch, fn) -> int:
+    """The device operations one call of fn queues (after a warm call),
+    counted on the host: the CUDA runtime and driver calls that enqueue work
+    (kernel launches, memsets, copies) under torch.profiler. Late in this
+    script the profiler's device-side records of a short call can go
+    missing (no kernel at all for a K3 launch that ran, after the bf16 K4
+    check's graph replays); these host-side records still arrive."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    enqueue = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset", "cudaMemcpy", "cuMemcpy")
+    return sum(e.device_type != torch.autograd.DeviceType.CUDA and e.name.startswith(enqueue)
+               for e in prof.events())
 
 
 def _by_head_dim(counters: dict) -> dict:

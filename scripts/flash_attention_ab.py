@@ -16,7 +16,13 @@ checkout's csrc/flash_attention.cu alone with ``-Xptxas -v`` and prints the
 registers and spill bytes of each kernel instance. ``--define NAME=VALUE``
 (repeatable) builds the checkout's kernels with ``-DNAME=VALUE``, e.g.
 ``ACT_FLASH_WARPS=2`` for blocks of 2 warps (32 query rows) in place of 4.
-First line: the card's
+With --bf16 it times the bfloat16 entry points instead, at the shapes of
+chip_smoke.py's ``check_attention_bf16`` (K3 at D = 64, 80, 128 and, zero-
+padded, 40 and 200; K5 on a long-form shard's block), with SDPA at bf16 on
+the same inputs beside each, the error against the bf16 twin run in float64
+(``attention_reference_lowp`` / ``attention_stats_reference_lowp``: max and
+mean, relative to max|o| and mean|o|) and the device operations of one call
+(``device_ops``, under torch.profiler). First line: the card's
 nvidia-smi name and power limit. To compare a parent commit with the
 working tree, unpack the parent into a directory that .gitignore lists and
 run the two in turns (parent, change, change, parent):
@@ -24,6 +30,8 @@ run the two in turns (parent, change, change, parent):
     git archive <commit> | tar -x -C build/parent
     for r in build/parent . . build/parent; do
         python3 scripts/flash_attention_ab.py --root $r --label $r; done
+    for r in build/parent . . build/parent; do
+        python3 scripts/flash_attention_ab.py --root $r --label $r --bf16; done
 
 Needs nvcc (CUDA_HOME or PATH) and a CUDA device.
 """
@@ -43,6 +51,56 @@ SHAPES = (("K3", 8, 8, 537, 537, 64, None), ("K3", 1, 8, 537, 537, 64, None),
           ("K5", 1, 8, 1068, 1068, 64, [1068]), ("K5", 1, 8, 1068, 1068, 64, [133]),
           ("K3", 1, 4, 533, 533, 80, None), ("K3", 1, 4, 4267, 4267, 80, [3333]),
           ("K5", 1, 4, 1067, 1067, 80, [1067]), ("K5", 1, 4, 1067, 1067, 80, [132]))
+# the bf16 entry points at chip_smoke.check_attention_bf16's shapes
+BF16_SHAPES = (("K3", 8, 8, 537, 537, 64, [537 - 97 * i % 537 for i in range(8)]),
+               ("K3", 1, 8, 537, 537, 64, [537]), ("K3", 1, 4, 800, 800, 64, [800]),
+               ("K3", 1, 8, 4271, 4271, 64, [3337]), ("K3", 1, 4, 533, 533, 80, [533]),
+               ("K3", 2, 4, 200, 200, 128, [200, 77]), ("K3", 2, 4, 300, 300, 40, [300, 129]),
+               ("K3", 2, 4, 300, 300, 200, [300, 129]), ("K5", 1, 8, 1068, 1068, 64, [1068]),
+               ("K5", 1, 8, 1068, 1068, 64, [133]), ("K5", 3, 8, 537, 1068, 64, [1068, 300, 33]))
+
+
+def device_ops(torch, fn) -> int:
+    """The device operations one call of fn queues (under torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
+def run_bf16(torch, attention, graph_ms, args, smi) -> None:
+    """One JSON line per shape of BF16_SHAPES: the bf16 entry point's and
+    SDPA's device ms at bf16 on the same inputs, the error against the
+    float64 twin, the device operations of one call."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    for kind, b, h, tq, tk, d, lens in BF16_SHAPES:
+        gen = torch.Generator(device="cpu").manual_seed(tq + d)
+        q = torch.randn((b, h, tq, d), generator=gen).to(dev).to(bf)
+        k, v = (torch.randn((b, h, tk, d), generator=gen).to(dev).to(bf) for _ in range(2))
+        mask = torch.arange(tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+        if kind == "K3":
+            fn = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
+            got = fn()
+            ref = attention.attention_reference_lowp(q, k, v, mask, acc=torch.float64)
+        else:
+            fn = lambda: attention.flash_attention_stats(q, k, v, mask)  # noqa: E731
+            got = fn()[0]
+            ref = attention.attention_stats_reference_lowp(q, k, v, mask, acc=torch.float64)[0]
+        err = (got - ref.float()).abs()
+        ref = ref.float().abs()
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask[:, None, None, :])
+        ms, sdpa_ms = graph_ms(torch, fn, args.iters), graph_ms(torch, sdpa, args.iters)
+        print(json.dumps({"label": args.label, "kernel": kind + " bf16", "shape": [b, h, tq, d],
+                          "keys": tk, "valid_keys": lens, "graph_ms": ms,
+                          "sdpa_bf16_graph_ms": sdpa_ms, "ms_over_sdpa": ms / sdpa_ms,
+                          "rel_err_vs_float64_twin": err.max().item() / ref.max().item(),
+                          "mean_rel_err_vs_float64_twin": err.mean().item() / ref.mean().item(),
+                          "device_ops": device_ops(torch, fn), "device": smi}), flush=True)
 
 
 def registers(root: Path) -> list:
@@ -82,6 +140,7 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--registers", action="store_true")
     ap.add_argument("--define", action="append", default=[])
+    ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -102,6 +161,9 @@ def main() -> int:
     if args.registers:
         for rec in registers(root):
             print(json.dumps({"label": args.label, **rec}), flush=True)
+    if args.bf16:
+        run_bf16(torch, attention, graph_ms, args, smi)
+        return 0
     dev = torch.device("cuda")
     takes_80 = hasattr(attention, "padded_head_dim")
     for kind, b, h, tq, tk, d, valid in SHAPES:

@@ -636,7 +636,10 @@ GAU_BF16_TOL = 2e-3
     (2, 31, 128, 768, [31, 30]),               # T at both sides of the 32-key tile
     (2, 33, 128, 768, [33, 1]),
     (2, 63, 128, 768, [63, 32]),               # ... and of the 64-row block
+    (2, 64, 128, 768, [64, 63]),               # (the 64-key tile of the wgmma body)
     (2, 65, 128, 768, [65, 64]),
+    (1, 2000, 128, 384, [1500]),               # De 384 (TP 2): two chunks of 192
+    (2, 500, 128, 192, [500, 250]),            # De 192 (TP 4): one chunk
     (2, 1000, 64, 1000, [1000, 517]),          # De over several 384-column chunks
     (2, 200, 104, 8, [200, 9]),                # Dqk % 16 == 8 (the last k-step half zero)
     (1, 4099, 128, 768, [3000]),               # masked tail tiles skipped
@@ -687,10 +690,14 @@ def test_flash_kernels_refuse_bf16_on_the_card(dev):
     assert not out.any() and not o.any() and (m == 0).all() and (l == 70).all()
 
 
-@pytest.mark.parametrize("d", [40, 64, 80, 128, 200, 256])
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 200, 256, 320])
 @pytest.mark.parametrize("b,tq,tk,lens", [
     (3, 70, 70, [70, 33, 0]),        # ragged, an item with no valid key, off the tiles
     (2, 65, 129, [129, 64]),         # Tq one past a 64-row block, Tk one past two key tiles
+    (2, 63, 63, [63, 62]),           # T on both sides of one 64-key tile
+    (2, 64, 64, [64, 1]),
+    (2, 65, 65, [65, 64]),
+    (1, 130, 64, [64]),              # Tq != Tk (K5): three row tiles over one key tile
     (1, 533, 533, [533]),            # Paraformer's 32 s bucket (LFR frames)
     (2, 17, 1068, [1068, 300]),      # K5's long-form block, Tq across the 16-row fragment
 ])
@@ -737,3 +744,75 @@ def test_flash_bf16_kernels_match_twins(dev, d, b, tq, tk, lens):
             err = (out - ref).abs() * sel
             assert err.max().item() <= 2e-3 * (ref.abs() * sel).max().item()
             assert err.sum().item() <= 5e-5 * (ref.abs() * sel).sum().item()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256, 320])
+@pytest.mark.parametrize("b,tq,tk,spans", [
+    # a valid run after three tiles masked whole, a hole of three whole
+    # tiles, a short prefix, and an item with no valid key
+    (3, 537, 1068, [[(200, 512), (704, 1068)], [(0, 300)], []]),
+    # self-attention: two masked-whole tiles first, a hole of two whole tiles
+    (2, 537, 537, [[(140, 320), (448, 500)], [(0, 263)]]),
+    # 15 masked-whole tiles before the only valid keys; single valid keys at
+    # both ends of an item
+    (2, 129, 1068, [[(1000, 1068)], [(0, 1), (1067, 1068)]]),
+])
+def test_flash_bf16_kernels_skip_masked_tiles(dev, d, b, tq, tk, spans):
+    """The bf16 bodies skip key tiles masked whole between live ones (the
+    producer walks the live tiles only, the consumers the same list) and
+    still give the bf16 twin's o, m, l at their tolerances; an item with no
+    valid key computes every tile (m = -1e9, l = Tk)."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(b * tq + tk + d)
+    q = torch.randn((b, 4, tq, d), generator=g).to(dev).to(bf)
+    k, v = (torch.randn((b, 4, tk, d), generator=g).to(dev).to(bf) for _ in range(2))
+    mask = torch.zeros((b, tk), dtype=torch.bool)
+    for i, item in enumerate(spans):
+        for lo, hi in item:
+            mask[i, lo:hi] = True
+    mask = mask.to(dev)
+    has_key = mask.any(dim=1)
+    sel = has_key.view(-1, 1, 1, 1)
+    o, m, l = attention.flash_attention_stats(q, k, v, mask)
+    torch.cuda.synchronize()
+    ro, rm, rl = (x.float() for x in attention.attention_stats_reference_lowp(
+        q, k, v, mask, acc=torch.float64))
+    err = (o - ro).abs() * sel
+    assert err.max().item() <= 2e-3 * (ro.abs() * sel).max().item()
+    assert err.sum().item() <= 5e-5 * (ro.abs() * sel).sum().item()
+    assert ((m - rm).abs() <= 1e-5 * rm.abs().clamp_min(1.0))[has_key].all()
+    assert ((l - rl).abs() <= 1e-5 * rl.abs())[has_key].all()
+    if not has_key.all():
+        assert (m[~has_key] == -1e9).all() and (l[~has_key] == tk).all()
+    if tq == tk:
+        out = attention.flash_attention(q, k, v, mask)
+        ref = attention.attention_reference_lowp(q, k, v, mask, acc=torch.float64).float()
+        e3 = (out - ref).abs() * sel
+        assert e3.max().item() <= 2e-3 * (ref.abs() * sel).max().item()
+        assert e3.sum().item() <= 5e-5 * (ref.abs() * sel).sum().item()
+
+
+def test_bf16_attention_plans_are_the_c_plans(dev):
+    """The host's plans of the bf16 attention kernels (attention.bf16_plan,
+    gau.bf16_plan) are the C entry points' (the plan exports), at every head
+    dim up to 640 and every De up to 2048 over a spread of shapes."""
+    from audio_classification_tpu_torch import _build
+
+    fp = _build.kernel("act_flash_attention_bf16_plan", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    gp = _build.kernel("act_gau_attention_bf16_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    for b, h, tq, tk in ((8, 8, 537, 537), (1, 8, 4271, 4271), (3, 8, 537, 1068), (1, 1, 1, 1)):
+        for d in range(1, 641):
+            dp = attention.padded_head_dim(d)
+            out = (ctypes.c_int * 7)()
+            assert fp(b, h, tq, tk, dp, ctypes.addressof(out)) == 0
+            pl = attention.bf16_plan(b, h, tq, tk, d)
+            assert list(out) == [pl["cols"], *pl["grid"], pl["threads"], pl["stages"],
+                                 pl["smem"]], (b, h, tq, tk, d)
+    for b, t in ((1, 15999), (3, 1237), (2, 63)):
+        for dqk in (8, 64, 72, 128):
+            for de in range(8, 2049, 8):
+                out = (ctypes.c_int * 8)()
+                assert gp(b, t, dqk, de, ctypes.addressof(out)) == 0
+                pl = gau.bf16_plan(b, t, dqk, de)
+                assert list(out) == [pl["nwg"], pl["cols"], *pl["grid"], pl["threads"],
+                                     pl["stages"], pl["smem"]], (b, t, dqk, de)
