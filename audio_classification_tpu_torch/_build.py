@@ -119,9 +119,15 @@ def build(verbose: bool = False) -> float:
     return seconds
 
 
+#: seconds this process has spent in nvcc (``build`` through ``_library``):
+#: a stage program's first call reads the time it took (engine/programs.py)
+build_seconds = 0.0
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    build()
+    global build_seconds
+    build_seconds += build()
     return ctypes.CDLL(str(library_path()))
 
 

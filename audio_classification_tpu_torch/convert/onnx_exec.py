@@ -58,7 +58,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.quant import int_matmul_work
 from ..ops.signal import no_tf32
+from ..ops.work import counted, loop_step
 from .onnx_import import OnnxGraph, OnnxNode, load_onnx_graph
 
 _DTYPE_CODES = {
@@ -1013,9 +1015,12 @@ def _pad_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+@counted(lambda a8, b8: int_matmul_work(a8.numel() // max(a8.shape[-1], 1), a8.shape[-1],
+                                         b8.shape[1]))
 def _int8_mm(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
     """int8 [..., M, K] x int8 [K, N] -> the exact int32 sums [..., M, N]
-    (the s32 accumulator of the JAX path's s8 MXU dot)."""
+    (the s32 accumulator of the JAX path's s8 MXU dot). A work count
+    (ops/work) takes ``int_matmul_work`` on either device."""
     lead, k = a8.shape[:-1], a8.shape[-1]
     n = b8.shape[1]
     a2 = a8.reshape(-1, k)
@@ -1644,18 +1649,18 @@ def _lstm(ctx, node, ins):
         valid = _valid_steps(tx, seq_lens, T, B, reverse)
         ys = []
         for t in range(T):
-            with no_tf32():
+            with loop_step(t, T), no_tf32():
                 z = pre_x[t] + h @ rd.T
-            i = torch.sigmoid(z[:, 0 * H:1 * H])
-            o = torch.sigmoid(z[:, 1 * H:2 * H])
-            f = torch.sigmoid(z[:, 2 * H:3 * H])
-            g = torch.tanh(z[:, 3 * H:4 * H])
-            c_new = f * c + i * g
-            h_new = o * torch.tanh(c_new)
-            m = valid[t][:, None]
-            h = torch.where(m, h_new, h)
-            c = torch.where(m, c_new, c)
-            ys.append(torch.where(m, h_new, torch.zeros_like(h_new)))
+                i = torch.sigmoid(z[:, 0 * H:1 * H])
+                o = torch.sigmoid(z[:, 1 * H:2 * H])
+                f = torch.sigmoid(z[:, 2 * H:3 * H])
+                g = torch.tanh(z[:, 3 * H:4 * H])
+                c_new = f * c + i * g
+                h_new = o * torch.tanh(c_new)
+                m = valid[t][:, None]
+                h = torch.where(m, h_new, h)
+                c = torch.where(m, c_new, c)
+                ys.append(torch.where(m, h_new, torch.zeros_like(h_new)))
         ys = torch.stack(ys) if ys else pre_x.new_zeros((0, B, H))
         if reverse:
             ys = torch.flip(ys, (0,))
@@ -1701,8 +1706,8 @@ def _gru(ctx, node, ins):
         valid = _valid_steps(tx, seq_lens, T, B, reverse)
         ys = []
         for t in range(T):
-            zx = pre_x[t]
-            with no_tf32():
+            with loop_step(t, T), no_tf32():
+                zx = pre_x[t]
                 hr = h @ rd.T + rb
                 zt = torch.sigmoid(zx[:, :H] + hr[:, :H])
                 rt = torch.sigmoid(zx[:, H:2 * H] + hr[:, H:2 * H])
@@ -1710,10 +1715,10 @@ def _gru(ctx, node, ins):
                     ht = torch.tanh(zx[:, 2 * H:] + rt * hr[:, 2 * H:])
                 else:
                     ht = torch.tanh(zx[:, 2 * H:] + (rt * h) @ rd[2 * H:].T + rb[2 * H:])
-            h_new = (1.0 - zt) * ht + zt * h
-            m = valid[t][:, None]
-            h = torch.where(m, h_new, h)
-            ys.append(torch.where(m, h_new, torch.zeros_like(h_new)))
+                h_new = (1.0 - zt) * ht + zt * h
+                m = valid[t][:, None]
+                h = torch.where(m, h_new, h)
+                ys.append(torch.where(m, h_new, torch.zeros_like(h_new)))
         ys = torch.stack(ys) if ys else pre_x.new_zeros((0, B, H))
         if reverse:
             ys = torch.flip(ys, (0,))

@@ -15,6 +15,8 @@ from typing import Callable
 
 import torch
 
+from ...ops.work import loop_step
+
 _NEG_INF = -1e30
 
 
@@ -54,30 +56,32 @@ def modified_beam_search(enc: torch.Tensor, mask: torch.Tensor,
     scores = torch.where(beam_iota == 0, 0.0, _NEG_INF).to(torch.float32).expand(b, k)
     parents, syms = [], []
     for i in range(t):
-        logp = torch.log_softmax(score_fn(enc[:, i], ctx).float(), dim=-1)  # [B, K, V]
-        vocab = logp.shape[-1]
-        cand = (scores[:, :, None] + logp).reshape(b, k * vocab)
-        top_scores, top_idx = torch.sort(cand, dim=1, descending=True, stable=True)
-        top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
-        parent = torch.div(top_idx, vocab, rounding_mode="floor")
-        sym = top_idx % vocab
-        emit = sym != blank_id
-        parent_ctx = torch.gather(ctx, 1, parent[:, :, None].expand(-1, -1, context))
-        new_ctx = torch.where(emit[:, :, None],
-                              torch.cat([parent_ctx[:, :, 1:], sym[:, :, None]], dim=2),
-                              parent_ctx)
-        # a padded frame freezes the beam: identity parents, no symbol
-        live = mask[:, i][:, None]                                           # [B, 1]
-        ctx = torch.where(live[:, :, None], new_ctx, ctx)
-        scores = torch.where(live, top_scores, scores)
-        parents.append(torch.where(live, parent, beam_iota))
-        syms.append(torch.where(live & emit, sym, blank_id))
+        with loop_step(i, t):
+            logp = torch.log_softmax(score_fn(enc[:, i], ctx).float(), dim=-1)  # [B, K, V]
+            vocab = logp.shape[-1]
+            cand = (scores[:, :, None] + logp).reshape(b, k * vocab)
+            top_scores, top_idx = torch.sort(cand, dim=1, descending=True, stable=True)
+            top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+            parent = torch.div(top_idx, vocab, rounding_mode="floor")
+            sym = top_idx % vocab
+            emit = sym != blank_id
+            parent_ctx = torch.gather(ctx, 1, parent[:, :, None].expand(-1, -1, context))
+            new_ctx = torch.where(emit[:, :, None],
+                                  torch.cat([parent_ctx[:, :, 1:], sym[:, :, None]], dim=2),
+                                  parent_ctx)
+            # a padded frame freezes the beam: identity parents, no symbol
+            live = mask[:, i][:, None]                                           # [B, 1]
+            ctx = torch.where(live[:, :, None], new_ctx, ctx)
+            scores = torch.where(live, top_scores, scores)
+            parents.append(torch.where(live, parent, beam_iota))
+            syms.append(torch.where(live & emit, sym, blank_id))
 
     cur = scores.argmax(dim=-1)                                              # [B]
     best = [None] * t
     for i in range(t - 1, -1, -1):
-        best[i] = torch.gather(syms[i], 1, cur[:, None])[:, 0]
-        cur = torch.gather(parents[i], 1, cur[:, None])[:, 0]
+        with loop_step(t - 1 - i, t):
+            best[i] = torch.gather(syms[i], 1, cur[:, None])[:, 0]
+            cur = torch.gather(parents[i], 1, cur[:, None])[:, 0]
     best_syms = (torch.stack(best, dim=1) if t else
                  torch.zeros((b, 0), dtype=torch.int64, device=dev))
     packed, counts = left_pack_symbols(best_syms, blank_id)

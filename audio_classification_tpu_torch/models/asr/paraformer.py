@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ...ops.fbank import FbankConfig, apply_lfr, log_mel_fbank
+from ...ops.work import loop_step, shape_keyed
 from ...parallel.sp_encoder import sp_seq_shard, sp_seq_unshard
 from ..common import Dense, LayerNorm, TransformerBlock, lengths_to_mask, position_table
 
@@ -62,16 +63,17 @@ def cif_integrate(h: torch.Tensor, alpha: torch.Tensor, max_tokens: int,
     zero = torch.zeros((), dtype=h.dtype, device=h.device)
     tokens, fires = [], []
     for i in range(t):
-        a_t, h_t = alpha[:, i], h[:, i]
-        total = acc_w + a_t
-        fire = total >= threshold
-        used = torch.where(fire, threshold - acc_w, a_t)
-        rem = torch.where(fire, total - threshold, zero)
-        token = acc_v + used[:, None] * h_t
-        tokens.append(token)
-        fires.append(fire)
-        acc_v = torch.where(fire[:, None], rem[:, None] * h_t, token)
-        acc_w = torch.where(fire, rem, total)
+        with loop_step(i, t):
+            a_t, h_t = alpha[:, i], h[:, i]
+            total = acc_w + a_t
+            fire = total >= threshold
+            used = torch.where(fire, threshold - acc_w, a_t)
+            rem = torch.where(fire, total - threshold, zero)
+            token = acc_v + used[:, None] * h_t
+            tokens.append(token)
+            fires.append(fire)
+            acc_v = torch.where(fire[:, None], rem[:, None] * h_t, token)
+            acc_w = torch.where(fire, rem, total)
     # the tail as a last firing step whose token is the residual
     tokens.append(acc_v)
     fires.append(acc_w >= threshold * 0.5)
@@ -109,6 +111,7 @@ class Paraformer(nn.Module):
         self.dec_ln = LayerNorm(c.dim)
         self.out = Dense(c.dim, c.vocab_size)
 
+    @shape_keyed
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
                 mesh=None, sp_axis: str = "data") -> tuple:
         """``mesh`` runs the encoder blocks sequence-parallel (ring attention

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ...ops.fbank import FbankConfig, apply_lfr, log_mel_fbank
+from ...ops.work import shape_keyed
 from ...parallel.sp_encoder import sp_seq_shard, sp_seq_unshard
 from ..common import Dense, LayerNorm, TransformerBlock, lengths_to_mask, position_table
 
@@ -64,6 +65,7 @@ class SenseVoiceEncoder(nn.Module):
         self.final_ln = LayerNorm(c.dim)
         self.ctc_head = Dense(c.dim, c.vocab_size)
 
+    @shape_keyed
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
                 language_id: int = 0, use_itn: bool = True, mesh=None,
                 sp_axis: str = "data") -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ...ops.fbank import FbankConfig, log_mel_fbank
+from ...ops.work import loop_step, shape_keyed
 from ..common import (Conv1d, Dense, LayerNorm, TransformerBlock, gelu, lengths_to_mask,
                       position_table)
 from .beam import left_pack_symbols, modified_beam_search
@@ -55,6 +56,7 @@ class TransducerEncoder(nn.Module):
                                                            c.conv_kernel, c.quant))
         self.out_ln = LayerNorm(c.dim)
 
+    @shape_keyed
     def forward(self, feats: torch.Tensor,
                 frame_mask: Optional[torch.Tensor] = None) -> tuple:
         """-> (enc [B, T', D], mask [B, T'])."""
@@ -130,12 +132,14 @@ class Transducer(nn.Module):
         count = torch.zeros((b,), dtype=torch.int32, device=enc.device)
         syms = []
         for i in range(t):
-            logits = self.joiner(enc[:, i], self.predictor(ctx))
-            sym = logits.argmax(dim=-1)
-            emit = (sym != c.blank_id) & mask[:, i]
-            ctx = torch.where(emit[:, None], torch.cat([ctx[:, 1:], sym[:, None]], dim=1), ctx)
-            syms.append(torch.where(emit, sym, c.blank_id))
-            count = count + emit.to(torch.int32)
+            with loop_step(i, t):
+                logits = self.joiner(enc[:, i], self.predictor(ctx))
+                sym = logits.argmax(dim=-1)
+                emit = (sym != c.blank_id) & mask[:, i]
+                ctx = torch.where(emit[:, None], torch.cat([ctx[:, 1:], sym[:, None]], dim=1),
+                                  ctx)
+                syms.append(torch.where(emit, sym, c.blank_id))
+                count = count + emit.to(torch.int32)
         packed, _ = left_pack_symbols(torch.stack(syms, dim=1), c.blank_id)
         return packed, count
 

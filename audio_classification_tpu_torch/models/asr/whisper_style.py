@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ...ops.fbank import FbankConfig, log_mel_fbank
+from ...ops.work import loop_step, shape_keyed
 from ..common import (Conv1d, Dense, DenseQ, LayerNorm, MultiHeadSelfAttention, gelu,
                       lengths_to_mask, param_as, position_table)
 
@@ -120,6 +121,7 @@ class DecoderBlock(nn.Module):
     def _ffn(self, x):
         return x + self.fc2(gelu(self.fc1(self.ln3(x))))
 
+    @shape_keyed
     def forward(self, x, mem, mem_mask):
         x = x + self.self_attn(self.ln1(x))
         x = x + self.cross_attn(self.ln2(x), mem, mem_mask)
@@ -143,6 +145,7 @@ class _EncBlock(nn.Module):
         self.Dense_1 = DenseQ(dim, dim * ffn_mult, quant)
         self.Dense_0 = DenseQ(dim * ffn_mult, dim, quant)
 
+    @shape_keyed
     def forward(self, x, mask):
         x = x + self.attn(self.LayerNorm_0(x), mask)
         x = x + self.Dense_0(gelu(self.Dense_1(self.LayerNorm_1(x), mask)), mask)
@@ -233,14 +236,15 @@ class WhisperStyle(nn.Module):
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         count = torch.zeros((b,), dtype=torch.int32, device=dev)
         for i in range(l - 1):
-            x_t = self.tok_embed(tokens[:, i : i + 1]) + pos_table[i]
-            for blk, (kc, vc), (mk, mv) in zip(blocks, caches, cross):
-                x_t = blk.step(x_t, kc, vc, i, mk, mv, mem_mask)
-            logits = self._logits(self.dec_ln(x_t))[:, 0]
-            nxt = torch.where(done, c.eos_id, logits.argmax(dim=-1))
-            tokens[:, i + 1] = nxt
-            count = count + (~done & (nxt != c.eos_id)).to(torch.int32)
-            done = done | (nxt == c.eos_id)
+            with loop_step(i, l - 1):
+                x_t = self.tok_embed(tokens[:, i : i + 1]) + pos_table[i]
+                for blk, (kc, vc), (mk, mv) in zip(blocks, caches, cross):
+                    x_t = blk.step(x_t, kc, vc, i, mk, mv, mem_mask)
+                logits = self._logits(self.dec_ln(x_t))[:, 0]
+                nxt = torch.where(done, c.eos_id, logits.argmax(dim=-1))
+                tokens[:, i + 1] = nxt
+                count = count + (~done & (nxt != c.eos_id)).to(torch.int32)
+                done = done | (nxt == c.eos_id)
         return tokens[:, 1:], count
 
 

@@ -37,6 +37,7 @@ from torch import nn
 
 from ..ops.kernels.attention import FLASH_MIN_T, attention_reference, flash_attention
 from ..ops.quant import constant_of, int8_conv1d, int8_matmul, quantize_weight
+from ..ops.work import shape_keyed
 from ..parallel.ring_attention import ring_attention
 
 F32 = torch.float32
@@ -386,6 +387,7 @@ class TransformerBlock(nn.Module):
         self.Dense_0 = DenseQ(dim, dim * ffn_mult, quant)
         self.Dense_1 = DenseQ(dim * ffn_mult, dim, quant)
 
+    @shape_keyed
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, mesh=None,
                 sp_axis: str = "data") -> torch.Tensor:
         quant = None if mesh is None else "none"

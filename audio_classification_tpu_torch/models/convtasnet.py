@@ -13,6 +13,7 @@ from torch import nn
 
 from ..ops.kernels.tcn import fused_tcn_masker, stack_tcn_params
 from ..ops.quant import constant_of, int8_matmul, quantize_weight
+from ..ops.work import shape_keyed
 from ..parallel.collectives import enter_sharded
 from ..parallel.mesh import convtasnet_param_spec
 from ..parallel.tp import model_shards, model_total, of, row_sum, tensor_parallel
@@ -68,6 +69,7 @@ class TCNBlock(nn.Module):
         self.res_conv = Conv1d(c.hidden, c.bottleneck, 1, quant=c.quant)
         self.skip_conv = Conv1d(c.hidden, c.bottleneck, 1, quant=c.quant)
 
+    @shape_keyed
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], mesh=None):
         shards = model_shards(self, mesh, _tcn_rule, _TCN_SUBS, ("res_conv", "skip_conv"))
         tp = shards[0] is not None
@@ -122,6 +124,7 @@ class ConvTasNet(nn.Module):
         return [getattr(self, f"tcn_{r}_{xb}")
                 for r in range(c.n_repeats) for xb in range(c.n_blocks)]
 
+    @shape_keyed
     def forward(self, mix: torch.Tensor, sample_mask: Optional[torch.Tensor] = None,
                 mesh=None) -> torch.Tensor:
         """``mesh`` with a model axis above 1 runs the masker tensor-parallel

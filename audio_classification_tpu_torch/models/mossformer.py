@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.kernels.attention import FLASH_MIN_T
 from ..ops.kernels.gau import gau_attention
+from ..ops.work import shape_keyed
 from ..parallel.collectives import enter_sharded
 from ..parallel.mesh import mossformer_param_spec
 from ..parallel.tp import model_shards, of, row_sum
@@ -62,6 +63,7 @@ class GAUBlock(nn.Module):
         self.beta = nn.Parameter(torch.zeros(2, c.qk_dim))
         self.to_out = Dense(d_e, c.dim)
 
+    @shape_keyed
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
         h = self.ln(x)
         h = h + F.silu(self.dwconv(h))
@@ -112,6 +114,7 @@ class MossFormer(nn.Module):
         self.mask_head = Dense(c.dim, c.n_src * c.enc_dim)
         self.decoder = nn.Parameter(torch.empty(c.enc_kernel, c.enc_dim))  # [L, N]
 
+    @shape_keyed
     def forward(self, mix: torch.Tensor, sample_mask: Optional[torch.Tensor] = None,
                 mesh=None) -> torch.Tensor:
         """``mesh`` with a model axis above 1 runs every GAU tensor-parallel

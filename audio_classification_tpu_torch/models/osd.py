@@ -10,6 +10,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.work import shape_keyed
 from .common import Conv1d, Dense, TransformerBlock, gelu, position_table
 
 
@@ -43,6 +44,7 @@ class OSDNet(nn.Module):
                                                            conv_kernel=cfg.conv_kernel))
         self.head = Dense(cfg.dim, 2)
 
+    @shape_keyed
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
         x = gelu(self.sub2(gelu(self.sub1(feats))))

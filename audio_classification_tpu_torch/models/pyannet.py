@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.signal import no_tf32
+from ..ops.work import counted, rnn_work, shape_keyed
 
 
 @dataclass(frozen=True)
@@ -223,6 +224,15 @@ class _SincBands(nn.Module):
         self.band_hz = nn.Parameter(torch.zeros(rows, 1))
 
 
+@counted(lambda lstm, x: rnn_work(x.shape[1], x.shape[0], x.shape[2], lstm.hidden_size,
+                                  itemsize=x.element_size()))
+def _lstm(lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
+    """One batch-first LSTM over x [B, T, F] -> its outputs [B, T, H]. A
+    work count (ops/work) takes ``rnn_work`` on either device, not cuDNN's
+    fused op on the card or the CPU's decomposition."""
+    return lstm(x)[0]
+
+
 class PyanNet(nn.Module):
     """``forward(wav [B, T], lengths [B])`` -> per-frame class
     probabilities [B, T', num_classes] (sigmoid, multilabel: pyannote's
@@ -262,6 +272,7 @@ class PyanNet(nn.Module):
         self.load_state_dict(pyannet_params_to_state_dict(init_pyannet_params(self.cfg, seed)))
         return self
 
+    @shape_keyed
     def forward(self, wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         with no_tf32():
             return self._forward(wav, lengths)
@@ -289,9 +300,9 @@ class PyanNet(nn.Module):
 
         x = x.transpose(1, 2)                                             # [B, T', F]
         for layer in self.lstm:
-            fw = layer["fw"](x)[0]
+            fw = _lstm(layer["fw"], x)
             if c.bidirectional:
-                bw = layer["bw"](_reverse_padded(x, flen))[0]
+                bw = _lstm(layer["bw"], _reverse_padded(x, flen))
                 x = torch.cat([fw, _reverse_padded(bw, flen)], dim=-1)
             else:
                 x = fw

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.signal import l2norm
+from ..ops.work import shape_keyed
 from .common import Dense, param_as, promote
 
 
@@ -95,6 +96,7 @@ class Res2Block(nn.Module):
         self.bn_out = _bn(channels)
         self.short = _conv(cin, channels, 1, stride) if stride > 1 or cin != channels else None
 
+    @shape_keyed
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn_in(self.in_conv(x)))
         parts = y.chunk(self.scale, dim=1)
@@ -150,6 +152,7 @@ class SpeakerEmbedder(nn.Module):
         self.asp = AttentiveStatsPool(freq * cin, c.asp_hidden)
         self.proj = Dense(2 * freq * cin, c.embed_dim)
 
+    @shape_keyed
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
         x = F.relu(self.bn0(self.stem(feats[:, None])))  # [B, C, T, F]

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.work import shape_keyed
 from .common import Conv1d, Dense, gelu
 
 
@@ -42,6 +43,7 @@ class VADNet(nn.Module):
                                                 dilation=2 ** i))
         self.head = Dense(c.dim, 1)
 
+    @shape_keyed
     def forward(self, feats: torch.Tensor,
                 frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = feats

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from .frames import frame_signal, num_frames, window
 from .kernels.fbank import FbankBases, fbank_power_mel
 from .stft import _dft_basis_np
+from .work import shape_keyed
 
 
 def _next_pow2(n: int) -> int:
@@ -120,7 +121,8 @@ def make_fbank_bases(n_fft: int, mel: np.ndarray, device: torch.device) -> Fbank
     """The twin's and the kernel's constants for frames of ``n_fft`` and the
     mel bank ``mel`` [n_fft // 2 + 1, nb], as float32 / int32 on ``device``."""
     arrays = _dft_basis_np(n_fft) + (mel,) + fbank_kernel_tables_np(n_fft, mel)
-    return FbankBases(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays))
+    return FbankBases(*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays),
+                      mel_nnz=int(np.count_nonzero(mel)))
 
 
 @functools.lru_cache(maxsize=8)
@@ -149,6 +151,7 @@ def windowed_frames(x: torch.Tensor, cfg: FbankConfig = FbankConfig()) -> torch.
     return frames
 
 
+@shape_keyed
 def log_mel_fbank(x: torch.Tensor, cfg: FbankConfig = FbankConfig()) -> torch.Tensor:
     """[..., T] float waveform in [-1, 1] -> [..., N, num_bins] log-mel."""
     frames = windowed_frames(x, cfg)

@@ -41,12 +41,13 @@ from __future__ import annotations
 import collections
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ... import _build
+from ..work import counted
 
 #: flash path from this sequence length on, as on the TPU
 #: (attention_kernel.flash_enabled: ACT_FLASH_ATTN_MIN_T default 512)
@@ -167,6 +168,35 @@ def _is_bf16(name: str, q, k, v) -> bool:
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def valid_key_count(b: int, tk: int, valid_keys: Optional[Sequence[int]]) -> int:
+    """The keys a work count takes: ``valid_keys`` (one count an item)
+    summed, or all b x tk when it is None."""
+    return b * tk if valid_keys is None else sum(valid_keys)
+
+
+def work(b: int, h: int, tq: int, tk: int, d: int, itemsize: int = 4, masked: bool = True,
+         valid_keys: Optional[Sequence[int]] = None) -> dict:
+    """K3's work on q [b, h, tq, d] against tk keys: 4 Tq Tk D products a
+    head (q k^T and p v) and Tq Tk exponentials, over the valid keys (a
+    masked key adds exp(-1e9) = 0, and a tile without one is skipped);
+    bytes: q read and the float32 output written for every row, k and v
+    for the valid keys, q, k, v at ``itemsize`` bytes, and the one-byte key
+    mask when there is one. ``valid_keys``: one count an item; None counts
+    the padded shape, b x tk."""
+    n = valid_key_count(b, tk, valid_keys)
+    q = b * h * tq * d
+    return {"flops": 4.0 * h * tq * n * d, "exps": 1.0 * h * tq * n,
+            "bytes": itemsize * (q + 2.0 * h * d * n) + 4.0 * q + (b * tk if masked else 0)}
+
+
+def stats_work(b: int, h: int, tq: int, tk: int, d: int, itemsize: int = 4,
+               masked: bool = True, valid_keys: Optional[Sequence[int]] = None) -> dict:
+    """K5's work: K3's (``work``), with m and l written beside the
+    unnormalised output."""
+    out = work(b, h, tq, tk, d, itemsize, masked, valid_keys)
+    return {**out, "bytes": out["bytes"] + 8.0 * b * h * tq}
 
 
 def padded_head_dim(d: int) -> int:
@@ -350,6 +380,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_forward(q, k, v, kv_mask)
 
 
+@counted(lambda q, k, v, kv_mask: work(q.shape[0], q.shape[1], q.shape[-2], k.shape[-2],
+                                        q.shape[-1], q.element_size(), kv_mask is not None))
 def _flash_forward(q, k, v, kv_mask):
     lowp = _is_bf16("flash_attention", q, k, v)
     if q.device.type == "cpu":
@@ -405,6 +437,9 @@ def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_stats_forward(q, k, v, kv_mask)
 
 
+@counted(lambda q, k, v, kv_mask: stats_work(q.shape[0], q.shape[1], q.shape[-2],
+                                              k.shape[-2], q.shape[-1], q.element_size(),
+                                              kv_mask is not None))
 def _flash_stats_forward(q, k, v, kv_mask):
     lowp = _is_bf16("flash_attention_stats", q, k, v)
     if q.device.type == "cpu":

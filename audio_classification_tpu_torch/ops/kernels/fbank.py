@@ -10,11 +10,13 @@ mel bank).
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import torch
 
 from ... import _build
+from ..work import counted
 
 # the n_fft the kernel is instantiated for (a template per power of two)
 KERNEL_N_FFT = (256, 512, 1024)
@@ -29,7 +31,9 @@ class FbankBases:
     n_fft) as (cos, -sin), which is row 1 of the twin's bases; ``bands``
     int32 [nb, 2], each filter's first bin and count of bins; ``band_w``
     [max count, nb], those bins' weights (``band_w[q, b]`` is
-    ``mel_w[bands[b, 0] + q, b]``). Built by ``ops.fbank.fbank_bases``."""
+    ``mel_w[bands[b, 0] + q, b]``). ``mel_nnz``: the mel bank's non-zero
+    weights, on the host (``work`` counts them). Built by
+    ``ops.fbank.fbank_bases``."""
 
     cos_b: torch.Tensor
     msin_b: torch.Tensor
@@ -37,6 +41,20 @@ class FbankBases:
     twiddle: torch.Tensor
     bands: torch.Tensor
     band_w: torch.Tensor
+    mel_nnz: int
+
+
+def work(n: int, n_fft: int, nb: int, mel_nnz: int, band_rows: int) -> dict:
+    """K1's work on n frames: the FFT's float32 operations a frame (5 M log2 M
+    for the M = n_fft / 2 point complex FFT, 19 a bin for the split and the
+    power, 2 a mel weight of the ``mel_nnz`` non-zero ones, 1 a log); bytes:
+    the frames in, the log-mel out and the kernel's constants (twiddle
+    [F, 2], bands [nb, 2], band_w [band_rows, nb]), float32 and int32. The
+    DFT as a GEMM, which the plain twin computes, is not this count."""
+    m, n_bins = n_fft // 2, n_fft // 2 + 1
+    consts = 2 * n_bins + 2 * nb + band_rows * nb
+    return {"flops": n * (5.0 * m * math.log2(m) + 19.0 * n_bins + 2.0 * mel_nnz + nb),
+            "bytes": 4.0 * (n * n_fft + n * nb + consts)}
 
 
 def fbank_power_mel_reference(frames: torch.Tensor, cos_b: torch.Tensor, msin_b: torch.Tensor,
@@ -48,11 +66,15 @@ def fbank_power_mel_reference(frames: torch.Tensor, cos_b: torch.Tensor, msin_b:
     return torch.log(torch.clamp_min(power @ mel_w, log_floor))
 
 
+@counted(lambda frames, bases, log_floor: work(frames.shape[0], frames.shape[-1],
+                                               bases.mel_w.shape[-1], bases.mel_nnz,
+                                               bases.band_w.shape[0]))
 def fbank_power_mel(frames: torch.Tensor, bases: FbankBases, log_floor: float) -> torch.Tensor:
     """[N, n_fft] windowed f32 frames -> [N, nb] f32 log-mel.
 
     CPU tensors run the plain twin (any n_fft); CUDA tensors launch the
-    kernel (n_fft in ``KERNEL_N_FFT``) or raise."""
+    kernel (n_fft in ``KERNEL_N_FFT``) or raise. A work count
+    (``ops/work``) takes ``work`` for the call on either device."""
     if frames.device.type == "cpu":
         return fbank_power_mel_reference(frames, bases.cos_b, bases.msin_b, bases.mel_w,
                                          log_floor)

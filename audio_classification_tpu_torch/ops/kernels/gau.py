@@ -30,12 +30,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from ... import _build
-from .attention import BLOCK_K, _aligned, _wants_grad, bf16_block, blockwise_vjp
+from ..work import counted
+from .attention import (BLOCK_K, _aligned, _wants_grad, bf16_block, blockwise_vjp,
+                        valid_key_count)
 
 MAX_QK_DIM = 128  # the kernel's shared-memory tiles are sized for Dqk <= 128
 
@@ -133,6 +135,22 @@ def gau_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _gau_forward(q, k, v, kv_mask, scale)
 
 
+def work(b: int, t: int, dqk: int, de: int, itemsize: int = 4, masked: bool = True,
+         valid_keys: Optional[Sequence[int]] = None) -> dict:
+    """K4's work on q, k [b, t, dqk], v [b, t, de]: 2 T n (Dqk + De) products
+    for n valid keys (q k^T and p v; a masked key contributes exactly 0);
+    bytes: q read and the float32 output written for every row, k and v for
+    the valid keys, q, k, v at ``itemsize`` bytes, and the one-byte key mask
+    when there is one. ``valid_keys``: one count an item; None counts the
+    padded shape, b x t."""
+    n = valid_key_count(b, t, valid_keys)
+    return {"flops": 2.0 * t * n * (dqk + de),
+            "bytes": itemsize * (b * t * dqk + n * (dqk + de)) + 4.0 * b * t * de
+                     + (b * t if masked else 0)}
+
+
+@counted(lambda q, k, v, kv_mask, scale: work(*q.shape, v.shape[-1], q.element_size(),
+                                                kv_mask is not None))
 def _gau_forward(q, k, v, kv_mask, scale):
     b, t, dqk = q.shape
     de = v.shape[-1]

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from ... import _build
 from ..quant import quantize_weight
+from ..work import counted
 from .attention import _wants_grad
 
 _EPS = 1e-8  # GlobalLayerNorm eps
@@ -334,6 +335,30 @@ def fused_tcn_masker(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     return _masker_forward(x, f_len, st, n_per_repeat)
 
 
+def work(b: int, f: int, c: int, hd: int, n_blocks: int, weight_bytes: int, f_len=None,
+         itemsize: int = 4) -> dict:
+    """K2's work on x [b, f, c] through ``n_blocks`` TCN blocks of hidden
+    width ``hd``: per block and frame the in product (C x H), the res|skip
+    product (H x 2C) and the 3-tap depthwise conv, nb n (2 C H + 4 H C + 6 H)
+    for n frames; bytes: the frames of x in and of the skip sum out at
+    ``itemsize`` bytes, and the stack's ``weight_bytes`` (its tensors at
+    their own width: one byte a weight in the int8 stream). ``f_len``: the
+    valid frames of each item, which the kernel alone computes; None counts
+    the padded shape, b x f."""
+    n = b * f if f_len is None else sum(f_len)
+    return {"flops": n_blocks * n * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd),
+            "bytes": itemsize * 2.0 * n * c + weight_bytes}
+
+
+def _stack_work(x, f_len, st, n_per_repeat) -> dict:
+    """``work`` of one masker call: the padded shape, the stack at its width."""
+    nb, c, hd = st["w_in"].shape
+    return work(x.shape[0], x.shape[1], c, hd, nb,
+                sum(st[k].numel() * st[k].element_size() for k in STACK_KEYS),
+                itemsize=x.element_size())
+
+
+@counted(_stack_work)
 def _masker_forward(x, f_len, st, n_per_repeat):
     wq = st["w_in"].dtype == torch.int8
     b, f, c = x.shape

@@ -22,6 +22,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .work import counted, uncounted
+
 _EPS = 1e-12
 
 
@@ -77,7 +79,8 @@ def constant_of(owner, name: str, params, make):
     held = owner.__dict__.setdefault("_constants", {})
     hit = held.get(name)
     if hit is None or hit[0] != key:
-        hit = held[name] = (key, make())
+        with uncounted():
+            hit = held[name] = (key, make())
     return hit[1]
 
 
@@ -85,9 +88,18 @@ def _pad_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def int_matmul_work(m: int, k: int, n: int) -> dict:
+    """The int8 GEMM's work: 2 M N K products, the int8 operands read and
+    the float32 result written once."""
+    return {"flops": 2.0 * m * k * n, "bytes": 1.0 * (m * k + k * n) + 4.0 * m * n}
+
+
+@counted(lambda a8, b8: int_matmul_work(*a8.shape, b8.shape[1]))
 def int_matmul(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
     """int8 [M, K] x int8 [K, N] -> float32 [M, N] holding the exact integer
-    sums (rounded to nearest even above 2^24, as an int32 -> float32 cast)."""
+    sums (rounded to nearest even above 2^24, as an int32 -> float32 cast).
+    A work count (ops/work) takes ``int_matmul_work`` on either device, not
+    the card's padded product or the CPU's float64 one."""
     if a8.device.type == "cpu":
         return (a8.double() @ b8.double()).float()
     # torch._int_mm takes K and N in multiples of 8 and more than 16 rows;

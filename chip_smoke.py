@@ -106,6 +106,19 @@ points at the full preset, reading every kernel's launch count around each:
   against the meshless bfloat16 engine; one DP 2 x TP 2 SeparatorTrainer step in
   float64 against the meshless step; dryrun_multichip(2).
 
+- slice 19, the program statistics (``program_stats``; engine/programs.py):
+  four tiny-preset scenes on the card and on the CPU (the flagship's stages
+  with both backends: K1, K2, K4; 32 s buckets: K3; transcribe_long over 4
+  shards: K5; PyanNet serving OSD: its LSTMs) record the same programs,
+  keys, calls, flops and bytes; the full-preset flagship overlap scene's
+  programs with their work and first-call seconds, one warm pass's work
+  over its compute seconds against the dense bf16 and float32 peaks, the
+  warm pass's device operations equal to those with the registry taken
+  out, a second input of another length (18 s) calling the same programs
+  with no new count, and the first pass counted again with the module memo
+  off (``ops/work.shape_keyed``) to the same work. Every kernel case's
+  flops, exponentials and bytes come from its kernel's ``work()``.
+
 The bf16 entry points are held to their bf16 twins and to the twins run in
 float64 (the same rounding points) at the float phases' shapes, timed by
 graph replay beside the float32 entry points (K3 / K5 bf16 beside SDPA at
@@ -132,6 +145,7 @@ checkout of the repository. Needs no JAX and no network.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -188,6 +202,12 @@ def tensor_bound(flops: float, exps: float, nbytes: float) -> dict:
     return {"bound_ms": terms[term], "bound_by": "bytes" if term == "bytes" else "operations",
             "bound_term": term, "bound_simt_ms": bound(flops, nbytes)["bound_ms"],
             "flops": flops, "exps": exps, "bytes": nbytes}
+
+
+def _terms(work: dict) -> tuple:
+    """A kernel's ``work()`` count as the bound functions take it: (flops,
+    exps, bytes)."""
+    return work["flops"], work.get("exps", 0.0), work["bytes"]
 
 
 def log(obj) -> None:
@@ -260,16 +280,15 @@ def talkers(n: int, seed: int, f0s=(120.0, 185.0, 255.0)):
 
 
 def _fbank_bounds(n: int, n_fft: int, nb: int, bases) -> dict:
-    """K1's bound: the FFT's float32 operations a frame (5 M log2 M for the
-    M = n_fft / 2 point complex FFT, 19 a bin for the split and the power,
-    2 a mel weight, 1 a log) against the bytes (frames in, log-mel out, the
-    kernel's constants), the bytes binding; beside it the bound of the DFT
-    as a GEMM that the kernel replaced (``bound_dft_ms``)."""
-    m, n_bins = n_fft // 2, n_fft // 2 + 1
-    nnz = int((bases.mel_w != 0).sum().item())
-    consts = bases.twiddle.numel() + bases.bands.numel() + bases.band_w.numel()
-    fft = bound(n * (5.0 * m * math.log2(m) + 19.0 * n_bins + 2.0 * nnz + nb),
-                4.0 * (n * n_fft + n * nb + consts))
+    """K1's bound: its ``work()`` (the FFT's float32 operations against the
+    bytes of frames in, log-mel out and the kernel's constants; the bytes
+    bind); beside it the bound of the DFT as a GEMM that the kernel replaced
+    (``bound_dft_ms``)."""
+    from audio_classification_tpu_torch.ops.kernels import fbank as k_fbank
+
+    n_bins = n_fft // 2 + 1
+    w = k_fbank.work(n, n_fft, nb, bases.mel_nnz, bases.band_w.shape[0])
+    fft = bound(w["flops"], w["bytes"])
     dft_bytes = 4.0 * (n * n_fft + 2 * n_fft * n_bins + n_bins * nb + n * nb)
     dft = bound(2.0 * n * n_fft * 2 * n_bins + 2.0 * n * n_bins * nb, dft_bytes)
     return {**fft, "bound_dft_ms": dft["bound_ms"]}
@@ -388,14 +407,10 @@ def _tcn_case(torch, tcn, st, x, f_len, n_per_repeat, iters) -> tuple:
                 x, f_len, st, n_per_repeat=n_per_repeat), iters),
             "library_ms": None}  # no single PyTorch call computes the masker
     nb, _, hd = st["w_in"].shape
-    # per block and VALID frame (rows past f_len are padding that the
-    # kernel never computes): in (C x H), res|skip (H x 2C) and the 3-tap
-    # depthwise conv; bytes: the valid rows of x in and of the sum out, the
-    # weights at their own width (one byte each in the int8 stream)
-    n_valid = sum(lens)
-    case.update(tensor_bound(nb * n_valid * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd), 0.0,
-                             4.0 * 2 * n_valid * c
-                             + sum(t.numel() * t.element_size() for t in st.values())))
+    # over the VALID frames (rows past f_len are padding that the kernel
+    # never computes), the weights at their own width
+    case.update(tensor_bound(*_terms(tcn.work(
+        b, f, c, hd, nb, sum(t.numel() * t.element_size() for t in st.values()), f_len=lens))))
     case["share"] = case["bound_ms"] / case["ms"]
     case["share_simt"] = case["bound_simt_ms"] / case["ms"]
     # 3xTF32 through 24 residual blocks (~1e-6 expected), another summation
@@ -540,9 +555,8 @@ def check_attention(torch, np) -> dict:
                       "library_eager_ms": cuda_ms(torch, sdpa, 20),
                       # over the valid keys: a masked key adds exp(-1e9) = 0,
                       # and k, v are read for the valid keys alone
-                      **tensor_bound(4.0 * h * t * n_valid * 64, 1.0 * h * t * n_valid,
-                                        4.0 * (2 * q.numel() + 2 * h * 64 * n_valid)
-                                        + mask.numel())})
+                      **tensor_bound(*_terms(attention.work(
+                          b, h, t, t, 64, valid_keys=mask.sum(1).tolist())))})
         cases[-1]["ms_over_library_ms"] = cases[-1]["ms"] / cases[-1]["library_ms"]
         cases[-1]["wrapper_ms_over_library_eager_ms"] = (cases[-1]["wrapper_ms"]
                                                          / cases[-1]["library_eager_ms"])
@@ -584,7 +598,6 @@ def check_attention_stats(torch, np) -> dict:
         err_m = ((m - rm).abs() / rm.abs().clamp_min(1.0)).max().item()
         err_l = ((l - rl).abs() / rl.abs()).max().item()
         sdpa_mask = mask[:, None, None, :]
-        n_out = o.numel() + m.numel() + l.numel()
         k5 = lambda: attention.flash_attention_stats(q, k, v, mask)  # noqa: E731
         twin = lambda: attention.attention_stats_reference(q, k, v, mask)  # noqa: E731
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
@@ -605,9 +618,7 @@ def check_attention_stats(torch, np) -> dict:
             "sdpa_eager_ms_same_inputs": None if tq != tk else cuda_ms(torch, sdpa, 20),
             # over the valid keys, as the operations: k and v are read for
             # them alone (a tile with none is skipped)
-            **tensor_bound(4.0 * h * tq * sum(lens) * 64, 1.0 * h * tq * sum(lens),
-                              4.0 * (q.numel() + 2 * h * 64 * sum(lens) + n_out)
-                              + mask.numel())})
+            **tensor_bound(*_terms(attention.stats_work(b, h, tq, tk, 64, valid_keys=lens)))})
         if len(cases) == 2:
             # the 133-valid block against the full one: 3 of its 17 key tiles
             # hold a valid key, the other 14 are skipped. Recorded, not
@@ -708,7 +719,7 @@ def check_attention_head_dims(torch, np) -> dict:
             case["max_abs_err"] = ((out - ref.float()).abs() * mask[:, None, :, None]).max().item()
             fn = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
             twin = lambda: attention.attention_reference(q, k, v, mask)  # noqa: E731
-            n_out = q.numel()
+            work = attention.work
         else:
             o, m, l = attention.flash_attention_stats(q, k, v, mask)
             torch.cuda.synchronize()
@@ -721,7 +732,7 @@ def check_attention_head_dims(torch, np) -> dict:
                          "l_rel_err": ((l - rl).abs() / rl.abs()).max().item()})
             fn = lambda: attention.flash_attention_stats(q, k, v, mask)  # noqa: E731
             twin = lambda: attention.attention_stats_reference(q, k, v, mask)  # noqa: E731
-            n_out = q.numel() + 2 * b * h * tq
+            work = attention.stats_work
         case.update({
             "ms": graph_ms(torch, fn, 20), "plain_ms": graph_ms(torch, twin, 20),
             # SDPA (the normalised output alone) on the same q, k, v: K3's
@@ -729,8 +740,7 @@ def check_attention_head_dims(torch, np) -> dict:
             "library_ms" if kind == "K3" else "sdpa_ms_same_inputs":
                 graph_ms(torch, sdpa, 20) if tq == tk or kind == "K3" else None,
             "wrapper_ms": cuda_ms(torch, fn, 20),
-            **tensor_bound(4.0 * h * tq * n_valid * d, 1.0 * h * tq * n_valid,
-                           4.0 * (q.numel() + 2 * h * d * n_valid + n_out) + mask.numel())})
+            **tensor_bound(*_terms(work(b, h, tq, tk, d, valid_keys=lens)))})
         if dp > 128:
             # the wide body: the scores over dp once per 128-column slice,
             # and p v over 128 columns a slice
@@ -772,7 +782,6 @@ def _gau_case(torch, gau, gen, b: int, t: int, de: int, lens, iters: int) -> dic
     peak = ref64.abs().max().item()
     k4 = lambda: gau.gau_attention(q, k, v, mask, scale)  # noqa: E731
     twin = lambda: gau.gau_attention_reference(q, k, v, mask, scale)  # noqa: E731
-    n_valid = sum(lens)
     case = {"shape": [b, t, 128, de], "valid_keys": lens, "max_abs_err": err,
             "rel_err": err / peak, "max_abs_err_vs_float64_twin": err64,
             "rel_err_vs_float64_twin": err64 / peak,
@@ -785,9 +794,7 @@ def _gau_case(torch, gau, gen, b: int, t: int, de: int, lens, iters: int) -> dic
             "library_ms": None,  # no single PyTorch call computes relu^2 attention
             # over the valid keys (a masked key contributes exactly 0): q read
             # and out written for every row, k and v for the valid keys alone
-            **tensor_bound(2.0 * t * n_valid * (128 + de), 0.0,
-                           4.0 * (q.numel() + n_valid * (128 + de) + out.numel())
-                           + mask.numel())}
+            **tensor_bound(*_terms(gau.work(b, t, 128, de, valid_keys=lens)))}
     case["share"] = case["bound_ms"] / case["ms"]
     case["share_simt"] = case["bound_simt_ms"] / case["ms"]
     log({"phase": "kernel", "name": "gau_attention", **case})
@@ -879,7 +886,6 @@ def check_attention_bf16(torch, np) -> dict:
         q = torch.randn((b, h, tq, d), generator=gen).to(dev).to(bf)
         k, v = (torch.randn((b, h, tk, d), generator=gen).to(dev).to(bf) for _ in range(2))
         mask = torch.arange(tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
-        n_valid = int(mask.sum())
         q32, k32, v32 = q.float(), k.float(), v.float()
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask[:, None, None, :])
@@ -894,7 +900,7 @@ def check_attention_bf16(torch, np) -> dict:
             torch.cuda.synchronize()
             refs = ((twin(),), (attention.attention_reference_lowp(q, k, v, mask,
                                                                    acc=torch.float64),))
-            n_out = 4 * q.numel()
+            work = attention.work
         else:
             fn = lambda: attention.flash_attention_stats(q, k, v, mask)  # noqa: E731
             twin = lambda: attention.attention_stats_reference_lowp(q, k, v, mask)  # noqa: E731
@@ -903,7 +909,7 @@ def check_attention_bf16(torch, np) -> dict:
             torch.cuda.synchronize()
             refs = (twin(), attention.attention_stats_reference_lowp(q, k, v, mask,
                                                                     acc=torch.float64))
-            n_out = 4 * (q.numel() + 2 * b * h * tq)
+            work = attention.stats_work
         assert got[0].dtype == torch.float32 and got[0].shape == (b, h, tq, d)
         for label, ref in zip(("", "_vs_float64_twin"), refs):
             ro = ref[0].float()
@@ -927,9 +933,7 @@ def check_attention_bf16(torch, np) -> dict:
             # over the valid keys (a tile with none is skipped, a masked key
             # adds exp(-1e9) = 0): q read and the outputs written for every
             # row, k and v for the valid keys, at 2 bytes
-            **bf16_tensor_bound(4.0 * h * tq * n_valid * d, 1.0 * h * tq * n_valid,
-                                2.0 * (q.numel() + 2 * h * d * n_valid) + n_out
-                                + mask.numel())})
+            **bf16_tensor_bound(*_terms(work(b, h, tq, tk, d, itemsize=2, valid_keys=lens)))})
         if kind == "K5":
             case["library_ms"] = None  # no single PyTorch call returns (o, m, l)
         else:
@@ -1036,9 +1040,9 @@ def check_tcn_bf16(torch, np, quant: bool) -> dict:
             case["equal_to_bf16_entry_on_dequantised_stack"] = torch.equal(out, deq)
         # the float phases' count over the VALID frames; bytes: valid rows of
         # x in and of the sum out at 2 bytes, the weights at their own width
-        case.update(bf16_bound(nb * n_valid * (2.0 * c * hd + 2.0 * hd * 2 * c + 6.0 * hd),
-                               2.0 * 2 * n_valid * c
-                               + sum(t.numel() * t.element_size() for t in st.values())))
+        w = tcn.work(b, f, c, hd, nb, sum(t.numel() * t.element_size() for t in st.values()),
+                     f_len=lens, itemsize=2)
+        case.update(bf16_bound(w["flops"], w["bytes"]))
         case["share"] = case["bound_ms"] / case["ms"]
         log({"phase": "kernel", "name": name, **case})
         assert math.isfinite(case["rel_err"]) and case["rel_err"] <= 5e-2, case
@@ -1081,7 +1085,7 @@ def check_gau_bf16(torch, np) -> dict:
         peak = ref64.abs().max().item()
         err, err64 = (out - ref).abs().max().item(), (out - ref64).abs().max().item()
         q32, k32, v32 = q.float(), k.float(), v.float()
-        n_valid = sum(lens)
+        w = gau.work(b, t, 128, de, itemsize=2, valid_keys=lens)
         case = {"shape": [b, t, 128, de], "valid_keys": lens, "max_abs_err": err,
                 "rel_err": err / peak, "max_abs_err_vs_float64_twin": err64,
                 "rel_err_vs_float64_twin": err64 / peak,
@@ -1097,9 +1101,7 @@ def check_gau_bf16(torch, np) -> dict:
                 "library_ms": None,  # no single PyTorch call computes relu^2 attention
                 # over the valid keys: q read and out (float32) written for
                 # every row, k and v for the valid keys alone, at 2 bytes
-                **bf16_bound(2.0 * t * n_valid * (128 + de),
-                             2.0 * (q.numel() + n_valid * (128 + de)) + 4.0 * out.numel()
-                             + mask.numel())}
+                **bf16_bound(w["flops"], w["bytes"])}
         case["share"] = case["bound_ms"] / case["ms"]
         log({"phase": "kernel", "name": "gau_attention_bf16", **case})
         assert math.isfinite(err) and err <= 2e-3 * peak and err64 <= 2e-3 * peak, case
@@ -2416,14 +2418,15 @@ def check_train_grads(torch, np) -> dict:
     case("gau_attention", lambda q, k, v: gau.gau_attention(q, k, v, mask, 1.0 / t),
          lambda q, k, v: gau.gau_attention_reference(q, k, v, mask, 1.0 / t),
          [randn(2, t, 128), randn(2, t, 128), randn(2, t, 768)], [randn(2, t, 768)], 1e-4, 5,
-         2.0 * t * (t + 3000) * (128 + 768))
+         gau.work(2, t, 128, 768, valid_keys=[t, 3000])["flops"])
     # K3: SenseVoice's 32 s crop
     t = 537
     mask = lens_mask(t, [t, 440])
     qkv = [randn(2, 8, t, 64) for _ in range(3)]
     case("flash_attention", lambda q, k, v: attention.flash_attention(q, k, v, mask),
          lambda q, k, v: attention.attention_reference(q, k, v, mask), qkv,
-         [randn(2, 8, t, 64)], 1e-4, 20, 4.0 * 8 * t * (t + 440) * 64,
+         [randn(2, 8, t, 64)], 1e-4, 20,
+         attention.work(2, 8, t, t, 64, valid_keys=[t, 440])["flops"],
          # yardstick only: the port never calls it
          library=lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
              q, k, v, attn_mask=mask[:, None, None, :]))
@@ -2436,7 +2439,8 @@ def check_train_grads(torch, np) -> dict:
         case(f"flash_attention_stats {label}",
              lambda q, k, v: attention.flash_attention_stats(q, k, v, mask),
              lambda q, k, v: attention.attention_stats_reference(q, k, v, mask), qkv, cots,
-             1e-4, 20, 4.0 * 8 * t * max(valid, 1) * 64, ref64=ref64)
+             1e-4, 20, attention.stats_work(1, 8, t, t, 64, valid_keys=[max(valid, 1)])["flops"],
+             ref64=ref64)
     # K2: the full-preset stack at the 4 s crop
     model = ModelPack(EnginePreset(), seed=0, device=dev).models["sep3"]
     with torch.no_grad():
@@ -2457,7 +2461,7 @@ def check_train_grads(torch, np) -> dict:
     # itself 1.5e-2 of max and 1.1e-3 in norm from float64 at this shape
     # (its statistics' sums cancel): fixed bounds of 2e-2 and 2e-3
     case("tcn_masker", masker, masker_twin, [randn(2, t, 128), *(st[k] for k in tcn.STACK_KEYS)],
-         [g], 2e-2, 3, 24 * (t + 3000) * (6.0 * 128 * 512 + 6 * 512), tol_norm=2e-3)
+         [g], 2e-2, 3, tcn.work(2, t, 128, 512, 24, 0, f_len=[t, 3000])["flops"], tol_norm=2e-3)
     x = randn(1, 400, 128).requires_grad_()
     y = tcn.fused_tcn_masker(x, f_len[:1].clamp_max(400), st8, n_per_repeat=8)
     try:
@@ -3263,6 +3267,242 @@ def run_onnx_paths(torch, np, counters: dict) -> dict:
     return total
 
 
+#: the program-statistics scenes (engine/programs.py), each on a tiny-preset
+#: engine: the kernels it must reach on the card, and its bucket cap (s)
+PROGRAM_STATS_SCENES = {
+    "flagship": (("fbank_power_mel", "tcn_masker", "gau_attention"), 8.0),
+    "long_buckets": (("fbank_power_mel", "flash_attention"), 32.0),
+    "ring": (("fbank_power_mel", "flash_attention_stats"), 8.0),
+    "pyannet": ((), 8.0),
+}
+
+
+def program_stats_engine(scene: str, device):
+    """The tiny-preset engine of one program-statistics scene on ``device``
+    (seed 0: the same weights on the card and on the CPU): ``ring`` over a
+    mesh of ``LONG_SHARDS`` entries, ``pyannet`` with PyanNet (the published
+    widths) serving OSD."""
+    from audio_classification_tpu_torch.engine import BucketSpec, ModelPack, StageEngine
+    from audio_classification_tpu_torch.engine import default_buckets, tiny_preset
+    from audio_classification_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
+    from audio_classification_tpu_torch.parallel.mesh import make_mesh
+
+    pack = ModelPack(tiny_preset(), seed=0, device=device)
+    if scene == "pyannet":
+        cfg = PyanNetConfig()
+        pack.set_osd_pyannet(cfg, PyanNet(cfg).init(0).state_dict())
+    mesh = make_mesh(LONG_SHARDS, devices=[device] * LONG_SHARDS) if scene == "ring" else None
+    return StageEngine(pack, BucketSpec(default_buckets(SR, 0.5, PROGRAM_STATS_SCENES[scene][1]),
+                                        4), mesh=mesh)
+
+
+def drive_program_stats_scene(np, engine, scene: str) -> None:
+    """One program-statistics scene through the engine's entry points:
+
+    - flagship: the arena upload and the stages fed from it (OSD, the
+      overlap path, the clean path, ASR), the fused paths from host batches
+      with each backend (branches kept on the device and transcribed
+      there), the stages one by one, an 8 -> 16 kHz resample (K1, K2, K4);
+    - long_buckets: a 32 s bucket, OSDNet at T = 800 and SenseVoice at T =
+      537 frames (K3 from ``FLASH_MIN_T``), and the clean path on it;
+    - ring: a 100 s utterance through transcribe_long over the mesh (the
+      128 s bucket, 535 frames a shard: K5);
+    - pyannet: OSD by PyanNet on two 2 s mixtures (its LSTMs)."""
+    rng = np.random.default_rng(5)
+    targets = rng.standard_normal((3, 32)).astype(np.float32)
+    targets = list(targets / np.linalg.norm(targets, axis=1, keepdims=True))
+
+    def mixtures(seconds, n, seed):
+        return [(0.2 * sum(talkers(int(seconds * SR), seed + i))).astype(np.float32)
+                for i in range(n)]
+
+    if scene == "flagship":
+        wavs = mixtures(2, 3, 40)
+        arena = engine.upload_arena(wavs)
+        spans = [(int(o), int(n)) for o, n in zip(arena.offsets, arena.lengths)]
+        engine.collect_osd_batch(engine.launch_osd_arena(arena), 0.5, 0.5, 0.1)
+        engine.collect_overlap(engine.launch_overlap(None, targets, arena=arena, spans=spans),
+                               wavs)
+        engine.collect_clean(engine.launch_clean(None, targets, arena=arena, spans=spans))
+        engine.collect_transcribe(engine.launch_transcribe(None, arena=arena, spans=spans))
+        res = engine.process_overlap(wavs, targets, return_branches=True, lazy_branches=True)
+        engine.transcribe_branches([r["branches"].ref(0) for r in res])
+        engine.process_overlap(wavs, targets, backend="mossformer")
+        engine.separate(wavs, 3)
+        engine.separate(wavs[:2], 2)
+        engine.separate(wavs[:1], backend="mossformer")
+        engine.embed(wavs)
+        engine.transcribe(wavs)
+        engine.vad_probs_batch(wavs)
+        engine.resample_batch([w[::2] for w in wavs], SR // 2, SR)
+    elif scene == "long_buckets":
+        wavs = mixtures(30, 1, 50)
+        engine.osd_segments_batch(wavs, SR, 0.5, 0.5, 0.1)
+        engine.transcribe(wavs)
+        engine.process_clean(wavs, targets[:1])
+    elif scene == "ring":
+        engine.transcribe_long(mixtures(100, 1, 60)[0])
+    else:
+        engine.osd_segments_batch(mixtures(2, 2, 70), SR, 0.5, 0.5, 0.1)
+
+
+def _program_rows(engine) -> list:
+    """program_stats() without the first call's seconds, in order."""
+    return [{k: s[k] for k in ("name", "shapes", "static", "calls", "flops", "bytes")}
+            for s in engine.program_stats()]
+
+
+def run_program_stats(torch, np, counters: dict) -> dict:
+    """The program statistics (engine/programs.py) on the card:
+
+    1. each of ``PROGRAM_STATS_SCENES`` on a tiny-preset engine on the card
+       and the same engine on the CPU: the same programs, keys, calls,
+       flops and bytes (each kernel by its ``work()``, PyanNet's LSTMs and
+       the int8 GEMM by their formulas), the scene's kernels launched;
+    2. the full-preset flagship overlap scene (the 20 s mixture of
+       ``run_paths``, --osd-thr 0.0, Conv-TasNet-3): each program's key,
+       calls, flops, bytes and first-call seconds, ``compile_summary()``,
+       then one warm pass's work (Δ ``executed_flops()``) over its compute
+       seconds against the dense bf16 and the float32 SIMT peaks;
+    3. that warm pass counts nothing (no WorkCount is made) and queues the
+       same device operations as with the registry taken out of the calls;
+       so does the first pass of a second input of another length (the
+       first 18 s of the mixture, the same buckets): its arena is shorter,
+       and the arena's length is not in the programs' keys;
+    4. the first pass counted again with the module memo off (every call of
+       a ``shape_keyed`` block or model counted op by op) records the same
+       programs, flops and bytes.
+    -> launches per kernel."""
+    from audio_classification_tpu_torch.engine import programs
+    from audio_classification_tpu_torch.ops import work as work_mod
+    from audio_classification_tpu_torch.pipelines.offline_overlap3 import (Overlap3Pipeline,
+                                                                          build_engine)
+    from audio_classification_tpu_torch.utils.config import Overlap3Config
+
+    from audio_classification_tpu_torch.audio_io import read_wav, write_wav
+
+    total = {k: 0 for k in counters}
+    for scene, (expect, _cap) in PROGRAM_STATS_SCENES.items():
+        rows, t0 = {}, time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            engine = program_stats_engine(scene, torch.device(dev))
+            if dev == "cuda":
+                _, launches = _counted(torch, counters, expect, f"program_stats {scene}",
+                                       lambda: drive_program_stats_scene(np, engine, scene))
+                for k, n in launches.items():
+                    total[k] += n
+            else:
+                drive_program_stats_scene(np, engine, scene)
+            rows[dev] = _program_rows(engine)
+        log({"phase": "program_stats", "scene": scene, "programs": rows["cuda"],
+             "equal_to_cpu": rows["cuda"] == rows["cpu"], "sec": time.perf_counter() - t0})
+        assert rows["cuda"] == rows["cpu"], (scene, rows)
+
+    work_dir = ROOT / "build" / "chip_smoke"
+    cfg = Overlap3Config(input_wavs=[str(work_dir / "mix.wav")], osd_thr=0.0,
+                         target_wav=str(work_dir / "target.wav"), preset="full", seed=0,
+                         sv_threshold=-1.0)
+    engine = build_engine(cfg)
+    t0 = time.perf_counter()
+    first = Overlap3Pipeline(cfg, engine=engine).run()
+    torch.cuda.synchronize()
+    first_sec = time.perf_counter() - t0
+    stats = engine.program_stats()
+    first_rows = _program_rows(engine)
+    summary = engine.compile_summary()
+    log({"phase": "program_stats", "scene": "flagship overlap, full preset",
+         "programs": stats, "compile_summary": summary, "first_pass_sec": first_sec,
+         "segments_overlap_streams": first.metrics["segments_overlap_streams"]})
+    assert summary["n_programs"] == len(stats) > 0 and all(s["flops"] > 0 for s in stats), stats
+
+    made = []
+    real = programs.WorkCount
+
+    class Spy(real):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    mix, sr = read_wav(work_dir / "mix.wav")
+    write_wav(work_dir / "mix_18s.wav", mix[..., : 18 * sr], sr)
+    cfg18 = dataclasses.replace(cfg, input_wavs=[str(work_dir / "mix_18s.wav")])
+    programs.WorkCount = Spy
+    try:
+        calls = {(s["name"], s["shapes"], s["static"]): s["calls"] for s in stats}
+        flops0 = engine.executed_flops()
+        t0 = time.perf_counter()
+        res = Overlap3Pipeline(cfg, engine=engine).run()
+        torch.cuda.synchronize()
+        warm_sec = time.perf_counter() - t0
+        window = engine.executed_flops() - flops0
+        # the window's work is the flops of the calls it made
+        made_calls = sum(s["flops"] * (s["calls"] - calls[(s["name"], s["shapes"], s["static"])])
+                         for s in engine.program_stats())
+        compute_s = res.metrics["time_compute_total_sec"]
+        warm = lambda: Overlap3Pipeline(cfg, engine=engine).run()  # noqa: E731
+        with_registry = device_ops(torch, warm)["device_ops"]
+        queued = queued_ops(torch, warm)
+        # the 18 s input's first pass: no new program, no count
+        t0 = time.perf_counter()
+        Overlap3Pipeline(cfg18, engine=engine).run()
+        torch.cuda.synchronize()
+        first_18s_sec = time.perf_counter() - t0
+        keys_18s = [(s["name"], s["shapes"], s["static"]) for s in engine.program_stats()]
+        warm18 = lambda: Overlap3Pipeline(cfg18, engine=engine).run()  # noqa: E731
+        with_registry_18s = device_ops(torch, warm18)["device_ops"]
+    finally:
+        programs.WorkCount = real
+    assert keys_18s == list(calls) and not made, (keys_18s, list(calls), len(made))
+    assert engine.compile_summary()["n_programs"] == len(stats)
+    assert window == made_calls > 0, (window, made_calls)
+
+    def bare(name, args, statics, run):
+        return run()
+
+    engine._programs.call = bare  # the registry taken out: each program as it runs
+    without = device_ops(torch, warm)["device_ops"]
+    queued_without = queued_ops(torch, warm)
+    without_18s = device_ops(torch, warm18)["device_ops"]
+    del engine._programs.call
+
+    class NoMemo(dict):  # every call of a shape_keyed function counted op by op
+        def get(self, key, default=None):
+            return None
+
+        def __setitem__(self, key, value):
+            pass
+
+    memo, work_mod._MEMO = work_mod._MEMO, NoMemo()
+    engine._programs = programs.ProgramRegistry()
+    try:
+        t0 = time.perf_counter()
+        Overlap3Pipeline(cfg, engine=engine).run()
+        torch.cuda.synchronize()
+        every_call_sec = time.perf_counter() - t0
+    finally:
+        work_mod._MEMO = memo
+    every_call_rows = _program_rows(engine)
+    report = {"phase": "program_stats", "scene": "flagship overlap, warm pass",
+              "device": gpu_name_and_power_limit(),
+              "window_flops": window, "compute_sec": compute_s,
+              "flops_per_sec": window / compute_s,
+              "share_of_989_tflops_dense_bf16": window / (compute_s * PEAK_BF16_FLOPS),
+              "share_of_67_tflops_f32_simt": window / (compute_s * PEAK_F32_FLOPS),
+              "work_counts_made": len(made), "first_pass_sec": first_sec,
+              "warm_pass_sec": warm_sec, "first_pass_18s_input_sec": first_18s_sec,
+              "device_ops": with_registry, "device_ops_without_registry": without,
+              "queued_ops": queued, "queued_ops_without_registry": queued_without,
+              "device_ops_18s_input": with_registry_18s,
+              "device_ops_18s_input_without_registry": without_18s,
+              "first_pass_every_call_counted_sec": every_call_sec,
+              "memo_counts_equal_every_call": every_call_rows == first_rows}
+    log(report)
+    assert every_call_rows == first_rows, (every_call_rows, first_rows)
+    assert (with_registry, queued, with_registry_18s) == (without, queued_without,
+                                                          without_18s), report
+    return total
+
+
 def _pit(model, b):
     """cli/train_separator's loss: PIT SI-SDR of the separated mixture."""
     from audio_classification_tpu_torch.train.losses import pit_si_sdr_loss
@@ -3582,6 +3822,10 @@ def main() -> int:
     # 1), K4 at the TP shard widths
     mesh_launches, k4_tp = run_mesh_paths(torch, np, counters)
     for k, n in mesh_launches.items():
+        launches[k] += n
+    # slice 19: the program statistics, the card's against the CPU's, and the
+    # flagship overlap scene's
+    for k, n in run_program_stats(torch, np, counters).items():
         launches[k] += n
     results["gau_attention"]["cases"] += k4_tp
     results["gau_attention"]["max_abs_err"] = max(results["gau_attention"]["max_abs_err"],

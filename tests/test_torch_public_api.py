@@ -198,3 +198,28 @@ def test_exports_match_jax(module):
     assert sorted(got.__all__) == sorted(want)
     for name in got.__all__:
         assert getattr(got, name) is not None, name
+
+
+def test_presets_match_jax():
+    """engine.PRESETS (the JAX engine/runtime.py:93 registry): the same names,
+    each factory giving the preset of that name, every config field the two
+    packages share equal, nested configs too (the port's configs add fields
+    of their own, such as the masker's ``fused_tcn``)."""
+    import dataclasses
+
+    from audio_classification_tpu.engine.runtime import PRESETS as JAX_PRESETS
+    from audio_classification_tpu_torch.engine import PRESETS
+
+    def same(a, b, where):
+        if not dataclasses.is_dataclass(b):
+            assert a == b, where
+            return
+        shared = {f.name for f in dataclasses.fields(a)} & {f.name for f in dataclasses.fields(b)}
+        assert shared, where
+        for k in shared:
+            same(getattr(a, k), getattr(b, k), f"{where}.{k}")
+
+    assert PRESETS.keys() == JAX_PRESETS.keys() == {"full", "tiny"}
+    for name, make in PRESETS.items():
+        assert make().name == name
+        same(make(), JAX_PRESETS[name](), name)
