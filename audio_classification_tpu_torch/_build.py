@@ -31,6 +31,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -99,9 +100,9 @@ def build(verbose: bool = False) -> float:
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for src, obj in zip(_sources(), objs)]
     try:
-        reports = [(src.name, proc.communicate()[1], proc.returncode)
+        results = [(src.name, proc.communicate()[1], proc.returncode)
                    for src, proc in zip(_sources(), procs)]
-        for name, err, code in reports:
+        for name, err, code in results:
             if code != 0:
                 raise RuntimeError(f"nvcc failed on {name} ({code}):\n{err}")
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
@@ -113,11 +114,35 @@ def build(verbose: bool = False) -> float:
             obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     if verbose:
-        for name, err, _code in reports:
+        for name, err, _code in results:
             print(f"[{name}]\n{err}", flush=True)
+            reports[name] = err
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return seconds
 
+
+def kernel_resources(report: str) -> list:
+    """The kernels of an ``nvcc -Xptxas -v`` report with their registers and
+    spill bytes (stores + loads): [{kernel, registers, spill_bytes}] in the
+    report's order (kernel: the mangled entry name)."""
+    out, name, spill = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append({"kernel": name, "registers": int(m.group(1)), "spill_bytes": spill})
+            name = None
+    return out
+
+
+#: each source's ``-Xptxas -v`` report from this process's last verbose
+#: build (``build(verbose=True)``): {source name: report}
+reports: dict = {}
 
 #: seconds this process has spent in nvcc (``build`` through ``_library``):
 #: a stage program's first call reads the time it took (engine/programs.py)

@@ -15,461 +15,379 @@
 // product is 4-5e-4 of max|out| off in the CPU emulation, four times the
 // tolerance), so the bound is the work over 495 / 3 TFLOP/s: 2.08 ms there.
 // Warp-level mma.sync reaches 312.8 of the 495 TF32 TFLOP/s on an H100 SXM
-// (scripts/mma_tf32_peak.py): a ceiling of 3.30 ms for this design.
+// (scripts/mma_tf32_peak.py), a ceiling of 3.30 ms for an mma.sync design.
 //
-// Design: mma.sync m16n8k8 TF32 in 3xTF32 with float32 accumulation, both
-// products. A block of 8 warps owns BM = 64 query rows and one DC = 384-wide
-// chunk of the De output columns; the two chunk blocks of a row block form a
-// cluster of 2 (blockIdx.y 2c, 2c + 1; a chunk past De forms scores only),
-// so the scores are formed once for all 768 columns. The keys go in tiles
-// of BK = 32, each staged by 16-byte cp.async copies into a two-stage ring
-// (keys past T zero-filled) one tile ahead of its use. Per key tile:
-// 1. Scores: each block of the cluster forms the 64 x 16 scores of its half
-//    of the tile's keys (warp w: rows 16 (w % 4) .. + 15 x one n8 tile of
-//    keys) and stages only that half of K. q is split into big and small
-//    once a block, in shared memory, in the mma's fragment order; k is
-//    split in registers. The two halves of Dqk and the big x big and small
-//    cross terms of each gather apart: 6 independent chains of 8 mma.
-//    Then scale, mask and relu^2 in float32, in the TPU body's order
-//    ((q.k) * scale * mask). p is written split into big and small, as the
-//    A fragments of p v (the score fragment of a lane is its A fragment,
-//    reordered), into this block's and, through distributed shared memory
-//    (st.shared::cluster), the partner's double-buffered p.
-// 2. p v: warp w owns rows 32 (w % 2) .. + 31 (2 m16 tiles) and columns
-//    96 (w / 2) .. + 95 of the chunk (12 n8 tiles): 96 accumulator
-//    registers. It holds the tile's p fragments (one 16-byte load each) and
-//    walks its columns in groups of 2 pairs of n8 tiles, whose products over
-//    the tile's 32 keys are formed from zero side by side (8 independent
-//    chains of 12 mma) and added to the running accumulator in IEEE
-//    float32, so the tensor cores' truncating sum never runs longer than a
-//    tile.
-// Iteration i forms p v of tile i and then the scores of tile i + 1 into
-// the other p buffer, behind one cluster barrier an iteration.
-// Where V is split: in registers, by the warp that reads it. Each staged V
-// element is read by the 2 row-group warps of its columns: a tile costs
-// 2 x 32 x 384 = 24576 splits a block (96 a thread, 3 operations each:
-// split_fast leaves the small half for the mma to truncate). Splitting once
-// in shared memory would halve that but double V's shared-memory reads and
-// need a second 96 KB buffer, which does not fit beside the ring.
-// Row strides 136 (k) and 388 (v) floats and the fragment-ordered q and p
-// make every fragment load and p store free of bank conflicts. Shared
-// memory: 64 KB q (big, small), 17 KB k ring, 97 KB v ring, 32 KB p, + one
-// byte a key tile: 210 KB, one block an SM. Registers: 255 a thread, 16
-// bytes spilled (nvcc -Xptxas -v through _build.build(verbose=True), which
-// chip_smoke.py prints).
-// Cost of the cluster: one cluster barrier a key tile, in place of a block
-// barrier, and blocks of a chunk past De (De % 768 in (0, 384]) that only
-// form scores. It saves the 1.14x operations of scores formed per chunk and
-// half the K traffic. A 16-warp block (128 registers a thread) and
-// per-chunk scores without the cluster were slower on the card.
-// L2 traffic: every block re-reads its V chunk and half of K for all live
-// tiles: n_valid (Dqk / 2 + DC) 4 bytes = 21.5 MB a block, 500 blocks,
-// 10.8 GB a call at the main path's shape; the blocks of one wave walk the
-// keys in step, so the working set stays in L2. TMA multicast of the V
-// tiles to the blocks of neighbouring row blocks would cut it further.
-// Masked keys contribute exactly 0 (relu(0)^2 = 0), so a key tile whose mask
-// bytes are all 0 is skipped (a live-tile map filled in the prologue); a
-// fully masked item computes no tile and writes zeros. The key loop thus
-// ends at the item's last valid key.
-// The SIMT design this replaces (IEEE f32 FMA, 64 rows x 384 columns a
-// block, 8 x 12 accumulators a thread) took 12.66 ms at [1, 15999,
-// 128 | 768] with 11999 keys valid and 0.349 ms at [3, 1237, 128 | 768]
-// ragged (H100 80GB HBM3, 700 W; PERF.md).
+// Design (Hopper): 3xTF32 on warpgroup products (wgmma.mma_async m64nNk8
+// TF32, float32 accumulators) fed by TMA, in two launches a call.
+//   S  split_kernel: k split into big and small TF32 halves ([2][B][T][Dqk])
+//      and v transposed to [2][B][De][Tp] (Tp = T rounded up to 8), split
+//      the same way, its keys permuted inside each group of 8 (position i
+//      holds key 2 i, position i + 4 key 2 i + 1; zero past T). TF32 wgmma
+//      takes no transpose, so p v needs v K-major over the keys; a B operand
+//      comes from shared memory, so its halves are two tiles there.
+//   K  gau_kernel: a block is two consumer warpgroups of 64 query rows (128
+//      rows sharing each K / V tile) and one DV = 192-wide chunk of the De
+//      output columns (grid z), with a producer warpgroup whose registers go
+//      to the consumers (setmaxnreg: 232 a consumer thread). The producer
+//      loads the block's q rows once (raw float32, {32 d, 128 rows} boxes),
+//      then walks the live key tiles of 32 keys (a tile whose keys are all
+//      masked adds exactly 0 and is skipped), loading k's and v's halves into
+//      a ring of two stages with the keys' 0 / 1 mask beside them; a stage
+//      whose tile index is -1 ends the walk. Per key tile, each consumer
+//      warpgroup forms s = q k^T over Dqk in groups of 32 dims: q's A
+//      fragments read by ldmatrix and split in registers (big rounded, small
+//      left for the product to truncate), three products a k8 step (q small x
+//      k big, q big x k small, q big x k big), one group's products in flight
+//      while the next group's fragments are formed. p = relu(s * scale *
+//      mask)^2 in float32 in the TPU body's order, split in registers: the
+//      m64n32 accumulator of a warp (rows g, g + 8, keys 8 j + 2 t, + 1) is p
+//      v's A fragment of k8 step j under the key permutation above, so p
+//      never leaves the registers. p v runs in two slices of 96 columns, each
+//      tile's products formed from zero in a second accumulator and added to
+//      the running sum in IEEE float32 (one accumulator over every key was
+//      8.4e-5 of max|out| off the float64 twin at 11999 keys and 2.5e-4 at
+//      31999, over the 1e-4 limit; PERF.md).
+// Shared memory: q 64 KB, two stages of k (2 x 16 KB) and v (2 x 24 KB):
+// 225 KB, one block an SM. Scores are formed once per 192-column chunk:
+// (4 x 128 + 768) / (128 + 768) = 1.43x the minimum products at De 768.
+// No sum crosses a block, so two calls give identical bits; a fully masked
+// item computes no tile and writes zeros.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/gau_attention_ab.py
+// --f32, graph replay, PERF.md): 4.29-4.33 ms at [1, 15999, 128 | 768] with
+// 11999 keys valid (share 0.48), 22.4 at [1, 31999], 0.130 at [3, 1237]
+// ragged; registers 168 (232 a consumer thread by setmaxnreg), no spills.
+// Each of the 4 column chunks forms the scores: sharing them across the
+// chunks is the next lever. Splitting k and v in shared memory
+// instead of in device memory was slower (5.19 ms). The mma.sync design
+// this replaces (m16n8k8 3xTF32, 64 rows x 384 columns a block in clusters
+// of 2 sharing the scores through distributed shared memory, 255
+// registers, 16 bytes spilled) took 6.90, 36.2 and 0.193-0.196 ms in the
+// same call.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 
-#include "attention_wgmma.cuh"  // the bf16 body (namespace b16)
+#include "attention_wgmma.cuh"  // the bf16 body (namespace b16); wgmma_tma.cuh
 #include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int BM = 64;            // query rows a block
-constexpr int BK = 32;            // keys a shared-memory tile
-constexpr int DC = 384;           // output columns a block (one chunk of De)
-constexpr int NW = 8;             // warps a block
-constexpr int NT = NW * 32;       // threads a block
-constexpr int CL = 2;             // blocks a cluster: two column chunks of one row block
-constexpr int BKH = BK / CL;      // keys of a tile whose scores a block forms
 constexpr int MAX_DQK = 128;
-constexpr int QS = MAX_DQK + 8;   // row stride (floats) of a staged K tile
-constexpr int VS = DC + 4;        // row stride of a staged V tile
-constexpr int NS = 2;             // stages of the cp.async ring
-constexpr int KSTEPS = BK / 8;    // k-steps of p v a tile
-constexpr int WC = DC / 4;        // p v: columns a warp (warps as 2 x 32 rows by 4 x 96 columns)
-constexpr int NP = WC / 16;       // pairs of n8 tiles a warp
-constexpr int GP = 2;             // pairs whose products are formed side by side
 
-// mma A fragments kept in shared memory in their register order: one
-// 16-byte quad a lane for each m16 tile and k-step, so that one LDS.128
-// fills an operand
-constexpr int FRAG = 32 * 4;                                 // floats of one fragment
-constexpr int QF = (BM / 16) * (MAX_DQK / 8) * FRAG;         // q: big, then small
-constexpr int PF = (BM / 16) * (BK / 8) * FRAG;              // p: big, then small
+namespace t32 {
 
-using act::cp_async16;
-using act::cp_commit;
-using act::cp_wait;
-using act::mma_tf32;
-using act::split_fast;
+using act::smem_u32;
 
-constexpr size_t smem_bytes(int n_tiles) {
-  return sizeof(float) * ((size_t)2 * QF + NS * BKH * QS + NS * BK * VS + 2 * 2 * PF + NS * BKH) +
-         (size_t)n_tiles;  // + one byte a key tile
+constexpr int BK = 32;                      // keys a tile
+constexpr int NWG = 2;                      // consumer warpgroups: 64 query rows each
+constexpr int BM = 64 * NWG;                // query rows a block
+constexpr int DV = 192;                     // output columns a block
+constexpr int SL = DV / 2;                  // columns of a p v slice
+constexpr int ROW = 128;                    // bytes of a swizzled row: 32 floats
+constexpr int NDG = MAX_DQK / 32;           // dim groups of q and k (32 dims each)
+constexpr int Q_BYTES = NDG * BM * ROW;     // q: NDG boxes of {32 d, BM rows}
+constexpr int K_HALF = NDG * BK * ROW;      // k big or small: NDG boxes of {32 d, BK keys}
+constexpr int V_HALF = DV * ROW;            // v^T big or small: {32 keys, DV columns}
+constexpr int SLOT = 2 * K_HALF + 2 * V_HALF;
+constexpr int NS = 2;                       // stages of the ring
+constexpr int THREADS = 128 * NWG + 128;    // + the producer warpgroup
+constexpr size_t SMEM = 1024 + (size_t)Q_BYTES + NS * SLOT + sizeof(float) * NS * BK +
+                        sizeof(int) * NS + sizeof(uint64_t) * (2 * NS + 1);
+constexpr unsigned FULL = 0xffffffffu;
+
+// The launch: grid (row blocks, items, column chunks) of THREADS threads
+struct Plan {
+  int gx, gy, gz;
+};
+inline Plan plan(int batch, int t, int de) {
+  return Plan{(t + BM - 1) / BM, batch, (de + DV - 1) / DV};
 }
 
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void ld4u(uint32_t (&r)[4], const float* p) {
-  const float4 x = ld4(p);
-  r[0] = __float_as_uint(x.x);
-  r[1] = __float_as_uint(x.y);
-  r[2] = __float_as_uint(x.z);
-  r[3] = __float_as_uint(x.w);
+// S: out_k = [2][B][T][Dqk] (k's big halves, then small; both rounded to
+// nearest), out_v = [2][B][De][Tp] (v transposed, keys permuted in groups
+// of 8, split; zero past T). blockIdx.z < batch: one 32 x 32 tile of item
+// z's v through shared memory; else a stride of k's elements.
+__global__ void __launch_bounds__(256)
+    split_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ out_k, float* __restrict__ out_v, int batch, int t, int tp,
+                 int dqk, int de) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  if ((int)blockIdx.z >= batch) {
+    const size_t n = (size_t)batch * t * dqk;
+    const size_t stride = (size_t)gridDim.x * gridDim.y * blockDim.x;
+    for (size_t i = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x;
+         i < n; i += stride) {
+      uint32_t big, small;
+      act::split(k[i], big, small);
+      out_k[i] = __uint_as_float(big);
+      out_k[n + i] = __uint_as_float(small);
+    }
+    return;
+  }
+  const int b = blockIdx.z, j0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  for (int i = ty; i < 32; i += 8) {  // key j0 + i, column c0 + tx
+    const int j = j0 + i, c = c0 + tx;
+    tile[i][tx] = j < t && c < de ? v[((size_t)b * t + j) * de + c] : 0.f;
+  }
+  __syncthreads();
+  const size_t half = (size_t)batch * de * tp;
+  const int pos = tx & 7, key = (tx & ~7) + (pos < 4 ? 2 * pos : 2 * (pos - 4) + 1);
+  for (int i = ty; i < 32; i += 8) {  // column c0 + i, position j0 + tx
+    const int c = c0 + i;
+    if (c >= de || j0 + tx >= tp) continue;
+    uint32_t big, small;
+    act::split(tile[key][i], big, small);
+    const size_t o = ((size_t)b * de + c) * tp + j0 + tx;
+    out_v[o] = __uint_as_float(big);
+    out_v[half + o] = __uint_as_float(small);
+  }
 }
 
-// mma fragments: g = lane / 4, tg = lane % 4 (thread in group)
+// K: mq q [B, T, Dqk] in boxes {32, BM}; mk the split k [2 B, T, Dqk] in
+// {32, BK}; mv the split v^T [2 B, De, Tp] in {32, DV}
+__global__ void __launch_bounds__(THREADS, 1)
+    gau_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv, const uint8_t* __restrict__ kv_mask,
+               float* __restrict__ out, int batch, int t, int dqk, int de, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);  // the swizzle's 1024 B
+  const uint32_t q_s = smem_u32(base), ring = q_s + Q_BYTES;
+  float* coef = reinterpret_cast<float*>(base + Q_BYTES + NS * SLOT);  // [NS][BK]
+  int* tile_of = reinterpret_cast<int*>(coef + NS * BK);               // [NS]: -1 ends
+  uint64_t* bars = reinterpret_cast<uint64_t*>(tile_of + NS);          // full[NS], empty[NS], q
+  const uint32_t full = smem_u32(bars), empty = full + 8 * NS, qbar = full + 16 * NS;
 
-// Scores of one key tile for the m16 tile of q whose fragments start at
-// q_frag (big; small QF further; k-step stride FRAG) against one n8 tile of
-// keys (from k_row, their 0/1 mask at mk); p = relu(s * scale * mask)^2 is
-// parked split as the A fragments of p v, in this block's p buffer (p_frag:
-// big; small PF further) and at the same place in its cluster partner's
-// (p_far). Thread tg holds keys 2tg, 2tg + 1 of rows g (c0, c1) and g + 8
-// (c2, c3), which are a0, a2, a1, a3 of the same lane's fragment for that
-// n8 tile's k-step. The two halves of the MAX_DQK dims (those past Dqk are
-// zeros) run side by side, and big x big and the two small cross terms of
-// each half gather in their own accumulators: 6 independent chains of 8
-// products, none of them long.
-__device__ __forceinline__ void tile_scores(const float* q_frag, const float* k_row,
-                                            const float* mk, float* p_frag, uint32_t p_far,
-                                            float scale) {
-  constexpr int HALF = MAX_DQK / 2;
-  float bb[2][4], sb[2][4], bs[2][4];  // [half][c]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int item = blockIdx.y, row0 = blockIdx.x * BM, c0 = blockIdx.z * DV;
+  // dim groups of 32 in pairs, so that the score loop has one path (a
+  // wait whose commit group depends on the path serializes every wgmma):
+  // q's and k's boxes past Dqk are zero-filled by TMA
+  const int n_dg = ((dqk + 31) / 32 + 1) & ~1, n_tiles = (t + BK - 1) / BK;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      act::mbar_init(full + 8 * s, 32);        // the producer's 32 lanes (lane 0 with the bytes)
+      act::mbar_init(empty + 8 * s, 4 * NWG);  // lane 0 of each consumer warp
+    }
+    act::mbar_init(qbar, 1);
+    act::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {  // the producer warpgroup: its first warp loads
+    act::setmaxnreg_dec<40>();
+    if (warp != 4 * NWG) return;
+    const uint8_t* mrow = kv_mask ? kv_mask + (size_t)item * t : nullptr;
+    if (lane == 0) {
+      act::tma_prefetch_map(&mq);
+      act::tma_prefetch_map(&mk);
+      act::tma_prefetch_map(&mv);
+      act::mbar_arrive_expect_tx(qbar, n_dg * BM * ROW);
+      for (int dg = 0; dg < n_dg; ++dg) {
+        act::tma_load_3d(q_s + dg * BM * ROW, &mq, qbar, 32 * dg, row0, item);
+      }
+    }
+    int s = 0;
+    uint32_t ph = 0;
+    for (int tile = 0;; ++tile) {
+      // the next live tile: a key of it below T and unmasked (lane = key)
+      bool valid = false;
+      for (; tile < n_tiles; ++tile) {
+        const int j = tile * BK + lane;
+        valid = j < t && (mrow == nullptr || mrow[j] != 0);
+        if (__any_sync(FULL, valid)) break;
+      }
+      act::mbar_wait(empty + 8 * s, ph ^ 1);
+      const uint32_t bar = full + 8 * s;
+      if (tile < n_tiles) {
+        coef[s * BK + lane] = valid ? 1.f : 0.f;
+        if (lane == 0) {
+          tile_of[s] = tile;
+          const uint32_t st = ring + s * SLOT;
+          act::mbar_arrive_expect_tx(bar, 2 * n_dg * BK * ROW + 2 * V_HALF);
+          for (int dg = 0; dg < n_dg; ++dg) {
+            act::tma_load_3d(st + dg * BK * ROW, &mk, bar, 32 * dg, tile * BK, item);
+            act::tma_load_3d(st + K_HALF + dg * BK * ROW, &mk, bar, 32 * dg, tile * BK,
+                             batch + item);
+          }
+          act::tma_load_3d(st + 2 * K_HALF, &mv, bar, tile * BK, c0, item);
+          act::tma_load_3d(st + 2 * K_HALF + V_HALF, &mv, bar, tile * BK, c0, batch + item);
+        } else {
+          act::mbar_arrive(bar);
+        }
+      } else {  // the end of the walk
+        if (lane == 0) tile_of[s] = -1;
+        __syncwarp();
+        act::mbar_arrive(bar);
+        break;
+      }
+      if (++s == NS) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows row0 + 64 wg .. + 63, warp w4 of it
+  // rows 16 w4 + g and 16 w4 + g + 8 of those
+  act::setmaxnreg_inc<232>();
+  const int wg = warp >> 2, g = lane >> 2, tq = lane & 3;
+  const int qrow = 64 * wg + 16 * (warp & 3) + (lane & 15);  // this lane's ldmatrix row
+  float o[2][SL / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < SL / 2; ++i) o[h][i] = 0.f;
+  uint32_t qf[2][2][4][4];  // two dim groups' q fragments: [group][big, small][k8 step]
+  act::mbar_wait(qbar, 0);
+  int s = 0;
+  uint32_t ph = 0;
+  for (;;) {
+    act::mbar_wait(full + 8 * s, ph);
+    if (tile_of[s] < 0) break;
+    const uint32_t st = ring + s * SLOT, vb = st + 2 * K_HALF, vs = vb + V_HALF;
+    // s = q k^T over the dim groups: q's A fragments split in registers
+    // into (qb, qsm) (the registers of the group before last, whose
+    // products are done), three products a k8 step, one commit group a dim
+    // group, one group in flight while the next one's fragments are formed
+    float sc[BK / 2];
+    act::fence_operands(sc);
+    auto group = [&](int dg, uint32_t(&qb)[4][4], uint32_t(&qsm)[4][4], uint32_t(&pb)[4][4],
+                     uint32_t(&psm)[4][4]) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int ch = 2 * kk + (lane >> 4);
+        uint32_t a[4];
+        act::ldsm_x4(a, q_s + dg * BM * ROW + qrow * ROW + ((ch ^ (qrow & 7)) << 4));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) act::split_fast(__uint_as_float(a[e]), qb[kk][e], qsm[kk][e]);
+        const uint32_t kb = st + dg * BK * ROW + 32 * kk, ks = kb + K_HALF;
+        act::wgmma_fence();
+        act::wgmma_tf32_rs<BK>(sc, qsm[kk], act::desc_sw128(kb, 16, 1024), dg > 0 || kk > 0);
+        act::wgmma_tf32_rs<BK>(sc, qb[kk], act::desc_sw128(ks, 16, 1024), 1);
+        act::wgmma_tf32_rs<BK>(sc, qb[kk], act::desc_sw128(kb, 16, 1024), 1);
+      }
+      act::wgmma_commit();
+      act::wgmma_wait<1>();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // live until the products that read them are done
+        act::fence_regs(pb[kk]);
+        act::fence_regs(psm[kk]);
+      }
+    };
+    for (int dg = 0; dg < n_dg; dg += 2) {
+      group(dg, qf[0][0], qf[0][1], qf[1][0], qf[1][1]);
+      group(dg + 1, qf[1][0], qf[1][1], qf[0][0], qf[0][1]);
+    }
+    act::wgmma_wait<0>();
+    act::fence_operands(sc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        act::fence_regs(qf[h][0][kk]);
+        act::fence_regs(qf[h][1][kk]);
+      }
+    // p = relu(s * scale * mask)^2 (IEEE single operations in that order),
+    // split as p v's A fragments: k8 step j holds keys 8 j + 2 tq (a0: row
+    // g, a1: row g + 8) and 8 j + 2 tq + 1 (a2, a3), v's permuted order
+    uint32_t pb[BK / 8][4], ps[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float2 mm = *reinterpret_cast<const float2*>(coef + s * BK + 8 * j + 2 * tq);
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x =
+            fmaxf(__fmul_rn(__fmul_rn(sc[4 * j + e], scale), e & 1 ? mm.y : mm.x), 0.f);
+        p[e] = __fmul_rn(x, x);
+      }
+      const float a[4] = {p[0], p[2], p[1], p[3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) act::split_fast(a[e], pb[j][e], ps[j][e]);
+    }
+    // p v, a slice of SL columns at a time
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float part[SL / 2];  // the tile's products, from zero
+      act::fence_operands(part);
+      act::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const uint32_t off = h * SL * ROW + 32 * j;
+        act::wgmma_tf32_rs<SL>(part, ps[j], act::desc_sw128(vb + off, 16, 1024), j > 0);
+        act::wgmma_tf32_rs<SL>(part, pb[j], act::desc_sw128(vs + off, 16, 1024), 1);
+        act::wgmma_tf32_rs<SL>(part, pb[j], act::desc_sw128(vb + off, 16, 1024), 1);
+      }
+      act::wgmma_commit();
+      act::wgmma_wait<0>();
+      act::fence_operands(part);
+#pragma unroll
+      for (int i = 0; i < SL / 2; ++i) o[h][i] += part[i];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      act::fence_regs(pb[j]);
+      act::fence_regs(ps[j]);
+    }
+    __syncwarp();
+    if (lane == 0) act::mbar_arrive(empty + 8 * s);  // this tile's stage is read
+    if (++s == NS) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+
+  // rows r0 (o[h][4 j], [4 j + 1]) and r0 + 8 ([4 j + 2], [4 j + 3]), columns
+  // c0 + SL h + 8 j + 2 tq, + 1
+  const int r0 = row0 + 64 * wg + 16 * (warp & 3) + g;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) bb[h][i] = sb[h][i] = bs[h][i] = 0.f;
-  }
+    for (int j = 0; j < SL / 8; ++j) {
+      const int col = c0 + SL * h + 8 * j + 2 * tq;
+      if (col >= de) continue;
 #pragma unroll
-  for (int kk = 0; kk < HALF / 8; ++kk) {
-    uint32_t qb[2][4], qs[2][4], kb[2][2], ks[2][2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int d = HALF * h + 8 * kk;
-      ld4u(qb[h], q_frag + (d / 8) * FRAG);
-      ld4u(qs[h], q_frag + QF + (d / 8) * FRAG);
-      const float2 y = ld2(k_row + d);  // key g; dims d + 2tg, + 1
-      split_fast(y.x, kb[h][0], ks[h][0]);
-      split_fast(y.y, kb[h][1], ks[h][1]);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) mma_tf32(sb[h], qs[h], kb[h][0], kb[h][1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) mma_tf32(bs[h], qb[h], ks[h][0], ks[h][1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) mma_tf32(bb[h], qb[h], kb[h][0], kb[h][1]);
-  }
-  const float2 mm = ld2(mk);
-  uint32_t big[4], small[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float s = (bb[0][i] + bb[1][i]) + ((sb[0][i] + bs[0][i]) + (sb[1][i] + bs[1][i]));
-    const float x = fmaxf(s * scale * (i % 2 ? mm.y : mm.x), 0.f);
-    split_fast(x * x, big[i], small[i]);
-  }
-  // C (c0, c1, c2, c3) -> A (a0, a1, a2, a3) = (c0, c2, c1, c3)
-  const float4 pb = make_float4(__uint_as_float(big[0]), __uint_as_float(big[2]),
-                                __uint_as_float(big[1]), __uint_as_float(big[3]));
-  const float4 ps = make_float4(__uint_as_float(small[0]), __uint_as_float(small[2]),
-                                __uint_as_float(small[1]), __uint_as_float(small[3]));
-  *reinterpret_cast<float4*>(p_frag) = pb;
-  *reinterpret_cast<float4*>(p_frag + PF) = ps;
-  act::st_cluster(p_far, pb);
-  act::st_cluster(p_far + 4 * PF, ps);
-}
-
-// acc += p v over one key tile for 2 m16 tiles of rows (p_frag: this
-// lane's quad of the first one's k-step 0, big; small PF further) x WC
-// columns (v_row: key 2tg, column 2g of the first pair). The p fragments of
-// the tile's 4 k-steps are held; the pairs of n8 tiles go in groups of GP,
-// whose 4 GP products over the tile's keys are formed from zero side by
-// side (independent chains of 12 mma) and added to acc in IEEE float32, so
-// that the tensor cores' truncating sum never runs longer than a tile.
-__device__ __forceinline__ void tile_pv(float (&acc)[2][2 * NP][4], const float* p_frag,
-                                        const float* v_row) {
-  uint32_t pb[2][KSTEPS][4], ps[2][KSTEPS][4];  // [m16 tile][k-step][a]
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      const float* pr = p_frag + (mi * KSTEPS + kk) * FRAG;
-      ld4u(pb[mi][kk], pr);
-      ld4u(ps[mi][kk], pr + PF);
-    }
-  }
-#pragma unroll
-  for (int p0 = 0; p0 < NP; p0 += GP) {
-    float tmp[GP][2][2][4];  // [pair][m16 tile][n8 tile of the pair][c]
-#pragma unroll
-    for (int pp = 0; pp < GP; ++pp) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) tmp[pp][mi][n][i] = 0.f;
-        }
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      // keys 8kk + 2tg (b0) and + 1 (b1); columns 16p + 2g (n8 tile 2p)
-      // and 16p + 2g + 1 (n8 tile 2p + 1)
-      uint32_t vb[GP][2][2], vs[GP][2][2];
-#pragma unroll
-      for (int pp = 0; pp < GP; ++pp) {
-        const float* vr = v_row + 8 * kk * VS + 16 * (p0 + pp);
-        const float2 y0 = ld2(vr), y1 = ld2(vr + VS);
-        split_fast(y0.x, vb[pp][0][0], vs[pp][0][0]);
-        split_fast(y1.x, vb[pp][0][1], vs[pp][0][1]);
-        split_fast(y0.y, vb[pp][1][0], vs[pp][1][0]);
-        split_fast(y1.y, vb[pp][1][1], vs[pp][1][1]);
-      }
-#pragma unroll
-      for (int pp = 0; pp < GP; ++pp) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            mma_tf32(tmp[pp][mi][n], ps[mi][kk], vb[pp][n][0], vb[pp][n][1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int pp = 0; pp < GP; ++pp) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            mma_tf32(tmp[pp][mi][n], pb[mi][kk], vs[pp][n][0], vs[pp][n][1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int pp = 0; pp < GP; ++pp) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            mma_tf32(tmp[pp][mi][n], pb[mi][kk], vb[pp][n][0], vb[pp][n][1]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int pp = 0; pp < GP; ++pp) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mi][2 * (p0 + pp) + n][i] += tmp[pp][mi][n][i];
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + 8 * hh;
+        if (r < t) {
+          *reinterpret_cast<float2*>(out + ((size_t)item * t + r) * de + col) =
+              make_float2(o[h][4 * j + 2 * hh], o[h][4 * j + 2 * hh + 1]);
         }
       }
     }
   }
 }
 
-// A cluster is the CL = 2 blocks of one row block and item (blockIdx.y
-// 2c, 2c + 1: column chunks; a chunk past De computes scores only)
-__global__ void __cluster_dims__(1, CL, 1) __launch_bounds__(NT, 1)
-gau_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-               float* __restrict__ out, int t, int dqk, int de, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // [big, small][BM / 16][MAX_DQK / 8][32][4]
-  float* k_s = q_s + 2 * QF;            // [NS][BKH][QS]: this block's half of the keys
-  float* v_s = k_s + NS * BKH * QS;     // [NS][BK][VS]
-  float* p_s = v_s + NS * BK * VS;      // [2][big, small][BM / 16][BK / 8][32][4]
-  float* m_s = p_s + 2 * 2 * PF;        // [NS][BKH]: 1 valid key, 0 masked or past T
-  uint8_t* live_s = reinterpret_cast<uint8_t*>(m_s + NS * BKH);  // [n_tiles]: holds a valid key
+std::atomic<uint64_t> smem_cap_raised{0};  // gau_kernel's cap, raised once per device
 
-  const int b = blockIdx.z, c0 = blockIdx.y * DC, m0 = blockIdx.x * BM;
-  const uint32_t rank = act::cluster_rank();
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const float* qh = q + (size_t)b * t * dqk;
-  const float* kh = k + (size_t)b * t * dqk;
-  const float* vh = v + (size_t)b * t * de + c0;
-  const uint8_t* mrow = kv_mask ? kv_mask + (size_t)b * t : nullptr;
-  const int dc = min(DC, de - c0);  // <= 0: scores for the partner only
-  const int dq4 = dqk / 4;
-  const int n_tiles = (t + BK - 1) / BK;
-  const int kh0 = BKH * (int)rank;  // this block's keys of a tile: kh0 .. + BKH - 1
-
-  // which key tiles hold a valid key: one thread per tile reads its mask
-  // bytes, so the tile loop never waits on a scan. Both blocks of a cluster
-  // read the same bytes and walk the same tiles
-  if (mrow) {
-    for (int tile = tid; tile < n_tiles; tile += NT) {
-      const int j0 = tile * BK, n = min(BK, t - j0);
-      int hit = 0;
-#pragma unroll 8
-      for (int j = 0; j < n; ++j) hit |= mrow[j0 + j];
-      live_s[tile] = hit != 0;
-    }
-  }
-  // dims dqk .. MAX_DQK of k are never copied: zeros, so that every tile
-  // runs all MAX_DQK / 8 k-steps
-  for (int i = tid; i < NS * BKH * (MAX_DQK - dqk) / 4; i += NT) {
-    const int r = i / ((MAX_DQK - dqk) / 4), c = dqk + 4 * (i % ((MAX_DQK - dqk) / 4));
-    *reinterpret_cast<float4*>(k_s + r * QS + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  // the block's query rows split once, in fragment order (zero past T and
-  // past Dqk): fragment (mt, ks), lane (g', t'), element e holds row
-  // 16 mt + g' + 8 (e % 2), dim 8 ks + 2 t' + e / 2
-  for (int i = tid; i < BM * (MAX_DQK / 2); i += NT) {
-    const int r = i / (MAX_DQK / 2), d = 2 * (i % (MAX_DQK / 2));
-    float2 x = make_float2(0.f, 0.f);
-    if (m0 + r < t && d < dqk) x = ld2(qh + (size_t)(m0 + r) * dqk + d);
-    float* f = q_s + ((r / 16) * (MAX_DQK / 8) + d / 8) * FRAG + 4 * (4 * (r % 8) + (d % 8) / 2) +
-               (r % 16) / 8;
-    uint32_t b0, s0, b1, s1;
-    split_fast(x.x, b0, s0);
-    split_fast(x.y, b1, s1);
-    f[0] = __uint_as_float(b0);  // e = 0 or 1: dim 2t'
-    f[2] = __uint_as_float(b1);  // e = 2 or 3: dim 2t' + 1
-    f[QF] = __uint_as_float(s0);
-    f[QF + 2] = __uint_as_float(s1);
-  }
-  __syncthreads();  // publishes live_s, q and the zeroed dims
-
-  // the first live tile at or after `tile` (the same for every thread)
-  auto next_tile = [&](int tile) -> int {
-    if (mrow) {
-      while (tile < n_tiles && !live_s[tile]) ++tile;
-    }
-    return tile;
-  };
-  // queue this block's K rows and key mask (stage_k) or the V rows
-  // (stage_v) of `tile` (n_tiles: nothing) into slot st; rows past T
-  // zero-filled
-  auto stage_k = [&](int tile, int st) {
-    if (tile >= n_tiles) return;
-    constexpr int TPR = NT / BKH;  // threads a row
-    const int k0 = tile * BK + kh0, j = tid / TPR;
-    const bool in = k0 + j < t;
-    const float* src = kh + (size_t)(in ? k0 + j : 0) * dqk;
-    for (int c = tid % TPR; c < dq4; c += TPR) {
-      cp_async16(k_s + (st * BKH + j) * QS + 4 * c, src + 4 * c, in);
-    }
-    if (tid < BKH) {
-      const int key = k0 + tid;
-      m_s[st * BKH + tid] = (key < t && (!mrow || mrow[key])) ? 1.f : 0.f;
-    }
-  };
-  auto stage_v = [&](int tile, int st) {
-    if (tile >= n_tiles || dc <= 0) return;
-    constexpr int TPR = NT / BK;
-    const int k0 = tile * BK, j = tid / TPR;
-    const bool in = k0 + j < t;
-    const float* src = vh + (size_t)(in ? k0 + j : 0) * de;
-#pragma unroll
-    for (int i = 0; i < DC / 4 / TPR; ++i) {
-      const int c = tid % TPR + TPR * i;
-      const bool cin = in && 4 * c < dc;
-      cp_async16(v_s + (st * BK + j) * VS + 4 * c, src + (cin ? 4 * c : 0), cin);
-    }
-  };
-
-  // scores: m16 tile warp % 4 against keys kh0 + 8 (warp / 4) .. + 7 of a
-  // tile, the k-step kh0 / 8 + warp / 4 of p v
-  const float* q_frag = q_s + (warp % 4) * (MAX_DQK / 8) * FRAG + 4 * lane;
-  const int k_off = (8 * (warp / 4) + g) * QS + 2 * tg, m_off = 8 * (warp / 4) + 2 * tg;
-  const int ps_off = ((warp % 4) * KSTEPS + kh0 / 8 + warp / 4) * FRAG + 4 * lane;
-  const uint32_t p_far = act::cluster_map(p_s + ps_off, rank ^ 1);  // the partner's p
-  // p v: m16 tiles 2 (warp % 2), + 1 (rows prow .. + 31), columns pcol .. + 95
-  const int prow = 32 * (warp % 2), pcol = WC * (warp / 2);
-  const int pv_off = (prow / 16) * KSTEPS * FRAG + 4 * lane;
-  const int v_off = 2 * tg * VS + pcol + 2 * g;
-
-  float acc[2][2 * NP][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int n = 0; n < 2 * NP; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][n][i] = 0.f;
-    }
-  }
-
-  // Software pipeline over the live tiles L0, L1, ...: iteration i forms
-  // p v of L(i), then the scores of L(i + 1) for this block's half of its
-  // keys, into both blocks' p buffer (i + 1) % 2. K, key mask and V of L(j)
-  // sit in slot j % 2; the copies of iteration i (V of L(i + 1), K of
-  // L(i + 2)) run under its products. One cluster barrier an iteration: the
-  // partner's half of p has landed, and neither block still reads what the
-  // other is about to overwrite. The prologue forms the scores of L(0).
-  int cur = next_tile(0);
-  int nxt = cur < n_tiles ? next_tile(cur + 1) : n_tiles;
-  stage_k(cur, 0);
-  stage_v(cur, 0);
-  stage_k(nxt, 1);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
-  act::cluster_sync();  // both blocks run before either stores into the other
-  if (cur < n_tiles) tile_scores(q_frag, k_s + k_off, m_s + m_off, p_s + ps_off, p_far, scale);
-
-  for (int it = 0; cur < n_tiles; ++it) {
-    const int st = it % 2;
-    const int nxt2 = nxt < n_tiles ? next_tile(nxt + 1) : n_tiles;
-    cp_wait<0>();
-    __syncthreads();
-    act::cluster_sync();  // V of L(i), K of L(i + 1) landed; p of L(i) parked by both
-    stage_v(nxt, st ^ 1);
-    stage_k(nxt2, st);
-    cp_commit();
-    if (dc > 0) tile_pv(acc, p_s + st * 2 * PF + pv_off, v_s + st * BK * VS + v_off);
-    // past the last live tile this forms scores of a stale slot that no
-    // p v reads
-    tile_scores(q_frag, k_s + (st ^ 1) * BKH * QS + k_off, m_s + (st ^ 1) * BKH + m_off,
-                p_s + (st ^ 1) * 2 * PF + ps_off, p_far + 4 * (st ^ 1) * 2 * PF, scale);
-    cur = nxt;
-    nxt = nxt2;
-  }
-  act::cluster_sync();  // the partner's last stores into this block have landed
-  if (dc <= 0) return;
-
-  // thread tg holds columns 16pp + 4tg .. + 3 of rows g and g + 8
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int r0 = m0 + prow + 16 * mi + g, r1 = r0 + 8;
-#pragma unroll
-    for (int pp = 0; pp < NP; ++pp) {
-      const int col = pcol + 16 * pp + 4 * tg;
-      if (col >= dc) continue;
-      const float* a0 = acc[mi][2 * pp];
-      const float* a1 = acc[mi][2 * pp + 1];
-      if (r0 < t) {
-        *reinterpret_cast<float4*>(out + ((size_t)b * t + r0) * de + c0 + col) =
-            make_float4(a0[0], a1[0], a0[1], a1[1]);
-      }
-      if (r1 < t) {
-        *reinterpret_cast<float4*>(out + ((size_t)b * t + r1) * de + c0 + col) =
-            make_float4(a0[2], a1[2], a0[3], a1[3]);
-      }
-    }
-  }
+// The call: the split launch, then the kernel
+inline int run(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
+               float* ksp, float* vtp, int batch, int t, int dqk, int de, float scale,
+               cudaStream_t stream) {
+  const int tp = (t + 7) / 8 * 8;
+  const dim3 g_split((tp + 31) / 32, (de + 31) / 32, batch + 1);
+  split_kernel<<<g_split, 256, 0, stream>>>(k, v, ksp, vtp, batch, t, tp, dqk, de);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq, mk, mv;
+  if ((e = act::tmap_3d_f32(&mq, q, dqk, t, batch, BM)) != cudaSuccess ||
+      (e = act::tmap_3d_f32(&mk, ksp, dqk, t, 2 * batch, BK)) != cudaSuccess ||
+      (e = act::tmap_3d_f32(&mv, vtp, tp, de, 2 * batch, DV)) != cudaSuccess)
+    return (int)e;
+  if ((e = act::allow_dynamic_smem(reinterpret_cast<const void*>(gau_kernel), smem_cap_raised)) !=
+      cudaSuccess)
+    return (int)e;
+  const Plan pl = plan(batch, t, de);
+  gau_kernel<<<dim3(pl.gx, pl.gy, pl.gz), THREADS, SMEM, stream>>>(mq, mk, mv, kv_mask, out, batch,
+                                                                    t, dqk, de, scale);
+  return (int)cudaGetLastError();
 }
 
-std::atomic<uint64_t> smem_cap_raised{0};  // the kernel's cap, raised once per device
+}  // namespace t32
 
 // ---------------------------------------------------------------------------
 // bfloat16 q, k, v: act_gau_attention_bf16, the JAX kernel at bf16
@@ -588,20 +506,28 @@ inline int run(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_ma
 
 // q, k: [B, T, Dqk]; v, out: [B, T, De]; f32 contiguous, 16-byte aligned;
 // kv_mask: [B, T] bytes (bool or uint8, tested against 0) or null. Dqk and
-// De multiples of 4, Dqk <= 128.
+// De multiples of 4, Dqk <= 128. Scratch: ksp 2 B T Dqk floats (k split),
+// vtp 2 B De Tp floats (v transposed and split), Tp = T rounded up to 8.
 extern "C" int act_gau_attention(const float* q, const float* k, const float* v,
-                                 const uint8_t* kv_mask, float* out, int batch, int t,
-                                 int dqk, int de, float scale, cudaStream_t stream) {
+                                 const uint8_t* kv_mask, float* out, float* ksp, float* vtp,
+                                 int batch, int t, int dqk, int de, float scale,
+                                 cudaStream_t stream) {
   if (dqk <= 0 || dqk > MAX_DQK || dqk % 4 || de <= 0 || de % 4) return (int)cudaErrorInvalidValue;
   if (t <= 0 || batch <= 0) return 0;
-  const cudaError_t err =
-      act::allow_dynamic_smem(reinterpret_cast<const void*>(gau_fwd_kernel), smem_cap_raised);
-  if (err != cudaSuccess) return (int)err;
-  // column chunks rounded up to whole clusters
-  dim3 grid((t + BM - 1) / BM, CL * ((de + CL * DC - 1) / (CL * DC)), batch);
-  gau_fwd_kernel<<<grid, NT, smem_bytes((t + BK - 1) / BK), stream>>>(q, k, v, kv_mask, out, t,
-                                                                       dqk, de, scale);
-  return (int)cudaGetLastError();
+  return t32::run(q, k, v, kv_mask, out, ksp, vtp, batch, t, dqk, de, scale, stream);
+}
+
+// The plan of a float32 call into out[8]: consumer warpgroups a block,
+// output columns a block, grid x, y, z, threads a block, ring stages,
+// dynamic shared memory bytes (ops/kernels/gau.tf32_plan computes the same
+// on the host).
+extern "C" int act_gau_attention_plan(int batch, int t, int dqk, int de, int* out) {
+  if (dqk <= 0 || dqk > MAX_DQK || dqk % 4 || de <= 0 || de % 4) return (int)cudaErrorInvalidValue;
+  const t32::Plan pl = t32::plan(batch, t, de);
+  const int facts[8] = {t32::NWG, t32::DV, pl.gx, pl.gy, pl.gz, t32::THREADS, t32::NS,
+                        (int)t32::SMEM};
+  for (int i = 0; i < 8; ++i) out[i] = facts[i];
+  return 0;
 }
 
 // bfloat16 q, k: [B, T, Dqk]; v: [B, T, De]; contiguous, 16-byte aligned;

@@ -19,56 +19,67 @@
 // + 4 H C (W_res | W_skip) flops: 1.90e11 at the flagship shape (F 31999,
 // 19999 valid, C 128, H 512, 24 blocks). Float32 accuracy on the tensor
 // cores costs three TF32 products per product (3xTF32, tf32_mma.cuh), so the
-// bound is that over 495 / 3 TFLOP/s: 1.15 ms (the SIMT f32 figure 2.84);
-// mma.sync reaches 312.8 TFLOP/s on the card (scripts/mma_tf32_peak.py), a
-// ceiling of 1.82 ms. The [f_len, H] intermediates add 4 passes a block
-// (A writes h1; B reads h1 and writes h2; C reads h2): 3.9 GB, ~1.2 ms at
-// 3.35 TB/s, partly under the products.
+// bound is that over 495 / 3 TFLOP/s: 1.15 ms (the SIMT f32 figure 2.84).
+// The [f_len, H] intermediates add 4 passes a block (A writes h1; B reads
+// h1 and writes h2; C reads h2): 3.9 GB, ~1.2 ms at 3.35 TB/s, partly under
+// the products and in the 50 MB L2.
 //
-// Design: three launches a TCN block on one stream.
+// Design (Hopper): a split launch, then three launches a TCN block on one
+// stream.
+//   S  split_kernel: every block's W_in and [W_res | W_skip] (int8
+//      dequantised first) transposed to K-major ([N][K]: TF32 wgmma takes
+//      no transpose) and split into big and small TF32 halves, both rounded
+//      to nearest, once a call (the stack's 19 MB read, 38 MB written).
 //   A  gemm_kernel<IN>: h1 = PReLU(x W_in + b_in), gLN-1 partial statistics
-//   B  dwconv_kernel: gLN-1 apply + mask in the tap loads, 3-tap dilated
-//      depthwise conv, PReLU -> h2, gLN-2 partial statistics
-//   C  gemm_kernel<OUT>: gLN-2 apply in the operand load, [W_res | W_skip],
+//   B  dwconv_kernel: gLN-1 apply + mask, staged once a source row in
+//      shared memory (K2 bf16's form), 3-tap dilated depthwise conv, PReLU
+//      -> h2, gLN-2 partial statistics (IEEE f32 SIMT, persistent over the
+//      valid chunks of 128 rows x 64 channels)
+//   C  gemm_kernel<OUT>: gLN-2 apply on the A fragments, [W_res | W_skip],
 //      x += res + b_res in place, skips += skip + b_skip
-// The two GEMMs run mma.sync m16n8k8 TF32 in 3xTF32 with float32
-// accumulation. A block of 8 warps owns BM = 128 rows x BN = 128 columns
-// (warps 4 x 2, 32 x 64 each), or 64 columns where N is not a multiple of
-// 128 or 128-column blocks would not fill the card (a batch-1 streaming
-// window). 32-deep k-tiles arrive raw by 16-byte cp.async in a three-stage
-// ring (rows past f_len zero-filled); each is then staged once a block into
-// mma fragment order: A transformed (row mask, gLN-2 apply) and kept float,
-// B (int8 dequantised first) split into big + small TF32 halves, so that
-// every fragment is one 16-byte shared-memory load. A warp splits its A
-// fragments in registers; its products over a k-tile (4 k8 steps x 3 a
-// tile) are formed from zero side by side (16 independent chains at 128
-// columns) and added to the accumulator in IEEE float32, so the tensor
-// cores' truncating sum never runs longer than 12 products (over all of
-// K = 512 it would run 192). The next k-tile is staged while the products
-// run, one barrier a k-tile. The contraction index is permuted
-// inside each k8 step (fragment slot t holds k = 2t, slot t + 4 holds
-// k = 2t + 1) so that a lane's A quad comes from two 8-byte row loads.
-// Statistics, deterministic and two-pass grade: every A or B block reduces
-// its own tile (count, mean, M2 about the tile's mean, two passes over the
-// values it holds in registers) and writes that partial; the last block of
-// the item to finish (a __threadfence and an atomic ticket per batch item,
-// reset by that block) merges the partials in a fixed order with Chan's
-// formula in double and writes (mean, rstd). No float32 E[x^2] - mean^2,
-// no atomics on the sums: two calls give identical bits.
+// The GEMMs are K2 bf16's persistent kernels in float32: each CTA walks only
+// valid (item, row tile, column tile) triples, in the static order of
+// tcn.bf16_schedule, with a stride of the grid; the tile shape (one or two
+// consumer warpgroups of 64 rows by 64 or 128 columns) and the grid are
+// picked on the host (tcn.tf32_plan). One producer warp keeps a ring of
+// NS = 4 stages full by TMA (128-byte swizzle, an mbarrier pair a stage); a
+// stage is a 32-deep k-chunk of the A rows (raw float32, rows past F
+// zero-filled) and of the weights' big and small halves. Each warp reads
+// its A fragment of a k8 step from the stage by ldmatrix, applies gLN-2 in
+// C (the IEEE operations of the mma.sync design: (x - mean) fma (gamma
+// rstd) + beta; rows past f_len -> 0), splits it in registers (big rounded,
+// small left for the product to truncate) and issues the step's three
+// wgmma.mma_async m64nNk8 TF32 products (A small x B big, A big x B small,
+// A big x B big); a k-chunk's twelve products run while the next chunk's
+// fragments are formed (two chunks' fragments in registers; at 2 x 128 a
+// producer warpgroup gives its registers to the consumers by setmaxnreg).
+// Accumulation: every product of a tile adds into the wgmma accumulator:
+// 5.8e-6 of max|skips| off the float64 twin at the flagship shape. k-chunks
+// formed from zero and added in IEEE float32 were 6.4e-7 off but 0.2 ms
+// slower (PERF.md). The epilogues write float2 pairs straight from the
+// accumulators.
+// Statistics, deterministic and two-pass grade: every GEMM A tile and every
+// depthwise chunk reduces its own values (count, mean, M2 about the tile's
+// mean, two passes over the values it holds in registers) and writes that
+// partial; the launch's last CTA (a ticket a launch) merges the partials in
+// a fixed order with Chan's formula in double and writes (mean, rstd). No
+// float32 E[x^2] - mean^2, no atomics on the sums: two calls give identical
+// bits.
 // K2-s8: w_in, w_dw and [w_res | w_skip] arrive as int8 with one float32
 // scale per block and out channel (vecs rows 8, 9; cvecs rows 2, 3). The
-// kernels form (float)q * scale with one rounding (__fmul_rn) where they
-// stage the operand, before the split, and at the depthwise taps (once a
-// thread): everything after is the float path, so on a dequantised float
-// copy of the stack the float entry point gives bit-identical output.
-// Measured (H100 80GB HBM3, 700 W; chip_smoke.py and scripts/tcn_masker_ab.py,
-// PERF.md): 7.2 ms at the flagship shape and, as K2-s8, 5.0 ms at the serving
-// shape [8, 1999, 128] ragged, 0.15-0.16 of the 3xTF32 bound: the products
-// run at ~40% of the mma.sync ceiling inside the k-tile loop, one block of 8
-// warps an SM (C: 238 registers, 213 KB of shared memory; A 164; B 64; no
-// spills), and whole tiles leave the last wave part-empty. The SIMT design
-// this replaces (IEEE f32 FMA in 64 x 64 tiles over the whole bucket, five
-// launches a block, double atomics) took 22.0 and 12.3 ms in the same call.
+// split launch forms (float)q * scale with one rounding (__fmul_rn) before
+// the split, the depthwise pass at its taps: everything after is the float
+// path, so on a dequantised float copy of the stack the float entry point
+// gives bit-identical output.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/tcn_masker_ab.py,
+// PERF.md): 4.64 ms at the flagship shape (GEMM A 1.24, GEMM C 2.25, the
+// depthwise pass 1.06 ms a call; share 0.25 of the bound) and, as K2-s8,
+// 3.44 ms at the serving shape [8, 1999, 128] ragged. The GEMM launches
+// run at 31-34% of the TF32 peak; splitting the weights in shared memory
+// instead (a third less L2 traffic) and 64-column tiles were slower. The
+// mma.sync design this replaces (m16n8k8 3xTF32, 128 x 128 blocks of 8
+// warps, cp.async k-tiles restaged in fragment order, one block an SM)
+// took 7.21 and 5.08 ms in the same call.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,34 +92,8 @@ namespace {
 
 constexpr float EPS = 1e-8f;  // GlobalLayerNorm eps
 constexpr int NT = 256;       // threads a block, all three kernels
-constexpr int NW = NT / 32;
-constexpr int BM = 128;       // GEMM rows a block
-constexpr int BK = 32;        // contraction depth of a k-tile
-constexpr int KS = BK / 8;    // k8 steps a k-tile
-constexpr int FRAG = 32 * 4;  // floats of one fragment: a 16-byte quad a lane
-constexpr int AF = (BM / 16) * KS * FRAG;  // A k-tile in fragment order
-constexpr int RAS = BK + 8;                // row stride (floats) of a raw A tile
-constexpr int MAX_K = 1024;                // H <= 1024: the gLN-2 coefficients
-constexpr int NSR = 3;                     // raw k-tiles in flight a block, + 1
-
-// A GEMM block's shapes for BN columns (128, or 64 where N % 128 != 0):
-// warps 4 x 2, each 32 rows x BN / 2 columns
-template <int BN>
-struct Tile {
-  static constexpr int NP = BN / 16;          // pairs of n8 tiles a block
-  static constexpr int BF = KS * NP * FRAG;   // B k-tile in fragment order, one TF32 half
-  static constexpr int STAGE = AF + 2 * BF;   // A (float) + B (big, small) of a k-tile
-  static constexpr int RBS = BN + 4;          // row stride (floats) of a raw float B tile
-  static constexpr int RBS8 = BN + 16;        // row stride (bytes) of a raw int8 B tile
-  static constexpr int RAW = BM * RAS + BK * RBS;  // floats of one raw stage
-  static constexpr size_t SMEM = sizeof(float) * (2 * STAGE + NSR * RAW + 2 * MAX_K);
-  static constexpr int NPW = NP / 2;          // n8 pairs a warp
-  static constexpr int BQ = KS * NP / 8;      // B quads a thread stages
-};
-constexpr int VPT = 4;        // depthwise: rows a thread
+constexpr int MAX_K = 1024;   // H <= 1024: the gLN-2 coefficients
 constexpr int IN = 0, OUT = 1;
-
-using act::mma_tf32;
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -124,527 +109,12 @@ __device__ __forceinline__ float weight(int8_t q, float scale) {
   return __fmul_rn((float)q, scale);
 }
 
-// sum of v over the block, the same bits in every thread: a fixed shuffle
-// tree per warp, then the warps in order
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) s += red[w];
-  __syncthreads();  // red may be written again
-  return s;
-}
-
-// (n, mean, m2) += (nb, mb, qb): Chan's parallel merge
-__device__ __forceinline__ void chan(double& n, double& m, double& q, double nb, double mb,
-                                     double qb) {
-  if (nb == 0.0) return;
-  const double nn = n + nb, d = mb - m;
-  m += d * (nb / nn);
-  q += qb + d * d * (n * nb / nn);
-  n = nn;
-}
-
 struct Stats {
   float* part;        // [B, n_part, 3] partials (count, mean, m2)
-  unsigned* tickets;  // [B], 0 between launches
+  unsigned* tickets;  // [B + 1]: a launch's at B, 0 between launches
   float* out;         // [B, 4]: (mean, rstd) written at out + 4 b
   int n_part;
 };
-
-// Publish a block's partial of item b (cnt values, their mean mu and m2 about
-// it) into slot ``slot`` of n_live; the last block of the item to publish
-// merges slots 0 .. n_live - 1 in a fixed order and writes (mean, rstd) at
-// st.out + 4 b. Called by every thread of a block that did not return early.
-__device__ __forceinline__ void publish_stats(float cnt, float mu, float m2, const Stats& st,
-                                              int b, int slot, int n_live) {
-  __shared__ double mred[NW][3];
-  __shared__ bool last;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* part = st.part + (size_t)b * st.n_part * 3;
-  if (tid == 0) {
-    part[3 * slot] = cnt;
-    part[3 * slot + 1] = mu;
-    part[3 * slot + 2] = m2;
-    __threadfence();
-    last = atomicAdd(st.tickets + b, 1u) == (unsigned)(n_live - 1);
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // thread t merges slots t, t + NT, ...; then a fixed tree per warp, then
-  // the warps in order
-  double n = 0.0, m = 0.0, q = 0.0;
-  for (int i = tid; i < n_live; i += NT) {
-    chan(n, m, q, __ldcg(part + 3 * i), __ldcg(part + 3 * i + 1), __ldcg(part + 3 * i + 2));
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const double nb = __shfl_down_sync(0xffffffffu, n, o);
-    const double mb = __shfl_down_sync(0xffffffffu, m, o);
-    const double qb = __shfl_down_sync(0xffffffffu, q, o);
-    chan(n, m, q, nb, mb, qb);
-  }
-  if (lane == 0) {
-    mred[warp][0] = n;
-    mred[warp][1] = m;
-    mred[warp][2] = q;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    double tn = 0.0, tm = 0.0, tq = 0.0;
-    for (int w = 0; w < NW; ++w) chan(tn, tm, tq, mred[w][0], mred[w][1], mred[w][2]);
-    const double var = tq / fmax(tn, 1.0);
-    st.out[4 * b] = (float)tm;
-    st.out[4 * b + 1] = (float)(1.0 / sqrt(var + (double)EPS));
-    st.tickets[b] = 0u;  // ready for the next launch
-  }
-}
-
-struct GemmArgs {
-  const float* a;       // [B, F, K]: x (IN) or h2 (OUT)
-  const int* f_len;     // [B]
-  const void* w;        // [K, N] weights, float or int8
-  const float* wscale;  // [N] int8 scales (unused for float)
-  const float* vecs;    // this block's [vrows, H]
-  const float* cvecs;   // this block's [crows, C]
-  Stats st;             // IN: gLN-1 partials and out = stats + 0; OUT: reads stats + 2
-  const float* x_in;    // OUT: [B, F, C] residual in
-  float* x_out;         // OUT: [B, F, C] residual out (may be x_in: each element is read
-                        // and then written by one thread)
-  float* skips;         // OUT: [B, F, C]
-  float* h1;            // IN: [B, F, H]
-  int f, k, n, c;
-};
-
-// A: h1 = PReLU(x W_in + b_in) + gLN-1 partials (MODE IN); C: gLN-2(h2)
-// [W_res | W_skip] into x and skips (MODE OUT). Grid (N / BN, row tiles, B):
-// the column blocks of a row tile run side by side, so each row of the
-// operand comes from device memory once and from L2 after that.
-template <class W, int MODE, int BN>
-__global__ void __launch_bounds__(NT) gemm_kernel(GemmArgs p) {
-  using T = Tile<BN>;
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float red[NW];
-  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int fl = p.f_len[b];
-  if (m0 >= fl) return;  // a tile wholly past f_len: nothing to compute
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int kdim = p.k, ndim = p.n;
-  const float* a = p.a + (size_t)b * p.f * kdim;
-  const W* w = static_cast<const W*>(p.w);
-
-  // staging roles. A: fragments (m16 tile sw4 + 2 i, k8 step sks), i < 4;
-  // B: quads (k8 step (warp + 8 i) / NP, n8 pair snp), i < BQ
-  const int sks = warp % KS, sw4 = warp / KS, snp = warp % T::NP;
-  const int bcol = n0 + 16 * snp + g;  // this lane's B columns: bcol, bcol + 8
-  float wsc[2] = {1.f, 1.f};
-  if (sizeof(W) == 1) {
-    wsc[0] = p.wscale[bcol];
-    wsc[1] = p.wscale[bcol + 8];
-  }
-  // OUT: gLN-2 as (x - mean) * (gamma rstd) + beta, its coefficients over
-  // the H contraction in shared memory (gsc: gamma rstd, then beta)
-  float mean = 0.f;
-  float* raw = smem + 2 * T::STAGE;
-  float* gsc = raw + NSR * T::RAW;
-  if (MODE == OUT) {
-    mean = p.st.out[4 * b + 2];
-    const float rstd = p.st.out[4 * b + 3];
-    for (int k = tid; k < kdim; k += NT) {
-      gsc[k] = p.vecs[6 * kdim + k] * rstd;
-      gsc[kdim + k] = p.vecs[7 * kdim + k];
-    }
-  }
-
-  // raw k-tiles: 16-byte cp.async copies into an NSR-stage ring, rows past
-  // f_len zero-filled. A tile: BM rows of BK floats; B tile: BK rows of BN
-  // weights (float or int8)
-  const int n_kt = kdim / BK;
-  auto fetch = [&](int kt) {
-    if (kt < n_kt) {
-      float* ra_s = raw + (kt % NSR) * T::RAW;
-      const int k0 = kt * BK;
-#pragma unroll
-      for (int i = 0; i < BM * BK / 4 / NT; ++i) {
-        const int q = tid + NT * i, row = q / (BK / 4), c4 = 4 * (q % (BK / 4));
-        const bool in = m0 + row < fl;
-        act::cp_async16(ra_s + row * RAS + c4, a + (size_t)(in ? m0 + row : 0) * kdim + k0 + c4,
-                        in);
-      }
-      float* rb_s = ra_s + BM * RAS;
-      if (sizeof(W) == 4) {
-#pragma unroll
-        for (int i = 0; i < BK * BN / 4 / NT; ++i) {
-          const int q = tid + NT * i, row = q / (BN / 4), c4 = 4 * (q % (BN / 4));
-          act::cp_async16(rb_s + row * T::RBS + c4,
-                          reinterpret_cast<const float*>(w + (size_t)(k0 + row) * ndim + n0 + c4),
-                          true);
-        }
-      } else {
-        for (int q = tid; q < BK * BN / 16; q += NT) {
-          const int row = q / (BN / 16), c16 = 16 * (q % (BN / 16));
-          act::cp_async16(
-              reinterpret_cast<float*>(reinterpret_cast<char*>(rb_s) + row * T::RBS8 + c16),
-              reinterpret_cast<const float*>(w + (size_t)(k0 + row) * ndim + n0 + c16), true);
-        }
-      }
-    }
-    act::cp_commit();
-  };
-  // a raw B weight (row k, column n of the tile)
-  auto raw_w = [&](const float* rb_s, int k, int n) -> W {
-    if constexpr (sizeof(W) == 4) {
-      return rb_s[k * T::RBS + n];
-    } else {
-      return reinterpret_cast<const W*>(rb_s)[k * T::RBS8 + n];
-    }
-  };
-  // k-tile kt from its raw stage into fragment stage `stage`: A fragments
-  // transformed (row mask, gLN-2) and kept float, B quads (int8 dequant)
-  // split into big and small TF32 halves (the small left for the mma to
-  // truncate), all in fragment order
-  auto stage_tile = [&](int kt, float* stage) {
-    const float* ra_s = raw + (kt % NSR) * T::RAW;
-    const float* rb_s = ra_s + BM * RAS;
-    const int kc = 8 * sks + 2 * tg;
-    float2 gm = make_float2(0.f, 0.f), be = gm;
-    if (MODE == OUT) {
-      gm = ld2(gsc + kt * BK + kc);
-      be = ld2(gsc + kdim + kt * BK + kc);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int mt = sw4 + 2 * i, row = 16 * mt + g;
-      float2 lo = ld2(ra_s + row * RAS + kc), hi = ld2(ra_s + (row + 8) * RAS + kc);
-      if (MODE == OUT) {  // gLN-2 on valid rows; padded rows stay 0
-        if (m0 + row < fl) {
-          lo = make_float2(fmaf(lo.x - mean, gm.x, be.x), fmaf(lo.y - mean, gm.y, be.y));
-        }
-        if (m0 + row + 8 < fl) {
-          hi = make_float2(fmaf(hi.x - mean, gm.x, be.x), fmaf(hi.y - mean, gm.y, be.y));
-        }
-      }
-      // quad (a0, a1, a2, a3) = rows (g, g + 8) x k slots (t, t + 4)
-      *reinterpret_cast<float4*>(stage + (mt * KS + sks) * FRAG + 4 * lane) =
-          make_float4(lo.x, hi.x, lo.y, hi.y);
-    }
-#pragma unroll
-    for (int i = 0; i < T::BQ; ++i) {
-      const int ks = (warp + NW * i) / T::NP, k = 8 * ks + 2 * tg, n = 16 * snp + g;
-      const float v[4] = {
-          weight(raw_w(rb_s, k, n), wsc[0]), weight(raw_w(rb_s, k + 1, n), wsc[0]),
-          weight(raw_w(rb_s, k, n + 8), wsc[1]), weight(raw_w(rb_s, k + 1, n + 8), wsc[1])};
-      uint32_t big[4], small[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) act::split_fast(v[e], big[e], small[e]);
-      float* q = stage + AF + (ks * T::NP + snp) * FRAG + 4 * lane;
-      *reinterpret_cast<uint4*>(q) = make_uint4(big[0], big[1], big[2], big[3]);
-      *reinterpret_cast<uint4*>(q + T::BF) = make_uint4(small[0], small[1], small[2], small[3]);
-    }
-  };
-
-  // products: warp (wm, wn) owns rows 32 wm .. + 31 (m16 tiles 2 wm, + 1) and
-  // columns BN / 2 wn .. + BN / 2 - 1 (n8 pairs NPW wn ..); its products over
-  // a k-tile are formed from zero side by side (4 NPW independent chains) and
-  // then added to acc in IEEE float32
-  const int wm = warp % 4, wn = warp / 4;
-  float acc[2][2 * T::NPW][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < 2 * T::NPW; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
-
-  for (int kt = 0; kt < NSR - 1; ++kt) fetch(kt);
-  act::cp_wait<NSR - 2>();
-  __syncthreads();
-  stage_tile(0, smem);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    // the raw slot refilled here held k-tile kt - 1, read before the last
-    // barrier; after this barrier k-tile kt + 1 has landed, fragment stage
-    // kt % 2 is complete and nobody reads fragment stage (kt + 1) % 2 any more
-    fetch(kt + NSR - 1);
-    act::cp_wait<NSR - 2>();
-    __syncthreads();
-    const float* stage = smem + (kt % 2) * T::STAGE;
-    float tmp[2][2 * T::NPW][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 2 * T::NPW; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tmp[mi][nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      // this warp's A fragments, split in registers; its B quads, split
-      uint32_t ab[2][4], as[2][4], bb[T::NPW][4], bs[T::NPW][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float4 x = ld4(stage + ((2 * wm + mi) * KS + ks) * FRAG + 4 * lane);
-        act::split_fast(x.x, ab[mi][0], as[mi][0]);
-        act::split_fast(x.y, ab[mi][1], as[mi][1]);
-        act::split_fast(x.z, ab[mi][2], as[mi][2]);
-        act::split_fast(x.w, ab[mi][3], as[mi][3]);
-      }
-#pragma unroll
-      for (int pp = 0; pp < T::NPW; ++pp) {
-        const float* q = stage + AF + (ks * T::NP + T::NPW * wn + pp) * FRAG + 4 * lane;
-        const uint4 qb = *reinterpret_cast<const uint4*>(q);
-        const uint4 qs = *reinterpret_cast<const uint4*>(q + T::BF);
-        bb[pp][0] = qb.x, bb[pp][1] = qb.y, bb[pp][2] = qb.z, bb[pp][3] = qb.w;
-        bs[pp][0] = qs.x, bs[pp][1] = qs.y, bs[pp][2] = qs.z, bs[pp][3] = qs.w;
-      }
-      // the small cross terms first, then big x big; n8 tile nt is half
-      // nt % 2 of pair nt / 2
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < 2 * T::NPW; ++nt)
-          mma_tf32(tmp[mi][nt], as[mi], bb[nt / 2][2 * (nt % 2)], bb[nt / 2][2 * (nt % 2) + 1]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < 2 * T::NPW; ++nt)
-          mma_tf32(tmp[mi][nt], ab[mi], bs[nt / 2][2 * (nt % 2)], bs[nt / 2][2 * (nt % 2) + 1]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < 2 * T::NPW; ++nt)
-          mma_tf32(tmp[mi][nt], ab[mi], bb[nt / 2][2 * (nt % 2)], bb[nt / 2][2 * (nt % 2) + 1]);
-    }
-    // the next k-tile's staging while the products run
-    if (kt + 1 < n_kt) stage_tile(kt + 1, smem + ((kt + 1) % 2) * T::STAGE);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 2 * T::NPW; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][nt][e] += tmp[mi][nt][e];
-  }
-
-  // thread holds rows g (c0, c1) and g + 8 (c2, c3) of each m16 tile,
-  // columns 2 tg, 2 tg + 1 of each n8 tile
-  if (MODE == IN) {
-    const float* b_in = p.vecs;
-    const float a1 = p.vecs[ndim];  // vecs row 1: PReLU alpha (N = H)
-    float* h1 = p.h1 + (size_t)b * p.f * ndim;
-    float s = 0.f;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int nt = 0; nt < 2 * T::NPW; ++nt) {
-        const int col = n0 + (BN / 2) * wn + 8 * nt + 2 * tg;
-        const float2 bias = ld2(b_in + col);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = m0 + 32 * wm + 16 * mi + g + 8 * hh;
-          float v0 = acc[mi][nt][2 * hh] + bias.x, v1 = acc[mi][nt][2 * hh + 1] + bias.y;
-          v0 = v0 >= 0.f ? v0 : a1 * v0;
-          v1 = v1 >= 0.f ? v1 : a1 * v1;
-          acc[mi][nt][2 * hh] = v0;
-          acc[mi][nt][2 * hh + 1] = v1;
-          if (r < fl) {
-            *reinterpret_cast<float2*>(h1 + (size_t)r * ndim + col) = make_float2(v0, v1);
-            s += v0 + v1;
-          }
-        }
-      }
-    }
-    // two passes over the tile's valid values, held in acc
-    const float cnt = (float)(min(BM, fl - m0) * BN);
-    const float mu = block_sum(s, red) / cnt;
-    float q = 0.f;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 2 * T::NPW; ++nt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          if (m0 + 32 * wm + 16 * mi + g + 8 * hh < fl) {
-            const float d0 = acc[mi][nt][2 * hh] - mu, d1 = acc[mi][nt][2 * hh + 1] - mu;
-            q = fmaf(d0, d0, fmaf(d1, d1, q));
-          }
-        }
-    publish_stats(cnt, mu, block_sum(q, red), p.st, b, blockIdx.y * gridDim.x + blockIdx.x,
-                  ((fl + BM - 1) / BM) * gridDim.x);
-  } else {
-    const int c = p.c;
-    const size_t base = (size_t)b * p.f * c;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int nt = 0; nt < 2 * T::NPW; ++nt) {
-        const int col = n0 + (BN / 2) * wn + 8 * nt + 2 * tg;
-        const bool res = col < c;
-        const int cc = res ? col : col - c;
-        const float2 bias = ld2(p.cvecs + (res ? 0 : c) + cc);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = m0 + 32 * wm + 16 * mi + g + 8 * hh;
-          if (r >= fl) continue;
-          const size_t o = base + (size_t)r * c + cc;
-          const float2 prev = res ? ld2(p.x_in + o) : ld2(p.skips + o);
-          const float2 v = make_float2((prev.x + acc[mi][nt][2 * hh]) + bias.x,
-                                       (prev.y + acc[mi][nt][2 * hh + 1]) + bias.y);
-          *reinterpret_cast<float2*>((res ? p.x_out : p.skips) + o) = v;
-        }
-      }
-    }
-  }
-}
-
-// B: h2 = PReLU(dwconv_d(gLN-1(h1) * mask) + b_dw) + gLN-2 partials. A block
-// of NT threads covers rb = (NT / (H / 4)) * VPT rows of one item: thread
-// (row lane rl, column group cg) owns channels 4 cg .. + 3 of rows
-// r0 + rl + RL v, v < VPT, its taps, bias and gLN-1 scale in registers.
-template <class W>
-__global__ void __launch_bounds__(NT)
-dwconv_kernel(const float* __restrict__ h1, const int* __restrict__ f_len,
-              const W* __restrict__ w_dw, const float* __restrict__ vecs,
-              const float* __restrict__ gln1, float* __restrict__ h2, Stats st, int f, int hd,
-              int dil) {
-  __shared__ float red[NW];
-  const int b = blockIdx.y, fl = f_len[b];
-  const int tpr = hd / 4, rl_n = NT / tpr, rb = rl_n * VPT;
-  const int r0 = blockIdx.x * rb;
-  if (r0 >= fl) return;
-  const int tid = threadIdx.x, cg = tid % tpr, rl = tid / tpr, ch = 4 * cg;
-  const float mean = gln1[4 * b], rstd = gln1[4 * b + 1];
-  const float4 g1 = ld4(vecs + 2 * hd + ch), be1 = ld4(vecs + 3 * hd + ch);
-  const float4 bdw = ld4(vecs + 4 * hd + ch);
-  const float a2 = vecs[5 * hd];
-  const float* sc = vecs + 9 * hd + ch;  // int8 scales of w_dw (unused for float)
-  float4 tap[3];
-#pragma unroll
-  for (int t = 0; t < 3; ++t) {
-    const W* wt = w_dw + t * hd + ch;
-    tap[t] = make_float4(weight(wt[0], sizeof(W) == 1 ? sc[0] : 0.f),
-                         weight(wt[1], sizeof(W) == 1 ? sc[1] : 0.f),
-                         weight(wt[2], sizeof(W) == 1 ? sc[2] : 0.f),
-                         weight(wt[3], sizeof(W) == 1 ? sc[3] : 0.f));
-  }
-  const float* hb = h1 + (size_t)b * f * hd + ch;
-  float* ob = h2 + (size_t)b * f * hd + ch;
-  float4 val[VPT];
-  float s = 0.f;
-#pragma unroll
-  for (int v = 0; v < VPT; ++v) {
-    const int r = r0 + rl + rl_n * v;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < fl) {
-#pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        const int src = r + (t - 1) * dil;
-        if (src >= 0 && src < fl) {  // gLN-1 then the mask: rows past f_len are 0
-          const float4 y = ld4(hb + (size_t)src * hd);
-          acc.x = fmaf(fmaf((y.x - mean) * rstd, g1.x, be1.x), tap[t].x, acc.x);
-          acc.y = fmaf(fmaf((y.y - mean) * rstd, g1.y, be1.y), tap[t].y, acc.y);
-          acc.z = fmaf(fmaf((y.z - mean) * rstd, g1.z, be1.z), tap[t].z, acc.z);
-          acc.w = fmaf(fmaf((y.w - mean) * rstd, g1.w, be1.w), tap[t].w, acc.w);
-        }
-      }
-      acc.x += bdw.x;
-      acc.y += bdw.y;
-      acc.z += bdw.z;
-      acc.w += bdw.w;
-      acc.x = acc.x >= 0.f ? acc.x : a2 * acc.x;
-      acc.y = acc.y >= 0.f ? acc.y : a2 * acc.y;
-      acc.z = acc.z >= 0.f ? acc.z : a2 * acc.z;
-      acc.w = acc.w >= 0.f ? acc.w : a2 * acc.w;
-      *reinterpret_cast<float4*>(ob + (size_t)r * hd) = acc;
-      s += (acc.x + acc.y) + (acc.z + acc.w);
-    }
-    val[v] = acc;
-  }
-  const float cnt = (float)(min(rb, fl - r0) * hd);
-  const float mu = block_sum(s, red) / cnt;
-  float q = 0.f;
-#pragma unroll
-  for (int v = 0; v < VPT; ++v) {
-    if (r0 + rl + rl_n * v < fl) {
-      const float dx = val[v].x - mu, dy = val[v].y - mu, dz = val[v].z - mu, dw = val[v].w - mu;
-      q = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, fmaf(dw, dw, q))));
-    }
-  }
-  publish_stats(cnt, mu, block_sum(q, red), st, b, blockIdx.x, (fl + rb - 1) / rb);
-}
-
-// the raise of a GEMM instance's shared-memory cap, once per device
-template <class W, int MODE, int BN>
-std::atomic<uint64_t>& smem_cap_raised() {
-  static std::atomic<uint64_t> raised{0};
-  return raised;
-}
-
-template <class W, int MODE, int BN>
-cudaError_t launch_gemm_bn(const GemmArgs& p, int batch, cudaStream_t stream) {
-  const cudaError_t e = act::allow_dynamic_smem(
-      reinterpret_cast<const void*>(gemm_kernel<W, MODE, BN>), smem_cap_raised<W, MODE, BN>());
-  if (e != cudaSuccess) return e;
-  const dim3 grid(p.n / BN, (p.f + BM - 1) / BM, batch);
-  gemm_kernel<W, MODE, BN><<<grid, NT, Tile<BN>::SMEM, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// 128-column blocks (half the operand staging per column) where N allows
-// them and they still fill the card (sms: its multiprocessors); 64-column
-// blocks otherwise (a batch-1 streaming window has 16 row tiles)
-template <class W, int MODE>
-cudaError_t launch_gemm(const GemmArgs& p, int batch, int sms, cudaStream_t stream) {
-  const long blocks128 = (long)((p.f + BM - 1) / BM) * batch * (p.n / 128);
-  return p.n % 128 == 0 && blocks128 >= sms ? launch_gemm_bn<W, MODE, 128>(p, batch, stream)
-                                            : launch_gemm_bn<W, MODE, 64>(p, batch, stream);
-}
-
-// The three launches per TCN block for weights of type W; vecs has vrows rows
-// per block and cvecs crows (8 and 2, or 10 and 4 with the int8 scales).
-template <class W>
-int run_masker(const float* x, const int* f_len, const W* w_in, const W* w_dw,
-               const float* vecs, const W* w_rs, const float* cvecs, float* xs, float* h1,
-               float* h2, float* stats, float* part, unsigned* tickets, float* skips, int batch,
-               int f, int c, int hd, int n_blocks, int n_per_repeat, int n_part, int vrows,
-               int crows, cudaStream_t stream) {
-  if (c <= 0 || hd <= 0 || c % BK != 0 || hd % 64 != 0 || 1024 % hd != 0 || n_per_repeat <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int rb = (NT / (hd / 4)) * VPT;  // depthwise rows a block
-  // one partial a GEMM block or depthwise block of an item
-  if (n_part < ((f + BM - 1) / BM) * (hd / 64) || n_part < (f + rb - 1) / rb)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e;
-  if ((e = cudaMemsetAsync(skips, 0, sizeof(float) * (size_t)batch * f * c, stream)) != cudaSuccess)
-    return (int)e;
-  if (batch <= 0 || f <= 0 || n_blocks <= 0) return 0;
-  if ((e = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * batch, stream)) != cudaSuccess)
-    return (int)e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)e;
-  const dim3 g_dw((f + rb - 1) / rb, batch);
-  const float* cur = x;
-  for (int i = 0; i < n_blocks; ++i) {
-    const float* vv = vecs + (size_t)i * vrows * hd;
-    const float* cv = cvecs + (size_t)i * crows * c;
-    float* sti = stats + (size_t)i * batch * 4;
-    GemmArgs pa{cur, f_len, w_in + (size_t)i * c * hd, vv + 8 * hd, vv, cv,
-                Stats{part, tickets, sti, n_part}, nullptr, nullptr, nullptr, h1, f, c, hd, c};
-    if ((e = launch_gemm<W, IN>(pa, batch, sms, stream)) != cudaSuccess) return (int)e;
-    dwconv_kernel<W><<<g_dw, NT, 0, stream>>>(h1, f_len, w_dw + (size_t)i * 3 * hd, vv, sti, h2,
-                                               Stats{part, tickets, sti + 2, n_part}, f, hd,
-                                               1 << (i % n_per_repeat));
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    // cvecs rows 2, 3 are the scales of [W_res | W_skip]'s 2C columns
-    GemmArgs pc{h2, f_len, w_rs + (size_t)i * hd * 2 * c, cv + 2 * c, vv, cv,
-                Stats{part, tickets, sti, n_part}, cur, xs, skips, nullptr, f, hd, 2 * c, c};
-    if ((e = launch_gemm<W, OUT>(pc, batch, sms, stream)) != cudaSuccess) return (int)e;
-    cur = xs;  // x is read only; the residual stream lives in xs from block 0 on
-  }
-  return 0;
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16 activations: act_tcn_masker_bf16 / act_tcn_masker_s8_bf16.
@@ -1453,38 +923,569 @@ int run_masker(const bf16* x, const int* f_len, const void* w_in, const void* w_
 
 }  // namespace b16
 
+// ---------------------------------------------------------------------------
+// float32 activations: act_tcn_masker / act_tcn_masker_s8 (design in the
+// header). The tile walk, the gLN partials and their merge are K2 bf16's
+// (b16::count_tiles, tile_at, consumer_sum, put_partial, merge_stats).
+namespace t32 {
+
+using b16::count_tiles;
+using b16::NS;
+using b16::ROW;
+using b16::Scratch;
+using b16::tile_at;
+using b16::TILES;
+
+constexpr int KC = 32;  // k-chunk of a stage: one 128-byte swizzled row of float32
+
+// A GEMM's tile: NWG consumer warpgroups of 64 rows by BN columns, and a
+// producer warp; a stage holds a 32-deep k-chunk of the A rows (raw
+// float32) and of the weights' big and small TF32 halves (K-major). A
+// consumer thread holds BN / 2 accumulators and two k-chunks' A fragments
+// (64 registers); at 2 x 128 that passes the 168 registers a thread of
+// nine warps, so the producer is a warpgroup whose registers go to the
+// consumers (setmaxnreg: 232 a consumer thread)
+template <int NWG, int BN>
+struct Cfg {
+  static constexpr int BM = 64 * NWG;
+  static constexpr int CONSUMERS = 128 * NWG;
+  static constexpr bool PRODUCER_WG = NWG == 2 && BN == 128;
+  static constexpr int THREADS = CONSUMERS + (PRODUCER_WG ? 128 : 32);
+  static constexpr int MIN_BLOCKS = NWG == 1 ? 2 : 1;
+  static constexpr int A_BYTES = BM * ROW;
+  static constexpr int B_BYTES = BN * ROW;  // one half
+  static constexpr int STAGE = A_BYTES + 2 * B_BYTES;
+  static constexpr size_t SMEM = 1024 + (size_t)NS * STAGE + sizeof(Scratch);
+};
+
+struct GemmArgs {
+  const int* f_len;    // [B]
+  const float* vecs;   // this block's [8+, H]
+  const float* cvecs;  // this block's [2+, C]
+  Stats st;            // IN: gLN-1 partials, out = stats + 0; OUT reads stats + 2
+  const float* x_in;   // OUT: [B, F, C]
+  float* x_out;        // OUT: [B, F, C] (may be x_in: each element is read and then
+                       // written by one thread)
+  float* skips;        // OUT: [B, F, C]
+  float* h1;           // IN: [B, F, H]
+  int batch, f, k, n, c, blk, nb;
+};
+
+// A (MODE IN): h1 = PReLU(x W_in + b_in) + gLN-1 partials. C (MODE OUT):
+// gLN-2(h2) [W_res | W_skip] into x and skips. ta: the A rows [B, F, K] in
+// boxes {32, BM}; tw: the split weights [2 NB, N, K] (big halves, then
+// small) in boxes {32, BN}.
+template <int MODE, int NWG, int BN>
+__global__ void __launch_bounds__(Cfg<NWG, BN>::THREADS, Cfg<NWG, BN>::MIN_BLOCKS)
+    gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+                const GemmArgs p) {
+  using T = Cfg<NWG, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = act::smem_u32(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + 1023u) & ~1023u) - raw);  // the swizzle's 1024 B
+  const uint32_t ring_s = act::smem_u32(ring);
+  Scratch& sc = *reinterpret_cast<Scratch*>(ring + NS * T::STAGE);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // k-chunks in pairs, so that the main loop has one path (a wait whose
+  // commit group depends on the path serializes every wgmma): an odd count
+  // (C % 64 == 32 in GEMM A) takes one more chunk, past K, which TMA fills
+  // with zeros
+  const int n_ct = p.n / BN, n_kc = (p.k / KC + 1) & ~1;
+  const int total = count_tiles(p.f_len, p.batch, T::BM, n_ct);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      act::mbar_init(act::smem_u32(&sc.full[s]), 1);
+      act::mbar_init(act::smem_u32(&sc.empty[s]), 4 * NWG);  // lane 0 of each consumer warp
+    }
+    act::mbar_fence_init();
+  }
+  if constexpr (MODE == OUT) {
+    for (int k = tid; k < p.k; k += T::THREADS) {
+      sc.gsc[k] = p.vecs[6 * p.k + k];
+      sc.gsc[p.k + k] = p.vecs[7 * p.k + k];
+    }
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {  // the producer warp: one thread keeps the ring full
+    if constexpr (T::PRODUCER_WG) {
+      act::setmaxnreg_dec<40>();
+      if (warp != 4 * NWG) return;
+    }
+    if (lane == 0) {
+      act::tma_prefetch_map(&ta);
+      act::tma_prefetch_map(&tw);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const b16::Tile tl = tile_at(t, p.f_len, T::BM, n_ct);
+        for (int kc = 0; kc < n_kc; ++kc) {
+          const uint32_t full = act::smem_u32(&sc.full[s]), st = ring_s + s * T::STAGE;
+          act::mbar_wait(act::smem_u32(&sc.empty[s]), ph ^ 1);
+          act::mbar_arrive_expect_tx(full, T::STAGE);
+          act::tma_load_3d(st, &ta, full, kc * KC, tl.rt * T::BM, tl.b);
+          act::tma_load_3d(st + T::A_BYTES, &tw, full, kc * KC, tl.ct * BN, p.blk);
+          act::tma_load_3d(st + T::A_BYTES + T::B_BYTES, &tw, full, kc * KC, tl.ct * BN,
+                           p.nb + p.blk);
+          if (++s == NS) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. + 63 of the tile, warp w4 of
+  // it rows 16 w4 .. + 15 of those (g, g + 8 in the accumulator)
+  if constexpr (T::PRODUCER_WG) act::setmaxnreg_inc<232>();
+  const int wg = warp >> 2, g = lane >> 2, tg = lane & 3;
+  const int r0 = 64 * wg + 16 * (warp & 3);
+  float acc[BN / 2];
+  uint32_t fb[2][KC / 8][4], fs[2][KC / 8][4];  // two k-chunks' A fragments: big, small
+  int s = 0, s_prev = 0;
+  uint32_t ph = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const b16::Tile tl = tile_at(t, p.f_len, T::BM, n_ct);
+    const int m0 = tl.rt * T::BM, n0 = tl.ct * BN;
+    float mean = 0.f, rstd = 0.f;
+    if constexpr (MODE == OUT) {
+      mean = p.st.out[4 * tl.b + 2];
+      rstd = p.st.out[4 * tl.b + 3];
+    }
+    // k-chunk kc: this warp's A fragments, a k8 step at a time, into (ab,
+    // as) (the registers of the chunk before last, whose products are
+    // done): ldmatrix on the swizzled rows (a0 row g k t, a1 row g + 8, a2 k
+    // t + 4, a3 both), the gLN-2 apply in C (rows past f_len -> 0), the
+    // split into big and small; each step's three products (the small cross
+    // terms, then big x big) are issued at once, and the chunk's twelve
+    // commit as one group. Then the wait for the previous chunk's group (one
+    // chunk in flight), whose stage goes back to the producer.
+    auto chunk = [&](int kc, uint32_t(&ab)[KC / 8][4], uint32_t(&as)[KC / 8][4],
+                     uint32_t(&pb)[KC / 8][4], uint32_t(&psm)[KC / 8][4]) {
+      act::mbar_wait(act::smem_u32(&sc.full[s]), ph);
+      const uint32_t st = ring_s + s * T::STAGE, bb = st + T::A_BYTES, bs = bb + T::B_BYTES;
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks) {
+        const int row = r0 + (lane & 15), ch = 2 * ks + (lane >> 4);
+        uint32_t a[4];
+        act::ldsm_x4(a, st + row * ROW + ((ch ^ (row & 7)) << 4));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = __uint_as_float(a[e]);
+          if constexpr (MODE == OUT) {
+            const int k = kc * KC + 8 * ks + tg + 4 * (e >> 1);
+            v = m0 + r0 + g + 8 * (e & 1) < tl.fl
+                    ? fmaf(v - mean, sc.gsc[k] * rstd, sc.gsc[p.k + k])
+                    : 0.f;
+          }
+          act::split_fast(v, ab[ks][e], as[ks][e]);
+        }
+        const uint32_t off = 32 * ks;
+        act::wgmma_fence();
+        act::wgmma_tf32_rs<BN>(acc, as[ks], act::desc_sw128(bb + off, 16, 1024), kc > 0 || ks > 0);
+        act::wgmma_tf32_rs<BN>(acc, ab[ks], act::desc_sw128(bs + off, 16, 1024), 1);
+        act::wgmma_tf32_rs<BN>(acc, ab[ks], act::desc_sw128(bb + off, 16, 1024), 1);
+      }
+      act::wgmma_commit();
+      act::wgmma_wait<1>();
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks) {  // live until the products that read them are done
+        act::fence_regs(pb[ks]);
+        act::fence_regs(psm[ks]);
+      }
+      if (kc > 0) {
+        __syncwarp();
+        if (lane == 0) act::mbar_arrive(act::smem_u32(&sc.empty[s_prev]));  // the stage is read
+      }
+      s_prev = s;
+      if (++s == NS) {
+        s = 0;
+        ph ^= 1;
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    act::fence_operands(acc);
+    for (int kc = 0; kc < n_kc; kc += 2) {
+      chunk(kc, fb[0], fs[0], fb[1], fs[1]);
+      chunk(kc + 1, fb[1], fs[1], fb[0], fs[0]);
+    }
+    act::wgmma_wait<0>();
+    act::fence_operands(acc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks) {
+        act::fence_regs(fb[h][ks]);
+        act::fence_regs(fs[h][ks]);
+      }
+    __syncwarp();
+    if (lane == 0) act::mbar_arrive(act::smem_u32(&sc.empty[s_prev]));  // the last stage is read
+
+    // thread holds rows g (acc 4 j + 0, 1) and g + 8 (4 j + 2, 3) of its
+    // warp's 16, columns 8 j + 2 tg, + 1
+    if constexpr (MODE == IN) {
+      const float a1 = p.vecs[p.n];  // vecs row 1: PReLU alpha (N = H)
+      float* h1 = p.h1 + ((size_t)tl.b * p.f + m0) * p.n + n0;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + 2 * tg;
+        const float2 bias = ld2(p.vecs + n0 + col);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + g + 8 * hh;
+          float v0 = acc[4 * j + 2 * hh] + bias.x, v1 = acc[4 * j + 2 * hh + 1] + bias.y;
+          v0 = v0 >= 0.f ? v0 : a1 * v0;
+          v1 = v1 >= 0.f ? v1 : a1 * v1;
+          acc[4 * j + 2 * hh] = v0;
+          acc[4 * j + 2 * hh + 1] = v1;
+          if (m0 + r < tl.fl) {
+            *reinterpret_cast<float2*>(h1 + (size_t)r * p.n + col) = make_float2(v0, v1);
+            sum += v0 + v1;
+          }
+        }
+      }
+      // two passes over the tile's valid values, held in acc
+      const float cnt = (float)(min(T::BM, tl.fl - m0) * BN);
+      const float mu = b16::consumer_sum<NWG>(sum, sc.red) / cnt;
+      float q = 0.f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if (m0 + r0 + g + 8 * hh < tl.fl) {
+            const float d0 = acc[4 * j + 2 * hh] - mu, d1 = acc[4 * j + 2 * hh + 1] - mu;
+            q = fmaf(d0, d0, fmaf(d1, d1, q));
+          }
+        }
+      q = b16::consumer_sum<NWG>(q, sc.red);
+      if (tid == 0) b16::put_partial(cnt, mu, q, p.st, tl.b, tl.rt * n_ct + tl.ct);
+    } else {
+      // columns [0, C) are W_res's (into x), [C, 2 C) W_skip's (into skips):
+      // (prev + product) + bias, cvecs rows 0, 1
+      const int c = p.c;
+      const size_t base = ((size_t)tl.b * p.f + m0) * c;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * tg;
+        const bool res = col < c;
+        const int cc = res ? col : col - c;
+        const float2 bias = ld2(p.cvecs + (res ? 0 : c) + cc);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = r0 + g + 8 * hh;
+          if (m0 + r >= tl.fl) continue;
+          const size_t o = base + (size_t)r * c + cc;
+          const float2 prev = res ? ld2(p.x_in + o) : ld2(p.skips + o);
+          *reinterpret_cast<float2*>((res ? p.x_out : p.skips) + o) =
+              make_float2((prev.x + acc[4 * j + 2 * hh]) + bias.x,
+                          (prev.y + acc[4 * j + 2 * hh + 1]) + bias.y);
+        }
+      }
+    }
+  }
+  if constexpr (MODE == IN) b16::merge_stats<NWG>(p.st, p.f_len, p.batch, T::BM, n_ct, sc);
+}
+
+// B at float32, persistent (K2 bf16's staged form): each CTA walks chunks
+// of DR rows by DW channels (b16::tile_at's order over the grid, rows below
+// f_len only). A chunk first stages y = (h1 - mean) rstd fma g1 + be1 (0
+// outside [0, f_len)) in shared memory, once a source row (the rows its
+// taps read, b16::staged_src), then thread (row lane rl, channel group cg)
+// forms channels 4 cg .. + 3 of rows rl + 16 v, v < 8: the taps in order t
+// = 0, 1, 2 by fmaf from 0 (an out-of-range tap adds y = 0 exactly), + b_dw,
+// PReLU; and the chunk's gLN-2 partial (two passes over the values it
+// holds). The partials merge once a launch (b16::merge_stats). int8 taps
+// are dequantised as dequant_stack does.
+constexpr int DR = b16::DR, DW = b16::DW;
+constexpr int SU = 4;  // staged 16-byte items a thread in flight
+constexpr size_t DW_SMEM = 3 * DR * DW * sizeof(float) + sizeof(Scratch);
+
+template <class W>
+__global__ void __launch_bounds__(NT, 2)
+    dwconv_kernel(const float* __restrict__ h1, const int* __restrict__ f_len,
+                  const W* __restrict__ w_dw, const float* __restrict__ vecs,
+                  const float* __restrict__ gln1, float* __restrict__ h2, Stats st, int batch,
+                  int f, int hd, int dil) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  float* ys = reinterpret_cast<float*>(dw_smem);
+  Scratch& sc = *reinterpret_cast<Scratch*>(dw_smem + 3 * DR * DW * sizeof(float));
+  const int tid = threadIdx.x, cg = tid % (DW / 4), rl = tid / (DW / 4);
+  const int n_cs = hd / DW, total = count_tiles(f_len, batch, DR, n_cs);
+  const int n_src = dil <= DR ? DR + 2 * dil : 3 * DR;
+  const float a2 = vecs[5 * hd];  // PReLU slope
+  const float* sc_dw = vecs + 9 * hd;  // int8 scales of w_dw (unused for float)
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const b16::Tile tl = tile_at(t, f_len, DR, n_cs);
+    const int r0 = tl.rt * DR, c0 = tl.ct * DW, fl = tl.fl;
+    const float mean = gln1[4 * tl.b], rstd = gln1[4 * tl.b + 1];
+    const float* hb = h1 + (size_t)tl.b * f * hd + c0;
+    // stage the taps' rows: item q = (row s, 16-byte chunk), DW / 4 a row,
+    // SU items a thread at a time, all loads before any use; a thread's
+    // items share its chunk (NT % (DW / 4) == 0), so gLN-1's gamma and beta
+    // for them are loaded once
+    const int se = 4 * (tid % (DW / 4));
+    const float4 g1 = ld4(vecs + 2 * hd + c0 + se), be1 = ld4(vecs + 3 * hd + c0 + se);
+    for (int q0 = tid; q0 < n_src * (DW / 4); q0 += SU * NT) {
+      float4 raw[SU];
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+        const int q = q0 + u * NT, src = b16::staged_src(q / (DW / 4), r0, dil);
+        raw[u] = q < n_src * (DW / 4) && src >= 0 && src < fl ? ld4(hb + (size_t)src * hd + se)
+                                                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+        const int q = q0 + u * NT, s_ = q / (DW / 4), src = b16::staged_src(s_, r0, dil);
+        if (q >= n_src * (DW / 4)) break;
+        float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (src >= 0 && src < fl) {  // gLN-1 then the mask: rows past f_len are 0
+          y = make_float4(fmaf((raw[u].x - mean) * rstd, g1.x, be1.x),
+                          fmaf((raw[u].y - mean) * rstd, g1.y, be1.y),
+                          fmaf((raw[u].z - mean) * rstd, g1.z, be1.z),
+                          fmaf((raw[u].w - mean) * rstd, g1.w, be1.w));
+        }
+        *reinterpret_cast<float4*>(ys + s_ * DW + se) = y;
+      }
+    }
+    __syncthreads();
+    const int ch = c0 + 4 * cg;
+    float4 tap[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const W* wt = w_dw + k * hd + ch;
+      tap[k] = make_float4(weight(wt[0], sizeof(W) == 1 ? sc_dw[ch] : 0.f),
+                           weight(wt[1], sizeof(W) == 1 ? sc_dw[ch + 1] : 0.f),
+                           weight(wt[2], sizeof(W) == 1 ? sc_dw[ch + 2] : 0.f),
+                           weight(wt[3], sizeof(W) == 1 ? sc_dw[ch + 3] : 0.f));
+    }
+    const float4 bdw = ld4(vecs + 4 * hd + ch);
+    float4 val[DR / 16];
+    float sum = 0.f;
+#pragma unroll
+    for (int v = 0; v < DR / 16; ++v) {
+      const int i = rl + 16 * v;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float4 y =
+            *reinterpret_cast<const float4*>(ys + b16::staged_row(i, k, dil) * DW + 4 * cg);
+        acc = make_float4(fmaf(y.x, tap[k].x, acc.x), fmaf(y.y, tap[k].y, acc.y),
+                          fmaf(y.z, tap[k].z, acc.z), fmaf(y.w, tap[k].w, acc.w));
+      }
+      acc = make_float4(acc.x + bdw.x, acc.y + bdw.y, acc.z + bdw.z, acc.w + bdw.w);
+      acc.x = acc.x >= 0.f ? acc.x : a2 * acc.x;
+      acc.y = acc.y >= 0.f ? acc.y : a2 * acc.y;
+      acc.z = acc.z >= 0.f ? acc.z : a2 * acc.z;
+      acc.w = acc.w >= 0.f ? acc.w : a2 * acc.w;
+      if (r0 + i < fl) {
+        *reinterpret_cast<float4*>(h2 + ((size_t)tl.b * f + r0 + i) * hd + ch) = acc;
+        sum += (acc.x + acc.y) + (acc.z + acc.w);
+      }
+      val[v] = acc;
+    }
+    // the chunk's partial, two passes over the values held in val; the
+    // barriers also free ys for the next chunk
+    const float cnt = (float)(min(DR, fl - r0) * DW);
+    const float mu = b16::consumer_sum<2>(sum, sc.red) / cnt;
+    float q = 0.f;
+#pragma unroll
+    for (int v = 0; v < DR / 16; ++v) {
+      if (r0 + rl + 16 * v < fl) {
+        const float dx = val[v].x - mu, dy = val[v].y - mu, dz = val[v].z - mu,
+                    dw = val[v].w - mu;
+        q = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, fmaf(dw, dw, q))));
+      }
+    }
+    q = b16::consumer_sum<2>(q, sc.red);
+    if (tid == 0) b16::put_partial(cnt, mu, q, st, tl.b, tl.rt * n_cs + tl.ct);
+  }
+  b16::merge_stats<2>(st, f_len, batch, DR, n_cs, sc);
+}
+
+// The weights of every TCN block, float or int8 (dequantised as
+// dequant_stack does: (float)q * scale, one rounding), transposed to
+// K-major and split into big and small TF32 halves (both rounded to
+// nearest: big + small is the weight within 2^-22 of it), once a call, into
+// out: W_in as [2][NB][H][C], then [W_res | W_skip] as [2][NB][2 C][H] (the
+// big halves of every block, then the small halves). A block transposes one 32 x
+// 32 tile of one block's matrix through shared memory (blockIdx.z: the
+// block, then the matrix: W_in, W_res, W_skip).
+template <class W>
+__global__ void __launch_bounds__(256)
+    split_kernel(const W* __restrict__ w_in, const W* __restrict__ w_res,
+                 const W* __restrict__ w_skip, const float* __restrict__ vecs,
+                 const float* __restrict__ cvecs, int vrows, int crows, float* __restrict__ out,
+                 int c, int hd, int nb) {
+  __shared__ float tile[32][33];
+  const int blk = blockIdx.z % nb, mat = blockIdx.z / nb;
+  // the source matrix [rows][cols] (cols: the out channels, whose scales
+  // apply), and where its transpose [cols][rows] goes in each half
+  const int rows = mat == 0 ? c : hd, cols = mat == 0 ? hd : c;
+  const W* src = (mat == 0 ? w_in : mat == 1 ? w_res : w_skip) + (size_t)blk * rows * cols;
+  const float* scale = mat == 0 ? vecs + ((size_t)blk * vrows + 8) * hd
+                                : cvecs + ((size_t)blk * crows + mat + 1) * c;
+  // out: W_in big [NB][H][C], W_in small, [W_res | W_skip] big [NB][2 C][H], small
+  const size_t half = (size_t)nb * (mat == 0 ? 1 : 2) * c * hd;
+  float* dst = mat == 0
+                   ? out + (size_t)blk * hd * c
+                   : out + (size_t)2 * nb * hd * c + ((size_t)blk * 2 * c + (mat - 1) * c) * hd;
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  if (c0 >= cols || r0 >= rows) return;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += 8) {
+    tile[i][tx] = weight(src[(size_t)(r0 + i) * cols + c0 + tx],
+                         sizeof(W) == 1 ? scale[c0 + tx] : 0.f);
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    uint32_t big, small;
+    act::split(tile[tx][i], big, small);
+    const size_t o = (size_t)(c0 + i) * rows + r0 + tx;
+    dst[o] = __uint_as_float(big);
+    dst[half + o] = __uint_as_float(small);
+  }
+}
+
+template <int MODE, int NWG, int BN>
+cudaError_t launch_cfg(int grid, const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& p,
+                       cudaStream_t stream) {
+  static std::atomic<uint64_t> raised{0};  // the shared-memory cap, once per device
+  const cudaError_t e =
+      act::allow_dynamic_smem(reinterpret_cast<const void*>(gemm_kernel<MODE, NWG, BN>), raised);
+  if (e != cudaSuccess) return e;
+  gemm_kernel<MODE, NWG, BN><<<grid, Cfg<NWG, BN>::THREADS, Cfg<NWG, BN>::SMEM, stream>>>(ta, tw,
+                                                                                          p);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_gemm(int cfg, int grid, const CUtensorMap& ta, const CUtensorMap& tw,
+                        const GemmArgs& p, cudaStream_t stream) {
+  switch (cfg) {
+    case 0: return launch_cfg<MODE, 2, 128>(grid, ta, tw, p, stream);
+    case 1: return launch_cfg<MODE, 2, 64>(grid, ta, tw, p, stream);
+    case 2: return launch_cfg<MODE, 1, 64>(grid, ta, tw, p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The launches of a call for weights of type W: the split copy of the
+// stack into wsp (NB 2 (C H + 2 H C) floats), then per TCN block GEMM A in
+// tile shape cfg_in on grid_in CTAs, the depthwise pass, GEMM C in cfg_out
+// on grid_out (tcn.tf32_plan); vecs has vrows rows a block and cvecs crows
+// (8 and 2, or 10 and 4 with the int8 scales).
+template <class W>
+int run_masker(const float* x, const int* f_len, const W* w_in, const W* w_dw,
+               const float* vecs, const W* w_res, const W* w_skip, const float* cvecs,
+               float* wsp, float* xs, float* h1, float* h2, float* stats, float* part,
+               unsigned* tickets, float* skips, int batch, int f, int c, int hd, int n_blocks,
+               int n_per_repeat, int n_part, int cfg_in, int grid_in, int cfg_out, int grid_out,
+               int grid_dw, int vrows, int crows, cudaStream_t stream) {
+  if (c <= 0 || hd <= 0 || c % 32 != 0 || hd % 64 != 0 || 1024 % hd != 0 || n_per_repeat <= 0 ||
+      cfg_in < 0 || cfg_in > 2 || cfg_out < 0 || cfg_out > 2 || grid_in <= 0 || grid_out <= 0 ||
+      grid_dw <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int bm_in = 64 * TILES[cfg_in][0], bn_in = TILES[cfg_in][1];
+  const int bm_out = 64 * TILES[cfg_out][0], bn_out = TILES[cfg_out][1];
+  if (hd % bn_in != 0 || 2 * c % bn_out != 0 ||
+      n_part < ((f + bm_in - 1) / bm_in) * (hd / bn_in) || n_part < (f + DR - 1) / DR * (hd / DW))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = cudaMemsetAsync(skips, 0, sizeof(float) * (size_t)batch * f * c, stream)) != cudaSuccess)
+    return (int)e;
+  if (batch <= 0 || f <= 0 || n_blocks <= 0) return 0;
+  // the launch's ticket (tickets[batch]; the rest unused)
+  if ((e = cudaMemsetAsync(tickets, 0, sizeof(unsigned) * (batch + 1), stream)) != cudaSuccess)
+    return (int)e;
+  const dim3 g_split((max(c, hd) + 31) / 32, (max(c, hd) + 31) / 32, 3 * n_blocks);
+  split_kernel<W><<<g_split, 256, 0, stream>>>(w_in, w_res, w_skip, vecs, cvecs, vrows, crows, wsp,
+                                               c, hd, n_blocks);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  // the A rows in boxes of {32 k, BM rows}; the split stacks [2 NB, N, K]
+  // in {32 k, BN n}
+  const float* w_rs = wsp + (size_t)2 * n_blocks * hd * c;
+  CUtensorMap m_x, m_xs, m_h2, m_in, m_rs;
+  if ((e = act::tmap_3d_f32(&m_x, x, c, f, batch, bm_in)) != cudaSuccess ||
+      (e = act::tmap_3d_f32(&m_xs, xs, c, f, batch, bm_in)) != cudaSuccess ||
+      (e = act::tmap_3d_f32(&m_h2, h2, hd, f, batch, bm_out)) != cudaSuccess ||
+      (e = act::tmap_3d_f32(&m_in, wsp, c, hd, 2 * n_blocks, bn_in)) != cudaSuccess ||
+      (e = act::tmap_3d_f32(&m_rs, w_rs, hd, 2 * c, 2 * n_blocks, bn_out)) != cudaSuccess)
+    return (int)e;
+  static std::atomic<uint64_t> dw_raised{0};
+  if ((e = act::allow_dynamic_smem(reinterpret_cast<const void*>(dwconv_kernel<W>), dw_raised)) !=
+      cudaSuccess)
+    return (int)e;
+  const float* cur = x;
+  for (int i = 0; i < n_blocks; ++i) {
+    const float* vv = vecs + (size_t)i * vrows * hd;
+    const float* cv = cvecs + (size_t)i * crows * c;
+    float* sti = stats + (size_t)i * batch * 4;
+    const GemmArgs pa{f_len, vv, cv, Stats{part, tickets, sti, n_part}, nullptr, nullptr, nullptr,
+                      h1, batch, f, c, hd, c, i, n_blocks};
+    if ((e = launch_gemm<IN>(cfg_in, grid_in, i == 0 ? m_x : m_xs, m_in, pa, stream)) !=
+        cudaSuccess)
+      return (int)e;
+    dwconv_kernel<W><<<grid_dw, NT, DW_SMEM, stream>>>(
+        h1, f_len, w_dw + (size_t)i * 3 * hd, vv, sti, h2, Stats{part, tickets, sti + 2, n_part},
+        batch, f, hd, 1 << (i % n_per_repeat));
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    const GemmArgs pc{f_len, vv, cv, Stats{part, tickets, sti, n_part}, cur, xs, skips, nullptr,
+                      batch, f, hd, 2 * c, c, i, n_blocks};
+    if ((e = launch_gemm<OUT>(cfg_out, grid_out, m_h2, m_rs, pc, stream)) != cudaSuccess)
+      return (int)e;
+    cur = xs;  // x is read only; the residual stream lives in xs from block 0 on
+  }
+  return 0;
+}
+
+}  // namespace t32
+
 }  // namespace
 
 // x: [B, F, C] input (read only); f_len: [B] int32 in [0, F]; per-block
-// stacks w_in [NB, C, H], w_dw [NB, 3, H], vecs [NB, 8, H], w_rs [NB, H, 2C]
-// (W_res | W_skip), cvecs [NB, 2, C]. Scratch: xs [B, F, C], h1, h2
-// [B, F, H], stats [NB, B, 4], part [B, n_part, 3] with n_part >= 2 ceil(F /
-// 128) H / 64, tickets [B] (uint32). Output: skips [B, F, C], rows past
-// f_len exactly 0. C % 32 == 0, H % 64 == 0 and H divides 1024.
+// stacks w_in [NB, C, H], w_dw [NB, 3, H], vecs [NB, 8, H], w_res and
+// w_skip [NB, H, C], cvecs [NB, 2, C]. Scratch: wsp NB 2 (C H + 2 H C)
+// floats (the split copy of the stack), xs [B, F, C], h1, h2 [B, F, H],
+// stats [NB, B, 4], part [B, n_part, 3] with n_part >= 2 ceil(F / 128) H /
+// 64, tickets [B + 1] (uint32). cfg_in and cfg_out: the tile shapes of GEMM
+// A and C (0, 1, 2: 2 x 128, 2 x 64, 1 x 64 warpgroups x columns; the
+// columns divide H and 2 C), grid_in and grid_out their persistent grids,
+// grid_dw the depthwise pass's (tcn.tf32_plan). Output: skips [B, F, C],
+// rows past f_len exactly 0.
+// C % 32 == 0, H % 64 == 0 and H divides 1024.
 extern "C" int act_tcn_masker(const float* x, const int* f_len, const float* w_in,
-                              const float* w_dw, const float* vecs, const float* w_rs,
-                              const float* cvecs, float* xs, float* h1, float* h2, float* stats,
-                              float* part, unsigned* tickets, float* skips, int batch, int f,
-                              int c, int hd, int n_blocks, int n_per_repeat, int n_part,
-                              cudaStream_t stream) {
-  return run_masker<float>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, xs, h1, h2, stats, part,
-                           tickets, skips, batch, f, c, hd, n_blocks, n_per_repeat, n_part, 8, 2,
-                           stream);
+                              const float* w_dw, const float* vecs, const float* w_res,
+                              const float* w_skip, const float* cvecs, float* wsp, float* xs,
+                              float* h1, float* h2, float* stats, float* part, unsigned* tickets,
+                              float* skips, int batch, int f, int c, int hd, int n_blocks,
+                              int n_per_repeat, int n_part, int cfg_in, int grid_in, int cfg_out,
+                              int grid_out, int grid_dw, cudaStream_t stream) {
+  return t32::run_masker<float>(x, f_len, w_in, w_dw, vecs, w_res, w_skip, cvecs, wsp, xs, h1, h2,
+                                stats, part, tickets, skips, batch, f, c, hd, n_blocks,
+                                n_per_repeat, n_part, cfg_in, grid_in, cfg_out, grid_out, grid_dw,
+                                8, 2, stream);
 }
 
-// The int8 weight stream: w_in, w_dw, w_rs as int8 in the same layouts;
-// vecs [NB, 10, H] with the scales of w_in and w_dw in rows 8, 9; cvecs
-// [NB, 4, C] with the scales of W_res and W_skip in rows 2, 3. Everything
-// else as act_tcn_masker.
+// The int8 weight stream: w_in, w_dw, w_res, w_skip as int8 in the same
+// layouts; vecs [NB, 10, H] with the scales of w_in and w_dw in rows 8, 9;
+// cvecs [NB, 4, C] with the scales of W_res and W_skip in rows 2, 3.
+// Everything else as act_tcn_masker.
 extern "C" int act_tcn_masker_s8(const float* x, const int* f_len, const int8_t* w_in,
-                                 const int8_t* w_dw, const float* vecs, const int8_t* w_rs,
-                                 const float* cvecs, float* xs, float* h1, float* h2,
-                                 float* stats, float* part, unsigned* tickets, float* skips,
-                                 int batch, int f, int c, int hd, int n_blocks, int n_per_repeat,
-                                 int n_part, cudaStream_t stream) {
-  return run_masker<int8_t>(x, f_len, w_in, w_dw, vecs, w_rs, cvecs, xs, h1, h2, stats, part,
-                            tickets, skips, batch, f, c, hd, n_blocks, n_per_repeat, n_part, 10, 4,
-                            stream);
+                                 const int8_t* w_dw, const float* vecs, const int8_t* w_res,
+                                 const int8_t* w_skip, const float* cvecs, float* wsp, float* xs,
+                                 float* h1, float* h2, float* stats, float* part,
+                                 unsigned* tickets, float* skips, int batch, int f, int c, int hd,
+                                 int n_blocks, int n_per_repeat, int n_part, int cfg_in,
+                                 int grid_in, int cfg_out, int grid_out, int grid_dw,
+                                 cudaStream_t stream) {
+  return t32::run_masker<int8_t>(x, f_len, w_in, w_dw, vecs, w_res, w_skip, cvecs, wsp, xs, h1,
+                                 h2, stats, part, tickets, skips, batch, f, c, hd, n_blocks,
+                                 n_per_repeat, n_part, cfg_in, grid_in, cfg_out, grid_out, grid_dw,
+                                 10, 4, stream);
 }
 
 // bfloat16 activations, bfloat16 weights: x, w_in, w_dw, w_rs, the scratch

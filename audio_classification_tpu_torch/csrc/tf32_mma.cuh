@@ -1,9 +1,9 @@
 // Device helpers shared by the kernels that run float32 products on the
-// tensor cores in 3xTF32 (K2 tcn_masker.cu, K3 / K5 flash_attention.cu, K4
-// gau_attention.cu): the TF32 split, one mma.sync m16n8k8 TF32 product,
-// 16-byte cp.async staging, and the once-per-device raise of a kernel's
-// shared-memory cap (which K1 fbank_power_mel.cu, on no tensor core, also
-// uses).
+// tensor cores in 3xTF32 (the split: K3 / K5 flash_attention.cu on
+// mma.sync, K2 tcn_masker.cu and K4 gau_attention.cu on wgmma): the TF32
+// split, one mma.sync m16n8k8 TF32 product, 16-byte cp.async staging, and
+// the once-per-device raise of a kernel's shared-memory cap (which K1
+// fbank_power_mel.cu, on no tensor core, also uses).
 //
 // 3xTF32: x = big + small with big rounded to TF32; a b ~ a_big b_big +
 // a_big b_small + a_small b_big, the dropped small x small term below
@@ -60,32 +60,6 @@ __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_grou
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Thread block clusters: this block's rank in its cluster, the address of
-// the same shared-memory word in the block of another rank (for
-// st.shared::cluster), a 16-byte store there, and a barrier of every thread
-// of the cluster whose release / acquire orders the shared memory of all
-// its blocks (no block may exit while another can still write to it)
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_map(const void* local, uint32_t rank) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(local));
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_cluster(uint32_t addr, float4 x) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(x.x),
-               "f"(x.y), "f"(x.z), "f"(x.w)
-               : "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Raise a kernel's cap on dynamic shared memory to the card's opt-in

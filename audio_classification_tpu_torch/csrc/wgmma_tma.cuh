@@ -1,7 +1,8 @@
 // Hopper's own machinery for the port's kernels (first used by K2 bf16 in
-// tcn_masker.cu, then by the bf16 attention pipeline, attention_wgmma.cuh):
-// warpgroup products (wgmma.mma_async m64nNk16 bf16 with
-// float32 accumulators, A from shared memory or from registers), their
+// tcn_masker.cu, then by the bf16 attention pipeline, attention_wgmma.cuh,
+// then by the float32 K2 and K4 in 3xTF32): warpgroup products
+// (wgmma.mma_async m64nNk16 bf16 and m64nNk8 tf32 with float32
+// accumulators, A from shared memory or from registers), their
 // fence / commit / wait discipline, shared-memory matrix descriptors for
 // the 128-byte swizzle, mbarriers, 3-D TMA tile loads, named barriers, and
 // on the host the encoding of a TMA tensor map (cuTensorMapEncodeTiled,
@@ -22,6 +23,16 @@
 // % 4): d[4 j + 0, 1] at row 16 w + g, columns 8 j + 2 t, + 1; d[4 j + 2, 3]
 // at row 16 w + g + 8. A from registers: warp w's 16 rows as the m16n8k16
 // A fragment (bf16_mma.cuh).
+// TF32 (m64nNk8, float32 tiles, 128-byte swizzle): TF32 wgmma takes no
+// transpose, so A and B are both K-major: rows of 32 k (128 bytes), the k8
+// step s starting 32 s bytes into the row (described as the bf16 K-major
+// tiles: SBO 1024, LBO unused). The accumulator is laid out as above; A
+// from registers is warp w's 16 rows as the m16n8k8 TF32 fragment: a0 (row
+// g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (row g + 8, k t +
+// 4), which ldsm_x4 reads from a swizzled tile as it reads the bf16 A
+// fragment (four 8 x 16-byte matrices). The product reads only the top 19
+// bits of each operand, so a float32 operand is split by its user into big
+// and small halves (tf32_mma.cuh) for float32 accuracy.
 #pragma once
 
 #include <cuda.h>
@@ -243,6 +254,51 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+#define ACT_WG_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+#define ACT_WG_D48 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
+
+// d (+)= a b over one TF32 k8 step, N = 32 / 64 / 96 / 128 columns: A from
+// registers (this warp's m16n8k8 TF32 fragment), B K-major ([n][k], k
+// contiguous) from shared memory by descriptor. accumulate == 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128,
+                "wgmma_tf32_rs: N is 32, 64, 96 or 128");
+  if constexpr (N == 32) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " ACT_WG_D16
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : ACT_WG_OPS8(0), ACT_WG_OPS8(8)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 64) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " ACT_WG_D32
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                 : ACT_WG_OPS32(0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 96) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 " ACT_WG_D48
+                 ", {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+                 : ACT_WG_OPS32(0), ACT_WG_OPS8(32), ACT_WG_OPS8(40)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " ACT_WG_D64
+                 ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+                 : ACT_WG_OPS32(0), ACT_WG_OPS32(32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+}
+
+#undef ACT_WG_D16
+#undef ACT_WG_D48
 #undef ACT_WG_OPS32
 #undef ACT_WG_OPS8
 #undef ACT_WG_D40
@@ -261,12 +317,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
 }
 
 // ------------------------------------------------------------- host side
-// A 3-D bf16 tensor [d2][d1][d0] (d0 contiguous) as a TMA map with boxes of
-// {b0, b1, 1} elements, 128-byte swizzle (b0 = 64), zero fill past the
-// tensor's bounds. cuTensorMapEncodeTiled is looked up once, through the
-// CUDA runtime.
-inline cudaError_t tmap_3d_bf16(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
-                                uint64_t d2, uint32_t b0, uint32_t b1) {
+// A 3-D tensor [d2][d1][d0] (d0 contiguous) of `type` (elements of `bytes`
+// bytes) as a TMA map with boxes of {b0, b1, 1} elements, 128-byte swizzle
+// (b0 = 128 / bytes), zero fill past the tensor's bounds.
+// cuTensorMapEncodeTiled is looked up once, through the CUDA runtime.
+inline cudaError_t tmap_3d(CUtensorMap* map, CUtensorMapDataType type, uint64_t bytes,
+                           const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0,
+                           uint32_t b1) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -286,14 +343,23 @@ inline cudaError_t tmap_3d_bf16(CUtensorMap* map, const void* base, uint64_t d0,
   }();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, of dims 1 and 2
+  const cuuint64_t strides[2] = {d0 * bytes, d0 * d1 * bytes};  // bytes, of dims 1 and 2
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+// bf16 tensors: boxes of {64, b1}
+inline cudaError_t tmap_3d_bf16(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                                uint64_t d2, uint32_t b0, uint32_t b1) {
+  return tmap_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d0, d1, d2, b0, b1);
+}
+// float32 tensors: boxes of {32, b1}
+inline cudaError_t tmap_3d_f32(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                               uint64_t d2, uint32_t b1) {
+  return tmap_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, d0, d1, d2, 32, b1);
 }
 
 }  // namespace act

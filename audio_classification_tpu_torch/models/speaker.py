@@ -12,7 +12,7 @@ read the wrong features. BatchNorm runs in inference mode (running stats).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -238,3 +238,12 @@ class SpeakerBank:
         s = self.scores(np.asarray(emb, np.float32)[None]).cpu().numpy()[0]
         i = int(np.argmax(s))
         return self.names[i] if s[i] >= threshold else ""
+
+    def search_batch(self, embs, threshold: float) -> List[Tuple[str, float]]:
+        """[B, D] -> [(name or "", top-1 score)] from one ``scores`` call;
+        ("", nan) for every row of an empty bank."""
+        if not self.names:
+            return [("", float("nan"))] * len(embs)
+        s = self.scores(np.asarray(embs, np.float32)).cpu().numpy()
+        return [(self.names[i] if s[b, i] >= threshold else "", float(s[b, i]))
+                for b, i in enumerate(s.argmax(axis=-1))]

@@ -1,7 +1,9 @@
 """K4: gated-attention-unit scores, relu(q k^T * scale * key_mask)^2 v.
 
-Kernel: csrc/gau_attention.cu (CUDA C++, sm_90a: both products on the
-tensor cores in 3xTF32 by mma.sync), replacing
+Kernel: csrc/gau_attention.cu (CUDA C++, sm_90a: both products on
+Hopper's warpgroup products in 3xTF32, fed by TMA; a split launch first
+writes k split into TF32 halves and v transposed and split, ``tf32_plan``
+gives the launch), replacing
 audio_classification_tpu/ops/pallas/attention_kernel.py::gau_attention.
 Bound and design are in the source's header. The plain twin below walks
 blocks of query rows (as the JAX package's ``_gau_blockwise_ref``), so it
@@ -74,6 +76,34 @@ def gau_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 #: the card's SMs, whose rounds of blocks the plan counts
 BF16_SMS = 132
+#: the float32 kernel's block: consumer warpgroups (64 query rows each),
+#: output columns, keys a tile, ring stages (csrc/gau_attention.cu, t32)
+TF32_WARPGROUPS, TF32_COLS, TF32_KEYS, TF32_STAGES = 2, 192, 32, 2
+
+
+def tf32_plan(batch: int, t: int, dqk: int, de: int) -> dict:
+    """The launch of a float32 K4 call, as ``csrc/gau_attention.cu`` plans
+    it (its ``act_gau_attention_plan`` returns the same): blocks of
+    ``TF32_WARPGROUPS`` x 64 query rows by ``TF32_COLS`` output columns
+    (each forms its rows' scores), the grid (row blocks, batch, column
+    chunks), the block's threads (a producer warpgroup beside the
+    consumers), stages and shared memory (1024 bytes of alignment slack, q
+    raw in ``Dqk / 32`` boxes of 32 dims, the stages' k and v^T halves,
+    the keys' mask, the tile indices and the barriers), and the split
+    launch's scratch: k split [2, B, T, Dqk], v^T split [2, B, De, Tp]
+    with Tp = T rounded up to 8. The wrapper reads only the two scratch
+    sizes; the launch's geometry is mirrored here, as in ``bf16_plan``, so
+    that the CPU tests can show that the grid covers every query row and
+    output column once (a card test holds it to the C plan)."""
+    rows = 64 * TF32_WARPGROUPS
+    slot = 2 * 4 * TF32_KEYS * 128 + 2 * TF32_COLS * 128
+    smem = (1024 + 4 * rows * 128 + TF32_STAGES * slot + 4 * TF32_STAGES * TF32_KEYS
+            + 4 * TF32_STAGES + 8 * (2 * TF32_STAGES + 1))
+    tp = -(-t // 8) * 8
+    return {"nwg": TF32_WARPGROUPS, "cols": TF32_COLS,
+            "grid": (-(-t // rows), batch, -(-de // TF32_COLS)),
+            "threads": 128 * TF32_WARPGROUPS + 128, "stages": TF32_STAGES, "smem": smem,
+            "k_split": 2 * batch * t * dqk, "v_split": 2 * batch * de * tp}
 
 
 def bf16_plan(batch: int, t: int, dqk: int, de: int) -> dict:
@@ -94,9 +124,9 @@ def bf16_plan(batch: int, t: int, dqk: int, de: int) -> dict:
 
 
 @functools.cache
-def _entry(name: str):
+def _entry(name: str, pointers: int):
     """The C entry point, built, loaded and declared at the first launch."""
-    return _build.kernel(name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    return _build.kernel(name, [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4
                          + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -185,14 +215,19 @@ def _gau_forward(q, k, v, kv_mask, scale):
     out = torch.empty((b, t, de), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    name = "act_gau_attention_bf16" if lowp else "act_gau_attention"
-    fn = _entry(name)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr()]
     if lowp:
+        name = "act_gau_attention_bf16"
         gau_attention.launches_bf16 += 1
     else:
+        name = "act_gau_attention"
+        # the split launch's scratch: k's TF32 halves, v^T's
+        pl = tf32_plan(b, t, dqk, de)
+        scratch = [torch.empty(pl[key], dtype=torch.float32, device=q.device)
+                   for key in ("k_split", "v_split")]
+        ptrs += [x.data_ptr() for x in scratch]
         gau_attention.launches += 1
-    _build.launch(name, fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-                  out.data_ptr(), b, t, dqk, de, float(scale))
+    _build.launch(name, _entry(name, len(ptrs)), q.device, *ptrs, b, t, dqk, de, float(scale))
     return out
 
 

@@ -4,13 +4,17 @@ Kernel: csrc/tcn_masker.cu (CUDA C++, sm_90a), replacing
 audio_classification_tpu/ops/pallas/tcn_kernel.py::fused_tcn_masker, with
 both of its weight streams: float32 (C entry point ``act_tcn_masker``) and
 int8 with per-block, per-out-channel float32 scales (``act_tcn_masker_s8``,
-"K2-s8": the kernel reads the int8 weights and applies the scales as it
-loads them; activations stay float). Three launches a TCN block: the two
-pointwise GEMMs on the tensor cores in 3xTF32 and the depthwise pass, over
-the valid rows only, with deterministic gLN statistics; bound and design
-are in the source's header. ``tcn_masker_reference`` is the plain twin, op
-for op the dense TCN loop on the stacked weights (tcn_kernel.py:370-419),
-run on the dequantised stack for an int8 one.
+"K2-s8": the kernel dequantises the int8 weights once a call, as the float
+path's split copy of the stack is made; activations stay float). A split
+launch (the stack transposed to K-major and split into big and small TF32
+halves, ``tf32_stack`` on the host), then three launches a TCN block: the
+two pointwise GEMMs on Hopper's warpgroup products (``wgmma``, 3xTF32, fed
+through a TMA ring by persistent kernels that walk only the valid row
+tiles; ``tf32_plan`` picks their tile shapes and grids) and the depthwise
+pass, with deterministic gLN statistics; bound and design are in the
+source's header. ``tcn_masker_reference`` is the plain twin, op for op the
+dense TCN loop on the stacked weights (tcn_kernel.py:370-419), run on the
+dequantised stack for an int8 one.
 
 bfloat16 activations (the engine's bf16 mode) take their own entry points,
 ``act_tcn_masker_bf16`` and ``act_tcn_masker_s8_bf16``: Hopper's warpgroup
@@ -51,9 +55,10 @@ from .attention import _wants_grad
 
 _EPS = 1e-8  # GlobalLayerNorm eps
 _DTYPES = (torch.float32, torch.bfloat16)
-#: the bf16 GEMMs' tile shapes, numbered as the C entry points take them:
-#: (consumer warpgroups, columns); a tile has 64 rows a warpgroup, and one
-#: CTA runs on an SM at 2 warpgroups, two at 1
+#: the GEMMs' tile shapes (bf16, and float32 since its wgmma design),
+#: numbered as the C entry points take them: (consumer warpgroups, columns);
+#: a tile has 64 rows a warpgroup, and one CTA runs on an SM at 2
+#: warpgroups, two at 1
 BF16_TILES = ((2, 128), (2, 64), (1, 64))
 #: rows of a bf16 depthwise chunk (DR in csrc/tcn_masker.cu), by 64 channels
 BF16_DW_ROWS = 128
@@ -226,6 +231,44 @@ def tcn_masker_reference_lowp(x: torch.Tensor, f_len: torch.Tensor, st: dict, *,
     return skips
 
 
+def tf32_plan(batch: int, f: int, c: int, hd: int, sms: int) -> dict:
+    """The float32 entry points' launch plan: the bf16 entry points'
+    (``bf16_plan``: the float32 GEMMs take the same tile shapes and the
+    depthwise pass the same chunks), with ``split_per_block``, the stack's
+    split copy (``tf32_stack``), floats a TCN block, in place of the bf16
+    copy of an int8 stack."""
+    pl = bf16_plan(batch, f, c, hd, sms)
+    del pl["wdq_per_block"]
+    return {**pl, "split_per_block": 2 * (c * hd + 2 * hd * c)}
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """float32 x = big + small, both rounded to TF32 to nearest with ties
+    away from zero, bit for bit as tf32_mma.cuh's ``split`` forms them (add
+    half of the 13 dropped bits to the magnitude's pattern, then clear
+    them): big + small is x within 2^-22 of |x|."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def tf32_stack(st: dict) -> torch.Tensor:
+    """The float32 kernels' copy of a stack, as their split launch writes it
+    once a call (the plain version of ``split_kernel``): an int8 stack
+    dequantised first (``dequant_stack``), then W_in transposed to
+    [NB, H, C] and [W_res | W_skip] to [NB, 2 C, H] (K-major: the
+    contraction index contiguous) and split (``tf32_split``); flat, in the
+    order W_in big, W_in small, [W_res | W_skip] big, small."""
+    if st["w_in"].dtype == torch.int8:
+        st = dequant_stack(st)
+    w_in = st["w_in"].transpose(1, 2)
+    w_rs = torch.cat([st["w_res"], st["w_skip"]], dim=-1).transpose(1, 2)
+    halves = [h for w in (w_in, w_rs) for h in tf32_split(w.float())]
+    return torch.cat([h.reshape(-1) for h in halves])
+
+
 def bf16_plan(batch: int, f: int, c: int, hd: int, sms: int) -> dict:
     """The bf16 entry points' launch plan for a [batch, f] bucket at widths
     (C, H) on a card of ``sms`` multiprocessors: for GEMM A (N = H) and GEMM
@@ -269,10 +312,9 @@ def bf16_schedule(f_len, bm: int, n_ct: int, grid: int) -> list:
 
 
 def gln_partials(f: int, hd: int) -> int:
-    """Room for one gLN partial per block of an item: GEMM blocks of 128
-    rows x 64 or 128 columns (bf16: tiles of 64 rows x 64 columns at the
-    most), depthwise blocks of 4096 / H rows (bf16: chunks of
-    ``BF16_DW_ROWS`` rows x 64 channels)."""
+    """Room for one gLN partial per tile of an item: GEMM A tiles of 64
+    rows x 64 columns at the most, depthwise chunks of ``BF16_DW_ROWS``
+    rows x 64 channels."""
     return 2 * -(-f // 128) * (hd // 64)
 
 
@@ -392,7 +434,6 @@ def _masker_forward(x, f_len, st, n_per_repeat):
                          f"1024, got C={c}, H={hd}")
     x = x.contiguous()
     fl = f_len.to(device=x.device, dtype=torch.int32).clamp(0, f).contiguous()
-    w_rs = torch.cat([st["w_res"], st["w_skip"]], dim=-1).contiguous()
     weights = [st[k].contiguous() for k in ("w_in", "w_dw", "vecs")]
     cvecs = st["cvecs"].contiguous()
     xs, skips = torch.empty_like(x), torch.empty_like(x)
@@ -400,18 +441,26 @@ def _masker_forward(x, f_len, st, n_per_repeat):
     stats = torch.empty((nb, b, 4), dtype=torch.float32, device=x.device)
     n_part = gln_partials(f, hd)
     part = torch.empty((b, n_part, 3), dtype=torch.float32, device=x.device)
-    # a ticket an item, and one a launch (the bf16 kernels)
+    # each launch's ticket at index B (its last CTA merges the statistics)
     tickets = torch.empty((b + 1,), dtype=torch.int32, device=x.device)
     ptrs = [x.data_ptr(), fl.data_ptr(), weights[0].data_ptr(), weights[1].data_ptr(),
-            weights[2].data_ptr(), w_rs.data_ptr(), cvecs.data_ptr()]
-    plan = []
+            weights[2].data_ptr()]
     if lowp:
+        w_rs = torch.cat([st["w_res"], st["w_skip"]], dim=-1).contiguous()
+        ptrs += [w_rs.data_ptr(), cvecs.data_ptr()]
         pl = bf16_plan(b, f, c, hd, _multiprocessors(x.device))
         plan = [pl["cfg_in"], pl["grid_in"], pl["cfg_out"], pl["grid_out"], pl["grid_dw"]]
         if wq:
             # the whole stack dequantised to bfloat16 once a call
             wdq = torch.empty(nb * pl["wdq_per_block"], dtype=x.dtype, device=x.device)
             ptrs.append(wdq.data_ptr())
+    else:
+        w_res, w_skip = st["w_res"].contiguous(), st["w_skip"].contiguous()
+        pl = tf32_plan(b, f, c, hd, _multiprocessors(x.device))
+        plan = [pl["cfg_in"], pl["grid_in"], pl["cfg_out"], pl["grid_out"], pl["grid_dw"]]
+        # the stack's K-major split copy, made once a call by the split launch
+        wsp = torch.empty(nb * pl["split_per_block"], dtype=torch.float32, device=x.device)
+        ptrs += [w_res.data_ptr(), w_skip.data_ptr(), cvecs.data_ptr(), wsp.data_ptr()]
     ptrs += [xs.data_ptr(), h1.data_ptr(), h2.data_ptr(), stats.data_ptr(), part.data_ptr(),
              tickets.data_ptr(), skips.data_ptr()]
     name = "act_tcn_masker" + ("_s8" if wq else "") + ("_bf16" if lowp else "")

@@ -388,7 +388,7 @@ def _tcn_case(torch, tcn, st, x, f_len, n_per_repeat, iters) -> tuple:
     """One K2 / K2-s8 call at a main-path shape against its twin: error on
     valid rows relative to max|skips| there, padded rows exact zeros, a
     repeat call bit-identical; times of the kernel and its twin; the bound
-    over the valid frames."""
+    over the valid frames; the device operations of one call."""
     out = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=n_per_repeat)
     again = tcn.fused_tcn_masker(x, f_len, st, n_per_repeat=n_per_repeat)
     torch.cuda.synchronize()
@@ -398,7 +398,7 @@ def _tcn_case(torch, tcn, st, x, f_len, n_per_repeat, iters) -> tuple:
     err = ((out - ref).abs() * valid).max().item()
     lens = f_len.tolist()
     case = {"shape": [b, f, c], "f_len": lens, "max_abs_err": err,
-            "rel_err": err / (ref.abs() * valid).max().item(), "tol_rel": 1e-3,
+            "rel_err": err / (ref.abs() * valid).max().item(), "tol_rel": 1e-4,
             "padded_rows_zero": not (out * ~valid).any().item(),
             "repeat_identical": torch.equal(out, again),
             "ms": cuda_ms(torch, lambda: tcn.fused_tcn_masker(x, f_len, st,
@@ -413,9 +413,12 @@ def _tcn_case(torch, tcn, st, x, f_len, n_per_repeat, iters) -> tuple:
         b, f, c, hd, nb, sum(t.numel() * t.element_size() for t in st.values()), f_len=lens))))
     case["share"] = case["bound_ms"] / case["ms"]
     case["share_simt"] = case["bound_simt_ms"] / case["ms"]
-    # 3xTF32 through 24 residual blocks (~1e-6 expected), another summation
-    # order in every 128/512-wide contraction and in the F x H gLN reductions
-    assert math.isfinite(err) and case["rel_err"] <= 1e-3, case
+    case["device_ops_per_call"] = queued_ops(torch, lambda: tcn.fused_tcn_masker(
+        x, f_len, st, n_per_repeat=n_per_repeat))
+    # 3xTF32 through 24 residual blocks (~6e-6 measured), another summation
+    # order in every 128/512-wide contraction and in the F x H gLN reductions;
+    # one plain TF32 product (~7.6e-4) fails it
+    assert math.isfinite(err) and case["rel_err"] <= 1e-4, case
     assert case["padded_rows_zero"] and case["repeat_identical"], case
     return case, out
 
@@ -439,8 +442,10 @@ def check_tcn(torch, np) -> dict:
                               (8, f2, [f2, f2, 1500, f2, 1000, f2, 750, f2], 20)):
         x = torch.randn((b, f, 128), generator=gen).to(dev)
         f_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-        case, _ = _tcn_case(torch, tcn, st, x, f_len, 8, iters)
+        case, out = _tcn_case(torch, tcn, st, x, f_len, 8, iters)
+        case.update(_f64_err(torch, tcn, st, x, f_len, 8, out))
         log({"phase": "kernel", "name": "tcn_masker", **case})
+        assert math.isfinite(case["rel_err_f64"]) and case["rel_err_f64"] <= 1e-4, case
         cases.append(case)
     cases.append(_check_tcn_world(torch, tcn, gen))
     return {**cases[0], "max_abs_err": max(c_["max_abs_err"] for c_ in cases), "cases": cases}
@@ -451,7 +456,7 @@ def _check_tcn_world(torch, tcn, gen) -> dict:
     .world_configs: 8 blocks of C 64 / H 128, 4 a repeat): 4 rows of the 4 s
     bucket (F = 7999) with a ragged f_len, the shape of the gate's
     calibration and scene segments. Held to the float32 twin (_tcn_case) and
-    to the twin run in float64, both within 1e-3 of max|ref| on valid rows."""
+    to the twin run in float64, both within 1e-4 of max|ref| on valid rows."""
     from audio_classification_tpu_torch.engine.runtime import ModelPack
     from audio_classification_tpu_torch.pipelines.quality_gate import world_configs
 
@@ -464,17 +469,23 @@ def _check_tcn_world(torch, tcn, gen) -> dict:
     x = torch.randn((4, f, cfg.bottleneck), generator=gen).to(dev)
     f_len = torch.tensor([f, 5999, 3999, 2373], dtype=torch.int32, device=dev)
     case, out = _tcn_case(torch, tcn, st, x, f_len, cfg.n_blocks, 20)
-    st64 = {k: v.double() if v.is_floating_point() else v for k, v in st.items()}
-    ref64 = tcn.tcn_masker_reference(x.double(), f_len, st64, n_per_repeat=cfg.n_blocks)
-    valid = (torch.arange(f, device=dev)[None, :] < f_len[:, None])[..., None]
-    err64 = ((out.double() - ref64).abs() * valid).max().item()
     case.update({"world": "quality gate", "blocks": int(st["w_in"].shape[0]),
-                 "C": cfg.bottleneck, "H": cfg.hidden, "max_abs_err_f64": err64,
-                 "rel_err_f64": err64 / (ref64.abs() * valid).max().item()})
+                 "C": cfg.bottleneck, "H": cfg.hidden,
+                 **_f64_err(torch, tcn, st, x, f_len, cfg.n_blocks, out)})
     log({"phase": "kernel", "name": "tcn_masker", **case})
     assert (case["blocks"], case["C"], case["H"]) == (8, 64, 128), case
-    assert math.isfinite(err64) and case["rel_err_f64"] <= 1e-3, case
+    assert math.isfinite(case["rel_err_f64"]) and case["rel_err_f64"] <= 1e-4, case
     return case
+
+
+def _f64_err(torch, tcn, st, x, f_len, n_per_repeat, out) -> dict:
+    """K2's output against the float stack's twin run in float64, on valid
+    rows: the absolute error and its share of max|ref|."""
+    st64 = {k: v.double() for k, v in st.items()}
+    ref64 = tcn.tcn_masker_reference(x.double(), f_len, st64, n_per_repeat=n_per_repeat)
+    valid = (torch.arange(x.shape[1], device=x.device)[None, :] < f_len[:, None])[..., None]
+    err64 = ((out.double() - ref64).abs() * valid).max().item()
+    return {"max_abs_err_f64": err64, "rel_err_f64": err64 / (ref64.abs() * valid).max().item()}
 
 
 def check_tcn_s8(torch, np) -> dict:
@@ -797,6 +808,7 @@ def _gau_case(torch, gau, gen, b: int, t: int, de: int, lens, iters: int) -> dic
             **tensor_bound(*_terms(gau.work(b, t, 128, de, valid_keys=lens)))}
     case["share"] = case["bound_ms"] / case["ms"]
     case["share_simt"] = case["bound_simt_ms"] / case["ms"]
+    case["device_ops_per_call"] = queued_ops(torch, k4)
     log({"phase": "kernel", "name": "gau_attention", **case})
     # float32 accuracy on both sides (the kernel in 3xTF32 on the tensor
     # cores tile by tile, ~3e-7 of max|out| in the CPU emulation; the twin in
@@ -3773,6 +3785,12 @@ def main() -> int:
     nvcc_s = _build.build(verbose=True)
     log({"phase": "build", "nvcc_sec": nvcc_s, "sec": time.perf_counter() - t0,
          "library": _build.library_path().name})
+    # registers and spills of the float32 kernels on wgmma (ptxas -v of this
+    # build; absent when the library was already built)
+    for src in ("tcn_masker.cu", "gau_attention.cu"):
+        for r in _build.kernel_resources(_build.reports.get(src, "")):
+            if "3t32" in r["kernel"]:  # namespace t32
+                log({"phase": "registers", "source": src, **r})
 
     # the inference phases run without autograd, as the engine does: the
     # kernels' wrappers then launch as they always have (a stack of TCN

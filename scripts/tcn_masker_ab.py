@@ -14,7 +14,10 @@ twin on valid rows, and the card's nvidia-smi name and power limit. With
 of one call and their device time by kernel name (``split``: name ->
 [count, ms]). The stacks are the full preset's masker (seed 0), as in
 chip_smoke.py: float32 (``float``, ``int8``) and the bf16 engine's copy
-(``bf16``, ``s8_bf16``, held to ``tcn_masker_reference_lowp``). To compare
+(``bf16``, ``s8_bf16``, held to ``tcn_masker_reference_lowp``); the float
+streams are also held to the twin run in float64 (``rel_err_f64``).
+``--registers`` prints each kernel of tcn_masker.cu with its registers and
+spill bytes (ptxas). To compare
 a parent commit with the working tree, unpack the parent into a directory
 that .gitignore lists and run the two in turns (parent, change, change,
 parent):
@@ -32,6 +35,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 from collections import defaultdict
 from pathlib import Path
 
@@ -78,6 +82,20 @@ def split(torch, fn) -> tuple:
     return len(evs), dict(sorted(by.items()))
 
 
+def registers(root: Path, source: str) -> list:
+    """Registers and spill bytes of every kernel in the checkout's
+    csrc/``source`` (the ptxas report of a compile of that file alone, with
+    the build's flags): [{kernel, registers, spill_bytes}]."""
+    from audio_classification_tpu_torch import _build
+
+    src = root / "audio_classification_tpu_torch" / "csrc" / source
+    with tempfile.TemporaryDirectory() as tmp:
+        report = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             str(Path(tmp) / "k.o"), str(src)], capture_output=True, text=True, check=True).stderr
+    return _build.kernel_resources(report)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -87,6 +105,7 @@ def main() -> int:
                     help=f"comma-separated subset of {','.join(STREAMS)}")
     ap.add_argument("--split", action="store_true",
                     help="also profile one call: device ops and device ms by kernel")
+    ap.add_argument("--registers", action="store_true")
     args = ap.parse_args()
     streams = args.streams.split(",")
     if not set(streams) <= set(STREAMS):
@@ -100,6 +119,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tcn_masker_ab: needs a CUDA device", file=sys.stderr)
         return 2
+    if args.registers:
+        for rec in registers(Path(args.root).resolve(), "tcn_masker.cu"):
+            print(json.dumps({"label": args.label, **rec}), flush=True)
     torch.set_grad_enabled(False)  # inference stacks: detached, no autograd
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -142,10 +164,17 @@ def main() -> int:
             end.synchronize()
             err = (((out.float() - ref).abs() * valid).max().item()
                    / (ref.abs() * valid).max().item())
-            rec = {"label": args.label, "shape": shape, "stream": stream, "b_f": [b, f],
-                   "f_len": lens, "ms": start.elapsed_time(end) / args.iters,
+            rec = {"label": args.label, "shape": shape,
+                   "stream": stream, "b_f": [b, f], "f_len": lens,
+                   "ms": start.elapsed_time(end) / args.iters,
                    "graph_ms": graph_ms(torch, run, args.iters), "rel_err": err,
                    "device": smi}
+            if not lowp:
+                deq = tcn.dequant_stack(st) if stream == "int8" else st
+                st64 = {k: v.double() for k, v in deq.items()}
+                ref64 = tcn.tcn_masker_reference(x.double(), f_len, st64, n_per_repeat=8)
+                rec["rel_err_f64"] = (((out.double() - ref64).abs() * valid).max().item()
+                                      / (ref64.abs() * valid).max().item())
             if args.split:
                 rec["device_ops"], rec["split"] = split(torch, run)
             print(json.dumps(rec), flush=True)

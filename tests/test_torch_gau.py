@@ -1,7 +1,7 @@
 """K4's plain twin (gau_attention_reference) against the JAX package's
 Pallas kernel in interpret mode and against the dense expression, the
 port's GAUBlock against the JAX GAUBlock on both of its paths, and the
-numerics of the K4 kernel (tiles, column chunks, 3xTF32, skip rule)
+numerics of the K4 kernel (key tiles, 3xTF32, skip rule)
 emulated (CPU, float32, inputs made from a seed with numpy and handed to
 both)."""
 import jax
@@ -16,7 +16,8 @@ from audio_classification_tpu.ops.pallas.attention_kernel import gau_attention a
 from audio_classification_tpu_torch.convert.from_jax import variables_to_state_dict
 from audio_classification_tpu_torch.models.mossformer import GAUBlock, MossFormerConfig
 from audio_classification_tpu_torch.ops.kernels import gau
-from torch_port_helpers import _mm_3xtf32, _mm_tf32, _split_tf32
+from audio_classification_tpu_torch.ops.kernels.tcn import tf32_split
+from torch_port_helpers import _mm_tf32, _split_tf32
 
 torch.set_num_threads(2)
 
@@ -102,36 +103,50 @@ def test_gau_block_matches_jax(monkeypatch, t, flash):
 
 # --- the numerics csrc/gau_attention.cu relies on, emulated on the CPU ---
 #
-# The kernel runs both products on the tensor cores in 3xTF32 (big halves
-# rounded, small halves left for the mma to truncate), forms the scores of
-# 64 query rows x 32 keys once for all columns (a cluster of two blocks,
-# one 384-wide chunk of the output columns each) and shares them as p split
-# into big and small, adds each key tile's p v to the accumulator in
-# float32, and skips a key tile whose keys are all masked. The emulation below does the same in float32
-# PyTorch (it is no path of the package), so that the tiling and the
-# rounding are held to the twin and to the JAX kernel here.
+# The kernel runs both products on warpgroup products in 3xTF32: the A
+# operands (q, p) split in registers (big rounded, small left for the
+# product to truncate), the B operands (k, and v transposed) split into two
+# rounded halves by the split launch. Per 32-key tile, s = q k^T adds the
+# three products of each 8-deep step (small x big, big x small, big x big)
+# into one float32 accumulator over all of Dqk; p = relu(s * scale *
+# mask)^2; each tile's p v is formed from zero the same way and added to
+# the running sum in float32; a key tile whose keys are all masked is
+# skipped. Rows and output columns are independent (the kernel's 128-row
+# blocks and 192-column chunks form identical scores). The emulation below
+# does the same in float32 PyTorch (it is no path of the package), so that
+# the tiling and the rounding are held to the twin and to the JAX kernel
+# here.
 
-_GAU_ROWS, _GAU_KEYS, _GAU_COLS = 64, 32, 384
+_GAU_KEYS, _GAU_STEP = 32, 8
 
 
-def _gau_scores(q, k, plain_tf32=False):
-    """q k^T as the kernel forms it: dims 0-63 and 64-127 apart, and in each
-    half big x big and the two small cross terms apart, then summed."""
-    if plain_tf32:
-        return _mm_tf32(q, k.T)
-    qb, qs = _split_tf32(q, small_round=False)
-    kb, ks = _split_tf32(k, small_round=False)
-    halves = [slice(0, 64), slice(64, None)]
-    big = [qb[:, h] @ kb[:, h].T for h in halves]
-    cross = [qs[:, h] @ kb[:, h].T + qb[:, h] @ ks[:, h].T for h in halves]
-    return (big[0] + big[1]) + (cross[0] + cross[1])
+def _wgmma_3xtf32(a, b):
+    """a @ b as the kernel's products form it: a split in registers, b in
+    two rounded halves (tcn.tf32_split), the three products of each 8-deep
+    step added in turn into one float32 accumulator from zero. The
+    accumulator's own rounding is not emulated: these adds are IEEE
+    float32, while wgmma's sum of TF32 products rounds more coarsely (one
+    accumulator over 31999 keys was 2.5e-4 of max|out| off the float64 twin
+    on the card, which is why the kernel sums a tile at a time). The guard
+    for that rounding is the card's float64-twin check (chip_smoke.py
+    ``check_gau``, 1e-4 of max|out|)."""
+    a_big, a_small = _split_tf32(a, small_round=False)
+    b_big, b_small = tf32_split(b.contiguous())
+    acc = torch.zeros((a.shape[0], b.shape[1]))
+    for k0 in range(0, a.shape[1], _GAU_STEP):
+        k = slice(k0, k0 + _GAU_STEP)
+        acc = acc + a_small[:, k] @ b_big[k]
+        acc = acc + a_big[:, k] @ b_small[k]
+        acc = acc + a_big[:, k] @ b_big[k]
+    return acc
 
 
 def _emulate_gau_kernel(q, k, v, kv_mask, scale, plain_tf32=False, skip=True):
-    """out as the kernel's blocks form it: 64-row blocks, 32-key tiles (keys
-    past T zero-filled, masked-whole tiles skipped iff ``skip``), p formed and
-    split once a tile for all 384-column chunks, each tile's p v added to the
-    running sum in float32."""
+    """out as the kernel forms it: 32-key tiles (keys past T zero-filled,
+    masked-whole tiles skipped iff ``skip``), the scores and each tile's
+    p v in 3xTF32 (``_wgmma_3xtf32``; ``plain_tf32``: one TF32 product
+    each), each tile's p v added to the running sum in float32."""
+    mm = (lambda a, b: _mm_tf32(a, b)) if plain_tf32 else _wgmma_3xtf32
     b, t, _ = q.shape
     de = v.shape[-1]
     n_tiles = -(-t // _GAU_KEYS)
@@ -145,15 +160,9 @@ def _emulate_gau_kernel(q, k, v, kv_mask, scale, plain_tf32=False, skip=True):
             keys = slice(j * _GAU_KEYS, (j + 1) * _GAU_KEYS)
             if skip and not mk[i, keys].any():
                 continue
-            for r0 in range(0, t, _GAU_ROWS):
-                rows = slice(r0, r0 + _GAU_ROWS)
-                s = _gau_scores(q[i, rows], kp[i, keys], plain_tf32)
-                p = torch.relu(s * scale * mk[i, keys]) ** 2
-                for c0 in range(0, de, _GAU_COLS):
-                    cols = slice(c0, c0 + _GAU_COLS)
-                    vt = vp[i, keys, cols]
-                    pv = _mm_tf32(p, vt) if plain_tf32 else _mm_3xtf32(p, vt, small_round=False)
-                    out[i, rows, cols] += pv
+            s = mm(q[i], kp[i, keys].T)
+            p = torch.relu(s * scale * mk[i, keys]) ** 2
+            out[i] += mm(p, vp[i, keys])
     return out
 
 
@@ -167,11 +176,11 @@ def _holed_mask(t, specs):
 
 
 _GAU_EMULATION_CASES = {
-    # rows off the 64-row block, keys off the 32-key tile; item 0: two tiles
+    # rows off the 128-row block, keys off the 32-key tile; item 0: two tiles
     # masked whole before a partly masked one, then a hole of two whole
     # tiles and a ragged end; item 1 a plain ragged length
     "b2_t203_dqk128_de96_holes": (2, 203, 128, 96, [[(70, 110), (170, 190)], [(0, 131)]]),
-    # De over two column chunks, the second ragged; Dqk % 8 == 4; a single
+    # De over three 192-column chunks, the last ragged; Dqk % 8 == 4; a single
     # valid key at each end of item 0, item 1 with no valid key at all
     "b2_t77_dqk12_de400_ends": (2, 77, 12, 400, [[(0, 1), (76, 77)], []]),
 }
@@ -179,7 +188,7 @@ _GAU_EMULATION_CASES = {
 
 @pytest.mark.parametrize("case", sorted(_GAU_EMULATION_CASES))
 def test_kernel_numerics_emulation_matches_twin_and_pallas(case, record_property):
-    """The kernel's tiling, column chunks, skip rule and 3xTF32 rounding,
+    """The kernel's key tiles, skip rule and 3xTF32 rounding,
     emulated: within K4's 1e-4 of max|out| of the twin and of the JAX kernel
     (interpret mode), with q and k as drawn and x3; skipping the
     masked-whole tiles changes no bit; the item with no valid key gives
@@ -218,12 +227,15 @@ def test_kernel_numerics_emulation_matches_twin_and_pallas(case, record_property
 
 
 def test_tf32_halves_of_the_kernel_split():
-    """The split K4 uses: big rounded to TF32, small = x - big exact in
-    float32 and truncated by the mma; big + small recovers x within 2^-21 of
-    |x| (rounding small too: 2^-22)."""
+    """The splits K4 uses: its A operands (q, p) split in registers, big
+    rounded to TF32 and small = x - big exact in float32, truncated by the
+    product (big + small recovers x within 2^-21 of |x|); its B operands (k,
+    v) split by the split launch into two rounded halves (``tf32_split``:
+    within 2^-22)."""
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(4096).astype(np.float32))
-    for small_round, bound in ((False, 2.0 ** -21), (True, 2.0 ** -22)):
-        big, small = _split_tf32(x, small_round)
+    for halves, bound in ((_split_tf32(x, small_round=False), 2.0 ** -21),
+                          (tf32_split(x), 2.0 ** -22)):
+        big, small = halves
         assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
         assert ((small.view(torch.int32) & 0x1FFF) == 0).all()
         err = ((big.double() + small.double()) - x.double()).abs()

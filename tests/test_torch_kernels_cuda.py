@@ -140,6 +140,9 @@ def test_flash_kernel_matches_twin(dev, b, h, t):
 _TCN_CASES = [(32, 64, 77, [77, 1, 0], 4), (32, 64, 300, [300, 129, 128], 8),
               (128, 512, 300, [127, 128, 129], 8), (128, 512, 1000, [1000, 503], 4),
               (128, 512, 1999, [1999, 1500, 1, 0], 8)]
+# the float32 plan's 2 x 128 tiles in both GEMMs, the last row tile ragged;
+# an odd count of 32-deep k-chunks in GEMM A (C 96)
+_TCN_F32_CASES = _TCN_CASES + [(128, 512, 8500, [8500, 6001], 8), (96, 256, 200, [200, 37], 4)]
 
 
 def _tcn_stack(g, dev, c, hd, nb, quant):
@@ -187,7 +190,7 @@ def _check_tcn_call(dev, st, c, f, lens, npr):
     return x, f_len, out
 
 
-@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_CASES)
+@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_F32_CASES)
 def test_tcn_kernel_matches_twin(dev, c, hd, f, lens, npr):
     """K2 (float stack) at the row-tile edges, with empty and one-frame
     items; each call counts one float launch and no int8 one."""
@@ -198,7 +201,7 @@ def test_tcn_kernel_matches_twin(dev, c, hd, f, lens, npr):
         (before[0] + 3, before[1])
 
 
-@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_CASES)
+@pytest.mark.parametrize("c,hd,f,lens,npr", _TCN_F32_CASES)
 def test_tcn_s8_kernel_matches_twin_and_float_kernel(dev, c, hd, f, lens, npr):
     """The int8 weight stream (K2-s8) at the same cases: as K2 against the
     twin on the dequantised stack, and EQUAL to the float kernel on that
@@ -216,6 +219,33 @@ def test_tcn_s8_kernel_matches_twin_and_float_kernel(dev, c, hd, f, lens, npr):
     with pytest.raises(ValueError, match="vecs"):
         tcn.fused_tcn_masker(x, f_len, {**st, "vecs": st["vecs"][:, :8].contiguous()},
                              n_per_repeat=npr)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("c,hd", [(32, 64), (96, 256), (128, 512)])
+def test_tcn_split_copy_is_tf32_stack(dev, c, hd, quant, monkeypatch):
+    """The split launch's device copy of the stack, read back from the
+    wrapper's scratch, equals its plain version (tcn.tf32_stack: K-major,
+    TF32 big / small halves, int8 dequantised first) bit for bit."""
+    st = _tcn_stack(torch.Generator().manual_seed(c + hd), dev, c, hd, 3, quant=quant)
+    n_split = 3 * tcn.tf32_plan(1, 1, c, hd, 132)["split_per_block"]
+    made, empty = [], torch.empty
+
+    def spy(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    tcn.fused_tcn_masker(torch.randn((1, 77, c), device=dev), torch.tensor([77], device=dev),
+                         st, n_per_repeat=3)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    wsp = [t for t in made if t.dim() == 1 and t.dtype == torch.float32
+           and t.numel() == n_split]
+    assert len(wsp) == 1
+    want = tcn.tf32_stack({k: v.cpu() for k, v in st.items()})
+    assert torch.equal(wsp[0].cpu().view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 8, 8), (17, 33, 7), (504, 32, 512), (2000, 32, 512),
@@ -246,6 +276,15 @@ def test_int_matmul_is_exact_on_the_card(dev, m, k, n):
     (2, 63, 128, 768, [63, 32], 1.0),
     (2, 65, 128, 768, [65, 64], 1.0),
     (1, 129, 128, 768, [129], 1.0),
+    # the float32 plan's edges: T at both sides of the 128-row block, De at
+    # both sides of the 192-column chunk and its 96-column slice, 3 and 6
+    # chunks (the last ragged)
+    (2, 300, 128, 576, [300, 97], 1.0),
+    (1, 200, 100, 964, [[(3, 60), (130, 200)]], 3.0),
+    (2, 127, 128, 192, [127, 64], 1.0),
+    (2, 129, 128, 196, [129, 128], 1.0),
+    (1, 257, 128, 388, [257], 1.0),
+    (2, 128, 128, 100, [128, 97], 1.0),
     # De off the 384-column chunk, the 96-column warp and the 16-column pair;
     # Dqk % 8 == 4 (the last k-step half zero)
     (2, 200, 128, 392, [200, 150], 1.0),
@@ -814,5 +853,21 @@ def test_bf16_attention_plans_are_the_c_plans(dev):
                 out = (ctypes.c_int * 8)()
                 assert gp(b, t, dqk, de, ctypes.addressof(out)) == 0
                 pl = gau.bf16_plan(b, t, dqk, de)
+                assert list(out) == [pl["nwg"], pl["cols"], *pl["grid"], pl["threads"],
+                                     pl["stages"], pl["smem"]], (b, t, dqk, de)
+
+
+def test_gau_tf32_plan_is_the_c_plan(dev):
+    """The host's plan of the float32 K4 kernel (gau.tf32_plan) is the C
+    entry point's (act_gau_attention_plan) over a spread of shapes."""
+    from audio_classification_tpu_torch import _build
+
+    gp = _build.kernel("act_gau_attention_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    for b, t in ((1, 15999), (1, 31999), (3, 1237), (2, 63), (1, 1)):
+        for dqk in (4, 12, 64, 100, 128):
+            for de in range(4, 2049, 4):
+                out = (ctypes.c_int * 8)()
+                assert gp(b, t, dqk, de, ctypes.addressof(out)) == 0
+                pl = gau.tf32_plan(b, t, dqk, de)
                 assert list(out) == [pl["nwg"], pl["cols"], *pl["grid"], pl["threads"],
                                      pl["stages"], pl["smem"]], (b, t, dqk, de)

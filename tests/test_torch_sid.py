@@ -102,6 +102,33 @@ def test_speaker_bank_matches_jax():
         assert [bank.search(v, thr) for v in q] == [jbank.search(v, thr) for v in q]
 
 
+@pytest.mark.parametrize("sharded", [False, True])
+def test_speaker_bank_search_batch_matches_jax(sharded):
+    """search_batch: [(name or "", top-1 score)] for every row from one
+    scores call, as the JAX method (models/speaker.py:179), on a plain bank
+    and on one sharded over a 2-entry mesh (13 speakers: a zero-padded
+    shard); ("", nan) for each row of an empty bank."""
+    from audio_classification_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    rng = np.random.default_rng(2)
+    vecs = rng.standard_normal((13, 16)).astype(np.float32)
+    bank = SpeakerBank(16, device="cpu",
+                       mesh=make_mesh(2, devices=["cpu"] * 2) if sharded else None)
+    jbank = JaxSpeakerBank(16, mesh=jax_make_mesh(2, model_axis=1) if sharded else None)
+    q = np.concatenate([vecs[:4] + 0.2 * rng.standard_normal((4, 16)),
+                        rng.standard_normal((3, 16))]).astype(np.float32)
+    empty = bank.search_batch(q, 0.5)
+    assert len(empty) == len(q) and all(n == "" and np.isnan(x) for n, x in empty)
+    assert len(jbank.search_batch(q, 0.5)) == len(q)
+    for i, v in enumerate(vecs):
+        assert bank.add(f"s{i}", v) and jbank.add(f"s{i}", v)
+    for thr in (-1.0, 0.5, 0.95):
+        got, ref = bank.search_batch(q, thr), jbank.search_batch(q, thr)
+        assert [n for n, _ in got] == [n for n, _ in ref]
+        np.testing.assert_allclose([x for _, x in got], [x for _, x in ref], atol=1e-6)
+    assert [n for n, _ in bank.search_batch(q, 0.5)][:4] == ["s0", "s1", "s2", "s3"]
+
+
 def test_speaker_bank_mesh_rule():
     """A mesh whose shards live on one device keeps the bank there, its rows
     split over the shards (zero-padded: 3 speakers on 2 shards); a mesh over

@@ -24,12 +24,15 @@ from audio_classification_tpu_torch.convert.from_jax import params_to_state_dict
 from audio_classification_tpu_torch.engine.runtime import tiny_preset
 from audio_classification_tpu_torch.models.convtasnet import ConvTasNet
 from audio_classification_tpu_torch.ops.kernels.tcn import (
+    BF16_TILES,
     dequant_stack,
     fused_tcn_masker,
     stack_tcn_params,
     tcn_masker_reference,
+    tf32_plan,
+    tf32_split,
 )
-from torch_port_helpers import _mm_3xtf32, _mm_tf32
+from torch_port_helpers import _mm_tf32, _split_tf32
 
 torch.set_num_threads(2)
 NB_PER, NREP, C, H = 4, 2, 128, 128
@@ -132,11 +135,10 @@ def test_tcn_wrapper_rejects_int8_stack(masker_case):
 
 
 # --- the kernel's algorithm (csrc/tcn_masker.cu), emulated on the CPU ---
-# GEMM block tile (128-column blocks only where the grid fills the card,
-# never at these sizes), k-tile depth; depthwise block: 4096 / H rows;
-# threads a block
-_GEMM_ROWS, _GEMM_COLS, _K_TILE = 128, 64, 32
-_DW_VALUES, _NT = 4096, 256
+# GEMM tiles as tcn.tf32_plan picks them on a card of 132 SMs; depthwise
+# chunks of 128 rows x 64 channels (two consumer warpgroups' worth of
+# threads); a TF32 wgmma's contraction step
+_SMS, _DW_ROWS, _K_STEP = 132, 128, 8
 
 
 def _chan(a, b):
@@ -149,71 +151,92 @@ def _chan(a, b):
     return n, ma + d * (nb / n), qa + qb + d * d * (na * nb / n)
 
 
-def _merge(parts):
-    """The last block's merge, in its order: thread t takes slots t, t + 256,
-    ...; a shuffle-down tree per warp (offsets 16 .. 1, lane 0 keeps the
-    result); then warps 0 .. 7 in order."""
-    lanes = [(0.0, 0.0, 0.0)] * _NT
-    for i, p in enumerate(parts):
-        lanes[i % _NT] = _chan(lanes[i % _NT], p)
-    total = (0.0, 0.0, 0.0)
-    for w in range(_NT // 32):
-        warp = lanes[32 * w: 32 * w + 32]
-        for o in (16, 8, 4, 2, 1):
-            warp = [_chan(warp[i], warp[i + o] if i + o < 32 else warp[i]) for i in range(32)]
-        total = _chan(total, warp[0])
+def _warp_tree(lanes):
+    """A warp's shuffle-down tree (offsets 16 .. 1): lane 0's result."""
+    for o in (16, 8, 4, 2, 1):
+        lanes = [_chan(lanes[i], lanes[i + o] if i + o < 32 else lanes[i]) for i in range(32)]
+    return lanes[0]
+
+
+def _stats(total):
     n, mean, m2 = total
     return np.float32(mean), np.float32(1.0 / np.sqrt(m2 / max(n, 1.0) + 1e-8))
 
 
+def _merge_launch(parts, nwg, batch):
+    """A launch's last CTA merges an item's partials in this order
+    (merge_stats): its 4 nwg consumer warps in groups of max(1, 4 nwg /
+    batch), a group an item; thread i of the group takes slots i, i + 32
+    per, ...; each warp's shuffle-down tree; the group's warps by a tree in
+    its first warp."""
+    per = max(1, 4 * nwg // batch)
+    lanes = [(0.0, 0.0, 0.0)] * (32 * per)
+    for i, p in enumerate(parts):
+        lanes[i % (32 * per)] = _chan(lanes[i % (32 * per)], p)
+    warps = [_warp_tree(lanes[32 * w: 32 * w + 32]) for w in range(per)]
+    return _stats(_warp_tree(warps + [(0.0, 0.0, 0.0)] * (32 - per)))
+
+
 def _tile_partial(v):
-    """One block's partial: count, mean and m2 about it, two passes in float32."""
+    """One tile's partial: count, mean and m2 about it, two passes in float32."""
     mu = v.sum() / np.float32(v.numel())
     return float(v.numel()), float(mu), float(((v - mu) ** 2).sum())
 
 
-def _mm_k_tiles(a, b, mm):
-    """a @ b as a GEMM block sums it: each 32-deep k-tile's products formed
-    from zero, then added to the accumulator in float32."""
-    acc = torch.zeros((a.shape[0], b.shape[1]))
-    for k0 in range(0, a.shape[1], _K_TILE):
-        acc = acc + mm(a[:, k0:k0 + _K_TILE], b[k0:k0 + _K_TILE])
-    return acc
-
-
 def _mm_kernel(a, b):
-    """One k-tile's product as the kernel's mma.sync form it: 3xTF32, the
-    small halves left for the mma to truncate (tf32_mma.cuh ``split_fast``)."""
-    return _mm_3xtf32(a, b, small_round=False)
+    """a @ b as a GEMM's warpgroup products form it: a split in registers
+    (big rounded, small left for the product to truncate: tf32_mma.cuh
+    ``split_fast``), b from the split copy (both halves rounded:
+    ``tcn.tf32_split``), and per k8 step the three products (a small x b
+    big, a big x b small, a big x b big) added in turn into one float32
+    accumulator over the whole contraction. The accumulator's own rounding
+    is not emulated: these adds are IEEE float32, while wgmma's sum of TF32
+    products rounds more coarsely (on the card 5.8e-6 of max|skips| off the
+    float64 twin at the flagship shape, against 6.4e-7 for k-chunks formed
+    from zero and added in IEEE float32). The guard for that rounding is
+    the card's float64-twin check (chip_smoke.py ``check_tcn``, 1e-4)."""
+    a_big, a_small = _split_tf32(a, small_round=False)
+    b_big, b_small = tf32_split(b.contiguous())
+    acc = torch.zeros((a.shape[0], b.shape[1]))
+    for k0 in range(0, a.shape[1], _K_STEP):
+        k = slice(k0, k0 + _K_STEP)
+        acc = acc + a_small[:, k] @ b_big[k]
+        acc = acc + a_big[:, k] @ b_small[k]
+        acc = acc + a_big[:, k] @ b_big[k]
+    return acc
 
 
 def _emulate_k2(x, f_len, st, n_per_repeat, mm=_mm_kernel):
     """The masker as the kernel computes it: valid rows only (no tile past
-    f_len), 3xTF32 products over k-tiles, gLN statistics as per-block
-    partials (GEMM blocks of 128 rows x 64 columns, depthwise blocks of
-    4096 / H rows) merged in the kernel's order; rows past f_len are 0."""
+    f_len), 3xTF32 products, gLN statistics as per-tile partials (GEMM A
+    tiles of the plan's shape, depthwise chunks of 128 rows x 64 channels),
+    merged in merge_stats's order; rows past f_len are 0."""
     if st["w_in"].dtype == torch.int8:
         st = dequant_stack(st)
     nb, c, hd = st["w_in"].shape
+    batch = x.shape[0]
+    nwg, bn = BF16_TILES[tf32_plan(batch, x.shape[1], c, hd, _SMS)["cfg_in"]]
+    bm = 64 * nwg
     out = torch.zeros_like(x)
     for i_b, fl in enumerate(int(n) for n in f_len):
         h = x[i_b, :fl]
         skips = torch.zeros((fl, c))
         for i in range(nb if fl else 0):
             v, dil = st["vecs"][i], 2 ** (i % n_per_repeat)
-            h1 = _mm_k_tiles(h, st["w_in"][i], mm) + v[0]
+            h1 = mm(h, st["w_in"][i]) + v[0]
             h1 = torch.where(h1 >= 0, h1, v[1, 0] * h1)
-            mean1, rstd1 = _merge([_tile_partial(h1[r:r + _GEMM_ROWS, c0:c0 + _GEMM_COLS])
-                                   for r in range(0, fl, _GEMM_ROWS)
-                                   for c0 in range(0, hd, _GEMM_COLS)])
+            mean1, rstd1 = _merge_launch([_tile_partial(h1[r:r + bm, c0:c0 + bn])
+                                          for r in range(0, fl, bm)
+                                          for c0 in range(0, hd, bn)], nwg, batch)
             z = torch.nn.functional.pad(((h1 - mean1) * rstd1) * v[2] + v[3], (0, 0, dil, dil))
             w = st["w_dw"][i]
             h2 = (z[:fl] * w[0] + z[dil:dil + fl] * w[1]) + z[2 * dil:] * w[2] + v[4]
             h2 = torch.where(h2 >= 0, h2, v[5, 0] * h2)
-            rows = _DW_VALUES // hd
-            mean2, rstd2 = _merge([_tile_partial(h2[r:r + rows]) for r in range(0, fl, rows)])
+            mean2, rstd2 = _merge_launch([_tile_partial(h2[r:r + _DW_ROWS, c0:c0 + 64])
+                                          for r in range(0, fl, _DW_ROWS)
+                                          for c0 in range(0, hd, 64)], 2, batch)
             y = (h2 - mean2) * (v[6] * rstd2) + v[7]
-            rs = _mm_k_tiles(y, torch.cat([st["w_res"][i], st["w_skip"][i]], dim=1), mm)
+            rs = mm(y, torch.cat([st["w_res"][i], st["w_skip"][i]], dim=1))
             h = (h + rs[:, :c]) + st["cvecs"][i, 0]
             skips = (skips + rs[:, c:]) + st["cvecs"][i, 1]
         out[i_b, :fl] = skips
@@ -231,9 +254,10 @@ _K2_EMULATION_CASES = {
 
 @pytest.mark.parametrize("case", sorted(_K2_EMULATION_CASES))
 def test_kernel_numerics_emulation_matches_twin_and_pallas(masker_case, case, record_property):
-    """The kernel's algorithm (valid rows only, 3xTF32 over 32-deep k-tiles,
-    gLN statistics merged from per-block partials with Chan's formula in the
-    kernel's order) within 1e-4 of max|skips| of the twin and of the Pallas
+    """The kernel's algorithm (valid rows only, 3xTF32 on warpgroup products
+    accumulated over the whole contraction, gLN statistics merged from
+    per-tile partials with Chan's formula in the kernel's order) within
+    1e-4 of max|skips| of the twin and of the Pallas
     kernel (interpret mode) on valid rows; rows past f_len exactly 0. The
     error of one plain TF32 product a product is recorded beside it, not
     asserted: it is what the split into three products buys back."""
@@ -264,16 +288,16 @@ def test_kernel_numerics_emulation_matches_twin_and_pallas(masker_case, case, re
 
 def test_gln_statistics_merged_from_partials_are_two_pass_grade(record_property):
     """The kernel's statistics of 2000 x 512 values of mean 100 and std
-    1e-2 (a tile partial per 128 x 64 block, merged in order) against
+    1e-2 (a tile partial per 128 x 128 GEMM tile, merged in order) against
     float64 two-pass: mean within 1e-6, rstd within 1e-5 (each tile's
     float32 mean is off by ~1e-7 of 100, 1e-3 of the std, and those offsets
     add their squares to the variance); float32 E[x^2] - mean^2 over the
     same values is off by more than half the variance itself."""
     rng = np.random.default_rng(3)
     v = torch.from_numpy((100.0 + 1e-2 * rng.standard_normal((2000, 512))).astype(np.float32))
-    mean, rstd = _merge([_tile_partial(v[r:r + _GEMM_ROWS, c0:c0 + _GEMM_COLS])
-                         for r in range(0, v.shape[0], _GEMM_ROWS)
-                         for c0 in range(0, v.shape[1], _GEMM_COLS)])
+    mean, rstd = _merge_launch([_tile_partial(v[r:r + 128, c0:c0 + 128])
+                                for r in range(0, v.shape[0], 128)
+                                for c0 in range(0, v.shape[1], 128)], 2, 1)
     exact = v.double()
     mu = exact.mean().item()
     var64 = ((exact - mu) ** 2).mean().item()
