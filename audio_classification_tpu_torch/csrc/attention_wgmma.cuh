@@ -1,9 +1,12 @@
 // The bf16 attention pipeline on Hopper, shared by K3 / K5 at bf16
 // (flash_attention.cu, namespace b16) and K4 at bf16 (gau_attention.cu,
-// namespace b16): s = q k^T on wgmma, an elementwise map of the scores into
-// p in registers (the streaming softmax, or relu^2), p rounded to bf16 as
-// the register A operand of p v on wgmma; K and V tiles of 64 keys arrive by
-// TMA into a ring of stages guarded by mbarriers.
+// namespace b16), with the parts the float32 bodies (namespaces t32) take
+// from it: the key coefficients, the live-tile map, the softmax, the
+// epilogue and the split launch (tf32_split, at the end). s = q k^T on
+// wgmma, an elementwise map of the scores into p in registers (the
+// streaming softmax, or relu^2), p rounded to bf16 as the register A operand
+// of p v on wgmma; K and V tiles of 64 keys arrive by TMA into a ring of
+// stages guarded by mbarriers.
 //
 // A block is NWG consumer warpgroups of 64 query rows each and a producer
 // warp (a producer warpgroup at NWG = 2, whose registers go to the
@@ -40,7 +43,7 @@
 #include <atomic>
 
 #include "bf16_mma.cuh"
-#include "tf32_mma.cuh"  // act::allow_dynamic_smem
+#include "tf32_mma.cuh"  // act::allow_dynamic_smem, act::split
 #include "wgmma_tma.cuh"
 
 namespace act {
@@ -106,18 +109,18 @@ __device__ __forceinline__ float key_coef(int j, int tk, const uint8_t* mrow) {
   }
 }
 
-// Which key tiles hold a valid key, into live (one byte a tile), by every
-// thread of the block; returns whether dead tiles are skipped: always in K4
-// (a masked key adds exactly 0), and in K3 / K5 only when the item has a
-// valid key at all (an item without one is computed over every tile, as the
-// twin does). The barrier also publishes live.
-template <int MODE>
+// Which key tiles (of TILE keys) hold a valid key, into live (one byte a
+// tile), by every thread of the block; returns whether dead tiles are
+// skipped: always in K4 (a masked key adds exactly 0), and in K3 / K5 only
+// when the item has a valid key at all (an item without one is computed
+// over every tile, as the twin does). The barrier also publishes live.
+template <int MODE, int TILE = BK>
 __device__ __forceinline__ bool mark_live(const uint8_t* mrow, int tk, int n_tiles, uint8_t* live) {
   int any = 0;
   for (int tile = threadIdx.x; tile < n_tiles; tile += blockDim.x) {
     int hit = 1;
     if (mrow) {
-      const int j0 = tile * BK, n = min(BK, tk - j0);
+      const int j0 = tile * TILE, n = min(TILE, tk - j0);
       hit = 0;
 #pragma unroll 16
       for (int j = 0; j < n; ++j) hit |= mrow[j0 + j];
@@ -167,20 +170,21 @@ __device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&pa
   wgmma_commit();
 }
 
-// The streaming softmax of one key tile on this thread's scores (rows g:
-// s[4 j], s[4 j + 1]; g + 8: s[4 j + 2], s[4 j + 3]; keys 8 j + 2 t, + 1),
-// in place: s = s * scale + bias in float32, the rows' tile max across the
-// quad, the running max m, alpha = exp(m_prev - m), p = exp(s - m) into s,
-// l = alpha l + the sum of the unrounded p (this thread's part): the twin's
-// rounding points (attention.attention_stats_reference_lowp). expf is
+// The streaming softmax of one key tile of 2 R keys on this thread's scores
+// (rows g: s[4 j], s[4 j + 1]; g + 8: s[4 j + 2], s[4 j + 3]; keys 8 j + 2 t,
+// + 1), in place: s = s * scale + bias in float32, the rows' tile max across
+// the quad, the running max m, alpha = exp(m_prev - m), p = exp(s - m) into
+// s, l = alpha l + the sum of the unrounded p (this thread's part): the
+// twin's rounding points (attention.attention_stats_reference_lowp). expf is
 // IEEE-accurate, as the twin's exp: an approximation would move p across
 // bf16 rounding boundaries more often.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], const float* bias, float scale,
+template <int R>
+__device__ __forceinline__ void softmax_tile(float (&s)[R], const float* bias, float scale,
                                              int t, float& m0, float& m1, float& l0, float& l1,
                                              float& al0, float& al1) {
   float mt0 = -INFINITY, mt1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
     const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * t);
     s[4 * j] = __fadd_rn(__fmul_rn(s[4 * j], scale), bb.x);
     s[4 * j + 1] = __fadd_rn(__fmul_rn(s[4 * j + 1], scale), bb.y);
@@ -201,7 +205,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], const float* bias, 
   l0 *= al0;
   l1 *= al1;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < R / 4; ++j) {
     s[4 * j] = expf(s[4 * j] - mn0);
     s[4 * j + 1] = expf(s[4 * j + 1] - mn0);
     s[4 * j + 2] = expf(s[4 * j + 2] - mn1);
@@ -451,6 +455,80 @@ __global__ void __launch_bounds__(Cfg<ND, KS, DV, NWG>::THREADS, 1)
     if (lane == 0) mbar_arrive(empty + 8 * st);
   }
   store_rows<MODE, DV / 2>(o, m0, m1, l0, l1, p, (size_t)item * p.tq, r0, r1, c0, t, true);
+}
+
+// The split launch of the float32 attention kernels (K3 / K5 and K4, 3xTF32
+// on TF32 wgmma): k [items][t][dk] -> out_k [2][items][t][dk], its big and
+// then its small TF32 halves (both rounded, tf32_mma.cuh split), as it lies:
+// K-major for q k^T; v [items][t][dv] -> out_v [2][items][dv][tp] (tp = t
+// rounded up to 8) transposed and split, its keys permuted inside each group
+// of 8 (position i holds key 2 i, position i + 4 key 2 i + 1; zero past t),
+// so that a warp's score accumulator over 8 keys is p v's register A
+// fragment (TF32 wgmma takes no transpose: p v needs v K-major over the
+// keys); and, where q is not null, q [items][tq][dk] -> out_q as k. dk is a
+// multiple of 4. Grid (ceil(tp / 32), ceil(dv / 32), items): each block
+// transposes one 32 x 32 tile of item z's v through shared memory, then
+// splits its grid-stride share of k's (and q's) float4s. Static: each
+// source that includes this header has its own copy.
+__device__ __forceinline__ void split_rows(const float* __restrict__ x, float* __restrict__ out,
+                                           size_t n4, size_t i0, size_t stride) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (size_t i = i0; i < n4; i += stride) {
+    const float4 a = x4[i];
+    uint32_t b0, b1, b2, b3, s0, s1, s2, s3;
+    split(a.x, b0, s0);
+    split(a.y, b1, s1);
+    split(a.z, b2, s2);
+    split(a.w, b3, s3);
+    o4[i] = make_float4(__uint_as_float(b0), __uint_as_float(b1), __uint_as_float(b2),
+                        __uint_as_float(b3));
+    o4[n4 + i] = make_float4(__uint_as_float(s0), __uint_as_float(s1), __uint_as_float(s2),
+                             __uint_as_float(s3));
+  }
+}
+
+static __global__ void __launch_bounds__(256)
+    tf32_split_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                      const float* __restrict__ q, float* __restrict__ out_k,
+                      float* __restrict__ out_v, float* __restrict__ out_q, int items, int t,
+                      int tp, int tq, int dk, int dv) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int b = blockIdx.z, j0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  for (int i = ty; i < 32; i += 8) {  // key j0 + i, column c0 + tx
+    const int j = j0 + i, c = c0 + tx;
+    tile[i][tx] = j < t && c < dv ? v[((size_t)b * t + j) * dv + c] : 0.f;
+  }
+  __syncthreads();
+  const size_t half = (size_t)items * dv * tp;
+  const int pos = tx & 7, key = (tx & ~7) + (pos < 4 ? 2 * pos : 2 * (pos - 4) + 1);
+  for (int i = ty; i < 32; i += 8) {  // column c0 + i, position j0 + tx
+    const int c = c0 + i;
+    if (c >= dv || j0 + tx >= tp) continue;
+    uint32_t big, small;
+    split(tile[key][i], big, small);
+    const size_t o = ((size_t)b * dv + c) * tp + j0 + tx;
+    out_v[o] = __uint_as_float(big);
+    out_v[half + o] = __uint_as_float(small);
+  }
+  const size_t stride = (size_t)gridDim.x * gridDim.y * gridDim.z * blockDim.x;
+  const size_t i0 =
+      (((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * blockDim.x +
+      threadIdx.x;
+  split_rows(k, out_k, (size_t)items * t * dk / 4, i0, stride);
+  if (q) split_rows(q, out_q, (size_t)items * tq * dk / 4, i0, stride);
+}
+
+// Queue the split launch (q may be null); its error code
+inline cudaError_t tf32_split(const float* k, const float* v, const float* q, float* out_k,
+                              float* out_v, float* out_q, int items, int t, int tq, int dk,
+                              int dv, cudaStream_t stream) {
+  const int tp = (t + 7) / 8 * 8;
+  const dim3 grid((tp + 31) / 32, (dv + 31) / 32, items);
+  tf32_split_kernel<<<grid, 256, 0, stream>>>(k, v, q, out_k, out_v, out_q, items, t, tp, tq,
+                                              dk, dv);
+  return cudaGetLastError();
 }
 
 // Launch attn_kernel<MODE, ND, KS, DV, NWG> over grid (x, y, z) with its

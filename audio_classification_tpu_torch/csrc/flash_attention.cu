@@ -1,699 +1,711 @@
 // K3 flash_attention and K5 flash_attention_stats: masked non-causal
-// multi-head attention as a streaming softmax, forward only. One templated
-// kernel with two epilogues, as the TPU source has one body with two.
+// multi-head attention as a streaming softmax, forward only. One body with
+// two epilogues at each dtype, as the TPU source has one body with two.
 //
 // Replaces audio_classification_tpu/ops/pallas/attention_kernel.py
 // (flash_attention -> _flash_fwd_call(emit_stats=False) and
-// flash_attention_stats -> _flash_fwd_call(emit_stats=True), body _kernel):
-// s = q k^T * scale + key_bias (0 / -1e9 from kv_mask), running max m and
-// sum l over key tiles. K3 (EMIT_STATS = false) writes out = acc / l. K5
-// (EMIT_STATS = true) writes the unnormalised acc with the row's m and l:
-// o = sum_k exp(s - m) v, m = max_k s, l = sum_k exp(s - m); the ring
-// attention of parallel/ring_attention.py merges such triples of key blocks
-// and divides once at the end. The queries (tq rows) and the keys (tk rows)
-// have separate lengths: in the ring a shard's queries meet every other
-// shard's keys. A key block that is masked whole gives m = -1e9 and l = its
-// key count (every s rounds to -1e9 in float32), which the merge scales by
-// exp(-1e9 - m_valid) = 0. bfloat16 q, k, v take entry points of their own
-// (act_flash_attention_bf16, act_flash_attention_stats_bf16: namespace b16
-// below, on the wgmma / TMA pipeline of attention_wgmma.cuh, with its design,
-// bound and times).
+// flash_attention_stats -> _flash_fwd_call(emit_stats=True), body _kernel
+// :64-113): s = (q k^T) * scale + key_bias (0 / -1e9 from kv_mask, -inf
+// past tk), running max m and sum l over key tiles. K3 (mode SOFTMAX)
+// writes out = acc / max(l, 1e-30). K5 (mode STATS) writes the unnormalised
+// acc with the row's m and l: o = sum_k exp(s - m) v, m = max_k s, l =
+// sum_k exp(s - m); the ring attention of parallel/ring_attention.py merges
+// such triples of key blocks and divides once at the end. The queries (tq
+// rows) and the keys (tk rows) have separate lengths: in the ring a shard's
+// queries meet every other shard's keys. A key block that is masked whole
+// gives m = -1e9 and l = its key count (every s rounds to -1e9 in float32),
+// which the merge scales by exp(-1e9 - m_valid) = 0. bfloat16 q, k, v take
+// entry points of their own (act_flash_attention_bf16,
+// act_flash_attention_stats_bf16: namespace b16 below).
 //
-// Bound on the H100: at D = 64 the two products (s = q k^T, acc += p v) are
-// 4 T_q T_k D operations over O(T D) bytes, so the kernel is bound by
-// operations. Float32 accuracy on the tensor cores costs three TF32 products
-// per product (3xTF32: x = big + small, both exact in TF32; a b ~ a_big b_big
-// + a_big b_small + a_small b_big, the dropped term below 2^-22 |a b|), so
-// the bound is the work over 495 / 3 TFLOP/s; one TF32 product alone is
-// 2-5e-4 off at these shapes, ten times K3's tolerance. Warp-level mma.sync
-// reaches 313 of the 495 TF32 TFLOP/s on an H100 SXM (63%,
-// scripts/mma_tf32_peak.py), which puts the ceiling of this design at
-// 1.6x the bound.
-// Head dim: D is a template parameter of the body, instantiated at 64
-// (OSDNet, SenseVoice, the transducer and whisper-style encoders), 80
-// (Paraformer: 320 / 4 heads) and 128; any multiple of 64 above 128 runs
-// the wide body (flash_wide_kernel, below), which splits the output columns
-// over the grid in slices of 128 and forms the scores over 64-wide slabs of
-// D, so neither its registers nor its shared memory grow with D. Both C
-// entry points dispatch on head_dim at run time and refuse any other D (the
-// wrapper zero-pads D up to the next head dim they take, as the TPU kernel
-// pads D to its lane width). At D = 64 and 80 q * scale lives in registers as
-// big and small A fragments (233-240 registers a thread, no spills). At
-// D = 128 the q fragments (128 registers) with the accumulators would spill
-// (255 registers and 1152 bytes of spill stores and loads), so there q *
-// scale is staged once into shared memory (16 rows a warp, stride D + 8)
-// and split as it is loaded for each key tile (223 / 239 registers, no
-// spills). At D = 80, q in shared memory measured 4-6% slower (PERF.md),
-// so Dims<D>::Q_SMEM holds for D = 128 only.
-// Design: mma.sync m16n8k8 TF32 with float32 accumulation. A block of 4
-// warps owns 64 query rows, 16 a warp (2-warp blocks are 5-13% slower at
-// every main-path shape, batch 1 included:
-// scripts/flash_attention_ab.py --define ACT_FLASH_WARPS=2),
-// and holds q * scale split into big and small A fragments (the scale 1/8
-// of D = 64 is a power of two, so folding it changes no bit there).
-// It walks the keys in tiles of 64 staged by 16-byte cp.async copies into a
-// two-stage ring in shared memory, so the next tile's copy overlaps this
-// tile's products; keys past tk are zero-filled. K and V fragments are split
-// on their way out of shared memory by integer rounding (a raw float32 fed to
-// a TF32 mma is truncated, not rounded). The tensor cores accumulate with
-// truncation, so no truncating chain is left long: the small cross terms of
-// s gather apart from its big x big chain, and each tile's p v is formed
-// from zero and added to the running acc in IEEE float32 (with one long
-// chain the error grew with T). The softmax runs on the
-// accumulator fragment (FA2): each thread holds two rows' scores, the row
-// max and sum meet across the quad by two shuffles. The score fragment's
-// layout (thread t of a quad: keys 2t, 2t+1) is not the A layout of p v
-// (keys t, t+4); instead of moving p across the quad, p v contracts over the
-// keys in the order the scores already sit in, by reading V's rows 2t and
-// 2t+1 where the A layout would read t and t+4. Row strides of 72 (K) and
-// 68 (V) floats make every 8-byte fragment load free of bank conflicts.
+// float32 (namespace t32). Bound on the H100: the two products (s = q k^T,
+// acc += p v) are 4 Tq Tk_valid D operations over O(T D) bytes, so the
+// kernel is bound by operations. Float32 accuracy on the tensor cores costs
+// three TF32 products per product (3xTF32: x = big + small, both exact in
+// TF32; a b ~ a_big b_big + a_big b_small + a_small b_big, the dropped term
+// below 2^-22 |a b|), so the bound is the work over 495 / 3 TFLOP/s: 0.177
+// ms at [1,8,4271,64] with 3337 keys valid; one TF32 product alone is
+// 2-5e-4 off at these shapes, ten times K3's tolerance.
+// Design (Hopper: 3xTF32 on TF32 wgmma m64nNk8 fed by TMA), two launches a
+// call:
+//   S  the split launch (attention_wgmma.cuh tf32_split, shared with K4):
+//      k into big and small TF32 halves, K-major as it lies ([2][B H][Tk]
+//      [D]); v transposed and split ([2][B H][D][Tkp], Tkp = Tk rounded up
+//      to 8), its keys permuted in groups of 8 so that the score
+//      accumulator of a tile is p v's register A fragment (TF32 wgmma takes
+//      no transpose). Once a call, in device memory: at T = 4271 each K
+//      tile feeds 34-67 row blocks.
+//   A  attn_kernel (head dims 64, 80, 128): a block is NWG consumer
+//      warpgroups of 64 query rows and a producer (a warp, or at NWG = 2 a
+//      warpgroup whose registers go to the consumers by setmaxnreg). The
+//      producer loads the block's q rows once, raw, then for each live key
+//      tile (BK keys: 64 at D = 64, 32 at 80 and 128, where a 64-key stage
+//      would leave no second one) both halves of the tile's K, with its key
+//      bias beside them, into the next stage of a K ring, and both halves
+//      of its v^T into the next stage of a v^T ring (TMA, one mbarrier pair
+//      a stage). K is handed back once the scores that read it are done,
+//      v^T once p v is, so each load starts about a tile ahead of its use;
+//      one ring of K and v^T together, at the two stages shared memory
+//      leaves, waited on every tile's loads (0.583 -> 0.468 ms at
+//      [1,8,4271,64]). Each consumer warpgroup splits its q rows once into
+//      TF32 halves (both rounded) in shared memory: q holds no registers and
+//      the scores read both operands by descriptor (q's big half in
+//      registers spilled at NWG = 2 and gained nothing at NWG = 1). The
+//      tiles go in FA3's order: tile j + 1's scores (q big x k big into one
+//      accumulator, the cross terms q small x k big and q big x k small
+//      into another, the two joined in float32) are issued before tile j's
+//      p v, and while p v runs the scores of j + 1 go through the softmax
+//      in float32 registers (the IEEE expf, as the twin's exp). p is split
+//      in registers (big rounded, small left for the product to truncate)
+//      as p v's A operand, three products a k8 step against v^T's halves;
+//      each tile's p v is formed from zero and merged into the running acc
+//      in IEEE float32 (acc = alpha acc + pv, one rounding): the tensor
+//      cores' truncating sum never runs longer than a tile (one accumulator
+//      over all tiles was 4.5e-6 off the float64 twin at [1,8,4271,64]
+//      against 4.0e-7, and no faster beyond the A/B spread: PERF.md). The
+//      loop has one path and touches no register of a running wgmma, so
+//      ptxas serializes none (attention_wgmma.cuh's header, C7513 / C7514).
+//      The plan (plan(), act_flash_attention_plan, mirrored by
+//      ops/kernels/attention.tf32_plan) takes two warpgroups a block (128
+//      rows sharing each K / v^T tile) where the card's rounds of blocks
+//      times a block's cost are fewer: a block of two took 1.75x one of
+//      one, so two win only where they save rounds on a short key loop
+//      ([8,8,537], K5's 1068-key blocks), and one at D = 128 (q's halves of
+//      128 rows would leave no second stage).
+//   W  wide_kernel (any multiple of 64 above 128; the wrapper zero-pads D
+//      to the next head dim taken): output columns in slices of 128 over
+//      grid z, the scores formed once a slice over units of 64 dims (the
+//      split launch splits q too; a unit's big chain from zero, added to the
+//      tile's in float32; the cross terms over all units in one
+//      accumulator), then the softmax and p v as above, without the
+//      overlap. Every slice forms the same scores in the same order, so
+//      slice 0 writes K5's m and l.
 // A key tile whose mask bytes are all 0 is skipped when its batch item has
 // a valid key anywhere (exact: once a row has met a valid key a masked score
 // adds exp(-1e9 - m) = 0, and a later valid key erases earlier masked ones
 // through alpha = 0); an item with no valid key is computed over every tile,
 // as the twin does. Keys past tk are excluded outright (score -inf), so such
-// an item still gives l = tk.
-// The SIMT design this replaces (four lanes a row, f32 FMA, no tensor cores,
-// every tile computed) took 0.413 / 0.104 / 0.105 / 3.48 ms at [8,8,537],
-// [1,8,537], [1,4,800] and [1,8,4271] with 3337 keys valid (H100 80GB HBM3,
-// 700 W; PERF.md).
+// an item still gives l = tk. No sum crosses a block: two calls give
+// identical bits.
+// Times (NVIDIA H100 80GB HBM3, 700.00 W; scripts/flash_attention_ab.py,
+// graph replay, both launches; PERF.md): 0.080 / 0.022 / 0.028 / 0.430 ms
+// at [8,8,537,64] ragged, [1,8,537,64], [1,4,800,64] and [1,8,4271,64] with
+// 3337 keys valid (share 0.22 / 0.16 / 0.15 / 0.41), 0.382 at
+// [1,4,4267,80] with 3333 valid, K5 0.055 on a full 1068-key block; the
+// wide body 0.59-0.97 of SDPA. The long shapes run one-warpgroup blocks,
+// and one warpgroup an SM caps a TF32 wgmma stream at 0.74 of the peak
+// (scripts/wgmma_tf32_rate.py). The mma.sync design this replaces (m16n8k8
+// 3xTF32, 4 warps of 16 rows, 64-key tiles by a cp.async ring) took 0.086 /
+// 0.034 / 0.047 / 0.682, 0.537 and 0.090 in the same call.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <atomic>
 
-#include "attention_wgmma.cuh"  // the bf16 bodies (namespace b16)
-#include "tf32_mma.cuh"
-
-// warps a block, 16 query rows each. 4 in the library; the block-size
-// probe (scripts/flash_attention_ab.py --define ACT_FLASH_WARPS=2) builds a
-// copy with 2 to time beside it
-#ifndef ACT_FLASH_WARPS
-#define ACT_FLASH_WARPS 4
-#endif
+#include "attention_wgmma.cuh"  // the pipeline's parts (namespace act::attn); wgmma_tma.cuh
 
 namespace {
 
-constexpr int BK = 64;       // keys per shared-memory tile
-constexpr int NS = 2;        // stages of the cp.async ring
-constexpr int NW = ACT_FLASH_WARPS;
-constexpr int NT = NW * 32;  // threads a block
-constexpr int ROWS = 16 * NW;
-constexpr float NEG_INIT = -1e30f;
-constexpr float MASKED = -1e9f;
-constexpr unsigned FULL = 0xffffffffu;
+namespace aw = act::attn;
 
-using act::cp_async16;
-using act::cp_commit;
-using act::cp_wait;
-using act::mma_tf32;
-using act::split;
+// The head dims the kernels take: 64, 80, 128 (the float32 body's and the
+// bf16 body's instances) and every multiple of 64 above 128 (the wide
+// bodies). This function owns the set (ops/kernels/attention.py's HEAD_DIMS
+// and WIDE_SLAB mirror it, and a card test holds them equal); every entry
+// point refuses any other D, empty calls too
+inline bool takes_head_dim(int d) {
+  return d == 64 || d == 80 || d == 128 || (d > 128 && d % 64 == 0);
+}
 
-// per head dim D: row strides (floats) of a staged K tile, V tile and q
-// block, and whether q * scale is staged in shared memory (at D = 128 only,
-// the one instance whose q in registers spills: see the header)
-template <int D>
-struct Dims {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  static constexpr int KS = D + 8;
-  static constexpr int VS = D + 4;
-  static constexpr int QS = D + 8;
-  static constexpr bool Q_SMEM = D >= 128;
-  // dynamic shared memory of a launch over tk keys
-  static size_t smem_bytes(int tk) {
-    return sizeof(float) * (NS * BK * (KS + VS + 1) + (Q_SMEM ? ROWS * QS : 0)) +
-           sizeof(int) * NS + (size_t)(tk + BK - 1) / BK;  // + one byte a key tile
+// ---------------------------------------------------------------------------
+// float32 q, k, v: act_flash_attention (K3), act_flash_attention_stats (K5)
+namespace t32 {
+
+using act::smem_u32;
+
+constexpr int ROW = 128;             // bytes of a swizzled row: 32 floats
+constexpr int QBOX = 64 * ROW;       // a {32 d, 64 rows} box of q
+constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may take
+constexpr int SMEM_RESERVE = 3072;   // alignment slack, key bias, barriers, live map
+constexpr int SMS = 132;             // the card's SMs, whose rounds the plan counts
+constexpr int WCOLS = 128;           // output columns of a wide body's block
+constexpr int WBK = 32;              // keys a tile of the wide body
+constexpr int WNS = 4;               // stages of the wide body's ring
+
+// keys a tile of the narrow body at head dim d
+constexpr int keys_of(int d) { return d == 64 ? 64 : 32; }
+
+__device__ __forceinline__ uint64_t desc(uint32_t addr) { return act::desc_sw128(addr, 16, 1024); }
+
+// The narrow body's block at head dim D (64, 80, 128) with NWG consumer
+// warpgroups: ND boxes of 32 dims for q and K (a third box at D = 80, zero
+// past 80), NKB boxes of 32 keys for v^T; q's big and small halves, then a
+// ring of NS stages of K (big, small) and one of NS stages of v^T (big,
+// small): K is handed back once the scores that read it are done, v^T once
+// p v is, so a tile's loads start about one tile ahead of its use even at
+// two stages (one ring of two stages stalled on every tile's loads)
+template <int D, int NWG>
+struct Cfg {
+  static constexpr int BK = keys_of(D);
+  static constexpr int ND = (D + 31) / 32;
+  static constexpr int NKB = BK / 32;
+  static constexpr int THREADS = 128 * NWG + (NWG == 2 ? 128 : 32);
+  static constexpr int Q_HALF = NWG * ND * QBOX;
+  static constexpr int K_HALF = ND * BK * ROW;
+  static constexpr int V_HALF = NKB * D * ROW;
+  static constexpr int K_SLOT = 2 * K_HALF, V_SLOT = 2 * V_HALF;
+  static constexpr int NS_FIT = (SMEM_MAX - SMEM_RESERVE - 2 * Q_HALF) / (K_SLOT + V_SLOT);
+  static constexpr int NS = NS_FIT > 4 ? 4 : NS_FIT;
+  static_assert(NS >= 2, "flash t32: two stages must fit");
+  // dynamic shared memory of a launch over n_tiles key tiles: alignment
+  // slack, q, the rings, the key bias, the barriers, the live-tile map
+  static size_t smem_bytes(int n_tiles) {
+    return 1024 + 2 * (size_t)Q_HALF + (size_t)NS * (K_SLOT + V_SLOT) +
+           sizeof(float) * NS * BK + sizeof(uint64_t) * (4 * NS + 1) + (size_t)n_tiles;
   }
 };
 
-// Which key tiles hold a valid key, into live_s (one byte a tile): one
-// thread per tile reads its mask bytes, so the block learns it in one round
-// trip and the tile loop never waits on a scan. Returns whether masked tiles
-// may be skipped, which they are only when the item has a valid key at all
-// (the barrier also publishes live_s)
-__device__ __forceinline__ bool mark_live_tiles(const uint8_t* mrow, int tk, int n_tiles,
-                                                uint8_t* live_s, int tid) {
-  int any = 0;
-  if (mrow) {
-    for (int tile = tid; tile < n_tiles; tile += NT) {
-      const int j0 = tile * BK, n = min(BK, tk - j0);
-      int hit = 0;
-#pragma unroll 16
-      for (int j = 0; j < n; ++j) hit |= mrow[j0 + j];
-      live_s[tile] = hit != 0;
-      any |= hit;
-    }
-  }
-  return __syncthreads_or(any) != 0;
-}
-
-// the first tile at or after `tile` that is computed (the same for every
-// thread, so control flow stays uniform across the block)
-__device__ __forceinline__ int next_live(int tile, bool skip, int n_tiles,
-                                         const uint8_t* live_s) {
-  if (skip) {
-    while (tile < n_tiles && !live_s[tile]) ++tile;
-  }
-  return tile;
-}
-
-// key j's score bias: 0, -1e9 where the mask holds 0, -inf past tk
-__device__ __forceinline__ float key_bias(int j, int tk, const uint8_t* mrow) {
-  return j >= tk ? -INFINITY : (mrow && !mrow[j] ? MASKED : 0.f);
-}
-
-// One computed key tile of a block's 16-row fragments, shared by both
-// bodies: s holds the tile's scores of rows r0 (s[.][0..1]) and r1
-// (s[.][2..3]) over its 64 keys; adds the key bias, updates the rows'
-// running max m and sum l (this thread's part of l), and adds the tile's
-// p v to acc over DN output columns read from the staged V tile (vt: the
-// thread's first word in it, row stride VS). The tile's p v contracts over
-// keys in the score fragment's own order and is gathered from zero, then
-// added to the rescaled acc in IEEE float32: the tensor cores' truncating
-// sum never runs longer than a tile
-template <int DN, int VS>
-__device__ __forceinline__ void tile_update(float (&s)[BK / 8][4], const float* bias,
-                                            const float* vt, float (&acc)[DN / 8][4], float& m0,
-                                            float& m1, float& l0, float& l1, int t) {
-  // + key bias; the rows' tile max across the quad
-  float mt0 = -INFINITY, mt1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-    const float2 bb = *reinterpret_cast<const float2*>(bias + 8 * nt + 2 * t);
-    s[nt][0] += bb.x;
-    s[nt][1] += bb.y;
-    s[nt][2] += bb.x;
-    s[nt][3] += bb.y;
-    mt0 = fmaxf(mt0, fmaxf(s[nt][0], s[nt][1]));
-    mt1 = fmaxf(mt1, fmaxf(s[nt][2], s[nt][3]));
-  }
-  mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 1));
-  mt0 = fmaxf(mt0, __shfl_xor_sync(FULL, mt0, 2));
-  mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 1));
-  mt1 = fmaxf(mt1, __shfl_xor_sync(FULL, mt1, 2));
-  const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
-  const float alpha0 = __expf(m0 - mn0), alpha1 = __expf(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
-  l0 *= alpha0;
-  l1 *= alpha1;
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-    s[nt][0] = __expf(s[nt][0] - mn0);
-    s[nt][1] = __expf(s[nt][1] - mn0);
-    s[nt][2] = __expf(s[nt][2] - mn1);
-    s[nt][3] = __expf(s[nt][3] - mn1);
-    l0 += s[nt][0] + s[nt][1];
-    l1 += s[nt][2] + s[nt][3];
-  }
-
-  float pv[DN / 8][4];
-#pragma unroll
-  for (int n = 0; n < DN / 8; ++n) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[n][i] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < BK / 8; ++kk) {
-    uint32_t pb[4], ps[4];
-    split(s[kk][0], pb[0], ps[0]);  // row r0, key 8kk + 2t
-    split(s[kk][2], pb[1], ps[1]);  // row r1, key 8kk + 2t
-    split(s[kk][1], pb[2], ps[2]);  // row r0, key 8kk + 2t + 1
-    split(s[kk][3], pb[3], ps[3]);  // row r1, key 8kk + 2t + 1
-    uint32_t vb[DN / 8][2], vs[DN / 8][2];
-#pragma unroll
-    for (int p = 0; p < DN / 16; ++p) {
-      const float2 x0 = *reinterpret_cast<const float2*>(vt + 8 * kk * VS + 16 * p);
-      const float2 x1 = *reinterpret_cast<const float2*>(vt + (8 * kk + 1) * VS + 16 * p);
-      split(x0.x, vb[2 * p][0], vs[2 * p][0]);
-      split(x1.x, vb[2 * p][1], vs[2 * p][1]);
-      split(x0.y, vb[2 * p + 1][0], vs[2 * p + 1][0]);
-      split(x1.y, vb[2 * p + 1][1], vs[2 * p + 1][1]);
-    }
-#pragma unroll
-    for (int n = 0; n < DN / 8; ++n) mma_tf32(pv[n], ps, vb[n][0], vb[n][1]);
-#pragma unroll
-    for (int n = 0; n < DN / 8; ++n) mma_tf32(pv[n], pb, vs[n][0], vs[n][1]);
-#pragma unroll
-    for (int n = 0; n < DN / 8; ++n) mma_tf32(pv[n], pb, vb[n][0], vb[n][1]);
-  }
-#pragma unroll
-  for (int n = 0; n < DN / 8; ++n) {
-    acc[n][0] = fmaf(acc[n][0], alpha0, pv[n][0]);
-    acc[n][1] = fmaf(acc[n][1], alpha0, pv[n][1]);
-    acc[n][2] = fmaf(acc[n][2], alpha1, pv[n][2]);
-    acc[n][3] = fmaf(acc[n][3], alpha1, pv[n][3]);
-  }
-}
-
-// The epilogue of both bodies: l summed across the quad, then rows r0 and r1
-// of out (row stride `stride` floats, from row `row_base`) written at
-// columns c0 + [0, dv) from acc's first dv columns (K3 divided by l), and,
-// for K5 where `stats`, the rows' m and l
-template <bool EMIT_STATS, int DN>
-__device__ __forceinline__ void store_rows(const float (&acc)[DN / 8][4], float m0, float m1,
-                                           float l0, float l1, float* out, float* m_out,
-                                           float* l_out, size_t row_base, int tq, int r0, int r1,
-                                           int t, int stride, int c0, int dv, bool stats) {
-  l0 += __shfl_xor_sync(FULL, l0, 1);
-  l0 += __shfl_xor_sync(FULL, l0, 2);
-  l1 += __shfl_xor_sync(FULL, l1, 1);
-  l1 += __shfl_xor_sync(FULL, l1, 2);
-  const float inv0 = EMIT_STATS ? 1.f : 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = EMIT_STATS ? 1.f : 1.f / fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int p = 0; p < DN / 16; ++p) {
-    const int d = 16 * p + 4 * t;
-    if (d >= dv) continue;
-    if (r0 < tq) {
-      *reinterpret_cast<float4*>(out + (row_base + r0) * stride + c0 + d) =
-          make_float4(acc[2 * p][0] * inv0, acc[2 * p + 1][0] * inv0, acc[2 * p][1] * inv0,
-                      acc[2 * p + 1][1] * inv0);
-    }
-    if (r1 < tq) {
-      *reinterpret_cast<float4*>(out + (row_base + r1) * stride + c0 + d) =
-          make_float4(acc[2 * p][2] * inv1, acc[2 * p + 1][2] * inv1, acc[2 * p][3] * inv1,
-                      acc[2 * p + 1][3] * inv1);
-    }
-  }
-  if (EMIT_STATS && stats && t == 0) {  // the four threads of a quad hold the same m and l
-    if (r0 < tq) {
-      m_out[row_base + r0] = m0;
-      l_out[row_base + r0] = l0;
-    }
-    if (r1 < tq) {
-      m_out[row_base + r1] = m1;
-      l_out[row_base + r1] = l1;
-    }
-  }
-}
-
-// mma fragments (g = lane / 4, t = lane % 4). The contraction index of each
-// product is permuted so that every operand a thread needs sits in two
-// neighbouring floats:
-//   s = q k^T, k-step kk: the mma's k = t and t + 4 are dims 8kk + 2t and
-//     8kk + 2t + 1; A = q rows g, g + 8; B = k row (key) 8nt + g.
-//   acc += p v, k-step kk: k = t and t + 4 are keys 8kk + 2t and 8kk + 2t + 1,
-//     exactly the two score columns thread t holds in its C fragment; the
-//     n-tiles 2p and 2p + 1 hold dims 16p + 2n and 16p + 2n + 1, so thread t
-//     ends with dims 16p + 4t .. 16p + 4t + 3 of its rows.
-template <int D, bool EMIT_STATS>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                 float* __restrict__ out, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int heads, int tq, int tk, float scale) {
-  constexpr int KS = Dims<D>::KS, VS = Dims<D>::VS, QS = Dims<D>::QS;
-  constexpr bool Q_SMEM = Dims<D>::Q_SMEM;
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                    // [NS][BK][KS]
-  float* v_s = k_s + NS * BK * KS;      // [NS][BK][VS]
-  float* q_s = v_s + NS * BK * VS;      // [ROWS][QS] q * scale (Q_SMEM only)
-  float* bias_s = q_s + (Q_SMEM ? ROWS * QS : 0);  // [NS][BK]: 0, -1e9 (masked) or -inf (past tk)
-  int* tile_s = reinterpret_cast<int*>(bias_s + NS * BK);  // [NS]: first key, -1 if empty
-  uint8_t* live_s = reinterpret_cast<uint8_t*>(tile_s + NS);  // [n_tiles]: holds a valid key
-
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * ROWS + 16 * warp + g, r1 = r0 + 8;
-  const float* qh = q + (size_t)bh * tq * D;
-  const float* kh = k + (size_t)bh * tk * D;
-  const float* vh = v + (size_t)bh * tk * D;
-  const uint8_t* mrow = kv_mask ? kv_mask + (size_t)(bh / heads) * tk : nullptr;
-  const int n_tiles = (tk + BK - 1) / BK;
-
-  const bool skip = mark_live_tiles(mrow, tk, n_tiles, live_s, tid);
-  auto next_tile = [&](int tile) -> int { return next_live(tile, skip, n_tiles, live_s); };
-  // stage `tile` (n_tiles: nothing) into ring slot st; one commit group
-  auto stage = [&](int tile, int st) {
-    if (tile < n_tiles) {
-      const int k0 = tile * BK;
-      for (int c = tid; c < BK * D / 4; c += NT) {
-        const int j = c / (D / 4), d = 4 * (c % (D / 4));
-        const bool in = k0 + j < tk;
-        const size_t off = (size_t)(in ? k0 + j : 0) * D + d;
-        cp_async16(k_s + (st * BK + j) * KS + d, kh + off, in);
-        cp_async16(v_s + (st * BK + j) * VS + d, vh + off, in);
-      }
-      if (tid < BK) {
-        const int j = k0 + tid;
-        bias_s[st * BK + tid] = key_bias(j, tk, mrow);
-      }
-    }
-    if (tid == 0) tile_s[st] = tile < n_tiles ? tile * BK : -1;
-    cp_commit();
-  };
-
-  int fetch = next_tile(0);
-#pragma unroll
-  for (int s = 0; s < NS - 1; ++s) {
-    stage(fetch, s);
-    fetch = fetch < n_tiles ? next_tile(fetch + 1) : n_tiles;
-  }
-
-  // q * scale as A fragments [k-step][a0..a3]: split once into registers,
-  // or (Q_SMEM) staged raw into this warp's 16 rows of q_s and split from
-  // there at each key tile (q_frag)
-  uint32_t qb[Q_SMEM ? 1 : D / 8][4], qs[Q_SMEM ? 1 : D / 8][4];
-  const float* q_w = q_s + 16 * warp * QS + g * QS + 2 * t;  // rows g, g + 8 at word 2t
-  if constexpr (Q_SMEM) {
-    const int row0 = blockIdx.x * ROWS + 16 * warp;
-    for (int c = lane; c < 16 * D / 4; c += 32) {
-      const int r = c / (D / 4), d = 4 * (c % (D / 4));
-      float4 x = row0 + r < tq
-                     ? *reinterpret_cast<const float4*>(qh + (size_t)(row0 + r) * D + d)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-      *reinterpret_cast<float4*>(q_s + (16 * warp + r) * QS + d) = x;
-    }
-    __syncwarp();  // a warp reads its own rows alone
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      const int d = 8 * kk + 2 * t;
-      const float2 x0 = r0 < tq ? *reinterpret_cast<const float2*>(qh + (size_t)r0 * D + d)
-                                : make_float2(0.f, 0.f);
-      const float2 x1 = r1 < tq ? *reinterpret_cast<const float2*>(qh + (size_t)r1 * D + d)
-                                : make_float2(0.f, 0.f);
-      split(x0.x * scale, qb[kk][0], qs[kk][0]);
-      split(x1.x * scale, qb[kk][1], qs[kk][1]);
-      split(x0.y * scale, qb[kk][2], qs[kk][2]);
-      split(x1.y * scale, qb[kk][3], qs[kk][3]);
-    }
-  }
-  // k-step kk's big and small q fragments
-  auto q_frag = [&](int kk, uint32_t (&big)[4], uint32_t (&small)[4]) {
-    if constexpr (Q_SMEM) {
-      const float2 x0 = *reinterpret_cast<const float2*>(q_w + 8 * kk);
-      const float2 x1 = *reinterpret_cast<const float2*>(q_w + 8 * QS + 8 * kk);
-      split(x0.x, big[0], small[0]);
-      split(x1.x, big[1], small[1]);
-      split(x0.y, big[2], small[2]);
-      split(x1.y, big[3], small[3]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        big[i] = qb[kk][i];
-        small[i] = qs[kk][i];
-      }
-    }
-  };
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = NEG_INIT, m1 = NEG_INIT, l0 = 0.f, l1 = 0.f;  // rows r0, r1 (l: this thread's part)
-
-  for (int it = 0;; ++it) {
-    cp_wait<NS - 2>();
-    __syncthreads();  // tile `it` landed; the slot refilled below is consumed
-    const int st = it % NS;
-    if (tile_s[st] < 0) break;
-    stage(fetch, (it + NS - 1) % NS);
-    fetch = fetch < n_tiles ? next_tile(fetch + 1) : n_tiles;
-
-    // s = (q * scale) k^T over the tile's 64 keys: [n-tile of 8 keys][c0..c3].
-    // The tensor cores accumulate with truncation, so the two small cross
-    // terms gather in s_lo, apart from the big x big chain, and join it once.
-    // k-step outer, n-tile inner: eight independent chains in flight
-    const float* kt = k_s + st * BK * KS + g * KS + 2 * t;
-    float s[BK / 8][4], s_lo[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = s_lo[nt][i] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      uint32_t qbk[4], qsk[4];
-      q_frag(kk, qbk, qsk);
-      uint32_t kb[BK / 8][2], ks[BK / 8][2];
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const float2 b = *reinterpret_cast<const float2*>(kt + 8 * nt * KS + 8 * kk);
-        split(b.x, kb[nt][0], ks[nt][0]);
-        split(b.y, kb[nt][1], ks[nt][1]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qsk, kb[nt][0], kb[nt][1]);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s[nt], qbk, kb[nt][0], kb[nt][1]);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qbk, ks[nt][0], ks[nt][1]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] += s_lo[nt][i];
-    }
-
-    const float* vt = v_s + st * BK * VS + 2 * t * VS + 2 * g;
-    tile_update<D, VS>(s, bias_s + st * BK, vt, acc, m0, m1, l0, l1, t);
-  }
-
-  store_rows<EMIT_STATS, D>(acc, m0, m1, l0, l1, out, m_out, l_out, (size_t)bh * tq, tq, r0, r1,
-                            t, D, 0, D, true);
-}
-
-// The wide body, for any head dim above 128 (the wrapper zero-pads D to dp,
-// a multiple of SLAB). Block (x, y, z) owns 64 query rows of head y and the
-// output columns [128 z, 128 z + 128) of dp. It forms the full-D scores of
-// each computed key tile from dp / SLAB units, each unit a SLAB-wide slab of
-// the tile's k and of the block's q staged by cp.async through the same
-// two-stage ring (q is read again for every key tile: its bytes match k's,
-// and neither q nor k of any D need fit in shared memory at once). The
-// slab's scores are gathered from zero and added to the tile's s in IEEE
-// float32, so no truncating tensor-core chain runs past one slab. With the
-// second unit of a tile its V column slice [64 keys][128] and its key bias
-// come in, into one slot: the previous tile's p v ran in the unit before
-// the first (dp / SLAB >= 3 above 128, so the slice lands a unit before its
-// use). After the last slab the tile's softmax update and p v run on
-// tile_update as in the body above. One V slot keeps a block at 108 KB of
-// shared memory, so two blocks fit on an SM. The scores are formed once for each
-// column slice, ceil(dp / 128) times a key tile, in the same order in every
-// slice, so every slice holds the same m and l: slice 0 writes them (K5).
-// A slice narrower than 128 (dp % 128 == 64) computes p v over 128 columns,
-// the 64 past dp zero-filled, and stores its own.
-constexpr int SLAB = 64;   // dims of q and k in a staged unit
-constexpr int DV = 128;    // output columns a block owns
-
+// The wide body's block: one consumer warpgroup, a producer warp; a stage
+// holds a unit of the scores (two boxes of each q half and of each K half)
+// or a tile's v^T slice (a {32 keys, WCOLS columns} box of each half)
 struct Wide {
-  static constexpr int QS = SLAB + 8;  // row strides (floats) of the staged q and k slabs
-  static constexpr int KS = SLAB + 8;
-  static constexpr int VS = DV + 4;    // of the staged V column slice
-  static size_t smem_bytes(int tk) {
-    return sizeof(float) * (NS * (ROWS * QS + BK * KS) + BK * VS + BK) + sizeof(int) * NS +
-           (size_t)(tk + BK - 1) / BK;  // + one byte a key tile
+  static constexpr int Q_UNIT = 2 * QBOX;
+  static constexpr int K_UNIT = 2 * WBK * ROW;
+  static constexpr int V_HALF = WCOLS * ROW;
+  static constexpr int SLOT = 2 * Q_UNIT + 2 * K_UNIT;
+  static_assert(2 * V_HALF <= SLOT, "flash t32: a v^T slice fits a stage");
+  static size_t smem_bytes(int n_tiles) {
+    return 1024 + (size_t)WNS * SLOT + sizeof(float) * WNS * WBK + sizeof(uint64_t) * 2 * WNS +
+           (size_t)n_tiles;
   }
 };
 
-template <bool EMIT_STATS>
-__global__ void __launch_bounds__(NT)
-flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                  float* __restrict__ out, float* __restrict__ m_out,
-                  float* __restrict__ l_out, int heads, int tq, int tk, int dp, float scale) {
-  constexpr int QS = Wide::QS, KS = Wide::KS, VS = Wide::VS;
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // [NS][ROWS][QS]: a unit's q slab
-  float* k_s = q_s + NS * ROWS * QS;    // [NS][BK][KS]: a unit's k slab
-  float* v_s = k_s + NS * BK * KS;      // [BK][VS]: the current key tile's V column slice
-  float* bias_s = v_s + BK * VS;        // [BK]: its key bias
-  int* tile_s = reinterpret_cast<int*>(bias_s + BK);  // [NS] a unit's tile, -1: the end
-  uint8_t* live_s = reinterpret_cast<uint8_t*>(tile_s + NS);  // [n_tiles]: holds a valid key
+// q's raw rows (ND boxes at big, as TMA landed them: zero past tq and D)
+// split in place into their big TF32 half and, at small, the small half
+// (both rounded, as the split launch splits k), by the 128 threads of a
+// warpgroup (i0 = the thread's index in it). The swizzle moves whole
+// 16-byte chunks, so both halves keep the raw layout
+template <int ND>
+__device__ __forceinline__ void split_q(unsigned char* big, unsigned char* small, int i0) {
+  float4* b = reinterpret_cast<float4*>(big);
+  float4* sm = reinterpret_cast<float4*>(small);
+#pragma unroll 4
+  for (int i = i0; i < ND * QBOX / 16; i += 128) {
+    const float4 x = b[i];
+    uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
+    act::split(x.x, h0, l0);
+    act::split(x.y, h1, l1);
+    act::split(x.z, h2, l2);
+    act::split(x.w, h3, l3);
+    b[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(h2),
+                       __uint_as_float(h3));
+    sm[i] = make_float4(__uint_as_float(l0), __uint_as_float(l1), __uint_as_float(l2),
+                        __uint_as_float(l3));
+  }
+}
 
-  const int bh = blockIdx.y;
-  const int c0 = blockIdx.z * DV, dv = min(DV, dp - c0);  // this block's output columns
-  const int n_slabs = dp / SLAB;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = blockIdx.x * ROWS;
-  const int r0 = row0 + 16 * warp + g, r1 = r0 + 8;
-  const float* qh = q + (size_t)bh * tq * dp;
-  const float* kh = k + (size_t)bh * tk * dp;
-  const float* vh = v + (size_t)bh * tk * dp;
-  const uint8_t* mrow = kv_mask ? kv_mask + (size_t)(bh / heads) * tk : nullptr;
-  const int n_tiles = (tk + BK - 1) / BK;
+// q k^T over KS k8 steps of one key tile of N keys, in 3xTF32: q big x k
+// big into s from zero, the small cross terms (q small x k big, q big x k
+// small) into s_lo, from zero unless lo_acc. The tensor cores truncate as
+// they accumulate, so the cross terms gather apart from the big chain, whose
+// sum is 2^10 times theirs, and join it once (join): one chain of all three
+// products (3 KS truncating adds) failed K5's 1e-5 in l at scores of std 16
+// (tests/test_torch_kernels_cuda.py test_flash_kernels_skip_masked_tiles).
+// qb, qs: the warpgroup's q halves ({32 d, 64 rows} boxes of QBOX bytes);
+// kb, ks: K's halves ({32 d, N keys} boxes). Issued and committed, not
+// waited for
+template <int N, int KS>
+__device__ __forceinline__ void issue_scores(float (&s)[N / 2], float (&s_lo)[N / 2], uint32_t qb,
+                                             uint32_t qs, uint32_t kb, uint32_t ks, int lo_acc) {
+  act::fence_operands(s);
+  act::fence_operands(s_lo);
+  act::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint32_t qo = (kk >> 2) * QBOX + (kk & 3) * 32, ko = (kk >> 2) * N * ROW + (kk & 3) * 32;
+    act::wgmma_tf32_ss<N>(s_lo, desc(qs + qo), desc(kb + ko), kk > 0 || lo_acc);
+    act::wgmma_tf32_ss<N>(s_lo, desc(qb + qo), desc(ks + ko), 1);
+    act::wgmma_tf32_ss<N>(s, desc(qb + qo), desc(kb + ko), kk > 0);
+  }
+  act::wgmma_commit();
+}
 
-  const bool skip = mark_live_tiles(mrow, tk, n_tiles, live_s, tid);
-  // the next unit to stage: slab f_slab of key tile f_tile
-  int f_tile = next_live(0, skip, n_tiles, live_s), f_slab = 0;
-  // stage the next unit into ring slot st and advance; one commit group
-  auto stage = [&](int st) {
-    if (f_tile < n_tiles) {
-      const int k0 = f_tile * BK, d0 = f_slab * SLAB;
-      for (int c = tid; c < BK * SLAB / 4; c += NT) {
-        const int j = c / (SLAB / 4), d = 4 * (c % (SLAB / 4));
-        const bool in = k0 + j < tk;
-        cp_async16(k_s + (st * BK + j) * KS + d, kh + (size_t)(in ? k0 + j : 0) * dp + d0 + d,
-                   in);
-      }
-      for (int c = tid; c < ROWS * SLAB / 4; c += NT) {
-        const int r = c / (SLAB / 4), d = 4 * (c % (SLAB / 4));
-        const bool in = row0 + r < tq;
-        cp_async16(q_s + (st * ROWS + r) * QS + d,
-                   qh + (size_t)(in ? row0 + r : 0) * dp + d0 + d, in);
-      }
-      if (f_slab == 1) {
-        for (int c = tid; c < BK * DV / 4; c += NT) {
-          const int j = c / (DV / 4), d = 4 * (c % (DV / 4));
-          const bool in = k0 + j < tk && d < dv;
-          cp_async16(v_s + j * VS + d, vh + (in ? (size_t)(k0 + j) * dp + c0 + d : 0), in);
+// s += s_lo in IEEE float32, once the scores' products are done
+template <int R>
+__device__ __forceinline__ void join(float (&s)[R], float (&s_lo)[R]) {
+  act::fence_operands(s);
+  act::fence_operands(s_lo);
+#pragma unroll
+  for (int i = 0; i < R; ++i) s[i] += s_lo[i];
+}
+
+// p (the softmax's floats in the score layout, 2 R keys) split as p v's A
+// fragments: k8 step j holds keys 8 j + 2 t (a0: row g, a1: row g + 8) and
+// 8 j + 2 t + 1 (a2, a3), which v^T's permuted keys put at k t and t + 4
+template <int R>
+__device__ __forceinline__ void split_p(const float (&s)[R], uint32_t (&pb)[R / 4][4],
+                                        uint32_t (&ps)[R / 4][4]) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    act::split_fast(s[4 * j], pb[j][0], ps[j][0]);
+    act::split_fast(s[4 * j + 2], pb[j][1], ps[j][1]);
+    act::split_fast(s[4 * j + 1], pb[j][2], ps[j][2]);
+    act::split_fast(s[4 * j + 3], pb[j][3], ps[j][3]);
+  }
+}
+
+template <int BK>
+__device__ __forceinline__ void fence_p(uint32_t (&pb)[BK / 8][4], uint32_t (&ps)[BK / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    act::fence_regs(pb[j]);
+    act::fence_regs(ps[j]);
+  }
+}
+
+// pv = p v over one key tile of BK keys and DV columns, from zero, in
+// 3xTF32: per k8 step p small x v big, p big x v small, p big x v big. vb,
+// vs: v^T's halves ({32 keys, DV columns} boxes). p's registers are fenced
+// before wgmma.fence, so that no write of them moves past it. Issued and
+// committed, not waited for
+template <int DV, int BK>
+__device__ __forceinline__ void issue_pv(float (&pv)[DV / 2], uint32_t (&pb)[BK / 8][4],
+                                         uint32_t (&ps)[BK / 8][4], uint32_t vb, uint32_t vs) {
+  fence_p<BK>(pb, ps);
+  act::fence_operands(pv);
+  act::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const uint32_t off = (j >> 2) * DV * ROW + (j & 3) * 32;
+    act::wgmma_tf32_rs<DV>(pv, ps[j], desc(vb + off), j > 0);
+    act::wgmma_tf32_rs<DV>(pv, pb[j], desc(vs + off), 1);
+    act::wgmma_tf32_rs<DV>(pv, pb[j], desc(vb + off), 1);
+  }
+  act::wgmma_commit();
+}
+
+// acc = alpha acc + pv with one rounding (rows g: [4 j], [4 j + 1]; g + 8)
+template <int R>
+__device__ __forceinline__ void merge(float (&o)[R], const float (&pv)[R], float al0, float al1) {
+#pragma unroll
+  for (int i = 0; i < R; i += 4) {
+    o[i] = fmaf(o[i], al0, pv[i]);
+    o[i + 1] = fmaf(o[i + 1], al0, pv[i + 1]);
+    o[i + 2] = fmaf(o[i + 2], al1, pv[i + 2]);
+    o[i + 3] = fmaf(o[i + 3], al1, pv[i + 3]);
+  }
+}
+
+// The narrow body. Grid (row blocks of 64 NWG rows, items = B H, 1). mq: q
+// [items, tq, D] raw in {32, 64} boxes; mk: k's halves [2 items, tk, D] in
+// {32, BK}; mv: v^T's halves [2 items, D, Tkp] in {32, D}
+template <int MODE, int D, int NWG>
+__global__ void __launch_bounds__(Cfg<D, NWG>::THREADS, 1)
+    attn_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, const aw::Params p) {
+  using C = Cfg<D, NWG>;
+  constexpr int NS = C::NS, BK = C::BK, ND = C::ND, R = BK / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);  // the swizzle's 1024 B
+  const uint32_t qb_s = smem_u32(base), qs_s = qb_s + C::Q_HALF;
+  const uint32_t k_ring = qs_s + C::Q_HALF, v_ring = k_ring + NS * C::K_SLOT;
+  float* coef = reinterpret_cast<float*>(base + 2 * C::Q_HALF + NS * (C::K_SLOT + C::V_SLOT));
+  // barriers, NS each: K full, K empty, v^T full, v^T empty; then q's
+  uint64_t* bars = reinterpret_cast<uint64_t*>(coef + NS * BK);
+  uint8_t* live = reinterpret_cast<uint8_t*>(bars + 4 * NS + 1);
+  const uint32_t full_k = smem_u32(bars), empty_k = full_k + 8 * NS;
+  const uint32_t full_v = empty_k + 8 * NS, empty_v = full_v + 8 * NS, qbar = empty_v + 8 * NS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int item = blockIdx.y, items = gridDim.y, row0 = blockIdx.x * 64 * NWG;
+  const uint8_t* mrow = p.mask ? p.mask + (size_t)(item / p.heads) * p.tk : nullptr;
+  const int n_tiles = (p.tk + BK - 1) / BK;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      act::mbar_init(full_k + 8 * s, 32);        // the producer's 32 lanes (lane 0 with the bytes)
+      act::mbar_init(empty_k + 8 * s, 4 * NWG);  // lane 0 of each consumer warp
+      act::mbar_init(full_v + 8 * s, 32);
+      act::mbar_init(empty_v + 8 * s, 4 * NWG);
+    }
+    act::mbar_init(qbar, 1);
+    act::mbar_fence_init();
+  }
+  const bool skip = aw::mark_live<MODE, BK>(mrow, p.tk, n_tiles, live);  // + the inits' barrier
+
+  if (warp >= 4 * NWG) {  // the producer warp (the first of the producer warpgroup)
+    if constexpr (NWG == 2) {
+      act::setmaxnreg_dec<40>();
+      if (warp != 4 * NWG) return;
+    }
+    if (lane == 0) {
+      act::tma_prefetch_map(&mq);
+      act::tma_prefetch_map(&mk);
+      act::tma_prefetch_map(&mv);
+      act::mbar_arrive_expect_tx(qbar, C::Q_HALF);
+#pragma unroll
+      for (int w = 0; w < NWG; ++w) {
+#pragma unroll
+        for (int c = 0; c < ND; ++c) {
+          act::tma_load_3d(qb_s + (w * ND + c) * QBOX, &mq, qbar, 32 * c, row0 + 64 * w, item);
         }
-        if (tid < BK) bias_s[tid] = key_bias(k0 + tid, tk, mrow);
       }
     }
-    if (tid == 0) tile_s[st] = f_tile < n_tiles ? f_tile * BK : -1;
-    cp_commit();
-    if (f_tile < n_tiles && ++f_slab == n_slabs) {
-      f_slab = 0;
-      f_tile = next_live(f_tile + 1, skip, n_tiles, live_s);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int tile = aw::next_live(0, skip, n_tiles, live); tile < n_tiles;
+         tile = aw::next_live(tile + 1, skip, n_tiles, live)) {
+      // the tile's K halves and key bias, then its v^T halves, each into
+      // stage s of its own ring
+      act::mbar_wait(empty_k + 8 * s, ph ^ 1);
+      for (int e = lane; e < BK; e += 32) {
+        coef[s * BK + e] = aw::key_coef<MODE>(tile * BK + e, p.tk, mrow);
+      }
+      if (lane == 0) {
+        const uint32_t st = k_ring + s * C::K_SLOT, bar = full_k + 8 * s;
+        act::mbar_arrive_expect_tx(bar, C::K_SLOT);
+#pragma unroll
+        for (int c = 0; c < ND; ++c) {
+          act::tma_load_3d(st + c * BK * ROW, &mk, bar, 32 * c, tile * BK, item);
+          act::tma_load_3d(st + C::K_HALF + c * BK * ROW, &mk, bar, 32 * c, tile * BK,
+                           items + item);
+        }
+      } else {
+        act::mbar_arrive(full_k + 8 * s);
+      }
+      act::mbar_wait(empty_v + 8 * s, ph ^ 1);
+      if (lane == 0) {
+        const uint32_t st = v_ring + s * C::V_SLOT, bar = full_v + 8 * s;
+        act::mbar_arrive_expect_tx(bar, C::V_SLOT);
+#pragma unroll
+        for (int kb = 0; kb < C::NKB; ++kb) {
+          act::tma_load_3d(st + kb * D * ROW, &mv, bar, tile * BK + 32 * kb, 0, item);
+          act::tma_load_3d(st + C::V_HALF + kb * D * ROW, &mv, bar, tile * BK + 32 * kb, 0,
+                           items + item);
+        }
+      } else {
+        act::mbar_arrive(full_v + 8 * s);
+      }
+      if (++s == NS) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows row0 + 64 wg .. + 63, warp w4 of it
+  // rows 16 w4 + g and 16 w4 + g + 8 of those
+  if constexpr (NWG == 2) act::setmaxnreg_inc<232>();
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = row0 + 64 * wg + 16 * (warp & 3) + g, r1 = r0 + 8;
+  act::mbar_wait(qbar, 0);
+  split_q<ND>(base + wg * ND * QBOX, base + C::Q_HALF + wg * ND * QBOX, tid & 127);
+  act::fence_proxy_async();       // the halves are read by wgmma (the async proxy)
+  act::named_sync(1 + wg, 128);   // this warpgroup's rows, by its 128 threads
+  const uint32_t qa = qb_s + wg * ND * QBOX, qsa = qs_s + wg * ND * QBOX;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = aw::NEG_INIT, m1 = aw::NEG_INIT, l0 = 0.f, l1 = 0.f;
+  const int tile = aw::next_live(0, skip, n_tiles, live);
+  if (tile < n_tiles) {
+    float s[R], s_lo[R];
+    uint32_t pb[R / 4][4], ps[R / 4][4];
+    float al0 = 1.f, al1 = 1.f;
+    // the K ring's stage and phase run one tile ahead of the v^T ring's
+    int ks = 0, vs = 0;
+    uint32_t kph = 0, vph = 0;
+    auto k_at = [&]() { return k_ring + ks * C::K_SLOT; };
+    auto v_at = [&]() { return v_ring + vs * C::V_SLOT; };
+    auto release = [&](uint32_t empty, int& st, uint32_t& ph) {  // this warp is done with it
+      __syncwarp();
+      if (lane == 0) act::mbar_arrive(empty + 8 * st);
+      if (++st == NS) {
+        st = 0;
+        ph ^= 1;
+      }
+    };
+    // the first tile's scores and p
+    act::mbar_wait(full_k + 8 * ks, kph);
+    issue_scores<BK, D / 8>(s, s_lo, qa, qsa, k_at(), k_at() + C::K_HALF, 0);
+    act::wgmma_wait<0>();
+    join(s, s_lo);
+    aw::softmax_tile(s, coef + ks * BK, p.scale, t, m0, m1, l0, l1, al0, al1);
+    release(empty_k, ks, kph);
+    split_p(s, pb, ps);
+    // while a next tile exists, its scores go first, then this tile's p v
+    // (from zero), and the next tile's softmax runs while p v does; p v is
+    // merged into acc and the next p split once p v is done. One path, and
+    // no register of a running wgmma is touched before its wait (ptxas
+    // C7514 / C7513 would serialize every wgmma)
+    for (int nxt = aw::next_live(tile + 1, skip, n_tiles, live); nxt < n_tiles;
+         nxt = aw::next_live(nxt + 1, skip, n_tiles, live)) {
+      act::mbar_wait(full_k + 8 * ks, kph);
+      issue_scores<BK, D / 8>(s, s_lo, qa, qsa, k_at(), k_at() + C::K_HALF, 0);
+      act::mbar_wait(full_v + 8 * vs, vph);
+      float pv[D / 2];
+      issue_pv<D, BK>(pv, pb, ps, v_at(), v_at() + C::V_HALF);
+      const float a0 = al0, a1 = al1;
+      act::wgmma_wait<1>();
+      join(s, s_lo);
+      aw::softmax_tile(s, coef + ks * BK, p.scale, t, m0, m1, l0, l1, al0, al1);
+      release(empty_k, ks, kph);
+      act::wgmma_wait<0>();
+      act::fence_operands(pv);
+      merge(o, pv, a0, a1);
+      fence_p<BK>(pb, ps);
+      release(empty_v, vs, vph);
+      split_p(s, pb, ps);
+    }
+    // the last tile's p v
+    act::mbar_wait(full_v + 8 * vs, vph);
+    float pv[D / 2];
+    issue_pv<D, BK>(pv, pb, ps, v_at(), v_at() + C::V_HALF);
+    act::wgmma_wait<0>();
+    act::fence_operands(pv);
+    merge(o, pv, al0, al1);
+    fence_p<BK>(pb, ps);
+    release(empty_v, vs, vph);
+  }
+  aw::store_rows<MODE, D / 2>(o, m0, m1, l0, l1, p, (size_t)item * p.tq, r0, r1, 0, t, true);
+}
+
+// The wide body. Grid (row blocks of 64, items, column slices of WCOLS).
+// mq: q's halves [2 items, tq, dp] in {32, 64}; mk: k's [2 items, tk, dp] in
+// {32, WBK}; mv: v^T's [2 items, dp, Tkp] in {32, WCOLS} (columns past dp
+// zero-filled)
+template <int MODE>
+__global__ void __launch_bounds__(160, 1)
+    wide_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, const aw::Params p) {
+  constexpr int R = WBK / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t ring = smem_u32(base);
+  float* coef = reinterpret_cast<float*>(base + WNS * Wide::SLOT);  // [WNS][WBK]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(coef + WNS * WBK);
+  uint8_t* live = reinterpret_cast<uint8_t*>(bars + 2 * WNS);
+  const uint32_t full = smem_u32(bars), empty = full + 8 * WNS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int item = blockIdx.y, items = gridDim.y, row0 = blockIdx.x * 64, c0 = blockIdx.z * WCOLS;
+  const int n_units = p.out_cols / 64;
+  const uint8_t* mrow = p.mask ? p.mask + (size_t)(item / p.heads) * p.tk : nullptr;
+  const int n_tiles = (p.tk + WBK - 1) / WBK;
+  if (tid == 0) {
+    for (int s = 0; s < WNS; ++s) {
+      act::mbar_init(full + 8 * s, 32);
+      act::mbar_init(empty + 8 * s, 4);
+    }
+    act::mbar_fence_init();
+  }
+  const bool skip = aw::mark_live<MODE, WBK>(mrow, p.tk, n_tiles, live);
+
+  if (warp == 4) {  // the producer warp
+    if (lane == 0) {
+      act::tma_prefetch_map(&mq);
+      act::tma_prefetch_map(&mk);
+      act::tma_prefetch_map(&mv);
+    }
+    int s = 0;
+    uint32_t ph = 0;
+    auto advance = [&]() {
+      if (++s == WNS) {
+        s = 0;
+        ph ^= 1;
+      }
+    };
+    for (int tile = aw::next_live(0, skip, n_tiles, live); tile < n_tiles;
+         tile = aw::next_live(tile + 1, skip, n_tiles, live)) {
+      for (int u = 0; u < n_units; ++u) {
+        act::mbar_wait(empty + 8 * s, ph ^ 1);
+        if (lane == 0) {
+          const uint32_t st = ring + s * Wide::SLOT, bar = full + 8 * s;
+          act::mbar_arrive_expect_tx(bar, Wide::SLOT);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int d0 = 64 * u + 32 * c;
+            act::tma_load_3d(st + c * QBOX, &mq, bar, d0, row0, item);
+            act::tma_load_3d(st + Wide::Q_UNIT + c * QBOX, &mq, bar, d0, row0, items + item);
+            const uint32_t kst = st + 2 * Wide::Q_UNIT + c * WBK * ROW;
+            act::tma_load_3d(kst, &mk, bar, d0, tile * WBK, item);
+            act::tma_load_3d(kst + Wide::K_UNIT, &mk, bar, d0, tile * WBK, items + item);
+          }
+        } else {
+          act::mbar_arrive(full + 8 * s);
+        }
+        advance();
+      }
+      act::mbar_wait(empty + 8 * s, ph ^ 1);
+      coef[s * WBK + lane] = aw::key_coef<MODE>(tile * WBK + lane, p.tk, mrow);
+      if (lane == 0) {
+        const uint32_t st = ring + s * Wide::SLOT, bar = full + 8 * s;
+        act::mbar_arrive_expect_tx(bar, 2 * Wide::V_HALF);
+        act::tma_load_3d(st, &mv, bar, tile * WBK, c0, item);
+        act::tma_load_3d(st + Wide::V_HALF, &mv, bar, tile * WBK, c0, items + item);
+      } else {
+        act::mbar_arrive(full + 8 * s);
+      }
+      advance();
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = row0 + 16 * warp + g, r1 = r0 + 8;
+  float o[WCOLS / 2];
+#pragma unroll
+  for (int i = 0; i < WCOLS / 2; ++i) o[i] = 0.f;
+  float m0 = aw::NEG_INIT, m1 = aw::NEG_INIT, l0 = 0.f, l1 = 0.f;
+  float s[R], su[R], s_lo[R];
+  uint32_t pb[R / 4][4], ps[R / 4][4];
+  int st = 0;
+  uint32_t ph = 0;
+  auto release = [&]() {  // this warp is done with stage st
+    __syncwarp();
+    if (lane == 0) act::mbar_arrive(empty + 8 * st);
+    if (++st == WNS) {
+      st = 0;
+      ph ^= 1;
     }
   };
+  for (int tile = aw::next_live(0, skip, n_tiles, live); tile < n_tiles;
+       tile = aw::next_live(tile + 1, skip, n_tiles, live)) {
+    for (int u = 0; u < n_units; ++u) {
+      act::mbar_wait(full + 8 * st, ph);
+      const uint32_t sa = ring + st * Wide::SLOT, ka = sa + 2 * Wide::Q_UNIT;
+      issue_scores<WBK, 8>(su, s_lo, sa, sa + Wide::Q_UNIT, ka, ka + Wide::K_UNIT, u > 0);
+      act::wgmma_wait<0>();
+      act::fence_operands(su);
 #pragma unroll
-  for (int st = 0; st < NS - 1; ++st) stage(st);
-
-  float acc[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = NEG_INIT, m1 = NEG_INIT, l0 = 0.f, l1 = 0.f;  // rows r0, r1 (l: this thread's part)
-  float s[BK / 8][4], s_lo[BK / 8][4];  // the current key tile's scores
-
-  for (int u = 0;; ++u) {
-    cp_wait<NS - 2>();
-    __syncthreads();  // unit `u` landed; the slot refilled below is consumed
-    const int st = u % NS;
-    if (tile_s[st] < 0) break;
-    stage((u + NS - 1) % NS);
-    const int slab = u % n_slabs;
-    if (slab == 0) {
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = s_lo[nt][i] = 0.f;
-      }
+      for (int i = 0; i < R; ++i) s[i] = u == 0 ? su[i] : s[i] + su[i];
+      release();
     }
-
-    // this slab's part of (q * scale) k^T, q split as it is read; the small
-    // cross terms gather in s_lo over the whole tile, as in the body above
-    const float* kt = k_s + st * BK * KS + g * KS + 2 * t;
-    const float* qw = q_s + (st * ROWS + 16 * warp + g) * QS + 2 * t;  // rows g, g + 8
-    float sb[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sb[nt][i] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < SLAB / 8; ++kk) {
-      uint32_t qbk[4], qsk[4];
-      const float2 x0 = *reinterpret_cast<const float2*>(qw + 8 * kk);
-      const float2 x1 = *reinterpret_cast<const float2*>(qw + 8 * QS + 8 * kk);
-      split(x0.x * scale, qbk[0], qsk[0]);
-      split(x1.x * scale, qbk[1], qsk[1]);
-      split(x0.y * scale, qbk[2], qsk[2]);
-      split(x1.y * scale, qbk[3], qsk[3]);
-      uint32_t kb[BK / 8][2], ks[BK / 8][2];
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const float2 b = *reinterpret_cast<const float2*>(kt + 8 * nt * KS + 8 * kk);
-        split(b.x, kb[nt][0], ks[nt][0]);
-        split(b.y, kb[nt][1], ks[nt][1]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qsk, kb[nt][0], kb[nt][1]);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(sb[nt], qbk, kb[nt][0], kb[nt][1]);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) mma_tf32(s_lo[nt], qbk, ks[nt][0], ks[nt][1]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] += sb[nt][i];
-    }
-    if (slab + 1 < n_slabs) continue;
-
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] += s_lo[nt][i];
-    }
-    tile_update<DV, VS>(s, bias_s, v_s + 2 * t * VS + 2 * g, acc, m0, m1, l0, l1, t);
+    join(s, s_lo);
+    act::mbar_wait(full + 8 * st, ph);
+    float al0, al1;
+    aw::softmax_tile(s, coef + st * WBK, p.scale, t, m0, m1, l0, l1, al0, al1);
+    split_p(s, pb, ps);
+    const uint32_t va = ring + st * Wide::SLOT;
+    float pv[WCOLS / 2];
+    issue_pv<WCOLS, WBK>(pv, pb, ps, va, va + Wide::V_HALF);
+    act::wgmma_wait<0>();
+    act::fence_operands(pv);
+    merge(o, pv, al0, al1);
+    fence_p<WBK>(pb, ps);
+    release();
   }
-
-  store_rows<EMIT_STATS, DV>(acc, m0, m1, l0, l1, out, m_out, l_out, (size_t)bh * tq, tq, r0, r1,
-                             t, dp, c0, dv, blockIdx.z == 0);
+  aw::store_rows<MODE, WCOLS / 2>(o, m0, m1, l0, l1, p, (size_t)item * p.tq, r0, r1, c0, t,
+                                  blockIdx.z == 0);
 }
 
-// the kernel's shared-memory cap, raised once per device (tf32_mma.cuh)
-template <int D, bool EMIT_STATS>
-std::atomic<uint64_t> smem_cap_raised{0};
+// The plan of a call at head dim d (as the entry points take it): consumer
+// warpgroups a block, output columns a block, the grid, keys a tile. Two
+// warpgroups (128 rows sharing each K / v^T tile) where the rounds of the
+// card's SMs times a block's cost say so, else one; one at D = 128 and in
+// the wide body. A block of two warpgroups takes 1.75x one of one, so two
+// win only where they save rounds and the key loop is short
+struct Plan {
+  int nwg, cols, gx, gy, gz, bk;
+};
+inline Plan plan(int batch, int heads, int tq, int tk, int d) {
+  const int items = batch * heads;
+  if (d > 128) return Plan{1, WCOLS, (tq + 63) / 64, items, (d + WCOLS - 1) / WCOLS, WBK};
+  int nwg = 1;
+  if (d != 128) {
+    // a block's cost in quarter key tiles: a prologue of 2 tiles, then each
+    // tile at 4 (one warpgroup) or 7 (two: 1.75x, measured, PERF.md)
+    const long long tiles = (tk + keys_of(d) - 1) / keys_of(d);
+    const long long r1 = ((long long)((tq + 63) / 64) * items + SMS - 1) / SMS;
+    const long long r2 = ((long long)((tq + 127) / 128) * items + SMS - 1) / SMS;
+    if (r2 * (8 + 7 * tiles) < r1 * (8 + 4 * tiles)) nwg = 2;
+  }
+  return Plan{nwg, d, (tq + 64 * nwg - 1) / (64 * nwg), items, 1, keys_of(d)};
+}
 
-template <int D, bool EMIT_STATS>
-int launch(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
-           float* m_out, float* l_out, int batch, int heads, int tq, int tk, float scale,
-           cudaStream_t stream) {
-  if (tq <= 0 || batch <= 0) return 0;
-  const cudaError_t err =
-      act::allow_dynamic_smem(reinterpret_cast<const void*>(flash_fwd_kernel<D, EMIT_STATS>),
-                              smem_cap_raised<D, EMIT_STATS>);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((tq + ROWS - 1) / ROWS, batch * heads);
-  flash_fwd_kernel<D, EMIT_STATS><<<grid, NT, Dims<D>::smem_bytes(tk), stream>>>(
-      q, k, v, kv_mask, out, m_out, l_out, heads, tq, tk, scale);
+// Launch a body over grid with its maps (the kernel's shared-memory cap
+// raised once per device), or (facts != null) write the threads, stages and
+// dynamic shared memory of its block into facts[3]
+template <int MODE, int D, int NWG>
+int launch(dim3 grid, const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+           const aw::Params& p, cudaStream_t stream, int* facts) {
+  using C = Cfg<D, NWG>;
+  const size_t smem = C::smem_bytes((p.tk + C::BK - 1) / C::BK);
+  if (facts) {
+    facts[0] = C::THREADS;
+    facts[1] = C::NS;
+    facts[2] = (int)smem;
+    return 0;
+  }
+  static std::atomic<uint64_t> raised{0};
+  const auto kernel = attn_kernel<MODE, D, NWG>;
+  const cudaError_t e = act::allow_dynamic_smem(reinterpret_cast<const void*>(kernel), raised);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, C::THREADS, smem, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
 }
 
-template <bool EMIT_STATS>
-std::atomic<uint64_t> wide_cap_raised{0};
-
-template <bool EMIT_STATS>
-int launch_wide(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
-                float* m_out, float* l_out, int batch, int heads, int tq, int tk, int dp,
-                float scale, cudaStream_t stream) {
-  if (tq <= 0 || batch <= 0) return 0;
-  const cudaError_t err = act::allow_dynamic_smem(
-      reinterpret_cast<const void*>(flash_wide_kernel<EMIT_STATS>), wide_cap_raised<EMIT_STATS>);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((tq + ROWS - 1) / ROWS, batch * heads, (dp + DV - 1) / DV);
-  flash_wide_kernel<EMIT_STATS><<<grid, NT, Wide::smem_bytes(tk), stream>>>(
-      q, k, v, kv_mask, out, m_out, l_out, heads, tq, tk, dp, scale);
+template <int MODE>
+int launch_wide(dim3 grid, const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                const aw::Params& p, cudaStream_t stream, int* facts) {
+  const size_t smem = Wide::smem_bytes((p.tk + WBK - 1) / WBK);
+  if (facts) {
+    facts[0] = 160;
+    facts[1] = WNS;
+    facts[2] = (int)smem;
+    return 0;
+  }
+  static std::atomic<uint64_t> raised{0};
+  const auto kernel = wide_kernel<MODE>;
+  const cudaError_t e = act::allow_dynamic_smem(reinterpret_cast<const void*>(kernel), raised);
+  if (e != cudaSuccess) return (int)e;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 160, smem, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
 }
 
-// the instance for head_dim. This switch owns the set of head dims the
-// kernels take: the body's instances and, above 128, every multiple of SLAB
-// for the wide body (ops/kernels/attention.py's HEAD_DIMS and WIDE_SLAB
-// mirror it, and a card test holds them equal); any other D is refused,
-// empty calls too
-template <bool EMIT_STATS>
-int dispatch(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
-             float* m_out, float* l_out, int batch, int heads, int tq, int tk, int head_dim,
-             float scale, cudaStream_t stream) {
-  switch (head_dim) {
+// The call at a head dim the kernels take (tq, batch, heads >= 1): the split
+// launch, then the body; or (facts != null) the block's facts, no launch
+template <int MODE>
+int run(const float* q, const float* k, const float* v, const uint8_t* kv_mask, float* out,
+        float* m_out, float* l_out, float* ksp, float* vsp, float* qsp, int batch, int heads,
+        int tq, int tk, int d, float scale, cudaStream_t stream, int* facts) {
+  const Plan pl = plan(batch, heads, tq, tk, d);
+  const int items = batch * heads;
+  const bool wide = d > 128;
+  CUtensorMap mq, mk, mv;
+  if (!facts) {
+    cudaError_t e = aw::tf32_split(k, v, wide ? q : nullptr, ksp, vsp, qsp, items, tk, tq, d, d,
+                                   stream);
+    if (e != cudaSuccess) return (int)e;
+    const int tkp = (tk + 7) / 8 * 8;
+    if ((e = act::tmap_3d_f32(&mq, wide ? qsp : q, d, tq, wide ? 2 * items : items, 64)) !=
+            cudaSuccess ||
+        (e = act::tmap_3d_f32(&mk, ksp, d, tk, 2 * items, pl.bk)) != cudaSuccess ||
+        (e = act::tmap_3d_f32(&mv, vsp, tkp, d, 2 * items, wide ? WCOLS : d)) != cudaSuccess)
+      return (int)e;
+  }
+  const aw::Params p{kv_mask, out, m_out, l_out, heads, tq, tk, d, scale};
+  const dim3 grid(pl.gx, pl.gy, pl.gz);
+  switch (d) {
     case 64:
-      return launch<64, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
-                                    scale, stream);
+      return pl.nwg == 2 ? launch<MODE, 64, 2>(grid, mq, mk, mv, p, stream, facts)
+                         : launch<MODE, 64, 1>(grid, mq, mk, mv, p, stream, facts);
     case 80:
-      return launch<80, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
-                                    scale, stream);
+      return pl.nwg == 2 ? launch<MODE, 80, 2>(grid, mq, mk, mv, p, stream, facts)
+                         : launch<MODE, 80, 1>(grid, mq, mk, mv, p, stream, facts);
     case 128:
-      return launch<128, EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
-                                     scale, stream);
+      return launch<MODE, 128, 1>(grid, mq, mk, mv, p, stream, facts);
     default:
-      if (head_dim > 128 && head_dim % SLAB == 0) {
-        return launch_wide<EMIT_STATS>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk,
-                                       head_dim, scale, stream);
-      }
-      return (int)cudaErrorInvalidValue;
+      return launch_wide<MODE>(grid, mq, mk, mv, p, stream, facts);
   }
 }
+
+}  // namespace t32
 
 // ---------------------------------------------------------------------------
 // bfloat16 q, k, v: act_flash_attention_bf16 (K3) and
@@ -935,15 +947,13 @@ inline int plan_facts(int d, int tk, int* out) {
   }
 }
 
-// the same set of head dims as the float32 dispatch above: 64, 80, 128 and
-// every multiple of 64 above 128
+// the head dims of takes_head_dim, as the float32 bodies
 template <bool EMIT_STATS>
 int dispatch(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_mask, float* out,
              float* m_out, float* l_out, int batch, int heads, int tq, int tk, int d, float scale,
              cudaStream_t stream) {
   constexpr int MODE = EMIT_STATS ? aw::STATS : aw::SOFTMAX;
-  if (!(d == 64 || d == 80 || d == 128 || (d > 128 && d % 64 == 0)))
-    return (int)cudaErrorInvalidValue;
+  if (!takes_head_dim(d)) return (int)cudaErrorInvalidValue;
   if (tq <= 0 || batch <= 0 || heads <= 0) return 0;
   const int items = batch * heads;
   CUtensorMap mq, mk, mv;
@@ -976,25 +986,51 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const uint8_t* kv_mask
 
 }  // namespace
 
-// K3. q, k, v, out: [B, H, T, D] f32 contiguous, D = head_dim in {64, 80,
-// 128} or a multiple of 64 above 128; kv_mask: [B, T] uint8 or null.
+// K3. q, k, v, out: [B, H, T, D] f32 contiguous, 16-byte aligned, D =
+// head_dim (takes_head_dim); kv_mask: [B, T] uint8 or null. Scratch for the
+// split launch (act_flash_attention_plan's sizes): ksp 2 B H T D floats, vsp
+// 2 B H D Tp (Tp = T rounded up to 8), qsp 2 B H T D above D = 128 (the
+// wide body; else unread, may be null).
 extern "C" int act_flash_attention(const float* q, const float* k, const float* v,
-                                   const uint8_t* kv_mask, float* out, int batch, int heads,
-                                   int t, int head_dim, float scale, cudaStream_t stream) {
-  return dispatch<false>(q, k, v, kv_mask, out, nullptr, nullptr, batch, heads, t, t, head_dim,
-                         scale, stream);
+                                   const uint8_t* kv_mask, float* out, float* ksp, float* vsp,
+                                   float* qsp, int batch, int heads, int t, int head_dim,
+                                   float scale, cudaStream_t stream) {
+  if (!takes_head_dim(head_dim)) return (int)cudaErrorInvalidValue;
+  if (t <= 0 || batch <= 0 || heads <= 0) return 0;
+  return t32::run<aw::SOFTMAX>(q, k, v, kv_mask, out, nullptr, nullptr, ksp, vsp, qsp, batch,
+                               heads, t, t, head_dim, scale, stream, nullptr);
 }
 
 // K5. q, out: [B, H, Tq, D]; k, v: [B, H, Tk, D]; m_out, l_out: [B, H, Tq];
-// all f32 contiguous, D = head_dim as for K3; kv_mask: [B, Tk] uint8 or
-// null. Tk >= 1.
+// all f32 contiguous, 16-byte aligned, D = head_dim as for K3; kv_mask:
+// [B, Tk] uint8 or null. Tk >= 1. Scratch as for K3 (ksp and vsp over Tk
+// keys, qsp over Tq rows).
 extern "C" int act_flash_attention_stats(const float* q, const float* k, const float* v,
                                          const uint8_t* kv_mask, float* out, float* m_out,
-                                         float* l_out, int batch, int heads, int tq, int tk,
-                                         int head_dim, float scale, cudaStream_t stream) {
-  if (tk <= 0) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(q, k, v, kv_mask, out, m_out, l_out, batch, heads, tq, tk, head_dim,
-                        scale, stream);
+                                         float* l_out, float* ksp, float* vsp, float* qsp,
+                                         int batch, int heads, int tq, int tk, int head_dim,
+                                         float scale, cudaStream_t stream) {
+  if (tk <= 0 || !takes_head_dim(head_dim)) return (int)cudaErrorInvalidValue;
+  if (tq <= 0 || batch <= 0 || heads <= 0) return 0;
+  return t32::run<aw::STATS>(q, k, v, kv_mask, out, m_out, l_out, ksp, vsp, qsp, batch, heads,
+                             tq, tk, head_dim, scale, stream, nullptr);
+}
+
+// The plan of a float32 K3 / K5 call at head dim head_dim (as the entry
+// points take it) into out[9]: consumer warpgroups a block, output columns
+// a block, grid x, y, z, threads a block, ring stages, dynamic shared
+// memory bytes, keys a tile (ops/kernels/attention.tf32_plan computes the
+// same on the host).
+extern "C" int act_flash_attention_plan(int batch, int heads, int tq, int tk, int head_dim,
+                                        int* out) {
+  if (!takes_head_dim(head_dim)) return (int)cudaErrorInvalidValue;
+  const t32::Plan pl = t32::plan(batch, heads, tq, tk, head_dim);
+  const int geo[5] = {pl.nwg, pl.cols, pl.gx, pl.gy, pl.gz};
+  for (int i = 0; i < 5; ++i) out[i] = geo[i];
+  out[8] = pl.bk;
+  return t32::run<aw::SOFTMAX>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, nullptr, nullptr, batch, heads, tq, tk, head_dim, 0.f,
+                               nullptr, out + 5);
 }
 
 // K3 at bfloat16. q, k, v: [B, H, T, D] bf16 contiguous, 16-byte aligned;
@@ -1027,9 +1063,7 @@ extern "C" int act_flash_attention_stats_bf16(const act::bf16* q, const act::bf1
 // the host).
 extern "C" int act_flash_attention_bf16_plan(int batch, int heads, int tq, int tk, int head_dim,
                                              int* out) {
-  if (!(head_dim == 64 || head_dim == 80 || head_dim == 128 ||
-        (head_dim > 128 && head_dim % 64 == 0)))
-    return (int)cudaErrorInvalidValue;
+  if (!takes_head_dim(head_dim)) return (int)cudaErrorInvalidValue;
   const b16::Plan pl = b16::plan(batch, heads, tq, head_dim);
   out[0] = pl.cols;
   out[1] = pl.gx;

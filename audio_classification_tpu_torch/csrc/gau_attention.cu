@@ -19,12 +19,13 @@
 //
 // Design (Hopper): 3xTF32 on warpgroup products (wgmma.mma_async m64nNk8
 // TF32, float32 accumulators) fed by TMA, in two launches a call.
-//   S  split_kernel: k split into big and small TF32 halves ([2][B][T][Dqk])
-//      and v transposed to [2][B][De][Tp] (Tp = T rounded up to 8), split
-//      the same way, its keys permuted inside each group of 8 (position i
-//      holds key 2 i, position i + 4 key 2 i + 1; zero past T). TF32 wgmma
-//      takes no transpose, so p v needs v K-major over the keys; a B operand
-//      comes from shared memory, so its halves are two tiles there.
+//   S  the split launch (attention_wgmma.cuh tf32_split, shared with K3 /
+//      K5): k split into big and small TF32 halves ([2][B][T][Dqk]) and v
+//      transposed to [2][B][De][Tp] (Tp = T rounded up to 8), split the same
+//      way, its keys permuted inside each group of 8 (position i holds key
+//      2 i, position i + 4 key 2 i + 1; zero past T). TF32 wgmma takes no
+//      transpose, so p v needs v K-major over the keys; a B operand comes
+//      from shared memory, so its halves are two tiles there.
 //   K  gau_kernel: a block is two consumer warpgroups of 64 query rows (128
 //      rows sharing each K / V tile) and one DV = 192-wide chunk of the De
 //      output columns (grid z), with a producer warpgroup whose registers go
@@ -102,47 +103,6 @@ struct Plan {
 };
 inline Plan plan(int batch, int t, int de) {
   return Plan{(t + BM - 1) / BM, batch, (de + DV - 1) / DV};
-}
-
-// S: out_k = [2][B][T][Dqk] (k's big halves, then small; both rounded to
-// nearest), out_v = [2][B][De][Tp] (v transposed, keys permuted in groups
-// of 8, split; zero past T). blockIdx.z < batch: one 32 x 32 tile of item
-// z's v through shared memory; else a stride of k's elements.
-__global__ void __launch_bounds__(256)
-    split_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                 float* __restrict__ out_k, float* __restrict__ out_v, int batch, int t, int tp,
-                 int dqk, int de) {
-  __shared__ float tile[32][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  if ((int)blockIdx.z >= batch) {
-    const size_t n = (size_t)batch * t * dqk;
-    const size_t stride = (size_t)gridDim.x * gridDim.y * blockDim.x;
-    for (size_t i = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x;
-         i < n; i += stride) {
-      uint32_t big, small;
-      act::split(k[i], big, small);
-      out_k[i] = __uint_as_float(big);
-      out_k[n + i] = __uint_as_float(small);
-    }
-    return;
-  }
-  const int b = blockIdx.z, j0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
-  for (int i = ty; i < 32; i += 8) {  // key j0 + i, column c0 + tx
-    const int j = j0 + i, c = c0 + tx;
-    tile[i][tx] = j < t && c < de ? v[((size_t)b * t + j) * de + c] : 0.f;
-  }
-  __syncthreads();
-  const size_t half = (size_t)batch * de * tp;
-  const int pos = tx & 7, key = (tx & ~7) + (pos < 4 ? 2 * pos : 2 * (pos - 4) + 1);
-  for (int i = ty; i < 32; i += 8) {  // column c0 + i, position j0 + tx
-    const int c = c0 + i;
-    if (c >= de || j0 + tx >= tp) continue;
-    uint32_t big, small;
-    act::split(tile[key][i], big, small);
-    const size_t o = ((size_t)b * de + c) * tp + j0 + tx;
-    out_v[o] = __uint_as_float(big);
-    out_v[half + o] = __uint_as_float(small);
-  }
 }
 
 // K: mq q [B, T, Dqk] in boxes {32, BM}; mk the split k [2 B, T, Dqk] in
@@ -369,9 +329,8 @@ inline int run(const float* q, const float* k, const float* v, const uint8_t* kv
                float* ksp, float* vtp, int batch, int t, int dqk, int de, float scale,
                cudaStream_t stream) {
   const int tp = (t + 7) / 8 * 8;
-  const dim3 g_split((tp + 31) / 32, (de + 31) / 32, batch + 1);
-  split_kernel<<<g_split, 256, 0, stream>>>(k, v, ksp, vtp, batch, t, tp, dqk, de);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = act::attn::tf32_split(k, v, nullptr, ksp, vtp, nullptr, batch, t, t, dqk, de,
+                                        stream);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap mq, mk, mv;
   if ((e = act::tmap_3d_f32(&mq, q, dqk, t, batch, BM)) != cudaSuccess ||

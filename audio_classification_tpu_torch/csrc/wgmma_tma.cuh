@@ -1,6 +1,6 @@
 // Hopper's own machinery for the port's kernels (first used by K2 bf16 in
 // tcn_masker.cu, then by the bf16 attention pipeline, attention_wgmma.cuh,
-// then by the float32 K2 and K4 in 3xTF32): warpgroup products
+// then by the float32 K2, K4, K3 and K5 in 3xTF32): warpgroup products
 // (wgmma.mma_async m64nNk16 bf16 and m64nNk8 tf32 with float32
 // accumulators, A from shared memory or from registers), their
 // fence / commit / wait discipline, shared-memory matrix descriptors for
@@ -89,6 +89,12 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 }
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (a wgmma that reads them by descriptor, a TMA store)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -------------------------------------------------------- named barriers
@@ -262,15 +268,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
   " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}"
 
-// d (+)= a b over one TF32 k8 step, N = 32 / 64 / 96 / 128 columns: A from
-// registers (this warp's m16n8k8 TF32 fragment), B K-major ([n][k], k
+// d (+)= a b over one TF32 k8 step, N = 32 / 64 / 80 / 96 / 128 columns: A
+// from registers (this warp's m16n8k8 TF32 fragment), B K-major ([n][k], k
 // contiguous) from shared memory by descriptor. accumulate == 0 overwrites d.
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                               uint64_t db, int accumulate) {
-  static_assert(N == 32 || N == 64 || N == 96 || N == 128,
-                "wgmma_tf32_rs: N is 32, 64, 96 or 128");
-  if constexpr (N == 32) {
+  static_assert(N == 32 || N == 64 || N == 80 || N == 96 || N == 128,
+                "wgmma_tf32_rs: N is 32, 64, 80, 96 or 128");
+  if constexpr (N == 80) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 " ACT_WG_D40
+                 ", {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+                 : ACT_WG_OPS32(0), ACT_WG_OPS8(32)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 32) {
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
                  "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " ACT_WG_D16
                  ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
@@ -294,6 +306,28 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t 
                  ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
                  : ACT_WG_OPS32(0), ACT_WG_OPS32(32)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+}
+
+// the same with A from shared memory too (K-major, by descriptor), N = 32 or
+// 64 columns: the float32 attention's scores, q's TF32 halves split once
+// into shared memory (A) against K's (B)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  static_assert(N == 32 || N == 64, "wgmma_tf32_ss: N is 32 or 64");
+  if constexpr (N == 32) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " ACT_WG_D16
+                 ", %16, %17, p, 1, 1;\n}\n"
+                 : ACT_WG_OPS8(0), ACT_WG_OPS8(8)
+                 : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " ACT_WG_D32
+                 ", %32, %33, p, 1, 1;\n}\n"
+                 : ACT_WG_OPS32(0)
+                 : "l"(da), "l"(db), "r"(accumulate));
   }
 }
 

@@ -1,7 +1,7 @@
 """K3 and K5: masked non-causal multi-head attention as a streaming softmax.
 
-Kernels: csrc/flash_attention.cu (CUDA C++, sm_90a; one templated body with
-two epilogues), replacing
+Kernels: csrc/flash_attention.cu (CUDA C++, sm_90a; one body with two
+epilogues at each dtype), replacing
 audio_classification_tpu/ops/pallas/attention_kernel.py::flash_attention
 (K3: out = acc / l) and ::flash_attention_stats (K5: the unnormalised
 accumulator with the row's running max m and sum l, which
@@ -9,6 +9,12 @@ parallel/ring_attention.py merges across key blocks). Bound and design are
 in the source's header. K3's plain twin is the dense masked softmax the JAX
 package uses below the flash threshold (models/common.py:237-245); K5's is
 the same softmax stopped before its division, with K5's 0 / -1e9 key bias.
+
+float32 q, k, v run in 3xTF32 on Hopper's warpgroup products, fed by TMA,
+in two launches a call: a split launch writes k split into TF32 halves and
+v transposed and split (``tf32_split_kv`` is its plain version; the wrapper
+allocates the scratch with ``torch.empty``), then the attention launch,
+planned by ``tf32_plan``.
 
 bfloat16 q, k, v take entry points of their own (``act_flash_attention_bf16``,
 ``act_flash_attention_stats_bf16``: both products on ``wgmma`` in the
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -253,6 +260,107 @@ def bf16_plan(batch: int, heads: int, tq: int, tk: int, d: int) -> dict:
             **bf16_block(-(-dp // 64), dp, 1, n_tiles)}
 
 
+#: the float32 bodies (csrc/flash_attention.cu, namespace t32): a swizzled
+#: row of 32 floats, a {32 d, 64 rows} box of q, the dynamic shared memory a
+#: block may take and the part of it the ring's stages leave to the rest
+#: (alignment slack, key bias, barriers, live-tile map); the card's SMs,
+#: whose rounds the plan counts; the wide body's output columns a block,
+#: keys a tile and ring stages
+TF32_ROW, TF32_QBOX = 128, 64 * 128
+TF32_SMEM_MAX, TF32_SMEM_RESERVE = 232448, 3072
+TF32_SMS = 132
+TF32_WIDE_COLS, TF32_WIDE_KEYS, TF32_WIDE_STAGES = 128, 32, 4
+
+
+def tf32_keys(dp: int) -> int:
+    """Keys a tile of the float32 narrow body at head dim ``dp`` (64, 80,
+    128): 64 at D = 64, else 32 (a 64-key stage of both halves of K and
+    v^T would not leave room for two stages)."""
+    return 64 if dp == 64 else 32
+
+
+def tf32_plan(batch: int, heads: int, tq: int, tk: int, d: int) -> dict:
+    """The launch of a float32 K3 / K5 call on q [batch, heads, tq, d] and
+    [.., tk, d] keys, as ``csrc/flash_attention.cu`` plans it (its
+    ``act_flash_attention_plan`` returns the same): the head dim it runs at,
+    consumer warpgroups of 64 query rows a block, output columns a block,
+    the grid (row blocks, batch x heads, column slices), the block's
+    threads, stages of each of its two rings (K's, v^T's), shared memory
+    and keys a tile, and the split launch's scratch in floats
+    (``k_split``, ``v_split``, and ``q_split`` for the wide body above 128,
+    else 0). At 64 and 80 a block is two
+    warpgroups (128 rows sharing each K / v^T tile) where the rounds of
+    ``TF32_SMS`` times a block's cost are fewer: in quarter key tiles, a
+    prologue of 2 tiles and then 4 a tile with one warpgroup, 7 with two (a
+    block of two took 1.75x one of one on the card). One at 128 (q's halves
+    of 128 rows leave no second stage) and in the wide body, whose blocks hold
+    ``TF32_WIDE_COLS`` output columns each. The wrapper reads only the
+    scratch sizes; the geometry is mirrored so that the CPU tests can show
+    that the grid covers every query row and output column once (a card
+    test holds it to the C plan)."""
+    dp = padded_head_dim(d)
+    items = batch * heads
+    tkp = -(-tk // 8) * 8
+    scratch = {"k_split": 2 * items * tk * dp, "v_split": 2 * items * dp * tkp,
+               "q_split": 2 * items * tq * dp if dp > 128 else 0}
+    if dp > 128:
+        bk, stages = TF32_WIDE_KEYS, TF32_WIDE_STAGES
+        slot = 2 * 2 * TF32_QBOX + 2 * 2 * bk * TF32_ROW
+        return {"head_dim": dp, "nwg": 1, "cols": TF32_WIDE_COLS,
+                "grid": (-(-tq // 64), items, -(-dp // TF32_WIDE_COLS)), "threads": 160,
+                "stages": stages, "keys": bk, **scratch,
+                "smem": 1024 + stages * slot + 4 * stages * bk + 16 * stages + -(-tk // bk)}
+    bk, nd = tf32_keys(dp), -(-dp // 32)
+    nwg = 1
+    if dp != 128:
+        rounds = [-(-(-(-tq // (64 * n)) * items) // TF32_SMS) for n in (1, 2)]
+        tiles = -(-tk // bk)
+        nwg = 2 if rounds[1] * (8 + 7 * tiles) < rounds[0] * (8 + 4 * tiles) else 1
+    q_half = nwg * nd * TF32_QBOX
+    slot = 2 * nd * bk * TF32_ROW + 2 * (bk // 32) * dp * TF32_ROW  # K's and v^T's halves
+    stages = min(4, (TF32_SMEM_MAX - TF32_SMEM_RESERVE - 2 * q_half) // slot)
+    return {"head_dim": dp, "nwg": nwg, "cols": dp,
+            "grid": (-(-tq // (64 * nwg)), items, 1),
+            "threads": 128 * nwg + (128 if nwg == 2 else 32), "stages": stages, "keys": bk,
+            **scratch, "smem": 1024 + 2 * q_half + stages * slot + 4 * stages * bk
+                               + 8 * (4 * stages + 1) + -(-tk // bk)}
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """float32 x = big + small, both rounded to TF32 to nearest with ties
+    away from zero, bit for bit as tf32_mma.cuh's ``split`` forms them (add
+    half of the 13 dropped bits to the magnitude's pattern, then clear
+    them): big + small is x within 2^-22 of |x|."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(x)
+    return big, rna(x - big)
+
+
+#: v^T's key order inside each group of 8: position i holds key 2 i, i + 4
+#: key 2 i + 1, so that a warp's score accumulator is p v's A fragment
+TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_split_kv(k: torch.Tensor, v: torch.Tensor, q: Optional[torch.Tensor] = None) -> tuple:
+    """The float32 kernels' split copies, as their split launch writes them
+    (the plain version of ``tf32_split_kernel``, csrc/attention_wgmma.cuh),
+    flat: k [B, H, Tk, D] as [2, B H, Tk, D] (big halves, then small; K-major
+    as it lies), v as [2, B H, D, Tkp] (transposed, Tkp = Tk rounded up to
+    8, keys in ``TF32_KEY_ORDER`` inside each group of 8, zero past Tk), and
+    q (the wide body's, else None) as k. D is the head dim the kernels run
+    at (the wrapper's zero-padded one)."""
+    b, h, tk, d = k.shape
+    tkp = -(-tk // 8) * 8
+    ks = torch.cat([x.reshape(-1) for x in tf32_split(k.float())])
+    vt = F.pad(v.float().reshape(b * h, tk, d), (0, 0, 0, tkp - tk))
+    vt = vt.view(b * h, tkp // 8, 8, d)[:, :, list(TF32_KEY_ORDER)].reshape(b * h, tkp, d)
+    vs = torch.cat([x.reshape(-1) for x in tf32_split(vt.transpose(1, 2).contiguous())])
+    qs = None if q is None else torch.cat([x.reshape(-1) for x in tf32_split(q.float())])
+    return ks, vs, qs
+
+
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     """(q, k, v) with D zero-padded to the head dim it runs at
     (``padded_head_dim``). The caller passes 1 / sqrt(D) of the true D as
@@ -364,6 +472,23 @@ class _FlashStatsCore(torch.autograd.Function):
         return (*_twin_vjp(q, k, v, kv_mask, (go, gm, gl), stats=True), None)
 
 
+@functools.cache
+def _entry(name: str, pointers: int, ints: int):
+    """The C entry point, built, loaded and declared at the first launch."""
+    return _build.kernel(name, [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                         + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _split_scratch(b: int, h: int, tq: int, tk: int, d: int, device) -> list:
+    """The float32 call's split scratch (``tf32_plan``): k's and v^T's
+    halves, and q's for the wide body (else None). The caller holds the
+    tensors until the launch is queued: a tensor freed earlier would hand
+    its block to the next allocation."""
+    pl = tf32_plan(b, h, tq, tk, d)
+    return [torch.empty(pl[key], dtype=torch.float32, device=device) if pl[key] else None
+            for key in ("k_split", "v_split", "q_split")]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, H, T, D] q, k, v, all float32 or all bfloat16, + optional [B, T]
@@ -399,16 +524,18 @@ def _flash_forward(q, k, v, kv_mask):
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out[..., :d]
-    name = "act_flash_attention_bf16" if lowp else "act_flash_attention"
-    fn = _build.kernel(name, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr()]
     if lowp:
+        name = "act_flash_attention_bf16"
         flash_attention.launches_bf16 += 1
     else:
+        name = "act_flash_attention"
+        scratch = _split_scratch(b, h, t, t, d, q.device)
+        ptrs += [None if x is None else x.data_ptr() for x in scratch]
         flash_attention.launches += 1
     flash_attention.launches_by_head_dim[d] += 1
-    _build.launch(name, fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-                  out.data_ptr(), b, h, t, q.shape[-1], 1.0 / math.sqrt(d))
+    _build.launch(name, _entry(name, len(ptrs), 4), q.device, *ptrs, b, h, t, q.shape[-1],
+                  1.0 / math.sqrt(d))
     return out[..., :d]  # the padded columns sliced off (a view)
 
 
@@ -460,16 +587,18 @@ def _flash_stats_forward(q, k, v, kv_mask):
     out_d = out[..., :d]  # the padded columns sliced off (a view)
     if out.numel() == 0:
         return out_d, m, l
-    name = "act_flash_attention_stats_bf16" if lowp else "act_flash_attention_stats"
-    fn = _build.kernel(name, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_void_p])
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, out.data_ptr(), m.data_ptr(),
+            l.data_ptr()]
     if lowp:
+        name = "act_flash_attention_stats_bf16"
         flash_attention_stats.launches_bf16 += 1
     else:
+        name = "act_flash_attention_stats"
+        scratch = _split_scratch(b, h, tq, tk, d, q.device)
+        ptrs += [None if x is None else x.data_ptr() for x in scratch]
         flash_attention_stats.launches += 1
     flash_attention_stats.launches_by_head_dim[d] += 1
-    _build.launch(name, fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-                  out.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, tq, tk, q.shape[-1],
+    _build.launch(name, _entry(name, len(ptrs), 5), q.device, *ptrs, b, h, tq, tk, q.shape[-1],
                   1.0 / math.sqrt(d))
     return out_d, m, l
 

@@ -30,15 +30,13 @@ code, as XLA code is outside a kernel.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional, Sequence
 
 import torch
 
 from ... import _build
 from ..work import counted
-from .attention import (BLOCK_K, _aligned, _wants_grad, bf16_block, blockwise_vjp,
+from .attention import (BLOCK_K, _aligned, _entry, _wants_grad, bf16_block, blockwise_vjp,
                         valid_key_count)
 
 MAX_QK_DIM = 128  # the kernel's shared-memory tiles are sized for Dqk <= 128
@@ -121,13 +119,6 @@ def bf16_plan(batch: int, t: int, dqk: int, de: int) -> dict:
     nwg = 2 if rounds[1] < rounds[0] else 1
     return {"nwg": nwg, "cols": cols, "grid": (-(-t // (64 * nwg)), batch, nc),
             **bf16_block(1 if dqk <= 64 else 2, cols, nwg, -(-t // BLOCK_K))}
-
-
-@functools.cache
-def _entry(name: str, pointers: int):
-    """The C entry point, built, loaded and declared at the first launch."""
-    return _build.kernel(name, [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4
-                         + [ctypes.c_float, ctypes.c_void_p])
 
 
 class _GauCore(torch.autograd.Function):
@@ -227,7 +218,7 @@ def _gau_forward(q, k, v, kv_mask, scale):
                    for key in ("k_split", "v_split")]
         ptrs += [x.data_ptr() for x in scratch]
         gau_attention.launches += 1
-    _build.launch(name, _entry(name, len(ptrs)), q.device, *ptrs, b, t, dqk, de, float(scale))
+    _build.launch(name, _entry(name, len(ptrs), 4), q.device, *ptrs, b, t, dqk, de, float(scale))
     return out
 
 

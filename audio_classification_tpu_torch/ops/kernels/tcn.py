@@ -51,7 +51,7 @@ import torch.nn.functional as F
 from ... import _build
 from ..quant import quantize_weight
 from ..work import counted
-from .attention import _wants_grad
+from .attention import _wants_grad, tf32_split
 
 _EPS = 1e-8  # GlobalLayerNorm eps
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -240,18 +240,6 @@ def tf32_plan(batch: int, f: int, c: int, hd: int, sms: int) -> dict:
     pl = bf16_plan(batch, f, c, hd, sms)
     del pl["wdq_per_block"]
     return {**pl, "split_per_block": 2 * (c * hd + 2 * hd * c)}
-
-
-def tf32_split(x: torch.Tensor) -> tuple:
-    """float32 x = big + small, both rounded to TF32 to nearest with ties
-    away from zero, bit for bit as tf32_mma.cuh's ``split`` forms them (add
-    half of the 13 dropped bits to the magnitude's pattern, then clear
-    them): big + small is x within 2^-22 of |x|."""
-    def rna(v):
-        return ((v.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-    big = rna(x)
-    return big, rna(x - big)
 
 
 def tf32_stack(st: dict) -> torch.Tensor:

@@ -148,6 +148,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -548,6 +549,9 @@ def check_attention(torch, np) -> dict:
         ref = attention.attention_reference(q, k, v, mask)
         rows = mask[:, None, :, None]
         err = ((out - ref).abs() * rows).max().item()
+        # the twin in float64 too: the float32 twin adds its own error
+        ref64 = attention.attention_reference(q.double(), k.double(), v.double(), mask)
+        err64 = ((out - ref64.float()).abs() * rows).max().item()
         sdpa_mask = mask[:, None, None, :]
         n_valid = int(mask.sum())
         k3 = lambda: attention.flash_attention(q, k, v, mask)  # noqa: E731
@@ -558,7 +562,8 @@ def check_attention(torch, np) -> dict:
         # device time (graph replay) in ms, plain_ms, library_ms; each call
         # through Python (the host's time where it is the longer) beside
         cases.append({"shape": [b, h, t, 64], "valid_keys": n_valid, "mask_holes": holes,
-                      "max_abs_err": err,
+                      "max_abs_err": err, "max_abs_err_vs_float64_twin": err64,
+                      "device_ops_per_call": queued_ops(torch, k3),
                       "ms": graph_ms(torch, k3, 20), "plain_ms": graph_ms(torch, twin, 20),
                       "library_ms": graph_ms(torch, sdpa, 20),
                       "wrapper_ms": cuda_ms(torch, k3, 20),
@@ -574,7 +579,7 @@ def check_attention(torch, np) -> dict:
         log({"phase": "kernel", "name": "flash_attention", **cases[-1], "tol": 2e-5})
         # f32 softmax over <= 4271 keys with O(1) outputs; padded query rows
         # are discarded downstream and not compared
-        assert err <= 2e-5, cases[-1]
+        assert err <= 2e-5 and err64 <= 2e-5, cases[-1]
     return {**cases[0], "max_abs_err": max(c["max_abs_err"] for c in cases), "cases": cases}
 
 
@@ -608,6 +613,13 @@ def check_attention_stats(torch, np) -> dict:
         peak = ro.abs().max().item()
         err_m = ((m - rm).abs() / rm.abs().clamp_min(1.0)).max().item()
         err_l = ((l - rl).abs() / rl.abs()).max().item()
+        # and against the twin in float64 (the float32 twin adds its own error)
+        xo, xm, xl = (x.float() for x in attention.attention_stats_reference(
+            q.double(), k.double(), v.double(), mask))
+        err64 = {"rel_err_vs_float64_twin": (o - xo).abs().max().item() / xo.abs().max().item(),
+                 "m_rel_err_vs_float64_twin":
+                     ((m - xm).abs() / xm.abs().clamp_min(1.0)).max().item(),
+                 "l_rel_err_vs_float64_twin": ((l - xl).abs() / xl.abs()).max().item()}
         sdpa_mask = mask[:, None, None, :]
         k5 = lambda: attention.flash_attention_stats(q, k, v, mask)  # noqa: E731
         twin = lambda: attention.attention_stats_reference(q, k, v, mask)  # noqa: E731
@@ -616,7 +628,7 @@ def check_attention_stats(torch, np) -> dict:
         cases.append({
             "shape": [b, h, tq, 64], "keys": tk, "valid_keys": lens, "max_abs_err": err_o,
             "rel_err": err_o / peak, "tol_rel": 1e-4, "m_rel_err": err_m, "l_rel_err": err_l,
-            "tol_ml_rel": 1e-5,
+            "tol_ml_rel": 1e-5, **err64, "device_ops_per_call": queued_ops(torch, k5),
             # device time (graph replay); through Python beside, as for K3
             "ms": graph_ms(torch, k5, 20), "plain_ms": graph_ms(torch, twin, 20),
             "wrapper_ms": cuda_ms(torch, k5, 20), "plain_eager_ms": cuda_ms(torch, twin, 20),
@@ -641,6 +653,9 @@ def check_attention_stats(torch, np) -> dict:
         # maximum of products that differ by rounding alone
         assert math.isfinite(err_o) and err_o <= 1e-4 * peak, cases[-1]
         assert err_m <= 1e-5 and err_l <= 1e-5, cases[-1]
+        assert err64["rel_err_vs_float64_twin"] <= 1e-4, cases[-1]
+        assert err64["m_rel_err_vs_float64_twin"] <= 1e-5, cases[-1]
+        assert err64["l_rel_err_vs_float64_twin"] <= 1e-5, cases[-1]
 
     # the ring as the long-form encoder calls it: 4 shards of 1068 frames on
     # this card, the keys past the utterance's end masked (the last shard
@@ -3786,11 +3801,19 @@ def main() -> int:
     log({"phase": "build", "nvcc_sec": nvcc_s, "sec": time.perf_counter() - t0,
          "library": _build.library_path().name})
     # registers and spills of the float32 kernels on wgmma (ptxas -v of this
-    # build; absent when the library was already built)
-    for src in ("tcn_masker.cu", "gau_attention.cu"):
-        for r in _build.kernel_resources(_build.reports.get(src, "")):
+    # build; absent when the library was already built), and whether ptxas
+    # serialized their wgmma (its C7513 / C7514 notes name the function).
+    # K3 / K5's (flash_attention.cu) must neither spill nor serialize
+    for src in ("tcn_masker.cu", "gau_attention.cu", "flash_attention.cu"):
+        report = _build.reports.get(src, "")
+        serialized = set(re.findall(r"serialized.*?function '(\S+)'", report))
+        for r in _build.kernel_resources(report):
             if "3t32" in r["kernel"]:  # namespace t32
-                log({"phase": "registers", "source": src, **r})
+                rec = {"phase": "registers", "source": src, **r,
+                       "serialized": r["kernel"] in serialized}
+                log(rec)
+                if src == "flash_attention.cu":
+                    assert r["spill_bytes"] == 0 and not rec["serialized"], rec
 
     # the inference phases run without autograd, as the engine does: the
     # kernels' wrappers then launch as they always have (a stack of TCN

@@ -6,16 +6,20 @@ be set side by side in one call on one card.
 Imports ``audio_classification_tpu_torch`` from --root (default: this
 repository), builds that checkout's kernels into its own build/ directory,
 and prints one JSON line per shape: device milliseconds by the replay of a
-CUDA graph of --iters launches (``graph_ms``, without the host time of the
-Python calls) for the kernel and for SDPA on the same inputs, and the error
+CUDA graph of --iters calls (``graph_ms``, without the host time of the
+Python calls; every device op of a call, the float32 split launch
+included) for the kernel and for SDPA on the same inputs, and the error
 against the float64 twin. The D = 64 shapes are chip_smoke.py's (OSDNet and
 SenseVoice); the D = 80 shapes are Paraformer's (its 32 s bucket, the 200 s
-utterance's 256 s bucket and one shard's block of it), run only where the
-checkout's wrapper takes D = 80. With --registers it also compiles the
-checkout's csrc/flash_attention.cu alone with ``-Xptxas -v`` and prints the
-registers and spill bytes of each kernel instance. ``--define NAME=VALUE``
-(repeatable) builds the checkout's kernels with ``-DNAME=VALUE``, e.g.
-``ACT_FLASH_WARPS=2`` for blocks of 2 warps (32 query rows) in place of 4.
+utterance's 256 s bucket and one shard's block of it); then D = 128 and the
+wide body (192, 256, and 200 zero-padded to 256), chip_smoke.py's
+``check_attention_head_dims`` shapes. With --split each line adds the
+device ms of each kernel a call launches (``kernels_ms``, by name, under
+torch.profiler) and the device ops of one call. With --registers it also
+compiles the checkout's csrc/flash_attention.cu alone with ``-Xptxas -v``
+and prints each kernel's template arguments, registers, spill bytes and
+whether ptxas serialized its wgmma (C7513 / C7514 notes). ``--define
+NAME=VALUE`` (repeatable) builds the checkout's kernels with ``-DNAME=VALUE``.
 With --bf16 it times the bfloat16 entry points instead, at the shapes of
 chip_smoke.py's ``check_attention_bf16`` (K3 at D = 64, 80, 128 and, zero-
 padded, 40 and 200; K5 on a long-form shard's block), with SDPA at bf16 on
@@ -50,7 +54,9 @@ SHAPES = (("K3", 8, 8, 537, 537, 64, None), ("K3", 1, 8, 537, 537, 64, None),
           ("K3", 1, 4, 800, 800, 64, None), ("K3", 1, 8, 4271, 4271, 64, [3337]),
           ("K5", 1, 8, 1068, 1068, 64, [1068]), ("K5", 1, 8, 1068, 1068, 64, [133]),
           ("K3", 1, 4, 533, 533, 80, None), ("K3", 1, 4, 4267, 4267, 80, [3333]),
-          ("K5", 1, 4, 1067, 1067, 80, [1067]), ("K5", 1, 4, 1067, 1067, 80, [132]))
+          ("K5", 1, 4, 1067, 1067, 80, [1067]), ("K5", 1, 4, 1067, 1067, 80, [132]),
+          ("K3", 2, 4, 200, 200, 128, [200, 77]), ("K3", 1, 4, 800, 800, 192, [800]),
+          ("K3", 1, 4, 800, 800, 256, [800]), ("K3", 2, 4, 300, 300, 200, [300, 129]))
 # the bf16 entry points at chip_smoke.check_attention_bf16's shapes
 BF16_SHAPES = (("K3", 8, 8, 537, 537, 64, [537 - 97 * i % 537 for i in range(8)]),
                ("K3", 1, 8, 537, 537, 64, [537]), ("K3", 1, 4, 800, 800, 64, [800]),
@@ -104,9 +110,9 @@ def run_bf16(torch, attention, graph_ms, args, smi) -> None:
 
 
 def registers(root: Path) -> list:
-    """Registers and spill bytes of every kernel instance in the checkout's
-    flash_attention.cu (ptxas report of a compile of that file alone, with
-    the build's flags)."""
+    """Template arguments, registers, spill bytes and wgmma serialization of
+    every kernel in the checkout's flash_attention.cu (ptxas report of a
+    compile of that file alone, with the build's flags)."""
     from audio_classification_tpu_torch import _build
 
     src = root / "audio_classification_tpu_torch" / "csrc" / "flash_attention.cu"
@@ -114,6 +120,7 @@ def registers(root: Path) -> list:
         report = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
              str(Path(tmp) / "k.o"), str(src)], capture_output=True, text=True, check=True).stderr
+    serialized = set(re.findall(r"serialized.*?function '(\S+)'", report))
     out, name, spill = [], None, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -124,12 +131,33 @@ def registers(root: Path) -> list:
             spill = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            inst = re.search(r"ILi(\d+)ELb([01])", name) or re.search(r"ILb([01])", name)
-            d = int(inst.group(1)) if inst and inst.lastindex == 2 else 64
-            stats = inst.group(inst.lastindex) == "1" if inst else None
-            out.append({"instance": name, "head_dim": d, "emit_stats": stats,
-                        "registers": int(m.group(1)), "spill_bytes": spill})
+            out.append({"instance": name, "namespace": "t32" if "3t32" in name else
+                        "b16" if "3b16" in name else "",
+                        "template_args": [int(x) for x in re.findall(r"L[ib](\d+)E", name)],
+                        "registers": int(m.group(1)), "spill_bytes": spill,
+                        "serialized": name in serialized})
             name = None
+    return out
+
+
+def kernels_ms(torch, fn, iters: int = 10) -> dict:
+    """Device ms per call of each kernel fn launches, by name (torch.profiler
+    over iters calls after a warm one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us:
+            out[e.key[:60]] = us / 1e3 / iters
     return out
 
 
@@ -141,6 +169,7 @@ def main() -> int:
     ap.add_argument("--registers", action="store_true")
     ap.add_argument("--define", action="append", default=[])
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--split", action="store_true")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -188,11 +217,14 @@ def main() -> int:
             err = ((o - ro.float()).abs().max() / ro.abs().max()).item()
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask[:, None, None, :])
-        print(json.dumps({"label": args.label, "defines": args.define, "kernel": kind,
-                          "shape": [b, h, tq, d], "keys": tk, "valid_keys": int(mask.sum()),
-                          "graph_ms": graph_ms(torch, fn, args.iters),
-                          "sdpa_graph_ms": graph_ms(torch, sdpa, args.iters),
-                          "err_vs_float64": err, "device": smi}), flush=True)
+        rec = {"label": args.label, "defines": args.define, "kernel": kind,
+               "shape": [b, h, tq, d], "keys": tk, "valid_keys": int(mask.sum()),
+               "graph_ms": graph_ms(torch, fn, args.iters),
+               "sdpa_graph_ms": graph_ms(torch, sdpa, args.iters),
+               "err_vs_float64": err, "device": smi}
+        if args.split:
+            rec.update(kernels_ms=kernels_ms(torch, fn), device_ops=device_ops(torch, fn))
+        print(json.dumps(rec), flush=True)
     return 0
 
 

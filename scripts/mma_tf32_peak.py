@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Throughput of warp-level mma.sync on the GPU: m16n8k8 TF32 (the product
-csrc/flash_attention.cu is built from) and m16n8k16 FP16 beside it.
+the port's float32 kernels were built from before their wgmma designs) and
+m16n8k16 FP16 beside it. scripts/wgmma_tf32_rate.py measures the warpgroup
+product that replaced it.
 
 Every warp of 4 x 132 blocks issues eight independent accumulator chains of
 the one product for many iterations; the rate is the card's ceiling for a

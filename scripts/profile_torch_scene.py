@@ -48,7 +48,8 @@ thread (what the worker threads run, without the queue in between).
 
 Needs a CUDA device; run it from the repository root. The whole report also
 goes to the --out file, with the file scenes' records of their first run
-(kind, span, stream, text, sv_score). --root takes the port's package from
+(kind, span, stream, text, sv_score; the long-form scenes' text as one
+record). --root takes the port's package from
 another checkout (a parent commit unpacked with ``git archive`` into a
 directory that .gitignore lists), so that two versions are profiled by the
 same script; scripts/compare_scene_records.py sets two reports' records side
@@ -264,7 +265,10 @@ def main() -> int:
 
         def run():
             text = rec.transcribe(speech, SR, long_form=True)  # ends in a copy to the host
-            return {"text_len": len(text), "audio_sec": LONG_SEC}
+            # the text as the scene's one record, for compare_scene_records.py
+            return {"text_len": len(text), "audio_sec": LONG_SEC,
+                    "records": [{"kind": "long_form", "start": 0.0, "end": float(LONG_SEC),
+                                 "stream": 0, "text": text, "sv_score": None}]}
         return run
 
     report = {"device": smi, "scenes": {}}

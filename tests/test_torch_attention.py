@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: K3's twin (masked attention), the MHSA
 module on both sides of the flash threshold, the TransformerBlock, and the
-numerics of the K3 / K5 kernel (tiles, skip rule, 3xTF32) emulated
-(CPU, float32)."""
+numerics of the float32 K3 / K5 kernels (tiles, skip rule, 3xTF32 split on
+the fly, accumulation order) emulated (CPU, float32)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,11 +14,15 @@ from audio_classification_tpu_torch.convert.from_jax import variables_to_state_d
 from audio_classification_tpu_torch.models.common import TransformerBlock
 from audio_classification_tpu_torch.ops.kernels.attention import (
     FLASH_MIN_T,
+    TF32_WIDE_KEYS,
     attention_reference,
     attention_stats_reference,
     flash_attention,
+    padded_head_dim,
+    tf32_keys,
+    tf32_split,
 )
-from torch_port_helpers import _mm_3xtf32, _mm_tf32, _tf32
+from torch_port_helpers import _mm_tf32, _split_tf32, _tf32
 
 torch.set_num_threads(2)
 
@@ -77,44 +81,102 @@ def test_transformer_block_matches_jax(t):
 
 # --- the numerics csrc/flash_attention.cu relies on, emulated on the CPU ---
 #
-# The kernel runs both products on the tensor cores in 3xTF32, walks the keys
-# in tiles of 64, skips a tile whose keys are all masked when the item has a
-# valid key elsewhere, and excludes keys past Tk outright. The emulation below
-# does the same in float32 PyTorch (it is no path of the package) so that the
-# rule and the rounding are held to K5's twin and to the JAX kernel here.
+# The float32 kernel runs both products on the tensor cores in 3xTF32 (k, v
+# and q split into rounded TF32 halves, p split in registers with its small
+# half left for the product to truncate), walks the keys in tiles of
+# ``attention.tf32_keys(D)`` (64 at D = 64, 32 at 80 and 128), skips a tile
+# whose keys are all masked when the item has a valid key elsewhere, and
+# excludes keys past Tk outright. The scores gather q big x k big in one
+# accumulator and the two small cross terms in another, joined once a tile;
+# each tile's p v is formed from zero and merged into the running
+# accumulator as alpha acc + pv with one rounding. The emulation below does
+# the same in float32 PyTorch (it is no path of the package) so that the
+# rules and the rounding are held to K5's twin and to the JAX kernel here.
+# The tensor cores' own truncating sums are not emulated (their adds are
+# IEEE here); the card's float64-twin checks guard them.
 
-_TILE = 64
+_STEP = 8  # the depth of a TF32 product step (m64nNk8)
 
 
-def _emulate_kernel(q, k, v, kv_mask, mm=_mm_3xtf32, skip=True):
-    """(o, m, l) as the kernel's tile loop forms them: keys padded to whole
-    tiles whose padding scores are -inf, running max and sum per row,
-    masked-whole tiles skipped iff ``skip`` and the item has a valid key."""
+def _scores_3xtf32(q, k):
+    """q [.., T, D] k^T [.., D, keys] as the kernel forms it: both sides in
+    rounded TF32 halves; per 8-deep step q big x k big into one float32 sum
+    and q small x k big, q big x k small into another; the two added once."""
+    qb, qs = tf32_split(q.contiguous())
+    kb, ks = tf32_split(k.contiguous())
+    hi = torch.zeros((*q.shape[:-1], k.shape[-1]))
+    lo = torch.zeros_like(hi)
+    for k0 in range(0, q.shape[-1], _STEP):
+        d = slice(k0, k0 + _STEP)
+        lo = lo + qs[..., d] @ kb[..., d, :]
+        lo = lo + qb[..., d] @ ks[..., d, :]
+        hi = hi + qb[..., d] @ kb[..., d, :]
+    return hi + lo
+
+
+def _pv_3xtf32(p, v):
+    """p [.., T, keys] v [.., keys, D] as the kernel forms a tile's p v: p
+    split in registers (big rounded, small truncated by the product), v in
+    rounded halves; the three products of each 8-deep step added in turn
+    into one float32 sum from zero."""
+    pb, ps = _split_tf32(p, small_round=False)
+    vb, vs = tf32_split(v.contiguous())
+    acc = torch.zeros((*p.shape[:-1], v.shape[-1]))
+    for k0 in range(0, p.shape[-1], _STEP):
+        j = slice(k0, k0 + _STEP)
+        acc = acc + ps[..., j] @ vb[..., j, :]
+        acc = acc + pb[..., j] @ vs[..., j, :]
+        acc = acc + pb[..., j] @ vb[..., j, :]
+    return acc
+
+
+def _merge(o, alpha, pv):
+    """alpha o + pv with one rounding (fmaf): exact in float64, then
+    rounded."""
+    return (o.double() * alpha.double()[..., None] + pv.double()).float()
+
+
+def _tile_update(o, m, l, s, bias, v_tile, plain_tf32):
+    """One computed key tile: s * scale already applied; + bias, the
+    running max and sum, p v of the tile merged into o."""
+    s = s + bias
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = alpha * l + p.sum(-1)
+    pv = _mm_tf32(p, v_tile) if plain_tf32 else _pv_3xtf32(p, v_tile)
+    return _merge(o, alpha, pv), m_new, l
+
+
+def _emulate_kernel(q, k, v, kv_mask, plain_tf32=False, skip=True):
+    """(o, m, l) as the float32 body's tile loop forms them (D <= 128):
+    keys padded to whole tiles whose padding scores are -inf, running max
+    and sum per row, masked-whole tiles skipped iff ``skip`` and the item
+    has a valid key. ``plain_tf32``: one TF32 product for each of the two
+    products (what the kernel would give without the split)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    n_tiles = -(-tk // _TILE)
-    pad = n_tiles * _TILE - tk
+    bk = tf32_keys(padded_head_dim(d))
+    n_tiles = -(-tk // bk)
+    pad = n_tiles * bk - tk
     kp, vp = (torch.nn.functional.pad(z, (0, 0, 0, pad)) for z in (k, v))
     valid = torch.ones((b, tk), dtype=torch.bool) if kv_mask is None else kv_mask
     bias = torch.where(valid, 0.0, -1e9).to(torch.float32)
     bias = torch.nn.functional.pad(bias, (0, pad), value=float("-inf"))
-    qs = q * (1.0 / np.sqrt(d))
+    scale = np.float32(1.0 / np.sqrt(d))
     o = torch.zeros_like(q)
     m = torch.full((b, h, tq), -1e30)
     l = torch.zeros((b, h, tq))
     for i in range(b):
         item_skips = skip and kv_mask is not None and bool(valid[i].any())
         for j in range(n_tiles):
-            keys = slice(j * _TILE, (j + 1) * _TILE)
+            keys = slice(j * bk, (j + 1) * bk)
             if item_skips and not valid[i, keys].any():
                 continue
-            s = mm(qs[i], kp[i, :, keys].transpose(-1, -2)) + bias[i, keys]
-            m_new = torch.maximum(m[i], s.amax(-1))
-            alpha = torch.exp(m[i] - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l[i] = alpha * l[i] + p.sum(-1)
-            o[i] = alpha[..., None] * o[i] + mm(p, vp[i, :, keys])
-            m[i] = m_new
+            kt = kp[i, :, keys].transpose(-1, -2)
+            s = _mm_tf32(q[i], kt) if plain_tf32 else _scores_3xtf32(q[i], kt)
+            o[i], m[i], l[i] = _tile_update(o[i], m[i], l[i], s * scale, bias[i, keys],
+                                            vp[i, :, keys], plain_tf32)
     return o, m, l
 
 
@@ -131,25 +193,29 @@ _EMULATION_CASES = {
     # self-attention, T off the tile: item 0's first two tiles masked whole,
     # then a partly masked tile, a hole of two whole tiles and a ragged end;
     # item 1 a plain ragged length
-    "b2_t537_holes": (2, 537, 537, [[(140, 320), (448, 500)], [(0, 263)]]),
+    "b2_t537_holes": (2, 537, 537, [[(140, 320), (448, 500)], [(0, 263)]], 64),
     # a shard's 537 queries against 1068 keys (16 tiles + 44): a valid run
     # after three masked tiles and a hole of three, a short prefix, and an
     # item with no valid key at all
-    "b3_tq537_tk1068_holes": (3, 537, 1068, [[(200, 512), (704, 1068)], [(0, 300)], []]),
+    "b3_tq537_tk1068_holes": (3, 537, 1068, [[(200, 512), (704, 1068)], [(0, 300)], []], 64),
+    # Paraformer's head dim (32-key tiles): a hole of masked-whole tiles, a
+    # ragged end, and Tq != Tk
+    "b2_tq533_tk600_d80": (2, 533, 600, [[(0, 40), (130, 533)], [(0, 300)]], 80),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_EMULATION_CASES))
 def test_kernel_numerics_emulation_matches_twin_and_pallas(case, record_property):
-    """The kernel's tiling, skip rule and 3xTF32 rounding, emulated: o, m, l
+    """The float32 kernel's tiling, skip rule, split on the fly and 3xTF32
+    rounding with its accumulation order, emulated: o, m, l
     within K5's tolerances of its twin (o 1e-4 of max|o|, m and l 1e-5
     relative); o / l within K3's 2e-5 of the JAX kernel (interpret mode) on
     the items with a valid key; skipping the masked-whole tiles changes no
     bit; the item with no valid key keeps m = -1e9 and l = Tk. The error of
     one plain TF32 product is recorded, not asserted (ten times K3's
     tolerance, which is why the kernel splits)."""
-    b, tq, tk, spans = _EMULATION_CASES[case]
-    h, d = 8, 64
+    b, tq, tk, spans, d = _EMULATION_CASES[case]
+    h = 8
     rng = np.random.default_rng(tq + tk)
     q = rng.standard_normal((b, h, tq, d)).astype(np.float32)
     k, v = (rng.standard_normal((b, h, tk, d)).astype(np.float32) for _ in range(2))
@@ -177,7 +243,7 @@ def test_kernel_numerics_emulation_matches_twin_and_pallas(case, record_property
     assert out.shape == ref.shape
     assert np.abs(out - ref)[has_key].max() < 2e-5
 
-    o1, _, l1 = _emulate_kernel(tq_, tk_, tv_, tm_, mm=_mm_tf32)
+    o1, _, l1 = _emulate_kernel(tq_, tk_, tv_, tm_, plain_tf32=True)
     err_tf32 = np.abs((o1 / l1[..., None]).numpy() - ref)[has_key].max()
     record_property("one_tf32_product_max_abs_err", float(err_tf32))
     record_property("three_tf32_products_max_abs_err",
@@ -195,54 +261,53 @@ def test_tf32_round_is_to_nearest_ties_away():
     assert ((_tf32(x).view(torch.int32) & 0x1FFF) == 0).all()
 
 
-_SLAB = 64
+_UNIT = 64  # dims of a wide body's unit of the scores
 
 
 def _emulate_wide_kernel(q, k, v, kv_mask):
     """(o, m, l) as the wide body (D above 128) forms them: D zero-padded to
-    a multiple of the 64-wide slab, each key tile's scores gathered slab by
-    slab (q * scale split as it is read; big x big from zero a slab and
-    added in float32, the small cross terms over the whole tile apart and
-    added last), then the tile's softmax update and p v as in the other
-    body; masked-whole tiles skipped where the item has a valid key. The
-    output's column slices of 128 share these scores, so they are one
+    a multiple of 64, keys in tiles of ``attention.TF32_WIDE_KEYS``; each
+    tile's q big x k big formed unit by unit (64 dims) from zero and added
+    to the tile's scores in float32, the small cross terms of every unit in
+    one sum added last; then the tile's softmax update and p v as in the
+    other body; masked-whole tiles skipped where the item has a valid key.
+    The output's column slices share these scores, so they are one
     computation here."""
-    from torch_port_helpers import _split_tf32
-
     b, h, tq, d = q.shape
-    dp = -(-d // _SLAB) * _SLAB
+    dp = -(-d // _UNIT) * _UNIT
     q, k, v = (torch.nn.functional.pad(z, (0, dp - d)) for z in (q, k, v))
     tk = k.shape[2]
-    n_tiles = -(-tk // _TILE)
-    pad = n_tiles * _TILE - tk
+    bk = TF32_WIDE_KEYS
+    n_tiles = -(-tk // bk)
+    pad = n_tiles * bk - tk
     kp, vp = (torch.nn.functional.pad(z, (0, 0, 0, pad)) for z in (k, v))
     valid = torch.ones((b, tk), dtype=torch.bool) if kv_mask is None else kv_mask
     bias = torch.where(valid, 0.0, -1e9).to(torch.float32)
     bias = torch.nn.functional.pad(bias, (0, pad), value=float("-inf"))
-    qs = q * np.float32(1.0 / np.sqrt(d))
+    scale = np.float32(1.0 / np.sqrt(d))
+    qb, qs = tf32_split(q)
     o = torch.zeros_like(q)
     m = torch.full((b, h, tq), -1e30)
     l = torch.zeros((b, h, tq))
     for i in range(b):
         item_skips = kv_mask is not None and bool(valid[i].any())
         for j in range(n_tiles):
-            keys = slice(j * _TILE, (j + 1) * _TILE)
+            keys = slice(j * bk, (j + 1) * bk)
             if item_skips and not valid[i, keys].any():
                 continue
-            s = torch.zeros((h, tq, _TILE))
-            s_lo = torch.zeros((h, tq, _TILE))
-            for c in range(0, dp, _SLAB):
-                a_big, a_small = _split_tf32(qs[i, :, :, c:c + _SLAB])
-                b_big, b_small = _split_tf32(kp[i, :, keys, c:c + _SLAB].transpose(-1, -2))
-                s_lo = s_lo + (a_small @ b_big + a_big @ b_small)
-                s = s + a_big @ b_big
-            s = s + s_lo + bias[i, keys]
-            m_new = torch.maximum(m[i], s.amax(-1))
-            alpha = torch.exp(m[i] - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l[i] = alpha * l[i] + p.sum(-1)
-            o[i] = alpha[..., None] * o[i] + _mm_3xtf32(p, vp[i, :, keys])
-            m[i] = m_new
+            kb, ks = tf32_split(kp[i, :, keys].transpose(-1, -2).contiguous())
+            s = torch.zeros((h, tq, bk))
+            lo = torch.zeros((h, tq, bk))
+            for u in range(0, dp, _UNIT):
+                hi = torch.zeros((h, tq, bk))
+                for k0 in range(u, u + _UNIT, _STEP):
+                    dd = slice(k0, k0 + _STEP)
+                    lo = lo + qs[i, :, :, dd] @ kb[:, dd]
+                    lo = lo + qb[i, :, :, dd] @ ks[:, dd]
+                    hi = hi + qb[i, :, :, dd] @ kb[:, dd]
+                s = s + hi
+            o[i], m[i], l[i] = _tile_update(o[i], m[i], l[i], (s + lo) * scale,
+                                            bias[i, keys], vp[i, :, keys], False)
     return o[..., :d], m, l
 
 
@@ -250,7 +315,7 @@ def _emulate_wide_kernel(q, k, v, kv_mask):
 def test_wide_head_dims_match_jax_kernels(d):
     """Head dims above 128 (the wide body; 136 and 200 zero-padded to 192 and
     256): the twins with the wrapper's padding rule and the true-D scale,
-    and the wide body's slab-by-slab numerics emulated, against the JAX
+    and the wide body's unit-by-unit numerics emulated, against the JAX
     kernels in interpret mode (which pad D to their lane width), on a
     ragged batch with a hole of masked-whole tiles. K3 2e-5 abs on the
     items' valid rows, K5's o 1e-4 of max|o| and m, l 1e-5 relative (the
@@ -271,7 +336,7 @@ def test_wide_head_dims_match_jax_kernels(d):
                                                          block_k=128, interpret=True))
     scale = 1.0 / np.sqrt(d)
     qp, kp, vp = pad_head_dim(tq_, tk_, tv_)
-    assert qp.shape[-1] == -(-d // _SLAB) * _SLAB
+    assert qp.shape[-1] == -(-d // _UNIT) * _UNIT
     out = attention_reference(qp, kp, vp, tm_, scale=scale)[..., :d].numpy()
     assert np.abs(out - ref).max() < 1e-5
     o, m, l = attention_stats_reference(qp, kp, vp, tm_, scale=scale)

@@ -420,17 +420,18 @@ def test_flash_kernels_at_every_head_dim(dev, d, b, tq, tk, lens):
 
 
 def test_flash_head_dims_are_the_c_instances(dev):
-    """The wrapper's rule is the set of D the C dispatch switch takes: the
-    four entry points (float32 and bf16, K3 and K5) accept exactly the D
+    """The wrapper's rule is the set of D the C entry points take
+    (``takes_head_dim``): the four entry points (float32 and bf16, K3 and
+    K5) accept exactly the D
     that ``padded_head_dim`` keeps as they are (``HEAD_DIMS``, and every
     multiple of ``WIDE_SLAB`` above the
     largest; empty calls, which launch nothing and read no pointer) and
     refuse every other D up to 640."""
     from audio_classification_tpu_torch import _build
 
-    k3 = _build.kernel("act_flash_attention", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    k3 = _build.kernel("act_flash_attention", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
-    k5 = _build.kernel("act_flash_attention_stats", [ctypes.c_void_p] * 7
+    k5 = _build.kernel("act_flash_attention_stats", [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     k3b = _build.kernel("act_flash_attention_bf16", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                         + [ctypes.c_float, ctypes.c_void_p])
@@ -438,9 +439,10 @@ def test_flash_head_dims_are_the_c_instances(dev):
                         + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     dims = range(1, 641)
-    taken = [d for d in dims if k3(None, None, None, None, None, 1, 1, 0, d, 1.0, stream) == 0]
+    taken = [d for d in dims
+             if k3(*[None] * 8, 1, 1, 0, d, 1.0, stream) == 0]
     taken5 = [d for d in dims
-              if k5(None, None, None, None, None, None, None, 1, 1, 0, 1, d, 1.0, stream) == 0]
+              if k5(*[None] * 10, 1, 1, 0, 1, d, 1.0, stream) == 0]
     taken_b = [d for d in dims if k3b(None, None, None, None, None, 1, 1, 0, d, 1.0, stream) == 0]
     taken5_b = [d for d in dims
                 if k5b(None, None, None, None, None, None, None, 1, 1, 0, 1, d, 1.0, stream) == 0]
@@ -871,3 +873,107 @@ def test_gau_tf32_plan_is_the_c_plan(dev):
                 pl = gau.tf32_plan(b, t, dqk, de)
                 assert list(out) == [pl["nwg"], pl["cols"], *pl["grid"], pl["threads"],
                                      pl["stages"], pl["smem"]], (b, t, dqk, de)
+
+
+def test_flash_tf32_plan_is_the_c_plan(dev):
+    """The host's plan of the float32 K3 / K5 kernels (attention.tf32_plan)
+    is the C entry point's (act_flash_attention_plan) at every head dim up
+    to 640 over a spread of shapes, the two-warpgroup rule's both sides
+    included."""
+    from audio_classification_tpu_torch import _build
+
+    fp = _build.kernel("act_flash_attention_plan", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    for b, h, tq, tk in ((8, 8, 537, 537), (1, 8, 537, 537), (1, 4, 800, 800),
+                         (1, 8, 4271, 4271), (1, 8, 1068, 1068), (3, 8, 537, 1068),
+                         (1, 4, 4267, 4267), (2, 3, 70, 45), (1, 1, 1, 1)):
+        for d in range(1, 641):
+            dp = attention.padded_head_dim(d)
+            out = (ctypes.c_int * 9)()
+            assert fp(b, h, tq, tk, dp, ctypes.addressof(out)) == 0
+            pl = attention.tf32_plan(b, h, tq, tk, d)
+            assert list(out) == [pl["nwg"], pl["cols"], *pl["grid"], pl["threads"],
+                                 pl["stages"], pl["smem"], pl["keys"]], (b, h, tq, tk, d)
+
+
+@pytest.mark.parametrize("kind,b,h,tq,tk,d", [
+    ("K3", 2, 3, 70, 70, 64), ("K5", 3, 2, 45, 133, 64), ("K3", 1, 4, 533, 533, 80),
+    ("K5", 2, 2, 17, 65, 128), ("K3", 2, 2, 33, 33, 200), ("K5", 1, 2, 70, 129, 192)])
+def test_flash_split_copy_is_tf32_split_kv(dev, kind, b, h, tq, tk, d, monkeypatch):
+    """The split launch's device copies, read back from the wrapper's
+    scratch (a spy on ``torch.empty``), equal their plain version
+    (attention.tf32_split_kv on the zero-padded q, k, v) bit for bit: k's
+    halves K-major, v^T's keys permuted in groups of 8 and zero past Tk,
+    and the wide body's q halves; the call's output is the twin's."""
+    g = torch.Generator().manual_seed(tq * tk + d)
+    q = torch.randn((b, h, tq, d), generator=g).to(dev)
+    k, v = (torch.randn((b, h, tk, d), generator=g).to(dev) for _ in range(2))
+    pl = attention.tf32_plan(b, h, tq, tk, d)
+    made, empty = [], torch.empty
+
+    def spy(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        made.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    if kind == "K3":
+        out = attention.flash_attention(q, k, v, None)
+    else:
+        out = attention.flash_attention_stats(q, k, v, None)[0]
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    qp, kp, vp = attention.pad_head_dim(q, k, v)
+    want = attention.tf32_split_kv(kp.cpu(), vp.cpu(), qp.cpu() if pl["q_split"] else None)
+    flat = [t for t in made if t.dim() == 1 and t.dtype == torch.float32]
+    assert [t.numel() for t in flat] == [pl[key] for key in ("k_split", "v_split", "q_split")
+                                         if pl[key]]
+    for got, ref in zip(flat, want):
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+    ref = attention.attention_reference(q.double(), k.double(), v.double(), None)
+    if kind == "K3":
+        assert (out - ref.float()).abs().max().item() < 2e-5
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 128, 200])
+@pytest.mark.parametrize("b,tq,tk,spans", [
+    # holes of masked-whole tiles of either width (32 and 64 keys), a ragged
+    # end off every tile, and an item with no valid key
+    (3, 130, 390, [[(0, 5), (96, 160), (300, 389)], [(33, 34)], []]),
+    # self-attention with a hole, Tk one past a 64-key tile
+    (2, 65, 65, [[(0, 20), (40, 65)], [(64, 65)]]),
+])
+def test_flash_tf32_edge_cases_match_float64_twin(dev, d, b, tq, tk, spans):
+    """K3 and K5 at float32 against the twin run in float64 on the items
+    with a valid key (K3 2e-5 abs, K5's o 1e-4 of max|o|, m and l 1e-5
+    relative); the item with no valid key gives m = -1e9 and l = Tk; two
+    calls give identical bits. D = 40 and 200 run zero-padded (to 64 and
+    to the wide body's 256)."""
+    g = torch.Generator().manual_seed(d + tq + tk)
+    q = torch.randn((b, 4, tq, d), generator=g).to(dev)
+    k, v = (torch.randn((b, 4, tk, d), generator=g).to(dev) for _ in range(2))
+    mask = torch.zeros((b, tk), dtype=torch.bool)
+    for i, item in enumerate(spans):
+        for lo, hi in item:
+            mask[i, lo:hi] = True
+    mask = mask.to(dev)
+    has_key = mask.any(dim=1)
+    o, m, l = attention.flash_attention_stats(q, k, v, mask)
+    o2, m2, l2 = attention.flash_attention_stats(q, k, v, mask)
+    torch.cuda.synchronize()
+    for x, y in ((o, o2), (m, m2), (l, l2)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    ro, rm, rl = (x.float() for x in attention.attention_stats_reference(
+        q.double(), k.double(), v.double(), mask))
+    sel = has_key.view(-1, 1, 1, 1)
+    assert torch.isfinite(o).all()
+    assert ((o - ro).abs() * sel).max().item() <= 1e-4 * (ro.abs() * sel).max().item()
+    assert ((m - rm).abs() <= 1e-5 * rm.abs().clamp_min(1.0))[has_key].all()
+    assert ((l - rl).abs() <= 1e-5 * rl.abs())[has_key].all()
+    assert (m[~has_key] == -1e9).all() and (l[~has_key] == tk).all()
+    if tq == tk:
+        out = attention.flash_attention(q, k, v, mask)
+        again = attention.flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+        ref = attention.attention_reference(q.double(), k.double(), v.double(), mask).float()
+        assert ((out - ref).abs() * sel).max().item() < 2e-5
