@@ -12,6 +12,8 @@ ported yet raise NotImplementedError naming the ROADMAP slice
         --input-wavs mix.wav --target-wav target.wav --preset full --seed 0
     python -m audio_classification_tpu_torch.cli.offline_overlap_3src \
         --librimix-root <parent of Libri3Mix> --sep-backend mossformer --eval-separation
+    python -m audio_classification_tpu_torch.cli.offline_overlap_3src \
+        --input-wavs mix.wav --target-wav target.wav --trace-spans spans.json
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from pathlib import Path
 from ..parallel.launch import is_writer
 from ..pipelines.offline_overlap3 import Overlap3Pipeline, PipelineResult
 from ..utils.config import Overlap3Config
-from ..utils.profiling import trace
+from ..utils import profiling
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -106,6 +108,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-segment-sec", type=float, default=64.0)
     p.add_argument("--profile-dir", default="", help="torch.profiler trace output dir (a Chrome trace of the run, stage ranges engine.osd / overlap / clean / asr)")
+    p.add_argument("--trace-spans", default="", metavar="PATH",
+                   help="turn the port's tracer on (no profiler needed) and write its spans "
+                        "as a Chrome trace JSON to PATH when the run ends: pipeline.* phases, "
+                        "engine.launch.* / engine.wait.* per batch, with ids, parents, the "
+                        "job and counters (and the profiler's clock anchors with "
+                        "--profile-dir)")
     p.add_argument("--data-parallel", type=int, default=0,
                    help="Shard stage batches over N cards, one torchrun rank each "
                         "(torchrun --nproc-per-node N x M; 0 = single device)")
@@ -220,10 +228,20 @@ def main(argv=None):
         raise SystemExit("Provide --librimix-root (dataset mode) or --input-wavs (file mode)")
     pipeline = Overlap3Pipeline(cfg)  # raises for options not ported yet
 
-    with trace(cfg.profile_dir):
-        result = pipeline.run()
+    if args.trace_spans:
+        profiling.clear()
+        profiling.enable()
+    try:
+        with profiling.trace(cfg.profile_dir):
+            result = pipeline.run()
+    finally:
+        if args.trace_spans:
+            profiling.disable()
     if not is_writer():  # a rank of a mesh: rank 0 writes
         return None, result
+    if args.trace_spans:
+        profiling.export_chrome(args.trace_spans)
+        profiling.clear()
     base_out = Path(cfg.out_dir)
     base_out.mkdir(parents=True, exist_ok=True)
     out_dir = base_out / datetime.now().strftime("%Y-%m-%d_%H-%M-%S")

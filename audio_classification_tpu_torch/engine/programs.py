@@ -39,6 +39,7 @@ import torch
 
 from .. import _build
 from ..ops.work import WorkCount
+from ..utils.profiling import note
 
 
 def program_key(name: str, args: Sequence[Any], statics: Mapping[str, Any]) -> tuple:
@@ -72,6 +73,7 @@ class ProgramRegistry:
             ent["calls"] += 1
         if not first:
             return run()
+        note(first_call=1)  # the launch span around it: plans and builds inside the call
         built = _build.build_seconds
         t0 = time.perf_counter()
         try:

@@ -55,7 +55,7 @@ from ..models.vad import VADConfig, VADNet
 from ..ops.fbank import FbankConfig, log_mel_fbank
 from ..ops.resample import resample_poly
 from ..ops.work import counted, uncounted
-from ..utils.profiling import stage_range
+from ..utils.profiling import span, stage_range
 from ..parallel.collectives import all_gather, pad_to_common
 from ..parallel.mesh import data_sharding
 from .bucketing import (MULAW_ZERO, BucketSpec, flat_pack_i16, flat_pack_mulaw, group_by_bucket,
@@ -332,7 +332,8 @@ class _LazyBranchRows:
         return int(self._dev.shape[1])
 
     def __getitem__(self, bi: int) -> np.ndarray:
-        return self._dev[self._j, bi, : self._n].cpu().numpy()
+        with span("engine.wait.branches", copies=1):
+            return self._dev[self._j, bi, : self._n].cpu().numpy()
 
     def ref(self, bi: int) -> tuple:
         return (self._dev, self._j, int(bi), self._n)
@@ -355,7 +356,18 @@ def _cast_copy(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
     return out.requires_grad_(False)
 
 
+def _note_batch(sp, rows: int, bs: int, valid, bucket_len: int) -> None:
+    """A launch span's counters: the batch's real rows of ``bs`` and its
+    valid samples of ``bs x bucket_len`` (occupancy and padding), set while
+    the span records."""
+    if sp.on:
+        sp.set(rows_real=rows, rows_batch=bs, samples_valid=int(np.sum(valid)),
+               samples_batch=bs * bucket_len)
+
+
 def _to_host(res):
+    """Device result -> numpy: one blocking copy a tensor (a tuple's
+    elements each)."""
     if isinstance(res, tuple):
         return tuple(_to_host(r) for r in res)
     return res.cpu().numpy()
@@ -695,12 +707,14 @@ class StageEngine:
             for off in range(0, len(idxs), self.buckets.max_batch):
                 chunk_idx = idxs[off : off + self.buckets.max_batch]
                 bs = self.buckets.batch_size_for(len(chunk_idx))
-                wav, lengths = pad_batch_i16([items[i] for i in chunk_idx], bucket_len, bs)
-                args = [self._tensor(wav), self._tensor(lengths)]
-                if extras is not None:
-                    args.append(self._pad_extras(extras, chunk_idx, bs))
-                pending.append((chunk_idx, self._call(name, fn, args, statics)))
-        return pending, len(items)
+                with span(f"engine.launch.{name}", first_call=0) as sp:
+                    wav, lengths = pad_batch_i16([items[i] for i in chunk_idx], bucket_len, bs)
+                    args = [self._tensor(wav), self._tensor(lengths)]
+                    if extras is not None:
+                        args.append(self._pad_extras(extras, chunk_idx, bs))
+                    pending.append((chunk_idx, self._call(name, fn, args, statics)))
+                    _note_batch(sp, len(chunk_idx), bs, lengths, bucket_len)
+        return pending, len(items), name
 
     @torch.inference_mode()
     def _launch_bucketed_arena(self, arena: WaveArena, spans: Sequence[Tuple[int, int]],
@@ -720,23 +734,25 @@ class StageEngine:
             for off in range(0, len(idxs), self.buckets.max_batch):
                 chunk_idx = idxs[off : off + self.buckets.max_batch]
                 bs = self.buckets.batch_size_for(len(chunk_idx))
-                starts = np.zeros(bs, np.int64)
-                lens = np.zeros(bs, np.int32)
-                for j, i in enumerate(chunk_idx):
-                    starts[j], lens[j] = spans[i]
-                args = [self._tensor(starts), self._tensor(lens)]
-                if extras is not None:
-                    args.append(self._pad_extras(extras, chunk_idx, bs))
 
                 def gathered(st, ln, *ex, _b=bucket_len):
                     # the gather is the program's prologue: each entry
                     # gathers its own rows from its rank's arena
                     return fn(self._gather(arena.dev, st, ln, _b), ln, *ex)
 
-                pending.append((chunk_idx, self._call(
-                    name, gathered, args, {**(statics or {}), "seg_len": bucket_len},
-                    lead=(((None,), arena.dev.dtype),))))
-        return pending, len(spans)
+                with span(f"engine.launch.{name}", first_call=0) as sp:
+                    starts = np.zeros(bs, np.int64)
+                    lens = np.zeros(bs, np.int32)
+                    for j, i in enumerate(chunk_idx):
+                        starts[j], lens[j] = spans[i]
+                    args = [self._tensor(starts), self._tensor(lens)]
+                    if extras is not None:
+                        args.append(self._pad_extras(extras, chunk_idx, bs))
+                    pending.append((chunk_idx, self._call(
+                        name, gathered, args, {**(statics or {}), "seg_len": bucket_len},
+                        lead=(((None,), arena.dev.dtype),))))
+                    _note_batch(sp, len(chunk_idx), bs, lens, bucket_len)
+        return pending, len(spans), name
 
     @staticmethod
     def _collect_bucketed(handle, device_elems: Tuple[int, ...] = ()) -> List[Any]:
@@ -744,16 +760,19 @@ class StageEngine:
 
         Tuple elements listed in ``device_elems`` stay on the device: the
         item gets ``(device_tensor, row)`` instead."""
-        pending, n = handle
+        pending, n, name = handle
         out: List[Any] = [None] * n
         for chunk_idx, res in pending:
             if isinstance(res, tuple):
-                parts = tuple(r if e in device_elems else _to_host(r) for e, r in enumerate(res))
+                with span(f"engine.wait.{name}", copies=len(res) - len(device_elems)):
+                    parts = tuple(r if e in device_elems else _to_host(r)
+                                  for e, r in enumerate(res))
                 for j, i in enumerate(chunk_idx):
                     out[i] = tuple((p, j) if e in device_elems else p[j]
                                    for e, p in enumerate(parts))
             else:
-                host = _to_host(res)
+                with span(f"engine.wait.{name}", copies=1):
+                    host = _to_host(res)
                 for j, i in enumerate(chunk_idx):
                     out[i] = host[j]
         return out
@@ -804,13 +823,17 @@ class StageEngine:
             return np.asarray(wav, dtype=np.float32)
         wav = np.asarray(wav, np.float32)
         n = wav.shape[-1]
-        pad = [(0, 0)] * (wav.ndim - 1) + [(0, self.buckets.long_bucket_for(n) - n)]
-        x = self._tensor(np.pad(wav, pad))
+        t = self.buckets.long_bucket_for(n)
+        with span("engine.launch.resample", first_call=0) as sp:
+            x = self._tensor(np.pad(wav, [(0, 0)] * (wav.ndim - 1) + [(0, t - n)]))
+            out = self._programs.call("resample", (x,), {"orig_sr": orig_sr, "new_sr": new_sr},
+                                      lambda: resample_poly(x, orig_sr, new_sr))
+            rows = int(np.prod(wav.shape[:-1]))
+            _note_batch(sp, rows, rows, [n] * rows, t)
         g = math.gcd(orig_sr, new_sr)
         n_out = -(-n * (new_sr // g) // (orig_sr // g))
-        out = self._programs.call("resample", (x,), {"orig_sr": orig_sr, "new_sr": new_sr},
-                                  lambda: resample_poly(x, orig_sr, new_sr))
-        return out[..., :n_out].cpu().numpy()
+        with span("engine.wait.resample", copies=1):
+            return out[..., :n_out].cpu().numpy()
 
     @torch.inference_mode()
     def resample_batch(self, wavs: Sequence[np.ndarray], orig_sr: int,
@@ -831,16 +854,19 @@ class StageEngine:
             for off in range(0, len(orig_idx), self.buckets.max_batch):
                 chunk_idx = orig_idx[off : off + self.buckets.max_batch]
                 bs = self.buckets.batch_size_for(len(chunk_idx))
-                wav, _lengths = pad_batch([items[i] for i in chunk_idx], bucket_len, bs)
-                x = self._tensor(wav)
-                pending.append((chunk_idx, self._programs.call(
-                    "resample", (x,), {"orig_sr": orig_sr, "new_sr": new_sr},
-                    lambda x=x: resample_poly(x, orig_sr, new_sr))))
+                with span("engine.launch.resample", first_call=0) as sp:
+                    wav, lengths = pad_batch([items[i] for i in chunk_idx], bucket_len, bs)
+                    x = self._tensor(wav)
+                    pending.append((chunk_idx, self._programs.call(
+                        "resample", (x,), {"orig_sr": orig_sr, "new_sr": new_sr},
+                        lambda x=x: resample_poly(x, orig_sr, new_sr))))
+                    _note_batch(sp, len(chunk_idx), bs, lengths, bucket_len)
         g = math.gcd(orig_sr, new_sr)
         up, down = new_sr // g, orig_sr // g
         out = [np.asarray(w, np.float32) if w.size <= 1 else None for w in items]
         for chunk_idx, res in pending:
-            host = res.cpu().numpy()
+            with span("engine.wait.resample", copies=1):
+                host = res.cpu().numpy()
             for j, i in enumerate(chunk_idx):
                 # same output-length convention as ops.resample.resample_poly
                 n_out = -(-items[i].shape[-1] * up // down)
@@ -975,8 +1001,6 @@ class StageEngine:
             return self.transcribe([wav], language, use_itn)[0]
         lang_id = LANGUAGES.index(language) if language in LANGUAGES else 0
         t = self.buckets.long_bucket_for(len(wav))
-        padded, lengths = pad_batch_i16([wav[:t]], t, 1)
-        w_i16, lens = self._tensor(padded), self._tensor(lengths)
         max_len = None
         if p.asr_family == "whisper":
             # the checkpoint's budget is per 30 s (sherpa's whisper convention)
@@ -986,11 +1010,17 @@ class StageEngine:
         statics = {"language_id": lang_id, "use_itn": use_itn}
         if max_len is not None:
             statics["max_len"] = max_len
-        ids, n = self._programs.call(
-            "asr_long", (w_i16, lens), statics,
-            lambda: self._asr_decode(self._dq(w_i16), lens, lang_id, use_itn, mesh=self.mesh,
-                                     max_len=max_len))
-        return p.tokens.decode(ids[0, : int(n[0])].cpu().numpy())
+        with span("engine.launch.asr_long", first_call=0) as sp:
+            padded, lengths = pad_batch_i16([wav[:t]], t, 1)
+            w_i16, lens = self._tensor(padded), self._tensor(lengths)
+            ids, n = self._programs.call(
+                "asr_long", (w_i16, lens), statics,
+                lambda: self._asr_decode(self._dq(w_i16), lens, lang_id, use_itn,
+                                         mesh=self.mesh, max_len=max_len))
+            _note_batch(sp, 1, 1, lengths, t)
+        with span("engine.wait.asr_long", copies=2):
+            ids = ids[0, : int(n[0])].cpu().numpy()
+        return p.tokens.decode(ids)
 
     def process_clean(self, chunks: Sequence[np.ndarray], target_vecs: Sequence[np.ndarray],
                       language: str = "auto", use_itn: bool = True) -> List[Tuple[float, str]]:
@@ -1100,9 +1130,10 @@ class StageEngine:
         out: List[Optional[np.ndarray]] = [None] * len(refs)
         for key, idxs in groups.items():
             dev = devs[key]
-            js = torch.tensor([refs[i][1] for i in idxs], device=dev.device)
-            bis = torch.tensor([refs[i][2] for i in idxs], device=dev.device)
-            sel = dev[js, bis, :].cpu().numpy()
+            with span("engine.wait.branches", copies=1):
+                js = torch.tensor([refs[i][1] for i in idxs], device=dev.device)
+                bis = torch.tensor([refs[i][2] for i in idxs], device=dev.device)
+                sel = dev[js, bis, :].cpu().numpy()
             for row, i in enumerate(idxs):
                 out[i] = sel[row, : refs[i][3]]
         return out  # type: ignore[return-value]
@@ -1128,19 +1159,22 @@ class StageEngine:
                 part = idxs[off : off + self.buckets.max_batch]
                 bs = self.buckets.batch_size_for(len(part))
                 sel = part + [part[-1]] * (bs - len(part))
-                js = self._tensor(np.array([refs[i][1] for i in sel], np.int64))
-                bis = self._tensor(np.array([refs[i][2] for i in sel], np.int64))
-                lens = np.zeros((bs,), np.int32)
-                lens[: len(part)] = [refs[i][3] for i in part]
-                lens_t = self._tensor(lens)
                 est = devs[key]
-                q = self._programs.call("branch_q", (est, js, bis, lens_t), {},
-                                        lambda: self._branch_q(est, js, bis, lens_t))
-                pending.append((part, self._call(
-                    "asr", lambda w, ln: self._asr_fn(w, ln, lang_id, use_itn), (q, lens_t),
-                    {"language_id": lang_id, "use_itn": use_itn})))
+                with span("engine.launch.asr", first_call=0) as sp:
+                    js = self._tensor(np.array([refs[i][1] for i in sel], np.int64))
+                    bis = self._tensor(np.array([refs[i][2] for i in sel], np.int64))
+                    lens = np.zeros((bs,), np.int32)
+                    lens[: len(part)] = [refs[i][3] for i in part]
+                    lens_t = self._tensor(lens)
+                    q = self._programs.call("branch_q", (est, js, bis, lens_t), {},
+                                            lambda: self._branch_q(est, js, bis, lens_t))
+                    pending.append((part, self._call(
+                        "asr", lambda w, ln: self._asr_fn(w, ln, lang_id, use_itn), (q, lens_t),
+                        {"language_id": lang_id, "use_itn": use_itn})))
+                    _note_batch(sp, len(part), bs, lens, int(est.shape[-1]))
         for part, (ids, n) in pending:
-            ids, n = ids.cpu().numpy(), n.cpu().numpy()
+            with span("engine.wait.asr", copies=2):
+                ids, n = ids.cpu().numpy(), n.cpu().numpy()
             for row, i in enumerate(part):
                 out[i] = self.pack.tokens.decode(ids[row, : n[row]])
         return out  # type: ignore[return-value]

@@ -9,7 +9,18 @@ overlap path (separation + per-branch SV + best-branch ASR) and the fused
 clean path (SV + ASR) over the segments, then target-span ASR. Record and
 metric field names and the gating semantics are the JAX pipeline's
 (reference: overlap3_core.py:174-937); time_* fields are wall-clock around
-each stage's device work.
+each stage's device work, summed from the run's brackets: ``time_osd_sec``
+OSD's collection; ``time_sep_sec`` a wave's launches and the overlap path's
+collection (where the wave has overlap rows) and separations;
+``time_asr_sec`` the enrollment's transcript, the clean and target-span
+paths' collections and transcriptions.
+
+Each ``run()`` is one job of the tracer (utils/profiling): a root bracket
+``pipeline.job`` with ``pipeline.load``, ``enroll``, ``osd``, ``rows``,
+``launch`` and ``collect`` (``granular`` in their place under
+``fused_paths=False``), ``gate`` and ``records`` beneath it, and the
+engine's ``engine.*`` spans beneath those. The brackets time themselves
+whether or not the tracer records them.
 
 Model files are read as the JAX runner reads them: an .onnx value of a
 family flag, of --spk-embed-model / --model, maps onto the port's modules
@@ -22,6 +33,7 @@ the engine over a mesh of one rank per card under ``torchrun``
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import random
 import time
@@ -46,6 +58,7 @@ from ..runtime.monitor import ResourceMonitor
 from ..train.checkpoint import (ORBAX_HINT, check_state_dict, is_orbax_dir, load_model_pack,
                                 load_params)
 from ..utils.config import Overlap3Config
+from ..utils.profiling import bracket
 
 # the flags that name model files: the ASR families' (reference:
 # src/model.py:37-100), the speaker model's and the VAD's. An .onnx file loads
@@ -396,7 +409,20 @@ class Overlap3Pipeline:
         self.engine = engine or build_engine(cfg)
 
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _bracket(self, name: str, field: Optional[str] = None):
+        """The bracket ``pipeline.<name>``; its seconds are added to
+        ``time_<field>_sec`` where ``field`` is given."""
+        with bracket(f"pipeline.{name}") as b:
+            yield b
+        if field is not None:
+            self._time[field] += b.seconds
+
     def run(self) -> PipelineResult:
+        with bracket("pipeline.job", new_job=True):
+            return self._run()
+
+    def _run(self) -> PipelineResult:
         cfg = self.cfg
         eng = self.engine
         file_mode = bool(cfg.input_wavs)
@@ -404,26 +430,28 @@ class Overlap3Pipeline:
 
         ds: Optional[LibriMixDataset] = None
         file_items: List[Tuple[str, np.ndarray]] = []
+        self._time = dict(osd=0.0, sep=0.0, asr=0.0)
         if file_mode:
             if not cfg.target_wav:
                 raise ValueError("In file mode (--input-wavs), --target-wav is required.")
             # load first, then resample all non-16k files in one bucketed
             # batch per source rate
-            loaded: List[Tuple[str, np.ndarray, int]] = []
-            for p in cfg.input_wavs or []:
-                if not Path(p).is_file():
-                    continue
-                wav, src_sr = read_wav(p)
-                loaded.append((str(Path(p)), to_mono(wav), int(src_sr)))
-            by_sr: Dict[int, List[int]] = {}
-            for i, (_p, _w, s0) in enumerate(loaded):
-                if s0 != G_SAMPLE_RATE:
-                    by_sr.setdefault(s0, []).append(i)
-            for s0, idxs in by_sr.items():
-                for i, w in zip(idxs, eng.resample_batch(
-                        [loaded[i][1] for i in idxs], s0, G_SAMPLE_RATE)):
-                    loaded[i] = (loaded[i][0], w, G_SAMPLE_RATE)
-            file_items = [(p, np.asarray(w, np.float32)) for p, w, _ in loaded]
+            with self._bracket("load"):
+                loaded: List[Tuple[str, np.ndarray, int]] = []
+                for p in cfg.input_wavs or []:
+                    if not Path(p).is_file():
+                        continue
+                    wav, src_sr = read_wav(p)
+                    loaded.append((str(Path(p)), to_mono(wav), int(src_sr)))
+                by_sr: Dict[int, List[int]] = {}
+                for i, (_p, _w, s0) in enumerate(loaded):
+                    if s0 != G_SAMPLE_RATE:
+                        by_sr.setdefault(s0, []).append(i)
+                for s0, idxs in by_sr.items():
+                    for i, w in zip(idxs, eng.resample_batch(
+                            [loaded[i][1] for i in idxs], s0, G_SAMPLE_RATE)):
+                        loaded[i] = (loaded[i][0], w, G_SAMPLE_RATE)
+                file_items = [(p, np.asarray(w, np.float32)) for p, w, _ in loaded]
             limit = len(file_items)
         else:
             ds = LibriMixDataset(
@@ -447,7 +475,6 @@ class Overlap3Pipeline:
             total_matched_audio_sec=0.0, total_seen_clean_audio_sec=0.0,
             total_seen_overlap_audio_sec=0.0, total_missed_audio_sec=0.0,
         )
-        self._time = dict(osd=0.0, sep=0.0, asr=0.0)
         sep_sisdr: List[float] = []
         sep_sisdri: List[float] = []
         sep_details_rows: List[List[Any]] = []
@@ -457,22 +484,22 @@ class Overlap3Pipeline:
         if cfg.enable_metrics:
             monitor = ResourceMonitor(cfg.monitor_interval)
             monitor.start()
-        t0_all = time.time()
+        t0_all = time.perf_counter_ns()
 
         # ---- global target enrollment (file mode)
         g_target = None
         if file_mode:
-            t_np, _ = _load_resampled(eng, cfg.target_wav)
-            vec = eng.embed([t_np])[0]
-            t_a = time.time()
-            text = eng.transcribe([t_np], cfg.language)[0]
-            self._time["asr"] += time.time() - t_a
-            g_target = dict(vec=vec, np=t_np, abs=str(Path(cfg.target_wav)), text=text)
-            if getattr(cfg, "device_gather", True):
-                # target-span ASR windows gather from this single upload of
-                # the (shared) enrollment wav instead of re-uploading a
-                # window per segment row
-                g_target["arena"] = eng.upload_arena([t_np])
+            with self._bracket("enroll"):
+                t_np, _ = _load_resampled(eng, cfg.target_wav)
+                vec = eng.embed([t_np])[0]
+                with self._bracket("enroll.asr", "asr"):
+                    text = eng.transcribe([t_np], cfg.language)[0]
+                g_target = dict(vec=vec, np=t_np, abs=str(Path(cfg.target_wav)), text=text)
+                if getattr(cfg, "device_gather", True):
+                    # target-span ASR windows gather from this single upload
+                    # of the (shared) enrollment wav instead of re-uploading a
+                    # window per segment row
+                    g_target["arena"] = eng.upload_arena([t_np])
 
         wave_size = int(getattr(cfg, "wave_mixtures", 0) or 0)
         if wave_size <= 0:
@@ -482,6 +509,10 @@ class Overlap3Pipeline:
             """Load + batch-resample a wave and queue its OSD batch (one wave
             ahead, so the next wave's host work overlaps this wave's device
             work)."""
+            with self._bracket("load"):
+                return _prepare_wave(wave_start)
+
+        def _prepare_wave(wave_start: int):
             wave_idx = list(range(wave_start, min(wave_start + wave_size, limit)))
             mixtures = [
                 self._load_mixture(i, file_mode, file_items, ds, refs_map)
@@ -533,40 +564,42 @@ class Overlap3Pipeline:
                 A["total_audio_sec"] += mx["dur"]
 
             # ---- Stage: OSD over the whole wave (launched in prepare_wave)
-            t_o = time.time()
-            osd_lists = eng.collect_osd_batch(h_osd, cfg.osd_thr, cfg.osd_win, cfg.osd_hop)
-            self._time["osd"] += time.time() - t_o
+            with self._bracket("osd", "osd"):
+                osd_lists = eng.collect_osd_batch(h_osd, cfg.osd_thr, cfg.osd_win, cfg.osd_hop)
             # ---- host: exclusivity + segment rows; target selection
-            for mx, osd_segs in zip(mixtures, osd_lists):
-                if not osd_segs:
-                    osd_segs = [(0.0, mx["dur"], False)]
-                if cfg.exclusive_segments:
-                    segments = exclusive_segments(osd_segs, mx["dur"], cfg.min_overlap_dur)
-                else:
-                    segments = [(float(s), float(e), bool(f)) for s, e, f in osd_segs]
-                rows = []
-                sr = G_SAMPLE_RATE
-                for s, e, is_olap in segments:
-                    if e - s <= 0:
-                        continue
-                    s_i, e_i = int(s * sr), int(e * sr)
-                    kind = "overlap" if (is_olap and (e - s) >= cfg.min_overlap_dur) else "clean"
-                    rows.append(dict(s=s, e=e, s_i=s_i, e_i=e_i,
-                                     chunk=mx["mix"][s_i:e_i], kind=kind))
-                mx["rows"] = rows
-                self._select_target(mx, file_mode, g_target, ds)
+            with self._bracket("rows"):
+                for mx, osd_segs in zip(mixtures, osd_lists):
+                    if not osd_segs:
+                        osd_segs = [(0.0, mx["dur"], False)]
+                    if cfg.exclusive_segments:
+                        segments = exclusive_segments(osd_segs, mx["dur"], cfg.min_overlap_dur)
+                    else:
+                        segments = [(float(s), float(e), bool(f)) for s, e, f in osd_segs]
+                    rows = []
+                    sr = G_SAMPLE_RATE
+                    for s, e, is_olap in segments:
+                        if e - s <= 0:
+                            continue
+                        s_i, e_i = int(s * sr), int(e * sr)
+                        kind = ("overlap" if (is_olap and (e - s) >= cfg.min_overlap_dur)
+                                else "clean")
+                        rows.append(dict(s=s, e=e, s_i=s_i, e_i=e_i,
+                                         chunk=mx["mix"][s_i:e_i], kind=kind))
+                    mx["rows"] = rows
+                    self._select_target(mx, file_mode, g_target, ds)
 
             # ---- Stage: enroll wave targets (dataset mode) in one batch each
             if not file_mode:
                 need = [mx for mx in mixtures if mx.get("target_np") is not None]
                 if need:
-                    embs = eng.embed([mx["target_np"] for mx in need])
-                    t_a = time.time()
-                    texts = eng.transcribe([mx["target_np"] for mx in need], cfg.language)
-                    self._time["asr"] += time.time() - t_a
-                    for mx, v, txt in zip(need, embs, texts):
-                        mx["target_vec"] = v
-                        mx["target_text_fb"] = txt
+                    with self._bracket("enroll"):
+                        embs = eng.embed([mx["target_np"] for mx in need])
+                        with self._bracket("enroll.asr", "asr"):
+                            texts = eng.transcribe([mx["target_np"] for mx in need],
+                                                   cfg.language)
+                        for mx, v, txt in zip(need, embs, texts):
+                            mx["target_vec"] = v
+                            mx["target_text_fb"] = txt
 
             # ---- Stages: queue the three independent device paths back to
             # back, then collect:
@@ -589,13 +622,14 @@ class Overlap3Pipeline:
                 (mx, r) for mx in mixtures for r in mx["rows"]
                 if mx.get("target_np") is not None
             ]
-            t_launch = time.time()
             h_ov = h_cl = h_tg = None
-            if not getattr(cfg, "fused_paths", True):
+            fused = getattr(cfg, "fused_paths", True)
+            if not fused:
                 # granular stage dispatch: time_sep/time_asr become
                 # reference-comparable per-stage walls (slower: branches
                 # cross to the host and each stage dispatches separately)
-                self._run_wave_granular(overlap_rows, clean_rows, tspan_rows)
+                with self._bracket("granular"):
+                    self._run_wave_granular(overlap_rows, clean_rows, tspan_rows)
             else:  # fused paths (default serving configuration)
                 def _mix_spans(rows):
                     # segment windows into the wave arena (device gather);
@@ -605,142 +639,148 @@ class Overlap3Pipeline:
                     return [(mx["arena_off"] + r["s_i"], len(r["chunk"]))
                             for mx, r in rows]
 
-                if overlap_rows:
-                    h_ov = eng.launch_overlap(
-                        [r["chunk"] for _, r in overlap_rows],
-                        [mx["target_vec"] for mx, _ in overlap_rows],
-                        cfg.language, return_branches=cfg.eval_separation,
-                        backend=cfg.sep_backend,
-                        arena=arena, spans=_mix_spans(overlap_rows),
-                    )
-                if clean_rows:
-                    h_cl = eng.launch_clean(
-                        [r["chunk"] for _, r in clean_rows],
-                        [mx["target_vec"] for mx, _ in clean_rows],
-                        cfg.language,
-                        arena=arena, spans=_mix_spans(clean_rows),
-                    )
-                if tspan_rows:
-                    tg_chunks = [mx["target_np"][r["s_i"]:r["e_i"]]
-                                 for mx, r in tspan_rows]
-                    tg_arena = (g_target or {}).get("arena")
-                    tg_spans = None
-                    if tg_arena is not None and all(
-                        mx["target_np"] is g_target["np"] for mx, _ in tspan_rows
-                    ):
-                        # file mode: every row slices the one enrollment wav
-                        T = len(g_target["np"])
-                        tg_spans = [
-                            (min(r["s_i"], T), max(min(r["e_i"], T) - r["s_i"], 0))
-                            for _, r in tspan_rows
-                        ]
-                    h_tg = eng.launch_transcribe(
-                        tg_chunks, cfg.language, arena=tg_arena, spans=tg_spans,
-                    )
+                with self._bracket("launch") as launched:
+                    if overlap_rows:
+                        with self._bracket("launch.overlap"):
+                            h_ov = eng.launch_overlap(
+                                [r["chunk"] for _, r in overlap_rows],
+                                [mx["target_vec"] for mx, _ in overlap_rows],
+                                cfg.language, return_branches=cfg.eval_separation,
+                                backend=cfg.sep_backend,
+                                arena=arena, spans=_mix_spans(overlap_rows),
+                            )
+                    if clean_rows:
+                        with self._bracket("launch.clean"):
+                            h_cl = eng.launch_clean(
+                                [r["chunk"] for _, r in clean_rows],
+                                [mx["target_vec"] for mx, _ in clean_rows],
+                                cfg.language,
+                                arena=arena, spans=_mix_spans(clean_rows),
+                            )
+                    if tspan_rows:
+                        with self._bracket("launch.target"):
+                            tg_chunks = [mx["target_np"][r["s_i"]:r["e_i"]]
+                                         for mx, r in tspan_rows]
+                            tg_arena = (g_target or {}).get("arena")
+                            tg_spans = None
+                            if tg_arena is not None and all(
+                                mx["target_np"] is g_target["np"] for mx, _ in tspan_rows
+                            ):
+                                # file mode: every row slices the one enrollment wav
+                                T = len(g_target["np"])
+                                tg_spans = [
+                                    (min(r["s_i"], T), max(min(r["e_i"], T) - r["s_i"], 0))
+                                    for _, r in tspan_rows
+                                ]
+                            h_tg = eng.launch_transcribe(
+                                tg_chunks, cfg.language, arena=tg_arena, spans=tg_spans,
+                            )
 
-            # collect A (stage times are disjoint wall segments; with the
-            # overlapped launches the per-stage split is an attribution of
-            # the shared device timeline, rtf_total stays exact)
-            if h_ov is not None:
-                ov_out = eng.collect_overlap(h_ov, [r["chunk"] for _, r in overlap_rows],
-                                             cfg.eval_separation, cfg.sep_backend)
-                t_ov = time.time() - t_launch
-                self._time["sep"] += t_ov
-                total_ov_samples = sum(len(r["chunk"]) for _, r in overlap_rows) or 1
-                for (mx, r), rec in zip(overlap_rows, ov_out):
-                    r["branch_scores"] = {i: float(s) for i, s in enumerate(np.asarray(rec["scores"]))}
-                    r["fused_best"] = rec["best"]
-                    r["fused_text"] = rec["text"]
-                    r["fused_share"] = t_ov * len(r["chunk"]) / total_ov_samples
-                    if "branches" in rec:
-                        r["branches"] = [np.asarray(rec["branches"][i]) for i in range(rec["branches"].shape[0])]
-            # overlap rows with no enrollment still count as seen+missed in
-            # gating below (reference: overlap3_core.py:787-791)
+            with self._bracket("collect") if fused else contextlib.nullcontext():
+                # collect A (with the overlapped launches the per-stage
+                # split is an attribution of the shared device timeline,
+                # rtf_total stays exact)
+                if h_ov is not None:
+                    with self._bracket("collect.overlap") as b:
+                        ov_out = eng.collect_overlap(h_ov, [r["chunk"] for _, r in overlap_rows],
+                                                     cfg.eval_separation, cfg.sep_backend)
+                    # time_sep_sec: the wave's launches and this collection
+                    t_ov = launched.seconds + b.seconds
+                    self._time["sep"] += t_ov
+                    total_ov_samples = sum(len(r["chunk"]) for _, r in overlap_rows) or 1
+                    for (mx, r), rec in zip(overlap_rows, ov_out):
+                        r["branch_scores"] = {i: float(s) for i, s in enumerate(np.asarray(rec["scores"]))}
+                        r["fused_best"] = rec["best"]
+                        r["fused_text"] = rec["text"]
+                        r["fused_share"] = t_ov * len(r["chunk"]) / total_ov_samples
+                        if "branches" in rec:
+                            r["branches"] = [np.asarray(rec["branches"][i]) for i in range(rec["branches"].shape[0])]
+                # overlap rows with no enrollment still count as seen+missed in
+                # gating below (reference: overlap3_core.py:787-791)
 
-            # ---- optional separation quality eval (host PIT, parity oracle)
-            if cfg.eval_separation:
-                # the reference separates before SV gating, so overlap rows of
-                # mixtures with no enrollment still get evaluated — run their
-                # separation granularly (rare: enrollment failure)
-                orphan = [
-                    (mx, r) for mx in mixtures for r in mx["rows"]
-                    if r["kind"] == "overlap" and mx.get("target_vec") is None and mx["src_paths"]
-                ]
-                if orphan:
-                    t_s = time.time()
-                    outs = eng.separate([r["chunk"] for _, r in orphan], n_src=3,
-                                        backend=cfg.sep_backend)
-                    self._time["sep"] += time.time() - t_s
-                    for (_, r), est in zip(orphan, outs):
-                        r["branches"] = [np.asarray(est[i]) for i in range(est.shape[0])]
-                for mx in mixtures:
-                    self._eval_separation(mx, file_mode, ds, sep_sisdr, sep_sisdri, sep_details_rows)
+                # ---- optional separation quality eval (host PIT, parity oracle)
+                if cfg.eval_separation:
+                    # the reference separates before SV gating, so overlap rows of
+                    # mixtures with no enrollment still get evaluated — run their
+                    # separation granularly (rare: enrollment failure)
+                    orphan = [
+                        (mx, r) for mx in mixtures for r in mx["rows"]
+                        if r["kind"] == "overlap" and mx.get("target_vec") is None and mx["src_paths"]
+                    ]
+                    if orphan:
+                        with self._bracket("separate", "sep"):
+                            outs = eng.separate([r["chunk"] for _, r in orphan], n_src=3,
+                                                backend=cfg.sep_backend)
+                        for (_, r), est in zip(orphan, outs):
+                            r["branches"] = [np.asarray(est[i]) for i in range(est.shape[0])]
+                    for mx in mixtures:
+                        self._eval_separation(mx, file_mode, ds, sep_sisdr, sep_sisdri, sep_details_rows)
 
-            # collect B + C
-            if h_cl is not None or h_tg is not None:
-                t_bc = time.time()
+                # collect B + C
                 if h_cl is not None:
-                    cl_out = eng.collect_clean(h_cl)
+                    with self._bracket("collect.clean", "asr") as b:
+                        cl_out = eng.collect_clean(h_cl)
+                    t_cl = b.seconds
                     total_cl_samples = sum(len(r["chunk"]) for _, r in clean_rows) or 1
-                    t_cl = time.time() - t_bc
                     for (mx, r), (score, text) in zip(clean_rows, cl_out):
                         r["sv_score"] = score
                         r["fused_text"] = text
                         r["fused_share"] = t_cl * len(r["chunk"]) / total_cl_samples
                 if h_tg is not None:
-                    for (mx, r), text in zip(tspan_rows, eng.collect_transcribe(h_tg)):
+                    with self._bracket("collect.target", "asr"):
+                        tg_texts = eng.collect_transcribe(h_tg)
+                    for (mx, r), text in zip(tspan_rows, tg_texts):
                         r["target_text"] = text
-                self._time["asr"] += time.time() - t_bc
 
             # ---- gate (metrics bookkeeping) + granular ASR for pass-through
             # clean rows of mixtures with no enrollment
-            asr_items: List[np.ndarray] = []
-            asr_owner: List[Tuple[dict, dict, str]] = []
-            for mx in mixtures:
-                for r in mx["rows"]:
-                    self._gate_row(mx, r, M, A, asr_items, asr_owner)
+            with self._bracket("gate"):
+                asr_items: List[np.ndarray] = []
+                asr_owner: List[Tuple[dict, dict, str]] = []
+                for mx in mixtures:
+                    for r in mx["rows"]:
+                        self._gate_row(mx, r, M, A, asr_items, asr_owner)
 
-            if asr_items:
-                t_a = time.time()
-                texts = eng.transcribe(asr_items, cfg.language)
-                asr_elapsed = time.time() - t_a
-                self._time["asr"] += asr_elapsed
-                total_asr_samples = sum(len(c) for c in asr_items) or 1
-                for (mx, r, role), text, chunk in zip(asr_owner, texts, asr_items):
-                    if role == "main":
-                        r["text"] = text
-                        r["asr_time"] = asr_elapsed * (len(chunk) / total_asr_samples)
+                if asr_items:
+                    with self._bracket("transcribe", "asr") as b:
+                        texts = eng.transcribe(asr_items, cfg.language)
+                    total_asr_samples = sum(len(c) for c in asr_items) or 1
+                    for (mx, r, role), text, chunk in zip(asr_owner, texts, asr_items):
+                        if role == "main":
+                            r["text"] = text
+                            r["asr_time"] = b.seconds * (len(chunk) / total_asr_samples)
 
             # ---- emit records (field names: overlap3_core.py:667-680,820-833)
-            for mx in mixtures:
-                for r in mx["rows"]:
-                    if r.get("drop") or "text" not in r:
-                        continue
-                    tgt_text = r.get("target_text", "") or mx.get("target_text_fb", "")
-                    seg_dur = r["e"] - r["s"]
-                    segments_out.append({
-                        "wav": mx["abs_path"],
-                        "start": round(r["s"], 3),
-                        "end": round(r["e"], 3),
-                        "kind": r["kind"],
-                        "stream": int(r["best_branch"]) if r["kind"] == "overlap" else None,
-                        "text": r["text"],
-                        "asr_time": round(r.get("asr_time", 0.0), 3),
-                        "sv_score": round(r["sv_score"], 4) if r.get("sv_score") is not None else None,
-                        "target_src": mx.get("target_abs"),
-                        "target_src_text": tgt_text,
-                    })
-                    M["n_segments"] += 1
-                    M["n_matched_segments"] += 1
-                    A["total_matched_audio_sec"] += seg_dur
-                    if r["kind"] == "clean":
-                        M["n_clean_segments"] += 1
-                        A["total_clean_audio_sec"] += seg_dur
-                    else:
-                        M["n_overlap_segments"] += 1
-                        M["n_separated_streams"] += 1
+            with self._bracket("records"):
+                for mx in mixtures:
+                    for r in mx["rows"]:
+                        if r.get("drop") or "text" not in r:
+                            continue
+                        tgt_text = r.get("target_text", "") or mx.get("target_text_fb", "")
+                        seg_dur = r["e"] - r["s"]
+                        segments_out.append({
+                            "wav": mx["abs_path"],
+                            "start": round(r["s"], 3),
+                            "end": round(r["e"], 3),
+                            "kind": r["kind"],
+                            "stream": int(r["best_branch"]) if r["kind"] == "overlap" else None,
+                            "text": r["text"],
+                            "asr_time": round(r.get("asr_time", 0.0), 3),
+                            "sv_score": round(r["sv_score"], 4) if r.get("sv_score") is not None else None,
+                            "target_src": mx.get("target_abs"),
+                            "target_src_text": tgt_text,
+                        })
+                        M["n_segments"] += 1
+                        M["n_matched_segments"] += 1
+                        A["total_matched_audio_sec"] += seg_dur
+                        if r["kind"] == "clean":
+                            M["n_clean_segments"] += 1
+                            A["total_clean_audio_sec"] += seg_dur
+                        else:
+                            M["n_overlap_segments"] += 1
+                            M["n_separated_streams"] += 1
 
-        elapsed_compute = time.time() - t0_all
+        elapsed_compute = (time.perf_counter_ns() - t0_all) * 1e-9
         resource_stats: Dict[str, Any] = {}
         if monitor is not None:
             monitor.stop()
@@ -894,10 +934,9 @@ class Overlap3Pipeline:
         set, so gating/metrics code downstream is shared."""
         eng, cfg = self.engine, self.cfg
         if overlap_rows:
-            t_s = time.time()
-            ests = eng.separate([r["chunk"] for _, r in overlap_rows],
-                                n_src=3, backend=cfg.sep_backend)
-            self._time["sep"] += time.time() - t_s
+            with self._bracket("separate", "sep"):
+                ests = eng.separate([r["chunk"] for _, r in overlap_rows],
+                                    n_src=3, backend=cfg.sep_backend)
             flat = [np.asarray(est[i]) for est in ests for i in range(est.shape[0])]
             embs = eng.embed(flat)
             best_wavs, owners = [], []
@@ -912,32 +951,27 @@ class Overlap3Pipeline:
                     r["branches"] = [np.asarray(est[i]) for i in range(k)]
                 best_wavs.append(np.asarray(est[r["fused_best"]]))
                 owners.append(r)
-            t_a = time.time()
-            texts = eng.transcribe(best_wavs, cfg.language)
-            asr_el = time.time() - t_a
-            self._time["asr"] += asr_el
+            with self._bracket("transcribe", "asr") as b:
+                texts = eng.transcribe(best_wavs, cfg.language)
             tot = sum(len(w) for w in best_wavs) or 1
             for r, text, w in zip(owners, texts, best_wavs):
                 r["fused_text"] = text
-                r["fused_share"] = asr_el * len(w) / tot
+                r["fused_share"] = b.seconds * len(w) / tot
         if clean_rows:
             embs = eng.embed([r["chunk"] for _, r in clean_rows])
             for (mx, r), v in zip(clean_rows, embs):
                 r["sv_score"] = float(np.dot(np.asarray(v), np.asarray(mx["target_vec"])))
-            t_a = time.time()
-            texts = eng.transcribe([r["chunk"] for _, r in clean_rows], cfg.language)
-            asr_el = time.time() - t_a
-            self._time["asr"] += asr_el
+            with self._bracket("transcribe", "asr") as b:
+                texts = eng.transcribe([r["chunk"] for _, r in clean_rows], cfg.language)
             tot = sum(len(r["chunk"]) for _, r in clean_rows) or 1
             for (mx, r), text in zip(clean_rows, texts):
                 r["fused_text"] = text
-                r["fused_share"] = asr_el * len(r["chunk"]) / tot
+                r["fused_share"] = b.seconds * len(r["chunk"]) / tot
         if tspan_rows:
-            t_a = time.time()
-            texts = eng.transcribe(
-                [mx["target_np"][r["s_i"]:r["e_i"]] for mx, r in tspan_rows],
-                self.cfg.language)
-            self._time["asr"] += time.time() - t_a
+            with self._bracket("transcribe", "asr"):
+                texts = eng.transcribe(
+                    [mx["target_np"][r["s_i"]:r["e_i"]] for mx, r in tspan_rows],
+                    self.cfg.language)
             for (mx, r), text in zip(tspan_rows, texts):
                 r["target_text"] = text
 

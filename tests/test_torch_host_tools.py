@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX package: the small host CLIs (batch_eval,
 mix_wavs, split_speakers, generate_speaker_list, version) and
-utils/profiling (trace, the engine's stage ranges, StageTimer). Each CLI
+utils/profiling (trace, the engine's stage ranges). Each CLI
 runs in both packages on the same seeded files; their outputs are compared
 as files or JSON (CPU)."""
 import json
@@ -17,7 +17,6 @@ from audio_classification_tpu.cli import batch_eval as jax_batch_eval
 from audio_classification_tpu.cli import generate_speaker_list as jax_gen_list
 from audio_classification_tpu.cli import mix_wavs as jax_mix_wavs
 from audio_classification_tpu.cli import split_speakers as jax_split
-from audio_classification_tpu.utils import profiling as jax_profiling
 from audio_classification_tpu_torch.audio_io import write_wav
 from audio_classification_tpu_torch.cli import (
     batch_eval,
@@ -194,19 +193,3 @@ def test_trace_writes_a_chrome_trace_with_the_stage_ranges(tmp_path):
     assert len(files) == 1
     names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
     assert {"engine.osd", "engine.overlap", "engine.clean", "engine.asr"} <= names
-
-
-def test_stage_timer_matches_jax():
-    """First call per (stage, tag) counted as warm-up, later ones as
-    execute: the same calls and split as the JAX timer's."""
-    timers = (jax_profiling.StageTimer(), profiling.StageTimer())
-    for timer in timers:
-        for stage, tag in (("osd", 8), ("osd", 8), ("osd", 16), ("asr", None), ("asr", None)):
-            with timer.time(stage, tag):
-                pass
-    want, got = (t.summary() for t in timers)
-    assert got.keys() == want.keys() == {"osd", "asr"}
-    for stage in want:
-        assert got[stage]["calls"] == want[stage]["calls"]
-    assert timers[1]._seen == timers[0]._seen
-    assert dict(timers[1].calls) == {"osd": 3, "asr": 2}
