@@ -18,6 +18,8 @@ from torch import nn
 from ...ops.fbank import FbankConfig, apply_lfr, log_mel_fbank
 from ...ops.work import shape_keyed
 from ...parallel.sp_encoder import sp_seq_shard, sp_seq_unshard
+from ...utils.profiling import note
+from ..block_graphs import StackGraphs, eager_reason
 from ..common import Dense, LayerNorm, TransformerBlock, lengths_to_mask, position_table
 
 LANGUAGES = ("auto", "zh", "en", "yue", "ja", "ko", "nospeech")
@@ -48,7 +50,13 @@ class SenseVoiceConfig:
 
 
 class SenseVoiceEncoder(nn.Module):
-    """[B, T_lfr, lfr_m*mel] features (+ mask) -> [B, prompt+T_lfr, vocab]."""
+    """[B, T_lfr, lfr_m*mel] features (+ mask) -> [B, prompt+T_lfr, vocab].
+
+    On the card the block chain replays CUDA graphs kept per input shape
+    (models/block_graphs.py), cut at the K3 calls; on the CPU, with a mesh,
+    int8 blocks, gradients or a work count open, the blocks run op by op.
+    ``in_proj``, the prompt, the positions, ``final_ln`` and ``ctc_head`` run
+    op by op either way: the logits are a new tensor every call."""
 
     def __init__(self, cfg: SenseVoiceConfig = SenseVoiceConfig()):
         super().__init__()
@@ -64,6 +72,7 @@ class SenseVoiceEncoder(nn.Module):
                                                            c.conv_kernel, c.quant))
         self.final_ln = LayerNorm(c.dim)
         self.ctc_head = Dense(c.dim, c.vocab_size)
+        self._graphs = StackGraphs()
 
     @shape_keyed
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
@@ -83,14 +92,24 @@ class SenseVoiceEncoder(nn.Module):
             mask = torch.cat([torch.ones((b, c.num_prompt), dtype=torch.bool, device=x.device),
                               frame_mask.bool()], dim=1)
         x = x + position_table(t + c.num_prompt, c.dim, x.device)[None]
+        blocks = [getattr(self, f"block_{i}") for i in range(c.layers)]
+        reason = eager_reason(x.device.type, mesh, c.quant)
+        if reason is None:
+            return self._graphs.run(blocks, x, mask, self._logits)
+        if reason == "count":
+            self._graphs.saw(blocks, x, mask)
         if mesh is not None:
             # the prompt concat and the positions come first, on the whole
             # sequence; then one pad to the shard count enters the sharded regime
             x, mask, orig_total = sp_seq_shard(x, mask, mesh, sp_axis)
-        for i in range(c.layers):
-            x = getattr(self, f"block_{i}")(x, mask, mesh, sp_axis)
+        for blk in blocks:
+            x = blk(x, mask, mesh, sp_axis)
         if mesh is not None:
             x = sp_seq_unshard(x, mesh, orig_total)
+        note(graph_replays=0, graph_captures=0, eager_blocks=len(blocks))
+        return self._logits(x)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return self.ctc_head(self.final_ln(x))
 
 

@@ -341,9 +341,9 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, mesh=None,
                 sp_axis: str = "data") -> torch.Tensor:
-        b, t, _ = x.shape
-        d_head = self.dim // self.heads
         if mesh is not None:
+            b, t, _ = x.shape
+            d_head = self.dim // self.heads
             q, k, v = (z.reshape(b, t, self.heads, d_head)
                        for z in self.qkv(x, mask, quant="none").split(self.dim, dim=-1))
             kv_mask = mask if mask is not None else torch.ones(
@@ -356,11 +356,27 @@ class MultiHeadSelfAttention(nn.Module):
                 kv_mask = F.pad(kv_mask, (0, pad))
             out = ring_attention(q, k, v, mesh, axis=sp_axis, kv_mask=kv_mask)
             return self.out(out[:, :t].reshape(b, t, self.dim), quant="none")
-        q, k, v = (z.reshape(b, t, self.heads, d_head).transpose(1, 2)
-                   for z in self.qkv(x, mask).split(self.dim, dim=-1))
-        attend = flash_attention if t >= FLASH_MIN_T else attention_reference
-        out = attend(q, k, v, mask)
-        return self.out(out.transpose(1, 2).reshape(b, t, self.dim), mask)
+        return self.output(self.core(*self.project(x, mask), mask), mask)
+
+    def project(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> tuple:
+        """The QKV projection: x [B, T, D] -> q, k, v [B, H, T, D / H], views
+        of one product."""
+        b, t, _ = x.shape
+        d_head = self.dim // self.heads
+        return tuple(z.reshape(b, t, self.heads, d_head).transpose(1, 2)
+                     for z in self.qkv(x, mask).split(self.dim, dim=-1))
+
+    def core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The attention core: K3 (``flash_attention``, looked up when called)
+        from ``FLASH_MIN_T`` frames on, the dense masked softmax below."""
+        attend = flash_attention if q.shape[2] >= FLASH_MIN_T else attention_reference
+        return attend(q, k, v, mask)
+
+    def output(self, attn: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The core's [B, H, T, D / H] heads -> the out-projection [B, T, D]."""
+        b, _, t, _ = attn.shape
+        return self.out(attn.transpose(1, 2).reshape(b, t, self.dim), mask)
 
 
 class TransformerBlock(nn.Module):
@@ -390,8 +406,27 @@ class TransformerBlock(nn.Module):
     @shape_keyed
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, mesh=None,
                 sp_axis: str = "data") -> torch.Tensor:
-        quant = None if mesh is None else "none"
+        if mesh is None:
+            return self.tail(x, self.MultiHeadSelfAttention_0.core(*self.head(x, mask), mask),
+                             mask)
         x = x + self.MultiHeadSelfAttention_0(self.LayerNorm_0(x), mask, mesh, sp_axis)
+        return self._conv_ffn(x, mask, "none")
+
+    def head(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> tuple:
+        """The block up to its attention core: LayerNorm_0 and the QKV
+        projection -> q, k, v [B, H, T, D / H]."""
+        return self.MultiHeadSelfAttention_0.project(self.LayerNorm_0(x), mask)
+
+    def tail(self, x: torch.Tensor, attn: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block after its attention core, on the block's input ``x`` and
+        the core's heads ``attn``: out-projection and residual, the conv
+        branch, the FFN and the mask. ``forward`` is ``tail(x, core(*head(x)))``
+        without a mesh, op for op."""
+        return self._conv_ffn(x + self.MultiHeadSelfAttention_0.output(attn, mask), mask, None)
+
+    def _conv_ffn(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                  quant: Optional[str]) -> torch.Tensor:
         ffn_ln = self.LayerNorm_1
         if self.dwconv is not None:
             h = self.LayerNorm_1(x)

@@ -269,6 +269,12 @@ def _active():
     return None if count is None or count.hidden else count
 
 
+def counting() -> bool:
+    """Whether a count is open on this thread, inside a hidden region of it
+    too: a program's first call, all of it."""
+    return getattr(_local, "count", None) is not None
+
+
 def uncounted():
     """A region outside the count: a constant made once per set of weights
     (quantised or stacked weights, a reduced-precision copy of a model) is
