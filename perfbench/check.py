@@ -61,7 +61,7 @@ def _rows_valid(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def _power_err(f_s: torch.Tensor, f_r: torch.Tensor, valid: torch.Tensor) -> float:
     """Max over valid frames of the largest mel-power difference over the
-    frame's largest mel power (log-mel in, LFR-stacked or not: the stacked
+    frame's largest mel power (log-mel in, frames stacked or not: stacked
     frames are compared as a whole)."""
     if f_s.shape != f_r.shape:
         return math.inf

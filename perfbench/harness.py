@@ -1,7 +1,8 @@
 """One run of one cell: set up, warm up, measure, check, report.
 
 Everything about a cell comes from files that ``BENCHMARK.json`` names: the
-cell's configuration (``configs/<config>.json``), its traffic
+cell's configuration (``configs/<config>.json``), its recognizer family
+(``asr/<family>.py``, by the configuration's ``asr_family``), its traffic
 (``workloads/<traffic>.json``), its comparison limits (``limits/<cell>.json``)
 and one reader a per-layer metric (``metrics/<metric>.py``).
 
@@ -13,10 +14,11 @@ port's pyannote importer), loads the benchmark's weights, writes the jobs'
 wavs to ``TMPDIR`` and runs the workload's warm jobs, which use every shape
 the window uses.
 
-Forward hooks on the stage models keep (without a copy or a wait) what the
-sampled jobs' stage calls returned; once the window has closed the program is
-freed and the plain reference runs those jobs again from the benchmark's own
-samples and weights (``reference/``), and ``check`` compares.
+Forward hooks on the stage models (on the recognizer, its family's) keep
+(without a copy or a wait) what the sampled jobs' stage calls returned; once
+the window has closed the program is freed and the plain reference runs those
+jobs again from the benchmark's own samples and weights (``reference/``), and
+``check`` compares.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -72,13 +74,30 @@ def load_config(name: str, root: Path = HERE) -> dict:
         return json.load(f)
 
 
-def load_reader(metric: str, root: Path = HERE):
-    path = root / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location("perfbench_metric_" + metric.replace(".", "_"),
-                                                  path)
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(metric: str, root: Path = HERE):
+    return _module(root / "metrics" / f"{metric}.py", "perfbench_metric_" + metric).read
+
+
+def family_name(cfg: dict) -> str:
+    """The configuration's recognizer family: its ``asr_family``, SenseVoice
+    where it has none."""
+    return cfg.get("asr_family", "sensevoice")
+
+
+def load_family(name: str, root: Path = HERE):
+    """The recognizer family ``name``: the module ``asr/<name>.py`` under
+    ``root`` (what it holds: ``asr/sensevoice.py``'s docstring)."""
+    path = root / "asr" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"no recognizer family {name!r}: {path} does not exist")
+    return _module(path, "perfbench_asr_" + name)
 
 
 @dataclasses.dataclass
@@ -89,6 +108,11 @@ class Cell:
     limits: Dict[str, float]
     end_to_end: List[dict]
     per_layer: List[dict]
+    root: Path = HERE
+    asr: Any = dataclasses.field(init=False)  # the recognizer family's module
+
+    def __post_init__(self):
+        self.asr = load_family(family_name(self.config), self.root)
 
     @classmethod
     def from_manifest(cls, name: str, manifest: dict, root: Path = HERE) -> "Cell":
@@ -102,17 +126,17 @@ class Cell:
         return cls(name, load_config(entry["config"], root),
                    traffic.load_workload(entry["traffic"], root), check.load_limits(name, root),
                    [m for m in manifest["end_to_end"] if mine(m)],
-                   [m for m in manifest["per_layer"] if mine(m)])
+                   [m for m in manifest["per_layer"] if mine(m)], root)
 
 
 # ------------------------------------------------------------ the program
-def build_engine(cfg: dict, wl: dict, seed: int, device, workdir: str):
-    """The port's engine at the configuration's widths, with the
-    benchmark's weights loaded through the normal path."""
+def build_engine(cfg: dict, wl: dict, seed: int, device, workdir: str, asr):
+    """The port's engine at the configuration's widths, its recognizer of
+    the family ``asr``, with the benchmark's weights loaded through the
+    normal path."""
     from audio_classification_tpu_torch.engine import BucketSpec, ModelPack, StageEngine
     from audio_classification_tpu_torch.engine.bucketing import default_buckets
     from audio_classification_tpu_torch.engine.runtime import EnginePreset
-    from audio_classification_tpu_torch.models.asr.tokens import TokenTable
 
     base = EnginePreset()
     fields = {}
@@ -121,23 +145,31 @@ def build_engine(cfg: dict, wl: dict, seed: int, device, workdir: str):
         vals = {k: (tuple(v) if isinstance(v, list) else v) for k, v in values.items()}
         fields[stage] = dataclasses.replace(cur, **vals)
     preset = dataclasses.replace(base, **fields)
-    symbols = weights.token_symbols(cfg["preset"]["asr"]["vocab_size"])
-    tokens = TokenTable(dict(enumerate(symbols)), blank_id=0)
-    pack = ModelPack(preset, seed=0, tokens=tokens, device=device)
-    load_seed(pack, cfg, wl, seed, device, workdir)
+    symbols = asr.token_symbols(cfg["preset"][asr.PRESET])
+    pack = ModelPack(preset, seed=0, tokens=asr.token_table(symbols), device=device,
+                     asr_family=asr.PACK_FAMILY)
+    load_seed(pack, cfg, wl, seed, device, workdir, asr)
     buckets = BucketSpec(lengths=default_buckets(traffic.SR, 0.5, 64.0), max_batch=8)
     return StageEngine(pack, buckets, compute_dtype=cfg["dtype"]), symbols
 
 
-def load_seed(pack, cfg: dict, wl: dict, seed: int, device, workdir: str) -> None:
+def seed_weights(cfg: dict, wl: dict, seed: int, device, asr) -> Dict[str, dict]:
+    """The state dicts of the stages a cell's jobs use, for ``seed``; the
+    recognizer's at its family's preset field and spec."""
+    p = cfg["preset"]
+    return {s: (weights.stage_weights(s, p[asr.PRESET], seed, device, asr.spec) if s == "asr"
+                else weights.stage_weights(s, p[s], seed, device))
+            for s in used_stages(cfg, wl)}
+
+
+def load_seed(pack, cfg: dict, wl: dict, seed: int, device, workdir: str, asr) -> None:
     """The benchmark's weights for ``seed`` into the pack: the used stages'
     state dicts, and PyanNet from a pyannote checkpoint written to
     ``workdir`` and read by the port's importer."""
     from audio_classification_tpu_torch.convert.torch_import import load_pyannet_torch
     from audio_classification_tpu_torch.models.pyannet import BinarizeConfig
 
-    pack.load_state_dicts({s: weights.stage_weights(s, cfg["preset"][s], seed, device)
-                           for s in used_stages(cfg, wl)})
+    pack.load_state_dicts(seed_weights(cfg, wl, seed, device, asr))
     ckpt = os.path.join(workdir, "segmentation.ckpt")
     weights.write_pyannote_checkpoint(ckpt, cfg["pyannet"], seed, device)
     o = wl["osd"]
@@ -157,21 +189,27 @@ def pipeline_config(cfg: dict, job: traffic.Job, device):
 class Capture:
     """Forward hooks on the stage models: while ``on``, each call's
     positional inputs and output are kept as they are (device tensors; no
-    copy, no wait)."""
+    copy, no wait), in call order; the recognizer's calls as its family
+    ``asr`` keeps them."""
 
-    def __init__(self, engine, sep_stage: str):
+    def __init__(self, engine, sep_stage: str, asr):
         pack = engine.pack
         self.on = False
         self.calls: List[tuple] = []
         mods = {"osd": pack.osd_pyannet, "sep": pack.models[sep_stage],
-                "spk": pack.models["spk"], "asr": pack.models["asr"]}
+                "spk": pack.models["spk"]}
         self.handles = [m.register_forward_hook(self._hook(n)) for n, m in mods.items()]
+        self.handles += asr.capture(pack.models["asr"], self._keep("asr"))
+
+    def _keep(self, name):
+        def fn(kept):
+            if self.on:
+                self.calls.append((name, kept))
+        return fn
 
     def _hook(self, name):
-        def fn(_module, args, out):
-            if self.on:
-                self.calls.append((name, args, out))
-        return fn
+        keep = self._keep(name)
+        return lambda _module, args, out: keep((args, out))
 
     def take(self) -> List[tuple]:
         calls, self.calls = self.calls, []
@@ -182,11 +220,15 @@ class Capture:
             h.remove()
 
 
-def program_outputs(calls: List[tuple], records: List[dict]) -> dict:
+def program_outputs(calls: List[tuple], records: List[dict], asr) -> dict:
     """The judged side of ``check`` from one job's captured stage calls and
-    its records."""
+    its records; the recognizer's entries by its family ``asr``."""
     out: dict = {"feats_spk": [], "emb": [], "asr": []}
-    for name, args, res in calls:
+    for name, kept in calls:
+        if name == "asr":
+            out["asr"].append(asr.program_entry(kept))
+            continue
+        args, res = kept
         if name == "osd":
             out["osd"] = res
         elif name == "sep":
@@ -195,8 +237,6 @@ def program_outputs(calls: List[tuple], records: List[dict]) -> dict:
             valid = args[1].sum(dim=1)
             out["feats_spk"].append((args[0], valid))
             out["emb"].append(res / torch.clamp_min(res.norm(dim=-1, keepdim=True), 1e-12))
-        elif name == "asr":
-            out["asr"].append({"feats": args[0], "mask": args[1], "logits": res})
     out["records"] = [{"kind": r["kind"], "stream": r["stream"], "sv_score": r["sv_score"],
                        "text": r["text"], "target_text": r["target_src_text"],
                        "start": r["start"], "end": r["end"]} for r in records]
@@ -310,9 +350,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device=None,
         jobs = traffic.make_jobs(wl, seed, device)
         traffic.write(jobs, workdir)
         phase("jobs written")
-        engine, symbols = build_engine(cfg, wl, seed, device, workdir)
+        engine, symbols = build_engine(cfg, wl, seed, device, workdir, cell.asr)
         phase("engine built")
-        capture = Capture(engine, sep_stage(cfg))
+        capture = Capture(engine, sep_stage(cfg), cell.asr)
 
         def one(job):
             return Overlap3Pipeline(pipeline_config(cfg, job, device), engine=engine).run()
@@ -375,7 +415,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device=None,
             if capture.on:
                 calls = capture.take()
                 if ok:
-                    captured[job_i] = program_outputs(calls, res.segments)
+                    captured[job_i] = program_outputs(calls, res.segments, cell.asr)
             capture.on = False
             pos += 1
         t_end = time.perf_counter()
@@ -399,7 +439,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device=None,
         if trace:
             view = View(Trace.from_profile(prof), len(walls), window_s, untraced_s, kr.work(),
                         sum(work.job_flops([len(m) for m in jobs[i % len(jobs)].mixtures],
-                                           len(jobs[i % len(jobs)].target), cfg, wl["kind"])
+                                           len(jobs[i % len(jobs)].target), cfg, wl["kind"],
+                                           cell.asr)
                             for i in range(len(walls))),
                         peaks_for(dev["kind"]))
             dev["busy_s"] = view.trace.busy_us() * 1e-6
@@ -422,7 +463,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device=None,
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        numbers = reference_numbers(cfg, wl, jobs, captured, seed, device, symbols)
+        numbers = reference_numbers(cfg, wl, jobs, captured, seed, device, symbols, cell.asr)
         phase("reference compared")
         result["correct"] = (failed == 0 and len(captured) > 0
                              and check.judge(numbers, cell.limits))
@@ -438,23 +479,23 @@ def peaks_for(kind: str) -> Optional[dict]:
         return json.load(f).get(kind)
 
 
-def reference_for(cfg: dict, wl: dict, seed: int, device, symbols, tf32: bool = False):
-    w = {s: weights.stage_weights(s, cfg["preset"][s], seed, device)
-         for s in used_stages(cfg, wl)}
+def reference_for(cfg: dict, wl: dict, seed: int, device, symbols, asr, tf32: bool = False):
     pn = weights.pyannote_state_dict(cfg["pyannet"], seed, device)
-    return Reference(cfg, w, pn, symbols, device, tf32=tf32)
+    return Reference(cfg, seed_weights(cfg, wl, seed, device, asr), pn, symbols, device, asr,
+                     tf32=tf32)
 
 
-def reference_numbers(cfg, wl, jobs, captured: Dict[int, dict], seed, device, symbols) -> dict:
+def reference_numbers(cfg, wl, jobs, captured: Dict[int, dict], seed, device, symbols,
+                      asr) -> dict:
     """The reference over every compared job -> the worst of each number."""
     if not captured:
         return {}
-    ref = reference_for(cfg, wl, seed, device, symbols)
+    ref = reference_for(cfg, wl, seed, device, symbols, asr)
     per_job = []
     for i, side in sorted(captured.items()):
         job = jobs[i]
         follow = [r["stream"] for r in side["records"]] if wl["kind"] == "overlap" else None
-        r = ref.run_job(job.mixtures, job.target, wl["kind"], follow)
+        r = ref.run_job(job.mixtures, job.target, wl["kind"], follow, side["asr"])
         per_job.append(check.compare_job(side, r, len(job.mixtures)))
         del r
     return check.worst(per_job)

@@ -57,12 +57,12 @@ def main(argv=None) -> int:
         jobs = traffic.make_jobs(wl, seed, device)
         traffic.write(jobs, f"{workdir}/{seed}")
         if engine is None:
-            engine, symbols = harness.build_engine(cfg, wl, seed, device, workdir)
+            engine, symbols = harness.build_engine(cfg, wl, seed, device, workdir, cell.asr)
         else:  # a new PyanNet module too: hooked again below
             capture.remove()
-            harness.load_seed(engine.pack, cfg, wl, seed, device, workdir)
-        capture = harness.Capture(engine, harness.sep_stage(cfg))
-        ref = harness.reference_for(cfg, wl, seed, device, symbols)
+            harness.load_seed(engine.pack, cfg, wl, seed, device, workdir, cell.asr)
+        capture = harness.Capture(engine, harness.sep_stage(cfg), cell.asr)
+        ref = harness.reference_for(cfg, wl, seed, device, symbols, cell.asr)
         line = {"seed": seed}
         if seed in seeds:
             per_job = []
@@ -72,24 +72,24 @@ def main(argv=None) -> int:
                 res = Overlap3Pipeline(harness.pipeline_config(cfg, job, device),
                                        engine=engine).run()
                 capture.on = False
-                side = harness.program_outputs(capture.take(), res.segments)
+                side = harness.program_outputs(capture.take(), res.segments, cell.asr)
                 follow = ([r["stream"] for r in side["records"]] if wl["kind"] == "overlap"
                           else None)
-                r = ref.run_job(job.mixtures, job.target, wl["kind"], follow)
+                r = ref.run_job(job.mixtures, job.target, wl["kind"], follow, side["asr"])
                 per_job.append(check.compare_job(side, r, len(job.mixtures)))
                 per_job[-1]["records_ok"] = float(harness.records_ok(res.segments, job,
                                                                      wl["kind"]))
             line["program"] = {k: max(j[k] for j in per_job) for k in per_job[0]}
             line["records_ok"] = min(j["records_ok"] for j in per_job)
         if seed in control:
-            ctl = Reference(cfg, ref.w, ref.pn, symbols, device, tf32=True)
+            ctl = Reference(cfg, ref.w, ref.pn, symbols, device, cell.asr, tf32=True)
             per_job = []
             for i in harness.check_jobs(wl, jobs, seed):
                 job = jobs[i]
                 side = ctl.run_job(job.mixtures, job.target, wl["kind"])
                 follow = ([r["stream"] for r in side["records"]] if wl["kind"] == "overlap"
                           else None)
-                r = ref.run_job(job.mixtures, job.target, wl["kind"], follow)
+                r = ref.run_job(job.mixtures, job.target, wl["kind"], follow, side["asr"])
                 per_job.append(check.compare_job(side, r, len(job.mixtures)))
             line["control"] = check.worst(per_job)
         line["seconds"] = time.perf_counter() - t0
@@ -136,7 +136,7 @@ def write_fixture(path: str, cell, engine, jobs, device) -> None:
     fixture = {"cell": cell.name, "trace": trace.to_dict(), "jobs": 1, "window_s": window_s,
                "untraced_s": untraced_s, "calls": kr.work(),
                "flops": work.job_flops([len(m) for m in jobs[0].mixtures], len(jobs[0].target),
-                                       cfg, wl["kind"]),
+                                       cfg, wl["kind"], cell.asr),
                "kind": torch.cuda.get_device_name(device)}
     with gzip.open(path, "wt", encoding="utf-8") as f:
         json.dump(fixture, f)

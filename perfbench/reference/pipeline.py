@@ -13,6 +13,12 @@ enrollment wav over the record's span (the pipeline's target-span ASR).
 ``follow`` names the branch to transcribe for each overlap record (the
 judged side's choice): the reference then says how far below its own best
 score that branch lies, instead of transcribing a branch of its own choice.
+``given`` holds the judged side's recognizer entries, one a call in the
+order of the calls: each is handed to the family's reference call of the
+same index, which may read it (teacher forcing).
+
+The recognizer is the configuration's family (``asr/<family>.py``): its
+``recognize``, under ``reference/``, is the call.
 """
 from __future__ import annotations
 
@@ -25,7 +31,6 @@ from . import models as M
 
 BUCKETS = tuple(int(8000 * 2 ** k) for k in range(7)) + (1024000,)
 MAX_BATCH = 8
-TOKEN_CAP = 512
 
 
 def bucket_for(n: int) -> int:
@@ -52,15 +57,16 @@ def batch(items: Sequence[np.ndarray], device) -> tuple:
 
 
 class Reference:
-    """The reference models of one configuration on ``device``."""
+    """The reference models of one configuration on ``device``; ``family``
+    is its recognizer family's module."""
 
     def __init__(self, cfg: dict, weights: Dict[str, Dict[str, torch.Tensor]],
-                 pyannote: Dict[str, torch.Tensor], symbols: List[str], device,
+                 pyannote: Dict[str, torch.Tensor], symbols: List[str], device, family,
                  tf32: bool = False):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg, self.w, self.pn, self.symbols = cfg, weights, pyannote, symbols
-        self.device = device
+        self.device, self.family = device, family
         self.ops = M.Ops(tf32)
         self.sep = "mossformer" if cfg["sep_backend"] == "mossformer" else "sep3"
 
@@ -73,20 +79,10 @@ class Reference:
         emb = emb / torch.clamp_min(emb.norm(dim=-1, keepdim=True), 1e-12)
         return feats, valid, emb
 
-    def asr(self, wav: torch.Tensor, lengths: torch.Tensor):
-        c = self.cfg["preset"]["asr"]
-        feats, mask = M.sensevoice_frontend(self.ops, c, wav, lengths)
-        logits = M.sensevoice(self.ops, self.w["asr"], c, feats, mask)
-        n_p = c["num_prompt"]
-        body = logits[:, n_p:]
-        ids = M.ctc_greedy(body, mask, TOKEN_CAP)
-        top2 = body.topk(2, dim=-1).values
-        gap = (top2[..., 0] - top2[..., 1]).masked_fill(~mask, float("inf"))
-        pos = torch.cat([torch.ones((mask.shape[0], n_p), dtype=torch.bool, device=mask.device),
-                         mask], dim=1)
-        texts = [M.decode_text(x, self.symbols) for x in ids]
-        return {"feats": feats, "mask": mask, "logits": logits, "pos": pos, "texts": texts,
-                "margin": gap.min(dim=1).values}
+    def asr(self, wav: torch.Tensor, lengths: torch.Tensor, given: Optional[dict] = None):
+        f = self.family
+        return f.recognize(self.ops, self.w["asr"], self.cfg["preset"][f.PRESET], self.symbols,
+                           wav, lengths, given)
 
     def separate(self, wav: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         c = self.cfg["preset"][self.sep]
@@ -96,8 +92,10 @@ class Reference:
     # -------------------------------------------------------------- a job
     @torch.no_grad()
     def run_job(self, mixtures: List[np.ndarray], target: np.ndarray, kind: str,
-                follow: Optional[Sequence[int]] = None) -> dict:
+                follow: Optional[Sequence[int]] = None,
+                given: Optional[Sequence[dict]] = None) -> dict:
         dev = self.device
+        given = iter(given or ())
         n_mix = len(mixtures)
         out: dict = {"feats_spk": [], "emb": [], "asr": []}
         # enrollment: embedding and transcript (a batch of one)
@@ -105,7 +103,7 @@ class Reference:
         feats, valid, t_emb = self.embed(t_wav, t_len)
         out["feats_spk"].append((feats, valid))
         out["emb"].append(t_emb)
-        enroll = self.asr(t_wav, t_len)
+        enroll = self.asr(t_wav, t_len, next(given, None))
         out["asr"].append(enroll)
         # OSD over the mixtures
         wav, lengths = batch(mixtures, dev)
@@ -123,7 +121,7 @@ class Reference:
             own = scores.argmax(dim=-1)
             pick = own if follow is None else torch.as_tensor(
                 list(follow) + [0] * (bs - n_mix), device=dev)
-            path = self.asr(est[torch.arange(bs, device=dev), pick], lengths)
+            path = self.asr(est[torch.arange(bs, device=dev), pick], lengths, next(given, None))
             for i, r in enumerate(records):
                 r["stream"] = int(pick[i])
                 r["sv_score"] = float(scores[i, pick[i]])
@@ -133,7 +131,7 @@ class Reference:
             out["feats_spk"].append((feats, valid))
             out["emb"].append(emb)
             scores = (emb * target_vec).sum(dim=-1)
-            path = self.asr(wav, lengths)
+            path = self.asr(wav, lengths, next(given, None))
             for i, r in enumerate(records):
                 r["stream"] = None
                 r["sv_score"] = float(scores[i])
@@ -145,7 +143,7 @@ class Reference:
             e_i = int((len(x) / M.SR) * M.SR)
             spans.append(target[:min(e_i, len(target))])
         tg_wav, tg_len = batch(spans, dev)
-        tspan = self.asr(tg_wav, tg_len)
+        tspan = self.asr(tg_wav, tg_len, next(given, None))
         out["asr"].append(tspan)
         for i, r in enumerate(records):
             r["text"] = path["texts"][i]

@@ -2,12 +2,16 @@
 that every file a cell is found by exists."""
 import json
 import re
+import sys
 from pathlib import Path
 
 import pytest
 
 HERE = Path(__file__).resolve().parents[1]
 ROOT = HERE.parent
+sys.path.insert(0, str(ROOT))
+from perfbench import harness  # noqa: E402
+
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -93,6 +97,7 @@ def test_configs_state_their_widths_and_cuts():
         cfg = json.loads((ROOT / entry["file"]).read_text())
         assert cfg["reduced"] == entry["reduced"] == []
         assert cfg["dtype"] == "float32" and "assumed" in cfg and cfg["departures"]
-        asr = cfg["preset"]["asr"]
-        assert (asr["dim"], asr["heads"], asr["layers"], asr["vocab_size"]) == (512, 4, 70, 25055)
+        fam = harness.load_family(harness.family_name(cfg))  # the recognizer's published widths
+        asr = cfg["preset"][fam.PRESET]
+        assert fam.PUBLISHED and {k: asr[k] for k in fam.PUBLISHED} == fam.PUBLISHED
         assert cfg["pyannet"]["layers"] == 4 and cfg["pyannet"]["hidden"] == 128

@@ -15,7 +15,8 @@ def test_the_harness_and_the_port_load_no_jax():
     code = ("import sys; sys.path.insert(0, '.');"
             "import perfbench.run, perfbench.readings;"
             "from perfbench import harness, check, trace, traffic, weights, work;"
-            "from perfbench.reference import models, pipeline;"
+            "from perfbench.reference import models, pipeline, sensevoice;"
+            "harness.load_family('sensevoice');"
             "import audio_classification_tpu_torch.pipelines.offline_overlap3;"
             "import audio_classification_tpu_torch.convert.torch_import;"
             "print(harness.forbidden_modules())")

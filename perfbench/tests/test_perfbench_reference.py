@@ -12,13 +12,14 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
-from perfbench import check, weights  # noqa: E402
+from perfbench import check, harness, weights  # noqa: E402
 from perfbench.reference import models as M  # noqa: E402
 
 TINY = Path(__file__).resolve().parent / "tiny"
 CFG = json.loads((TINY / "tiny-convtasnet.json").read_text())
 MOSS = json.loads((TINY / "tiny-mossformer.json").read_text())
 OPS = M.Ops()
+SV = harness.load_family("sensevoice")
 
 
 def _waves(lengths, bucket, seed=0):
@@ -124,7 +125,7 @@ def test_sensevoice_and_ctc_match_the_port(bucket):
     from audio_classification_tpu_torch.models.asr.tokens import TokenTable
 
     c = CFG["preset"]["asr"]
-    sd = weights.stage_weights("asr", c, 7, "cpu")
+    sd = weights.stage_weights("asr", c, 7, "cpu", SV.spec)
     port = _port(SenseVoiceEncoder, SenseVoiceConfig, c, sd)
     wav, lengths = _waves([bucket, bucket // 3], bucket)
     feats, mask = M.sensevoice_frontend(OPS, c, wav, lengths)
@@ -136,7 +137,7 @@ def test_sensevoice_and_ctc_match_the_port(bucket):
     ref = M.sensevoice(OPS, sd, c, feats, mask)
     _close(got, ref, 1e-5)
     ids, n = ctc_greedy_decode(ref[:, 4:], mask)
-    symbols = weights.token_symbols(c["vocab_size"])
+    symbols = SV.token_symbols(c)
     table = TokenTable(dict(enumerate(symbols)), blank_id=0)
     mine = M.ctc_greedy(ref[:, 4:], mask, 512)
     for row, k, ids_ref in zip(ids, n, mine):

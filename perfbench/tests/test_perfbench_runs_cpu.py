@@ -137,15 +137,13 @@ def test_the_control_fails_the_cells_limits(name, seed):
     cell = small(name)
     cfg, wl = cell.config, cell.workload
     job = traffic.make_jobs(wl, seed)[0]
-    from perfbench import weights
-
-    symbols = weights.token_symbols(cfg["preset"]["asr"]["vocab_size"])
-    ref = harness.reference_for(cfg, wl, seed, "cpu", symbols)
-    ctl = Reference(cfg, ref.w, ref.pn, symbols, "cpu", tf32=True)
+    symbols = cell.asr.token_symbols(cfg["preset"][cell.asr.PRESET])
+    ref = harness.reference_for(cfg, wl, seed, "cpu", symbols, cell.asr)
+    ctl = Reference(cfg, ref.w, ref.pn, symbols, "cpu", cell.asr, tf32=True)
     side = ctl.run_job(job.mixtures, job.target, wl["kind"])
     follow = [r["stream"] for r in side["records"]] if wl["kind"] == "overlap" else None
-    numbers = check.compare_job(side, ref.run_job(job.mixtures, job.target, wl["kind"], follow),
-                                len(job.mixtures))
+    numbers = check.compare_job(side, ref.run_job(job.mixtures, job.target, wl["kind"], follow,
+                                                  side["asr"]), len(job.mixtures))
     assert not check.judge(numbers, cell.limits), numbers
 
 

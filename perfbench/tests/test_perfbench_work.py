@@ -7,11 +7,12 @@ from pathlib import Path
 import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
-from perfbench import work  # noqa: E402
+from perfbench import harness, work  # noqa: E402
 
 HERE = Path(__file__).resolve().parents[1]
 TSE3 = json.loads((HERE / "configs" / "tse3-convtasnet.json").read_text())
 MOSS = json.loads((HERE / "configs" / "tse2-mossformer.json").read_text())
+SV = harness.load_family("sensevoice")
 
 
 def test_k1_work_matches_at_the_cells_frame_counts():
@@ -60,9 +61,9 @@ def test_k4_work_matches_at_mf2_overlap(keys):
 def test_model_flops_are_dominated_by_the_layers_the_cells_name():
     n = 16 * 16000
     a = TSE3["preset"]["asr"]
-    assert work.sensevoice_flops(n, a) > 1e10
+    assert SV.sensevoice_flops(n, a) > 1e10
     assert work.mossformer_flops(8 * 16000, MOSS["preset"]["mossformer"]) > \
         20 * work.convtasnet_flops(8 * 16000, TSE3["preset"]["sep3"])
-    job = work.job_flops([n] * 8, 96000, TSE3, "overlap")
-    clean = work.job_flops([n] * 8, 96000, TSE3, "clean")
+    job = work.job_flops([n] * 8, 96000, TSE3, "overlap", SV)
+    clean = work.job_flops([n] * 8, 96000, TSE3, "clean", SV)
     assert job > clean > 0

@@ -4,7 +4,7 @@ to the plain reference.
 Each model's tensors are listed by ``spec`` (the port's state-dict names and
 shapes, which ``load_state_dict`` holds the program to strictly) and filled
 from ONE draw of a ``torch.Generator`` on the device per model, cut into
-leaves: matrices and filters N(0, 1 / fan_in), biases, shifts and prompt
+leaves: matrices and filters N(0, 1 / fan_in), biases, shifts and
 embeddings N(0, 0.02^2), scales 1 + N(0, 0.05^2), PReLU slopes 0.25,
 BatchNorm running means N(0, 0.05^2) and variances exp(N(0, 0.1^2)). The
 PyanNet checkpoint is written under pyannote's own names (a pytorch-lightning
@@ -14,7 +14,7 @@ through its own renames.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,26 +100,7 @@ def speaker_spec(c: dict) -> Spec:
     return out
 
 
-def sensevoice_spec(c: dict) -> Spec:
-    d, v = c["dim"], c["vocab_size"]
-    out = [*_lin("in_proj", d, c["lfr_m"] * c["num_mel"]), ("lang_embed", (7, d), "b"),
-           ("itn_embed", (2, d), "b"), ("prompt_pad", (c["num_prompt"] - 2, d), "b")]
-    for i in range(c["layers"]):
-        p = f"block_{i}"
-        out += [*_norm(f"{p}.LayerNorm_0", d, "weight", "bias"),
-                *_lin(f"{p}.MultiHeadSelfAttention_0.qkv", 3 * d, d),
-                *_lin(f"{p}.MultiHeadSelfAttention_0.out", d, d),
-                *_norm(f"{p}.LayerNorm_1", d, "weight", "bias"),
-                *_conv1d(f"{p}.dwconv", d, 1, c["conv_kernel"]),
-                *_norm(f"{p}.LayerNorm_2", d, "weight", "bias"),
-                *_lin(f"{p}.Dense_0", d * c["ffn_mult"], d),
-                *_lin(f"{p}.Dense_1", d, d * c["ffn_mult"])]
-    out += [*_norm("final_ln", d, "weight", "bias"), *_lin("ctc_head", v, d)]
-    return out
-
-
-SPECS = {"sep3": convtasnet_spec, "mossformer": mossformer_spec, "spk": speaker_spec,
-         "asr": sensevoice_spec}
+SPECS = {"sep3": convtasnet_spec, "mossformer": mossformer_spec, "spk": speaker_spec}
 
 
 def fill(spec: Spec, seed: int, tag: int, device) -> Dict[str, torch.Tensor]:
@@ -153,10 +134,12 @@ def fill(spec: Spec, seed: int, tag: int, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def stage_weights(stage: str, cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The state dict of ``stage`` ("sep3", "mossformer", "spk", "asr") at
-    ``cfg``'s widths for ``seed``, on ``device``."""
-    return fill(SPECS[stage](cfg), seed, STAGE_TAG[stage], device)
+def stage_weights(stage: str, cfg: dict, seed: int, device,
+                  spec: Optional[Callable[[dict], Spec]] = None) -> Dict[str, torch.Tensor]:
+    """The state dict of ``stage`` ("sep3", "mossformer", "spk", or "asr"
+    with its family's ``spec``) at ``cfg``'s widths for ``seed``, on
+    ``device``."""
+    return fill((spec or SPECS[stage])(cfg), seed, STAGE_TAG[stage], device)
 
 
 def pyannote_state_dict(w: dict, seed: int, device) -> Dict[str, torch.Tensor]:
@@ -219,15 +202,3 @@ def write_pyannote_checkpoint(path: str, w: dict, seed: int, device) -> None:
     sd = pyannote_state_dict(w, seed, device)
     torch.save({"state_dict": {k: v.cpu() for k, v in sd.items()}, "epoch": 0}, path)
 
-
-def token_symbols(vocab: int) -> List[str]:
-    """The benchmark's token table: ``<blk>`` at 0, then for id i its letters
-    in base 26, every third id a word start (``▁``)."""
-    out = ["<blk>"]
-    for i in range(1, vocab):
-        s, k = "", i
-        while k:
-            k, r = divmod(k - 1, 26)
-            s = chr(97 + r) + s
-        out.append(("▁" + s) if i % 3 == 0 else s)
-    return out

@@ -159,25 +159,15 @@ def speaker_flops(n: int, c: dict) -> float:
     return fl + t * 4.0 * flat * c["asp_hidden"] + 2.0 * 2 * flat * c["embed_dim"]
 
 
-def sensevoice_flops(n: int, c: dict) -> float:
-    """The SenseVoice encoder on the LFR frames of n samples (and its four
-    prompt frames): input projection, every block's projections, attention,
-    depthwise conv and feed-forward, and the CTC head."""
-    t = -(-max(fbank_frames(n), 0) // c["lfr_n"]) + c["num_prompt"]
-    d = c["dim"]
-    block = t * (2.0 * 3 * d * d + 2.0 * d * d + 2.0 * d * c["conv_kernel"]
-                 + 2 * 2.0 * d * d * c["ffn_mult"]) + 4.0 * t * t * d
-    return (t * 2.0 * c["lfr_m"] * c["num_mel"] * d + c["layers"] * block
-            + t * 2.0 * d * c["vocab_size"])
-
-
-def job_flops(mix_lengths: Sequence[int], enroll_len: int, cfg: dict, kind: str) -> float:
+def job_flops(mix_lengths: Sequence[int], enroll_len: int, cfg: dict, kind: str,
+              family) -> float:
     """One job's model FLOPs: the enrollment's embedding and transcript; OSD
     over every mixture; for overlap, separation, an embedding a branch and
     the transcript of one branch; for clean, an embedding and a transcript;
-    and the enrollment's transcript over each record's span."""
+    and the enrollment's transcript over each record's span. A transcript is
+    one call of the recognizer ``family`` (``asr/<family>.py``)."""
     p = cfg["preset"]
-    asr = lambda n: fbank_flops(n) + sensevoice_flops(n, p["asr"])  # noqa: E731
+    asr = lambda n: family.flops(n, p[family.PRESET])  # noqa: E731
     spk = lambda n: fbank_flops(n) + speaker_flops(n, p["spk"])  # noqa: E731
     fl = spk(enroll_len) + asr(enroll_len)
     moss = cfg["sep_backend"] == "mossformer"
